@@ -1,0 +1,65 @@
+"""Attention-MIL survival models over padded, batched bags (port of
+multimodalfusion_tpu/models/amil.py; ``PathAMIL`` only so far)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from multimodalfusion_tpu_torch.models.heads import survival_outputs
+from multimodalfusion_tpu_torch.models.modules import Dense
+from multimodalfusion_tpu_torch.models.pooling import AttentionPool
+
+SIZE_DICT = {"small": (1024, 256, 256), "big": (1024, 512, 384)}
+
+
+class PathAMIL(nn.Module):
+    """WSI bag -> FC(1024->256)+ReLU+Drop(.25) -> attention pool ->
+    Linear classifier (ref MIL_Attention_fc_surv_path:45-72).
+
+    Parameters follow the reference's state_dict: ``attention_net_WSI``
+    = [fc, ReLU, Dropout(.25), AttentionPool] and ``classifier``, so the
+    JAX package's ``.pt`` side export loads with ``strict=True``.
+
+    ``compute_dtype``: dtype of the bag-sized work (fc and the pooling
+    input); parameters stay f32, and the pooled features and the
+    classifier stay f32.
+    """
+
+    def __init__(self, model_size: str = "small", gate: bool = True,
+                 attn_dropout: bool = False, n_classes: int = 4,
+                 compute_dtype: str = "float32",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        size = SIZE_DICT[model_size]
+        self.compute_dtype = getattr(torch, compute_dtype)
+        self.attention_net_WSI = nn.ModuleList([
+            Dense(size[0], size[1], generator), nn.ReLU(), nn.Dropout(0.25),
+            AttentionPool(size[1], size[2], gated=gate,
+                          attn_dropout=attn_dropout, generator=generator)])
+        self.classifier = Dense(size[1], n_classes, generator)
+
+    @property
+    def pool(self) -> AttentionPool:
+        return self.attention_net_WSI[3]
+
+    def embed(self, bags):
+        """Per-instance features h [B, N, L] in the compute dtype."""
+        fc, relu, drop = self.attention_net_WSI[:3]
+        cdt = self.compute_dtype
+        h = F.linear(bags.to(cdt), fc.weight.to(cdt), fc.bias.to(cdt))
+        return drop(relu(h))
+
+    def head(self, M):
+        """Survival outputs of the pooled features M [B, L] (f32)."""
+        out = survival_outputs(self.classifier(M))
+        out["features"] = M
+        return out
+
+    def forward(self, bags, mask, return_features: bool = False):
+        M = self.pool(self.embed(bags), mask).float()
+        if return_features:
+            return M
+        return self.head(M)

@@ -1,0 +1,65 @@
+"""AttentionPool: the attention-net parameters in the reference's layout,
+pooled through ``ops/mil_attention.py`` (port of
+multimodalfusion_tpu/models/pooling.py)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from multimodalfusion_tpu_torch.models.modules import Dense
+from multimodalfusion_tpu_torch.ops import mil_attention as mil
+
+
+class AttentionPool(nn.Module):
+    """Masked attention-MIL pooling over padded bags: h [B, N, L], mask
+    [B, N] -> pooled [B, L] in f32.
+
+    Submodules carry the reference's state_dict names (ref
+    model_modules.py:70-110): gated ``attention_a = [Linear, Tanh(,
+    Dropout)]``, ``attention_b = [Linear, Sigmoid(, Dropout)]``,
+    ``attention_c = Linear``; ungated ``module = [Linear, Tanh(, Dropout),
+    Linear]``.  The Dropout entries hold no parameters; they fix the index
+    of the last Linear (``module.2`` or ``module.3``).
+    """
+
+    def __init__(self, L: int, D: int = 256, gated: bool = True,
+                 attn_dropout: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.gated = gated
+        self.attn_dropout = attn_dropout
+
+        def branch(act):
+            layers = [Dense(L, D, generator), act]
+            if attn_dropout:
+                layers.append(nn.Dropout(mil.ATTN_DROPOUT_RATE))
+            return layers
+
+        if gated:
+            self.attention_a = nn.Sequential(*branch(nn.Tanh()))
+            self.attention_b = nn.Sequential(*branch(nn.Sigmoid()))
+            self.attention_c = Dense(D, 1, generator)
+        else:
+            self.module = nn.Sequential(*branch(nn.Tanh()),
+                                        Dense(D, 1, generator))
+
+    def attn_params(self) -> mil.AttnParams:
+        """The parameters in the JAX package's [in, out] layout."""
+        if self.gated:
+            a, b, c = (self.attention_a[0], self.attention_b[0],
+                       self.attention_c)
+            Wb, bb = b.weight.t(), b.bias
+        else:
+            a, c = self.module[0], self.module[-1]
+            Wb, bb = torch.zeros_like(a.weight.t()), torch.zeros_like(a.bias)
+        return mil.AttnParams(Wa=a.weight.t(), ba=a.bias, Wb=Wb, bb=bb,
+                              wc=c.weight.t(), cc=c.bias)
+
+    def forward(self, h, mask):
+        if self.attn_dropout and self.training:
+            raise NotImplementedError(
+                "attention-branch dropout in training comes with the "
+                "training slice (ROADMAP.md); call .eval() to serve")
+        return mil.attention_pool(h, mask, self.attn_params(), self.gated)
