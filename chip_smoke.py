@@ -5,20 +5,34 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   -- nvcc-build every CUDA kernel of the serving path from
-                multimodalfusion_tpu_torch/csrc, in parallel.
+  1. build   -- nvcc-build every CUDA kernel from
+                multimodalfusion_tpu_torch/csrc, one nvcc per source, in
+                parallel.
   2. kernels -- hold each kernel against its plain PyTorch version on the
-                card: gated/ungated x f32/bf16, ragged masks with a fully
+                card: gated/ungated x f32/bf16 x dropout on/off (the same
+                keep masks on both sides), ragged masks with a fully
                 masked bag and a padding row, both published PathAMIL
                 widths, and one N=32,768 bag.  f32 at rel 1e-4, bf16 at
-                rel 2e-2 (pooled and ml).
+                rel 2e-2 (pooled, ml, dh and the parameter gradients);
+                dcc == 0, dh == 0 on masked rows, and two backward
+                launches on the same inputs agree bit for bit.
   3. slice   -- write a synthetic stage-2 pathology experiment at full
                 PathAMIL width and serve it through cli.infer on the card,
                 with every kernel launch counter reset just before and
                 read just after; the risks must match the same model run
                 through the plain pooling on the card.
-  4. timing  -- kernel vs plain version at the serving shapes, beside the
-                bound (bytes or operations over the card's peak).
+  4. train   -- write a synthetic labelled stage-2 experiment at full
+                PathAMIL width and train one fold for two epochs through
+                cli.main on the card (--gate_path --drop_out nll_surv
+                Adam), with the counters reset just before and read just
+                after: both kernels must launch, every logged loss must be
+                finite, and cli.infer must serve the trained checkpoint.
+                Then three train steps through the kernels and three
+                through the plain versions, from one init and the same
+                generator seeds, must agree.
+  5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
+                the bound (bytes or operations over the card's peak), and
+                a training step's breakdown with CUDA events.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -42,11 +56,25 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-KERNEL = {
-    "name": "mil_pool_fwd",
-    "route": "cuda",
-    "source": "multimodalfusion_tpu_torch/csrc/mil_pool_fwd.cu",
-    "replaces": "multimodalfusion_tpu/ops/mil_attention.py:171",
+# parameter gradients sum over every valid row of every bag, in another
+# order than the plain version: f32 holds at rel 1e-4 of the largest entry;
+# bf16 rounds dpa/dpb to bf16 before the products on both sides, and a
+# last-bit difference in f32 can round one element the other way, so bf16
+# holds at 2e-2 like its dh
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+KERNELS = {
+    "mil_pool_fwd": {
+        "name": "mil_pool_fwd",
+        "route": "cuda",
+        "source": "multimodalfusion_tpu_torch/csrc/mil_pool_fwd.cu",
+        "replaces": "multimodalfusion_tpu/ops/mil_attention.py:171",
+    },
+    "mil_pool_bwd": {
+        "name": "mil_pool_bwd",
+        "route": "cuda",
+        "source": "multimodalfusion_tpu_torch/csrc/mil_pool_bwd.cu",
+        "replaces": "multimodalfusion_tpu/ops/mil_attention.py:376",
+    },
 }
 
 
@@ -97,6 +125,7 @@ def phase_build():
 
 
 def phase_kernels():
+    """The forward kernel's no-dropout variants, as in slice 1."""
     import torch
     from multimodalfusion_tpu_torch.ops import mil_attention as mil
     cases = []
@@ -138,6 +167,79 @@ def phase_kernels():
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"on case {tag} {dtype} gated={gated}")
+    return worst
+
+
+def phase_kernels_train():
+    """The forward kernel's dropout variants and the backward kernel
+    against their plain versions, on the same masks; the backward twice
+    on the same inputs must agree bit for bit."""
+    import torch
+    from multimodalfusion_tpu_torch.ops import mil_attention as mil
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        for gated in (True, False):
+            for dropout in (False, True):
+                cases.append(("ragged", 6, 1000, 256, 256, dtype, gated,
+                              dropout, [1000, 0, 517, 33, 999, 0]))
+                cases.append(("big", 4, 700, 512, 384, dtype, gated,
+                              dropout, [700, 0, 350, 1]))
+        cases.append(("bigbag", 2, 32768, 256, 256, dtype, True, True,
+                      [32768, 20001]))
+    worst = {"mil_pool_fwd": 0.0, "mil_pool_bwd": 0.0}
+    for i, (tag, B, N, D, Da, dtype, gated, dropout, lens) in enumerate(
+            cases):
+        h, mask, params = make_pool_case(B, N, D, Da, dtype, seed=100 + i,
+                                         lens=lens)
+        if tag == "ragged":
+            h[5] = 0  # the padding row of a partial batch
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        da = db = None
+        if dropout:
+            da, db = mil.make_dropout_masks(gen, (B, N, Da), gated)
+        g = torch.randn(B, D, generator=gen, device="cuda")
+        with torch.no_grad():
+            out, ml = mil._fused_pool_cuda(h, mask, params, gated, da, db)
+            ref, ref_ml = mil._pool_plain(h, mask, params, gated, da, db)
+            dh, grads = mil._fused_pool_bwd_cuda(h, mask, params, ref,
+                                                 ref_ml, g, gated, da, db)
+            dh2, grads2 = mil._fused_pool_bwd_cuda(h, mask, params, ref,
+                                                   ref_ml, g, gated, da, db)
+            want_dh, want = mil._pool_bwd_plain(h, mask, params, ref,
+                                                ref_ml, g, gated, da, db)
+        torch.cuda.synchronize()
+        live = ref_ml[:, 1] > 0
+        e_fwd = max(rel_err(out, ref), rel_err(ml[:, 1], ref_ml[:, 1]),
+                    rel_err(ml[live, 0], ref_ml[live, 0]))
+        e_dh = rel_err(dh.float(), want_dh.float())
+        names = mil.AttnParams._fields[:5] if gated else ("Wa", "ba", "wc")
+        e_grad = {k: rel_err(getattr(grads, k), getattr(want, k))
+                  for k in names}
+        masked = mask == 0
+        finite = all(bool(torch.isfinite(t).all()) for t in
+                     (out, ml[:, 1], dh.float(), *grads))
+        repeat = torch.equal(dh, dh2) and all(
+            torch.equal(x, y) for x, y in zip(grads, grads2))
+        ok = (finite and repeat and e_fwd <= TOL[dtype]
+              and e_dh <= TOL[dtype]
+              and max(e_grad.values()) <= GRAD_TOL[dtype]
+              and bool((grads.cc == 0).all())
+              and bool((dh[masked] == 0).all()))
+        worst["mil_pool_fwd"] = max(worst["mil_pool_fwd"],
+                                    float((out - ref).abs().max()))
+        worst["mil_pool_bwd"] = max(worst["mil_pool_bwd"], float(
+            (dh.float() - want_dh.float()).abs().max()))
+        log(f"[kernels] {tag:6s} B={B} N={N} D={D} Da={Da} {dtype:8s} "
+            f"gated={gated!s:5s} dropout={dropout!s:5s} rel(fwd)="
+            f"{e_fwd:.2e} rel(dh)={e_dh:.2e} rel(grads)="
+            f"{max(e_grad.values()):.2e} dcc=0 masked dh=0 "
+            f"repeat={'bitwise' if repeat else 'DIFFERS'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(
+                f"training kernels disagree with their plain versions on "
+                f"case {tag} {dtype} gated={gated} dropout={dropout}: "
+                f"finite={finite} repeat={repeat} grads={e_grad}")
     return worst
 
 
@@ -285,6 +387,190 @@ def phase_slice(launch_counters):
         return launches
 
 
+def _write_train_experiment(root, n_subjects=32, n_val=8, seed=1):
+    """Synthetic labelled stage-2 cohort in the training CLI's layout:
+    one slide per subject, bags of 1,000-4,096 instances x 1024 (one of
+    exactly 4,096, so a batch pads to 4,096), survival times and
+    censorship from ``seed``, and a splits_0.csv with ``n_val``
+    validation subjects.  Returns the CLI's data arguments."""
+    from multimodalfusion_tpu_torch.data.io import save_pt
+    rng = np.random.default_rng(seed)
+    feat = os.path.join(root, "features", "brain", "path_pt_files")
+    cohort = os.path.join(root, "dataset_csv", "brain")
+    splits = os.path.join(root, "splits", "brain", "smoke")
+    for d in (feat, cohort, splits):
+        os.makedirs(d)
+    sids = [f"SUBJ{i:03d}" for i in range(n_subjects)]
+    rows = []
+    for i, sid in enumerate(sids):
+        n = 4096 if i == 0 else int(rng.integers(1000, 4097))
+        bag = rng.standard_normal((n, 1024), dtype=np.float32) * 0.5
+        save_pt(os.path.join(feat, f"{sid}-A.pt"), bag)
+        months = float(rng.uniform(1.0, 120.0))
+        censored = float(rng.uniform() < 0.3)
+        rows.append(f"{sid},{sid}-A.svs,{months:.1f},{censored},1")
+    with open(os.path.join(cohort, "survival.csv"), "w") as f:
+        f.write("subject_id,slide_id,survival_months,censorship,train\n"
+                + "\n".join(rows) + "\n")
+    order = rng.permutation(n_subjects)
+    train = [sids[i] for i in order[n_val:]]
+    val = [sids[i] for i in order[:n_val]]
+    with open(os.path.join(splits, "splits_0.csv"), "w") as f:
+        f.write("train,val\n")
+        for i, t in enumerate(train):
+            f.write(f"{t},{val[i] if i < len(val) else ''}\n")
+    return ["--cancer_type", "brain", "--which_splits", "smoke",
+            "--data_root_dir", os.path.join(root, "features"),
+            "--dataset_root", os.path.join(root, "dataset_csv"),
+            "--splits_root", os.path.join(root, "splits")]
+
+
+def _run_steps(cfg, batches, plain=False):
+    """Train steps on ``batches`` from the seeded init, with the dropout
+    bits from a seeded card generator.  ``plain``: the pooling forward and
+    backward go through their plain versions on the card instead of the
+    kernels.  Returns (losses, init state, final state)."""
+    import torch
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    from multimodalfusion_tpu_torch.ops import mil_attention as mil
+    model = ttrain.build_model(cfg, torch.Generator().manual_seed(0)).cuda()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = ttrain.make_optimizer(cfg, model.parameters())
+    step, _ = ttrain.make_steps(cfg, model, opt, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    kernels = mil._fused_pool, mil._fused_pool_bwd
+    if plain:
+        mil._fused_pool, mil._fused_pool_bwd = (mil._pool_plain,
+                                                mil._pool_bwd_plain)
+    try:
+        losses = [float(step(b, gen)["loss"]) for b in batches]
+    finally:
+        mil._fused_pool, mil._fused_pool_bwd = kernels
+    return losses, init, {k: v.detach().clone()
+                          for k, v in model.state_dict().items()}
+
+
+def phase_train(launch_counters):
+    """Two epochs of cli.main on the card, the trained checkpoint served by
+    cli.infer, and kernel vs plain train steps from one init."""
+    import csv
+    import pickle
+
+    import torch
+    from multimodalfusion_tpu_torch.cli import infer, main as cli_main
+    from multimodalfusion_tpu_torch.data.loaders import iter_batches
+    from multimodalfusion_tpu_torch.data.survival_dataset import \
+        SurvivalDataset
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        data_args = _write_train_experiment(td)
+        log(f"[train] wrote a 32-subject labelled cohort in "
+            f"{time.perf_counter() - t0:.1f} s")
+        argv = data_args + [
+            "--k", "1", "--max_epochs", "2", "--model_type",
+            "path_attention_mil", "--mode", "path", "--gate_path",
+            "--drop_out", "--bag_loss", "nll_surv", "--batch_size", "8",
+            "--results_dir", os.path.join(td, "results"), "--device", "cuda"]
+        for c in launch_counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = cli_main.main(argv)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in launch_counters}
+        log(f"[train] cli.main rc={rc} in {time.perf_counter() - t0:.1f} s; "
+            f"kernel launches {launches}")
+        if rc != 0 or not all(launches.values()):
+            raise AssertionError(f"training failed or a kernel of the path "
+                                 f"was never launched: rc={rc} {launches}")
+        root = os.path.join(td, "results", "brain", "smoke")
+        exp = os.path.join(root, os.listdir(root)[0])
+        with open(os.path.join(exp, "0", "metrics.jsonl")) as f:
+            recs = [json.loads(x) for x in f]
+        losses = [r[k] for r in recs for k in ("train_loss", "val_loss")]
+        log(f"[train] {len(recs)} epochs, losses (train, val) "
+            + ", ".join(f"{v:.4f}" for v in losses))
+        if len(recs) != 2 or not np.isfinite(losses).all():
+            raise AssertionError(f"expected 2 epochs of finite losses: "
+                                 f"{recs}")
+        for name in ("s_0_checkpoint.pt", "s_0_minloss_checkpoint.pt",
+                     "summary.csv", "split_train_val_0_results.pkl"):
+            if not os.path.exists(os.path.join(exp, name)):
+                raise AssertionError(f"cli.main wrote no {name}")
+
+        # serve the trained minloss checkpoint; its validation subjects'
+        # risks must match the fold's own evaluation
+        out_csv = os.path.join(td, "risks.csv")
+        rc = infer.main(["--model_path", exp, "--which_k", "0", "--out",
+                         out_csv, "--batch_size", "8", "--device", "cuda"])
+        with open(out_csv, newline="") as f:
+            served = {r["subject_id"]: float(r["risk"])
+                      for r in csv.DictReader(f)}
+        with open(os.path.join(exp, "split_train_val_0_results.pkl"),
+                  "rb") as f:
+            res = pickle.load(f)
+        want = np.asarray(res["risk"], np.float64)
+        got = np.array([served[s] for s in res["subject_id"]])
+        err = float(np.max(np.abs(got - want) / np.abs(want)))
+        log(f"[train] cli.infer rc={rc} served {len(served)} subjects from "
+            f"the trained checkpoint; validation risks vs the fold's "
+            f"evaluation: max rel err {err:.2e} (tol 1e-4)")
+        if rc != 0 or len(served) != 32 or not np.isfinite(
+                list(served.values())).all() or err > 1e-4:
+            raise AssertionError("serving the trained checkpoint failed")
+
+        # kernel vs plain train steps, from one init and the same seeds
+        cohort = os.path.join(td, "dataset_csv", "brain", "survival.csv")
+        ds = SurvivalDataset(cohort, "path", os.path.join(
+            td, "features", "brain"), n_bins=4)
+        train_split, _ = ds.load_splits(os.path.join(
+            td, "splits", "brain", "smoke", "splits_0.csv"))
+        batches, load_ms = [], []
+        it = iter_batches(train_split, batch_size=8, shuffle=True, seed=3)
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batches.append(next(it))
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+        for b in batches:
+            b.pop("subject_ids")
+        cfg = ttrain.TrainConfig(model_type="path_attention_mil",
+                                 mode="path", gate_path=True, drop_out=True,
+                                 bag_loss="nll_surv", batch_size=8,
+                                 device="cuda")
+        before = {c.__name__: c.launches for c in launch_counters}
+        k_loss, init, k_state = _run_steps(cfg, batches)
+        mid = {c.__name__: c.launches for c in launch_counters}
+        p_loss, _, p_state = _run_steps(cfg, batches, plain=True)
+        after = {c.__name__: c.launches for c in launch_counters}
+        if any(mid[k] - before[k] != 3 or after[k] != mid[k]
+               for k in before):
+            raise AssertionError(f"the kernel steps must launch each kernel "
+                                 f"3 times and the plain steps none: "
+                                 f"{before} {mid} {after}")
+        e_loss = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
+        # Adam divides by sqrt(v): an element whose gradient is near 0
+        # turns a last-bit difference of the summation order into a
+        # visible part of one step.  So each tensor's difference is held
+        # against how far it moved (1e-3 of that, in norm) and each element
+        # to one step (lr).
+        e_state, e_elem = 0.0, 0.0
+        for k in init:
+            moved = float((p_state[k] - init[k]).norm())
+            diff = float((k_state[k] - p_state[k]).norm())
+            e_state = max(e_state, diff / max(moved, 1e-30))
+            e_elem = max(e_elem, float((k_state[k] - p_state[k]).abs()
+                                       .max()))
+        log(f"[train] 3 steps kernel vs plain on the card: losses "
+            f"{', '.join(f'{v:.6f}' for v in k_loss)} vs "
+            f"{', '.join(f'{v:.6f}' for v in p_loss)}; max rel err "
+            f"{e_loss:.2e} (tol 1e-4); parameters: max |diff| / |moved| "
+            f"{e_state:.2e} (tol 1e-3), max element {e_elem:.2e} "
+            f"(tol lr = {cfg.lr:g})")
+        if e_loss > 1e-4 or e_state > 1e-3 or e_elem > cfg.lr:
+            raise AssertionError("kernel and plain train steps disagree")
+        return launches, cfg, batches, load_ms
+
+
 def _time_ms(fn, iters=20, warmup=3):
     import torch
     for _ in range(warmup):
@@ -300,50 +586,234 @@ def _time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
-def _bound(h, mask, Da, gated):
+def _bound(h, mask, Da, gated, dropout=False, backward=False):
     """Least time (ms) for the function on these inputs: bytes each input
     read once and each output written once, over HBM rate; and the
     matrix-product operations the valid rows need, over the peak for the
-    bag's type.  Returns (ms, 'bytes' | 'operations')."""
+    bag's type.  Returns (ms, 'bytes' | 'operations').
+
+    Forward: the scoring products (2 n D Kc, Kc = 2 Da gated, Da ungated)
+    and the pooling (2 n D); reads the valid bag rows, the mask, the keep
+    masks of the valid rows and the weights; writes pooled and ml.
+    Backward: the scoring products again, dh = [dpa | dpb] W^T and
+    dW = h^T [dpa | dpb] (6 n D Kc in all, the TPU kernel's CostEstimate)
+    and the g.h and a g terms (4 n D); reads the same plus g, out and ml;
+    writes dh [B, N, D] and the parameter gradients."""
     B, N, D = h.shape
     n_valid = float(mask.sum())
     item = h.element_size()
+    Kc = (2 if gated else 1) * Da
     nbytes = (n_valid * D * item + B * N * 4           # bag rows, mask
-              + (2 if gated else 1) * D * Da * item    # Wa, Wb
+              + D * Kc * item                          # Wa, Wb
               + (3 * Da + 1) * 4 + B * (D + 2) * 4)    # vectors, outputs
-    flops = 2 * n_valid * D * Da * (2 if gated else 1) + 2 * n_valid * D
+    if dropout:
+        nbytes += n_valid * Kc                         # u8 keep masks
+    flops = 2 * n_valid * D * Kc + 2 * n_valid * D
+    if backward:
+        nbytes += (B * N * D * item                    # dh
+                   + 2 * B * D * 4                     # g, out
+                   + (D * Kc + 3 * Da + 1) * 4)        # parameter grads
+        flops = 6 * n_valid * D * Kc + 4 * n_valid * D
     dtype = str(h.dtype).replace("torch.", "")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _max_abs(got, want) -> float:
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
+
+
+def _device_time(fn, reps=5):
+    """torch.profiler over ``reps`` calls of fn: {kernel name: device
+    microseconds per call} and the wall milliseconds per call."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    per_kernel = {}
+    for e in prof.key_averages():
+        # device work only: no host events, no annotated ranges (such as
+        # Optimizer.step) that the profiler also draws on the card
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        short = re.search(r"(\w+_kernel)\b", e.key)
+        name = short.group(1) if short else e.key[:60]
+        per_kernel[name] = per_kernel.get(name, 0.0) + us / reps
+    return per_kernel, wall_ms
+
+
 def phase_timing(B=32, N=4096, D=256, Da=256):
+    """Each kernel variant against its plain version on the same inputs,
+    timed plain, kernel, plain; gated, at the training and serving shape."""
     import torch
     from multimodalfusion_tpu_torch.ops import mil_attention as mil
-    res = {}
+    res = {"mil_pool_fwd": {}, "mil_pool_bwd": {}}
     for dtype in ("float32", "bfloat16"):
         h, mask, params = make_pool_case(B, N, D, Da, dtype, seed=123)
-        with torch.no_grad():
-            out, _ = mil._fused_pool_cuda(h, mask, params, True)
-            ref, _ = mil._pool_plain(h, mask, params, True)
-            err = float((out - ref).abs().max())
-            plain1 = _time_ms(lambda: mil._pool_plain(h, mask, params, True))
-            ms = _time_ms(lambda: mil._fused_pool_cuda(h, mask, params, True))
-            plain2 = _time_ms(lambda: mil._pool_plain(h, mask, params, True))
-        bound_ms, bound_by = _bound(h, mask, Da, True)
-        res[dtype] = {"shape": f"B={B} N={N} D={D} Da={Da} {dtype} gated",
-                      "ms": ms, "plain_ms": min(plain1, plain2),
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "max_abs_err": err}
-        log(f"[timing] {res[dtype]['shape']}: kernel {ms:.3f} ms, plain "
-            f"{plain1:.3f}/{plain2:.3f} ms, bound {bound_ms * 1e3:.1f} us "
-            f"({bound_by}), kernel/bound {ms / bound_ms:.1f}")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        masks = mil.make_dropout_masks(gen, (B, N, Da), True)
+        g = torch.randn(B, D, generator=gen, device="cuda")
+        for dropout in (False, True):
+            da, db = masks if dropout else (None, None)
+            variant = (f"B={B} N={N} D={D} Da={Da} {dtype} gated"
+                       + (" dropout" if dropout else ""))
+            with torch.no_grad():
+                out, ml = mil._fused_pool_cuda(h, mask, params, True, da, db)
+                ref, ref_ml = mil._pool_plain(h, mask, params, True, da, db)
+                runs = {
+                    "mil_pool_fwd": (
+                        (out,), (ref,),
+                        lambda: mil._fused_pool_cuda(h, mask, params, True,
+                                                     da, db),
+                        lambda: mil._pool_plain(h, mask, params, True, da,
+                                                db)),
+                    "mil_pool_bwd": (
+                        mil._fused_pool_bwd_cuda(h, mask, params, ref,
+                                                 ref_ml, g, True, da, db),
+                        mil._pool_bwd_plain(h, mask, params, ref, ref_ml, g,
+                                            True, da, db),
+                        lambda: mil._fused_pool_bwd_cuda(
+                            h, mask, params, ref, ref_ml, g, True, da, db),
+                        lambda: mil._pool_bwd_plain(
+                            h, mask, params, ref, ref_ml, g, True, da, db)),
+                }
+                for name, (got, want, kern, plain) in runs.items():
+                    if name == "mil_pool_bwd":  # (dh, AttnParams)
+                        got, want = (got[0], *got[1]), (want[0], *want[1])
+                    err = _max_abs(got, want)
+                    plain1 = _time_ms(plain)
+                    ms = _time_ms(kern)
+                    plain2 = _time_ms(plain)
+                    bound_ms, bound_by = _bound(
+                        h, mask, Da, True, dropout,
+                        backward=name == "mil_pool_bwd")
+                    res[name][variant] = {
+                        "ms": ms, "plain_ms": min(plain1, plain2),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "max_abs_err": err}
+                    log(f"[timing] {name} {variant}: kernel {ms:.3f} ms, "
+                        f"plain {plain1:.3f}/{plain2:.3f} ms, bound "
+                        f"{bound_ms * 1e3:.1f} us ({bound_by}), "
+                        f"kernel/bound {ms / bound_ms:.1f}, max abs err "
+                        f"{err:.2e}")
+                    if dropout:  # the training variants, kernel by kernel
+                        per_kernel, _ = _device_time(kern)
+                        res[name][variant]["profile_us"] = per_kernel
+                        log(f"[timing] {name} {variant}, torch.profiler "
+                            f"device time per call: " + ", ".join(
+                                f"{k} {v:.1f} us"
+                                for k, v in per_kernel.items()))
     return res
 
 
-def main() -> int:
+def phase_step_breakdown(cfg, batches, load_ms):
+    """One training step split into stages with CUDA events (host clock
+    for load+collate and the copy), averaged over ``batches`` after one
+    untimed step.  Autograd hooks mark where the backward leaves the head
+    (gradient of the pooled features) and the pooling (gradient of the FC
+    output)."""
     import torch
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    dev = torch.device("cuda")
+    model = ttrain.build_model(cfg, torch.Generator().manual_seed(0)).cuda()
+    model.train()
+    opt = ttrain.make_optimizer(cfg, model.parameters())
+    spec = ttrain.make_loss_spec(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    stages = ("fc fwd", "pool fwd", "head+loss", "pool bwd", "fc bwd",
+              "optimizer")
+    spent = dict.fromkeys(("copy",) + stages, 0.0)
+    step_ms = 0.0
+    for i, batch in enumerate([batches[0]] + list(batches)):
+        timed = i > 0
+        t0 = time.perf_counter()
+        kw = ttrain.model_inputs(cfg, batch, dev)
+        lab = ttrain.label_inputs(batch, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        h = model.embed(kw["bags"], gen)
+        ev[1].record()
+        M = model.pool(h, kw["mask"], gen).float()
+        ev[2].record()
+        out = model.head(M)
+        loss = spec.apply(hazards=out["hazards"], S=out["S"],
+                          risks=out["risk"], Y=lab["Y"], times=lab["t"],
+                          c=lab["c"], valid=lab["valid"])
+        ev[3].record()
+        M.register_hook(lambda grad: ev[4].record())
+        h.register_hook(lambda grad: ev[5].record())
+        loss.backward()
+        ev[6].record()
+        opt.step()
+        ev[7].record()
+        torch.cuda.synchronize()
+        if timed:
+            spent["copy"] += (t1 - t0) * 1e3
+            step_ms += (time.perf_counter() - t0) * 1e3
+            parts = [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                     ev[2].elapsed_time(ev[4]), ev[4].elapsed_time(ev[5]),
+                     ev[5].elapsed_time(ev[6]), ev[6].elapsed_time(ev[7])]
+            for k, v in zip(stages, parts):
+                spent[k] += v
+    n = len(batches)
+    res = {"load+collate": sum(load_ms) / n}
+    res.update({k: v / n for k, v in spent.items()})
+    res["step (copy .. optimizer, host clock)"] = step_ms / n
+    buckets = [b["path_bags"].shape[1] for b in batches]
+    log(f"[timing] training step, B={cfg.batch_size} bags x 1024 padded to "
+        f"N in {buckets}, PathAMIL small gated, dropout, f32, mean of {n} "
+        f"steps (host clock for load+collate, copy and step; CUDA events "
+        f"for the rest): " + ", ".join(f"{k} {v:.3f} ms"
+                                       for k, v in res.items()))
+
+    # the card's busy share: device time of the whole train step (copy ..
+    # optimizer) under torch.profiler, against the step's wall time with
+    # and without the host loading of its batch
+    train_step, _ = ttrain.make_steps(cfg, model, opt, dev)
+    per_kernel, wall_ms = _device_time(lambda: train_step(batches[0], gen))
+    copy_us = sum(v for k, v in per_kernel.items() if "Memcpy" in k)
+    busy_ms = sum(v for k, v in per_kernel.items()
+                  if "Memcpy" not in k) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    res.update({"profiled step wall": wall_ms, "profiled kernels": busy_ms,
+                "profiled copies": copy_us / 1e3})
+    log(f"[timing] train step under torch.profiler: wall {wall_ms:.3f} ms, "
+        f"kernels {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%} busy; "
+        f"{busy_ms / (wall_ms + res['load+collate']):.1%} with the batch's "
+        f"load+collate), copies {copy_us / 1e3:.3f} ms; largest: "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in top))
+    return res
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="all",
+                    help="comma-separated subset of build,kernels,slice,"
+                         "train,timing (default: all, which prints the "
+                         "result lines)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -354,27 +824,63 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
+    counters = [mil._fused_pool_cuda, mil._fused_pool_bwd_cuda]
+    if args.phases != "all":
+        phases = args.phases.split(",")
+        phase_build()
+        if "kernels" in phases:
+            phase_kernels()
+            phase_kernels_train()
+        if "slice" in phases:
+            phase_slice(counters[:1])
+        if "train" in phases or "timing" in phases:
+            _, cfg, batches, load_ms = phase_train(counters)
+        if "timing" in phases:
+            phase_timing()
+            phase_step_breakdown(cfg, batches, load_ms)
+        log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
+            f"no result)")
+        return 0
     phase_build()
     t = time.perf_counter()
     phase_kernels()
+    phase_kernels_train()
     log(f"[kernels] done in {time.perf_counter() - t:.1f} s")
-    launches = phase_slice([mil._fused_pool_cuda])
+    serve_launches = phase_slice(counters[:1])
+    t = time.perf_counter()
+    train_launches, cfg, batches, load_ms = phase_train(counters)
+    log(f"[train] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     timing = phase_timing()
+    step = phase_step_breakdown(cfg, batches, load_ms)
     log(f"[timing] done in {time.perf_counter() - t:.1f} s")
-    main_shape, serving = timing["float32"], timing["bfloat16"]
-    entry = dict(KERNEL, launches=launches["_fused_pool_cuda"],
-                 max_abs_err=main_shape["max_abs_err"], ms=main_shape["ms"],
-                 plain_ms=main_shape["plain_ms"],
-                 bound_ms=main_shape["bound_ms"],
-                 bound_by=main_shape["bound_by"], library_ms=None,
-                 shape=main_shape["shape"], serving_bf16=serving)
+    # the headline variant of each kernel: the forward as serving and
+    # evaluation run it (f32, no dropout), the backward as the training
+    # CLI runs it (f32, --drop_out)
+    main_variant = {"mil_pool_fwd": "B=32 N=4096 D=256 Da=256 float32 gated",
+                    "mil_pool_bwd": "B=32 N=4096 D=256 Da=256 float32 gated "
+                                    "dropout"}
+    counter_of = {"mil_pool_fwd": "_fused_pool_cuda",
+                  "mil_pool_bwd": "_fused_pool_bwd_cuda"}
+    entries = []
+    for name in ("mil_pool_fwd", "mil_pool_bwd"):
+        head = timing[name][main_variant[name]]
+        entry = dict(KERNELS[name],
+                     launches=train_launches[counter_of[name]],
+                     max_abs_err=head["max_abs_err"], ms=head["ms"],
+                     plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                     bound_by=head["bound_by"], library_ms=None,
+                     shape=main_variant[name], variants=timing[name])
+        if name == "mil_pool_fwd":
+            entry["launches_serving"] = serve_launches["_fused_pool_cuda"]
+        entries.append(entry)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
+    log(f"[timing] train step ms {json.dumps(step)}")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(f"nvidia-smi: {smi.stdout.strip()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 The port keeps the JAX package's module names so each counterpart is easy
 to find, imports nothing of the JAX package, and runs on ``cuda`` unless
-the caller asks for the CPU (``device="cpu"``, ``--device cpu``).  The
-first slice is label-free serving of stage-2 pathology attention-MIL
-experiments (``cli/infer.py``); ROADMAP.md lists what comes next.
+the caller asks for the CPU (``device="cpu"``, ``--device cpu``).  It
+trains stage-2 pathology attention-MIL folds (``cli/main.py``) and
+serves them without labels (``cli/infer.py``); ROADMAP.md lists what
+comes next.
 """
 from __future__ import annotations
 

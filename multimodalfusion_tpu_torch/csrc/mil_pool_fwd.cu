@@ -11,6 +11,12 @@
 //
 // A bag with no valid row pools to 0 with ml = (NEG_INF, 0), as on the TPU.
 //
+// Attention-branch dropout (the DROPOUT variants): uint8 keep masks da, db
+// [B, N, Da] scale tanh(.) by da * inv_keep and sigmoid(.) by db * inv_keep
+// before their product, where the TPU kernel applies them
+// (mil_attention.py:220-229).  The variants without dropout compile to the
+// same code as before the masks were added.
+//
 // Design.  The TPU kernel walks a bag's row tiles one after another in a
 // sequential grid and carries (m, l, acc) in scratch.  Here a bag's rows
 // are split across `splits` CTAs (grid = splits x B, enough CTAs to fill
@@ -83,6 +89,15 @@ __device__ __forceinline__ float gate(float za, float zb, float bak,
   return z;
 }
 
+// gate() with inverted dropout: daf, dbf = keep bit * inv_keep.
+template <bool GATED>
+__device__ __forceinline__ float gate_drop(float za, float zb, float bak,
+                                           float bbk, float daf, float dbf) {
+  float z = tanhf(za + bak) * daf;
+  if (GATED) z *= (1.f / (1.f + expf(-(zb + bbk)))) * dbf;
+  return z;
+}
+
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -126,12 +141,17 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* hb,
 // f32: raw scores of the tile's rows, without cc.  Thread (ty, tx) owns rows
 // 4 ty .. 4 ty + 3 and, in each pass, columns c0 + 4 tx .. + 3; the column
 // sum is reduced over the 16 lanes of a half-warp.  ws: 2 x [KC][CN].
-template <bool GATED>
+// DROPOUT: da/db point at the tile's first row of the keep masks; rows at
+// or past `rows` are padding of the tile and read no mask.
+template <bool GATED, bool DROPOUT>
 __device__ __forceinline__ void score_tile(const float* ht, float* ws,
                                            const float* wa, const float* ba,
                                            const float* wb, const float* bb,
                                            const float* wc, float* s_out,
-                                           int D, int Da) {
+                                           int D, int Da,
+                                           const uint8_t* da,
+                                           const uint8_t* db, float inv_keep,
+                                           int rows) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   float* wsa = ws;
   float* wsb = ws + KC * CN;
@@ -176,16 +196,49 @@ __device__ __forceinline__ void score_tile(const float* ht, float* ws,
         }
       }
     }
+    if constexpr (DROPOUT) {
+      const int col0 = c0 + 4 * tx;  // Da % 8 == 0: all 4 columns or none
+      if (col0 < Da) {
+        float bak[4], bbk[4], wck[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + 4 * tx + j;
-      if (col < Da) {
-        const float bak = ba[col], wck = wc[col];
-        const float bbk = GATED ? bb[col] : 0.f;
+        for (int j = 0; j < 4; ++j) {
+          bak[j] = ba[col0 + j];
+          bbk[j] = GATED ? bb[col0 + j] : 0.f;
+          wck[j] = wc[col0 + j];
+        }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          part[i] = fmaf(gate<GATED>(za[i][j], zb[i][j], bak, bbk), wck,
-                         part[i]);
+        for (int i = 0; i < 4; ++i) {
+          const int r = 4 * ty + i;
+          uchar4 ka = make_uchar4(0, 0, 0, 0), kb = ka;
+          if (r < rows) {
+            ka = *reinterpret_cast<const uchar4*>(da + (size_t)r * Da + col0);
+            if (GATED)
+              kb = *reinterpret_cast<const uchar4*>(db + (size_t)r * Da +
+                                                    col0);
+          }
+          const float fa[4] = {ka.x * inv_keep, ka.y * inv_keep,
+                               ka.z * inv_keep, ka.w * inv_keep};
+          const float fb[4] = {kb.x * inv_keep, kb.y * inv_keep,
+                               kb.z * inv_keep, kb.w * inv_keep};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            part[i] = fmaf(gate_drop<GATED>(za[i][j], zb[i][j], bak[j],
+                                            bbk[j], fa[j], fb[j]),
+                           wck[j], part[i]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c0 + 4 * tx + j;
+        if (col < Da) {
+          const float bak = ba[col], wck = wc[col];
+          const float bbk = GATED ? bb[col] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            part[i] = fmaf(gate<GATED>(za[i][j], zb[i][j], bak, bbk), wck,
+                           part[i]);
+        }
       }
     }
   }
@@ -199,14 +252,17 @@ __device__ __forceinline__ void score_tile(const float* ht, float* ws,
 }
 
 // bf16: raw scores of the tile's rows, without cc, on the tensor cores.
-// ws: [WARPS][TM] per-warp column sums.
-template <bool GATED>
+// ws: [WARPS][TM] per-warp column sums.  DROPOUT as in the f32 variant.
+template <bool GATED, bool DROPOUT>
 __device__ __forceinline__ void score_tile(const __nv_bfloat16* hs, float* ws,
                                            const __nv_bfloat16* wat,
                                            const float* ba,
                                            const __nv_bfloat16* wbt,
                                            const float* bb, const float* wc,
-                                           float* s_out, int D, int Da) {
+                                           float* s_out, int D, int Da,
+                                           const uint8_t* da,
+                                           const uint8_t* db, float inv_keep,
+                                           int rows) {
   constexpr int MB = TM / 16;  // 16-row blocks per tile
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3, ld = D + PAD;
@@ -242,10 +298,29 @@ __device__ __forceinline__ void score_tile(const __nv_bfloat16* hs, float* ws,
     const float bb0 = GATED ? bb[col] : 0.f, bb1 = GATED ? bb[col + 1] : 0.f;
 #pragma unroll
     for (int m = 0; m < MB; ++m) {
-      part[m][0] += gate<GATED>(za[m][0], zb[m][0], ba0, bb0) * wc0 +
-                    gate<GATED>(za[m][1], zb[m][1], ba1, bb1) * wc1;
-      part[m][1] += gate<GATED>(za[m][2], zb[m][2], ba0, bb0) * wc0 +
-                    gate<GATED>(za[m][3], zb[m][3], ba1, bb1) * wc1;
+      if constexpr (DROPOUT) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {  // rows 16 m + g and 16 m + g + 8
+          const int r = 16 * m + g + 8 * j;
+          uchar2 ka = make_uchar2(0, 0), kb = ka;
+          if (r < rows) {
+            ka = *reinterpret_cast<const uchar2*>(da + (size_t)r * Da + col);
+            if (GATED)
+              kb = *reinterpret_cast<const uchar2*>(db + (size_t)r * Da +
+                                                    col);
+          }
+          part[m][j] +=
+              gate_drop<GATED>(za[m][2 * j], zb[m][2 * j], ba0, bb0,
+                               ka.x * inv_keep, kb.x * inv_keep) * wc0 +
+              gate_drop<GATED>(za[m][2 * j + 1], zb[m][2 * j + 1], ba1, bb1,
+                               ka.y * inv_keep, kb.y * inv_keep) * wc1;
+        }
+      } else {
+        part[m][0] += gate<GATED>(za[m][0], zb[m][0], ba0, bb0) * wc0 +
+                      gate<GATED>(za[m][1], zb[m][1], ba1, bb1) * wc1;
+        part[m][1] += gate<GATED>(za[m][2], zb[m][2], ba0, bb0) * wc0 +
+                      gate<GATED>(za[m][3], zb[m][3], ba1, bb1) * wc1;
+      }
     }
   }
   // sum the columns: over the 4 lanes of a row group, then across warps
@@ -291,15 +366,18 @@ __device__ __forceinline__ float pool_rows(const __nv_bfloat16* hs,
 
 // One CTA = (split, bag): the running (m, l, acc[D]) over the CTA's rows.
 // Dynamic shared memory: the tile, then the scoring scratch.
-template <typename T, bool GATED>
+template <typename T, bool GATED, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
 pool_partial_kernel(const T* __restrict__ h, const float* __restrict__ mask,
                     const T* __restrict__ wa, const float* __restrict__ ba,
                     const T* __restrict__ wb, const float* __restrict__ bb,
                     const float* __restrict__ wc, const float* __restrict__ cc,
+                    const uint8_t* __restrict__ da,  // [B, N, Da] or null
+                    const uint8_t* __restrict__ db,
                     float* __restrict__ part_acc,  // [B, S, D]
                     float* __restrict__ part_ml,   // [B, S, 2]
-                    int N, int D, int Da, int rows_per_split) {
+                    float inv_keep, int N, int D, int Da,
+                    int rows_per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool F32 = std::is_same<T, float>::value;
   T* tile = reinterpret_cast<T*>(smem);
@@ -330,7 +408,9 @@ pool_partial_kernel(const T* __restrict__ h, const float* __restrict__ mask,
 
     load_tile(h + ((size_t)b * N + r0) * D, tile, rows, D);
     __syncthreads();
-    score_tile<GATED>(tile, ws, wa, ba, wb, bb, wc, s_s, D, Da);
+    const size_t m0 = DROPOUT ? ((size_t)b * N + r0) * Da : 0;
+    score_tile<GATED, DROPOUT>(tile, ws, wa, ba, wb, bb, wc, s_s, D, Da,
+                               da + m0, db + m0, inv_keep, rows);
     __syncthreads();
 
     if (warp == 0) {  // lane owns rows lane and lane + 32
@@ -411,26 +491,28 @@ size_t smem_bytes(int D) {
 }
 
 // The partial kernel of a variant, with its dynamic shared memory allowed.
-template <typename T, bool GATED>
-cudaError_t partial_kernel(int D, decltype(&pool_partial_kernel<T, GATED>)* k) {
-  *k = pool_partial_kernel<T, GATED>;
+template <typename T, bool GATED, bool DROPOUT>
+cudaError_t partial_kernel(
+    int D, decltype(&pool_partial_kernel<T, GATED, DROPOUT>)* k) {
+  *k = pool_partial_kernel<T, GATED, DROPOUT>;
   return cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem_bytes<T>(D));
 }
 
-template <typename T, bool GATED>
+template <typename T, bool GATED, bool DROPOUT>
 cudaError_t launch(const T* h, const float* mask, const T* wa,
                    const float* ba, const T* wb, const float* bb,
-                   const float* wc, const float* cc, float* part_acc,
-                   float* part_ml, float* out, float* ml, int B, int N, int D,
+                   const float* wc, const float* cc, const uint8_t* da,
+                   const uint8_t* db, float* part_acc, float* part_ml,
+                   float* out, float* ml, float inv_keep, int B, int N, int D,
                    int Da, int splits, int rows_per_split,
                    cudaStream_t stream) {
-  decltype(&pool_partial_kernel<T, GATED>) kern;
-  cudaError_t err = partial_kernel<T, GATED>(D, &kern);
+  decltype(&pool_partial_kernel<T, GATED, DROPOUT>) kern;
+  cudaError_t err = partial_kernel<T, GATED, DROPOUT>(D, &kern);
   if (err != cudaSuccess) return err;
   kern<<<dim3(splits, B), THREADS, smem_bytes<T>(D), stream>>>(
-      h, mask, wa, ba, wb, bb, wc, cc, part_acc, part_ml, N, D, Da,
-      rows_per_split);
+      h, mask, wa, ba, wb, bb, wc, cc, da, db, part_acc, part_ml, inv_keep,
+      N, D, Da, rows_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   pool_merge_kernel<<<B, THREADS, 0, stream>>>(part_acc, part_ml, out, ml,
@@ -438,11 +520,11 @@ cudaError_t launch(const T* h, const float* mask, const T* wa,
   return cudaGetLastError();
 }
 
-template <typename T, bool GATED>
+template <typename T, bool GATED, bool DROPOUT>
 int ctas_per_sm(int D) {
-  decltype(&pool_partial_kernel<T, GATED>) kern;
+  decltype(&pool_partial_kernel<T, GATED, DROPOUT>) kern;
   int n = 0;
-  if (partial_kernel<T, GATED>(D, &kern) != cudaSuccess ||
+  if (partial_kernel<T, GATED, DROPOUT>(D, &kern) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, kern, THREADS, smem_bytes<T>(D)) != cudaSuccess)
     return -1;
@@ -458,42 +540,55 @@ int mil_pool_fwd_tile_rows() { return TM; }
 
 // CTAs of the partial kernel that fit on one SM of the current device at
 // width D (-1 on error): the wrapper sizes the grid to one full wave.
-int mil_pool_fwd_ctas_per_sm(int D, int gated, int bf16) {
+int mil_pool_fwd_ctas_per_sm(int D, int gated, int bf16, int dropout) {
+#define MIL_CTAS(T, G)                                                  \
+  (dropout ? ctas_per_sm<T, G, true>(D) : ctas_per_sm<T, G, false>(D))
   if (bf16)
-    return gated ? ctas_per_sm<__nv_bfloat16, true>(D)
-                 : ctas_per_sm<__nv_bfloat16, false>(D);
-  return gated ? ctas_per_sm<float, true>(D) : ctas_per_sm<float, false>(D);
+    return gated ? MIL_CTAS(__nv_bfloat16, true)
+                 : MIL_CTAS(__nv_bfloat16, false);
+  return gated ? MIL_CTAS(float, true) : MIL_CTAS(float, false);
+#undef MIL_CTAS
 }
 
 // h [B, N, D] f32 or bf16, mask [B, N] f32, ba/bb/wc [Da] f32, cc [1] f32;
 // the weights in h's dtype: wa/wb [D, Da] for f32 bags, their transposes
-// [Da, D] for bf16 bags.  Scratch part_acc [B, splits, D] and part_ml
-// [B, splits, 2] f32; out [B, D] and ml [B, 2] f32.  All contiguous on one
-// device and 16-byte aligned; D a multiple of 32 up to MAX_D, Da of 8.
-// rows_per_split is a multiple of TM.  Returns the CUDA error code of the
-// launches (0 = success).
+// [Da, D] for bf16 bags.  da/db: uint8 keep masks [B, N, Da] scaled by
+// inv_keep, or both null for no dropout (db is read only when gated).
+// Scratch part_acc [B, splits, D] and part_ml [B, splits, 2] f32; out
+// [B, D] and ml [B, 2] f32.  All contiguous on one device and 16-byte
+// aligned; D a multiple of 32 up to MAX_D, Da of 8.  rows_per_split is a
+// multiple of TM.  Returns the CUDA error code of the launches (0 =
+// success).
 int mil_pool_fwd(const void* h, const void* mask, const void* wa,
                  const void* ba, const void* wb, const void* bb,
-                 const void* wc, const void* cc, void* part_acc,
-                 void* part_ml, void* out, void* ml, int B, int N, int D,
-                 int Da, int splits, int rows_per_split, int gated, int bf16,
+                 const void* wc, const void* cc, const void* da,
+                 const void* db, void* part_acc, void* part_ml, void* out,
+                 void* ml, float inv_keep, int B, int N, int D, int Da,
+                 int splits, int rows_per_split, int gated, int bf16,
                  void* stream) {
-  if (D > MAX_D || D % KC != 0 || Da % 8 != 0 || rows_per_split % TM != 0)
+  if (D > MAX_D || D % KC != 0 || Da % 8 != 0 || rows_per_split % TM != 0 ||
+      (da != nullptr && db == nullptr))
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
+  auto u8 = [](const void* p) { return static_cast<const uint8_t*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MIL_LAUNCH(T, G)                                                    \
-  launch<T, G>(static_cast<const T*>(h), f(mask),                          \
-               static_cast<const T*>(wa), f(ba), static_cast<const T*>(wb), \
-               f(bb), f(wc), f(cc), w(part_acc), w(part_ml), w(out), w(ml), \
-               B, N, D, Da, splits, rows_per_split, st)
+  const bool dropout = da != nullptr;
+#define MIL_LAUNCH(T, G, DR)                                                 \
+  launch<T, G, DR>(static_cast<const T*>(h), f(mask),                       \
+                   static_cast<const T*>(wa), f(ba),                        \
+                   static_cast<const T*>(wb), f(bb), f(wc), f(cc), u8(da),  \
+                   u8(db), w(part_acc), w(part_ml), w(out), w(ml), inv_keep, \
+                   B, N, D, Da, splits, rows_per_split, st)
+#define MIL_LAUNCH_G(T, G) \
+  (dropout ? MIL_LAUNCH(T, G, true) : MIL_LAUNCH(T, G, false))
   cudaError_t err;
   if (bf16)
-    err = gated ? MIL_LAUNCH(__nv_bfloat16, true)
-                : MIL_LAUNCH(__nv_bfloat16, false);
+    err = gated ? MIL_LAUNCH_G(__nv_bfloat16, true)
+                : MIL_LAUNCH_G(__nv_bfloat16, false);
   else
-    err = gated ? MIL_LAUNCH(float, true) : MIL_LAUNCH(float, false);
+    err = gated ? MIL_LAUNCH_G(float, true) : MIL_LAUNCH_G(float, false);
+#undef MIL_LAUNCH_G
 #undef MIL_LAUNCH
   return (int)err;
 }

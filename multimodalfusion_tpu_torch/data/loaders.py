@@ -1,62 +1,125 @@
 """Host-side batch iterators producing fixed-shape (bucketed) numpy
-batches (port of the serving part of multimodalfusion_tpu/data/loaders.py).
+batches (port of the path part of multimodalfusion_tpu/data/loaders.py).
 
 Batches are dicts of numpy arrays with static shapes per (batch_size,
 bag-bucket) pair; partial batches are padded and masked via ``valid``.
+A view is a ``SurvivalDataset`` or a ``Split`` of one: anything with
+``mode``, ``__len__``, ``probe_present`` and ``get_sample``.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 from multimodalfusion_tpu_torch.data.bags import pad_bags
-from multimodalfusion_tpu_torch.data.survival_dataset import (Sample,
-                                                              SurvivalDataset)
+from multimodalfusion_tpu_torch.data.survival_dataset import Sample
 
 # per-instance feature width of stage-1 extraction (truncated ResNet50)
 FEAT_DIM = 1024
 
 
-def usable_indices(ds: SurvivalDataset) -> List[int]:
+def usable_indices(view) -> List[int]:
     """Subjects whose required modalities are present on disk (ref
     core_utils.py:185-192 skips the others in its loop)."""
-    return [i for i in range(len(ds))
-            if ds.probe_present(i).get(ds.mode, False)]
+    return [i for i in range(len(view))
+            if view.probe_present(i).get(view.mode, False)]
 
 
 def _batch_from_samples(samples: List[Sample], batch_size: int,
                         n_path_feat: int = FEAT_DIM
                         ) -> Dict[str, np.ndarray]:
     B, n = batch_size, len(samples)
-    valid = np.zeros(B, np.float32)
-    valid[:n] = 1.0
-    bags, mask = pad_bags([s.path for s in samples] + [None] * (B - n),
-                          n_path_feat)
-    return {"valid": valid,
-            "subject_ids": np.array([s.subject_id for s in samples]
-                                    + [""] * (B - n), dtype=object),
-            "path_bags": bags, "path_mask": mask}
+    batch = {"Y": np.zeros(B, np.int32), "t": np.zeros(B, np.float32),
+             "c": np.zeros(B, np.float32), "valid": np.zeros(B, np.float32)}
+    for i, s in enumerate(samples):
+        batch["Y"][i] = s.disc_label
+        batch["t"][i] = s.event_time
+        batch["c"][i] = s.censorship
+    batch["valid"][:n] = 1.0
+    batch["subject_ids"] = np.array([s.subject_id for s in samples]
+                                    + [""] * (B - n), dtype=object)
+    batch["path_bags"], batch["path_mask"] = pad_bags(
+        [s.path for s in samples] + [None] * (B - n), n_path_feat)
+    return batch
 
 
-def iter_batches(ds: SurvivalDataset, batch_size: int = 1,
+def iter_batches(view, batch_size: int = 1, shuffle: bool = False,
+                 weighted: bool = False, seed: int = 0,
                  indices: Optional[List[int]] = None
                  ) -> Iterator[Dict[str, np.ndarray]]:
-    """Yield fixed-shape batches in subject order (serving never
-    shuffles).  A subject whose bag exists but fails to load is dropped
-    with a warning instead of being collated as a zero bag with valid=1."""
+    """Yield fixed-shape batches.  The order is the JAX package's for the
+    same seed: ``weighted`` replicates the reference's
+    WeightedRandomSampler over (bin, censorship) classes (ref
+    utils/utils.py:116-117), ``shuffle`` permutes.  A subject whose bag
+    exists but fails to load is dropped with a warning instead of being
+    collated as a zero bag with valid=1."""
     if indices is None:
-        indices = usable_indices(ds)
+        indices = usable_indices(view)
+    if not indices:
+        return
+    rng = np.random.default_rng(seed)
+    order = list(indices)
+    if weighted:
+        w = view.class_weights()[indices]
+        order = list(rng.choice(indices, size=len(indices), replace=True,
+                                p=w / w.sum()))
+    elif shuffle:
+        rng.shuffle(order)
     warned = False
-    for start in range(0, len(indices), batch_size):
-        samples = [ds.get_sample(i)
-                   for i in indices[start:start + batch_size]]
-        kept = [s for s in samples if s.present.get(ds.mode, False)]
+    for start in range(0, len(order), batch_size):
+        chunk = order[start:start + batch_size]
+        samples = [view.get_sample(i) for i in chunk]
+        kept = [s for s in samples if s.present.get(view.mode, False)]
         if len(kept) < len(samples) and not warned:
             bad = [s.subject_id for s in samples
-                   if not s.present.get(ds.mode, False)]
+                   if not s.present.get(view.mode, False)]
             print(f"WARNING: dropping samples with unloadable "
                   f"modalities (corrupt files?): {bad[:5]}...")
             warned = True
         if kept:
             yield _batch_from_samples(kept, batch_size)
+
+
+def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+    """Background-thread prefetch: overlap host-side batch assembly (file
+    IO + collation) with device work.  The reference relies on torch
+    DataLoader workers for this (ref utils/utils.py:112); here a single
+    daemon thread feeds a bounded queue.  A loader error is raised in the
+    consumer; an abandoned consumer stops the worker."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterator:
+                if not _put(item):
+                    return
+            _put(end)
+        except BaseException as e:  # surface loader errors to consumer
+            _put(e)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()

@@ -1,14 +1,34 @@
-"""Model factory, batch adapter and checkpoint loading (the serving part of
-multimodalfusion_tpu/engine/train.py).  The training loop comes with the
-training slice (ROADMAP.md, port queue item 2)."""
+"""Per-fold training engine for stage-2 pathology attention-MIL (port of
+multimodalfusion_tpu/engine/train.py).
+
+The epoch loop feeds fixed-shape bucketed batches through one train step
+(forward, survival loss, autograd backward through the fused pooling
+kernels, optimizer) and aggregates metrics on the host.  Every random
+draw comes from an explicit ``torch.Generator`` seeded from ``cfg.seed``:
+the weights from a CPU generator, the dropout masks from one on the
+training device, the batch order from numpy as in the JAX package.
+
+Checkpoints are the reference-layout ``.pt`` state_dicts
+(``s_{k}_checkpoint.pt``, ``s_{k}_minloss_checkpoint.pt``,
+``s_{k}_mid_checkpoint.pt``) that the JAX package writes beside its
+msgpack files; the port writes no msgpack.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import json
+import os
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from multimodalfusion_tpu_torch import losses as losses_mod
+from multimodalfusion_tpu_torch import metrics as metrics_mod
+from multimodalfusion_tpu_torch import resolve_device
+from multimodalfusion_tpu_torch.data.loaders import (iter_batches, prefetch,
+                                                     usable_indices)
 from multimodalfusion_tpu_torch.models.amil import PathAMIL
 
 _NOT_YET = {
@@ -20,19 +40,46 @@ _NOT_YET = {
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The knobs of the JAX package's TrainConfig that serving reads
-    (ref main.py:96-144), with the same names and defaults.  The
-    training slice adds the rest."""
+    """The reference CLI knobs that reach the port's engine (ref
+    main.py:96-144), with the JAX package's names and defaults, plus
+    ``device``.  The knobs of models not ported yet come with them."""
     model_type: str = "max_net"
     mode: str = "omic"
     n_classes: int = 4
+    bag_loss: str = "nll_surv"
+    alpha_surv: float = 0.0
+    nll_ratio: float = 0.2
+    reg_type: str = "None"           # None | all | omic_mm
+    lambda_reg: float = 1e-4
+    lr: float = 2e-4
+    reg: float = 1e-5                # weight decay
+    opt: str = "adam"
+    max_epochs: int = 20
     batch_size: int = 1
+    gc: int = 1                      # gradient accumulation steps
+    early_stopping: bool = False
+    weighted_sample: bool = False
     drop_out: bool = False           # attention-branch dropout
     gate_path: bool = False
     model_size_wsi: str = "small"
+    seed: int = 1
+    results_dir: str = "./results"
+    split_mode: str = "train_val"
     pretrained: bool = False
+    # engine knobs (no reference equivalent)
     bag_dtype: str = "float32"
+    resume: bool = False
+    data_parallel: bool = False
+    bag_shard: bool = False
+    bag_shard_devices: int = 0
+    tb: bool = False
+    ckpt_format: str = "msgpack"
+    device: str = "cuda"             # the port's: where the fold runs
 
+
+# ---------------------------------------------------------------------------
+# model factory + batch adapter
+# ---------------------------------------------------------------------------
 
 def _unsupported(cfg: TrainConfig) -> NotImplementedError:
     if cfg.pretrained:
@@ -40,6 +87,37 @@ def _unsupported(cfg: TrainConfig) -> NotImplementedError:
     else:
         why = _NOT_YET.get(cfg.model_type, "not a model of this repo")
     return NotImplementedError(f"{cfg.model_type} (mode {cfg.mode}): {why}")
+
+
+# engine knobs of the JAX package that the port does not do yet, each with
+# the ROADMAP.md item that brings it: (is it asked for, what it is, item)
+_UNPORTED = (
+    (lambda c: c.resume, "--resume (resume bundles)",
+     "port queue item 7"),
+    (lambda c: c.tb, "--tb (tensorboard event files)", "port queue item 7"),
+    (lambda c: c.ckpt_format != "msgpack", "--ckpt_format orbax",
+     "port queue item 7"),
+    (lambda c: c.data_parallel, "--data_parallel", "port queue item 6"),
+    (lambda c: c.bag_shard or c.bag_shard_devices,
+     "--bag_shard / --bag_shard_devices", "port queue item 6"),
+)
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise for a model, mode or engine knob that the port does not do
+    yet, naming the ROADMAP.md item that brings it; nothing is silently
+    ignored."""
+    if cfg.pretrained or cfg.model_type != "path_attention_mil":
+        raise _unsupported(cfg)
+    if cfg.mode != "path":
+        raise NotImplementedError(
+            f"mode {cfg.mode!r}: the port trains on pathology bags only "
+            "(--mode path); radio and omic data come with ROADMAP.md port "
+            "queue items 3 and 4")
+    for asked, what, item in _UNPORTED:
+        if asked(cfg):
+            raise NotImplementedError(f"{what} is not ported yet "
+                                      f"(ROADMAP.md, {item})")
 
 
 def build_model(cfg: TrainConfig,
@@ -62,6 +140,13 @@ def model_inputs(cfg: TrainConfig, batch: Dict[str, np.ndarray],
                 mask=torch.from_numpy(batch["path_mask"]).to(device))
 
 
+def label_inputs(batch: Dict[str, np.ndarray], device: torch.device
+                 ) -> dict:
+    """The batch's labels (Y, t, c, valid) as tensors on ``device``."""
+    return {k: torch.from_numpy(batch[k]).to(device)
+            for k in ("Y", "t", "c", "valid")}
+
+
 def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Load a reference-layout ``.pt`` state_dict (the JAX package writes
     one beside every checkpoint) into ``model``, strictly, on the device
@@ -70,3 +155,356 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
     sd = torch.load(path, map_location=device, weights_only=True)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def save_checkpoint(path: str, model: torch.nn.Module) -> None:
+    """Write the model's reference-layout state_dict (CPU tensors) to
+    ``path`` atomically (tmp file + os.replace), so a kill mid-write
+    leaves no truncated checkpoint."""
+    tmp = path + ".tmp"
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               tmp)
+    os.replace(tmp, path)
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+class MultiSteps:
+    """``optax.MultiSteps(tx, every_k_schedule=k)`` around a torch
+    optimizer: every call adds the step's gradients into a running mean
+    (``acc + (g - acc) / (n + 1)``, optax's own formula); every k-th call
+    hands the mean to the inner optimizer and resets.  Other calls leave
+    the parameters and the inner state alone.  The count carries across
+    epoch boundaries."""
+
+    def __init__(self, opt: torch.optim.Optimizer, k: int):
+        self.opt, self.k = opt, k
+        self.mini_step = 0
+        self.params = [p for g in opt.param_groups for p in g["params"]]
+        self.acc = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.opt.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        n = self.mini_step
+        for a, p in zip(self.acc, self.params):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            a.add_((g - a) / (n + 1))
+        if n == self.k - 1:
+            for a, p in zip(self.acc, self.params):
+                p.grad = a.clone()
+            self.opt.step()
+            for a in self.acc:
+                a.zero_()
+            self.mini_step = 0
+        else:
+            self.mini_step = n + 1
+
+
+def make_optimizer(cfg: TrainConfig, params):
+    """torch.optim.Adam/SGD with L2 weight decay added to the gradient
+    before the moment update (ref utils/utils.py:144-151; the JAX
+    package's add_decayed_weights -> scale_by_adam, not AdamW).  SGD is
+    momentum 0.9 without dampening.  ``gc > 1`` averages gc gradients per
+    update (``MultiSteps``)."""
+    params = list(params)
+    if cfg.opt == "adam":
+        opt = torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.reg)
+    elif cfg.opt == "sgd":
+        opt = torch.optim.SGD(params, lr=cfg.lr, momentum=0.9, dampening=0,
+                              weight_decay=cfg.reg)
+    else:
+        raise NotImplementedError(cfg.opt)
+    return MultiSteps(opt, cfg.gc) if cfg.gc > 1 else opt
+
+
+def make_loss_spec(cfg: TrainConfig) -> losses_mod.LossSpec:
+    return losses_mod.LossSpec(cfg.bag_loss, alpha=cfg.alpha_surv,
+                               nll_ratio=cfg.nll_ratio)
+
+
+def _reg_fn(cfg: TrainConfig):
+    if cfg.reg_type == "all":
+        return losses_mod.l1_reg
+    if cfg.reg_type == "omic_mm":
+        return lambda m: losses_mod.l1_reg_subtree(m, ("fc_omic", "mm"))
+    return None
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+def make_steps(cfg: TrainConfig, model: torch.nn.Module, opt,
+               device: torch.device):
+    """(train_step(batch, generator), eval_step(batch)) over host batches.
+    Each returns the survival loss ``loss``, ``total`` = loss + the L1
+    term, and the batch's ``risk`` and ``S``, as tensors."""
+    if cfg.bag_loss in ("ranking_surv", "ranking_nll_surv") \
+            and cfg.batch_size < 2:
+        # the ranking term has no comparable pairs at B=1 (the reference
+        # raises the same way, loss_utils.py:60-61)
+        raise ValueError(
+            f"{cfg.bag_loss} requires batch_size >= 2 "
+            f"(got {cfg.batch_size}); the pairwise ranking term is "
+            "identically zero for single-sample batches")
+    loss_spec = make_loss_spec(cfg)
+    reg_fn = _reg_fn(cfg)
+
+    def _losses(out, lab):
+        loss = loss_spec.apply(hazards=out["hazards"], S=out["S"],
+                               risks=out["risk"], Y=lab["Y"],
+                               times=lab["t"], c=lab["c"],
+                               valid=lab["valid"])
+        total = loss
+        if reg_fn is not None:
+            total = total + cfg.lambda_reg * reg_fn(model)
+        return loss, total
+
+    def train_step(batch, generator: Optional[torch.Generator]):
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        out = model(**model_inputs(cfg, batch, device), generator=generator)
+        loss, total = _losses(out, label_inputs(batch, device))
+        total.backward()
+        opt.step()
+        return {"loss": loss.detach(), "total": total.detach(),
+                "risk": out["risk"].detach(), "S": out["S"].detach()}
+
+    @torch.no_grad()
+    def eval_step(batch):
+        model.eval()
+        out = model(**model_inputs(cfg, batch, device))
+        loss, total = _losses(out, label_inputs(batch, device))
+        # the reference's val/loss also carries the L1 term
+        # (core_utils.py:305-312,337-340)
+        return {"loss": loss, "total": total, "risk": out["risk"],
+                "S": out["S"], "hazards": out["hazards"]}
+
+    return train_step, eval_step
+
+
+# ---------------------------------------------------------------------------
+# early stopping (ref utils/utils.py:167-214)
+# ---------------------------------------------------------------------------
+
+class EarlyStopping:
+    def __init__(self, warmup=0, patience=20, stop_epoch=100, verbose=False):
+        self.warmup = warmup
+        self.patience = patience
+        self.stop_epoch = stop_epoch
+        self.verbose = verbose
+        self.counter = 0
+        self.best_score = None
+        self.early_stop = False
+        self.val_loss_min = np.inf
+
+    def __call__(self, epoch, val_loss, model, ckpt_name=None):
+        score = -val_loss
+        if epoch < self.warmup:
+            return
+        if np.isnan(val_loss):
+            # deliberate deviation from ref utils.py:188-197 (as in the JAX
+            # package): a NaN val_loss would fall through every comparison
+            # into the save branch, overwriting the best checkpoint with
+            # diverged weights.  It counts against patience instead.
+            self.counter += 1
+            if self.verbose:
+                print(f"EarlyStopping counter (NaN val loss): "
+                      f"{self.counter} / {self.patience}")
+            if self.counter >= self.patience and epoch > self.stop_epoch:
+                self.early_stop = True
+            return
+        if self.best_score is None:
+            self.best_score = score
+            self._save(val_loss, model, ckpt_name)
+        elif score < self.best_score:
+            self.counter += 1
+            if self.verbose:
+                print(f"EarlyStopping counter: {self.counter} / "
+                      f"{self.patience}")
+            if self.counter >= self.patience and epoch > self.stop_epoch:
+                self.early_stop = True
+        else:
+            self.best_score = score
+            self._save(val_loss, model, ckpt_name)
+            self.counter = 0
+
+    def _save(self, val_loss, model, ckpt_name):
+        if ckpt_name is not None:
+            save_checkpoint(ckpt_name, model)
+        self.val_loss_min = val_loss
+
+
+# ---------------------------------------------------------------------------
+# epoch loops
+# ---------------------------------------------------------------------------
+
+def _cindex(c, t, risk) -> float:
+    try:
+        return metrics_mod.concordance_index_censored(
+            (1 - c).astype(bool), t, risk)[0]
+    except ValueError:
+        return float("nan")
+
+
+def _run_epoch(cfg, split, indices, train_step, eval_step, generator,
+               training: bool, seed: int) -> dict:
+    all_risk, all_c, all_t, losses, totals = [], [], [], [], []
+    for batch in prefetch(iter_batches(split, batch_size=cfg.batch_size,
+                                       shuffle=training,
+                                       weighted=training
+                                       and cfg.weighted_sample,
+                                       seed=seed, indices=indices)):
+        batch.pop("subject_ids")
+        out = (train_step(batch, generator) if training
+               else eval_step(batch))
+        valid = batch["valid"] > 0
+        all_risk.append(out["risk"].float().cpu().numpy().reshape(-1)[valid])
+        all_c.append(batch["c"][valid])
+        all_t.append(batch["t"][valid])
+        losses.append(float(out["loss"]))
+        totals.append(float(out["total"]))
+    all_risk = np.concatenate(all_risk) if all_risk else np.zeros(0)
+    all_c = np.concatenate(all_c) if all_c else np.zeros(0)
+    all_t = np.concatenate(all_t) if all_t else np.zeros(0)
+    return {"loss": float(np.mean(losses)) if losses else float("nan"),
+            "total": float(np.mean(totals)) if totals else float("nan"),
+            "c_index": _cindex(all_c, all_t, all_risk), "risk": all_risk,
+            "c": all_c, "t": all_t}
+
+
+def summary_survival(cfg, split, eval_step, indices=None
+                     ) -> Tuple[dict, float]:
+    """Sequential pass collecting per-patient risks (ref
+    core_utils.py:358-429): a dict of numpy arrays with the JAX package's
+    keys, and the c-index."""
+    if indices is None:
+        indices = usable_indices(split)
+    ids, risk, c, t, label, S = [], [], [], [], [], []
+    for batch in prefetch(iter_batches(split, batch_size=cfg.batch_size,
+                                       shuffle=False, indices=indices)):
+        subject_ids = batch.pop("subject_ids")
+        out = eval_step(batch)
+        valid = batch["valid"] > 0
+        ids.append(np.asarray(subject_ids)[valid])
+        risk.append(out["risk"].float().cpu().numpy().reshape(-1)[valid])
+        c.append(batch["c"][valid])
+        t.append(batch["t"][valid])
+        label.append(batch["Y"][valid])
+        S.append(out["S"].float().cpu().numpy()[valid])
+
+    def cat(parts):
+        return np.concatenate(parts) if parts else np.zeros(0)
+    results = {"subject_id": cat(ids), "risk": cat(risk),
+               "disc_label": cat(label), "survival": cat(t),
+               "censorship": cat(c)}
+    if S:
+        results["prob"] = np.concatenate(S, axis=0)
+    return results, _cindex(results["censorship"], results["survival"],
+                            results["risk"])
+
+
+def train_fold(datasets, cur: int, cfg: TrainConfig,
+               eval_only: bool = False):
+    """Train (or evaluate) one fold; returns the reference's result tuple
+    (ref core_utils.py train :21-171): (results_val, val_c) or, with
+    split_mode train_val_test, (results_val, val_c, results_test,
+    test_c)."""
+    check_supported(cfg)
+    device = resolve_device(cfg.device)
+    os.makedirs(cfg.results_dir, exist_ok=True)
+    fold_dir = os.path.join(cfg.results_dir, str(cur))
+    os.makedirs(fold_dir, exist_ok=True)
+    log_path = os.path.join(fold_dir, "metrics.jsonl")
+
+    if cfg.split_mode == "train_val_test":
+        train_split, val_split, test_split = datasets
+    else:
+        train_split, val_split = datasets
+        test_split = None
+    for name, split in (("train", train_split), ("val", val_split),
+                        ("test", test_split)):
+        if split is None and not (name == "test"
+                                  and cfg.split_mode != "train_val_test"):
+            raise ValueError(
+                f"fold {cur}: the '{name}' split is empty — check the "
+                f"'{name}' column of the fold's splits csv (split_mode="
+                f"{cfg.split_mode})")
+
+    model = build_model(cfg, torch.Generator().manual_seed(cfg.seed))
+    model = model.to(device)
+    opt = make_optimizer(cfg, model.parameters())
+    train_step, eval_step = make_steps(cfg, model, opt, device)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+
+    train_idx = usable_indices(train_split)
+    if not train_idx:
+        raise ValueError(f"no usable samples in the train split for mode "
+                         f"'{cfg.mode}'")
+    val_idx = usable_indices(val_split)
+    test_idx = usable_indices(test_split) if test_split is not None else None
+
+    ckpt, minloss_ckpt, mid_ckpt = (
+        os.path.join(cfg.results_dir, f"s_{cur}_{name}checkpoint.pt")
+        for name in ("", "minloss_", "mid_"))
+
+    def summaries():
+        results_val, val_c = summary_survival(cfg, val_split, eval_step,
+                                              val_idx)
+        if cfg.split_mode != "train_val_test":
+            return results_val, val_c
+        results_test, test_c = summary_survival(cfg, test_split, eval_step,
+                                                test_idx)
+        return results_val, val_c, results_test, test_c
+
+    if eval_only:
+        load_checkpoint(model, minloss_ckpt)
+        return summaries()
+
+    stopper = (EarlyStopping(warmup=0, patience=20,
+                             stop_epoch=100 if not cfg.pretrained else 50,
+                             verbose=True)
+               if cfg.early_stopping else None)
+    for epoch in range(cfg.max_epochs):
+        t0 = time.time()
+        tr = _run_epoch(cfg, train_split, train_idx, train_step, eval_step,
+                        generator, True, seed=cfg.seed * 100003 + epoch)
+        va = _run_epoch(cfg, val_split, val_idx, train_step, eval_step,
+                        generator, False, seed=0)
+        rec = {"epoch": epoch, "train_loss": tr["loss"],
+               "train_c_index": tr["c_index"], "val_loss": va["loss"],
+               "val_c_index": va["c_index"],
+               "train_total": tr["total"], "val_total": va["total"],
+               "sec": time.time() - t0}
+        print(f"fold {cur} epoch {epoch}: "
+              f"train_loss {tr['loss']:.4f} c {tr['c_index']:.4f} | "
+              f"val_loss {va['loss']:.4f} c {va['c_index']:.4f} "
+              f"({rec['sec']:.1f}s)")
+        with open(log_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if epoch == 10:
+            save_checkpoint(mid_ckpt, model)  # ref core_utils.py:342
+        if stopper is not None:
+            stopper(epoch, va["loss"], model, minloss_ckpt)
+            if stopper.early_stop:
+                print("Early stopping")
+                break
+
+    save_checkpoint(ckpt, model)
+    _, final_val_c = summary_survival(cfg, val_split, eval_step, val_idx)
+    if cfg.early_stopping and os.path.exists(minloss_ckpt):
+        load_checkpoint(model, minloss_ckpt)
+    else:
+        # no early stopping: minloss == final (keep downstream contracts)
+        save_checkpoint(minloss_ckpt, model)
+    out = summaries()
+    print(f"Final Val c-Index: {final_val_c:.4f}")
+    print(f"EarlyStopping Val c-Index: {out[1]:.4f}")
+    if cfg.split_mode == "train_val_test":
+        print(f"EarlyStopping Test c-Index: {out[3]:.4f}")
+    return out

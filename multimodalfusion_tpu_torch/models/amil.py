@@ -1,5 +1,9 @@
 """Attention-MIL survival models over padded, batched bags (port of
-multimodalfusion_tpu/models/amil.py; ``PathAMIL`` only so far)."""
+multimodalfusion_tpu/models/amil.py; ``PathAMIL`` only so far).
+
+Every random draw of a training forward (the FC dropout and the
+attention-branch masks) comes from the ``generator`` passed to
+``forward``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,7 +13,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from multimodalfusion_tpu_torch.models.heads import survival_outputs
-from multimodalfusion_tpu_torch.models.modules import Dense
+from multimodalfusion_tpu_torch.models.modules import Dense, Dropout
 from multimodalfusion_tpu_torch.models.pooling import AttentionPool
 
 SIZE_DICT = {"small": (1024, 256, 256), "big": (1024, 512, 384)}
@@ -36,7 +40,7 @@ class PathAMIL(nn.Module):
         size = SIZE_DICT[model_size]
         self.compute_dtype = getattr(torch, compute_dtype)
         self.attention_net_WSI = nn.ModuleList([
-            Dense(size[0], size[1], generator), nn.ReLU(), nn.Dropout(0.25),
+            Dense(size[0], size[1], generator), nn.ReLU(), Dropout(0.25),
             AttentionPool(size[1], size[2], gated=gate,
                           attn_dropout=attn_dropout, generator=generator)])
         self.classifier = Dense(size[1], n_classes, generator)
@@ -45,12 +49,12 @@ class PathAMIL(nn.Module):
     def pool(self) -> AttentionPool:
         return self.attention_net_WSI[3]
 
-    def embed(self, bags):
+    def embed(self, bags, generator: Optional[torch.Generator] = None):
         """Per-instance features h [B, N, L] in the compute dtype."""
         fc, relu, drop = self.attention_net_WSI[:3]
         cdt = self.compute_dtype
         h = F.linear(bags.to(cdt), fc.weight.to(cdt), fc.bias.to(cdt))
-        return drop(relu(h))
+        return drop(relu(h), generator)
 
     def head(self, M):
         """Survival outputs of the pooled features M [B, L] (f32)."""
@@ -58,8 +62,9 @@ class PathAMIL(nn.Module):
         out["features"] = M
         return out
 
-    def forward(self, bags, mask, return_features: bool = False):
-        M = self.pool(self.embed(bags), mask).float()
+    def forward(self, bags, mask, return_features: bool = False,
+                generator: Optional[torch.Generator] = None):
+        M = self.pool(self.embed(bags, generator), mask, generator).float()
         if return_features:
             return M
         return self.head(M)

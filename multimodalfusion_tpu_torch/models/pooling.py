@@ -57,9 +57,16 @@ class AttentionPool(nn.Module):
         return mil.AttnParams(Wa=a.weight.t(), ba=a.bias, Wb=Wb, bb=bb,
                               wc=c.weight.t(), cc=c.bias)
 
-    def forward(self, h, mask):
+    def forward(self, h, mask, generator: Optional[torch.Generator] = None):
+        """In training with ``attn_dropout`` the branch keep masks are drawn
+        with ``generator`` (on h's device) and applied inside the fused
+        kernels, forward and backward alike (JAX models/pooling.py:53-74);
+        otherwise no dropout."""
+        params = self.attn_params()
         if self.attn_dropout and self.training:
-            raise NotImplementedError(
-                "attention-branch dropout in training comes with the "
-                "training slice (ROADMAP.md); call .eval() to serve")
-        return mil.attention_pool(h, mask, self.attn_params(), self.gated)
+            da, db = mil.make_dropout_masks(
+                generator, (h.shape[0], h.shape[1], params.Wa.shape[1]),
+                gated=self.gated, device=h.device)
+            return mil.attention_pool_dropout(h, mask, da, db, params,
+                                              self.gated)
+        return mil.attention_pool(h, mask, params, self.gated)

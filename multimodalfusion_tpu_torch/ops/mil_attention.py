@@ -1,5 +1,6 @@
-"""Fused masked attention-MIL pooling: the plain PyTorch version and the
-wrapper of its hand-written CUDA kernel (``csrc/mil_pool_fwd.cu``).
+"""Fused masked attention-MIL pooling: the plain PyTorch versions and the
+wrappers of their hand-written CUDA kernels (``csrc/mil_pool_fwd.cu``,
+``csrc/mil_pool_bwd.cu``).
 
 Port of multimodalfusion_tpu/ops/mil_attention.py.  Bags are batched and
 padded to [B, N, D] with a float mask [B, N]; the pooling is
@@ -8,16 +9,19 @@ padded to [B, N, D] with a float mask [B, N]; the pooling is
     s = a @ wc + cc, masked to NEG_INF               # [B, N]
     pooled = softmax(s) @ h                          # [B, D]
 
-``attention_pool`` runs the plain version for a tensor on the CPU and the
-CUDA kernel for a tensor on the card; it never falls back from one to the
-other.  Forward only: the backward kernel and attention-branch dropout
-come with the training slice (ROADMAP.md).
+optionally with attention-branch dropout: uint8 keep masks ``da``/``db``
+[B, N, Da] scale the tanh and sigmoid branches by 1/(1-rate).
+
+``attention_pool`` and ``attention_pool_dropout`` are
+``torch.autograd.Function``s.  For a tensor on the CPU their forward and
+backward are the plain versions; for a tensor on the card they are the
+CUDA kernels.  A wrapper never falls back from one to the other.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,7 +46,46 @@ class AttnParams(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version (the CPU path and the kernel's oracle on the card).
+# Attention-branch dropout masks.
+# ---------------------------------------------------------------------------
+
+def make_dropout_masks(generator: Optional[torch.Generator], shape,
+                       gated: bool = True, rate: float = ATTN_DROPOUT_RATE,
+                       device=None):
+    """Per-branch keep masks (da, db), uint8 ``shape`` = [B, N, Da], 1 =
+    keep, drawn with ``generator`` on ``device`` (the generator's device
+    when None).
+
+    As in the JAX package, both masks come from one uint8 draw: the low
+    nibble gives da and the high nibble db, each an exact Bernoulli(keep)
+    when 16 * keep is an integer (the reference's rate 0.25 is).  Other
+    rates draw 16-bit values against a threshold.  Ungated attention
+    never reads db, so it aliases da.  The bits differ from JAX's by
+    design (another generator): tests hand both sides the same masks.
+    """
+    if device is None:
+        device = generator.device if generator is not None else "cpu"
+    keep = 1.0 - rate
+    k16 = keep * 16.0
+    if k16 == int(k16):
+        r = torch.randint(0, 256, tuple(shape), dtype=torch.uint8,
+                          generator=generator, device=device)
+        da = ((r & 0x0F) < int(k16)).to(torch.uint8)
+        if not gated:
+            return da, da
+        return da, ((r >> 4) < int(k16)).to(torch.uint8)
+    thresh = min(round(keep * 65536.0), 65535)
+
+    def draw():
+        return (torch.randint(0, 65536, tuple(shape), dtype=torch.int32,
+                              generator=generator, device=device)
+                < thresh).to(torch.uint8)
+    da = draw()
+    return (da, da) if not gated else (da, draw())
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path and the kernels' oracles on the card).
 # ---------------------------------------------------------------------------
 
 def attention_scores(h, params: AttnParams, gated: bool = True):
@@ -50,6 +93,19 @@ def attention_scores(h, params: AttnParams, gated: bool = True):
     a = torch.tanh(h @ params.Wa + params.ba)
     if gated:
         a = a * torch.sigmoid(h @ params.Wb + params.bb)
+    return (a @ params.wc + params.cc)[..., 0]
+
+
+def attention_scores_dropout(h, da, db, params: AttnParams,
+                             gated: bool = True,
+                             rate: float = ATTN_DROPOUT_RATE):
+    """Raw attention logits with inverted dropout on the tanh branch (mask
+    da) and the sigmoid gate (mask db), each scaled by 1/(1-rate)."""
+    inv = 1.0 / (1.0 - rate)
+    a = torch.tanh(h @ params.Wa + params.ba) * (da.to(h.dtype) * inv)
+    if gated:
+        a = a * (torch.sigmoid(h @ params.Wb + params.bb)
+                 * (db.to(h.dtype) * inv))
     return (a @ params.wc + params.cc)[..., 0]
 
 
@@ -78,38 +134,132 @@ def _pool_reference(h, mask, params: AttnParams, gated: bool):
     return masked_softmax_pool(s, h, mask)[0]
 
 
-def _pool_plain(h, mask, params: AttnParams, gated: bool
+def _pool_reference_dropout(h, mask, da, db, params: AttnParams,
+                            gated: bool, rate: float = ATTN_DROPOUT_RATE):
+    s = attention_scores_dropout(h, da, db, params, gated, rate)
+    return masked_softmax_pool(s, h, mask)[0]
+
+
+def _acc_dtype(h) -> torch.dtype:
+    """The type the kernels compute in: f32 for f32 and bf16 bags (f64
+    for f64 bags, which only the gradient checks use)."""
+    return torch.promote_types(h.dtype, torch.float32)
+
+
+def _kernel_params(params: AttnParams, h) -> AttnParams:
+    """The parameters as the kernels read them: the weights through the
+    bag's dtype, then everything in the compute type."""
+    acc = _acc_dtype(h)
+    return AttnParams(Wa=params.Wa.to(h.dtype).to(acc), ba=params.ba.to(acc),
+                      Wb=params.Wb.to(h.dtype).to(acc), bb=params.bb.to(acc),
+                      wc=params.wc.to(acc), cc=params.cc.to(acc))
+
+
+def _pool_plain(h, mask, params: AttnParams, gated: bool, da=None, db=None,
+                rate: float = ATTN_DROPOUT_RATE
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What the kernel computes, in plain PyTorch: the weights are cast to
-    the bag's dtype as the kernel reads them, everything else is f32.
-    Returns (pooled [B, D] f32, ml [B, 2] f32 = (max logit, normalizer))."""
-    f32 = torch.float32
-    hf = h.to(f32)
-    p32 = AttnParams(Wa=params.Wa.to(h.dtype).to(f32), ba=params.ba.to(f32),
-                     Wb=params.Wb.to(h.dtype).to(f32), bb=params.bb.to(f32),
-                     wc=params.wc.to(f32), cc=params.cc.to(f32))
-    pooled, _, m, l = _softmax_pool(attention_scores(hf, p32, gated), hf,
-                                    mask)
+    """What the forward kernel computes, in plain PyTorch: the weights are
+    cast to the bag's dtype as the kernel reads them, everything else is
+    f32.  Returns (pooled [B, D] f32, ml [B, 2] f32 = (max logit,
+    normalizer))."""
+    hf = h.to(_acc_dtype(h))
+    p = _kernel_params(params, h)
+    s = (attention_scores(hf, p, gated) if da is None else
+         attention_scores_dropout(hf, da, db, p, gated, rate))
+    pooled, _, m, l = _softmax_pool(s, hf, mask)
     return pooled, torch.cat([m, l], dim=1)
 
 
+def _pool_bwd_plain(h, mask, params: AttnParams, out, ml, g, gated: bool,
+                    da=None, db=None, rate: float = ATTN_DROPOUT_RATE
+                    ) -> Tuple[torch.Tensor, AttnParams]:
+    """What the backward kernel computes, in plain PyTorch (the mirror of
+    the JAX package's ``_pool_bwd_reference``, with the kernel's casts):
+    the weights and dpa/dpb are cast to the bag's dtype before the
+    products, everything else is f32.  (out, ml) are the forward's
+    residuals and g the cotangent of out.
+
+    Returns dh [B, N, D] in the bag's dtype and the parameter gradients
+    (f32).  dcc is an exact 0: softmax attention is invariant to a
+    constant logit shift, so sum_i ds_i is 0 per bag.  Ungated calls get
+    zero Wb/bb gradients.
+    """
+    acc = _acc_dtype(h)
+    p = _kernel_params(params, h)
+    hf = h.to(acc)
+    g, out = g.to(acc), out.to(acc)
+    m = ml[:, :1].to(acc)
+    l = ml[:, 1:].to(acc).clamp_min(1e-30)
+    inv_keep = 1.0 / (1.0 - rate)
+    t = torch.tanh(hf @ p.Wa + p.ba)
+    daf = da.to(acc) * inv_keep if da is not None else None
+    if gated:
+        u = torch.sigmoid(hf @ p.Wb + p.bb)
+        if da is not None:
+            dbf = db.to(acc) * inv_keep
+            ta, ub = t * daf, u * dbf
+        else:
+            ta, ub = t, u
+        z = ta * ub
+    else:
+        z = t * daf if da is not None else t
+    wc = p.wc.reshape(-1)
+    valid = mask > 0
+    s = torch.where(valid, z @ wc + p.cc[0], torch.full_like(z[..., 0],
+                                                             NEG_INF))
+    # masked before the exp: an all-masked bag has m = NEG_INF
+    a = torch.where(valid, torch.exp(s - m) / l, torch.zeros_like(s))
+    alpha = (hf * g[:, None, :]).sum(-1)                    # [B, N]
+    gout = (g * out).sum(-1, keepdim=True)                  # [B, 1]
+    ds = a * (alpha - gout)                                 # [B, N]
+    dz = ds[..., None] * wc
+    if gated:
+        dpa = dz * ub * (1.0 - t * t)
+        dpb = dz * ta * u * (1.0 - u)
+        if da is not None:
+            dpa, dpb = dpa * daf, dpb * dbf
+    else:
+        dpa = dz * (1.0 - t * t)
+        if da is not None:
+            dpa = dpa * daf
+        dpb = torch.zeros_like(dpa)
+
+    def via_bag(x):
+        return x.to(h.dtype).to(acc)
+    dpa_c, dpb_c = via_bag(dpa), via_bag(dpb)
+    dh = a[..., None] * g[:, None, :] + dpa_c @ p.Wa.t()
+    if gated:
+        dh = dh + dpb_c @ p.Wb.t()
+    zeros = torch.zeros_like
+    grads = AttnParams(
+        Wa=torch.einsum("bnd,bnk->dk", hf, dpa_c),
+        ba=dpa.sum((0, 1)),
+        Wb=(torch.einsum("bnd,bnk->dk", hf, dpb_c) if gated
+            else zeros(p.Wb)),
+        bb=dpb.sum((0, 1)) if gated else zeros(p.bb),
+        wc=torch.einsum("bnk,bn->k", z, ds).reshape(-1, 1),
+        cc=zeros(p.cc))
+    return dh.to(h.dtype), grads
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper.
+# CUDA kernel wrappers.
 # ---------------------------------------------------------------------------
 
-_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE_ROWS = 64  # TM in the source
-_MAX_D = 512     # MAX_D in the source
+_TILE_ROWS = 64  # TM in both sources
+_MAX_D = 512     # MAX_D in the forward source
 
 
-def _kernel_lib():
+def _fwd_lib():
     from multimodalfusion_tpu_torch.ops import cuda_build
     lib = cuda_build.load("mil_pool_fwd")
     if lib.mil_pool_fwd.argtypes is None:
-        lib.mil_pool_fwd.argtypes = [_VP] * 12 + [_INT] * 8 + [_VP]
+        lib.mil_pool_fwd.argtypes = ([_VP] * 14 + [_FLOAT] + [_INT] * 8
+                                     + [_VP])
         lib.mil_pool_fwd.restype = ctypes.c_int
-        lib.mil_pool_fwd_ctas_per_sm.argtypes = [_INT] * 3
+        lib.mil_pool_fwd_ctas_per_sm.argtypes = [_INT] * 4
         built = (lib.mil_pool_fwd_tile_rows(), lib.mil_pool_fwd_max_d())
         if built != (_TILE_ROWS, _MAX_D):
             raise RuntimeError(f"mil_pool_fwd was built with (TM, MAX_D) = "
@@ -118,85 +268,131 @@ def _kernel_lib():
     return lib
 
 
+def _bwd_lib():
+    from multimodalfusion_tpu_torch.ops import cuda_build
+    lib = cuda_build.load("mil_pool_bwd")
+    if lib.mil_pool_bwd.argtypes is None:
+        lib.mil_pool_bwd.argtypes = ([_VP] * 21 + [_FLOAT] + [_INT] * 8
+                                     + [_VP])
+        lib.mil_pool_bwd.restype = ctypes.c_int
+        built = lib.mil_pool_bwd_tile_rows()
+        if built != _TILE_ROWS:
+            raise RuntimeError(f"mil_pool_bwd was built with TM = {built}, "
+                               f"the wrapper expects {_TILE_ROWS}")
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
-def _wave(device: torch.device, D: int, gated: bool, bf16: bool) -> int:
-    """CTAs of the partial kernel that the card runs at once."""
-    lib = _kernel_lib()
+def _wave(device: torch.device, D: int, gated: bool, bf16: bool,
+          dropout: bool) -> int:
+    """CTAs of the forward partial kernel that the card runs at once."""
+    lib = _fwd_lib()
     with torch.cuda.device(device):
-        per_sm = lib.mil_pool_fwd_ctas_per_sm(D, int(gated), int(bf16))
+        per_sm = lib.mil_pool_fwd_ctas_per_sm(D, int(gated), int(bf16),
+                                              int(dropout))
     if per_sm < 1:
         raise RuntimeError(f"mil_pool_fwd cannot run at D={D} on {device}")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return per_sm * sms
+    return per_sm * _sms(device)
 
 
-def _grid(device, B, N, D, gated, bf16):
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _grid(device, B, N, D, gated, bf16, dropout):
     """(splits, rows per split): each bag's row tiles split over at most one
     wave of CTAs in all, so no CTA waits for a second wave."""
     n_tiles = max(1, -(-N // _TILE_ROWS))
-    splits = min(n_tiles, max(1, _wave(device, D, gated, bf16) // B))
+    splits = min(n_tiles, max(1, _wave(device, D, gated, bf16, dropout) // B))
     rows_per_split = -(-n_tiles // splits) * _TILE_ROWS
     return (-(-N // rows_per_split) if N else 1), rows_per_split
 
 
-def _fused_pool_cuda(h, mask, params: AttnParams, gated: bool):
-    """Launch ``csrc/mil_pool_fwd.cu`` on the bag's device and stream."""
+def _check_inputs(h, mask, params: AttnParams, gated: bool, da, db,
+                  d_mult: int, da_mult: int):
+    """Shared argument checks of the two CUDA wrappers: D must be a
+    multiple of ``d_mult`` up to _MAX_D and Da one of ``da_mult``.
+    Returns (mask, ba, bb, wc, cc) as contiguous f32 and the dropout
+    masks (db aliased to da when ungated)."""
     if not h.is_cuda:
-        raise ValueError(f"the CUDA pooling kernel needs a CUDA tensor, got "
+        raise ValueError(f"the CUDA pooling kernels need a CUDA tensor, got "
                          f"one on {h.device}")
-    if torch.is_grad_enabled() and (
-            h.requires_grad or any(p.requires_grad for p in params)):
-        raise NotImplementedError(
-            "attention_pool on CUDA is forward-only until the backward "
-            "kernel is ported (ROADMAP.md, training slice); run it under "
-            "torch.no_grad()")
     if h.dtype not in _DTYPES:
-        raise TypeError(f"bag dtype {h.dtype}: the kernel takes float32 "
+        raise TypeError(f"bag dtype {h.dtype}: the kernels take float32 "
                         f"or bfloat16")
     if h.dim() != 3 or mask.shape != h.shape[:2]:
         raise ValueError(f"expected h [B, N, D] and mask [B, N], got "
                          f"{tuple(h.shape)} and {tuple(mask.shape)}")
     B, N, D = h.shape
     Da = params.Wa.shape[1]
-    bf16 = h.dtype == torch.bfloat16
-    if tuple(params.Wa.shape) != (D, Da) or D > _MAX_D or D % 32 or Da % 8:
+    if (tuple(params.Wa.shape) != (D, Da) or D > _MAX_D or D % d_mult
+            or Da % da_mult):
         raise ValueError(f"unsupported widths: h D={D}, Wa "
                          f"{tuple(params.Wa.shape)} (D must be a multiple "
-                         f"of 32 up to {_MAX_D}, Da a multiple of 8)")
+                         f"of {d_mult} up to {_MAX_D}, Da a multiple of "
+                         f"{da_mult})")
+    f32 = torch.float32
+    mask = mask.to(f32).contiguous()
+    ba, bb, wc, cc = (p.reshape(-1).to(f32).contiguous()
+                      for p in (params.ba, params.bb, params.wc, params.cc))
+    if wc.numel() != Da or cc.numel() != 1:
+        raise ValueError("wc must be [Da, 1] and cc [1]")
+    if da is not None:
+        if db is None or not gated:
+            db = da
+        for m in (da, db):
+            if m.dtype != torch.uint8 or tuple(m.shape) != (B, N, Da):
+                raise ValueError(f"dropout masks must be uint8 "
+                                 f"{(B, N, Da)}, got {m.dtype} "
+                                 f"{tuple(m.shape)}")
+        da, db = da.contiguous(), db.contiguous()
+    for t in (mask, params.Wa, params.Wb, ba, bb, wc, cc) + (
+            (da, db) if da is not None else ()):
+        if t.device != h.device:
+            raise ValueError(f"all inputs must be on {h.device}, got "
+                             f"{t.device}")
+    return mask, ba, bb, wc, cc, da, db
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _fused_pool_cuda(h, mask, params: AttnParams, gated: bool, da=None,
+                     db=None, rate: float = ATTN_DROPOUT_RATE):
+    """Launch ``csrc/mil_pool_fwd.cu`` on the bag's device and stream."""
+    mask, ba, bb, wc, cc, da, db = _check_inputs(h, mask, params, gated,
+                                                 da, db, 32, 8)
+    B, N, D = h.shape
+    Da = params.Wa.shape[1]
+    bf16 = h.dtype == torch.bfloat16
     dev = h.device
     f32 = torch.float32
     h = h.contiguous()
     if h.data_ptr() % 16:
         h = h.clone()  # 16-byte row loads
-    mask = mask.to(f32).contiguous()
-    # f32 bags read W [D, Da]; bf16 bags read its transpose [Da, D]
     wa, wb = ((params.Wa.t(), params.Wb.t()) if bf16
               else (params.Wa, params.Wb))
     wa = wa.to(h.dtype).contiguous()
     wb = wb.to(h.dtype).contiguous() if gated else wa
-    ba, bb, wc, cc = (p.reshape(-1).to(f32).contiguous()
-                      for p in (params.ba, params.bb, params.wc, params.cc))
-    if wc.numel() != Da or cc.numel() != 1:
-        raise ValueError("wc must be [Da, 1] and cc [1]")
-    for t in (mask, wa, wb, ba, bb, wc, cc):
-        if t.device != dev:
-            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
 
     out = torch.empty((B, D), dtype=f32, device=dev)
     ml = torch.empty((B, 2), dtype=f32, device=dev)
     if B == 0:
         return out, ml
-    lib = _kernel_lib()
-    splits, rows_per_split = _grid(dev, B, N, D, gated, bf16)
+    lib = _fwd_lib()
+    dropout = da is not None
+    splits, rows_per_split = _grid(dev, B, N, D, gated, bf16, dropout)
     part_acc = torch.empty((B, splits, D), dtype=f32, device=dev)
     part_ml = torch.empty((B, splits, 2), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.mil_pool_fwd(
         h.data_ptr(), mask.data_ptr(), wa.data_ptr(), ba.data_ptr(),
         wb.data_ptr(), bb.data_ptr(), wc.data_ptr(), cc.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(),
-        out.data_ptr(), ml.data_ptr(), B, N, D, Da, splits, rows_per_split,
-        int(gated), int(bf16), stream)
+        _ptr(da), _ptr(db), part_acc.data_ptr(), part_ml.data_ptr(),
+        out.data_ptr(), ml.data_ptr(), 1.0 / (1.0 - rate), B, N, D, Da,
+        splits, rows_per_split, int(gated), int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"mil_pool_fwd launch failed: CUDA error {err}")
     _fused_pool_cuda.launches += 1
@@ -206,22 +402,164 @@ def _fused_pool_cuda(h, mask, params: AttnParams, gated: bool):
 _fused_pool_cuda.launches = 0
 
 
-def _fused_pool(h, mask, params: AttnParams, gated: bool
+def _dw_splits(device, rows: int, D: int, Kc: int) -> int:
+    """Row chunks of the split-K dW kernel: about four CTAs per SM over
+    the (D/64) x (Kc/64) output tiles, each chunk a multiple of 32 rows."""
+    tiles = (D // 64) * (Kc // 64)
+    return max(1, min(-(-rows // 32), (4 * _sms(device)) // tiles))
+
+
+def _fused_pool_bwd_cuda(h, mask, params: AttnParams, out, ml, g,
+                         gated: bool, da=None, db=None,
+                         rate: float = ATTN_DROPOUT_RATE
+                         ) -> Tuple[torch.Tensor, AttnParams]:
+    """Launch ``csrc/mil_pool_bwd.cu`` on the bag's device and stream.
+    Returns dh [B, N, D] in the bag's dtype and the parameter gradients in
+    f32 (Wb/bb zero for ungated calls, cc an exact 0)."""
+    mask, ba, bb, wc, cc, da, db = _check_inputs(h, mask, params, gated,
+                                                 da, db, 64, 64)
+    B, N, D = h.shape
+    Da = params.Wa.shape[1]
+    dev = h.device
+    f32 = torch.float32
+    h = h.contiguous()
+    if h.data_ptr() % 16:
+        h = h.clone()
+    for name, t in (("out", out), ("ml", ml), ("g", g)):
+        if t.device != dev:
+            raise ValueError(f"{name} must be on {dev}, got {t.device}")
+    out = out.to(f32).contiguous()
+    ml = ml.to(f32).contiguous()
+    g = g.to(f32).contiguous()
+    if out.shape != (B, D) or g.shape != (B, D) or ml.shape != (B, 2):
+        raise ValueError("expected out and g [B, D] and ml [B, 2]")
+    # weights in the bag's dtype: W [D, Da] for the scoring products,
+    # Wcat = [Wa^T; Wb^T] [Kc, D] for dh = [dpa | dpb] @ Wcat
+    wa = params.Wa.to(h.dtype).contiguous()
+    wb = params.Wb.to(h.dtype).contiguous() if gated else wa
+    wcat = (torch.cat([wa.t(), wb.t()]) if gated else wa.t()).contiguous()
+    Kc = wcat.shape[0]
+
+    dh = torch.empty_like(h)
+    dW = torch.empty((D, Kc), dtype=f32, device=dev)
+    dvec = torch.empty((3, Da), dtype=f32, device=dev)  # dba, dbb, dwc
+    n_tiles = max(1, -(-N // _TILE_ROWS))
+    rows = B * N
+    splits = _dw_splits(dev, rows, D, Kc)
+    rows_per_split = -(-rows // splits)
+    rows_per_split = -(-rows_per_split // 32) * 32
+    splits = max(1, -(-rows // rows_per_split))
+    # scratch: [dpa | dpb] per row in the bag's dtype, the attention
+    # weights a [B, N], per-tile column sums of (dpa, dpb, z * ds) and the
+    # split-K partials of dW
+    dp = torch.empty((rows, Kc), dtype=h.dtype, device=dev)
+    a = torch.empty((B, N), dtype=f32, device=dev)
+    part_vec = torch.empty((B * n_tiles, 3, Da), dtype=f32, device=dev)
+    part_dw = torch.empty((splits, D, Kc), dtype=f32, device=dev)
+    if B and N:
+        lib = _bwd_lib()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mil_pool_bwd(
+            h.data_ptr(), mask.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+            wb.data_ptr(), bb.data_ptr(), wc.data_ptr(), cc.data_ptr(),
+            wcat.data_ptr(), _ptr(da), _ptr(db), out.data_ptr(),
+            ml.data_ptr(), g.data_ptr(), dp.data_ptr(), a.data_ptr(),
+            part_vec.data_ptr(), part_dw.data_ptr(), dh.data_ptr(),
+            dW.data_ptr(), dvec.data_ptr(), 1.0 / (1.0 - rate), B, N, D,
+            Da, splits, rows_per_split, int(gated),
+            int(h.dtype == torch.bfloat16), stream)
+        if err != 0:
+            raise RuntimeError(f"mil_pool_bwd launch failed: CUDA error "
+                               f"{err}")
+        _fused_pool_bwd_cuda.launches += 1
+    else:
+        dh.zero_()
+        dW.zero_()
+        dvec.zero_()
+    # dcc = sum(ds) is analytically 0: written as an exact 0, never summed
+    grads = AttnParams(
+        Wa=dW[:, :Da], ba=dvec[0],
+        Wb=dW[:, Da:] if gated else torch.zeros_like(dW),
+        bb=dvec[1] if gated else torch.zeros_like(dvec[1]),
+        wc=dvec[2].reshape(Da, 1), cc=torch.zeros(1, dtype=f32, device=dev))
+    return dh, grads
+
+
+_fused_pool_bwd_cuda.launches = 0
+
+
+def _fused_pool(h, mask, params: AttnParams, gated: bool, da=None, db=None,
+                rate: float = ATTN_DROPOUT_RATE
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pooled [B, D] f32, ml [B, 2] f32) with the residuals of the TPU
     kernel: ml = (max logit, softmax normalizer) per bag.  A tensor on the
     CPU takes the plain version; any other device launches the kernel or
     raises."""
     if h.device.type == "cpu":
-        return _pool_plain(h, mask, params, gated)
-    return _fused_pool_cuda(h, mask, params, gated)
+        return _pool_plain(h, mask, params, gated, da, db, rate)
+    return _fused_pool_cuda(h, mask, params, gated, da, db, rate)
+
+
+def _fused_pool_bwd(h, mask, params: AttnParams, out, ml, g, gated: bool,
+                    da=None, db=None, rate: float = ATTN_DROPOUT_RATE):
+    """(dh, parameter gradients): the plain version for a tensor on the
+    CPU, the backward kernel (or an error) on any other device."""
+    if h.device.type == "cpu":
+        return _pool_bwd_plain(h, mask, params, out, ml, g, gated, da, db,
+                               rate)
+    return _fused_pool_bwd_cuda(h, mask, params, out, ml, g, gated, da, db,
+                                rate)
+
+
+# ---------------------------------------------------------------------------
+# Public ops with their backward (the custom_vjp pair of the JAX package).
+# ---------------------------------------------------------------------------
+
+class _AttentionPool(torch.autograd.Function):
+    """pooled = pool(h, mask, params[, da, db]); the forward saves
+    (h, mask, params, out, ml[, da, db]) and the backward is one call of
+    the fused backward.  Ungated calls return no gradient for Wb/bb."""
+
+    @staticmethod
+    def forward(ctx, h, mask, da, db, Wa, ba, Wb, bb, wc, cc, gated, rate):
+        params = AttnParams(Wa, ba, Wb, bb, wc, cc)
+        out, ml = _fused_pool(h, mask, params, gated, da, db, rate)
+        ctx.save_for_backward(h, mask, da, db, Wa, ba, Wb, bb, wc, cc, out,
+                              ml)
+        ctx.gated, ctx.rate = gated, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, mask, da, db, *p, out, ml = ctx.saved_tensors
+        params = AttnParams(*p)
+        dh, grads = _fused_pool_bwd(h, mask, params, out, ml, g, ctx.gated,
+                                    da, db, ctx.rate)
+        dp = [d.to(w.dtype) for d, w in zip(grads, params)]
+        if not ctx.gated:
+            dp[2] = dp[3] = None
+        return (dh, None, None, None, *dp, None, None)
 
 
 def attention_pool(h, mask, params: AttnParams, gated: bool = True):
-    """Fused gated/ungated attention-MIL pooling.
+    """Fused gated/ungated attention-MIL pooling, differentiable in h and
+    the parameters.
 
     h:    [B, N, D] padded bag features (post-FC), f32 or bf16
     mask: [B, N]    1.0 for real instances, 0.0 for padding
     Returns pooled [B, D] in f32.
     """
-    return _fused_pool(h, mask, params, gated)[0]
+    return _AttentionPool.apply(h, mask, None, None, *params, gated,
+                                ATTN_DROPOUT_RATE)
+
+
+def attention_pool_dropout(h, mask, da, db, params: AttnParams,
+                           gated: bool = True,
+                           rate: float = ATTN_DROPOUT_RATE):
+    """Fused attention-MIL pooling with attention-branch dropout (ref
+    model_modules.py:97-99; every published reference recipe passes
+    --drop_out).  ``da``/``db``: uint8 [B, N, Da] keep masks from
+    ``make_dropout_masks``, applied by the forward and the backward alike.
+    Returns pooled [B, D] in f32."""
+    return _AttentionPool.apply(h, mask, da, db if gated else da, *params,
+                                gated, rate)

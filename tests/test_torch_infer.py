@@ -21,8 +21,8 @@ from multimodalfusion_tpu_torch.data import bags as tbags
 from multimodalfusion_tpu_torch.engine.train import TrainConfig, build_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pandas", "h5py",
-             "multimodalfusion_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pandas", "h5py", "sklearn",
+             "tensorboardX", "multimodalfusion_tpu"}
 
 
 def read_rows(path):
