@@ -12,7 +12,9 @@ Phases, each fatal on failure:
                 card: gated/ungated x f32/bf16 x dropout on/off (the same
                 keep masks on both sides), ragged masks with a fully
                 masked bag and a padding row, both published PathAMIL
-                widths, and one N=32,768 bag.  f32 at rel 1e-4, bf16 at
+                widths, a narrow D=Da=64 case whose row count ends the
+                backward's last dW split mid-chunk, and one N=32,768
+                bag.  f32 at rel 1e-4, bf16 at
                 rel 2e-2 (pooled, ml, dh and the parameter gradients);
                 dcc == 0, dh == 0 on masked rows, and two backward
                 launches on the same inputs agree bit for bit.
@@ -33,6 +35,9 @@ Phases, each fatal on failure:
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak), and
                 a training step's breakdown with CUDA events.
+  digest     -- only when asked for (--phases digest): SHA-256 of the
+                backward's outputs on seeded cases, to compare two
+                checkouts' kernels bit for bit on one card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -184,6 +189,10 @@ def phase_kernels_train():
                               dropout, [1000, 0, 517, 33, 999, 0]))
                 cases.append(("big", 4, 700, 512, 384, dtype, gated,
                               dropout, [700, 0, 350, 1]))
+                # half of a 128-wide SGEMM tile; 900 rows end the dW
+                # partial kernel's last split mid-chunk
+                cases.append(("narrow", 3, 300, 64, 64, dtype, gated,
+                              dropout, [300, 0, 129]))
         cases.append(("bigbag", 2, 32768, 256, 256, dtype, True, True,
                       [32768, 20001]))
     worst = {"mil_pool_fwd": 0.0, "mil_pool_bwd": 0.0}
@@ -241,6 +250,45 @@ def phase_kernels_train():
                 f"case {tag} {dtype} gated={gated} dropout={dropout}: "
                 f"finite={finite} repeat={repeat} grads={e_grad}")
     return worst
+
+
+def phase_digest():
+    """SHA-256 of the backward kernel's outputs (dh and each parameter
+    gradient) on seeded cases, one line per case.  Run this script with
+    ``--phases digest`` from two checkouts on one card to see whether their
+    backward kernels agree bit for bit."""
+    import hashlib
+
+    import torch
+    from multimodalfusion_tpu_torch.ops import mil_attention as mil
+    shapes = ((6, 1000, 256, 256, [1000, 0, 517, 33, 999, 0]),
+              (4, 700, 512, 384, [700, 0, 350, 1]),
+              (32, 4096, 256, 256, None))
+    for i, (B, N, D, Da, lens) in enumerate(shapes):
+        for dtype in ("float32", "bfloat16"):
+            for gated in (True, False):
+                for dropout in (False, True):
+                    h, mask, params = make_pool_case(B, N, D, Da, dtype,
+                                                     seed=200 + i, lens=lens)
+                    gen = torch.Generator(device="cuda").manual_seed(i)
+                    da = db = None
+                    if dropout:
+                        da, db = mil.make_dropout_masks(gen, (B, N, Da),
+                                                        gated)
+                    g = torch.randn(B, D, generator=gen, device="cuda")
+                    with torch.no_grad():
+                        out, ml = mil._pool_plain(h, mask, params, gated, da,
+                                                  db)
+                        dh, grads = mil._fused_pool_bwd_cuda(
+                            h, mask, params, out, ml, g, gated, da, db)
+                    names = ("dh",) + mil.AttnParams._fields
+                    sums = []
+                    for k, t in zip(names, (dh, *grads)):
+                        raw = t.contiguous().view(torch.uint8).cpu()
+                        digest = hashlib.sha256(raw.numpy().tobytes())
+                        sums.append(f"{k}={digest.hexdigest()[:12]}")
+                    log(f"[digest] B={B} N={N} D={D} Da={Da} {dtype} "
+                        f"gated={gated} dropout={dropout} " + " ".join(sums))
 
 
 def _write_experiment(root, n_subjects=34, seed=0):
@@ -810,9 +858,9 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
-                    help="comma-separated subset of build,kernels,slice,"
-                         "train,timing (default: all, which prints the "
-                         "result lines)")
+                    help="comma-separated subset of build,kernels,digest,"
+                         "slice,train,timing (default: all but digest, "
+                         "which prints the result lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -831,6 +879,8 @@ def main(argv=None) -> int:
         if "kernels" in phases:
             phase_kernels()
             phase_kernels_train()
+        if "digest" in phases:
+            phase_digest()
         if "slice" in phases:
             phase_slice(counters[:1])
         if "train" in phases or "timing" in phases:

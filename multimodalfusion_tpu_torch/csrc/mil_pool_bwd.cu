@@ -24,33 +24,44 @@
 // Design.  The TPU kernel walks the bags' row tiles in one sequential grid
 // and keeps dWa/dWb (256 KiB each at D = Da = 256) resident across it.  On
 // the H100 that neither fits one SM's shared memory nor runs in parallel,
-// so the work is four kernels, all deterministic (no float atomics):
-//   1. rows: one CTA per (64-row tile, bag).  It keeps the tile (as f32,
-//      transposed) in shared memory, recomputes the scoring products in
-//      64-column chunks (an SGEMM-style 4 x 4 register block per thread),
-//      forms s, a and ds per row, then recomputes the chunks to write
-//      [dpa | dpb] per row (in the bag's dtype, as the TPU kernel casts
-//      them before its products) and per-tile column sums of dpa, dpb and
-//      z * ds.  Tiles whose rows are all padding write zeros and return.
-//   2. dh: dh = a g + [dpa | dpb] [Wa^T; Wb^T], an SGEMM over 64 x 64
-//      output tiles with masked rows written as exact zeros.
-//   3. dW: split-K over the rows of all bags, hᵀ [dpa | dpb] per 64 x 64
-//      output tile and row chunk, into per-CTA partials; chunks whose rows
-//      are all padding are skipped.
-//   4. reduce: the partials of dW and the per-tile column sums, each added
-//      in a fixed order.
-// Every product runs on the CUDA cores in f32; bf16 bags and weights are
-// converted to f32 as they are staged (exact), so bf16 runs no faster.
+// so the work is five kernels over the M = B N flattened rows (row r
+// belongs to bag r / N), all deterministic (no float atomics):
+//   1. rows: one CTA per 128-row tile.  Pass 1 scores the tile once: the
+//      products h [Wa | Wb] run on the SGEMM core below, 64 columns of Wa
+//      and the same 64 of Wb per 128-wide chunk, and the epilogue keeps
+//      t and u of every row in f32 scratch (dp itself for f32 bags) while
+//      it sums the scores.  Then s, a and ds per row.  Pass 2 reads t and
+//      u back and writes [dpa | dpb] per row in the bag's dtype (as the
+//      TPU kernel casts them before its products; for f32 bags in place
+//      over t and u), and the tile's column sums of dpa, dpb and z * ds.
+//      Tiles whose rows are all padding write zeros and return.
+//   2. dh: dh = a g + [dpa | dpb] [Wa^T; Wb^T] on the SGEMM core, masked
+//      rows written as exact zeros.
+//   3. dW: split-K over the rows, h^T [dpa | dpb] on the SGEMM core, one
+//      partial per split (the splits fill one wave of the card); chunks
+//      whose rows are all padding are skipped.
+//   4. and 5. reduce: the tiles' column sums in fixed groups of VG tiles
+//      (a shared-memory tree per group), then the groups and the dW
+//      partials, each added in index order.
+// The SGEMM core is the classic f32 one: a 128 x 128 output tile per CTA
+// of 256 threads, 8 x 8 results per thread in four 4 x 4 quadrants 64
+// apart, GK = 8 deep chunks double-buffered through registers (16-byte
+// global loads where the layout allows, one barrier per chunk).  bf16 bags
+// and weights are converted to f32 as they are staged (exact), so bf16
+// runs the same f32 arithmetic.
 //
-// Bound.  At the training shape (B = 32, N = 4096, D = Da = 256, gated) the
-// backward does about 6 B N D 2Da = 103 GFLOP of matrix products (the TPU
-// kernel's CostEstimate), about 1.5 ms at the 67 TFLOP/s f32 CUDA-core
-// peak, against about 0.3 GB of bytes (0.1 ms at 3.35 TB/s): it is bound
-// by operations.  This first version spends a third more operations than
-// that (kernel 1 computes the scoring products twice instead of keeping
-// t, u on chip) and round-trips [dpa | dpb] through device memory.  For
-// bf16 bags the bound is the tensor cores' (about 0.1 ms); wgmma on tiles
-// staged by TMA is the route to it, in a later version.
+// Bound.  At the training shape (B = 32, N = 4096, D = Da = 256, gated,
+// 90% of rows valid) the valid rows need 6 n D 2 Da = 92.8 GFLOP of matrix
+// products (the scoring, dh and dW products, 30.9 GFLOP each) and 4 n D
+// more for g . h and a g: 1.385 ms at the 67 TFLOP/s f32 CUDA-core peak,
+// against about 0.3 GB of bytes (0.1 ms at 3.35 TB/s), so f32 is bound by
+// operations (chip_smoke.py _bound).  For bf16 bags the bound is the
+// tensor cores' 989 TFLOP/s: 93.8 us.  This design computes each product
+// once, on an SGEMM core that runs at about half of the f32 peak; it still
+// computes padded rows inside partly padded tiles, round-trips t, u and
+// [dpa | dpb] through device memory (mostly L2), and runs bf16 on the CUDA
+// cores, far from its tensor-core bound: wgmma on TMA-staged tiles is the
+// route there, and fusing dh into kernel 1 would save the dp round trip.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,20 +69,27 @@
 
 namespace {
 
-constexpr int TM = 64;           // rows per tile (kernels 1 and 2)
-constexpr int THREADS = 256;     // 16 x 16 threads, 4 x 4 outputs each
-constexpr int CN = 64;           // output columns per chunk / tile
-constexpr int KC = 32;           // depth of a staged chunk
-constexpr int HT_LD = TM + 4;    // row stride of a transposed tile
+constexpr int THREADS = 256;          // 16 x 16 threads, 8 x 8 outputs each
+constexpr int GT = 128;               // SGEMM output tile rows and columns
+constexpr int GK = 8;                 // depth of a staged chunk
+constexpr int S_LD = GT + 4;          // row stride of a staged chunk
+constexpr int STAGE = 2 * GK * S_LD;  // floats of one buffer (A, then B)
+constexpr int VG = 64;                // row tiles per column-sum group
 constexpr int MAX_D = 512;
-constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// 4 consecutive values as f32: one 16-byte load (f32) or 8-byte load (bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+  return make_float4(__bfloat162float(lo.x), __bfloat162float(lo.y),
+                     __bfloat162float(hi.x), __bfloat162float(hi.y));
 }
 
-// 4 consecutive values from f32 (16-byte store) or bf16 (8-byte store).
+// 4 consecutive values to f32 (16-byte store) or bf16 (8-byte store).
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -87,69 +105,95 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// acc[i][j] += x[k][4 ty + i] * w[k][4 tx + j] over k < KC, both operands
-// in shared memory with row strides ldx and ldw.
-__device__ __forceinline__ void mac_block(const float* x, int ldx,
-                                          const float* w, int ldw,
-                                          float (&acc)[4][4]) {
+// The SGEMM core: a CTA of 256 threads accumulates a 128 x 128 output
+// tile, C[m][n] += sum_k A[k][m] B[k][n], over GK-deep chunks staged in
+// shared memory as A [GK][S_LD] and B [GK][S_LD] (f32).  Thread (ty, tx) =
+// (tid / 16, tid % 16) holds the 8 x 8 block of rows m(i) = 4 ty + (i & 3)
+// + 64 (i >> 2) and columns n(j) = 4 tx + (j & 3) + 64 (j >> 2): four 4 x 4
+// quadrants 64 apart, so that a warp's float4 reads of a staged row are
+// two broadcasts (A) and 16 consecutive float4s (B), free of bank
+// conflicts.  Each output element is summed over k in increasing order
+// with fmaf.
+__device__ __forceinline__ int row_of(int i) {
+  return 4 * (threadIdx.x >> 4) + (i & 3) + 64 * (i >> 2);
+}
+
+__device__ __forceinline__ void mac_chunk(const float* As, const float* Bs,
+                                          float (&acc)[8][8]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 8
-  for (int k = 0; k < KC; ++k) {
-    const float4 x4 = *reinterpret_cast<const float4*>(x + k * ldx + 4 * ty);
-    const float4 w4 = *reinterpret_cast<const float4*>(w + k * ldw + 4 * tx);
-    const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-    const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int k = 0; k < GK; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(As + k * S_LD + 4 * ty);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(As + k * S_LD + 64 + 4 * ty);
+    const float4 b0 = *reinterpret_cast<const float4*>(Bs + k * S_LD + 4 * tx);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(Bs + k * S_LD + 64 + 4 * tx);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
-// Tile rows [0, rows) of hb [., D] into ht[d][r] as f32, zeros beyond.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* hb, float* ht, int rows,
-                                          int D) {
-  for (int i = threadIdx.x; i < TM * D; i += THREADS) {
-    const int r = i / D, d = i - r * D;
-    ht[d * HT_LD + r] = (r < rows) ? to_f32(hb[(size_t)r * D + d]) : 0.f;
+__device__ __forceinline__ void zero(float (&acc)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// The core's main loop over chunks 0 .. nk - 1, double-buffered through
+// registers: while the CTA multiplies chunk c from one shared buffer, each
+// thread holds its share of chunk c + 1 (loaded by `fetch`) in registers,
+// then `put` stores it into the other buffer; one barrier per chunk.
+// `fetch(c, ra, rb)` returns whether its rows of chunk c are live; a chunk
+// that no thread calls live holds only exact zeros in B and is skipped.
+// The last barrier leaves both buffers free for the next call.
+template <typename Fetch, typename Put>
+__device__ __forceinline__ void sgemm_loop(int nk, float* smem, Fetch fetch,
+                                           Put put, float (&acc)[8][8]) {
+  float4 ra, rb;
+  bool live = fetch(0, ra, rb);
+  put(smem, ra, rb);
+  live = __syncthreads_or(live);
+  for (int c = 0; c < nk; ++c) {
+    float* cur = smem + (c & 1) * STAGE;
+    bool next = false;
+    if (c + 1 < nk) next = fetch(c + 1, ra, rb);
+    if (live) mac_chunk(cur, cur + GK * S_LD, acc);
+    if (c + 1 < nk) put(smem + ((c + 1) & 1) * STAGE, ra, rb);
+    live = __syncthreads_or(next);
   }
 }
 
-// The scoring pre-activations of the tile's rows 4 ty + i at columns
-// c0 + 4 tx + j: za = h Wa, zb = h Wb (without the biases).  W [D, Da] is
-// staged through ws (2 x [KC][CN] f32) in KC-deep chunks.
-template <typename T, bool GATED>
-__device__ __forceinline__ void chunk_products(const float* ht, float* ws,
-                                               const T* wa, const T* wb,
-                                               int c0, int D, int Da,
-                                               float (&za)[4][4],
-                                               float (&zb)[4][4]) {
-  float* wsa = ws;
-  float* wsb = ws + KC * CN;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) za[i][j] = zb[i][j] = 0.f;
-  for (int k0 = 0; k0 < D; k0 += KC) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = threadIdx.x; i < KC * CN; i += THREADS) {
-      const int kk = i / CN, c = i - kk * CN;
-      const size_t src = (size_t)(k0 + kk) * Da + c0 + c;
-      wsa[i] = to_f32(wa[src]);
-      if (GATED) wsb[i] = to_f32(wb[src]);
-    }
-    __syncthreads();
-    mac_block(ht + k0 * HT_LD, HT_LD, wsa, CN, za);
-    if (GATED) mac_block(ht + k0 * HT_LD, HT_LD, wsb, CN, zb);
-  }
+// Staging of an operand that lies as [rows][depth] (A = h or dp rows of a
+// 128-row tile, transposed into As[k][m]): thread tid loads depth 4 (tid &
+// 1) .. + 3 of tile row tid / 2.  The two depth halves land 16 banks apart
+// (S_LD % 32 == 4), so the scalar stores are free of bank conflicts.
+__device__ __forceinline__ void put_transposed(float* As, const float4& v) {
+  const int r = threadIdx.x >> 1, k = 4 * (threadIdx.x & 1);
+  As[(k + 0) * S_LD + r] = v.x;
+  As[(k + 1) * S_LD + r] = v.y;
+  As[(k + 2) * S_LD + r] = v.z;
+  As[(k + 3) * S_LD + r] = v.w;
 }
 
-// The keep factors of rows r < rows at 4 columns (1 without dropout).
+// Staging of an operand that lies as [depth][columns]: thread tid stores
+// columns 4 (tid & 31) .. + 3 of depth row tid / 32.
+__device__ __forceinline__ void put_rows(float* Xs, const float4& v) {
+  *reinterpret_cast<float4*>(Xs + (threadIdx.x >> 5) * S_LD +
+                             4 * (threadIdx.x & 31)) = v;
+}
+
+// The keep factors of row `row` at 4 columns from col0 (1 without dropout;
+// 0 for a row past the tile's end).
 template <bool GATED, bool DROPOUT>
 __device__ __forceinline__ void keep_factors(const uint8_t* da,
-                                             const uint8_t* db, int r,
-                                             int rows, int col0, int Da,
+                                             const uint8_t* db, size_t row,
+                                             bool in, int col0, int Da,
                                              float inv_keep, float (&fa)[4],
                                              float (&fb)[4]) {
   uchar4 ka = make_uchar4(1, 1, 1, 1), kb = ka;
@@ -157,10 +201,9 @@ __device__ __forceinline__ void keep_factors(const uint8_t* da,
   if (DROPOUT) {
     scale = inv_keep;
     ka = kb = make_uchar4(0, 0, 0, 0);
-    if (r < rows) {
-      ka = *reinterpret_cast<const uchar4*>(da + (size_t)r * Da + col0);
-      if (GATED)
-        kb = *reinterpret_cast<const uchar4*>(db + (size_t)r * Da + col0);
+    if (in) {
+      ka = *reinterpret_cast<const uchar4*>(da + row * Da + col0);
+      if (GATED) kb = *reinterpret_cast<const uchar4*>(db + row * Da + col0);
     }
   }
   fa[0] = ka.x * scale; fa[1] = ka.y * scale;
@@ -169,11 +212,9 @@ __device__ __forceinline__ void keep_factors(const uint8_t* da,
   fb[2] = kb.z * scale; fb[3] = kb.w * scale;
 }
 
-// Kernel 1.  Dynamic shared memory: the transposed tile ht [D][HT_LD],
-// the weight staging ws [2][KC][CN] and the column-sum scratch
-// red [3][16][CN], all f32.
+// Kernel 1.  Rows m0 .. m0 + 127 of the M flattened rows.
 template <typename T, bool GATED, bool DROPOUT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 bwd_rows_kernel(const T* __restrict__ h, const float* __restrict__ mask,
                 const T* __restrict__ wa, const float* __restrict__ ba,
                 const T* __restrict__ wb, const float* __restrict__ bb,
@@ -182,116 +223,159 @@ bwd_rows_kernel(const T* __restrict__ h, const float* __restrict__ mask,
                 const uint8_t* __restrict__ db,
                 const float* __restrict__ out, const float* __restrict__ ml,
                 const float* __restrict__ g,
-                T* __restrict__ dp,            // [B * N, Kc]
-                float* __restrict__ a_out,     // [B, N]
-                float* __restrict__ part_vec,  // [B * tiles, 3, Da]
-                float inv_keep, int N, int D, int Da) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ht = reinterpret_cast<float*>(smem);
-  float* ws = ht + (size_t)D * HT_LD;
-  float* red = ws + 2 * KC * CN;
-  __shared__ float s_s[TM], ds_s[TM];
+                T* dp,                         // [M, Kc]
+                float* tu,                     // [M, Kc] f32; == dp for f32
+                float* __restrict__ a_out,     // [M]
+                float* __restrict__ part_vec,  // [tiles, 3, Da]
+                float inv_keep, int M, int N, int D, int Da) {
+  __shared__ __align__(16) float smem[2 * STAGE];
+  __shared__ float s_s[GT], ds_s[GT];
+  __shared__ float red[3][16][64];
 
-  const int tile = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
-  const int r0 = tile * TM, rows = min(TM, N - r0);
+  const size_t m0 = (size_t)blockIdx.x * GT;
+  const int rows = (int)min((size_t)GT, (size_t)M - m0);
   const int Kc = GATED ? 2 * Da : Da;
-  const float* mb = mask + (size_t)b * N + r0;
-  const size_t row0 = (size_t)b * N + r0;
-  T* dpt = dp + row0 * Kc;
-  float* pv = part_vec + ((size_t)b * gridDim.x + tile) * 3 * Da;
-  const uint8_t* dat = DROPOUT ? da + row0 * Da : da;
-  const uint8_t* dbt = DROPOUT ? db + row0 * Da : db;
+  T* dpt = dp + m0 * Kc;
+  float* tut = tu + m0 * Kc;
+  float* pv = part_vec + (size_t)blockIdx.x * 3 * Da;
 
-  if (!__syncthreads_or(tid < rows && mb[tid] > 0.f)) {
+  if (!__syncthreads_or(tid < rows && mask[m0 + tid] > 0.f)) {
     // all padding: a = 0, so dp, the column sums (and later dh) are 0
     for (int i = tid; i < rows * Kc; i += THREADS) dpt[i] = T(0.f);
-    for (int i = tid; i < rows; i += THREADS) a_out[row0 + i] = 0.f;
+    for (int i = tid; i < rows; i += THREADS) a_out[m0 + i] = 0.f;
     for (int i = tid; i < 3 * Da; i += THREADS) pv[i] = 0.f;
     return;
   }
-  load_tile(h + row0 * D, ht, rows, D);
 
-  // pass 1: the tile's scores
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  float za[4][4], zb[4][4];
-  for (int c0 = 0; c0 < Da; c0 += CN) {
-    chunk_products<T, GATED>(ht, ws, wa, wb, c0, D, Da, za, zb);
-    const int col0 = c0 + 4 * tx;
+  // pass 1: the products h [Wa | Wb] in 128-wide chunks of columns (gated:
+  // Wa's c0 .. c0 + 63, then Wb's; ungated: Wa's c0 .. c0 + 127), each
+  // followed by t, u into tu and the scores' partial sums
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const bool a_in = (tid >> 1) < rows;
+  const T* pa = h + (m0 + (tid >> 1)) * D + 4 * (tid & 1);
+  const int bk = tid >> 5, bn = 4 * (tid & 31);
+  auto put = [&](float* st, const float4& ra, const float4& rb) {
+    put_transposed(st, ra);
+    put_rows(st + GK * S_LD, rb);
+  };
+  float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const int n_chunks = GATED ? Da / 64 : (Da + GT - 1) / GT;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int c0 = GATED ? 64 * ch : GT * ch;
+    const T* pb = (GATED && bn >= 64 ? wb + c0 + bn - 64 : wa + c0 + bn) +
+                  (size_t)bk * Da;
+    const bool b_in = GATED || c0 + bn < Da;
+    auto fetch = [&](int c, float4& ra, float4& rb) {
+      ra = a_in ? load4(pa + c * GK) : zero4;
+      rb = b_in ? load4(pb + (size_t)c * GK * Da) : zero4;
+      return true;
+    };
+    float acc[8][8];
+    zero(acc);
+    sgemm_loop(D / GK, smem, fetch, put, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float fa[4], fb[4];
-      keep_factors<GATED, DROPOUT>(dat, dbt, 4 * ty + i, rows, col0, Da,
-                                   inv_keep, fa, fb);
+    for (int i = 0; i < 8; ++i) {
+      const int r = row_of(i);
+      const size_t row = m0 + r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float z = tanhf(za[i][j] + ba[col0 + j]);
-        if (DROPOUT) z *= fa[j];
-        if (GATED) {
-          float u = 1.f / (1.f + expf(-(zb[i][j] + bb[col0 + j])));
-          if (DROPOUT) u *= fb[j];
-          z *= u;
+      for (int q = 0; q < (GATED ? 1 : 2); ++q) {
+        const int col0 = c0 + 64 * q + 4 * tx;
+        if (!GATED && col0 >= Da) continue;
+        float fa[4], fb[4], t[4], u[4];
+        keep_factors<GATED, DROPOUT>(da, db, row, r < rows, col0, Da,
+                                     inv_keep, fa, fb);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          t[j] = tanhf(acc[i][4 * q + j] + ba[col0 + j]);
+          float z = t[j];
+          if (DROPOUT) z *= fa[j];
+          if (GATED) {
+            u[j] = 1.f / (1.f + expf(-(acc[i][4 + j] + bb[col0 + j])));
+            z *= DROPOUT ? u[j] * fb[j] : u[j];
+          }
+          part[i] = fmaf(z, wc[col0 + j], part[i]);
         }
-        part[i] = fmaf(z, wc[col0 + j], part[i]);
+        if (r < rows) {
+          store4(tut + (size_t)r * Kc + col0, t);
+          if (GATED) store4(tut + (size_t)r * Kc + Da + col0, u);
+        }
       }
     }
   }
+  // the 16 threads of a half-warp share their rows
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     float v = part[i];
 #pragma unroll
     for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (tx == 0) s_s[4 * ty + i] = v;
+    if (tx == 0) s_s[row_of(i)] = v;
   }
   __syncthreads();
 
   // per row: a = softmax weight, alpha = g . h_r, ds = a (alpha - g . out);
-  // warp w owns rows 8 w .. 8 w + 7
-  {
-    const float* gb = g + (size_t)b * D;
-    const float* ob = out + (size_t)b * D;
-    float go = 0.f;
-    for (int d = lane; d < D; d += 32) go = fmaf(gb[d], ob[d], go);
+  // warp w owns rows 16 w .. 16 w + 15
+  const float c = cc[0];
+  for (int r = 16 * warp; r < 16 * warp + 16; ++r) {
+    if (r >= rows) {
+      if (lane == 0) ds_s[r] = 0.f;
+      continue;
+    }
+    const size_t row = m0 + r;
+    const size_t b = row / N;
+    const float* gb = g + b * D;
+    const float* ob = out + b * D;
+    const T* hr = h + row * D;
+    float al = 0.f, go = 0.f;
+    for (int d = 4 * lane; d < D; d += 128) {
+      const float4 hv = load4(hr + d), gv = load4(gb + d), ov = load4(ob + d);
+      al = fmaf(gv.x, hv.x, fmaf(gv.y, hv.y, fmaf(gv.z, hv.z,
+                                                  fmaf(gv.w, hv.w, al))));
+      go = fmaf(gv.x, ov.x, fmaf(gv.y, ov.y, fmaf(gv.z, ov.z,
+                                                  fmaf(gv.w, ov.w, go))));
+    }
+    al = warp_sum(al);
     go = warp_sum(go);
     const float m = ml[2 * b], l = fmaxf(ml[2 * b + 1], 1e-30f);
-    const float c = cc[0];
-    for (int r = 8 * warp; r < 8 * warp + 8; ++r) {
-      float al = 0.f;
-      for (int d = lane; d < D; d += 32) al = fmaf(gb[d], ht[d * HT_LD + r], al);
-      al = warp_sum(al);
-      const bool valid = r < rows && mb[r] > 0.f;
-      // masked before the exp: an all-masked bag has m = NEG_INF
-      const float a = valid ? expf((s_s[r] + c) - m) / l : 0.f;
-      if (lane == 0) {
-        ds_s[r] = a * (al - go);
-        if (r < rows) a_out[row0 + r] = a;
-      }
+    // masked before the exp: an all-masked bag has m = NEG_INF
+    const float a = mask[row] > 0.f ? expf((s_s[r] + c) - m) / l : 0.f;
+    if (lane == 0) {
+      ds_s[r] = a * (al - go);
+      a_out[row] = a;
     }
   }
-  __syncthreads();
 
-  // pass 2: dpa, dpb per element; column sums of dpa, dpb and z * ds
-  for (int c0 = 0; c0 < Da; c0 += CN) {
-    chunk_products<T, GATED>(ht, ws, wa, wb, c0, D, Da, za, zb);
+  // pass 2: dpa, dpb per element from the kept t and u (in place over them
+  // for f32 bags: each element is read and written by one thread); column
+  // sums of dpa, dpb and z * ds.  Thread (ty, tx) owns rows ty + 16 i and
+  // columns c0 + 4 tx .. + 3.
+  for (int c0 = 0; c0 < Da; c0 += 64) {
+    __syncthreads();  // ds_s is complete; the previous chunk's red was read
     const int col0 = c0 + 4 * tx;
     float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f},
           sw[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
+#pragma unroll 2
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + 16 * i;
+      if (r >= rows) continue;
       const float ds = ds_s[r];
-      float fa[4], fb[4], pa[4], pb[4];
-      keep_factors<GATED, DROPOUT>(dat, dbt, r, rows, col0, Da, inv_keep,
+      float fa[4], fb[4], pa4[4], pb4[4];
+      keep_factors<GATED, DROPOUT>(da, db, m0 + r, true, col0, Da, inv_keep,
                                    fa, fb);
+      float* tr = tut + (size_t)r * Kc;
+      const float4 t4 = *reinterpret_cast<const float4*>(tr + col0);
+      float4 u4 = t4;
+      if (GATED) u4 = *reinterpret_cast<const float4*>(tr + Da + col0);
+      const float tv[4] = {t4.x, t4.y, t4.z, t4.w};
+      const float uv[4] = {u4.x, u4.y, u4.z, u4.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int k = col0 + j;
-        const float t = tanhf(za[i][j] + ba[k]);
-        const float dz = ds * wc[k];
+        const float t = tv[j];
+        const float dz = ds * wc[col0 + j];
         float z, dpa, dpb = 0.f;
         if (GATED) {
-          const float u = 1.f / (1.f + expf(-(zb[i][j] + bb[k])));
+          const float u = uv[j];
           const float ta = DROPOUT ? t * fa[j] : t;
           const float ub = DROPOUT ? u * fb[j] : u;
           z = ta * ub;
@@ -306,138 +390,179 @@ bwd_rows_kernel(const T* __restrict__ h, const float* __restrict__ mask,
           dpa = dz * (1.f - t * t);
           if (DROPOUT) dpa *= fa[j];
         }
-        pa[j] = dpa;
-        pb[j] = dpb;
+        pa4[j] = dpa;
+        pb4[j] = dpb;
         sa[j] += dpa;
         sb[j] += dpb;
         sw[j] = fmaf(z, ds, sw[j]);
       }
-      if (r < rows) {
-        store4(dpt + (size_t)r * Kc + col0, pa);
-        if (GATED) store4(dpt + (size_t)r * Kc + Da + col0, pb);
-      }
+      store4(dpt + (size_t)r * Kc + col0, pa4);
+      if (GATED) store4(dpt + (size_t)r * Kc + Da + col0, pb4);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      red[(0 * 16 + ty) * CN + 4 * tx + j] = sa[j];
-      red[(1 * 16 + ty) * CN + 4 * tx + j] = sb[j];
-      red[(2 * 16 + ty) * CN + 4 * tx + j] = sw[j];
+      red[0][ty][4 * tx + j] = sa[j];
+      red[1][ty][4 * tx + j] = sb[j];
+      red[2][ty][4 * tx + j] = sw[j];
     }
     __syncthreads();
-    if (tid < 3 * CN) {  // fixed order over the 16 row groups
-      const int q = tid / CN, c = tid - q * CN;
+    if (tid < 3 * 64) {  // fixed order over the 16 row groups
+      const int q = tid >> 6, cq = tid & 63;
       float v = 0.f;
-      for (int y = 0; y < 16; ++y) v += red[(q * 16 + y) * CN + c];
-      pv[q * Da + c0 + c] = v;
+      for (int y = 0; y < 16; ++y) v += red[q][y][cq];
+      pv[q * Da + c0 + cq] = v;
     }
-    // the next chunk's first barrier keeps red until it has been read
   }
 }
 
-// Kernel 2.  dh rows r0 .. r0 + 63 of bag b, columns d0 .. d0 + 63.
+// Kernel 2.  dh = a g + [dpa | dpb] Wcat over the flattened rows: the CTA
+// owns rows m0 .. m0 + 127 and columns n0 .. n0 + 127 of D (the upper 64
+// are masked off when D % 128 == 64).  A = dp rows, transposed as they
+// are staged; B = Wcat [Kc, D].  Masked rows are written as exact zeros.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 bwd_dh_kernel(const T* __restrict__ dp, const T* __restrict__ wcat,
               const float* __restrict__ a, const float* __restrict__ g,
-              const float* __restrict__ mask, T* __restrict__ dh, int N,
-              int D, int Kc) {
-  __shared__ __align__(16) float As[KC * HT_LD];  // dp tile, transposed
-  __shared__ __align__(16) float Bs[KC * CN];     // Wcat rows
-  const int d0 = blockIdx.x * CN, r0 = blockIdx.y * TM, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int rows = min(TM, N - r0);
-  const size_t row0 = (size_t)b * N + r0;
-  const float* mb = mask + row0;
+              const float* __restrict__ mask, T* __restrict__ dh, int M,
+              int N, int D, int Kc) {
+  __shared__ __align__(16) float smem[2 * STAGE];
+  const int n_col = (D + GT - 1) / GT;
+  const int n0 = (blockIdx.x % n_col) * GT;
+  const size_t m0 = (size_t)(blockIdx.x / n_col) * GT;
+  const int tid = threadIdx.x, tx = tid & 15;
+  const int rows = (int)min((size_t)GT, (size_t)M - m0);
 
-  float acc[4][4] = {};
-  if (__syncthreads_or(tid < rows && mb[tid] > 0.f)) {
-    for (int k0 = 0; k0 < Kc; k0 += KC) {
-      __syncthreads();
-      for (int i = tid; i < TM * KC; i += THREADS) {
-        const int r = i / KC, kk = i - r * KC;
-        As[kk * HT_LD + r] =
-            r < rows ? to_f32(dp[(row0 + r) * Kc + k0 + kk]) : 0.f;
-      }
-      for (int i = tid; i < KC * CN; i += THREADS) {
-        const int kk = i / CN, c = i - kk * CN;
-        Bs[i] = to_f32(wcat[(size_t)(k0 + kk) * D + d0 + c]);
-      }
-      __syncthreads();
-      mac_block(As, HT_LD, Bs, CN, acc);
-    }
+  float acc[8][8];
+  zero(acc);
+  if (__syncthreads_or(tid < rows && mask[m0 + tid] > 0.f)) {
+    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    const bool a_in = (tid >> 1) < rows;
+    const T* pa = dp + (m0 + (tid >> 1)) * Kc + 4 * (tid & 1);
+    const int bn = 4 * (tid & 31);
+    const bool b_in = n0 + bn < D;
+    const T* pb = wcat + (size_t)(tid >> 5) * D + n0 + bn;
+    auto fetch = [&](int c, float4& ra, float4& rb) {
+      ra = a_in ? load4(pa + c * GK) : zero4;
+      rb = b_in ? load4(pb + (size_t)c * GK * D) : zero4;
+      return true;
+    };
+    auto put = [&](float* st, const float4& ra, const float4& rb) {
+      put_transposed(st, ra);
+      put_rows(st + GK * S_LD, rb);
+    };
+    sgemm_loop(Kc / GK, smem, fetch, put, acc);
   }
-  const float* gb = g + (size_t)b * D + d0 + 4 * tx;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
+  for (int i = 0; i < 8; ++i) {
+    const int r = row_of(i);
     if (r >= rows) continue;
-    const bool valid = mb[r] > 0.f;
-    const float ar = a[row0 + r];
-    float v[4];
+    const size_t row = m0 + r;
+    const bool valid = mask[row] > 0.f;
+    const float ar = a[row];
+    const float* gb = g + (row / N) * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = valid ? fmaf(ar, gb[j], acc[i][j]) : 0.f;
-    store4(dh + (row0 + r) * D + d0 + 4 * tx, v);
+    for (int q = 0; q < 2; ++q) {
+      const int col = n0 + 64 * q + 4 * tx;
+      if (col >= D) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = valid ? fmaf(ar, gb[col + j], acc[i][4 * q + j]) : 0.f;
+      store4(dh + row * D + col, v);
+    }
   }
 }
 
-// Kernel 3.  part[s] rows d0 .. d0 + 63, columns k0 .. k0 + 63 of
-// h^T [dpa | dpb] over the flattened rows of split s.
+// Kernel 3.  part[s] = h^T [dpa | dpb] over the flattened rows of split s:
+// the CTA owns rows d0 .. d0 + 127 of D and columns k0 .. k0 + 127 of Kc
+// (upper halves masked off at a 64-wide edge) and walks the split's rows
+// GK at a time; A = h rows, B = dp rows, both staged as they lie.  Chunks
+// whose rows are all masked are skipped: their dp rows are exact zeros.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 bwd_dw_partial_kernel(const T* __restrict__ h, const T* __restrict__ dp,
                       const float* __restrict__ mask,
                       float* __restrict__ part,  // [S, D, Kc]
                       int M, int D, int Kc, int rows_per_split) {
-  __shared__ __align__(16) float Hs[KC * CN];
-  __shared__ __align__(16) float Ps[KC * CN];
-  const int k0 = blockIdx.x * CN, d0 = blockIdx.y * CN, s = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  __shared__ __align__(16) float smem[2 * STAGE];
+  const int k0 = blockIdx.x * GT, d0 = blockIdx.y * GT, s = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid & 15;
   const int row_begin = s * rows_per_split;
   const int row_end = min(M, row_begin + rows_per_split);
 
-  float acc[4][4] = {};
-  for (int r0 = row_begin; r0 < row_end; r0 += KC) {
-    const int n = min(KC, row_end - r0);
-    // also the barrier that lets the previous chunk's readers finish
-    if (!__syncthreads_or(tid < n && mask[r0 + tid] > 0.f)) continue;
-    for (int i = tid; i < KC * CN; i += THREADS) {
-      const int rr = i / CN, c = i - rr * CN;
-      const bool in = rr < n;
-      Hs[i] = in ? to_f32(h[(size_t)(r0 + rr) * D + d0 + c]) : 0.f;
-      Ps[i] = in ? to_f32(dp[(size_t)(r0 + rr) * Kc + k0 + c]) : 0.f;
-    }
-    __syncthreads();
-    mac_block(Hs, CN, Ps, CN, acc);
-  }
-  float* ps = part + ((size_t)s * D + d0 + 4 * ty) * Kc + k0 + 4 * tx;
+  float acc[8][8];
+  zero(acc);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int kr = tid >> 5, cn = 4 * (tid & 31);
+  const bool a_in = d0 + cn < D, b_in = k0 + cn < Kc;
+  const T* pa = h + (size_t)(row_begin + kr) * D + d0 + cn;
+  const T* pb = dp + (size_t)(row_begin + kr) * Kc + k0 + cn;
+  auto fetch = [&](int c, float4& ra, float4& rb) {
+    const int r = row_begin + c * GK + kr;
+    const bool in = r < row_end;
+    ra = in && a_in ? load4(pa + (size_t)c * GK * D) : zero4;
+    rb = in && b_in ? load4(pb + (size_t)c * GK * Kc) : zero4;
+    return in && (tid & 31) == 0 && mask[r] > 0.f;
+  };
+  auto put = [&](float* st, const float4& ra, const float4& rb) {
+    put_rows(st, ra);
+    put_rows(st + GK * S_LD, rb);
+  };
+  sgemm_loop((row_end - row_begin + GK - 1) / GK, smem, fetch, put, acc);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) store4(ps + (size_t)i * Kc, acc[i]);
+  for (int i = 0; i < 8; ++i) {
+    const int d = d0 + row_of(i);
+    if (d >= D) continue;
+    float* ps = part + ((size_t)s * D + d) * Kc;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = k0 + 64 * q + 4 * tx;
+      if (col < Kc)
+        store4(ps + col, {acc[i][4 * q], acc[i][4 * q + 1],
+                          acc[i][4 * q + 2], acc[i][4 * q + 3]});
+    }
+  }
 }
 
-// Kernel 4.  dW = sum over s of part[s]; dvec[q] = sum over tiles of
-// part_vec[tile][q], each in index order.
+// Kernel 4, the first level of the column sums: grp[q] = the sum of the
+// tiles' rows part_vec[VG q .. VG q + VG - 1] (fewer in the last group) for
+// a band of 64 of the n_vec columns.  Four lanes of 64 threads each add a
+// quarter of the group's rows in index order; a shared-memory tree adds
+// the lanes as (0 + 1) + (2 + 3).
+__global__ void __launch_bounds__(THREADS)
+bwd_vec_partial_kernel(const float* __restrict__ part_vec,
+                       float* __restrict__ grp, int tiles, int n_vec) {
+  __shared__ float red[4][64];
+  const int x = threadIdx.x & 63, lane = threadIdx.x >> 6;
+  const int c = blockIdx.x * 64 + x, q = blockIdx.y;
+  const int t0 = q * VG + lane * (VG / 4);
+  const int t1 = min(tiles, t0 + VG / 4);
+  float v = 0.f;
+  for (int t = t0; t < t1; ++t) v += part_vec[(size_t)t * n_vec + c];
+  red[lane][x] = v;
+  __syncthreads();
+  if (lane == 0)
+    grp[(size_t)q * n_vec + c] = (red[0][x] + red[1][x]) +
+                                 (red[2][x] + red[3][x]);
+}
+
+// Kernel 5, the last level: dW = the sum over the S splits of part[s] and
+// dvec = the sum over the G groups of grp[q], each in index order.
 __global__ void __launch_bounds__(THREADS)
 bwd_reduce_kernel(const float* __restrict__ part,
-                  const float* __restrict__ part_vec,
-                  float* __restrict__ dW, float* __restrict__ dvec, int S,
-                  int n_dw, int T, int n_vec) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_dw + n_vec;
-       i += gridDim.x * blockDim.x) {
-    float v = 0.f;
-    if (i < n_dw) {
-      for (int s = 0; s < S; ++s) v += part[(size_t)s * n_dw + i];
-      dW[i] = v;
-    } else {
-      const int j = i - n_dw;
-      for (int t = 0; t < T; ++t) v += part_vec[(size_t)t * n_vec + j];
-      dvec[j] = v;
-    }
+                  const float* __restrict__ grp, float* __restrict__ dW,
+                  float* __restrict__ dvec, int S, int n_dw, int G,
+                  int n_vec) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float v = 0.f;
+  if (i < n_dw) {
+    for (int s = 0; s < S; ++s) v += part[(size_t)s * n_dw + i];
+    dW[i] = v;
+  } else if (i < n_dw + n_vec) {
+    const int j = i - n_dw;
+    for (int q = 0; q < G; ++q) v += grp[(size_t)q * n_vec + j];
+    dvec[j] = v;
   }
-}
-
-template <typename T>
-size_t rows_smem_bytes(int D) {
-  return ((size_t)D * HT_LD + 2 * KC * CN + 3 * 16 * CN) * sizeof(float);
 }
 
 template <typename T, bool GATED, bool DROPOUT>
@@ -445,65 +570,92 @@ cudaError_t launch(const void* h, const float* mask, const void* wa,
                    const float* ba, const void* wb, const float* bb,
                    const float* wc, const float* cc, const void* wcat,
                    const uint8_t* da, const uint8_t* db, const float* out,
-                   const float* ml, const float* g, void* dp, float* a,
-                   float* part_vec, float* part_dw, void* dh, float* dW,
-                   float* dvec, float inv_keep, int B, int N, int D, int Da,
-                   int splits, int rows_per_split, cudaStream_t stream) {
+                   const float* ml, const float* g, void* dp, float* tu,
+                   float* a, float* part_vec, float* part_grp, float* part_dw,
+                   void* dh, float* dW, float* dvec, float inv_keep, int B,
+                   int N, int D, int Da, int splits, int rows_per_split,
+                   cudaStream_t stream) {
   const T* ht = static_cast<const T*>(h);
   T* dpt = static_cast<T*>(dp);
   const int Kc = GATED ? 2 * Da : Da;
-  const int tiles = (N + TM - 1) / TM;
-  auto rows = bwd_rows_kernel<T, GATED, DROPOUT>;
-  const size_t smem = rows_smem_bytes<T>(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  rows<<<dim3(tiles, B), THREADS, smem, stream>>>(
+  const int M = B * N;
+  const int tiles = (M + GT - 1) / GT;
+  bwd_rows_kernel<T, GATED, DROPOUT><<<tiles, THREADS, 0, stream>>>(
       ht, mask, static_cast<const T*>(wa), ba, static_cast<const T*>(wb), bb,
-      wc, cc, da, db, out, ml, g, dpt, a, part_vec, inv_keep, N, D, Da);
+      wc, cc, da, db, out, ml, g, dpt, tu, a, part_vec, inv_keep, M, N, D,
+      Da);
+  cudaError_t err;
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dh_kernel<T><<<dim3(D / CN, tiles, B), THREADS, 0, stream>>>(
-      dpt, static_cast<const T*>(wcat), a, g, mask, static_cast<T*>(dh), N,
-      D, Kc);
+  const int n_col = (D + GT - 1) / GT;
+  bwd_dh_kernel<T><<<n_col * tiles, THREADS, 0, stream>>>(
+      dpt, static_cast<const T*>(wcat), a, g, mask, static_cast<T*>(dh), M,
+      N, D, Kc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dw_partial_kernel<T><<<dim3(Kc / CN, D / CN, splits), THREADS, 0,
-                             stream>>>(ht, dpt, mask, part_dw, B * N, D, Kc,
-                                       rows_per_split);
+  bwd_dw_partial_kernel<T><<<dim3((Kc + GT - 1) / GT, n_col, splits),
+                             THREADS, 0, stream>>>(ht, dpt, mask, part_dw, M,
+                                                   D, Kc, rows_per_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int n_dw = D * Kc, n_vec = 3 * Da;
+  const int groups = (tiles + VG - 1) / VG;
+  bwd_vec_partial_kernel<<<dim3(n_vec / 64, groups), THREADS, 0, stream>>>(
+      part_vec, part_grp, tiles, n_vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int blocks = (n_dw + n_vec + THREADS - 1) / THREADS;
   bwd_reduce_kernel<<<blocks, THREADS, 0, stream>>>(
-      part_dw, part_vec, dW, dvec, splits, n_dw, B * tiles, n_vec);
+      part_dw, part_grp, dW, dvec, splits, n_dw, groups, n_vec);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dw_ctas_per_sm() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, bwd_dw_partial_kernel<T>, THREADS, 0) != cudaSuccess)
+    return 0;
+  return n;
 }
 
 }  // namespace
 
 extern "C" {
 
-int mil_pool_bwd_tile_rows() { return TM; }
+int mil_pool_bwd_tile() { return GT; }
+int mil_pool_bwd_depth() { return GK; }
+int mil_pool_bwd_vec_group() { return VG; }
+
+// CTAs of the dW partial kernel that one SM of the current device runs at
+// once (0 on error).
+int mil_pool_bwd_dw_ctas_per_sm(int bf16) {
+  return bf16 ? dw_ctas_per_sm<__nv_bfloat16>() : dw_ctas_per_sm<float>();
+}
 
 // h [B, N, D] f32 or bf16; mask [B, N] f32; wa/wb [D, Da] and wcat
 // [Kc, D] = [Wa^T; Wb^T] (Kc = 2 Da gated, Da ungated) in h's dtype;
 // ba/bb/wc [Da], cc [1], out/g [B, D], ml [B, 2] f32; da/db uint8 keep
-// masks [B, N, Da] scaled by inv_keep, or both null.  Scratch: dp
-// [B * N, Kc] in h's dtype, a [B, N], part_vec [B * ceil(N / TM), 3, Da],
-// part_dw [splits, D, Kc] f32.  Outputs: dh [B, N, D] in h's dtype, dW
-// [D, Kc] = [dWa | dWb] and dvec [3, Da] = (dba, dbb, dwc) f32.  All
-// contiguous on one device and 16-byte aligned; D and Da multiples of 64,
-// D <= MAX_D; rows_per_split a multiple of 32 with splits * rows_per_split
-// >= B * N.  Returns the CUDA error code of the launches (0 = success).
+// masks [B, N, Da] scaled by inv_keep, or both null.  With M = B N and
+// tiles = ceil(M / GT), the scratch is: dp [M, Kc] in h's dtype; tu
+// [M, Kc] f32, which is dp itself when h is f32; a [M]; part_vec
+// [tiles, 3, Da]; part_grp [ceil(tiles / VG), 3, Da]; part_dw [splits, D,
+// Kc] f32.  Outputs: dh [B, N, D] in h's dtype, dW [D, Kc] = [dWa | dWb]
+// and dvec [3, Da] = (dba, dbb, dwc) f32.  All contiguous on one device
+// and 16-byte aligned; D and Da multiples of 64, D <= MAX_D; 1 <= M <
+// 2^31; rows_per_split a multiple of GK, splits * rows_per_split >= M and
+// every split non-empty.  Returns the CUDA error code of the launches
+// (0 = success).
 int mil_pool_bwd(const void* h, const void* mask, const void* wa,
                  const void* ba, const void* wb, const void* bb,
                  const void* wc, const void* cc, const void* wcat,
                  const void* da, const void* db, const void* out,
-                 const void* ml, const void* g, void* dp, void* a,
-                 void* part_vec, void* part_dw, void* dh, void* dW,
-                 void* dvec, float inv_keep, int B, int N, int D, int Da,
-                 int splits, int rows_per_split, int gated, int bf16,
+                 const void* ml, const void* g, void* dp, void* tu, void* a,
+                 void* part_vec, void* part_grp, void* part_dw, void* dh,
+                 void* dW, void* dvec, float inv_keep, int B, int N, int D,
+                 int Da, int splits, int rows_per_split, int gated, int bf16,
                  void* stream) {
-  if (D > MAX_D || D % CN != 0 || Da % CN != 0 || rows_per_split % KC != 0 ||
-      (long long)splits * rows_per_split < (long long)B * N ||
+  const long long M = (long long)B * N;
+  if (D > MAX_D || D % 64 != 0 || Da % 64 != 0 || M < 1 || M > INT32_MAX ||
+      rows_per_split < GK || rows_per_split % GK != 0 || splits < 1 ||
+      (long long)splits * rows_per_split < M ||
+      (long long)(splits - 1) * rows_per_split >= M ||
       (da != nullptr && db == nullptr))
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -511,11 +663,11 @@ int mil_pool_bwd(const void* h, const void* mask, const void* wa,
   auto u8 = [](const void* p) { return static_cast<const uint8_t*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool dropout = da != nullptr;
-#define MIL_LAUNCH(T, G, DR)                                                  \
-  launch<T, G, DR>(h, f(mask), wa, f(ba), wb, f(bb), f(wc), f(cc), wcat,     \
-                   u8(da), u8(db), f(out), f(ml), f(g), dp, w(a),            \
-                   w(part_vec), w(part_dw), dh, w(dW), w(dvec), inv_keep, B, \
-                   N, D, Da, splits, rows_per_split, st)
+#define MIL_LAUNCH(T, G, DR)                                                 \
+  launch<T, G, DR>(h, f(mask), wa, f(ba), wb, f(bb), f(wc), f(cc), wcat,    \
+                   u8(da), u8(db), f(out), f(ml), f(g), dp, w(tu), w(a),    \
+                   w(part_vec), w(part_grp), w(part_dw), dh, w(dW), w(dvec), \
+                   inv_keep, B, N, D, Da, splits, rows_per_split, st)
 #define MIL_LAUNCH_G(T, G) \
   (dropout ? MIL_LAUNCH(T, G, true) : MIL_LAUNCH(T, G, false))
   cudaError_t err;

@@ -248,8 +248,11 @@ def _pool_bwd_plain(h, mask, params: AttnParams, out, ml, g, gated: bool,
 
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE_ROWS = 64  # TM in both sources
-_MAX_D = 512     # MAX_D in the forward source
+_TILE_ROWS = 64  # TM in the forward source
+_MAX_D = 512     # MAX_D in both sources
+# the backward source's GT (row tile and SGEMM output tile), GK (the SGEMM
+# core's staged depth) and VG (row tiles per group of column sums)
+_BWD_TILE, _BWD_DEPTH, _BWD_VEC_GROUP = 128, 8, 64
 
 
 def _fwd_lib():
@@ -272,13 +275,16 @@ def _bwd_lib():
     from multimodalfusion_tpu_torch.ops import cuda_build
     lib = cuda_build.load("mil_pool_bwd")
     if lib.mil_pool_bwd.argtypes is None:
-        lib.mil_pool_bwd.argtypes = ([_VP] * 21 + [_FLOAT] + [_INT] * 8
+        lib.mil_pool_bwd.argtypes = ([_VP] * 23 + [_FLOAT] + [_INT] * 8
                                      + [_VP])
         lib.mil_pool_bwd.restype = ctypes.c_int
-        built = lib.mil_pool_bwd_tile_rows()
-        if built != _TILE_ROWS:
-            raise RuntimeError(f"mil_pool_bwd was built with TM = {built}, "
-                               f"the wrapper expects {_TILE_ROWS}")
+        lib.mil_pool_bwd_dw_ctas_per_sm.argtypes = [_INT]
+        built = (lib.mil_pool_bwd_tile(), lib.mil_pool_bwd_depth(),
+                 lib.mil_pool_bwd_vec_group())
+        want = (_BWD_TILE, _BWD_DEPTH, _BWD_VEC_GROUP)
+        if built != want:
+            raise RuntimeError(f"mil_pool_bwd was built with (GT, GK, VG) "
+                               f"= {built}, the wrapper expects {want}")
     return lib
 
 
@@ -402,11 +408,49 @@ def _fused_pool_cuda(h, mask, params: AttnParams, gated: bool, da=None,
 _fused_pool_cuda.launches = 0
 
 
-def _dw_splits(device, rows: int, D: int, Kc: int) -> int:
-    """Row chunks of the split-K dW kernel: about four CTAs per SM over
-    the (D/64) x (Kc/64) output tiles, each chunk a multiple of 32 rows."""
-    tiles = (D // 64) * (Kc // 64)
-    return max(1, min(-(-rows // 32), (4 * _sms(device)) // tiles))
+class BwdPlan(NamedTuple):
+    """Grid and scratch shapes of one backward launch, as the C interface
+    of ``csrc/mil_pool_bwd.cu`` documents them (M = B * N rows, Kc
+    columns of [dpa | dpb], ``tiles`` = ceil(M / 128))."""
+    splits: int                # row splits of the dW partial kernel
+    rows_per_split: int
+    dp: Tuple[int, int]        # [M, Kc], the bag's dtype
+    tu: Tuple[int, int]        # [M, Kc] f32 (dp itself for f32 bags)
+    part_vec: Tuple[int, int, int]  # [tiles, 3, Da]
+    part_grp: Tuple[int, int, int]  # [ceil(tiles / VG), 3, Da]
+    part_dw: Tuple[int, int, int]   # [splits, D, Kc]
+
+
+def bwd_plan(B: int, N: int, D: int, Da: int, gated: bool, sms: int,
+             ctas_per_sm: int) -> BwdPlan:
+    """The backward's launch plan on a card with ``sms`` SMs that run
+    ``ctas_per_sm`` CTAs of the dW partial kernel each.  Its
+    ceil(D/128) x ceil(Kc/128) output tiles times the row splits fill at
+    most one wave; each split is a whole number of the kernel's GK-row
+    chunks and holds at least one row."""
+    rows = B * N
+    Kc = 2 * Da if gated else Da
+    tiles = -(-rows // _BWD_TILE)
+    groups = -(-tiles // _BWD_VEC_GROUP)
+    out_tiles = -(-D // _BWD_TILE) * -(-Kc // _BWD_TILE)
+    chunks = max(1, -(-rows // _BWD_DEPTH))
+    splits = max(1, min(chunks, ctas_per_sm * sms // out_tiles))
+    rows_per_split = -(-chunks // splits) * _BWD_DEPTH
+    splits = max(1, -(-rows // rows_per_split))
+    return BwdPlan(splits=splits, rows_per_split=rows_per_split,
+                   dp=(rows, Kc), tu=(rows, Kc), part_vec=(tiles, 3, Da),
+                   part_grp=(groups, 3, Da), part_dw=(splits, D, Kc))
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_ctas_per_sm(device: torch.device, bf16: bool) -> int:
+    """CTAs of the backward's dW partial kernel that one SM runs at once."""
+    lib = _bwd_lib()
+    with torch.cuda.device(device):
+        n = lib.mil_pool_bwd_dw_ctas_per_sm(int(bf16))
+    if n < 1:
+        raise RuntimeError(f"mil_pool_bwd cannot run on {device}")
+    return n
 
 
 def _fused_pool_bwd_cuda(h, mask, params: AttnParams, out, ml, g,
@@ -443,31 +487,32 @@ def _fused_pool_bwd_cuda(h, mask, params: AttnParams, out, ml, g,
     dh = torch.empty_like(h)
     dW = torch.empty((D, Kc), dtype=f32, device=dev)
     dvec = torch.empty((3, Da), dtype=f32, device=dev)  # dba, dbb, dwc
-    n_tiles = max(1, -(-N // _TILE_ROWS))
-    rows = B * N
-    splits = _dw_splits(dev, rows, D, Kc)
-    rows_per_split = -(-rows // splits)
-    rows_per_split = -(-rows_per_split // 32) * 32
-    splits = max(1, -(-rows // rows_per_split))
-    # scratch: [dpa | dpb] per row in the bag's dtype, the attention
-    # weights a [B, N], per-tile column sums of (dpa, dpb, z * ds) and the
-    # split-K partials of dW
-    dp = torch.empty((rows, Kc), dtype=h.dtype, device=dev)
-    a = torch.empty((B, N), dtype=f32, device=dev)
-    part_vec = torch.empty((B * n_tiles, 3, Da), dtype=f32, device=dev)
-    part_dw = torch.empty((splits, D, Kc), dtype=f32, device=dev)
     if B and N:
+        bf16 = h.dtype == torch.bfloat16
+        plan = bwd_plan(B, N, D, Da, gated, _sms(dev),
+                        _dw_ctas_per_sm(dev, bf16))
+        # scratch: [dpa | dpb] per row in the bag's dtype; t and u per row
+        # in f32 between the rows kernel's two passes (dp itself for f32
+        # bags, overwritten in place); the attention weights a; per-tile
+        # column sums of (dpa, dpb, z * ds) and their group sums; the dW
+        # partials of the row splits
+        dp = torch.empty(plan.dp, dtype=h.dtype, device=dev)
+        tu = torch.empty(plan.tu, dtype=f32, device=dev) if bf16 else dp
+        a = torch.empty((B, N), dtype=f32, device=dev)
+        part_vec = torch.empty(plan.part_vec, dtype=f32, device=dev)
+        part_grp = torch.empty(plan.part_grp, dtype=f32, device=dev)
+        part_dw = torch.empty(plan.part_dw, dtype=f32, device=dev)
         lib = _bwd_lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mil_pool_bwd(
             h.data_ptr(), mask.data_ptr(), wa.data_ptr(), ba.data_ptr(),
             wb.data_ptr(), bb.data_ptr(), wc.data_ptr(), cc.data_ptr(),
             wcat.data_ptr(), _ptr(da), _ptr(db), out.data_ptr(),
-            ml.data_ptr(), g.data_ptr(), dp.data_ptr(), a.data_ptr(),
-            part_vec.data_ptr(), part_dw.data_ptr(), dh.data_ptr(),
-            dW.data_ptr(), dvec.data_ptr(), 1.0 / (1.0 - rate), B, N, D,
-            Da, splits, rows_per_split, int(gated),
-            int(h.dtype == torch.bfloat16), stream)
+            ml.data_ptr(), g.data_ptr(), dp.data_ptr(), tu.data_ptr(),
+            a.data_ptr(), part_vec.data_ptr(), part_grp.data_ptr(),
+            part_dw.data_ptr(), dh.data_ptr(), dW.data_ptr(),
+            dvec.data_ptr(), 1.0 / (1.0 - rate), B, N, D, Da, plan.splits,
+            plan.rows_per_split, int(gated), int(bf16), stream)
         if err != 0:
             raise RuntimeError(f"mil_pool_bwd launch failed: CUDA error "
                                f"{err}")

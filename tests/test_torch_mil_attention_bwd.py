@@ -5,6 +5,9 @@ dropout masks vs the Pallas forward kernel; the autograd Functions vs
 ``jax.grad``; and the properties of ``make_dropout_masks``.  On the CPU the
 port runs its plain versions; the CUDA kernels are held against them on
 the card by chip_smoke.py."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -253,3 +256,61 @@ def test_backward_wrapper_refuses_cpu_tensors():
         tmil._fused_pool_bwd_cuda(th, torch.from_numpy(mask), params, out,
                                   ml, torch.from_numpy(g), True)
     assert tmil._fused_pool_bwd_cuda.launches == before
+
+
+def test_backward_plan_constants_match_the_source():
+    """The wrapper's mirror of the backward source's constants (the row
+    and SGEMM tile GT, the SGEMM depth GK, the column-sum group VG, the
+    widest D) agrees with csrc/mil_pool_bwd.cu; on the card the wrapper
+    also checks the built library."""
+    src = os.path.join(os.path.dirname(os.path.dirname(tmil.__file__)),
+                       "csrc", "mil_pool_bwd.cu")
+    with open(src) as f:
+        text = f.read()
+    got = {k: int(re.search(rf"constexpr int {k} = (\d+);", text)[1])
+           for k in ("GT", "GK", "VG", "MAX_D")}
+    assert got == {"GT": tmil._BWD_TILE, "GK": tmil._BWD_DEPTH,
+                   "VG": tmil._BWD_VEC_GROUP, "MAX_D": tmil._MAX_D}
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("B,N,D,Da,gated", [
+    (32, 4096, 256, 256, True),    # the training CLI's kernel shape
+    (8, 4096, 256, 256, True),     # a B=8 training step
+    (3, 300, 64, 64, True),        # half a 128-wide tile; 900 rows end
+    (3, 300, 64, 64, False),       # the last split mid-chunk
+    (4, 700, 512, 384, True),      # Da = 384: Kc = 768 gated
+    (4, 700, 512, 384, False),
+    (2, 32768, 256, 256, True),
+    (1, 1, 64, 64, True),          # N = 1
+    (5, 1, 128, 64, False),
+    (4, 0, 256, 256, True),        # N = 0: nothing is launched
+    (0, 100, 64, 64, True),
+])
+def test_backward_launch_plan(B, N, D, Da, gated, sms):
+    """``bwd_plan``: the dW partial kernel's row splits cover every row,
+    each split is a whole number of the kernel's GK-row chunks and holds
+    at least one row, the grid stays within one wave, and the scratch has
+    the shapes the C interface of mil_pool_bwd.cu documents."""
+    rows, Kc = B * N, (2 * Da if gated else Da)
+    depth = tmil._BWD_DEPTH
+    out_tiles = -(-D // 128) * -(-Kc // 128)
+    tiles = -(-rows // 128)
+    for ctas_per_sm in (1, 2, 4):
+        plan = tmil.bwd_plan(B, N, D, Da, gated, sms, ctas_per_sm)
+        assert plan.splits >= 1
+        assert plan.splits * plan.rows_per_split >= rows
+        assert plan.rows_per_split >= depth
+        assert plan.rows_per_split % depth == 0
+        if rows:
+            assert (plan.splits - 1) * plan.rows_per_split < rows
+        assert (plan.splits == 1
+                or plan.splits * out_tiles <= ctas_per_sm * sms)
+        assert plan.dp == plan.tu == (rows, Kc)
+        assert plan.part_vec == (tiles, 3, Da)
+        assert plan.part_grp == (-(-tiles // 64), 3, Da)
+        assert plan.part_dw == (plan.splits, D, Kc)
+    if (B, N, D, Da, gated, sms) == (32, 4096, 256, 256, True, 132):
+        # 8 output tiles x 33 splits of 3,976 rows: one wave of 2 x 132
+        plan = tmil.bwd_plan(B, N, D, Da, gated, sms, 2)
+        assert (plan.splits, plan.rows_per_split) == (33, 3976)
