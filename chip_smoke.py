@@ -16,8 +16,8 @@ Phases, each fatal on failure:
                 backward's last dW split mid-chunk, and one N=32,768
                 bag.  f32 at rel 1e-4, bf16 at
                 rel 2e-2 (pooled, ml, dh and the parameter gradients);
-                dcc == 0, dh == 0 on masked rows, and two backward
-                launches on the same inputs agree bit for bit.
+                dcc == 0, dh == 0 on masked rows, and two launches of
+                either kernel on the same inputs agree bit for bit.
   3. slice   -- write a synthetic stage-2 pathology experiment at full
                 PathAMIL width and serve it through cli.infer on the card,
                 with every kernel launch counter reset just before and
@@ -33,10 +33,13 @@ Phases, each fatal on failure:
                 through the plain versions, from one init and the same
                 generator seeds, must agree.
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
-                the bound (bytes or operations over the card's peak), and
-                a training step's breakdown with CUDA events.
-  digest     -- only when asked for (--phases digest): SHA-256 of the
-                backward's outputs on seeded cases, to compare two
+                the bound (bytes or operations over the card's peak) and,
+                for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
+                the same shape as a yardstick; device time per sub-kernel
+                under torch.profiler; a training step's breakdown with
+                CUDA events.
+  digest     -- only when asked for (--phases digest): SHA-256 of both
+                kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -152,13 +155,15 @@ def phase_kernels():
             h[5] = 0  # the padding row of a partial batch
         with torch.no_grad():
             out, ml = mil._fused_pool_cuda(h, mask, params, gated)
+            out2, ml2 = mil._fused_pool_cuda(h, mask, params, gated)
             ref, ref_ml = mil._pool_plain(h, mask, params, gated)
         torch.cuda.synchronize()
+        repeat = torch.equal(out, out2) and torch.equal(ml, ml2)
         e_out = rel_err(out, ref)
         live = ref_ml[:, 1] > 0
         e_m = rel_err(ml[live, 0], ref_ml[live, 0]) if live.any() else 0.0
         e_l = rel_err(ml[:, 1], ref_ml[:, 1])
-        ok = (torch.isfinite(out).all().item() and
+        ok = (repeat and torch.isfinite(out).all().item() and
               max(e_out, e_m, e_l) <= TOL[dtype])
         if lens is not None:
             empty = torch.tensor([n == 0 for n in lens], device="cuda")
@@ -168,6 +173,7 @@ def phase_kernels():
         log(f"[kernels] {tag:8s} B={B} N={N} D={D} Da={Da} {dtype:8s} "
             f"gated={gated!s:5s} rel(pooled)={e_out:.2e} rel(m)={e_m:.2e} "
             f"rel(l)={e_l:.2e} tol={TOL[dtype]:.0e} "
+            f"repeat={'bitwise' if repeat else 'DIFFERS'} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version "
@@ -177,8 +183,8 @@ def phase_kernels():
 
 def phase_kernels_train():
     """The forward kernel's dropout variants and the backward kernel
-    against their plain versions, on the same masks; the backward twice
-    on the same inputs must agree bit for bit."""
+    against their plain versions, on the same masks; each kernel twice on
+    the same inputs must agree bit for bit."""
     import torch
     from multimodalfusion_tpu_torch.ops import mil_attention as mil
     cases = []
@@ -209,6 +215,7 @@ def phase_kernels_train():
         g = torch.randn(B, D, generator=gen, device="cuda")
         with torch.no_grad():
             out, ml = mil._fused_pool_cuda(h, mask, params, gated, da, db)
+            out2, ml2 = mil._fused_pool_cuda(h, mask, params, gated, da, db)
             ref, ref_ml = mil._pool_plain(h, mask, params, gated, da, db)
             dh, grads = mil._fused_pool_bwd_cuda(h, mask, params, ref,
                                                  ref_ml, g, gated, da, db)
@@ -227,8 +234,9 @@ def phase_kernels_train():
         masked = mask == 0
         finite = all(bool(torch.isfinite(t).all()) for t in
                      (out, ml[:, 1], dh.float(), *grads))
-        repeat = torch.equal(dh, dh2) and all(
-            torch.equal(x, y) for x, y in zip(grads, grads2))
+        repeat = (torch.equal(out, out2) and torch.equal(ml, ml2)
+                  and torch.equal(dh, dh2) and all(
+                      torch.equal(x, y) for x, y in zip(grads, grads2)))
         ok = (finite and repeat and e_fwd <= TOL[dtype]
               and e_dh <= TOL[dtype]
               and max(e_grad.values()) <= GRAD_TOL[dtype]
@@ -253,14 +261,23 @@ def phase_kernels_train():
 
 
 def phase_digest():
-    """SHA-256 of the backward kernel's outputs (dh and each parameter
-    gradient) on seeded cases, one line per case.  Run this script with
+    """SHA-256 of the kernels' outputs on seeded cases: per case one
+    [digest] line for the backward (dh and each parameter gradient) and one
+    [digest-fwd] line for the forward (out and ml).  Run this script with
     ``--phases digest`` from two checkouts on one card to see whether their
-    backward kernels agree bit for bit."""
+    kernels agree bit for bit."""
     import hashlib
 
     import torch
     from multimodalfusion_tpu_torch.ops import mil_attention as mil
+
+    def sha(names, tensors):
+        sums = []
+        for k, t in zip(names, tensors):
+            raw = t.contiguous().view(torch.uint8).cpu()
+            digest = hashlib.sha256(raw.numpy().tobytes())
+            sums.append(f"{k}={digest.hexdigest()[:12]}")
+        return " ".join(sums)
     shapes = ((6, 1000, 256, 256, [1000, 0, 517, 33, 999, 0]),
               (4, 700, 512, 384, [700, 0, 350, 1]),
               (32, 4096, 256, 256, None))
@@ -281,14 +298,14 @@ def phase_digest():
                                                   db)
                         dh, grads = mil._fused_pool_bwd_cuda(
                             h, mask, params, out, ml, g, gated, da, db)
-                    names = ("dh",) + mil.AttnParams._fields
-                    sums = []
-                    for k, t in zip(names, (dh, *grads)):
-                        raw = t.contiguous().view(torch.uint8).cpu()
-                        digest = hashlib.sha256(raw.numpy().tobytes())
-                        sums.append(f"{k}={digest.hexdigest()[:12]}")
-                    log(f"[digest] B={B} N={N} D={D} Da={Da} {dtype} "
-                        f"gated={gated} dropout={dropout} " + " ".join(sums))
+                        k_out, k_ml = mil._fused_pool_cuda(
+                            h, mask, params, gated, da, db)
+                    case = (f"B={B} N={N} D={D} Da={Da} {dtype} "
+                            f"gated={gated} dropout={dropout} ")
+                    log("[digest] " + case + sha(
+                        ("dh",) + mil.AttnParams._fields, (dh, *grads)))
+                    log("[digest-fwd] " + case + sha(("out", "ml"),
+                                                     (k_out, k_ml)))
 
 
 def _write_experiment(root, n_subjects=34, seed=0):
@@ -708,12 +725,25 @@ def _device_time(fn, reps=5):
 
 def phase_timing(B=32, N=4096, D=256, Da=256):
     """Each kernel variant against its plain version on the same inputs,
-    timed plain, kernel, plain; gated, at the training and serving shape."""
+    timed plain, kernel, plain; gated, at the training and serving shape.
+    The f32 forward also against cuBLAS's f32 product h [Wa | Wb] of the
+    same shape (TF32 off): not the same function (no score, softmax or
+    pooling), a yardstick for the SGEMM core on its dominant product."""
     import torch
     from multimodalfusion_tpu_torch.ops import mil_attention as mil
     res = {"mil_pool_fwd": {}, "mil_pool_bwd": {}}
     for dtype in ("float32", "bfloat16"):
         h, mask, params = make_pool_case(B, N, D, Da, dtype, seed=123)
+        cublas_ms = None
+        if dtype == "float32":
+            assert not torch.backends.cuda.matmul.allow_tf32
+            w = torch.cat([params.Wa, params.Wb], 1)
+            with torch.no_grad():
+                cublas_ms = _time_ms(lambda: h.view(-1, D) @ w)
+            log(f"[timing] yardstick: cuBLAS f32 h.view(-1, {D}) @ "
+                f"cat([Wa, Wb], 1) ({B * N} x {D} x {2 * Da}, "
+                f"{2 * B * N * D * 2 * Da / 1e9:.1f} GFLOP, TF32 off): "
+                f"{cublas_ms:.3f} ms")
         gen = torch.Generator(device="cuda").manual_seed(5)
         masks = mil.make_dropout_masks(gen, (B, N, Da), True)
         g = torch.randn(B, D, generator=gen, device="cuda")
@@ -755,12 +785,16 @@ def phase_timing(B=32, N=4096, D=256, Da=256):
                         "ms": ms, "plain_ms": min(plain1, plain2),
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "max_abs_err": err}
+                    if name == "mil_pool_fwd" and cublas_ms is not None:
+                        res[name][variant]["cublas_product_ms"] = cublas_ms
                     log(f"[timing] {name} {variant}: kernel {ms:.3f} ms, "
                         f"plain {plain1:.3f}/{plain2:.3f} ms, bound "
                         f"{bound_ms * 1e3:.1f} us ({bound_by}), "
                         f"kernel/bound {ms / bound_ms:.1f}, max abs err "
                         f"{err:.2e}")
-                    if dropout:  # the training variants, kernel by kernel
+                    # every forward variant and the backward's training
+                    # variants, kernel by kernel
+                    if dropout or name == "mil_pool_fwd":
                         per_kernel, _ = _device_time(kern)
                         res[name][variant]["profile_us"] = per_kernel
                         log(f"[timing] {name} {variant}, torch.profiler "
@@ -883,11 +917,12 @@ def main(argv=None) -> int:
             phase_digest()
         if "slice" in phases:
             phase_slice(counters[:1])
-        if "train" in phases or "timing" in phases:
+        if "train" in phases:
             _, cfg, batches, load_ms = phase_train(counters)
         if "timing" in phases:
             phase_timing()
-            phase_step_breakdown(cfg, batches, load_ms)
+            if "train" in phases:
+                phase_step_breakdown(cfg, batches, load_ms)
         log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
             f"no result)")
         return 0
@@ -923,6 +958,7 @@ def main(argv=None) -> int:
                      shape=main_variant[name], variants=timing[name])
         if name == "mil_pool_fwd":
             entry["launches_serving"] = serve_launches["_fused_pool_cuda"]
+            entry["cublas_product_ms"] = head["cublas_product_ms"]
         entries.append(entry)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -14,58 +14,70 @@
 // Attention-branch dropout (the DROPOUT variants): uint8 keep masks da, db
 // [B, N, Da] scale tanh(.) by da * inv_keep and sigmoid(.) by db * inv_keep
 // before their product, where the TPU kernel applies them
-// (mil_attention.py:220-229).  The variants without dropout compile to the
-// same code as before the masks were added.
+// (mil_attention.py:220-229).
 //
 // Design.  The TPU kernel walks a bag's row tiles one after another in a
 // sequential grid and carries (m, l, acc) in scratch.  Here a bag's rows
-// are split across `splits` CTAs (grid = splits x B, enough CTAs to fill
-// the 132 SMs at B = 16-32).  Each CTA loops over its row tiles, keeps the
-// tile in shared memory, scores it, and folds it into a running
-// (m, l, acc[D]) flash-style; tiles whose rows are all padding are
-// skipped.  The partials go to a scratch buffer and a second kernel merges
-// them per bag in a fixed split order with the algebra of
-// ops/sharded_pool.py::_combine_local, so results repeat bit for bit (no
-// float atomics).
-// Both variants work on 64-row tiles:
-//   f32 bags: plain f32 on the CUDA cores (no TF32), register-tiled like an
-//     SGEMM: the tile is kept transposed in shared memory, the weights
-//     W [D, Da] are staged through shared memory in 32 x 64 chunks, and each
-//     thread computes a 4 x 4 block of each branch's products.
-//   bf16 bags: the scoring products run on the tensor cores (mma.sync
-//     m16n8k16, bf16 in, f32 accumulate); each warp owns a strided set of
-//     8-column blocks of Da and reads Wt [Da, D] (the nn.Linear layout) as
-//     32-bit fragments through L1/L2.
+// are split across `splits` CTAs (grid = splits x B, at most one wave of
+// the card, from the occupancy query).  Each CTA loops over its row tiles,
+// scores each tile, and folds it into a running (m, l, acc[D]) flash-style;
+// tiles whose rows are all padding are skipped.  The partials go to a
+// scratch buffer and a second kernel merges them per bag in a fixed split
+// order with the algebra of ops/sharded_pool.py::_combine_local, so results
+// repeat bit for bit (no float atomics).  The tile height depends on the
+// bag's dtype:
+//   f32 bags: 128-row tiles whose products h [Wa | Wb] run on the SGEMM
+//     core of sgemm_core.cuh, which the backward shares (plain f32 on the
+//     CUDA cores, no TF32).  Per 128-wide chunk of columns (gated: 64
+//     columns of Wa beside the same 64 of Wb; ungated: 128 of Wa), A = the
+//     tile's h rows, transposed as they are staged, and B = the weight
+//     rows, staged as they lie; rows past the bag's or the split's end and
+//     columns past Da load zeros.  The epilogue applies tanh, sigmoid, the
+//     keep factors and wc (staged in shared memory per chunk) and adds into
+//     a per-row partial score, which the 16 lanes of a half-warp sum in a
+//     fixed order.  Once the tile's softmax numerators are known, its rows
+//     of h are read again (from L2, coalesced along d, in row order) into
+//     acc[D].  The tile is not kept in shared memory: 21 KB a CTA (40 KB
+//     with the staged keep masks), two CTAs on an SM at every D.
+//   bf16 bags: 64-row tiles kept in shared memory; the scoring products
+//     run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//     accumulate); each warp owns a strided set of 8-column blocks of Da
+//     and reads Wt [Da, D] (the nn.Linear layout) as 32-bit fragments
+//     through L1/L2.
 // tanh, sigmoid, the softmax and the pooling run in f32 on the CUDA cores.
-
-// Bound.  At the serving shape (B=32, N=4096, D=Da=256, bf16, gated) the
-// kernel must read 64 MiB (about 20 us at 3.35 TB/s) and do 34.4 GFLOP of
-// matrix products (about 35 us at the 989 TFLOP/s bf16 tensor-core peak),
-// plus 67 M transcendentals: it is bound by tensor-core operations.  The
-// bf16 variant uses mma.sync on the tensor cores but stages nothing
-// asynchronously and re-reads the weight fragments from L2 for every tile,
-// so it stays well above that bound; wgmma fed by TMA, with the weights
-// held in shared memory across tiles, is the route to it.  f32 bags do the
-// same products on the CUDA cores, bound by their 67 TFLOP/s (about 460 us
-// at that shape).  PERF.md records the gaps.
+//
+// Bound.  At B=32, N=4096, D=Da=256, gated, 90% of rows valid, the valid
+// rows need 2 n D 2 Da = 30.9 GFLOP of scoring products (plus 2 n D for the
+// pooling) against about 0.12 GB of bytes: f32 bags are bound by the CUDA
+// cores' 67 TFLOP/s (461.9 us), bf16 bags by the tensor cores' 989 TFLOP/s
+// (31.3 us; 36.3 us of bytes with dropout's keep masks).  What still
+// separates the f32 kernel from its bound: the core runs at about 58% of
+// the f32 peak (the backward's dh on the same core), it scores every row of
+// a tile that holds any valid row (34.4 GFLOP at 90% valid rows), the
+// epilogue's tanhf, expf and division per element of h [Wa | Wb] do not
+// overlap the products, and under the 128-register cap the dropout and
+// ungated variants spill a little (PERF.md).  The bf16 kernel stages nothing asynchronously and
+// re-reads the weight fragments from L2 for every tile: wgmma fed by TMA,
+// with the weights held in shared memory across tiles, is the route to its
+// bound.  PERF.md records the gaps.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "sgemm_core.cuh"
 
 namespace {
 
-constexpr int TM = 64;          // rows per tile
-constexpr int THREADS = 256;    // 8 warps
+using namespace sgemm;
+
+constexpr int TM = 64;          // bf16: rows per tile (f32 tiles: GT)
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_D = 512;      // acc[] registers: MAX_D / THREADS per thread
+constexpr int MAX_D = 512;      // acc[]: MAX_D / THREADS per thread
 constexpr int D_PER_THREAD = MAX_D / THREADS;
-constexpr int CN = 64;          // f32: attention columns per pass
-constexpr int KC = 32;          // f32: depth of a staged weight chunk
-constexpr int HT_LD = TM + 4;   // f32: row stride of the transposed tile
 constexpr int PAD = 8;          // bf16: tile row padding, conflict-free frags
+constexpr int KEEP_LD = 144;    // f32: bytes per row of the staged keep
+                                // masks; rows 4 apart land 16 banks apart
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -98,6 +110,226 @@ __device__ __forceinline__ float gate_drop(float za, float zb, float bak,
   return z;
 }
 
+// ---------------------------------------------------------------------------
+// f32 bags: 128-row tiles on the SGEMM core.
+// ---------------------------------------------------------------------------
+
+// x + sum over the rows r < rows of p[r] * hr[r][d], in row order (hr: the
+// tile's first row of h, row stride D).  Each group of 8 rows is loaded
+// before its products, so the loads' L2 latencies overlap (measured: 8 left
+// the gated variant's registers without a spill, 16 did not).
+__device__ __forceinline__ float pool_rows_f32(const float* hr,
+                                               const float* p, int rows,
+                                               int d, int D, float x) {
+  const float* col = hr + d;
+  int r = 0;
+  for (; r + 8 <= rows; r += 8) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = col[(size_t)(r + k) * D];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x = fmaf(p[r + k], v[k], x);
+  }
+  for (; r < rows; ++r) x = fmaf(p[r], col[(size_t)r * D], x);
+  return x;
+}
+
+// One CTA = (split, bag): the running (m, l, acc[D]) over the CTA's rows.
+// acc[D] lives in shared memory (each element read and written by one
+// thread) and (m, l) in stat_s, so that the core keeps its registers.
+// Each chunk's epilogue reads ba, bb, wc and the keep masks da/db [B, N,
+// Da] of its columns from shared memory, staged at the chunk's start
+// while the accumulators are not yet live (measured: read from global
+// memory in the epilogue, under the 128-register cap of two CTAs per SM,
+// the dropout variant ran about 6% slower).
+template <bool GATED, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS, 2)
+pool_partial_f32_kernel(const float* __restrict__ h,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ wa,
+                        const float* __restrict__ ba,
+                        const float* __restrict__ wb,
+                        const float* __restrict__ bb,
+                        const float* __restrict__ wc,
+                        const float* __restrict__ cc,
+                        const uint8_t* __restrict__ da,  // or null
+                        const uint8_t* __restrict__ db,
+                        float* __restrict__ part_acc,  // [B, S, D]
+                        float* __restrict__ part_ml,   // [B, S, 2]
+                        float inv_keep, int N, int D, int Da,
+                        int rows_per_split) {
+  __shared__ __align__(16) float smem[2 * STAGE];
+  __shared__ float s_s[GT];        // the tile's scores
+  __shared__ float p_s[GT];        // softmax numerators
+  __shared__ float acc_s[MAX_D];
+  __shared__ float stat_s[3];      // m, l, the tile's rescale factor
+  __shared__ __align__(16) float vec_s[3][GT];  // ba, bb, wc of a chunk
+  __shared__ __align__(16) uint8_t keep_s[DROPOUT ? GT * KEEP_LD : 16];
+
+  const int split = blockIdx.x, S = gridDim.x, b = blockIdx.y;
+  const int tid = threadIdx.x, tx = tid & 15, lane = tid & 31;
+  const int row_begin = split * rows_per_split;
+  const int row_end = min(N, row_begin + rows_per_split);
+  const size_t bag = (size_t)b * N;  // flattened index of the bag's row 0
+  const float* mb = mask + bag;
+
+  for (int d = tid; d < D; d += THREADS) acc_s[d] = 0.f;
+  if (tid == 0) {
+    stat_s[0] = NEG_INF;
+    stat_s[1] = 0.f;
+  }
+
+  // staging of a chunk: thread tid loads depth 4 (tid & 1) .. + 3 of tile
+  // row tid / 2 (A) and columns bn .. bn + 3 of weight row bk (B)
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int bk = tid >> 5, bn = 4 * (tid & 31);
+  auto put = [&](float* st, const float4& ra, const float4& rb) {
+    put_transposed(st, ra);
+    put_rows(st + GK * S_LD, rb);
+  };
+  const int n_chunks = GATED ? (Da + 63) / 64 : (Da + GT - 1) / GT;
+
+  for (int r0 = row_begin; r0 < row_end; r0 += GT) {
+    const int rows = min(GT, row_end - r0);
+    // also the barrier that lets the previous tile's readers finish
+    if (!__syncthreads_or(tid < rows && mb[r0 + tid] > 0.f))
+      continue;  // all padding: contributes 0
+
+    // the products h [Wa | Wb] in 128-wide chunks of columns (gated: Wa's
+    // c0 .. c0 + 63 beside Wb's; ungated: Wa's c0 .. c0 + 127), each
+    // followed by the epilogue into the rows' partial scores
+    const float* ht = h + (bag + r0) * D;
+    const bool a_in = (tid >> 1) < rows;
+    const float* pa = ht + (size_t)(tid >> 1) * D + 4 * (tid & 1);
+    float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int c0 = GATED ? 64 * ch : GT * ch;
+      // the epilogue's operands of the chunk's columns lc (gated: lc < 64,
+      // da then db; ungated: lc < 128), zeros past Da and past the tile,
+      // once the previous chunk's epilogue is done; the core's first
+      // barrier publishes them
+      __syncthreads();
+      if (tid < GT) {
+        const bool in = (!GATED || tid < 64) && c0 + tid < Da;
+        vec_s[0][tid] = in ? ba[c0 + tid] : 0.f;
+        vec_s[1][tid] = in && GATED ? bb[c0 + tid] : 0.f;
+        vec_s[2][tid] = in ? wc[c0 + tid] : 0.f;
+      }
+      if (DROPOUT) {
+#pragma unroll 4
+        for (int k = tid; k < GT * 32; k += THREADS) {  // 32 x 4 bytes a row
+          const int r = k >> 5, c4 = 4 * (k & 31);
+          const int lc = GATED ? (c4 & 63) : c4;
+          uchar4 v = make_uchar4(0, 0, 0, 0);
+          if (r < rows && c0 + lc < Da)
+            v = *reinterpret_cast<const uchar4*>(
+                (GATED && c4 >= 64 ? db : da) + (bag + r0 + r) * Da + c0 +
+                lc);
+          *reinterpret_cast<uchar4*>(keep_s + r * KEEP_LD + c4) = v;
+        }
+      }
+      const int col = c0 + (GATED ? (bn & 63) : bn);
+      const bool b_in = col < Da;  // Da % 8 == 0: all 4 columns or none
+      const float* pb =
+          (GATED && bn >= 64 ? wb : wa) + (size_t)bk * Da + col;
+      auto fetch = [&](int c, float4& ra, float4& rb) {
+        ra = a_in ? load4(pa + c * GK) : zero4;
+        rb = b_in ? load4(pb + (size_t)c * GK * Da) : zero4;
+        return true;
+      };
+      float acc[8][8];
+      zero(acc);
+      sgemm_loop(D / GK, smem, fetch, put, acc);
+
+#pragma unroll
+      for (int q = 0; q < (GATED ? 1 : 2); ++q) {
+        const int lc = 64 * q + 4 * tx;
+        if (c0 + lc >= Da) continue;  // Da % 8 == 0: all 4 columns or none
+        const float4 ba4 = *reinterpret_cast<const float4*>(&vec_s[0][lc]);
+        const float4 bb4 = *reinterpret_cast<const float4*>(&vec_s[1][lc]);
+        const float4 wc4 = *reinterpret_cast<const float4*>(&vec_s[2][lc]);
+        const float bak[4] = {ba4.x, ba4.y, ba4.z, ba4.w};
+        const float bbk[4] = {bb4.x, bb4.y, bb4.z, bb4.w};
+        const float wck[4] = {wc4.x, wc4.y, wc4.z, wc4.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = row_of(i);
+          float fa[4] = {1.f, 1.f, 1.f, 1.f}, fb[4] = {1.f, 1.f, 1.f, 1.f};
+          if (DROPOUT) {
+            const uint8_t* kr = keep_s + r * KEEP_LD;
+            const uchar4 ka = *reinterpret_cast<const uchar4*>(kr + lc);
+            const uchar4 kb = *reinterpret_cast<const uchar4*>(
+                kr + (GATED ? 64 + 4 * tx : lc));
+            fa[0] = ka.x * inv_keep; fa[1] = ka.y * inv_keep;
+            fa[2] = ka.z * inv_keep; fa[3] = ka.w * inv_keep;
+            fb[0] = kb.x * inv_keep; fb[1] = kb.y * inv_keep;
+            fb[2] = kb.z * inv_keep; fb[3] = kb.w * inv_keep;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float z = tanhf(acc[i][4 * q + j] + bak[j]);
+            if (DROPOUT) z *= fa[j];
+            if (GATED) {
+              const float u = 1.f / (1.f + expf(-(acc[i][4 + j] + bbk[j])));
+              z *= DROPOUT ? u * fb[j] : u;
+            }
+            part[i] = fmaf(z, wck[j], part[i]);
+          }
+        }
+      }
+    }
+    // the 16 threads of a half-warp share their rows
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v = part[i];
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (tx == 0) s_s[row_of(i)] = v;
+    }
+    __syncthreads();
+
+    if (tid < 32) {  // lane owns rows lane + 32 j
+      float s[4], p[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = lane + 32 * j;
+        s[j] = (r < rows && mb[r0 + r] > 0.f) ? s_s[r] + cc[0] : NEG_INF;
+      }
+      const float m_run = stat_s[0];
+      const float m_new = fmaxf(
+          m_run, warp_max(fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3]))));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[j] = s[j] == NEG_INF ? 0.f : expf(s[j] - m_new);
+        p_s[lane + 32 * j] = p[j];
+      }
+      const float psum = warp_sum((p[0] + p[1]) + (p[2] + p[3]));
+      if (lane == 0) {
+        const float corr = expf(m_run - m_new);
+        stat_s[0] = m_new;
+        stat_s[1] = stat_s[1] * corr + psum;
+        stat_s[2] = corr;
+      }
+    }
+    __syncthreads();
+
+    const float corr = stat_s[2];
+    for (int d = tid; d < D; d += THREADS)
+      acc_s[d] = pool_rows_f32(ht, p_s, rows, d, D, acc_s[d] * corr);
+  }
+
+  float* out_acc = part_acc + ((size_t)b * S + split) * D;
+  for (int d = tid; d < D; d += THREADS) out_acc[d] = acc_s[d];
+  if (tid == 0) {  // stat_s was last written by this thread
+    part_ml[((size_t)b * S + split) * 2 + 0] = stat_s[0];
+    part_ml[((size_t)b * S + split) * 2 + 1] = stat_s[1];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 bags: 64-row tiles on the tensor cores.
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -115,16 +347,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// f32: tile rows [0, rows) of hb into ht[d][r] (transposed), zeros beyond.
-__device__ __forceinline__ void load_tile(const float* hb, float* ht,
-                                          int rows, int D) {
-  for (int i = threadIdx.x; i < TM * D; i += THREADS) {
-    const int r = i / D, d = i - r * D;
-    ht[d * HT_LD + r] = (r < rows) ? hb[(size_t)r * D + d] : 0.f;
-  }
-}
-
-// bf16: tile rows [0, rows) of hb into hs[r][d] (row stride D + PAD).
+// Tile rows [0, rows) of hb into hs[r][d] (row stride D + PAD).
 __device__ __forceinline__ void load_tile(const __nv_bfloat16* hb,
                                           __nv_bfloat16* hs, int rows,
                                           int D) {
@@ -138,121 +361,10 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* hb,
   }
 }
 
-// f32: raw scores of the tile's rows, without cc.  Thread (ty, tx) owns rows
-// 4 ty .. 4 ty + 3 and, in each pass, columns c0 + 4 tx .. + 3; the column
-// sum is reduced over the 16 lanes of a half-warp.  ws: 2 x [KC][CN].
-// DROPOUT: da/db point at the tile's first row of the keep masks; rows at
-// or past `rows` are padding of the tile and read no mask.
-template <bool GATED, bool DROPOUT>
-__device__ __forceinline__ void score_tile(const float* ht, float* ws,
-                                           const float* wa, const float* ba,
-                                           const float* wb, const float* bb,
-                                           const float* wc, float* s_out,
-                                           int D, int Da,
-                                           const uint8_t* da,
-                                           const uint8_t* db, float inv_keep,
-                                           int rows) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float* wsa = ws;
-  float* wsb = ws + KC * CN;
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c0 = 0; c0 < Da; c0 += CN) {
-    float za[4][4] = {}, zb[4][4] = {};
-    for (int k0 = 0; k0 < D; k0 += KC) {
-      __syncthreads();  // the previous chunk's readers are done
-      for (int i = tid; i < KC * CN / 4; i += THREADS) {
-        const int kk = i / (CN / 4), c4 = (i % (CN / 4)) * 4;
-        float4 va = make_float4(0.f, 0.f, 0.f, 0.f), vb = va;
-        if (c0 + c4 < Da) {  // Da % 8 == 0: a float4 never straddles Da
-          va = *reinterpret_cast<const float4*>(
-              wa + (size_t)(k0 + kk) * Da + c0 + c4);
-          if (GATED)
-            vb = *reinterpret_cast<const float4*>(
-                wb + (size_t)(k0 + kk) * Da + c0 + c4);
-        }
-        *reinterpret_cast<float4*>(wsa + kk * CN + c4) = va;
-        if (GATED) *reinterpret_cast<float4*>(wsb + kk * CN + c4) = vb;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < KC; ++k) {
-        const float4 x4 =
-            *reinterpret_cast<const float4*>(ht + (k0 + k) * HT_LD + 4 * ty);
-        const float4 a4 = *reinterpret_cast<const float4*>(wsa + k * CN + 4 * tx);
-        const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) za[i][j] = fmaf(x[i], a[j], za[i][j]);
-        if (GATED) {
-          const float4 b4 =
-              *reinterpret_cast<const float4*>(wsb + k * CN + 4 * tx);
-          const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) zb[i][j] = fmaf(x[i], bv[j], zb[i][j]);
-        }
-      }
-    }
-    if constexpr (DROPOUT) {
-      const int col0 = c0 + 4 * tx;  // Da % 8 == 0: all 4 columns or none
-      if (col0 < Da) {
-        float bak[4], bbk[4], wck[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          bak[j] = ba[col0 + j];
-          bbk[j] = GATED ? bb[col0 + j] : 0.f;
-          wck[j] = wc[col0 + j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 4 * ty + i;
-          uchar4 ka = make_uchar4(0, 0, 0, 0), kb = ka;
-          if (r < rows) {
-            ka = *reinterpret_cast<const uchar4*>(da + (size_t)r * Da + col0);
-            if (GATED)
-              kb = *reinterpret_cast<const uchar4*>(db + (size_t)r * Da +
-                                                    col0);
-          }
-          const float fa[4] = {ka.x * inv_keep, ka.y * inv_keep,
-                               ka.z * inv_keep, ka.w * inv_keep};
-          const float fb[4] = {kb.x * inv_keep, kb.y * inv_keep,
-                               kb.z * inv_keep, kb.w * inv_keep};
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            part[i] = fmaf(gate_drop<GATED>(za[i][j], zb[i][j], bak[j],
-                                            bbk[j], fa[j], fb[j]),
-                           wck[j], part[i]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + 4 * tx + j;
-        if (col < Da) {
-          const float bak = ba[col], wck = wc[col];
-          const float bbk = GATED ? bb[col] : 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            part[i] = fmaf(gate<GATED>(za[i][j], zb[i][j], bak, bbk), wck,
-                           part[i]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float v = part[i];
-#pragma unroll
-    for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (tx == 0) s_out[4 * ty + i] = v;
-  }
-}
-
-// bf16: raw scores of the tile's rows, without cc, on the tensor cores.
-// ws: [WARPS][TM] per-warp column sums.  DROPOUT as in the f32 variant.
+// Raw scores of the tile's rows, without cc, on the tensor cores.
+// ws: [WARPS][TM] per-warp column sums.  DROPOUT: da/db point at the
+// tile's first row of the keep masks; rows at or past `rows` are padding
+// of the tile and read no mask.
 template <bool GATED, bool DROPOUT>
 __device__ __forceinline__ void score_tile(const __nv_bfloat16* hs, float* ws,
                                            const __nv_bfloat16* wat,
@@ -343,19 +455,6 @@ __device__ __forceinline__ void score_tile(const __nv_bfloat16* hs, float* ws,
 }
 
 // x + sum over the tile's rows r < rows of p[r] * tile[r][d], in row order.
-// p[r] is 0 for the rows past `rows`, whose tile entries are zero.
-__device__ __forceinline__ float pool_rows(const float* ht, const float* p,
-                                           int rows, int d, int D, float x) {
-  const float* col = ht + d * HT_LD;  // conflict-free float4s along r
-  for (int r = 0; r < rows; r += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(col + r);
-    x = fmaf(p[r], v.x, x);
-    x = fmaf(p[r + 1], v.y, x);
-    x = fmaf(p[r + 2], v.z, x);
-    x = fmaf(p[r + 3], v.w, x);
-  }
-  return x;
-}
 __device__ __forceinline__ float pool_rows(const __nv_bfloat16* hs,
                                            const float* p, int rows, int d,
                                            int D, float x) {
@@ -364,26 +463,33 @@ __device__ __forceinline__ float pool_rows(const __nv_bfloat16* hs,
   return x;
 }
 
+size_t bf16_smem_bytes(int D) {
+  return (size_t)TM * (D + PAD) * sizeof(__nv_bfloat16) +
+         WARPS * TM * sizeof(float);
+}
+
 // One CTA = (split, bag): the running (m, l, acc[D]) over the CTA's rows.
 // Dynamic shared memory: the tile, then the scoring scratch.
-template <typename T, bool GATED, bool DROPOUT>
+template <bool GATED, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
-pool_partial_kernel(const T* __restrict__ h, const float* __restrict__ mask,
-                    const T* __restrict__ wa, const float* __restrict__ ba,
-                    const T* __restrict__ wb, const float* __restrict__ bb,
-                    const float* __restrict__ wc, const float* __restrict__ cc,
-                    const uint8_t* __restrict__ da,  // [B, N, Da] or null
-                    const uint8_t* __restrict__ db,
-                    float* __restrict__ part_acc,  // [B, S, D]
-                    float* __restrict__ part_ml,   // [B, S, 2]
-                    float inv_keep, int N, int D, int Da,
-                    int rows_per_split) {
+pool_partial_bf16_kernel(const __nv_bfloat16* __restrict__ h,
+                         const float* __restrict__ mask,
+                         const __nv_bfloat16* __restrict__ wa,
+                         const float* __restrict__ ba,
+                         const __nv_bfloat16* __restrict__ wb,
+                         const float* __restrict__ bb,
+                         const float* __restrict__ wc,
+                         const float* __restrict__ cc,
+                         const uint8_t* __restrict__ da,  // or null
+                         const uint8_t* __restrict__ db,
+                         float* __restrict__ part_acc,  // [B, S, D]
+                         float* __restrict__ part_ml,   // [B, S, 2]
+                         float inv_keep, int N, int D, int Da,
+                         int rows_per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool F32 = std::is_same<T, float>::value;
-  T* tile = reinterpret_cast<T*>(smem);
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
   float* ws = reinterpret_cast<float*>(
-      smem + (F32 ? (size_t)D * HT_LD * sizeof(float)
-                  : (size_t)TM * (D + PAD) * sizeof(T)));
+      smem + (size_t)TM * (D + PAD) * sizeof(__nv_bfloat16));
   __shared__ float s_s[TM];    // the tile's scores
   __shared__ float p_s[TM];    // softmax numerators
   __shared__ float stat_s[3];  // m_new, corr, tile sum
@@ -459,6 +565,10 @@ pool_partial_kernel(const T* __restrict__ h, const float* __restrict__ mask,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The merge and the launches.
+// ---------------------------------------------------------------------------
+
 // One CTA per bag: merge the S partials in split order.
 __global__ void __launch_bounds__(THREADS)
 pool_merge_kernel(const float* __restrict__ part_acc,
@@ -484,19 +594,26 @@ pool_merge_kernel(const float* __restrict__ part_acc,
 }
 
 template <typename T>
-size_t smem_bytes(int D) {
-  return std::is_same<T, float>::value
-             ? ((size_t)D * HT_LD + 2 * KC * CN) * sizeof(float)
-             : (size_t)TM * (D + PAD) * sizeof(T) + WARPS * TM * sizeof(float);
-}
+using PartialFn = void (*)(const T*, const float*, const T*, const float*,
+                           const T*, const float*, const float*,
+                           const float*, const uint8_t*, const uint8_t*,
+                           float*, float*, float, int, int, int, int);
 
-// The partial kernel of a variant, with its dynamic shared memory allowed.
-template <typename T, bool GATED, bool DROPOUT>
-cudaError_t partial_kernel(
-    int D, decltype(&pool_partial_kernel<T, GATED, DROPOUT>)* k) {
-  *k = pool_partial_kernel<T, GATED, DROPOUT>;
+// The partial kernel of a variant and its dynamic shared memory, allowed
+// (the f32 kernel's shared memory is all static).
+template <bool GATED, bool DROPOUT>
+cudaError_t partial_kernel(int, PartialFn<float>* k, size_t* smem) {
+  *k = pool_partial_f32_kernel<GATED, DROPOUT>;
+  *smem = 0;
+  return cudaSuccess;
+}
+template <bool GATED, bool DROPOUT>
+cudaError_t partial_kernel(int D, PartialFn<__nv_bfloat16>* k,
+                           size_t* smem) {
+  *k = pool_partial_bf16_kernel<GATED, DROPOUT>;
+  *smem = bf16_smem_bytes(D);
   return cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes<T>(D));
+                              (int)*smem);
 }
 
 template <typename T, bool GATED, bool DROPOUT>
@@ -507,10 +624,11 @@ cudaError_t launch(const T* h, const float* mask, const T* wa,
                    float* out, float* ml, float inv_keep, int B, int N, int D,
                    int Da, int splits, int rows_per_split,
                    cudaStream_t stream) {
-  decltype(&pool_partial_kernel<T, GATED, DROPOUT>) kern;
-  cudaError_t err = partial_kernel<T, GATED, DROPOUT>(D, &kern);
+  PartialFn<T> kern;
+  size_t smem;
+  cudaError_t err = partial_kernel<GATED, DROPOUT>(D, &kern, &smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(splits, B), THREADS, smem_bytes<T>(D), stream>>>(
+  kern<<<dim3(splits, B), THREADS, smem, stream>>>(
       h, mask, wa, ba, wb, bb, wc, cc, da, db, part_acc, part_ml, inv_keep,
       N, D, Da, rows_per_split);
   err = cudaGetLastError();
@@ -522,11 +640,12 @@ cudaError_t launch(const T* h, const float* mask, const T* wa,
 
 template <typename T, bool GATED, bool DROPOUT>
 int ctas_per_sm(int D) {
-  decltype(&pool_partial_kernel<T, GATED, DROPOUT>) kern;
+  PartialFn<T> kern;
+  size_t smem;
   int n = 0;
-  if (partial_kernel<T, GATED, DROPOUT>(D, &kern) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, kern, THREADS, smem_bytes<T>(D)) != cudaSuccess)
+  if (partial_kernel<GATED, DROPOUT>(D, &kern, &smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, THREADS,
+                                                    smem) != cudaSuccess)
     return -1;
   return n;
 }
@@ -536,7 +655,10 @@ int ctas_per_sm(int D) {
 extern "C" {
 
 int mil_pool_fwd_max_d() { return MAX_D; }
-int mil_pool_fwd_tile_rows() { return TM; }
+
+// Rows per tile of the partial kernel for f32 (bf16 = 0) or bf16 bags:
+// rows_per_split must be a multiple of it.
+int mil_pool_fwd_tile_rows(int bf16) { return bf16 ? TM : GT; }
 
 // CTAs of the partial kernel that fit on one SM of the current device at
 // width D (-1 on error): the wrapper sizes the grid to one full wave.
@@ -557,8 +679,8 @@ int mil_pool_fwd_ctas_per_sm(int D, int gated, int bf16, int dropout) {
 // Scratch part_acc [B, splits, D] and part_ml [B, splits, 2] f32; out
 // [B, D] and ml [B, 2] f32.  All contiguous on one device and 16-byte
 // aligned; D a multiple of 32 up to MAX_D, Da of 8.  rows_per_split is a
-// multiple of TM.  Returns the CUDA error code of the launches (0 =
-// success).
+// multiple of mil_pool_fwd_tile_rows(bf16).  Returns the CUDA error code
+// of the launches (0 = success).
 int mil_pool_fwd(const void* h, const void* mask, const void* wa,
                  const void* ba, const void* wb, const void* bb,
                  const void* wc, const void* cc, const void* da,
@@ -566,7 +688,8 @@ int mil_pool_fwd(const void* h, const void* mask, const void* wa,
                  void* ml, float inv_keep, int B, int N, int D, int Da,
                  int splits, int rows_per_split, int gated, int bf16,
                  void* stream) {
-  if (D > MAX_D || D % KC != 0 || Da % 8 != 0 || rows_per_split % TM != 0 ||
+  if (D > MAX_D || D % 32 != 0 || Da % 8 != 0 || rows_per_split < 1 ||
+      rows_per_split % mil_pool_fwd_tile_rows(bf16) != 0 ||
       (da != nullptr && db == nullptr))
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };

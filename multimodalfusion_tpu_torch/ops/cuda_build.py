@@ -3,8 +3,9 @@ libraries with a plain C interface, and load them with ctypes.
 
 Each source is compiled at its first use for ``sm_90a`` into
 ``<checkout>/build/kernels/<name>-<hash>.so``, where the hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is reused.  Nothing here runs at import time.
+source, the headers of ``csrc/`` and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -46,15 +47,21 @@ def nvcc_path() -> str:
 
 
 def _digest(src: str) -> str:
+    """Hash of the flags, the source and every header (``*.cuh``) beside
+    it, which the sources include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
-        h.update(f.read())
+    folder = os.path.dirname(src)
+    headers = sorted(f for f in os.listdir(folder) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(folder, f) for f in headers]:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
     return h.hexdigest()[:12]
 
 
 def build(name: str) -> str:
     """Path of the built ``csrc/<name>.cu`` library, compiling it first
-    when no build of these exact sources exists."""
+    when no build of these exact sources and headers exists."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     so = os.path.join(BUILD_DIR, f"{name}-{_digest(src)}.so")
     if os.path.exists(so):

@@ -248,11 +248,14 @@ def _pool_bwd_plain(h, mask, params: AttnParams, out, ml, g, gated: bool,
 
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE_ROWS = 64  # TM in the forward source
+# rows per tile of the forward's partial kernel by bag dtype: GT of
+# sgemm_core.cuh for f32 bags, TM of the forward source for bf16 bags
+_TILE_ROWS = {torch.float32: 128, torch.bfloat16: 64}
 _MAX_D = 512     # MAX_D in both sources
-# the backward source's GT (row tile and SGEMM output tile), GK (the SGEMM
-# core's staged depth) and VG (row tiles per group of column sums)
-_BWD_TILE, _BWD_DEPTH, _BWD_VEC_GROUP = 128, 8, 64
+# GT of sgemm_core.cuh (the backward's row tile, as the f32 forward's,
+# and the SGEMM output tile), its GK (the core's staged depth) and the
+# backward source's VG (row tiles per group of column sums)
+_BWD_TILE, _BWD_DEPTH, _BWD_VEC_GROUP = _TILE_ROWS[torch.float32], 8, 64
 
 
 def _fwd_lib():
@@ -263,11 +266,15 @@ def _fwd_lib():
                                      + [_VP])
         lib.mil_pool_fwd.restype = ctypes.c_int
         lib.mil_pool_fwd_ctas_per_sm.argtypes = [_INT] * 4
-        built = (lib.mil_pool_fwd_tile_rows(), lib.mil_pool_fwd_max_d())
-        if built != (_TILE_ROWS, _MAX_D):
-            raise RuntimeError(f"mil_pool_fwd was built with (TM, MAX_D) = "
-                               f"{built}, the wrapper expects "
-                               f"{(_TILE_ROWS, _MAX_D)}")
+        lib.mil_pool_fwd_tile_rows.argtypes = [_INT]
+        built = (lib.mil_pool_fwd_tile_rows(0), lib.mil_pool_fwd_tile_rows(1),
+                 lib.mil_pool_fwd_max_d())
+        want = (_TILE_ROWS[torch.float32], _TILE_ROWS[torch.bfloat16],
+                _MAX_D)
+        if built != want:
+            raise RuntimeError(f"mil_pool_fwd was built with (f32 tile rows, "
+                               f"bf16 tile rows, MAX_D) = {built}, the "
+                               f"wrapper expects {want}")
     return lib
 
 
@@ -289,30 +296,51 @@ def _bwd_lib():
 
 
 @functools.lru_cache(maxsize=None)
-def _wave(device: torch.device, D: int, gated: bool, bf16: bool,
-          dropout: bool) -> int:
-    """CTAs of the forward partial kernel that the card runs at once."""
-    lib = _fwd_lib()
-    with torch.cuda.device(device):
-        per_sm = lib.mil_pool_fwd_ctas_per_sm(D, int(gated), int(bf16),
-                                              int(dropout))
-    if per_sm < 1:
-        raise RuntimeError(f"mil_pool_fwd cannot run at D={D} on {device}")
-    return per_sm * _sms(device)
-
-
-@functools.lru_cache(maxsize=None)
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _grid(device, B, N, D, gated, bf16, dropout):
-    """(splits, rows per split): each bag's row tiles split over at most one
-    wave of CTAs in all, so no CTA waits for a second wave."""
-    n_tiles = max(1, -(-N // _TILE_ROWS))
-    splits = min(n_tiles, max(1, _wave(device, D, gated, bf16, dropout) // B))
-    rows_per_split = -(-n_tiles // splits) * _TILE_ROWS
-    return (-(-N // rows_per_split) if N else 1), rows_per_split
+class FwdPlan(NamedTuple):
+    """Grid and scratch shapes of one forward launch, as the C interface
+    of ``csrc/mil_pool_fwd.cu`` documents them: ``splits`` CTAs per bag,
+    each over ``rows_per_split`` rows in tiles of ``tile_rows``."""
+    splits: int
+    rows_per_split: int
+    tile_rows: int
+    part_acc: Tuple[int, int, int]  # [B, splits, D] f32
+    part_ml: Tuple[int, int, int]   # [B, splits, 2] f32
+
+
+def fwd_plan(B: int, N: int, D: int, Da: int, gated: bool, bf16: bool,
+             sms: int, ctas_per_sm: int) -> FwdPlan:
+    """The forward's launch plan on a card with ``sms`` SMs that run
+    ``ctas_per_sm`` CTAs of the partial kernel each: each bag's row tiles
+    split over at most one wave of CTAs in all, so no CTA waits for a
+    second wave; each split is a whole number of tiles and holds at least
+    one row (one split when N = 0).  ``Da`` and ``gated`` do not change
+    the plan: they choose the variant, whose occupancy ``ctas_per_sm``
+    gives."""
+    tile = _TILE_ROWS[torch.bfloat16 if bf16 else torch.float32]
+    n_tiles = max(1, -(-N // tile))
+    splits = min(n_tiles, max(1, ctas_per_sm * sms // max(B, 1)))
+    rows_per_split = -(-n_tiles // splits) * tile
+    splits = -(-N // rows_per_split) if N else 1
+    return FwdPlan(splits=splits, rows_per_split=rows_per_split,
+                   tile_rows=tile, part_acc=(B, splits, D),
+                   part_ml=(B, splits, 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_ctas_per_sm(device: torch.device, D: int, gated: bool, bf16: bool,
+                     dropout: bool) -> int:
+    """CTAs of the forward partial kernel that one SM runs at once."""
+    lib = _fwd_lib()
+    with torch.cuda.device(device):
+        n = lib.mil_pool_fwd_ctas_per_sm(D, int(gated), int(bf16),
+                                         int(dropout))
+    if n < 1:
+        raise RuntimeError(f"mil_pool_fwd cannot run at D={D} on {device}")
+    return n
 
 
 def _check_inputs(h, mask, params: AttnParams, gated: bool, da, db,
@@ -388,17 +416,17 @@ def _fused_pool_cuda(h, mask, params: AttnParams, gated: bool, da=None,
     if B == 0:
         return out, ml
     lib = _fwd_lib()
-    dropout = da is not None
-    splits, rows_per_split = _grid(dev, B, N, D, gated, bf16, dropout)
-    part_acc = torch.empty((B, splits, D), dtype=f32, device=dev)
-    part_ml = torch.empty((B, splits, 2), dtype=f32, device=dev)
+    plan = fwd_plan(B, N, D, Da, gated, bf16, _sms(dev),
+                    _fwd_ctas_per_sm(dev, D, gated, bf16, da is not None))
+    part_acc = torch.empty(plan.part_acc, dtype=f32, device=dev)
+    part_ml = torch.empty(plan.part_ml, dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.mil_pool_fwd(
         h.data_ptr(), mask.data_ptr(), wa.data_ptr(), ba.data_ptr(),
         wb.data_ptr(), bb.data_ptr(), wc.data_ptr(), cc.data_ptr(),
         _ptr(da), _ptr(db), part_acc.data_ptr(), part_ml.data_ptr(),
         out.data_ptr(), ml.data_ptr(), 1.0 / (1.0 - rate), B, N, D, Da,
-        splits, rows_per_split, int(gated), int(bf16), stream)
+        plan.splits, plan.rows_per_split, int(gated), int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"mil_pool_fwd launch failed: CUDA error {err}")
     _fused_pool_cuda.launches += 1

@@ -3,6 +3,10 @@ against the JAX package's: the plain version vs ``_pool_reference`` in f32,
 and vs the Pallas kernel run in interpret mode for bf16 bags and for the
 ``ml`` residuals.  On the CPU the port runs its plain version; the CUDA
 kernel itself is held against it on the card by chip_smoke.py."""
+import os
+import re
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -119,3 +123,100 @@ def test_non_cpu_tensor_never_falls_back(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.load("mil_pool_fwd")
     assert tmil._fused_pool_cuda.launches == before
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("B,N,D,Da,gated", [
+    (32, 4096, 256, 256, True),    # the serving and kernel-timing shape
+    (8, 4096, 256, 256, True),     # a B=8 training step
+    (3, 300, 64, 64, True),
+    (3, 300, 64, 64, False),
+    (4, 700, 512, 384, True),
+    (4, 700, 512, 384, False),
+    (2, 32768, 256, 256, True),
+    (1, 1, 64, 64, True),          # N = 1
+    (5, 1, 128, 64, False),
+    (4, 0, 256, 256, True),        # N = 0: one split that scores nothing
+    (0, 100, 64, 64, True),
+])
+def test_forward_launch_plan(B, N, D, Da, gated, sms, bf16):
+    """``fwd_plan``: each bag's splits cover every row, each split is a
+    whole number of the dtype's tiles and holds at least one row, the grid
+    stays within one wave, and the scratch has the shapes the C interface
+    of mil_pool_fwd.cu documents."""
+    tile = 64 if bf16 else 128
+    for ctas_per_sm in (1, 2, 4):
+        plan = tmil.fwd_plan(B, N, D, Da, gated, bf16, sms, ctas_per_sm)
+        assert plan.tile_rows == tile
+        assert plan.splits >= 1
+        assert plan.rows_per_split >= tile
+        assert plan.rows_per_split % tile == 0
+        covered = np.zeros(N, bool)
+        for s in range(plan.splits):
+            rows = range(s * plan.rows_per_split,
+                         min(N, (s + 1) * plan.rows_per_split))
+            assert N == 0 or len(rows) > 0
+            covered[rows.start:rows.stop] = True
+        assert covered.all()
+        assert plan.splits == 1 or B * plan.splits <= ctas_per_sm * sms
+        assert plan.part_acc == (B, plan.splits, D)
+        assert plan.part_ml == (B, plan.splits, 2)
+    if (B, N, D, Da, gated, sms) == (32, 4096, 256, 256, True, 132):
+        # 32 bags x 8 splits of 512 rows: one wave of 2 x 132 CTAs
+        plan = tmil.fwd_plan(B, N, D, Da, gated, bf16, sms, 2)
+        assert (plan.splits, plan.rows_per_split) == (8, 512)
+
+
+def _source(name):
+    with open(os.path.join(cuda_build.CSRC_DIR, name)) as f:
+        return f.read()
+
+
+def test_forward_plan_constants_match_the_source():
+    """The wrapper's per-dtype tile rows and widest D agree with the
+    constants of csrc/mil_pool_fwd.cu (TM: bf16 tiles; MAX_D) and of the
+    SGEMM core it includes, csrc/sgemm_core.cuh (GT: f32 tiles); on the
+    card the wrapper also checks the built library."""
+    fwd, core = _source("mil_pool_fwd.cu"), _source("sgemm_core.cuh")
+
+    def const(text, k):
+        return int(re.search(rf"constexpr int {k} = (\d+);", text)[1])
+    assert '#include "sgemm_core.cuh"' in fwd
+    assert "return bf16 ? TM : GT;" in fwd
+    assert tmil._TILE_ROWS == {torch.float32: const(core, "GT"),
+                               torch.bfloat16: const(fwd, "TM")}
+    assert tmil._MAX_D == const(fwd, "MAX_D")
+
+
+def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
+    """A build is named by a hash of its source and of the headers beside
+    it: editing sgemm_core.cuh (or adding a header) changes the hash of
+    both kernels' sources, so a stale library is never reused.  Runs on a
+    copy of csrc/ with no nvcc."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "kernels"))
+    srcs = [str(csrc / f"{n}.cu") for n in ("mil_pool_fwd", "mil_pool_bwd")]
+    before = [cuda_build._digest(s) for s in srcs]
+    assert before == [cuda_build._digest(s) for s in srcs]
+    # a library built from these sources is found and reused
+    os.makedirs(cuda_build.BUILD_DIR)
+    built = os.path.join(cuda_build.BUILD_DIR,
+                         f"mil_pool_fwd-{before[0]}.so")
+    open(built, "w").close()
+    assert cuda_build.build("mil_pool_fwd") == built
+
+    with open(csrc / "sgemm_core.cuh", "a") as f:
+        f.write("// edited\n")
+    edited = [cuda_build._digest(s) for s in srcs]
+    assert all(a != b for a, b in zip(before, edited))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build("mil_pool_fwd")  # must rebuild: no nvcc here
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    assert all(a != b for a, b in zip(edited, [cuda_build._digest(s)
+                                               for s in srcs]))

@@ -261,12 +261,16 @@ def test_backward_wrapper_refuses_cpu_tensors():
 def test_backward_plan_constants_match_the_source():
     """The wrapper's mirror of the backward source's constants (the row
     and SGEMM tile GT, the SGEMM depth GK, the column-sum group VG, the
-    widest D) agrees with csrc/mil_pool_bwd.cu; on the card the wrapper
-    also checks the built library."""
-    src = os.path.join(os.path.dirname(os.path.dirname(tmil.__file__)),
-                       "csrc", "mil_pool_bwd.cu")
-    with open(src) as f:
-        text = f.read()
+    widest D) agrees with csrc/mil_pool_bwd.cu and the SGEMM core it
+    includes, csrc/sgemm_core.cuh; on the card the wrapper also checks the
+    built library."""
+    csrc = os.path.join(os.path.dirname(os.path.dirname(tmil.__file__)),
+                        "csrc")
+    text = ""
+    for name in ("mil_pool_bwd.cu", "sgemm_core.cuh"):
+        with open(os.path.join(csrc, name)) as f:
+            text += f.read()
+    assert '#include "sgemm_core.cuh"' in text
     got = {k: int(re.search(rf"constexpr int {k} = (\d+);", text)[1])
            for k in ("GT", "GK", "VG", "MAX_D")}
     assert got == {"GT": tmil._BWD_TILE, "GK": tmil._BWD_DEPTH,
