@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases, each fatal on failure:
   1. build   -- nvcc-build every CUDA kernel from
                 multimodalfusion_tpu_torch/csrc, one nvcc per source, in
-                parallel.
+                parallel with g++ on the host collation library
+                (csrc/bagio.cpp).
   2. kernels -- hold each kernel against its plain PyTorch version on the
                 card: gated/ungated x f32/bf16 x dropout on/off (the same
                 keep masks on both sides), ragged masks with a fully
@@ -22,7 +23,9 @@ Phases, each fatal on failure:
                 PathAMIL width and serve it through cli.infer on the card,
                 with every kernel launch counter reset just before and
                 read just after; the risks must match the same model run
-                through the plain pooling on the card.
+                through the plain pooling on the card.  Serving is timed
+                stage by stage (load+collate into page-locked buffers,
+                copy, fc, pool, head).
   4. train   -- write a synthetic labelled stage-2 experiment at full
                 PathAMIL width and train one fold for two epochs through
                 cli.main on the card (--gate_path --drop_out nll_surv
@@ -31,13 +34,28 @@ Phases, each fatal on failure:
                 finite, and cli.infer must serve the trained checkpoint.
                 Then three train steps through the kernels and three
                 through the plain versions, from one init and the same
-                generator seeds, must agree.
+                generator seeds, must agree.  Their batches are loaded
+                once and collated twice, by the native library into
+                page-locked buffers and by pad_bags_plain, each timed.
+  4b. omic   -- write a synthetic labelled cohort with 80 genomic columns
+                and train one fold for two epochs each of
+                mm_attention_mil --mode path_omic (tensor fusion,
+                --gate_path --drop_out) and max_net --mode omic
+                (cox_surv) through cli.main, counters reset around each:
+                the path+omic fold launches the forward once per train
+                step and evaluated batch and the backward once per train
+                step, max_net neither.  Serve both through cli.infer; the
+                path+omic risks must match the plain pooling at rel
+                1e-4.  Three path+omic train steps through the kernels
+                must agree with three through the plain versions.
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak) and,
                 for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
                 the same shape as a yardstick; device time per sub-kernel
                 under torch.profiler; a training step's breakdown with
-                CUDA events.
+                CUDA events: load, collate and the copy from page-locked
+                buffers on the host clock, beside the yardstick of
+                pad_bags_plain and a pageable copy of the same batch.
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -48,6 +66,7 @@ result, when CUDA is unavailable or any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -115,12 +134,15 @@ def make_pool_case(B, N, D, Da, dtype, seed, lens=None):
 
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
+    from multimodalfusion_tpu_torch import native
     from multimodalfusion_tpu_torch.ops import cuda_build
     names = sorted(os.path.splitext(f)[0]
                    for f in os.listdir(cuda_build.CSRC_DIR)
                    if f.endswith(".cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as ex:  # one nvcc per source
+    # one nvcc per source and g++ for the host library, all at once
+    with ThreadPoolExecutor(len(names) + 1) as ex:
+        host = ex.submit(native.build)
         for name, so in zip(names, ex.map(cuda_build.build, names)):
             info = cuda_build.build_info.get(name, {})
             log(f"[build] {name} -> {os.path.relpath(so, REPO)} "
@@ -129,6 +151,8 @@ def phase_build():
                 if any(k in line for k in ("entry function", "registers",
                                            "spill")):
                     log(f"[build]   {line.strip()}")
+        log(f"[build] host library csrc/bagio.cpp -> "
+            f"{os.path.relpath(host.result(), REPO)}")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.1f} s")
 
 
@@ -360,6 +384,7 @@ def phase_slice(launch_counters):
 
     import torch
     from multimodalfusion_tpu_torch.cli import infer
+    from multimodalfusion_tpu_torch.data.bags import PinnedPool
     from multimodalfusion_tpu_torch.data.loaders import iter_batches
     from multimodalfusion_tpu_torch.data.survival_dataset import \
         SurvivalDataset
@@ -398,7 +423,8 @@ def phase_slice(launch_counters):
             raise AssertionError("non-finite risk")
 
         # the same model, pooling through the plain version on the card;
-        # the kernel path is timed stage by stage on the way
+        # the kernel path is timed stage by stage on the way, fed as
+        # cli.infer feeds it (page-locked buffers, new at each bucket)
         settings = read_settings(os.path.join(
             exp, "experiment_PATH_amil_smoke.txt"))
         cfg = config_from_settings(settings, batch_size=32)
@@ -408,7 +434,8 @@ def phase_slice(launch_counters):
         want, buckets = {}, []
         spent = dict.fromkeys(("load+collate", "copy", "fc", "pool", "head"),
                               0.0)
-        batches = iter_batches(ds, batch_size=32)
+        pool = PinnedPool()
+        batches = iter_batches(ds, batch_size=32, pool=pool)
         with torch.no_grad():
             while True:
                 t0 = time.perf_counter()
@@ -418,7 +445,7 @@ def phase_slice(launch_counters):
                     break
                 buckets.append(batch["path_bags"].shape[1])
                 t0 = time.perf_counter()
-                kw = model_inputs(cfg, batch, torch.device("cuda"))
+                kw = model_inputs(cfg, batch, torch.device("cuda"), pool)
                 torch.cuda.synchronize()
                 spent["copy"] += (time.perf_counter() - t0) * 1e3
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -452,12 +479,14 @@ def phase_slice(launch_counters):
         return launches
 
 
-def _write_train_experiment(root, n_subjects=32, n_val=8, seed=1):
+def _write_train_experiment(root, n_subjects=32, n_val=8, seed=1,
+                            n_genes=0):
     """Synthetic labelled stage-2 cohort in the training CLI's layout:
     one slide per subject, bags of 1,000-4,096 instances x 1024 (one of
     exactly 4,096, so a batch pads to 4,096), survival times and
-    censorship from ``seed``, and a splits_0.csv with ``n_val``
-    validation subjects.  Returns the CLI's data arguments."""
+    censorship from ``seed``, ``n_genes`` genomic columns G0.. (normal),
+    and a splits_0.csv with ``n_val`` validation subjects.  Returns the
+    CLI's data arguments."""
     from multimodalfusion_tpu_torch.data.io import save_pt
     rng = np.random.default_rng(seed)
     feat = os.path.join(root, "features", "brain", "path_pt_files")
@@ -473,9 +502,12 @@ def _write_train_experiment(root, n_subjects=32, n_val=8, seed=1):
         save_pt(os.path.join(feat, f"{sid}-A.pt"), bag)
         months = float(rng.uniform(1.0, 120.0))
         censored = float(rng.uniform() < 0.3)
-        rows.append(f"{sid},{sid}-A.svs,{months:.1f},{censored},1")
+        genes = ("".join(f",{g:.4f}" for g in rng.standard_normal(n_genes))
+                 if n_genes else "")
+        rows.append(f"{sid},{sid}-A.svs,{months:.1f},{censored},1{genes}")
     with open(os.path.join(cohort, "survival.csv"), "w") as f:
-        f.write("subject_id,slide_id,survival_months,censorship,train\n"
+        f.write("subject_id,slide_id,survival_months,censorship,train"
+                + "".join(f",G{g}" for g in range(n_genes)) + "\n"
                 + "\n".join(rows) + "\n")
     order = rng.permutation(n_subjects)
     train = [sids[i] for i in order[n_val:]]
@@ -490,6 +522,79 @@ def _write_train_experiment(root, n_subjects=32, n_val=8, seed=1):
             "--splits_root", os.path.join(root, "splits")]
 
 
+def _collect_batches(view, batch_size, seed, n, pool):
+    """The first ``n`` batches of ``view`` in ``iter_batches``' shuffled
+    order for ``seed``, each loaded once and collated twice: by the port's
+    host path (the native library into ``pool``'s page-locked buffers)
+    and by the plain yardstick (``pad_bags_plain``), whose copy to the
+    card is then timed from pageable memory, as the pinned batch's copy
+    is from page-locked memory.  The two collations run in turns.  An
+    untimed batch first warms ``pool`` (its page-locking allocations), so
+    the timed batches reuse its buffers as training does.  Returns (plain
+    batches, host milliseconds per stage: lists of ``n``)."""
+    import torch
+    from multimodalfusion_tpu_torch.data.bags import pad_bags_plain
+    from multimodalfusion_tpu_torch.data.loaders import (
+        _batch_from_samples, usable_indices)
+    order = list(usable_indices(view))
+    np.random.default_rng(seed).shuffle(order)
+    chunks = [order[i * batch_size:(i + 1) * batch_size] for i in range(n)]
+    plain_batches = []
+    ms = {k: [] for k in ("load", "collate", "copy",
+                          "collate (pad_bags_plain)",
+                          "copy (pageable, pad_bags_plain's batch)")}
+    for i, chunk in enumerate(chunks[:1] + chunks):
+        t0 = time.perf_counter()
+        samples = [view.get_sample(j) for j in chunk]
+        spent = {"load": time.perf_counter() - t0}
+        for way in (("pinned", "plain") if i % 2 else ("plain", "pinned")):
+            t0 = time.perf_counter()
+            if way == "pinned":
+                pinned = _batch_from_samples(samples, view.mode, batch_size,
+                                             pool)
+                spent["collate"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                for k in ("path_bags", "path_mask"):
+                    torch.from_numpy(pinned[k]).to("cuda", non_blocking=True)
+                pool.release([pinned["path_bags"], pinned["path_mask"]])
+                torch.cuda.synchronize()
+                spent["copy"] = time.perf_counter() - t0
+                continue
+            bags = pad_bags_plain([s.path for s in samples] + [None] * (
+                batch_size - len(samples)), 1024)
+            spent["collate (pad_bags_plain)"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for x in bags:
+                torch.from_numpy(x).to("cuda")
+            torch.cuda.synchronize()
+            spent["copy (pageable, pad_bags_plain's batch)"] = (
+                time.perf_counter() - t0)
+        pinned.pop("subject_ids")
+        if i == 0:
+            log(f"[host] warm-up batch (untimed): collate into newly "
+                f"page-locked buffers {spent['collate'] * 1e3:.3f} ms")
+            continue
+        for k, v in spent.items():
+            ms[k].append(v * 1e3)
+        plain_batches.append(dict(pinned, path_bags=bags[0],
+                                  path_mask=bags[1]))
+    return plain_batches, ms
+
+
+@contextlib.contextmanager
+def _plain_pooling():
+    """The pooling forward and backward through their plain versions on
+    the card instead of the kernels, while the context lasts."""
+    from multimodalfusion_tpu_torch.ops import mil_attention as mil
+    kernels = mil._fused_pool, mil._fused_pool_bwd
+    mil._fused_pool, mil._fused_pool_bwd = (mil._pool_plain,
+                                            mil._pool_bwd_plain)
+    try:
+        yield
+    finally:
+        mil._fused_pool, mil._fused_pool_bwd = kernels
+
+
 def _run_steps(cfg, batches, plain=False):
     """Train steps on ``batches`` from the seeded init, with the dropout
     bits from a seeded card generator.  ``plain``: the pooling forward and
@@ -497,22 +602,54 @@ def _run_steps(cfg, batches, plain=False):
     kernels.  Returns (losses, init state, final state)."""
     import torch
     from multimodalfusion_tpu_torch.engine import train as ttrain
-    from multimodalfusion_tpu_torch.ops import mil_attention as mil
     model = ttrain.build_model(cfg, torch.Generator().manual_seed(0)).cuda()
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     opt = ttrain.make_optimizer(cfg, model.parameters())
     step, _ = ttrain.make_steps(cfg, model, opt, torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(7)
-    kernels = mil._fused_pool, mil._fused_pool_bwd
-    if plain:
-        mil._fused_pool, mil._fused_pool_bwd = (mil._pool_plain,
-                                                mil._pool_bwd_plain)
-    try:
+    with _plain_pooling() if plain else contextlib.nullcontext():
         losses = [float(step(b, gen)["loss"]) for b in batches]
-    finally:
-        mil._fused_pool, mil._fused_pool_bwd = kernels
     return losses, init, {k: v.detach().clone()
                           for k, v in model.state_dict().items()}
+
+
+def _steps_agree(tag, cfg, batches, launch_counters):
+    """Three train steps through the kernels against three through the
+    plain versions on the card, from one init and the same generator
+    seeds: each kernel launches once per kernel step and never in the
+    plain steps; the losses agree at rel 1e-4 and the parameters to 1e-3
+    of their movement (each element to one step, lr)."""
+    before = {c.__name__: c.launches for c in launch_counters}
+    k_loss, init, k_state = _run_steps(cfg, batches)
+    mid = {c.__name__: c.launches for c in launch_counters}
+    p_loss, _, p_state = _run_steps(cfg, batches, plain=True)
+    after = {c.__name__: c.launches for c in launch_counters}
+    if any(mid[k] - before[k] != 3 or after[k] != mid[k]
+           for k in before):
+        raise AssertionError(f"the kernel steps must launch each kernel "
+                             f"3 times and the plain steps none: "
+                             f"{before} {mid} {after}")
+    e_loss = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
+    # Adam divides by sqrt(v): an element whose gradient is near 0
+    # turns a last-bit difference of the summation order into a
+    # visible part of one step.  So each tensor's difference is held
+    # against how far it moved (1e-3 of that, in norm) and each element
+    # to one step (lr).
+    e_state, e_elem = 0.0, 0.0
+    for k in init:
+        moved = float((p_state[k] - init[k]).norm())
+        diff = float((k_state[k] - p_state[k]).norm())
+        e_state = max(e_state, diff / max(moved, 1e-30))
+        e_elem = max(e_elem, float((k_state[k] - p_state[k]).abs()
+                                   .max()))
+    log(f"[{tag}] 3 steps kernel vs plain on the card: losses "
+        f"{', '.join(f'{v:.6f}' for v in k_loss)} vs "
+        f"{', '.join(f'{v:.6f}' for v in p_loss)}; max rel err "
+        f"{e_loss:.2e} (tol 1e-4); parameters: max |diff| / |moved| "
+        f"{e_state:.2e} (tol 1e-3), max element {e_elem:.2e} "
+        f"(tol lr = {cfg.lr:g})")
+    if e_loss > 1e-4 or e_state > 1e-3 or e_elem > cfg.lr:
+        raise AssertionError("kernel and plain train steps disagree")
 
 
 def phase_train(launch_counters):
@@ -523,7 +660,7 @@ def phase_train(launch_counters):
 
     import torch
     from multimodalfusion_tpu_torch.cli import infer, main as cli_main
-    from multimodalfusion_tpu_torch.data.loaders import iter_batches
+    from multimodalfusion_tpu_torch.data.bags import PinnedPool
     from multimodalfusion_tpu_torch.data.survival_dataset import \
         SurvivalDataset
     from multimodalfusion_tpu_torch.engine import train as ttrain
@@ -590,50 +727,175 @@ def phase_train(launch_counters):
             td, "features", "brain"), n_bins=4)
         train_split, _ = ds.load_splits(os.path.join(
             td, "splits", "brain", "smoke", "splits_0.csv"))
-        batches, load_ms = [], []
-        it = iter_batches(train_split, batch_size=8, shuffle=True, seed=3)
-        for _ in range(3):
-            t0 = time.perf_counter()
-            batches.append(next(it))
-            load_ms.append((time.perf_counter() - t0) * 1e3)
-        for b in batches:
-            b.pop("subject_ids")
+        batches, host_ms = _collect_batches(train_split, 8, 3, 3,
+                                            PinnedPool())
         cfg = ttrain.TrainConfig(model_type="path_attention_mil",
                                  mode="path", gate_path=True, drop_out=True,
                                  bag_loss="nll_surv", batch_size=8,
                                  device="cuda")
-        before = {c.__name__: c.launches for c in launch_counters}
-        k_loss, init, k_state = _run_steps(cfg, batches)
-        mid = {c.__name__: c.launches for c in launch_counters}
-        p_loss, _, p_state = _run_steps(cfg, batches, plain=True)
-        after = {c.__name__: c.launches for c in launch_counters}
-        if any(mid[k] - before[k] != 3 or after[k] != mid[k]
-               for k in before):
-            raise AssertionError(f"the kernel steps must launch each kernel "
-                                 f"3 times and the plain steps none: "
-                                 f"{before} {mid} {after}")
-        e_loss = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
-        # Adam divides by sqrt(v): an element whose gradient is near 0
-        # turns a last-bit difference of the summation order into a
-        # visible part of one step.  So each tensor's difference is held
-        # against how far it moved (1e-3 of that, in norm) and each element
-        # to one step (lr).
-        e_state, e_elem = 0.0, 0.0
-        for k in init:
-            moved = float((p_state[k] - init[k]).norm())
-            diff = float((k_state[k] - p_state[k]).norm())
-            e_state = max(e_state, diff / max(moved, 1e-30))
-            e_elem = max(e_elem, float((k_state[k] - p_state[k]).abs()
-                                       .max()))
-        log(f"[train] 3 steps kernel vs plain on the card: losses "
-            f"{', '.join(f'{v:.6f}' for v in k_loss)} vs "
-            f"{', '.join(f'{v:.6f}' for v in p_loss)}; max rel err "
-            f"{e_loss:.2e} (tol 1e-4); parameters: max |diff| / |moved| "
-            f"{e_state:.2e} (tol 1e-3), max element {e_elem:.2e} "
-            f"(tol lr = {cfg.lr:g})")
-        if e_loss > 1e-4 or e_state > 1e-3 or e_elem > cfg.lr:
-            raise AssertionError("kernel and plain train steps disagree")
-        return launches, cfg, batches, load_ms
+        _steps_agree("train", cfg, batches, launch_counters)
+        return launches, cfg, batches, host_ms
+
+
+OMIC_FLAGS = {
+    # the published path+omic recipe at the CLI's defaults: tensor fusion,
+    # gated pathology attention, attention-branch dropout
+    "path_omic": ["--model_type", "mm_attention_mil", "--mode",
+                  "path_omic", "--fusion", "tensor", "--gate_path",
+                  "--drop_out", "--bag_loss", "nll_surv"],
+    "omic": ["--model_type", "max_net", "--mode", "omic", "--bag_loss",
+             "cox_surv"],
+}
+
+
+def phase_omic(launch_counters, n_genes=80):
+    """[omic] Stage-2 genomic and path+omic on the card.  A synthetic
+    32-subject cohort (bags of 1,000-4,096 instances x 1024, ``n_genes``
+    genomic columns as JAX's MMAttentionMIL defaults, small widths) is
+    trained one fold for two epochs through cli.main per model, with the
+    launch counters reset just before each fold and read just after: the
+    path+omic fold launches the forward once per train step and per
+    evaluated batch and the backward once per train step; max_net
+    launches neither.  The path+omic experiment is served through
+    cli.infer (counters reset) and its risks held against the same model
+    with the plain pooling at rel 1e-4; max_net's is served too.  Three
+    path+omic train steps through the kernels are held against three
+    through the plain versions.  Returns {path: launch counts}."""
+    import csv
+    import math
+
+    import torch
+    from multimodalfusion_tpu_torch.cli import infer, main as cli_main
+    from multimodalfusion_tpu_torch.data.loaders import iter_batches
+    from multimodalfusion_tpu_torch.data.survival_dataset import \
+        SurvivalDataset
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    from multimodalfusion_tpu_torch.utils.experiment import (
+        config_from_settings, read_settings)
+    from multimodalfusion_tpu_torch.utils.params import spec_from_config
+    dev = torch.device("cuda")
+    B, epochs, n_subjects, n_val = 8, 2, 32, 8
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        data_args = _write_train_experiment(td, n_subjects, n_val, seed=2,
+                                            n_genes=n_genes)
+        log(f"[omic] wrote a {n_subjects}-subject labelled cohort with "
+            f"{n_genes} genomic columns in {time.perf_counter() - t0:.1f} s")
+
+        def count():
+            return {c.__name__: c.launches for c in launch_counters}
+
+        def reset():
+            for c in launch_counters:
+                c.launches = 0
+
+        launches, exps = {}, {}
+        for model, flags in OMIC_FLAGS.items():
+            results = os.path.join(td, "results", model)
+            reset()
+            t0 = time.perf_counter()
+            rc = cli_main.main(data_args + flags + [
+                "--k", "1", "--max_epochs", str(epochs), "--batch_size",
+                str(B), "--results_dir", results, "--device", "cuda"])
+            torch.cuda.synchronize()
+            launches[f"{model}_train"] = count()
+            root = os.path.join(results, "brain", "smoke")
+            exps[model] = exp = os.path.join(root, os.listdir(root)[0])
+            with open(os.path.join(exp, "0", "metrics.jsonl")) as f:
+                recs = [json.loads(x) for x in f]
+            losses = [r[k] for r in recs for k in ("train_loss", "val_loss")]
+            log(f"[omic] cli.main {' '.join(flags)}: rc={rc} in "
+                f"{time.perf_counter() - t0:.1f} s; kernel launches "
+                f"{launches[f'{model}_train']}; losses (train, val) "
+                + ", ".join(f"{v:.4f}" for v in losses))
+            if rc != 0 or len(recs) != epochs or not np.isfinite(
+                    losses).all():
+                raise AssertionError(f"{model}: training failed: rc={rc} "
+                                     f"{recs}")
+        steps = -(-(n_subjects - n_val) // B)
+        evals = -(-n_val // B)
+        want = {"path_omic_train": {
+                    "_fused_pool_cuda": epochs * (steps + evals) + 2 * evals,
+                    "_fused_pool_bwd_cuda": epochs * steps},
+                "omic_train": {c.__name__: 0 for c in launch_counters}}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"kernel launches {launches}, expected "
+                                 f"{want} (one forward per train step and "
+                                 f"evaluated batch, one backward per train "
+                                 f"step; none for max_net)")
+
+        # serve both experiments; the path+omic risks against the same
+        # model with the plain pooling on the card
+        served = {}
+        for model, exp in exps.items():
+            out_csv = os.path.join(td, f"risks_{model}.csv")
+            reset()
+            t0 = time.perf_counter()
+            rc = infer.main(["--model_path", exp, "--which_k", "0", "--out",
+                             out_csv, "--batch_size", str(B), "--device",
+                             "cuda"])
+            torch.cuda.synchronize()
+            launches[f"{model}_serving"] = count()
+            with open(out_csv, newline="") as f:
+                served[model] = {r["subject_id"]: float(r["risk"])
+                                 for r in csv.DictReader(f)}
+            log(f"[omic] cli.infer {model}: rc={rc} in "
+                f"{time.perf_counter() - t0:.1f} s, {len(served[model])} "
+                f"subjects; kernel launches {launches[f'{model}_serving']}")
+            if rc != 0 or len(served[model]) != n_subjects or not all(
+                    math.isfinite(v) for v in served[model].values()):
+                raise AssertionError(f"serving {model} failed")
+        if launches["path_omic_serving"] != {
+                "_fused_pool_cuda": -(-n_subjects // B),
+                "_fused_pool_bwd_cuda": 0}:
+            raise AssertionError(f"serving launches "
+                                 f"{launches['path_omic_serving']}")
+        exp = exps["path_omic"]
+        settings = read_settings(os.path.join(
+            exp, f"experiment_{os.path.basename(exp)}.txt"))
+        cfg = config_from_settings(settings, batch_size=B,
+                                   omic_input_dim=n_genes)
+        model = ttrain.build_model(cfg).to(dev).eval()
+        ttrain.load_checkpoint(model, os.path.join(
+            exp, "s_0_minloss_checkpoint.pt"), spec_from_config(cfg))
+        view = infer._scored_split(settings, settings["csv_path"],
+                                   settings["data_root_dir"], 0)
+        plain = {}
+        with torch.no_grad(), _plain_pooling():
+            for batch in iter_batches(view, batch_size=B):
+                risk = model(**ttrain.model_inputs(cfg, batch, dev))["risk"]
+                for sid, v, ok in zip(batch["subject_ids"],
+                                      risk.cpu().numpy(), batch["valid"]):
+                    if ok:
+                        plain[sid] = float(v)
+        got = np.array([served["path_omic"][k] for k in sorted(plain)])
+        ref = np.array([plain[k] for k in sorted(plain)])
+        err = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        log(f"[omic] served path+omic risks vs the plain pooling: max rel "
+            f"err {err:.2e} (tol 1e-4)")
+        if sorted(plain) != sorted(served["path_omic"]) or err > 1e-4:
+            raise AssertionError("served path+omic risks differ from the "
+                                 "plain pooling")
+
+        # kernel vs plain train steps of path+omic
+        ds = SurvivalDataset(os.path.join(td, "dataset_csv", "brain",
+                                          "survival.csv"), "path_omic",
+                             os.path.join(td, "features", "brain"),
+                             n_bins=4)
+        train_split, _ = ds.load_splits(os.path.join(
+            td, "splits", "brain", "smoke", "splits_0.csv"))
+        batches = []
+        for b in iter_batches(train_split, batch_size=B, shuffle=True,
+                              seed=3):
+            b.pop("subject_ids")
+            batches.append(b)
+        cfg = ttrain.TrainConfig(
+            model_type="mm_attention_mil", mode="path_omic",
+            fusion="tensor", gate_path=True, drop_out=True,
+            bag_loss="nll_surv", batch_size=B, omic_input_dim=n_genes,
+            device="cuda")
+        _steps_agree("omic", cfg, batches[:3], launch_counters)
+    return launches
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -804,15 +1066,29 @@ def phase_timing(B=32, N=4096, D=256, Da=256):
     return res
 
 
-def phase_step_breakdown(cfg, batches, load_ms):
+def _pinned_copy(batch, pool):
+    """``batch`` with its bags copied into ``pool``'s page-locked buffers,
+    as the loader collates them for a CUDA device."""
+    out = dict(batch)
+    for k in ("path_bags", "path_mask"):
+        out[k] = pool.take(batch[k].shape)
+        np.copyto(out[k], batch[k])
+    return out
+
+
+def phase_step_breakdown(cfg, batches, host_ms):
     """One training step split into stages with CUDA events (host clock
-    for load+collate and the copy), averaged over ``batches`` after one
-    untimed step.  Autograd hooks mark where the backward leaves the head
-    (gradient of the pooled features) and the pooling (gradient of the FC
-    output)."""
+    for the load, the collation and the copy), averaged over ``batches``
+    after one untimed step.  The step copies its batch from page-locked
+    buffers (``non_blocking``), as training on the card does; load,
+    collate and the plain yardstick come from ``_collect_batches``.
+    Autograd hooks mark where the backward leaves the head (gradient of
+    the pooled features) and the pooling (gradient of the FC output)."""
     import torch
+    from multimodalfusion_tpu_torch.data.bags import PinnedPool
     from multimodalfusion_tpu_torch.engine import train as ttrain
     dev = torch.device("cuda")
+    pool = PinnedPool()
     model = ttrain.build_model(cfg, torch.Generator().manual_seed(0)).cuda()
     model.train()
     opt = ttrain.make_optimizer(cfg, model.parameters())
@@ -824,8 +1100,9 @@ def phase_step_breakdown(cfg, batches, load_ms):
     step_ms = 0.0
     for i, batch in enumerate([batches[0]] + list(batches)):
         timed = i > 0
+        batch = _pinned_copy(batch, pool)
         t0 = time.perf_counter()
-        kw = ttrain.model_inputs(cfg, batch, dev)
+        kw = ttrain.model_inputs(cfg, batch, dev, pool)
         lab = ttrain.label_inputs(batch, dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -857,21 +1134,31 @@ def phase_step_breakdown(cfg, batches, load_ms):
             for k, v in zip(stages, parts):
                 spent[k] += v
     n = len(batches)
-    res = {"load+collate": sum(load_ms) / n}
+    res = {"load": float(np.mean(host_ms["load"])),
+           "collate": float(np.mean(host_ms["collate"]))}
     res.update({k: v / n for k, v in spent.items()})
     res["step (copy .. optimizer, host clock)"] = step_ms / n
     buckets = [b["path_bags"].shape[1] for b in batches]
     log(f"[timing] training step, B={cfg.batch_size} bags x 1024 padded to "
         f"N in {buckets}, PathAMIL small gated, dropout, f32, mean of {n} "
-        f"steps (host clock for load+collate, copy and step; CUDA events "
+        f"steps (host clock for load, collate, copy and step; CUDA events "
         f"for the rest): " + ", ".join(f"{k} {v:.3f} ms"
                                        for k, v in res.items()))
+    log(f"[timing] host path per batch (host clock, {n} batches, each "
+        f"value in turn): " + "; ".join(
+            f"{k} " + ", ".join(f"{v:.3f}" for v in vs) + " ms"
+            for k, vs in host_ms.items()))
+    res["yardstick: collate (pad_bags_plain)"] = float(
+        np.mean(host_ms["collate (pad_bags_plain)"]))
+    res["yardstick: copy (pageable)"] = float(
+        np.mean(host_ms["copy (pageable, pad_bags_plain's batch)"]))
 
     # the card's busy share: device time of the whole train step (copy ..
     # optimizer) under torch.profiler, against the step's wall time with
     # and without the host loading of its batch
     train_step, _ = ttrain.make_steps(cfg, model, opt, dev)
-    per_kernel, wall_ms = _device_time(lambda: train_step(batches[0], gen))
+    pinned = _pinned_copy(batches[0], pool)  # kept taken: copied each call
+    per_kernel, wall_ms = _device_time(lambda: train_step(pinned, gen))
     copy_us = sum(v for k, v in per_kernel.items() if "Memcpy" in k)
     busy_ms = sum(v for k, v in per_kernel.items()
                   if "Memcpy" not in k) / 1e3
@@ -880,8 +1167,9 @@ def phase_step_breakdown(cfg, batches, load_ms):
                 "profiled copies": copy_us / 1e3})
     log(f"[timing] train step under torch.profiler: wall {wall_ms:.3f} ms, "
         f"kernels {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%} busy; "
-        f"{busy_ms / (wall_ms + res['load+collate']):.1%} with the batch's "
-        f"load+collate), copies {copy_us / 1e3:.3f} ms; largest: "
+        f"{busy_ms / (wall_ms + res['load'] + res['collate']):.1%} with the "
+        f"batch's load and collation), copies {copy_us / 1e3:.3f} ms; "
+        f"largest: "
         + ", ".join(f"{k} {v:.1f} us" for k, v in top))
     return res
 
@@ -893,8 +1181,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
-                         "slice,train,timing (default: all but digest, "
-                         "which prints the result lines)")
+                         "slice,train,omic,timing (default: all but "
+                         "digest, which prints the result lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -918,11 +1206,13 @@ def main(argv=None) -> int:
         if "slice" in phases:
             phase_slice(counters[:1])
         if "train" in phases:
-            _, cfg, batches, load_ms = phase_train(counters)
+            _, cfg, batches, host_ms = phase_train(counters)
+        if "omic" in phases:
+            phase_omic(counters)
         if "timing" in phases:
             phase_timing()
             if "train" in phases:
-                phase_step_breakdown(cfg, batches, load_ms)
+                phase_step_breakdown(cfg, batches, host_ms)
         log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
             f"no result)")
         return 0
@@ -933,11 +1223,14 @@ def main(argv=None) -> int:
     log(f"[kernels] done in {time.perf_counter() - t:.1f} s")
     serve_launches = phase_slice(counters[:1])
     t = time.perf_counter()
-    train_launches, cfg, batches, load_ms = phase_train(counters)
+    train_launches, cfg, batches, host_ms = phase_train(counters)
     log(f"[train] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    omic_launches = phase_omic(counters)
+    log(f"[omic] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     timing = phase_timing()
-    step = phase_step_breakdown(cfg, batches, load_ms)
+    step = phase_step_breakdown(cfg, batches, host_ms)
     log(f"[timing] done in {time.perf_counter() - t:.1f} s")
     # the headline variant of each kernel: the forward as serving and
     # evaluation run it (f32, no dropout), the backward as the training
@@ -959,6 +1252,8 @@ def main(argv=None) -> int:
         if name == "mil_pool_fwd":
             entry["launches_serving"] = serve_launches["_fused_pool_cuda"]
             entry["cublas_product_ms"] = head["cublas_product_ms"]
+        for path, counts in omic_launches.items():
+            entry[f"launches_{path}"] = counts[counter_of[name]]
         entries.append(entry)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,15 +1,20 @@
 """Label-free scoring CLI (port of multimodalfusion_tpu/cli/infer.py).
 
-Loads a trained stage-2 pathology attention-MIL experiment, reads a cohort
-CSV that may lack labels, and writes ``risks.csv`` with one row per
-scoreable subject: ``subject_id``, ``risk``, ``hazard_k`` and ``S_k``.
+Loads a trained stage-2 experiment (``path_attention_mil``, ``max_net``
+or ``mm_attention_mil``), reads a cohort CSV that may lack labels, and
+writes ``risks.csv`` with one row per scoreable subject: ``subject_id``,
+``risk`` and, for the discrete-hazard heads, ``hazard_k`` and ``S_k``.
 The weights come from the reference-layout ``.pt`` export that JAX
 training writes beside every checkpoint
-(``s_{k}_minloss_checkpoint.pt``).
+(``s_{k}_minloss_checkpoint.pt``).  Genomic inputs are z-scored with the
+training fold's scaler, refitted from the experiment's own cohort CSV and
+``splits_{k}.csv``, in the training cohort's column order (JAX
+cli/infer.py:89-114).
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the attention pooling
-then goes through the hand-written CUDA kernel.  Other experiment kinds
-raise NotImplementedError naming the ROADMAP.md item that ports them.
+then goes through the hand-written CUDA kernel, fed from page-locked
+buffers.  Other experiment kinds raise NotImplementedError naming the
+ROADMAP.md item that ports them.
 
     python -m multimodalfusion_tpu_torch.cli.infer --model_path EXP \\
         --which_k 0 [--csv COHORT.csv] [--out risks.csv] [--device cuda]
@@ -24,12 +29,16 @@ import sys
 import torch
 
 from multimodalfusion_tpu_torch import resolve_device
+from multimodalfusion_tpu_torch.data.bags import PinnedPool
 from multimodalfusion_tpu_torch.data.loaders import (iter_batches,
                                                      usable_indices)
-from multimodalfusion_tpu_torch.data.survival_dataset import SurvivalDataset
+from multimodalfusion_tpu_torch.data.survival_dataset import (
+    MODALITIES, SurvivalDataset, Split, read_split_ids)
 from multimodalfusion_tpu_torch.engine.train import (build_model,
+                                                     check_supported,
                                                      load_checkpoint,
                                                      model_inputs)
+from multimodalfusion_tpu_torch.utils.params import spec_from_config
 from multimodalfusion_tpu_torch.utils.experiment import (config_from_settings,
                                                          read_settings)
 
@@ -57,18 +66,46 @@ def build_parser():
 
 def _rows(out, sids, valid):
     """risks.csv rows of one batch: real subjects only."""
-    risk = out["risk"].float().cpu().numpy().reshape(len(sids), -1)
-    haz = out["hazards"].float().cpu().numpy().reshape(len(sids), -1)
-    S = out["S"].float().cpu().numpy().reshape(len(sids), -1)
+    def host(k):
+        t = out[k]
+        return (None if t is None else
+                t.float().cpu().numpy().reshape(len(sids), -1))
+    risk, haz, S = host("risk"), host("hazards"), host("S")
     rows = []
     for i, sid in enumerate(sids):
         if not sid or valid[i] == 0:
             continue
         row = {"subject_id": sid, "risk": float(risk[i, 0])}
-        row.update({f"hazard_{k}": float(v) for k, v in enumerate(haz[i])})
-        row.update({f"S_{k}": float(v) for k, v in enumerate(S[i])})
+        if haz is not None:
+            row.update({f"hazard_{k}": float(v)
+                        for k, v in enumerate(haz[i])})
+        if S is not None:
+            row.update({f"S_{k}": float(v) for k, v in enumerate(S[i])})
         rows.append(row)
     return rows
+
+
+def _scored_split(settings: dict, csv_path: str, data_dir: str,
+                  which_k: int) -> Split:
+    """Every subject of the cohort to score, with its genomic features
+    z-scored by the training fold's scaler: refitted on the train split
+    of the experiment's own cohort, the cohort's columns reordered to the
+    training order (a differing set raises)."""
+    mode = settings["mode"]
+    modalities = settings.get("radio_modality", MODALITIES)
+    whole = SurvivalDataset(csv_path=csv_path, mode=mode, data_dir=data_dir,
+                            modalities=modalities).whole_split()
+    if "omic" in mode:
+        train_ds = SurvivalDataset(csv_path=settings["csv_path"], mode=mode,
+                                   data_dir=data_dir, modalities=modalities)
+        split_csv = os.path.join(settings["split_dir"],
+                                 f"splits_{which_k}.csv")
+        tr = train_ds._split_from_ids(read_split_ids(split_csv,
+                                                     ("train",))["train"])
+        if tr.genomic_cols != whole.genomic_cols:
+            whole.reorder_genomic(tr.genomic_cols)  # raises on another set
+        whole.apply_scaler(tr.get_scaler())
+    return whole
 
 
 def main(argv=None) -> int:
@@ -78,25 +115,27 @@ def main(argv=None) -> int:
     settings = read_settings(os.path.join(args.model_path,
                                           f"experiment_{exp_code}.txt"))
     cfg = config_from_settings(settings, batch_size=args.batch_size)
-    model = build_model(cfg)  # raises for the kinds not ported yet
-    ds = SurvivalDataset(csv_path=args.csv or settings["csv_path"],
-                         mode=settings["mode"],
-                         data_dir=args.data_root_dir
-                         or settings["data_root_dir"])
-    idx = usable_indices(ds)
+    check_supported(cfg)  # raises for the kinds not ported yet
+    view = _scored_split(settings, args.csv or settings["csv_path"],
+                         args.data_root_dir or settings["data_root_dir"],
+                         args.which_k)
+    cfg.omic_input_dim = view.genomic_features.shape[1]
+    idx = usable_indices(view)
     if not idx:
         print("no scoreable subjects (missing modalities?)",
               file=sys.stderr)
         return 1
-    model = model.to(device).eval()
+    model = build_model(cfg).to(device).eval()
     load_checkpoint(model, os.path.join(
-        args.model_path, f"s_{args.which_k}_minloss_checkpoint.pt"))
+        args.model_path, f"s_{args.which_k}_minloss_checkpoint.pt"),
+        spec_from_config(cfg))
 
+    pool = PinnedPool() if device.type == "cuda" else None
     rows = []
     with torch.inference_mode():
-        for batch in iter_batches(ds, batch_size=cfg.batch_size,
-                                  indices=idx):
-            out = model(**model_inputs(cfg, batch, device))
+        for batch in iter_batches(view, batch_size=cfg.batch_size,
+                                  indices=idx, pool=pool):
+            out = model(**model_inputs(cfg, batch, device, pool))
             rows += _rows(out, batch["subject_ids"], batch["valid"])
 
     out_path = args.out or os.path.join(args.model_path,

@@ -6,13 +6,18 @@ itself flag-compatible with the reference's main.py).
         --drop_out --bag_loss nll_surv --which_splits 5foldcv ... \\
         [--device cuda]
 
+The models: ``path_attention_mil`` (``--mode path``), ``max_net``
+(``--mode omic``) and ``mm_attention_mil`` (``--mode path_omic`` or
+``omic``; ``--fusion tensor``, the default, or ``concat``).  The genomic
+input width is the cohort's number of genomic columns.
+
 It takes the JAX CLI's flags plus ``--device`` (``cuda`` unless ``cpu`` is
 asked for) and writes the JAX CLI's files: ``experiment_{code}.txt``,
 per-fold ``{k}/metrics.jsonl``, ``split_train_val_{k}_results.pkl`` (a dict
 of numpy arrays), the ``s_{k}_*checkpoint.pt`` state_dicts and
 ``summary.csv`` (or ``summary_partial_{a}_{b}.csv``, ``eval_``-prefixed
 with ``--eval_only``) with pandas' ``to_csv`` layout.  The flags of work
-not ported yet (other models and modes, ``--split``, ``--profile_dir``,
+not ported yet (radiology, stage 4, ``--split``, ``--profile_dir``,
 ``--resume``, ``--tb``, ``--ckpt_format orbax``, ``--data_parallel``,
 ``--bag_shard*``) raise NotImplementedError naming their ROADMAP.md item.
 """
@@ -118,7 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _config(args, results_dir: str) -> TrainConfig:
+def _config(args, results_dir: str, omic_dim: int = 0) -> TrainConfig:
     return TrainConfig(
         model_type=args.model_type, mode=args.mode,
         n_classes=args.n_classes, bag_loss=args.bag_loss,
@@ -128,7 +133,12 @@ def _config(args, results_dir: str) -> TrainConfig:
         batch_size=args.batch_size, gc=args.gc,
         early_stopping=args.early_stopping,
         weighted_sample=args.weighted_sample, drop_out=args.drop_out,
-        gate_path=args.gate_path, model_size_wsi=args.model_size_wsi,
+        gate_path=args.gate_path, gate_radio=args.gate_radio,
+        gate=args.gate_omic, fusion=args.fusion,
+        radio_fusion=args.radio_fusion,
+        modalities=tuple(args.modality.split(",")),
+        model_size_wsi=args.model_size_wsi,
+        model_size_omic=args.model_size_omic, omic_input_dim=omic_dim,
         seed=args.seed,
         results_dir=results_dir, split_mode=args.split_mode,
         resume=args.resume, data_parallel=args.data_parallel,
@@ -183,7 +193,8 @@ def main(argv=None) -> int:
                          f"available tasks in {dataset_path}: {have}")
     dataset = SurvivalDataset(csv_path=csv_path, mode=args.mode,
                               data_dir=data_root_dir, n_bins=args.n_classes,
-                              label_col="survival_months", print_info=True)
+                              label_col="survival_months",
+                              modalities=modalities, print_info=True)
 
     ensure_dir(args.results_dir)
     results_dir = ensure_dir(os.path.join(args.results_dir,
@@ -238,7 +249,9 @@ def main(argv=None) -> int:
                 if args.split_mode == "train_val_test" else ("train", "val"))
         splits = dataset.load_splits(
             os.path.join(split_dir, f"splits_{i}.csv"), keys=keys)
-        out = train_fold(splits, i, _config(args, results_dir),
+        omic_dim = (splits[0].genomic_features.shape[1]
+                    if splits[0] is not None else 0)
+        out = train_fold(splits, i, _config(args, results_dir, omic_dim),
                          eval_only=args.eval_only)
         if args.split_mode == "train_val_test":
             val_res, val_c, test_res, test_c = out

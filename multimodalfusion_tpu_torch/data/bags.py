@@ -1,33 +1,45 @@
-"""Padded/bucketed batching of variable-length MIL bags (port of the numpy
-path of multimodalfusion_tpu/data/bags.py).
+"""Padded/bucketed batching of variable-length MIL bags (port of
+multimodalfusion_tpu/data/bags.py).
 
 Each batch of bags is padded to a shared bucketed length and carries a
 mask; the bucket ladder keeps the number of distinct shapes small.
+``pad_bags`` collates through the threaded native library
+(``multimodalfusion_tpu_torch/native.py``), into page-locked buffers of a
+``PinnedPool`` when the batch is bound for a CUDA device.  The numpy
+version stays as ``pad_bags_plain``, the oracle of the tests.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from multimodalfusion_tpu_torch import native
 
 # bucket ladder for bag lengths: 128 … 65536 by powers of two
 _BUCKETS = [128 * (2 ** k) for k in range(10)]
 
 
 def bucket_len(n: int) -> int:
-    """Smallest bucket >= n (at least 128)."""
+    """Smallest bucket >= n (multiples of 65536 past the ladder)."""
     for b in _BUCKETS:
         if n <= b:
             return b
     return ((n + _BUCKETS[-1] - 1) // _BUCKETS[-1]) * _BUCKETS[-1]
 
 
-def pad_bags(bags: Sequence[Optional[np.ndarray]], feat_dim: int,
-             dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
+def _padded_len(bags) -> int:
+    return bucket_len(max([b.shape[0] for b in bags if b is not None],
+                          default=1))
+
+
+def pad_bags_plain(bags: Sequence[Optional[np.ndarray]], feat_dim: int,
+                   dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
     """Stack a list of [n_i, D] bags (None = missing modality -> all-pad)
-    into (padded [B, N_bucket, D], mask [B, N_bucket])."""
-    n_max = max([b.shape[0] for b in bags if b is not None], default=1)
-    n_pad = bucket_len(n_max)
+    into (padded [B, N_bucket, D], mask [B, N_bucket]), in numpy."""
+    n_pad = _padded_len(bags)
     out = np.zeros((len(bags), n_pad, feat_dim), dtype=dtype)
     mask = np.zeros((len(bags), n_pad), dtype=np.float32)
     for i, b in enumerate(bags):
@@ -37,3 +49,108 @@ def pad_bags(bags: Sequence[Optional[np.ndarray]], feat_dim: int,
         out[i, :n] = b
         mask[i, :n] = 1.0
     return out, mask
+
+
+def pad_bags(bags: Sequence[Optional[np.ndarray]], feat_dim: int,
+             pool: Optional["PinnedPool"] = None
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """``pad_bags_plain`` for float32, collated by the native library into
+    buffers of ``pool`` (page-locked, for a batch bound for a CUDA device)
+    or, without one, into new arrays.  A bag that is not float32
+    C-contiguous is converted first."""
+    bags = [None if b is None else np.ascontiguousarray(b, np.float32)
+            for b in bags]
+    shape = (len(bags), _padded_len(bags), feat_dim)
+    if pool is None:
+        out = np.empty(shape, np.float32)
+        mask = np.empty(shape[:2], np.float32)
+    else:
+        out, mask = pool.take(shape), pool.take(shape[:2])
+    native.pad_bags_into(bags, out, mask)
+    return out, mask
+
+
+def _pinned_empty(shape) -> np.ndarray:
+    return torch.empty(shape, dtype=torch.float32, pin_memory=True).numpy()
+
+
+class PinnedPool:
+    """Page-locked float32 host buffers for batches bound for a CUDA
+    device, reused by shape and holding at most ``max_bytes`` in all.
+
+    ``take`` hands out a buffer; ``release`` gives buffers back once the
+    copies that read them are enqueued: it records one event on that
+    stream, and a buffer is handed out again only after its event has
+    completed.  When a new buffer would pass ``max_bytes`` and no idle
+    buffer can be dropped to make room, ``take`` waits for the oldest
+    released buffer of the same shape; failing that, the buffer is
+    ordinary memory outside the pool, so a 65,536-row bucket cannot pin
+    tens of GB.  (A dropped buffer goes back to PyTorch's own cache of
+    page-locked blocks, which serves later allocations of its size.)
+    Thread-safe: the loader thread takes, the consumer releases.
+
+    ``alloc`` makes a page-locked array and ``new_event`` an unrecorded
+    ``torch.cuda.Event``; tests pass host stand-ins.
+    """
+
+    def __init__(self, max_bytes: int = 4 << 30,
+                 alloc: Callable[[tuple], np.ndarray] = _pinned_empty,
+                 new_event: Callable[[], object] = torch.cuda.Event):
+        self.max_bytes = max_bytes
+        self._alloc, self._new_event = alloc, new_event
+        self._lock = threading.Lock()
+        self._idle: Dict[tuple, List[tuple]] = {}  # shape -> [(arr, event)]
+        self._out: Dict[int, np.ndarray] = {}      # address -> taken array
+        self.held_bytes = 0                        # idle + taken, pooled
+
+    def take(self, shape) -> np.ndarray:
+        shape = tuple(int(s) for s in shape)
+        nbytes = int(np.prod(shape)) * 4
+        with self._lock:
+            idle = self._idle.setdefault(shape, [])
+            for i, (arr, ev) in enumerate(idle):
+                if ev.query():
+                    del idle[i]
+                    return self._hand_out(arr)
+            self._drop_idle(nbytes)
+            if self.held_bytes + nbytes <= self.max_bytes:
+                self.held_bytes += nbytes
+                return self._hand_out(self._alloc(shape))
+            if not idle:
+                return np.empty(shape, np.float32)
+            arr, ev = idle.pop(0)
+        ev.synchronize()
+        with self._lock:
+            return self._hand_out(arr)
+
+    def release(self, arrays: Sequence[np.ndarray], stream=None) -> None:
+        """Give back the pool's buffers among ``arrays`` (others are
+        ignored) once the copies that read them are enqueued on ``stream``
+        (the current stream when None)."""
+        with self._lock:
+            mine = [self._out.pop(a.ctypes.data) for a in arrays
+                    if self._out.get(a.ctypes.data) is a]
+        if not mine:
+            return
+        ev = self._new_event()
+        ev.record(stream)
+        with self._lock:
+            for arr in mine:
+                self._idle.setdefault(arr.shape, []).append((arr, ev))
+
+    def _hand_out(self, arr: np.ndarray) -> np.ndarray:
+        self._out[arr.ctypes.data] = arr
+        return arr
+
+    def _drop_idle(self, nbytes: int) -> None:
+        """Drop idle buffers whose copies have completed, largest first,
+        until ``nbytes`` more fit under ``max_bytes``."""
+        done = sorted(((arr, shape) for shape, idle in self._idle.items()
+                       for arr, ev in idle if ev.query()),
+                      key=lambda x: -x[0].nbytes)
+        for arr, shape in done:
+            if self.held_bytes + nbytes <= self.max_bytes:
+                return
+            self._idle[shape] = [(a, e) for a, e in self._idle[shape]
+                                 if a is not arr]
+            self.held_bytes -= arr.nbytes

@@ -1,10 +1,13 @@
 """Host-side batch iterators producing fixed-shape (bucketed) numpy
-batches (port of the path part of multimodalfusion_tpu/data/loaders.py).
+batches (port of the path and omic parts of
+multimodalfusion_tpu/data/loaders.py).
 
 Batches are dicts of numpy arrays with static shapes per (batch_size,
 bag-bucket) pair; partial batches are padded and masked via ``valid``.
-A view is a ``SurvivalDataset`` or a ``Split`` of one: anything with
-``mode``, ``__len__``, ``probe_present`` and ``get_sample``.
+A view is a ``SurvivalDataset`` (pathology only) or a ``Split`` of one:
+anything with ``mode``, ``__len__``, ``probe_present`` and ``get_sample``.
+Bags are collated by the native library (``data/bags.py``), into the
+page-locked buffers of a ``PinnedPool`` when one is given.
 """
 from __future__ import annotations
 
@@ -14,21 +17,31 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from multimodalfusion_tpu_torch.data.bags import pad_bags
+from multimodalfusion_tpu_torch.data.bags import PinnedPool, pad_bags
 from multimodalfusion_tpu_torch.data.survival_dataset import Sample
 
 # per-instance feature width of stage-1 extraction (truncated ResNet50)
 FEAT_DIM = 1024
 
 
+def _needed(mode: str) -> List[str]:
+    return [m for m in ("radio", "path", "omic") if m in mode]
+
+
+def _usable(present: Dict[str, bool], mode: str) -> bool:
+    return all(present.get(m, False) for m in _needed(mode))
+
+
 def usable_indices(view) -> List[int]:
-    """Subjects whose required modalities are present on disk (ref
-    core_utils.py:185-192 skips the others in its loop)."""
+    """Subjects that have every modality their mode needs (ref
+    core_utils.py:185-192 skips the others in its loop): bags by file
+    existence, genomic features by a row without NaN."""
     return [i for i in range(len(view))
-            if view.probe_present(i).get(view.mode, False)]
+            if _usable(view.probe_present(i), view.mode)]
 
 
-def _batch_from_samples(samples: List[Sample], batch_size: int,
+def _batch_from_samples(samples: List[Sample], mode: str, batch_size: int,
+                        pool: Optional[PinnedPool] = None,
                         n_path_feat: int = FEAT_DIM
                         ) -> Dict[str, np.ndarray]:
     B, n = batch_size, len(samples)
@@ -41,21 +54,32 @@ def _batch_from_samples(samples: List[Sample], batch_size: int,
     batch["valid"][:n] = 1.0
     batch["subject_ids"] = np.array([s.subject_id for s in samples]
                                     + [""] * (B - n), dtype=object)
-    batch["path_bags"], batch["path_mask"] = pad_bags(
-        [s.path for s in samples] + [None] * (B - n), n_path_feat)
+    if "path" in mode:
+        batch["path_bags"], batch["path_mask"] = pad_bags(
+            [s.path for s in samples] + [None] * (B - n), n_path_feat, pool)
+    if "omic" in mode:
+        G = next((s.omic.shape[0] for s in samples if s.omic is not None), 1)
+        genomic = np.zeros((B, G), np.float32)
+        for i, s in enumerate(samples):
+            if s.omic is not None:
+                genomic[i] = s.omic
+        batch["genomic"] = genomic
     return batch
 
 
 def iter_batches(view, batch_size: int = 1, shuffle: bool = False,
                  weighted: bool = False, seed: int = 0,
-                 indices: Optional[List[int]] = None
+                 indices: Optional[List[int]] = None,
+                 pool: Optional[PinnedPool] = None
                  ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield fixed-shape batches.  The order is the JAX package's for the
     same seed: ``weighted`` replicates the reference's
     WeightedRandomSampler over (bin, censorship) classes (ref
     utils/utils.py:116-117), ``shuffle`` permutes.  A subject whose bag
     exists but fails to load is dropped with a warning instead of being
-    collated as a zero bag with valid=1."""
+    collated as a zero bag with valid=1.  With ``pool``, the bags are
+    collated into its page-locked buffers: the consumer hands them back
+    (``PinnedPool.release``) once their copy to the card is enqueued."""
     if indices is None:
         indices = usable_indices(view)
     if not indices:
@@ -72,15 +96,15 @@ def iter_batches(view, batch_size: int = 1, shuffle: bool = False,
     for start in range(0, len(order), batch_size):
         chunk = order[start:start + batch_size]
         samples = [view.get_sample(i) for i in chunk]
-        kept = [s for s in samples if s.present.get(view.mode, False)]
+        kept = [s for s in samples if _usable(s.present, view.mode)]
         if len(kept) < len(samples) and not warned:
             bad = [s.subject_id for s in samples
-                   if not s.present.get(view.mode, False)]
+                   if not _usable(s.present, view.mode)]
             print(f"WARNING: dropping samples with unloadable "
                   f"modalities (corrupt files?): {bad[:5]}...")
             warned = True
         if kept:
-            yield _batch_from_samples(kept, batch_size)
+            yield _batch_from_samples(kept, view.mode, batch_size, pool)
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:

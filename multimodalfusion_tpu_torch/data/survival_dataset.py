@@ -1,22 +1,28 @@
-"""Cohort CSVs, labels, splits and per-sample bag loading for pathology
-(port of the ``mode="path"`` part of
-multimodalfusion_tpu/data/survival_dataset.py, without pandas).
+"""Cohort CSVs, labels, splits, genomic features and per-sample bag
+loading for pathology and genomics (port of the ``path`` and ``omic``
+modes of multimodalfusion_tpu/data/survival_dataset.py, without pandas or
+scikit-learn).
 
 CSVs are read with the stdlib ``csv`` module.  Cells that pandas reads as
 missing (its default NA strings) count as missing here too, so the
-subject -> slides grouping, the label columns and the split columns follow
-the JAX package's order and NaN rules.  Unlike pandas, identifiers stay
-text: a numeric ``subject_id`` such as ``007`` keeps its leading zeros.
+subject -> slides grouping, the label columns, the genomic columns and the
+split columns follow the JAX package's order and NaN rules.  Unlike
+pandas, identifiers stay text: a numeric ``subject_id`` such as ``007``
+keeps its leading zeros.
 
 ``SurvivalDataset`` reads a cohort with labels (``n_bins`` given: the
 training CLI) or without (``n_bins=None``: the label-free scoring CLI).
+The genomic features belong to a ``Split``: each split holds its rows of
+the cohort's genomic columns, z-scored with its fold's training split
+(``Scaler``, ``StandardScaler`` semantics).  A mode with ``omic`` is
+therefore read through splits (``load_splits``, ``whole_split``).
 """
 from __future__ import annotations
 
 import csv
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,16 +34,51 @@ _NA = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN",
                  "-NaN", "-nan", "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA",
                  "NULL", "NaN", "None", "n/a", "nan", "null"})
 
+# the cohort CSV's non-genomic columns (JAX survival_dataset.py:25-27);
+# the radiology modality columns and the label column join them
+METADATA_BASE = ["subject_id", "label", "disc_label", "slide_id"]
+METADATA_TAIL = ["oncotree_code", "is_female", "age", "survival_months",
+                 "censorship", "train"]
+MODALITIES = ("T1", "T2", "T1Gd", "FLAIR")
+
 
 @dataclass
 class Sample:
     subject_id: str
     path: Optional[np.ndarray] = None      # [N, D] bag
+    omic: Optional[np.ndarray] = None      # [G] z-scored genomic features
     present: Dict[str, bool] = field(default_factory=dict)
     # labels (0 for a label-free cohort)
     disc_label: int = 0
     event_time: float = 0.0
     censorship: float = 0.0
+
+
+class Scaler(NamedTuple):
+    """``sklearn.preprocessing.StandardScaler`` fitted on float64 columns:
+    NaN-ignoring mean, population variance by the corrected two-pass sum,
+    scale 1 for a column that sklearn's bound calls constant, NaN kept as
+    NaN (an all-NaN column has a NaN mean and scales to NaN)."""
+    mean: np.ndarray
+    scale: np.ndarray
+
+    @classmethod
+    def fit(cls, X: np.ndarray) -> "Scaler":
+        X = np.asarray(X, np.float64)
+        n = (~np.isnan(X)).sum(axis=0).astype(np.float64)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            mean = np.nansum(X, axis=0) / n
+            dev = X - mean
+            correction = np.nansum(dev, axis=0)
+            var = (np.nansum(dev ** 2, axis=0) - correction ** 2 / n) / n
+        eps = np.finfo(np.float64).eps
+        constant = var <= n * eps * var + (n * mean * eps) ** 2
+        scale = np.sqrt(var)
+        scale[constant] = 1.0
+        return cls(mean, scale)
+
+    def transform(self, X: np.ndarray) -> np.ndarray:
+        return (np.asarray(X, np.float64) - self.mean) / self.scale
 
 
 def _slide_pt_name(slide_id) -> str:
@@ -57,14 +98,14 @@ def _float(cell: Optional[str]) -> float:
 
 
 def read_cohort(csv_path: str):
-    """(subject ids in first-appearance order, subject -> slide ids,
-    subject -> its first row).
+    """(column names, subject ids in first-appearance order, subject ->
+    slide ids, subject -> its first row).
 
     A subject's slides are its rows' non-missing ``slide_id`` cells in
     file order; a CSV without that column gets ``<subject_id>.svs``, as
     the JAX serving CLI does.  Rows without a subject id are skipped.  The
-    first row of a subject carries its labels, as pandas'
-    ``drop_duplicates(["subject_id"])`` keeps it."""
+    first row of a subject carries its labels and genomic features, as
+    pandas' ``drop_duplicates(["subject_id"])`` keeps it."""
     with open(csv_path, newline="") as f:
         reader = csv.DictReader(f)
         if reader.fieldnames is None or "subject_id" not in reader.fieldnames:
@@ -84,40 +125,61 @@ def read_cohort(csv_path: str):
             slide = row["slide_id"] if has_slides else f"{sid}.svs"
             if slide not in _NA:
                 slides[sid].append(slide)
-    return subjects, slides, first
+    return list(reader.fieldnames), subjects, slides, first
 
 
 class SurvivalDataset:
-    """Cohort over pathology bags in ``<data_dir>/path_pt_files/<slide>.pt``.
+    """Cohort over pathology bags in ``<data_dir>/path_pt_files/<slide>.pt``
+    and the cohort CSV's genomic columns.
 
-    With ``n_bins``, the cohort's labels are read and discretized (ref
-    Generic_Survival_Dataset.__init__ :14-93): ``disc_label``, ``label``
-    (the (bin, censorship) class), event time (``label_col``) and
-    censorship per patient; the bin edges come from the uncensored
-    patients with ``train == 1``.  Without it, the cohort is label-free.
+    ``mode`` names the modalities a sample needs: ``path``, ``omic`` or
+    ``path_omic`` (radiology raises).  With ``n_bins``, the cohort's labels
+    are read and discretized (ref Generic_Survival_Dataset.__init__
+    :14-93): ``disc_label``, ``label`` (the (bin, censorship) class), event
+    time (``label_col``) and censorship per patient; the bin edges come
+    from the uncensored patients with ``train == 1``.  Without it, the
+    cohort is label-free.  With ``omic`` in the mode, the genomic columns
+    are every column outside ``METADATA_BASE + modalities +
+    METADATA_TAIL + [label_col]``, read as float64 from each subject's
+    first row.
     """
 
     def __init__(self, csv_path: str, mode: str = "path",
                  data_dir: Optional[str] = None,
                  n_bins: Optional[int] = None,
                  label_col: str = "survival_months", eps: float = 1e-6,
+                 modalities: Sequence[str] = MODALITIES,
                  print_info: bool = False):
-        if mode != "path":
+        if "radio" in mode:
             raise NotImplementedError(
-                f"mode {mode!r}: the port reads pathology bags only so far "
-                "(ROADMAP.md, port queue: radio is item 3, omic item 4)")
+                f"mode {mode!r}: radiology bags are not ported yet "
+                "(ROADMAP.md, port queue item 4)")
+        if "path" not in mode and "omic" not in mode:
+            raise ValueError(f"mode {mode!r} selects no modality (path, "
+                             f"omic or path_omic)")
         self.csv_path = csv_path
         self.mode = mode
         self.data_dir = data_dir
         self.label_col = label_col
-        self.patients, self.slides_dict, first = read_cohort(csv_path)
+        self.modalities = list(modalities)
+        columns, self.patients, self.slides_dict, first = read_cohort(
+            csv_path)
+        # the label column is always metadata, so a non-default label_col
+        # never leaks into the features (JAX survival_dataset.py:291-293)
+        metadata = set(METADATA_BASE + self.modalities + METADATA_TAIL
+                       + [label_col])
+        self.genomic_cols = ([c for c in columns if c not in metadata]
+                             if "omic" in mode else [])
+        self.genomic = np.array(
+            [[_float(first[s][c]) for c in self.genomic_cols]
+             for s in self.patients], np.float64).reshape(
+                 len(self.patients), len(self.genomic_cols))
         self.disc_label = self.label = self.event_time = None
         self.censorship = None
         if n_bins is None:
             return
-        cols = first[self.patients[0]].keys() if self.patients else ()
         for col in (label_col, "censorship", "train"):
-            if col not in cols:
+            if col not in columns:
                 raise ValueError(f"{csv_path}: no {col!r} column for the "
                                  f"survival labels")
         rows = [first[s] for s in self.patients]
@@ -149,26 +211,36 @@ class SurvivalDataset:
                 for s in self.slides_dict.get(subject_id, [])]
 
     def probe_present(self, idx: int) -> Dict[str, bool]:
-        """Cheap presence probe: file existence only, no array loads."""
+        """Cheap presence probe of the pathology bags: file existence only,
+        no array loads.  (A split adds the genomic features.)"""
+        if "path" not in self.mode:
+            return {}
         paths = self._slide_paths(self.patients[idx])
         return {"path": any(os.path.exists(p) for p in paths)}
 
     def get_sample(self, idx: int) -> Sample:
-        """The subject's slides concatenated into one bag (ref :355-367),
-        with its labels; a slide that fails to load is skipped."""
+        """The subject's labels and, in a mode with ``path``, its slides
+        concatenated into one float32 bag (ref :355-367) in one copy, or in
+        none for a single float32 slide; a slide that fails to load is
+        skipped.  (A split adds the genomic features.)"""
         s = Sample(subject_id=self.patients[idx])
         if self.labelled:
             s.disc_label = int(self.disc_label[idx])
             s.event_time = float(self.event_time[idx])
             s.censorship = float(self.censorship[idx])
+        if "path" not in self.mode:
+            return s
         parts = []
         for p in self._slide_paths(s.subject_id):
             try:
                 parts.append(io.load_pt(p))
             except (OSError, ValueError):
                 pass
-        if parts:
-            s.path = np.concatenate(parts, axis=0).astype(np.float32)
+        if len(parts) == 1:
+            s.path = np.ascontiguousarray(parts[0], dtype=np.float32)
+        elif parts:
+            s.path = np.concatenate(parts, axis=0, dtype=np.float32,
+                                    casting="unsafe")
         s.present["path"] = s.path is not None
         return s
 
@@ -187,27 +259,64 @@ class SurvivalDataset:
                     ) -> Tuple[Optional["Split"], ...]:
         """Read a splits_{i}.csv (columns train/val[/test]); a key whose
         column is missing or empty gives None.  A split keeps the cohort's
-        patient order, whatever the order of its column (ref
+        patient order, whatever the order of its column; every split's
+        genomic features are z-scored with the train split's scaler (ref
         return_train_val(_test)_splits :141-171)."""
-        with open(csv_path, newline="") as f:
-            reader = csv.DictReader(f)
-            columns = reader.fieldnames or []
-            cells = {k: [] for k in keys if k in columns}
-            for row in reader:
-                for k, ids in cells.items():
-                    if row[k] not in _NA and row[k] is not None:
-                        ids.append(row[k])
-        return tuple(self._split_from_ids(cells[k]) if k in cells else None
-                     for k in keys)
+        cells = read_split_ids(csv_path, keys)
+        out = tuple(self._split_from_ids(cells[k]) if k in cells else None
+                    for k in keys)
+        train = out[keys.index("train")] if "train" in keys else None
+        if train is not None and train.genomic_features.size:
+            scaler = train.get_scaler()
+            for sp in out:
+                if sp is not None:
+                    sp.apply_scaler(scaler)
+        return out
+
+    def whole_split(self) -> "Split":
+        """Every patient, genomic features not yet z-scored."""
+        return Split(self, range(len(self.patients)))
+
+
+def read_split_ids(csv_path: str, keys) -> Dict[str, List[str]]:
+    """The non-missing ids of each of ``keys`` that is a column of a
+    splits_{i}.csv, in file order."""
+    with open(csv_path, newline="") as f:
+        reader = csv.DictReader(f)
+        columns = reader.fieldnames or []
+        cells = {k: [] for k in keys if k in columns}
+        for row in reader:
+            for k, ids in cells.items():
+                if row[k] not in _NA and row[k] is not None:
+                    ids.append(row[k])
+    return cells
 
 
 class Split:
-    """A view over a subset of a labelled cohort's patients (``rows``
-    index ``ds.patients``), with lazy bag loading."""
+    """A view over a subset of a cohort's patients (``rows`` index
+    ``ds.patients``), with lazy bag loading and the subset's genomic
+    features (float64 [len, G], NaN where a cell is missing)."""
 
-    def __init__(self, ds: SurvivalDataset, rows: List[int]):
+    def __init__(self, ds: SurvivalDataset, rows: Sequence[int]):
         self.ds = ds
         self.rows = list(rows)
+        self.genomic_cols = list(ds.genomic_cols)
+        self.genomic_features = ds.genomic[self.rows]
+        # an all-NaN column marks every subject omic-absent (ref
+        # survival_dataset.py:75-87): usually a scan-path column that the
+        # modalities did not exclude
+        self.all_nan_genomic_cols: List[str] = []
+        if self.rows and "omic" in ds.mode:
+            all_nan = np.isnan(self.genomic_features).all(axis=0)
+            if all_nan.any():
+                self.all_nan_genomic_cols = [
+                    c for c, b in zip(self.genomic_cols, all_nan) if b]
+                print(f"WARNING: genomic columns "
+                      f"{self.all_nan_genomic_cols} are entirely NaN in "
+                      f"this split — every subject will be treated as "
+                      f"omic-absent; if they are scan-path columns, "
+                      f"exclude them via --modality (dataset modalities="
+                      f"{ds.modalities})")
 
     @property
     def mode(self) -> str:
@@ -215,6 +324,23 @@ class Split:
 
     def __len__(self):
         return len(self.rows)
+
+    def get_scaler(self) -> Scaler:
+        return Scaler.fit(self.genomic_features)
+
+    def apply_scaler(self, scaler: Scaler) -> None:
+        self.genomic_features = scaler.transform(self.genomic_features)
+
+    def reorder_genomic(self, columns: Sequence[str]) -> None:
+        """Re-read the (not yet z-scored) genomic features in the order of
+        ``columns``, which must hold the same names."""
+        if sorted(columns) != sorted(self.genomic_cols):
+            raise ValueError(f"genomic columns differ: "
+                             f"{sorted(set(columns) ^ set(self.genomic_cols))}")
+        pos = {c: i for i, c in enumerate(self.ds.genomic_cols)}
+        self.genomic_cols = list(columns)
+        self.genomic_features = self.ds.genomic[self.rows][
+            :, [pos[c] for c in columns]]
 
     @property
     def labels(self) -> np.ndarray:
@@ -228,8 +354,20 @@ class Split:
             float)
         return float(len(self.rows)) / counts[lab]
 
+    def _omic(self, idx: int) -> Optional[np.ndarray]:
+        g = self.genomic_features[idx]
+        return None if np.isnan(g).any() else g
+
     def probe_present(self, idx: int) -> Dict[str, bool]:
-        return self.ds.probe_present(self.rows[idx])
+        present = self.ds.probe_present(self.rows[idx])
+        if "omic" in self.mode:
+            present["omic"] = self._omic(idx) is not None
+        return present
 
     def get_sample(self, idx: int) -> Sample:
-        return self.ds.get_sample(self.rows[idx])
+        s = self.ds.get_sample(self.rows[idx])
+        if "omic" in self.mode:
+            g = self._omic(idx)
+            s.omic = None if g is None else g.astype(np.float32)
+            s.present["omic"] = s.omic is not None
+        return s

@@ -1,4 +1,5 @@
-"""Per-fold training engine for stage-2 pathology attention-MIL (port of
+"""Per-fold training engine for the stage-2 models: pathology
+attention-MIL, the genomic SNN and path+omic fusion (port of
 multimodalfusion_tpu/engine/train.py).
 
 The epoch loop feeds fixed-shape bucketed batches through one train step
@@ -11,7 +12,12 @@ training device, the batch order from numpy as in the JAX package.
 Checkpoints are the reference-layout ``.pt`` state_dicts
 (``s_{k}_checkpoint.pt``, ``s_{k}_minloss_checkpoint.pt``,
 ``s_{k}_mid_checkpoint.pt``) that the JAX package writes beside its
-msgpack files; the port writes no msgpack.
+msgpack files, with the same placeholders of the branches the mode does
+not build (``utils/params.py``); the port writes no msgpack.
+
+On a CUDA device the loader collates the bags into the page-locked
+buffers of a ``PinnedPool``, and ``model_inputs`` copies them to the card
+with ``non_blocking`` and hands them back to the pool.
 """
 from __future__ import annotations
 
@@ -27,15 +33,18 @@ import torch
 from multimodalfusion_tpu_torch import losses as losses_mod
 from multimodalfusion_tpu_torch import metrics as metrics_mod
 from multimodalfusion_tpu_torch import resolve_device
+from multimodalfusion_tpu_torch.data.bags import PinnedPool
 from multimodalfusion_tpu_torch.data.loaders import (iter_batches, prefetch,
                                                      usable_indices)
+from multimodalfusion_tpu_torch.data.survival_dataset import MODALITIES
 from multimodalfusion_tpu_torch.models.amil import PathAMIL
+from multimodalfusion_tpu_torch.models.genomic import MaxNet
+from multimodalfusion_tpu_torch.models.mm_amil import MMAttentionMIL
+from multimodalfusion_tpu_torch.utils import params as params_mod
 
-_NOT_YET = {
-    "radio_attention_mil": "radio AMIL is ROADMAP.md port queue item 3",
-    "max_net": "omic models are ROADMAP.md port queue item 4",
-    "mm_attention_mil": "multimodal models are ROADMAP.md port queue item 4",
-}
+# the modes each ported model trains and serves in
+_MODES = {"path_attention_mil": ("path",), "max_net": ("omic",),
+          "mm_attention_mil": ("path_omic", "omic")}
 
 
 @dataclasses.dataclass
@@ -61,7 +70,14 @@ class TrainConfig:
     weighted_sample: bool = False
     drop_out: bool = False           # attention-branch dropout
     gate_path: bool = False
+    gate_radio: bool = False
+    gate: bool = False               # fusion gating (--gate_omic)
+    fusion: Optional[str] = None
+    radio_fusion: Optional[str] = None
+    modalities: Tuple[str, ...] = MODALITIES
     model_size_wsi: str = "small"
+    model_size_omic: str = "small"
+    omic_input_dim: int = 0          # the cohort's genomic columns
     seed: int = 1
     results_dir: str = "./results"
     split_mode: str = "train_val"
@@ -81,12 +97,28 @@ class TrainConfig:
 # model factory + batch adapter
 # ---------------------------------------------------------------------------
 
-def _unsupported(cfg: TrainConfig) -> NotImplementedError:
+def _unsupported(cfg: TrainConfig) -> Exception:
+    """The error for a model and mode the port does not run, naming the
+    ROADMAP.md item that brings it."""
+    where = f"{cfg.model_type} (mode {cfg.mode})"
     if cfg.pretrained:
-        why = "stage-4 pretrained heads are ROADMAP.md port queue item 4"
-    else:
-        why = _NOT_YET.get(cfg.model_type, "not a model of this repo")
-    return NotImplementedError(f"{cfg.model_type} (mode {cfg.mode}): {why}")
+        return NotImplementedError(f"{where}: stage-4 pretrained heads are "
+                                   "ROADMAP.md port queue item 3")
+    if cfg.model_type == "radio_attention_mil" or "radio" in cfg.mode:
+        return NotImplementedError(f"{where}: radiology bags and radio AMIL "
+                                   "are ROADMAP.md port queue item 4")
+    if cfg.model_type == "mm_attention_mil" and cfg.mode == "path":
+        return NotImplementedError(f"{where}: the path-only fusion mode "
+                                   "comes with ROADMAP.md port queue item 4")
+    if cfg.model_type not in _MODES:
+        return NotImplementedError(f"{where}: not a model of this repo")
+    return ValueError(f"{where}: {cfg.model_type} runs in mode "
+                      f"{' or '.join(_MODES[cfg.model_type])}")
+
+
+def _check_model(cfg: TrainConfig) -> None:
+    if cfg.pretrained or cfg.mode not in _MODES.get(cfg.model_type, ()):
+        raise _unsupported(cfg)
 
 
 # engine knobs of the JAX package that the port does not do yet, each with
@@ -107,13 +139,7 @@ def check_supported(cfg: TrainConfig) -> None:
     """Raise for a model, mode or engine knob that the port does not do
     yet, naming the ROADMAP.md item that brings it; nothing is silently
     ignored."""
-    if cfg.pretrained or cfg.model_type != "path_attention_mil":
-        raise _unsupported(cfg)
-    if cfg.mode != "path":
-        raise NotImplementedError(
-            f"mode {cfg.mode!r}: the port trains on pathology bags only "
-            "(--mode path); radio and omic data come with ROADMAP.md port "
-            "queue items 3 and 4")
+    _check_model(cfg)
     for asked, what, item in _UNPORTED:
         if asked(cfg):
             raise NotImplementedError(f"{what} is not ported yet "
@@ -122,48 +148,88 @@ def check_supported(cfg: TrainConfig) -> None:
 
 def build_model(cfg: TrainConfig,
                 generator: Optional[torch.Generator] = None):
-    """Model dispatch (ref core_utils.py:76-98); only the path branch is
-    ported so far."""
-    if cfg.pretrained or cfg.model_type != "path_attention_mil":
-        raise _unsupported(cfg)
-    return PathAMIL(model_size=cfg.model_size_wsi, gate=cfg.gate_path,
-                    attn_dropout=cfg.drop_out, n_classes=cfg.n_classes,
-                    compute_dtype=cfg.bag_dtype, generator=generator)
+    """Model dispatch (ref core_utils.py:76-98).  The omic models take
+    their input width from ``cfg.omic_input_dim``."""
+    _check_model(cfg)
+    if cfg.model_type == "path_attention_mil":
+        return PathAMIL(model_size=cfg.model_size_wsi, gate=cfg.gate_path,
+                        attn_dropout=cfg.drop_out, n_classes=cfg.n_classes,
+                        compute_dtype=cfg.bag_dtype, generator=generator)
+    if cfg.omic_input_dim <= 0:
+        raise ValueError(f"{cfg.model_type}: omic_input_dim must be the "
+                         f"cohort's number of genomic columns, got "
+                         f"{cfg.omic_input_dim}")
+    if cfg.model_type == "max_net":
+        return MaxNet(cfg.omic_input_dim, model_size=cfg.model_size_omic,
+                      bag_loss=cfg.bag_loss, n_classes=cfg.n_classes,
+                      generator=generator)
+    return MMAttentionMIL(mode=cfg.mode, omic_input_dim=cfg.omic_input_dim,
+                          fusion=cfg.fusion or "tensor", gate=cfg.gate,
+                          gate_path=cfg.gate_path,
+                          attn_dropout=cfg.drop_out,
+                          model_size_wsi=cfg.model_size_wsi,
+                          model_size_omic=cfg.model_size_omic,
+                          n_classes=cfg.n_classes, generator=generator)
+
+
+def _to(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: an asynchronous copy when the array is
+    page-locked, a staged one when it is not, none on the CPU."""
+    return torch.from_numpy(arr).to(device, non_blocking=True)
 
 
 def model_inputs(cfg: TrainConfig, batch: Dict[str, np.ndarray],
-                 device: torch.device) -> dict:
-    """Map a loader batch onto the model's call signature, on ``device``."""
-    if cfg.pretrained or cfg.model_type != "path_attention_mil":
-        raise _unsupported(cfg)
-    return dict(bags=torch.from_numpy(batch["path_bags"]).to(device),
-                mask=torch.from_numpy(batch["path_mask"]).to(device))
+                 device: torch.device,
+                 pool: Optional[PinnedPool] = None) -> dict:
+    """Map a loader batch onto the model's call signature, on ``device``.
+    The bag copies are enqueued on the device's current stream; ``pool``,
+    which the batch was collated into, gets its buffers back behind
+    them."""
+    _check_model(cfg)
+    bags = ("path_bags", "path_mask") if "path" in cfg.mode else ()
+    if cfg.model_type == "path_attention_mil":
+        kw = dict(bags=_to(batch["path_bags"], device),
+                  mask=_to(batch["path_mask"], device))
+    elif cfg.model_type == "max_net":
+        kw = dict(genomic_features=_to(batch["genomic"], device))
+    else:
+        kw = {k: _to(batch[k], device) for k in bags + ("genomic",)}
+    if pool is not None and bags:
+        pool.release([batch[k] for k in bags],
+                     torch.cuda.current_stream(device)
+                     if device.type == "cuda" else None)
+    return kw
 
 
 def label_inputs(batch: Dict[str, np.ndarray], device: torch.device
                  ) -> dict:
     """The batch's labels (Y, t, c, valid) as tensors on ``device``."""
-    return {k: torch.from_numpy(batch[k]).to(device)
-            for k in ("Y", "t", "c", "valid")}
+    return {k: _to(batch[k], device) for k in ("Y", "t", "c", "valid")}
 
 
-def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
+def load_checkpoint(model: torch.nn.Module, path: str,
+                    spec=None) -> torch.nn.Module:
     """Load a reference-layout ``.pt`` state_dict (the JAX package writes
-    one beside every checkpoint) into ``model``, strictly, on the device
-    the model is on."""
+    one beside every checkpoint) into ``model`` on the device the model is
+    on: the placeholders that ``spec`` names are dropped, and any other
+    missing or unexpected key fails the strict load."""
     device = next(model.parameters()).device
     sd = torch.load(path, map_location=device, weights_only=True)
+    if spec is not None:
+        sd = params_mod.without_fillers(sd, spec)
     model.load_state_dict(sd, strict=True)
     return model
 
 
-def save_checkpoint(path: str, model: torch.nn.Module) -> None:
-    """Write the model's reference-layout state_dict (CPU tensors) to
-    ``path`` atomically (tmp file + os.replace), so a kill mid-write
-    leaves no truncated checkpoint."""
+def save_checkpoint(path: str, model: torch.nn.Module, spec=None) -> None:
+    """Write the model's reference-layout state_dict (CPU tensors), with
+    the placeholders that ``spec`` names, to ``path`` atomically (tmp file
+    + os.replace), so a kill mid-write leaves no truncated checkpoint."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if spec is not None:
+        sd = params_mod.reference_state_dict(sd, spec)
     tmp = path + ".tmp"
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               tmp)
+    torch.save(sd, tmp)
     os.replace(tmp, path)
 
 
@@ -240,10 +306,11 @@ def _reg_fn(cfg: TrainConfig):
 # ---------------------------------------------------------------------------
 
 def make_steps(cfg: TrainConfig, model: torch.nn.Module, opt,
-               device: torch.device):
-    """(train_step(batch, generator), eval_step(batch)) over host batches.
-    Each returns the survival loss ``loss``, ``total`` = loss + the L1
-    term, and the batch's ``risk`` and ``S``, as tensors."""
+               device: torch.device, pool: Optional[PinnedPool] = None):
+    """(train_step(batch, generator), eval_step(batch)) over host batches
+    (collated into ``pool``, when given).  Each returns the survival loss
+    ``loss``, ``total`` = loss + the L1 term, and the batch's ``risk`` and
+    ``S`` (None for a scalar-risk head), as tensors."""
     if cfg.bag_loss in ("ranking_surv", "ranking_nll_surv") \
             and cfg.batch_size < 2:
         # the ranking term has no comparable pairs at B=1 (the reference
@@ -268,17 +335,20 @@ def make_steps(cfg: TrainConfig, model: torch.nn.Module, opt,
     def train_step(batch, generator: Optional[torch.Generator]):
         model.train()
         opt.zero_grad(set_to_none=True)
-        out = model(**model_inputs(cfg, batch, device), generator=generator)
+        out = model(**model_inputs(cfg, batch, device, pool),
+                    generator=generator)
         loss, total = _losses(out, label_inputs(batch, device))
         total.backward()
         opt.step()
+        S = out["S"]
         return {"loss": loss.detach(), "total": total.detach(),
-                "risk": out["risk"].detach(), "S": out["S"].detach()}
+                "risk": out["risk"].detach(),
+                "S": None if S is None else S.detach()}
 
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
-        out = model(**model_inputs(cfg, batch, device))
+        out = model(**model_inputs(cfg, batch, device, pool))
         loss, total = _losses(out, label_inputs(batch, device))
         # the reference's val/loss also carries the L1 term
         # (core_utils.py:305-312,337-340)
@@ -293,7 +363,9 @@ def make_steps(cfg: TrainConfig, model: torch.nn.Module, opt,
 # ---------------------------------------------------------------------------
 
 class EarlyStopping:
-    def __init__(self, warmup=0, patience=20, stop_epoch=100, verbose=False):
+    def __init__(self, warmup=0, patience=20, stop_epoch=100, verbose=False,
+                 spec=None):
+        self.spec = spec  # the checkpoint's placeholders (utils/params.py)
         self.warmup = warmup
         self.patience = patience
         self.stop_epoch = stop_epoch
@@ -336,7 +408,7 @@ class EarlyStopping:
 
     def _save(self, val_loss, model, ckpt_name):
         if ckpt_name is not None:
-            save_checkpoint(ckpt_name, model)
+            save_checkpoint(ckpt_name, model, self.spec)
         self.val_loss_min = val_loss
 
 
@@ -353,13 +425,14 @@ def _cindex(c, t, risk) -> float:
 
 
 def _run_epoch(cfg, split, indices, train_step, eval_step, generator,
-               training: bool, seed: int) -> dict:
+               training: bool, seed: int, pool=None) -> dict:
     all_risk, all_c, all_t, losses, totals = [], [], [], [], []
     for batch in prefetch(iter_batches(split, batch_size=cfg.batch_size,
                                        shuffle=training,
                                        weighted=training
                                        and cfg.weighted_sample,
-                                       seed=seed, indices=indices)):
+                                       seed=seed, indices=indices,
+                                       pool=pool)):
         batch.pop("subject_ids")
         out = (train_step(batch, generator) if training
                else eval_step(batch))
@@ -378,16 +451,17 @@ def _run_epoch(cfg, split, indices, train_step, eval_step, generator,
             "c": all_c, "t": all_t}
 
 
-def summary_survival(cfg, split, eval_step, indices=None
+def summary_survival(cfg, split, eval_step, indices=None, pool=None
                      ) -> Tuple[dict, float]:
     """Sequential pass collecting per-patient risks (ref
     core_utils.py:358-429): a dict of numpy arrays with the JAX package's
-    keys, and the c-index."""
+    keys (no ``prob`` for a scalar-risk head), and the c-index."""
     if indices is None:
         indices = usable_indices(split)
     ids, risk, c, t, label, S = [], [], [], [], [], []
     for batch in prefetch(iter_batches(split, batch_size=cfg.batch_size,
-                                       shuffle=False, indices=indices)):
+                                       shuffle=False, indices=indices,
+                                       pool=pool)):
         subject_ids = batch.pop("subject_ids")
         out = eval_step(batch)
         valid = batch["valid"] > 0
@@ -396,7 +470,8 @@ def summary_survival(cfg, split, eval_step, indices=None
         c.append(batch["c"][valid])
         t.append(batch["t"][valid])
         label.append(batch["Y"][valid])
-        S.append(out["S"].float().cpu().numpy()[valid])
+        if out["S"] is not None:
+            S.append(out["S"].float().cpu().numpy()[valid])
 
     def cat(parts):
         return np.concatenate(parts) if parts else np.zeros(0)
@@ -438,14 +513,20 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
 
     model = build_model(cfg, torch.Generator().manual_seed(cfg.seed))
     model = model.to(device)
+    spec = params_mod.spec_from_config(cfg)
     opt = make_optimizer(cfg, model.parameters())
-    train_step, eval_step = make_steps(cfg, model, opt, device)
+    pool = PinnedPool() if device.type == "cuda" else None
+    train_step, eval_step = make_steps(cfg, model, opt, device, pool)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     train_idx = usable_indices(train_split)
     if not train_idx:
+        bad = getattr(train_split, "all_nan_genomic_cols", [])
+        hint = (f" (genomic columns {bad} are entirely NaN — if they are "
+                f"scan-path columns, exclude them via --modality)"
+                if bad else "")
         raise ValueError(f"no usable samples in the train split for mode "
-                         f"'{cfg.mode}'")
+                         f"'{cfg.mode}'{hint}")
     val_idx = usable_indices(val_split)
     test_idx = usable_indices(test_split) if test_split is not None else None
 
@@ -455,27 +536,28 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
 
     def summaries():
         results_val, val_c = summary_survival(cfg, val_split, eval_step,
-                                              val_idx)
+                                              val_idx, pool)
         if cfg.split_mode != "train_val_test":
             return results_val, val_c
         results_test, test_c = summary_survival(cfg, test_split, eval_step,
-                                                test_idx)
+                                                test_idx, pool)
         return results_val, val_c, results_test, test_c
 
     if eval_only:
-        load_checkpoint(model, minloss_ckpt)
+        load_checkpoint(model, minloss_ckpt, spec)
         return summaries()
 
     stopper = (EarlyStopping(warmup=0, patience=20,
                              stop_epoch=100 if not cfg.pretrained else 50,
-                             verbose=True)
+                             verbose=True, spec=spec)
                if cfg.early_stopping else None)
     for epoch in range(cfg.max_epochs):
         t0 = time.time()
         tr = _run_epoch(cfg, train_split, train_idx, train_step, eval_step,
-                        generator, True, seed=cfg.seed * 100003 + epoch)
+                        generator, True, seed=cfg.seed * 100003 + epoch,
+                        pool=pool)
         va = _run_epoch(cfg, val_split, val_idx, train_step, eval_step,
-                        generator, False, seed=0)
+                        generator, False, seed=0, pool=pool)
         rec = {"epoch": epoch, "train_loss": tr["loss"],
                "train_c_index": tr["c_index"], "val_loss": va["loss"],
                "val_c_index": va["c_index"],
@@ -488,20 +570,21 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
         with open(log_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
         if epoch == 10:
-            save_checkpoint(mid_ckpt, model)  # ref core_utils.py:342
+            save_checkpoint(mid_ckpt, model, spec)  # ref core_utils.py:342
         if stopper is not None:
             stopper(epoch, va["loss"], model, minloss_ckpt)
             if stopper.early_stop:
                 print("Early stopping")
                 break
 
-    save_checkpoint(ckpt, model)
-    _, final_val_c = summary_survival(cfg, val_split, eval_step, val_idx)
+    save_checkpoint(ckpt, model, spec)
+    _, final_val_c = summary_survival(cfg, val_split, eval_step, val_idx,
+                                      pool)
     if cfg.early_stopping and os.path.exists(minloss_ckpt):
-        load_checkpoint(model, minloss_ckpt)
+        load_checkpoint(model, minloss_ckpt, spec)
     else:
         # no early stopping: minloss == final (keep downstream contracts)
-        save_checkpoint(minloss_ckpt, model)
+        save_checkpoint(minloss_ckpt, model, spec)
     out = summaries()
     print(f"Final Val c-Index: {final_val_c:.4f}")
     print(f"EarlyStopping Val c-Index: {out[1]:.4f}")

@@ -1,0 +1,100 @@
+"""The port's native host library (``csrc/bagio.cpp``): threaded
+collation of ragged bags into a padded batch.
+
+The library is built with g++ at its first use into
+``<checkout>/build/native/bagio-<hash>.so``, where the hash covers the
+source and the flags, and loaded with ctypes.  A failed build raises with
+the compiler's output: there is no silent numpy fallback.  Nothing here
+runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from typing import Optional, Sequence
+
+import numpy as np
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(PKG_DIR, "csrc", "bagio.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "native")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build(src: str = SRC, build_dir: str = BUILD_DIR) -> str:
+    """Path of the built library of ``src``, compiling it first when no
+    build of this exact source and these flags exists."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + f.read())
+    name = os.path.splitext(os.path.basename(src))[0]
+    so = os.path.join(build_dir, f"{name}-{digest.hexdigest()[:12]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f".{name}-", suffix=".so",
+                               dir=build_dir)
+    os.close(fd)
+    try:
+        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+    except FileNotFoundError as e:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ not found: {src} cannot be built") from e
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ failed on {src}:\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            loaded = ctypes.CDLL(build())
+            loaded.mmf_pad_bags_f32.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int]
+            loaded.mmf_pad_bags_f32.restype = None
+            _lib = loaded
+        return _lib
+
+
+def pad_bags_into(bags: Sequence[Optional[np.ndarray]], out: np.ndarray,
+                  mask: np.ndarray) -> None:
+    """Write the bags (``None`` or [n_i, D] float32, C-contiguous) into
+    ``out`` [B, n_pad, D] and ``mask`` [B, n_pad] (float32, C-contiguous):
+    each bag's rows, zeros after them, and 1.0 / 0.0 in the mask, one
+    thread per hardware thread (at most one per bag).  Rows past n_pad
+    are dropped."""
+    B, n_pad, D = out.shape
+    if (len(bags) != B or mask.shape != (B, n_pad)
+            or out.dtype != np.float32 or mask.dtype != np.float32
+            or not (out.flags.c_contiguous and mask.flags.c_contiguous)):
+        raise ValueError(f"out must be float32 [B, n_pad, D] and mask "
+                         f"[B, n_pad] for {len(bags)} bags, C-contiguous; "
+                         f"got {out.dtype} {out.shape}, {mask.dtype} "
+                         f"{mask.shape}")
+    ptrs = (ctypes.c_void_p * B)()
+    lens = (ctypes.c_int64 * B)()
+    for i, b in enumerate(bags):
+        if b is None or b.shape[0] == 0:
+            continue
+        if (b.ndim != 2 or b.shape[1] != D or b.dtype != np.float32
+                or not b.flags.c_contiguous):
+            raise ValueError(f"bag {i}: expected float32 [n, {D}] "
+                             f"C-contiguous, got {b.dtype} {b.shape}")
+        ptrs[i] = b.ctypes.data
+        lens[i] = b.shape[0]
+    lib().mmf_pad_bags_f32(ptrs, lens, B, n_pad, D, out.ctypes.data,
+                           mask.ctypes.data, 0)

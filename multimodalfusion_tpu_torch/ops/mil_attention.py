@@ -421,12 +421,15 @@ def _fused_pool_cuda(h, mask, params: AttnParams, gated: bool, da=None,
     part_acc = torch.empty(plan.part_acc, dtype=f32, device=dev)
     part_ml = torch.empty(plan.part_ml, dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.mil_pool_fwd(
-        h.data_ptr(), mask.data_ptr(), wa.data_ptr(), ba.data_ptr(),
-        wb.data_ptr(), bb.data_ptr(), wc.data_ptr(), cc.data_ptr(),
-        _ptr(da), _ptr(db), part_acc.data_ptr(), part_ml.data_ptr(),
-        out.data_ptr(), ml.data_ptr(), 1.0 / (1.0 - rate), B, N, D, Da,
-        plan.splits, plan.rows_per_split, int(gated), int(bf16), stream)
+    # the launch goes to the current device: make it the bag's, whose
+    # stream is passed in
+    with torch.cuda.device(dev):
+        err = lib.mil_pool_fwd(
+            h.data_ptr(), mask.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+            wb.data_ptr(), bb.data_ptr(), wc.data_ptr(), cc.data_ptr(),
+            _ptr(da), _ptr(db), part_acc.data_ptr(), part_ml.data_ptr(),
+            out.data_ptr(), ml.data_ptr(), 1.0 / (1.0 - rate), B, N, D, Da,
+            plan.splits, plan.rows_per_split, int(gated), int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"mil_pool_fwd launch failed: CUDA error {err}")
     _fused_pool_cuda.launches += 1
@@ -532,15 +535,17 @@ def _fused_pool_bwd_cuda(h, mask, params: AttnParams, out, ml, g,
         part_dw = torch.empty(plan.part_dw, dtype=f32, device=dev)
         lib = _bwd_lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mil_pool_bwd(
-            h.data_ptr(), mask.data_ptr(), wa.data_ptr(), ba.data_ptr(),
-            wb.data_ptr(), bb.data_ptr(), wc.data_ptr(), cc.data_ptr(),
-            wcat.data_ptr(), _ptr(da), _ptr(db), out.data_ptr(),
-            ml.data_ptr(), g.data_ptr(), dp.data_ptr(), tu.data_ptr(),
-            a.data_ptr(), part_vec.data_ptr(), part_grp.data_ptr(),
-            part_dw.data_ptr(), dh.data_ptr(), dW.data_ptr(),
-            dvec.data_ptr(), 1.0 / (1.0 - rate), B, N, D, Da, plan.splits,
-            plan.rows_per_split, int(gated), int(bf16), stream)
+        with torch.cuda.device(dev):  # as in _fused_pool_cuda
+            err = lib.mil_pool_bwd(
+                h.data_ptr(), mask.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+                wb.data_ptr(), bb.data_ptr(), wc.data_ptr(), cc.data_ptr(),
+                wcat.data_ptr(), _ptr(da), _ptr(db), out.data_ptr(),
+                ml.data_ptr(), g.data_ptr(), dp.data_ptr(), tu.data_ptr(),
+                a.data_ptr(), part_vec.data_ptr(), part_grp.data_ptr(),
+                part_dw.data_ptr(), dh.data_ptr(), dW.data_ptr(),
+                dvec.data_ptr(), 1.0 / (1.0 - rate), B, N, D, Da,
+                plan.splits, plan.rows_per_split, int(gated), int(bf16),
+                stream)
         if err != 0:
             raise RuntimeError(f"mil_pool_bwd launch failed: CUDA error "
                                f"{err}")

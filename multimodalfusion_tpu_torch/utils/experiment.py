@@ -70,18 +70,25 @@ def read_settings(path: str) -> dict:
 
 def config_from_settings(settings: dict, **overrides):
     """Hydrate a TrainConfig from an experiment settings dict, with the
-    JAX package's key mapping and defaults.  ``pretrained`` is inferred
-    from train_type unless overridden; pass overrides for CLI-level knobs
-    (batch_size, ...)."""
+    JAX package's key mapping and defaults (JAX utils/experiment.py:72-107).
+    ``pretrained`` is inferred from train_type unless overridden; pass
+    overrides for CLI-level knobs (batch_size, omic_input_dim, ...)."""
     from multimodalfusion_tpu_torch.engine.train import TrainConfig
     kwargs = dict(
         model_type=settings.get("model_type"), mode=settings["mode"],
+        modalities=tuple(settings.get("radio_modality",
+                                      TrainConfig.modalities)),
         n_classes=settings["n_classes"],
         bag_loss=settings.get("bag_loss", "nll_surv"),
         alpha_surv=settings.get("alpha_surv", 0.0),
         nll_ratio=settings.get("nll_ratio", 0.2),
         model_size_wsi=settings.get("model_size_wsi", "small"),
+        model_size_omic=settings.get("model_size_omic", "small"),
+        fusion=settings.get("fusion"),
+        radio_fusion=settings.get("radio_fusion") or "concat",
+        gate=settings.get("gate_omic", False),
         gate_path=settings.get("gate_path", True),
+        gate_radio=settings.get("gate_radio", True),
         drop_out=settings.get("use_drop_out", False),
         pretrained=bool(settings.get("train_type")),
         batch_size=settings.get("batch_size", 1),

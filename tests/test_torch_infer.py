@@ -114,7 +114,8 @@ def test_pad_bags_matches_jax():
 
 def test_other_kinds_raise_not_implemented():
     for cfg in (TrainConfig(model_type="radio_attention_mil", mode="radio"),
-                TrainConfig(model_type="max_net", mode="omic"),
+                TrainConfig(model_type="mm_attention_mil",
+                            mode="radio_path_omic"),
                 TrainConfig(model_type="path_attention_mil", mode="path",
                             pretrained=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -146,6 +147,15 @@ def test_port_imports_no_jax_and_no_jax_package():
                                                "multimodalfusion_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    scanned = {os.path.relpath(p, REPO) for p in files}
+    for new in ("native.py", "models/genomic.py", "models/mm_amil.py",
+                "models/modules.py", "utils/params.py", "data/bags.py"):
+        assert os.path.join("multimodalfusion_tpu_torch", new) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
+    # the port builds its own csrc/bagio.cpp; it never loads the JAX
+    # package's native/libbagio.so
+    loads = [os.path.relpath(p, REPO) for p in files
+             if "libbagio" in open(p).read()]
+    assert not loads, loads

@@ -330,7 +330,8 @@ def test_eval_only_matches_jax(cohort, jax_experiment, tmp_path):
     ("--data_parallel",), ("--bag_shard",), ("--bag_shard_devices", "2"),
     ("--resume",), ("--ckpt_format", "orbax"), ("--tb",),
     ("--profile_dir", "prof"), ("--split", "threemod"),
-    ("--model_type", "max_net", "--mode", "omic"), ("--mode", "radio")],
+    ("--model_type", "radio_attention_mil", "--mode", "omic"),
+    ("--mode", "radio")],
     ids=lambda e: e[0].lstrip("-") + (f"_{e[-1]}" if len(e) > 2 else ""))
 def test_unported_flags_raise(cohort, tmp_path, extra):
     """Each flag of work not ported yet raises, naming its ROADMAP.md
