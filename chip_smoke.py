@@ -48,6 +48,24 @@ Phases, each fatal on failure:
                 path+omic risks must match the plain pooling at rel
                 1e-4.  Three path+omic train steps through the kernels
                 must agree with three through the plain versions.
+  4c. pretrained -- stages 3 and 4 chained on the card.  Stage 3
+                (cli.pre_trained_feature) extracts the 256-d embeddings of
+                the path AMIL experiment of [train] (24 of its 32
+                subjects) and of the max_net experiment of [omic],
+                counters reset just before each: the path run launches the
+                forward once per batch and the backward never, its
+                embeddings match the plain pooling on the card at rel
+                1e-4; the omic run launches neither.  Stage 4
+                (cli.main_pretrained, mm_attention_mil path_omic, two
+                epochs at B=16) trains a Kronecker nll_surv head and a
+                multimodal-dropout cox_surv head on the cohort of [omic],
+                8 of whose subjects lack a path embedding: finite losses,
+                no kernel launch.  cli.eval_pretrained writes a finite
+                c-index for both and an IBS for the nll one; cli.infer
+                serves the Kronecker experiment on the card and on the
+                CPU, risks agreeing at rel 1e-5.  Alone (--phases
+                pretrained) it first trains its own stage-2 experiments,
+                one epoch each.
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak) and,
                 for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
@@ -652,9 +670,24 @@ def _steps_agree(tag, cfg, batches, launch_counters):
         raise AssertionError("kernel and plain train steps disagree")
 
 
-def phase_train(launch_counters):
+@contextlib.contextmanager
+def _workdir(root, name):
+    """``root/name``, kept for a later phase, when ``root`` is given; else a
+    temporary directory."""
+    if root is None:
+        with tempfile.TemporaryDirectory() as td:
+            yield td
+    else:
+        path = os.path.join(root, name)
+        os.makedirs(path)
+        yield path
+
+
+def phase_train(launch_counters, root=None):
     """Two epochs of cli.main on the card, the trained checkpoint served by
-    cli.infer, and kernel vs plain train steps from one init."""
+    cli.infer, and kernel vs plain train steps from one init.  Returns the
+    launch counts, the steps' config and batches, the host times and the
+    trained experiment's directory (kept under ``root``)."""
     import csv
     import pickle
 
@@ -664,7 +697,7 @@ def phase_train(launch_counters):
     from multimodalfusion_tpu_torch.data.survival_dataset import \
         SurvivalDataset
     from multimodalfusion_tpu_torch.engine import train as ttrain
-    with tempfile.TemporaryDirectory() as td:
+    with _workdir(root, "train") as td:
         t0 = time.perf_counter()
         data_args = _write_train_experiment(td)
         log(f"[train] wrote a 32-subject labelled cohort in "
@@ -734,7 +767,7 @@ def phase_train(launch_counters):
                                  bag_loss="nll_surv", batch_size=8,
                                  device="cuda")
         _steps_agree("train", cfg, batches, launch_counters)
-        return launches, cfg, batches, host_ms
+        return launches, cfg, batches, host_ms, exp
 
 
 OMIC_FLAGS = {
@@ -748,7 +781,7 @@ OMIC_FLAGS = {
 }
 
 
-def phase_omic(launch_counters, n_genes=80):
+def phase_omic(launch_counters, n_genes=80, root=None):
     """[omic] Stage-2 genomic and path+omic on the card.  A synthetic
     32-subject cohort (bags of 1,000-4,096 instances x 1024, ``n_genes``
     genomic columns as JAX's MMAttentionMIL defaults, small widths) is
@@ -760,7 +793,9 @@ def phase_omic(launch_counters, n_genes=80):
     cli.infer (counters reset) and its risks held against the same model
     with the plain pooling at rel 1e-4; max_net's is served too.  Three
     path+omic train steps through the kernels are held against three
-    through the plain versions.  Returns {path: launch counts}."""
+    through the plain versions.  Returns ({path: launch counts}, the
+    experiments' directories by model, the cohort's CLI arguments), kept
+    under ``root``."""
     import csv
     import math
 
@@ -775,7 +810,7 @@ def phase_omic(launch_counters, n_genes=80):
     from multimodalfusion_tpu_torch.utils.params import spec_from_config
     dev = torch.device("cuda")
     B, epochs, n_subjects, n_val = 8, 2, 32, 8
-    with tempfile.TemporaryDirectory() as td:
+    with _workdir(root, "omic") as td:
         t0 = time.perf_counter()
         data_args = _write_train_experiment(td, n_subjects, n_val, seed=2,
                                             n_genes=n_genes)
@@ -895,6 +930,223 @@ def phase_omic(launch_counters, n_genes=80):
             bag_loss="nll_surv", batch_size=B, omic_input_dim=n_genes,
             device="cuda")
         _steps_agree("omic", cfg, batches[:3], launch_counters)
+    return launches, exps, data_args
+
+
+PRETRAINED_FLAGS = {
+    # the two stage-4 recipes the phase trains: the Kronecker fusion with
+    # the discrete-hazard loss, and the freeze of a missing branch with Cox
+    "kronecker": ["--train_type", "kronecker", "--bag_loss", "nll_surv"],
+    "multimodal_dropout": ["--train_type", "multimodal-dropout",
+                           "--bag_loss", "cox_surv"],
+}
+
+
+def _stage2_for_pretrained(root, n_genes=80):
+    """When [pretrained] runs without [train] and [omic]: one epoch each of
+    the path AMIL recipe of [train] and the max_net of [omic] on one
+    synthetic cohort.  Returns (path experiment, omic experiment, the
+    cohort's CLI arguments)."""
+    from multimodalfusion_tpu_torch.cli import main as cli_main
+    data_args = _write_train_experiment(root, seed=2, n_genes=n_genes)
+    exps = {}
+    for model, flags in (("path", ["--model_type", "path_attention_mil",
+                                   "--mode", "path", "--gate_path",
+                                   "--drop_out", "--bag_loss", "nll_surv"]),
+                         ("omic", OMIC_FLAGS["omic"])):
+        results = os.path.join(root, "results", model)
+        rc = cli_main.main(data_args + flags + [
+            "--k", "1", "--max_epochs", "1", "--batch_size", "8",
+            "--results_dir", results, "--device", "cuda"])
+        if rc != 0:
+            raise AssertionError(f"stage-2 {model} training failed: rc={rc}")
+        sub = os.path.join(results, "brain", "smoke")
+        exps[model] = os.path.join(sub, os.listdir(sub)[0])
+    return exps["path"], exps["omic"], data_args
+
+
+def phase_pretrained(launch_counters, path_exp=None, omic_exp=None,
+                     data_args=None, root=None):
+    """[pretrained] Stages 3 and 4 on the card, chained.  Stage 3
+    (cli.pre_trained_feature) extracts the 256-d embeddings of the path
+    AMIL experiment (from [train]) for 24 of its 32 subjects
+    (--extraction_csv_path) and of the max_net experiment (from [omic]),
+    counters reset just before each: the path run launches the forward
+    once per batch and the backward never, and every embedding matches
+    the same model through the plain pooling on the card at rel 1e-4; the
+    omic run launches neither.  Stage 4 (cli.main_pretrained,
+    mm_attention_mil path_omic, two epochs at B=16) trains a Kronecker nll
+    head and a multimodal-dropout cox head on the labelled cohort of
+    [omic], where 8 subjects lack a path embedding: every logged loss is
+    finite and no kernel launches.  cli.eval_pretrained writes a finite
+    c-index for each and an IBS for the nll one; cli.infer serves the
+    Kronecker experiment on the card and on the CPU, whose risks agree at
+    rel 1e-5.  Returns the launch counts by stage."""
+    import csv
+    import math
+
+    import torch
+    from multimodalfusion_tpu_torch.cli import (eval_pretrained, infer,
+                                                main_pretrained,
+                                                pre_trained_feature)
+    from multimodalfusion_tpu_torch.data.io import load_pt
+    from multimodalfusion_tpu_torch.data.loaders import (iter_batches,
+                                                         usable_indices)
+    from multimodalfusion_tpu_torch.data.survival_dataset import \
+        SurvivalDataset
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    from multimodalfusion_tpu_torch.utils.experiment import (
+        config_from_settings, read_settings)
+    from multimodalfusion_tpu_torch.utils.params import spec_from_config
+    dev = torch.device("cuda")
+    B3, B4, n_keep = 8, 16, 24
+    wall, launches = {}, {}
+
+    def count():
+        return {c.__name__: c.launches for c in launch_counters}
+
+    def reset():
+        for c in launch_counters:
+            c.launches = 0
+
+    def timed(stage, fn, *args):
+        t0 = time.perf_counter()
+        rc = fn(*args)
+        torch.cuda.synchronize()
+        wall[stage] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"[pretrained] {stage}: rc={rc}")
+
+    with _workdir(root, "pretrained") as td:
+        if path_exp is None:
+            t0 = time.perf_counter()
+            path_exp, omic_exp, data_args = _stage2_for_pretrained(
+                os.path.join(td, "stage2"))
+            log(f"[pretrained] trained its own stage-2 path and omic "
+                f"experiments in {time.perf_counter() - t0:.1f} s")
+        out = os.path.join(td, "pretrained_feature")
+        settings = read_settings(os.path.join(
+            path_exp, f"experiment_{os.path.basename(path_exp)}.txt"))
+        subjects = SurvivalDataset(settings["csv_path"], "path").patients
+        keep = os.path.join(td, "keep.csv")
+        with open(keep, "w") as f:
+            f.write("subject_id\n" + "".join(
+                f"{s}\n" for s in subjects[:n_keep]))
+
+        # stage 3, path: one forward launch per batch, no backward
+        reset()
+        timed("stage3_path", pre_trained_feature.main, [
+            "--checkpoint_path", path_exp, "--which_k", "0", "--output_dir",
+            out, "--batch_size", str(B3), "--extraction_csv_path", keep,
+            "--device", "cuda"])
+        launches["stage3_path"] = count()
+        cfg = config_from_settings(settings, batch_size=B3, device="cuda")
+        ds = SurvivalDataset(settings["csv_path"], "path",
+                             settings["data_root_dir"])
+        view = ds.whole_split(os.path.join(settings["split_dir"],
+                                           "splits_0.csv"))
+        idx = usable_indices(view)
+        want = {"_fused_pool_cuda": -(-len(idx) // B3),
+                "_fused_pool_bwd_cuda": 0}
+        if launches["stage3_path"] != want:
+            raise AssertionError(f"stage 3 (path) launched "
+                                 f"{launches['stage3_path']}, expected "
+                                 f"{want}: one forward per batch")
+        model = ttrain.build_model(cfg).to(dev).eval()
+        ttrain.load_checkpoint(model, os.path.join(
+            path_exp, "s_0_minloss_checkpoint.pt"), spec_from_config(cfg))
+        path_dir = os.path.join(out, "brain", "path_pt_files")
+        written = sorted(os.listdir(path_dir))
+        if written != sorted(f"{s}.pt" for s in subjects[:n_keep]):
+            raise AssertionError(f"stage 3 (path) wrote {written}")
+        err = 0.0
+        with torch.no_grad(), _plain_pooling():
+            for batch in iter_batches(view, batch_size=B3, indices=idx):
+                plain = model(**ttrain.model_inputs(cfg, batch, dev),
+                              return_features=True).cpu().numpy()
+                for sid, p, ok in zip(batch["subject_ids"], plain,
+                                      batch["valid"]):
+                    if ok and f"{sid}.pt" in written:
+                        got = load_pt(os.path.join(path_dir, f"{sid}.pt"))
+                        err = max(err, float(np.abs(got.reshape(-1) - p)
+                                             .max() / np.abs(p).max()))
+        log(f"[pretrained] stage 3 (path): {len(written)} embeddings in "
+            f"{wall['stage3_path']:.2f} s, launches "
+            f"{launches['stage3_path']}; max rel err vs the plain pooling "
+            f"{err:.2e} (tol 1e-4)")
+        if err > 1e-4:
+            raise AssertionError("stage-3 embeddings differ from the plain "
+                                 "pooling")
+
+        # stage 3, omic: no kernel
+        reset()
+        timed("stage3_omic", pre_trained_feature.main, [
+            "--checkpoint_path", omic_exp, "--which_k", "0", "--output_dir",
+            out, "--batch_size", str(B3), "--device", "cuda"])
+        launches["stage3_omic"] = count()
+        n_omic = len(os.listdir(os.path.join(out, "brain", "omic_pt_files")))
+        log(f"[pretrained] stage 3 (omic): {n_omic} embeddings in "
+            f"{wall['stage3_omic']:.2f} s, launches "
+            f"{launches['stage3_omic']}")
+        if any(launches["stage3_omic"].values()) or n_omic != len(subjects):
+            raise AssertionError("stage 3 (omic) failed")
+
+        # stage 4: train, evaluate, serve
+        args = list(data_args)
+        args[args.index("--data_root_dir") + 1] = out
+        exps = {}
+        reset()
+        for name, flags in PRETRAINED_FLAGS.items():
+            results = os.path.join(td, "s4", name)
+            timed(f"stage4_train_{name}", main_pretrained.main, args + flags
+                  + ["--model_type", "mm_attention_mil", "--mode",
+                     "path_omic", "--k", "1", "--max_epochs", "2",
+                     "--batch_size", str(B4), "--results_dir", results,
+                     "--device", "cuda"])
+            sub = os.path.join(results, "brain", "smoke")
+            exps[name] = exp = os.path.join(sub, os.listdir(sub)[0])
+            with open(os.path.join(exp, "0", "metrics.jsonl")) as f:
+                recs = [json.loads(x) for x in f]
+            losses = [r[k] for r in recs for k in ("train_loss", "val_loss")]
+            log(f"[pretrained] stage 4 {name}: 2 epochs in "
+                f"{wall[f'stage4_train_{name}']:.2f} s; losses (train, val) "
+                + ", ".join(f"{v:.4f}" for v in losses))
+            if len(recs) != 2 or not np.isfinite(losses).all():
+                raise AssertionError(f"stage 4 {name}: {recs}")
+            timed(f"stage4_eval_{name}", eval_pretrained.main, [
+                "--model_path", exp, "--device", "cuda"])
+            with open(os.path.join(exp, "eval_summary.csv")) as f:
+                row = next(csv.DictReader(f))
+            log(f"[pretrained] eval_pretrained {name}: {row} in "
+                f"{wall[f'stage4_eval_{name}']:.2f} s")
+            if not math.isfinite(float(row["val_cindex"])) or (
+                    name == "kronecker"
+                    and not math.isfinite(float(row["val_ibs"]))):
+                raise AssertionError(f"stage-4 evaluation of {name}: {row}")
+        served = {}
+        for where in ("cuda", "cpu"):
+            out_csv = os.path.join(td, f"risks_{where}.csv")
+            timed(f"stage4_serve_{where}", infer.main, [
+                "--model_path", exps["kronecker"], "--which_k", "0", "--out",
+                out_csv, "--device", where])
+            with open(out_csv, newline="") as f:
+                served[where] = {r["subject_id"]: float(r["risk"])
+                                 for r in csv.DictReader(f)}
+        launches["stage4"] = count()
+        got = np.array([served["cuda"][k] for k in sorted(served["cpu"])])
+        ref = np.array([served["cpu"][k] for k in sorted(served["cpu"])])
+        err = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        log(f"[pretrained] cli.infer kronecker: {len(got)} subjects, card vs "
+            f"CPU max rel err {err:.2e} (tol 1e-5); stage-4 kernel launches "
+            f"{launches['stage4']}")
+        if sorted(served["cuda"]) != sorted(served["cpu"]) or err > 1e-5 \
+                or any(launches["stage4"].values()):
+            raise AssertionError("stage-4 serving failed, or stage 4 "
+                                 "launched a kernel")
+    log("[pretrained] wall s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in wall.items())
+        + f"; mil_pool_fwd launches in stage 3 (path) "
+        f"{launches['stage3_path']['_fused_pool_cuda']}")
     return launches
 
 
@@ -1181,8 +1433,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
-                         "slice,train,omic,timing (default: all but "
-                         "digest, which prints the result lines)")
+                         "slice,train,omic,pretrained,timing (default: all "
+                         "but digest, which prints the result lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1195,27 +1447,45 @@ def main(argv=None) -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
     counters = [mil._fused_pool_cuda, mil._fused_pool_bwd_cuda]
-    if args.phases != "all":
-        phases = args.phases.split(",")
-        phase_build()
-        if "kernels" in phases:
-            phase_kernels()
-            phase_kernels_train()
-        if "digest" in phases:
-            phase_digest()
-        if "slice" in phases:
-            phase_slice(counters[:1])
+    # the stage-2 experiments of [train] and [omic] stay here until
+    # [pretrained] has extracted their embeddings
+    with tempfile.TemporaryDirectory() as work:
+        if args.phases != "all":
+            return _partial(args.phases.split(","), counters, work, t_all)
+        return _full(counters, work, t_all)
+
+
+def _partial(phases, counters, work, t_all) -> int:
+    """The phases asked for, in the full run's order; no result lines."""
+    phase_build()
+    if "kernels" in phases:
+        phase_kernels()
+        phase_kernels_train()
+    if "digest" in phases:
+        phase_digest()
+    if "slice" in phases:
+        phase_slice(counters[:1])
+    if "train" in phases:
+        _, cfg, batches, host_ms, path_exp = phase_train(counters, work)
+    if "omic" in phases:
+        _, omic_exps, omic_args = phase_omic(counters, root=work)
+    if "pretrained" in phases:
+        if "train" in phases and "omic" in phases:
+            phase_pretrained(counters, path_exp, omic_exps["omic"],
+                             omic_args, work)
+        else:
+            phase_pretrained(counters, root=work)
+    if "timing" in phases:
+        phase_timing()
         if "train" in phases:
-            _, cfg, batches, host_ms = phase_train(counters)
-        if "omic" in phases:
-            phase_omic(counters)
-        if "timing" in phases:
-            phase_timing()
-            if "train" in phases:
-                phase_step_breakdown(cfg, batches, host_ms)
-        log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
-            f"no result)")
-        return 0
+            phase_step_breakdown(cfg, batches, host_ms)
+    log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
+        f"no result)")
+    return 0
+
+
+def _full(counters, work, t_all) -> int:
+    import torch
     phase_build()
     t = time.perf_counter()
     phase_kernels()
@@ -1223,11 +1493,17 @@ def main(argv=None) -> int:
     log(f"[kernels] done in {time.perf_counter() - t:.1f} s")
     serve_launches = phase_slice(counters[:1])
     t = time.perf_counter()
-    train_launches, cfg, batches, host_ms = phase_train(counters)
+    train_launches, cfg, batches, host_ms, path_exp = phase_train(counters,
+                                                                  work)
     log(f"[train] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    omic_launches = phase_omic(counters)
+    omic_launches, omic_exps, omic_args = phase_omic(counters, root=work)
     log(f"[omic] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    pretrained_launches = phase_pretrained(counters, path_exp,
+                                           omic_exps["omic"], omic_args,
+                                           work)
+    log(f"[pretrained] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     timing = phase_timing()
     step = phase_step_breakdown(cfg, batches, host_ms)
@@ -1252,7 +1528,8 @@ def main(argv=None) -> int:
         if name == "mil_pool_fwd":
             entry["launches_serving"] = serve_launches["_fused_pool_cuda"]
             entry["cublas_product_ms"] = head["cublas_product_ms"]
-        for path, counts in omic_launches.items():
+        for path, counts in list(omic_launches.items()) + list(
+                pretrained_launches.items()):
             entry[f"launches_{path}"] = counts[counter_of[name]]
         entries.append(entry)
     smi = subprocess.run(

@@ -1,7 +1,9 @@
 """Label-free scoring CLI (port of multimodalfusion_tpu/cli/infer.py).
 
 Loads a trained stage-2 experiment (``path_attention_mil``, ``max_net``
-or ``mm_attention_mil``), reads a cohort CSV that may lack labels, and
+or ``mm_attention_mil``) or stage-4 experiment (a head over pretrained
+embeddings: its settings carry ``train_type``), reads a cohort CSV that
+may lack labels, and
 writes ``risks.csv`` with one row per scoreable subject: ``subject_id``,
 ``risk`` and, for the discrete-hazard heads, ``hazard_k`` and ``S_k``.
 The weights come from the reference-layout ``.pt`` export that JAX
@@ -9,7 +11,10 @@ training writes beside every checkpoint
 (``s_{k}_minloss_checkpoint.pt``).  Genomic inputs are z-scored with the
 training fold's scaler, refitted from the experiment's own cohort CSV and
 ``splits_{k}.csv``, in the training cohort's column order (JAX
-cli/infer.py:89-114).
+cli/infer.py:89-114).  A stage-4 experiment reads the subjects'
+embeddings from ``{data_root_dir}/{radio,path,omic}_pt_files/``, a
+missing one as zeros, the omic one min-max scaled per subject (JAX
+cli/infer.py:76-86); every subject of the cohort is scored.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the attention pooling
 then goes through the hand-written CUDA kernel, fed from page-locked
@@ -46,7 +51,7 @@ from multimodalfusion_tpu_torch.utils.experiment import (config_from_settings,
 def build_parser():
     p = argparse.ArgumentParser(description="label-free risk scoring")
     p.add_argument("--model_path", type=str, required=True,
-                   help="experiment dir (stage-2)")
+                   help="experiment dir (stage-2 or stage-4)")
     p.add_argument("--which_k", type=int, default=0,
                    help="fold checkpoint to serve")
     p.add_argument("--csv", type=str, default=None,
@@ -90,12 +95,15 @@ def _scored_split(settings: dict, csv_path: str, data_dir: str,
     """Every subject of the cohort to score, with its genomic features
     z-scored by the training fold's scaler: refitted on the train split
     of the experiment's own cohort, the cohort's columns reordered to the
-    training order (a differing set raises)."""
+    training order (a differing set raises).  For a stage-4 experiment,
+    the subjects' embeddings."""
     mode = settings["mode"]
     modalities = settings.get("radio_modality", MODALITIES)
+    pretrained = bool(settings.get("train_type"))
     whole = SurvivalDataset(csv_path=csv_path, mode=mode, data_dir=data_dir,
-                            modalities=modalities).whole_split()
-    if "omic" in mode:
+                            modalities=modalities,
+                            pretrained=pretrained).whole_split()
+    if "omic" in mode and not pretrained:
         train_ds = SurvivalDataset(csv_path=settings["csv_path"], mode=mode,
                                    data_dir=data_dir, modalities=modalities)
         split_csv = os.path.join(settings["split_dir"],
@@ -130,7 +138,8 @@ def main(argv=None) -> int:
         args.model_path, f"s_{args.which_k}_minloss_checkpoint.pt"),
         spec_from_config(cfg))
 
-    pool = PinnedPool() if device.type == "cuda" else None
+    pool = (PinnedPool() if device.type == "cuda" and not cfg.pretrained
+            else None)
     rows = []
     with torch.inference_mode():
         for batch in iter_batches(view, batch_size=cfg.batch_size,

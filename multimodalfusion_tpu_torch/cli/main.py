@@ -156,19 +156,21 @@ def _refuse_unported(args) -> None:
     check_supported(_config(args, args.results_dir))
 
 
-def write_summary(path: str, cols: dict) -> None:
-    """``pd.DataFrame(cols).to_csv(path)``: an unnamed index column, then
-    the columns; floats as Python's repr, NaN as an empty cell."""
+def write_summary(path: str, cols: dict, index: bool = True) -> None:
+    """``pd.DataFrame(cols).to_csv(path, index=index)``: an unnamed index
+    column when ``index``, then the columns; floats as Python's repr, NaN
+    as an empty cell."""
     def cell(v):
         if isinstance(v, (float, np.floating)):
             return "" if np.isnan(v) else repr(float(v))
         return str(v)
     n = len(next(iter(cols.values())))
+    lead = (lambda i: [i]) if index else (lambda i: [])
     with open(path, "w", newline="") as f:
         w = csv.writer(f, lineterminator="\n")
-        w.writerow([""] + list(cols))
+        w.writerow(([""] if index else []) + list(cols))
         for i in range(n):
-            w.writerow([i] + [cell(v[i]) for v in cols.values()])
+            w.writerow(lead(i) + [cell(v[i]) for v in cols.values()])
 
 
 def main(argv=None) -> int:

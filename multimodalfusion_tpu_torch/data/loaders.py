@@ -1,11 +1,14 @@
 """Host-side batch iterators producing fixed-shape (bucketed) numpy
-batches (port of the path and omic parts of
+batches (port of the path, omic and pretrained parts of
 multimodalfusion_tpu/data/loaders.py).
 
 Batches are dicts of numpy arrays with static shapes per (batch_size,
 bag-bucket) pair; partial batches are padded and masked via ``valid``.
+A pretrained view's batches carry the embeddings ``h_radio``, ``h_path``
+and ``h_omic`` [B, 256] instead of bags, with no collation library.
 A view is a ``SurvivalDataset`` (pathology only) or a ``Split`` of one:
-anything with ``mode``, ``__len__``, ``probe_present`` and ``get_sample``.
+anything with ``mode``, ``pretrained``, ``__len__``, ``probe_present`` and
+``get_sample``.
 Bags are collated by the native library (``data/bags.py``), into the
 page-locked buffers of a ``PinnedPool`` when one is given.
 """
@@ -18,7 +21,8 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from multimodalfusion_tpu_torch.data.bags import PinnedPool, pad_bags
-from multimodalfusion_tpu_torch.data.survival_dataset import Sample
+from multimodalfusion_tpu_torch.data.survival_dataset import (EMBED_DIM,
+                                                               Sample)
 
 # per-instance feature width of stage-1 extraction (truncated ResNet50)
 FEAT_DIM = 1024
@@ -35,14 +39,18 @@ def _usable(present: Dict[str, bool], mode: str) -> bool:
 def usable_indices(view) -> List[int]:
     """Subjects that have every modality their mode needs (ref
     core_utils.py:185-192 skips the others in its loop): bags by file
-    existence, genomic features by a row without NaN."""
+    existence, genomic features by a row without NaN.  Every subject of a
+    pretrained view (a missing embedding is zeros)."""
+    if view.pretrained:
+        return list(range(len(view)))
     return [i for i in range(len(view))
             if _usable(view.probe_present(i), view.mode)]
 
 
 def _batch_from_samples(samples: List[Sample], mode: str, batch_size: int,
                         pool: Optional[PinnedPool] = None,
-                        n_path_feat: int = FEAT_DIM
+                        n_path_feat: int = FEAT_DIM,
+                        pretrained: bool = False
                         ) -> Dict[str, np.ndarray]:
     B, n = batch_size, len(samples)
     batch = {"Y": np.zeros(B, np.int32), "t": np.zeros(B, np.float32),
@@ -54,6 +62,15 @@ def _batch_from_samples(samples: List[Sample], mode: str, batch_size: int,
     batch["valid"][:n] = 1.0
     batch["subject_ids"] = np.array([s.subject_id for s in samples]
                                     + [""] * (B - n), dtype=object)
+    if pretrained:
+        # the padding rows stay zeros: MaskedBatchNorm leaves them out of
+        # its statistics through `valid`
+        for m in ("radio", "path", "omic"):
+            h = np.zeros((B, EMBED_DIM), np.float32)
+            for i, s in enumerate(samples):
+                h[i] = getattr(s, f"h_{m}")
+            batch[f"h_{m}"] = h
+        return batch
     if "path" in mode:
         batch["path_bags"], batch["path_mask"] = pad_bags(
             [s.path for s in samples] + [None] * (B - n), n_path_feat, pool)
@@ -77,9 +94,10 @@ def iter_batches(view, batch_size: int = 1, shuffle: bool = False,
     WeightedRandomSampler over (bin, censorship) classes (ref
     utils/utils.py:116-117), ``shuffle`` permutes.  A subject whose bag
     exists but fails to load is dropped with a warning instead of being
-    collated as a zero bag with valid=1.  With ``pool``, the bags are
-    collated into its page-locked buffers: the consumer hands them back
-    (``PinnedPool.release``) once their copy to the card is enqueued."""
+    collated as a zero bag with valid=1 (a pretrained view drops none).
+    With ``pool``, the bags are collated into its page-locked buffers: the
+    consumer hands them back (``PinnedPool.release``) once their copy to
+    the card is enqueued."""
     if indices is None:
         indices = usable_indices(view)
     if not indices:
@@ -96,6 +114,10 @@ def iter_batches(view, batch_size: int = 1, shuffle: bool = False,
     for start in range(0, len(order), batch_size):
         chunk = order[start:start + batch_size]
         samples = [view.get_sample(i) for i in chunk]
+        if view.pretrained:
+            yield _batch_from_samples(samples, view.mode, batch_size,
+                                      pretrained=True)
+            continue
         kept = [s for s in samples if _usable(s.present, view.mode)]
         if len(kept) < len(samples) and not warned:
             bad = [s.subject_id for s in samples

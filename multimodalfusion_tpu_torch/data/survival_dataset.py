@@ -1,7 +1,8 @@
-"""Cohort CSVs, labels, splits, genomic features and per-sample bag
-loading for pathology and genomics (port of the ``path`` and ``omic``
-modes of multimodalfusion_tpu/data/survival_dataset.py, without pandas or
-scikit-learn).
+"""Cohort CSVs, labels, splits, genomic features and per-sample loading
+of pathology bags and genomics (stage 2) or of pretrained 256-d
+embeddings (stage 4) (port of the ``path`` and ``omic`` modes and the
+pretrained mode of multimodalfusion_tpu/data/survival_dataset.py, without
+pandas or scikit-learn).
 
 CSVs are read with the stdlib ``csv`` module.  Cells that pandas reads as
 missing (its default NA strings) count as missing here too, so the
@@ -16,6 +17,13 @@ The genomic features belong to a ``Split``: each split holds its rows of
 the cohort's genomic columns, z-scored with its fold's training split
 (``Scaler``, ``StandardScaler`` semantics).  A mode with ``omic`` is
 therefore read through splits (``load_splits``, ``whole_split``).
+
+With ``pretrained=True`` a sample is the subject's embeddings,
+``{radio,path,omic}_pt_files/<subject>.pt`` under ``data_dir``: a missing
+or unreadable one is zeros with ``present`` False, and a present omic
+embedding is min-max scaled per subject when its max exceeds its min
+(ref dataset_survival.py:400-418).  Every subject is usable, whatever the
+mode, and no genomic column is read.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ METADATA_BASE = ["subject_id", "label", "disc_label", "slide_id"]
 METADATA_TAIL = ["oncotree_code", "is_female", "age", "survival_months",
                  "censorship", "train"]
 MODALITIES = ("T1", "T2", "T1Gd", "FLAIR")
+EMBED_DIM = 256  # a stage-3 embedding's width
 
 
 @dataclass
@@ -47,6 +56,10 @@ class Sample:
     subject_id: str
     path: Optional[np.ndarray] = None      # [N, D] bag
     omic: Optional[np.ndarray] = None      # [G] z-scored genomic features
+    # pretrained embeddings [256] (zeros when missing)
+    h_radio: Optional[np.ndarray] = None
+    h_path: Optional[np.ndarray] = None
+    h_omic: Optional[np.ndarray] = None
     present: Dict[str, bool] = field(default_factory=dict)
     # labels (0 for a label-free cohort)
     disc_label: int = 0
@@ -133,10 +146,12 @@ class SurvivalDataset:
     and the cohort CSV's genomic columns.
 
     ``mode`` names the modalities a sample needs: ``path``, ``omic`` or
-    ``path_omic`` (radiology raises).  With ``n_bins``, the cohort's labels
-    are read and discretized (ref Generic_Survival_Dataset.__init__
-    :14-93): ``disc_label``, ``label`` (the (bin, censorship) class), event
-    time (``label_col``) and censorship per patient; the bin edges come
+    ``path_omic`` (radiology raises).  With ``pretrained``, a sample is
+    the subject's three embeddings instead, in any mode (radio too).
+    With ``n_bins``, the cohort's labels are read and discretized (ref
+    Generic_Survival_Dataset.__init__ :14-93): ``disc_label``, ``label``
+    (the (bin, censorship) class), event time (``label_col``) and
+    censorship per patient; the bin edges come
     from the uncensored patients with ``train == 1``.  Without it, the
     cohort is label-free.  With ``omic`` in the mode, the genomic columns
     are every column outside ``METADATA_BASE + modalities +
@@ -149,16 +164,18 @@ class SurvivalDataset:
                  n_bins: Optional[int] = None,
                  label_col: str = "survival_months", eps: float = 1e-6,
                  modalities: Sequence[str] = MODALITIES,
-                 print_info: bool = False):
-        if "radio" in mode:
+                 print_info: bool = False, pretrained: bool = False):
+        if "radio" in mode and not pretrained:
             raise NotImplementedError(
                 f"mode {mode!r}: radiology bags are not ported yet "
                 "(ROADMAP.md, port queue item 4)")
-        if "path" not in mode and "omic" not in mode:
+        if not any(m in mode for m in ("path", "omic")
+                   + (("radio",) if pretrained else ())):
             raise ValueError(f"mode {mode!r} selects no modality (path, "
                              f"omic or path_omic)")
         self.csv_path = csv_path
         self.mode = mode
+        self.pretrained = pretrained
         self.data_dir = data_dir
         self.label_col = label_col
         self.modalities = list(modalities)
@@ -169,7 +186,7 @@ class SurvivalDataset:
         metadata = set(METADATA_BASE + self.modalities + METADATA_TAIL
                        + [label_col])
         self.genomic_cols = ([c for c in columns if c not in metadata]
-                             if "omic" in mode else [])
+                             if "omic" in mode and not pretrained else [])
         self.genomic = np.array(
             [[_float(first[s][c]) for c in self.genomic_cols]
              for s in self.patients], np.float64).reshape(
@@ -212,7 +229,11 @@ class SurvivalDataset:
 
     def probe_present(self, idx: int) -> Dict[str, bool]:
         """Cheap presence probe of the pathology bags: file existence only,
-        no array loads.  (A split adds the genomic features.)"""
+        no array loads.  (A split adds the genomic features.)  Pretrained:
+        every modality counts as present, a missing embedding being
+        zeros."""
+        if self.pretrained:
+            return {m: True for m in ("radio", "path", "omic")}
         if "path" not in self.mode:
             return {}
         paths = self._slide_paths(self.patients[idx])
@@ -228,6 +249,9 @@ class SurvivalDataset:
             s.disc_label = int(self.disc_label[idx])
             s.event_time = float(self.event_time[idx])
             s.censorship = float(self.censorship[idx])
+        if self.pretrained:
+            self._load_pretrained(s)
+            return s
         if "path" not in self.mode:
             return s
         parts = []
@@ -243,6 +267,26 @@ class SurvivalDataset:
                                     casting="unsafe")
         s.present["path"] = s.path is not None
         return s
+
+    def _load_pretrained(self, s: Sample) -> None:
+        """The subject's three embeddings (JAX survival_dataset.py:222-241):
+        a file that is missing or does not hold 256 values gives zeros and
+        ``present`` False; the omic one is min-max scaled when its max
+        exceeds its min (ref dataset_survival.py:416)."""
+        for m in ("radio", "path", "omic"):
+            p = os.path.join(self.data_dir or "", f"{m}_pt_files",
+                             f"{s.subject_id}.pt")
+            try:
+                h = io.load_pt(p).reshape(EMBED_DIM).astype(np.float32)
+                s.present[m] = True
+            except (OSError, ValueError):
+                h = np.zeros(EMBED_DIM, np.float32)
+                s.present[m] = False
+            if m == "omic" and s.present[m]:
+                lo, hi = h.min(), h.max()
+                if hi > lo:
+                    h = (h - lo) / (hi - lo)
+            setattr(s, f"h_{m}", h)
 
     # ------------------------------------------------------------------
     # splits
@@ -273,9 +317,18 @@ class SurvivalDataset:
                     sp.apply_scaler(scaler)
         return out
 
-    def whole_split(self) -> "Split":
-        """Every patient, genomic features not yet z-scored."""
-        return Split(self, range(len(self.patients)))
+    def whole_split(self, csv_file: Optional[str] = None) -> "Split":
+        """Every patient.  With a splits_{i}.csv, the genomic features are
+        z-scored with the scaler of its train split (ref
+        return_whole_splits :123-138; JAX survival_dataset.py:330-339);
+        without one they stay as read."""
+        split = Split(self, range(len(self.patients)))
+        if csv_file is not None:
+            train = self._split_from_ids(
+                read_split_ids(csv_file, ("train",)).get("train", []))
+            if train is not None and train.genomic_features.size:
+                split.apply_scaler(train.get_scaler())
+        return split
 
 
 def read_split_ids(csv_path: str, keys) -> Dict[str, List[str]]:
@@ -322,6 +375,18 @@ class Split:
     def mode(self) -> str:
         return self.ds.mode
 
+    @property
+    def pretrained(self) -> bool:
+        return self.ds.pretrained
+
+    @property
+    def event_time(self) -> np.ndarray:
+        return self.ds.event_time[self.rows]
+
+    @property
+    def censorship(self) -> np.ndarray:
+        return self.ds.censorship[self.rows]
+
     def __len__(self):
         return len(self.rows)
 
@@ -360,13 +425,13 @@ class Split:
 
     def probe_present(self, idx: int) -> Dict[str, bool]:
         present = self.ds.probe_present(self.rows[idx])
-        if "omic" in self.mode:
+        if "omic" in self.mode and not self.pretrained:
             present["omic"] = self._omic(idx) is not None
         return present
 
     def get_sample(self, idx: int) -> Sample:
         s = self.ds.get_sample(self.rows[idx])
-        if "omic" in self.mode:
+        if "omic" in self.mode and not self.pretrained:
             g = self._omic(idx)
             s.omic = None if g is None else g.astype(np.float32)
             s.present["omic"] = s.omic is not None

@@ -1,5 +1,6 @@
-"""Per-fold training engine for the stage-2 models: pathology
-attention-MIL, the genomic SNN and path+omic fusion (port of
+"""Per-fold training engine for the stage-2 models (pathology
+attention-MIL, the genomic SNN and path+omic fusion) and the stage-4
+heads over pretrained embeddings (port of
 multimodalfusion_tpu/engine/train.py).
 
 The epoch loop feeds fixed-shape bucketed batches through one train step
@@ -18,6 +19,13 @@ not build (``utils/params.py``); the port writes no msgpack.
 On a CUDA device the loader collates the bags into the page-locked
 buffers of a ``PinnedPool``, and ``model_inputs`` copies them to the card
 with ``non_blocking`` and hands them back to the pool.
+
+A stage-4 head trains in train mode, so its ``MaskedBatchNorm``s use the
+batch statistics of the valid rows and move their running ones.  With
+``multimodal-dropout`` a branch whose modality the whole batch lacks
+(all-zero embeddings) is frozen for the step (JAX engine/train.py:
+306-360): its parameters and optimizer moments stay where they were,
+while its tensors' step counts advance, as JAX's one global count does.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +48,9 @@ from multimodalfusion_tpu_torch.data.survival_dataset import MODALITIES
 from multimodalfusion_tpu_torch.models.amil import PathAMIL
 from multimodalfusion_tpu_torch.models.genomic import MaxNet
 from multimodalfusion_tpu_torch.models.mm_amil import MMAttentionMIL
+from multimodalfusion_tpu_torch.models.pretrained_heads import (
+    MULTIMODAL_TYPES, UNIMODAL_TYPES, MultimodalPretrained,
+    UnimodalPretrained)
 from multimodalfusion_tpu_torch.utils import params as params_mod
 
 # the modes each ported model trains and serves in
@@ -81,7 +92,13 @@ class TrainConfig:
     seed: int = 1
     results_dir: str = "./results"
     split_mode: str = "train_val"
+    # stage 4 (ref main_pretrained.py:95-135)
+    train_type: Optional[str] = None
+    n_layers: int = 1
     pretrained: bool = False
+    # freeze a branch for a step whose batch lacks its modality; the
+    # multimodal-dropout train type implies it
+    multimodal_dropout: bool = False
     # engine knobs (no reference equivalent)
     bag_dtype: str = "float32"
     resume: bool = False
@@ -101,9 +118,6 @@ def _unsupported(cfg: TrainConfig) -> Exception:
     """The error for a model and mode the port does not run, naming the
     ROADMAP.md item that brings it."""
     where = f"{cfg.model_type} (mode {cfg.mode})"
-    if cfg.pretrained:
-        return NotImplementedError(f"{where}: stage-4 pretrained heads are "
-                                   "ROADMAP.md port queue item 3")
     if cfg.model_type == "radio_attention_mil" or "radio" in cfg.mode:
         return NotImplementedError(f"{where}: radiology bags and radio AMIL "
                                    "are ROADMAP.md port queue item 4")
@@ -116,8 +130,25 @@ def _unsupported(cfg: TrainConfig) -> Exception:
                       f"{' or '.join(_MODES[cfg.model_type])}")
 
 
+def _check_head(cfg: TrainConfig) -> None:
+    """A stage-4 head: multimodal for mm_attention_mil, unimodal (on the
+    one embedding its mode names) for any other model type."""
+    if cfg.model_type == "mm_attention_mil":
+        if cfg.train_type not in MULTIMODAL_TYPES:
+            raise ValueError(f"--train_type {cfg.train_type!r}: the "
+                             f"multimodal heads are {MULTIMODAL_TYPES}")
+    elif cfg.train_type not in UNIMODAL_TYPES:
+        raise ValueError(f"--train_type {cfg.train_type!r}: the unimodal "
+                         f"heads are {UNIMODAL_TYPES}")
+    elif cfg.mode not in ("radio", "path", "omic"):
+        raise ValueError(f"a unimodal head reads one embedding: --mode "
+                         f"radio, path or omic, not {cfg.mode!r}")
+
+
 def _check_model(cfg: TrainConfig) -> None:
-    if cfg.pretrained or cfg.mode not in _MODES.get(cfg.model_type, ()):
+    if cfg.pretrained:
+        _check_head(cfg)
+    elif cfg.mode not in _MODES.get(cfg.model_type, ()):
         raise _unsupported(cfg)
 
 
@@ -148,9 +179,16 @@ def check_supported(cfg: TrainConfig) -> None:
 
 def build_model(cfg: TrainConfig,
                 generator: Optional[torch.Generator] = None):
-    """Model dispatch (ref core_utils.py:76-98).  The omic models take
-    their input width from ``cfg.omic_input_dim``."""
+    """Model dispatch (ref core_utils.py:76-98,
+    core_utils_pretrained.py:74-87).  The omic models take their input
+    width from ``cfg.omic_input_dim``."""
     _check_model(cfg)
+    if cfg.pretrained:
+        head = (MultimodalPretrained if cfg.model_type == "mm_attention_mil"
+                else UnimodalPretrained)
+        return head(mode=cfg.mode, train_type=cfg.train_type,
+                    bag_loss=cfg.bag_loss, n_classes=cfg.n_classes,
+                    n_layers=cfg.n_layers, generator=generator)
     if cfg.model_type == "path_attention_mil":
         return PathAMIL(model_size=cfg.model_size_wsi, gate=cfg.gate_path,
                         attn_dropout=cfg.drop_out, n_classes=cfg.n_classes,
@@ -186,6 +224,10 @@ def model_inputs(cfg: TrainConfig, batch: Dict[str, np.ndarray],
     which the batch was collated into, gets its buffers back behind
     them."""
     _check_model(cfg)
+    if cfg.pretrained:
+        # `valid` keeps the padding rows out of the BatchNorm statistics
+        return {k: _to(batch[k], device)
+                for k in ("h_radio", "h_path", "h_omic", "valid")}
     bags = ("path_bags", "path_mask") if "path" in cfg.mode else ()
     if cfg.model_type == "path_attention_mil":
         kw = dict(bags=_to(batch["path_bags"], device),
@@ -302,6 +344,59 @@ def _reg_fn(cfg: TrainConfig):
 
 
 # ---------------------------------------------------------------------------
+# multimodal-dropout: the branches a batch freezes
+# ---------------------------------------------------------------------------
+
+# the name markers of each modality's branch (JAX engine/train.py:306-310);
+# the first modality whose marker a parameter's name holds owns it
+_MODALITY_MARKERS = {"radio": ("MRI", "radio"), "path": ("WSI", "path"),
+                     "omic": ("omic",)}
+
+
+def frozen_parameters(model: torch.nn.Module,
+                      batch: Dict[str, np.ndarray]) -> List[torch.Tensor]:
+    """The parameters of the branches whose modality has all-zero
+    embeddings in the whole batch (JAX ``_modality_scale_tree``)."""
+    absent = {m for m in _MODALITY_MARKERS
+              if f"h_{m}" in batch and not np.any(np.abs(batch[f"h_{m}"]) > 0)}
+    frozen = []
+    for name, p in model.named_parameters():
+        owner = next((m for m, marks in _MODALITY_MARKERS.items()
+                      if any(mk in name for mk in marks)), None)
+        if owner in absent:
+            frozen.append(p)
+    return frozen
+
+
+@torch.no_grad()
+def step_with_frozen(opt: torch.optim.Optimizer,
+                     frozen: List[torch.Tensor]) -> None:
+    """``opt.step()`` with ``frozen`` held still, as the JAX package's step
+    holds a frozen branch: its tensors take a zero gradient, so their
+    step counts advance with every other tensor's (JAX keeps one global
+    Adam count), and after the step their values and optimizer moments
+    are put back (moments a first step creates are zeros, as optax's
+    initial moments are), so neither the gradient nor the weight decay
+    moves them."""
+    saved = []
+    for p in frozen:
+        p.grad = torch.zeros_like(p)
+        saved.append((p.detach().clone(),
+                      {k: v.clone() for k, v in opt.state[p].items()
+                       if k != "step" and torch.is_tensor(v)}))
+    opt.step()
+    for p, (value, moments) in zip(frozen, saved):
+        p.copy_(value)
+        for k, v in opt.state[p].items():
+            if k == "step" or not torch.is_tensor(v):
+                continue
+            if k in moments:
+                v.copy_(moments[k])
+            else:
+                v.zero_()
+
+
+# ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
 
@@ -319,6 +414,13 @@ def make_steps(cfg: TrainConfig, model: torch.nn.Module, opt,
             f"{cfg.bag_loss} requires batch_size >= 2 "
             f"(got {cfg.batch_size}); the pairwise ranking term is "
             "identically zero for single-sample batches")
+    mm_dropout = (cfg.multimodal_dropout
+                  or cfg.train_type == "multimodal-dropout")
+    if mm_dropout and cfg.gc > 1:
+        raise ValueError(
+            "multimodal-dropout freeze masking is incompatible with "
+            "gradient accumulation (gc > 1): the aggregated update would "
+            "be masked by only the final microbatch's modality presence")
     loss_spec = make_loss_spec(cfg)
     reg_fn = _reg_fn(cfg)
 
@@ -339,7 +441,10 @@ def make_steps(cfg: TrainConfig, model: torch.nn.Module, opt,
                     generator=generator)
         loss, total = _losses(out, label_inputs(batch, device))
         total.backward()
-        opt.step()
+        if mm_dropout:
+            step_with_frozen(opt, frozen_parameters(model, batch))
+        else:
+            opt.step()
         S = out["S"]
         return {"loss": loss.detach(), "total": total.detach(),
                 "risk": out["risk"].detach(),
@@ -515,7 +620,8 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
     model = model.to(device)
     spec = params_mod.spec_from_config(cfg)
     opt = make_optimizer(cfg, model.parameters())
-    pool = PinnedPool() if device.type == "cuda" else None
+    pool = (PinnedPool() if device.type == "cuda" and not cfg.pretrained
+            else None)
     train_step, eval_step = make_steps(cfg, model, opt, device, pool)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 

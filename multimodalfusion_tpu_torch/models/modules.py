@@ -6,6 +6,8 @@ bias).  ``Dropout`` and ``AlphaDropout``: dropout whose mask comes from an
 explicit generator.  ``SNNBlock``: Linear -> SELU -> AlphaDropout with the
 SNN init (ref utils/utils.py:228 ``init_max_weights``).
 ``XlinearFusion``: the Kronecker fusion of modality embeddings.
+``MaskedBatchNorm``, ``Highway`` and ``Residual``: the stage-4 heads'
+blocks, with batch statistics over the valid rows of a padded batch.
 Submodules carry the reference's state_dict names.
 """
 from __future__ import annotations
@@ -153,3 +155,114 @@ class XlinearFusion(nn.Module):
         if self.skip:
             out = torch.cat([out] + list(v_list), dim=1)
         return self.drop(F.relu(self.encoder2[0](out)), generator)
+
+
+class MaskedBatchNorm(nn.Module):
+    """``nn.BatchNorm1d`` with a row-validity mask (JAX models/modules.py:
+    75-112).  In training, the statistics come from the rows whose
+    ``valid`` is 1 (all rows when it is None), so the padding of a partial
+    batch stays out of them, as the reference's genuinely smaller final
+    batch would; a batch with one valid row normalises by a zero variance
+    instead of raising.  It normalises with the biased variance and moves
+    ``running_var`` by the unbiased one (n / max(n - 1, 1)); ``momentum``
+    is torch's (0.1, flax's 0.9).  In eval mode it uses the running
+    statistics.  The buffers are ``nn.BatchNorm1d``'s, so the
+    reference-layout state_dict round-trips."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x, valid: Optional[torch.Tensor] = None):
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            v = (torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+                 if valid is None else valid.to(x.dtype))
+            n = v.sum().clamp_min(1.0)
+            mean = (x * v[:, None]).sum(0) / n
+            var = (v[:, None] * (x - mean) ** 2).sum(0) / n
+            with torch.no_grad():
+                m = 1.0 - self.momentum
+                unbiased = var * n / (n - 1.0).clamp_min(1.0)
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * unbiased)
+                self.num_batches_tracked += 1
+        return (x - mean) / torch.sqrt(var + self.eps) * self.weight \
+            + self.bias
+
+    def extra_repr(self) -> str:
+        return (f"{self.weight.shape[0]}, eps={self.eps}, "
+                f"momentum={self.momentum}")
+
+
+class Highway(nn.Module):
+    """BN -> Dropout(0.7) -> ``num_layers`` gated highway layers
+    (x = g * relu(W_n x) + (1 - g) * W_l x, g = sigmoid(W_g x)) -> BN
+    (ref Highway, model_modules.py:5-26; JAX models/modules.py:115-131).
+    State_dict: ``bn1``, ``nonlinear.{i}``, ``linear.{i}``, ``gate.{i}``,
+    ``bn2``."""
+
+    def __init__(self, size: int, num_layers: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.bn1 = MaskedBatchNorm(size)
+        self.drop = Dropout(0.7)
+        self.nonlinear = nn.ModuleList(Dense(size, size, generator)
+                                       for _ in range(num_layers))
+        self.linear = nn.ModuleList(Dense(size, size, generator)
+                                    for _ in range(num_layers))
+        self.gate = nn.ModuleList(Dense(size, size, generator)
+                                  for _ in range(num_layers))
+        self.bn2 = MaskedBatchNorm(size)
+
+    def forward(self, x, valid=None,
+                generator: Optional[torch.Generator] = None):
+        x = self.drop(self.bn1(x, valid), generator)
+        for nonlinear, linear, gate in zip(self.nonlinear, self.linear,
+                                           self.gate):
+            g = torch.sigmoid(gate(x))
+            x = g * F.relu(nonlinear(x)) + (1.0 - g) * linear(x)
+        return self.bn2(x, valid)
+
+
+class ResidualBlock(nn.Module):
+    """relu(bn2(fc2(relu(bn1(fc1(x))))) + x) (ref ResidualBlock,
+    model_modules.py:28-49; JAX models/modules.py:134-147)."""
+
+    def __init__(self, size: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc1 = Dense(size, size, generator)
+        self.bn1 = MaskedBatchNorm(size)
+        self.fc2 = Dense(size, size, generator)
+        self.bn2 = MaskedBatchNorm(size)
+
+    def forward(self, x, valid=None):
+        out = F.relu(self.bn1(self.fc1(x), valid))
+        return F.relu(self.bn2(self.fc2(out), valid) + x)
+
+
+class Residual(nn.Module):
+    """``n_layers`` residual blocks, state_dict ``blocks.{i}`` (ref
+    model_modules.py:51-59; JAX models/modules.py:150-159)."""
+
+    def __init__(self, size: int, n_layers: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.blocks = nn.ModuleList(ResidualBlock(size, generator)
+                                    for _ in range(n_layers))
+
+    def forward(self, x, valid=None):
+        for block in self.blocks:
+            x = block(x, valid)
+        return x

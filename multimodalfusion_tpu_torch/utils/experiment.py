@@ -90,6 +90,8 @@ def config_from_settings(settings: dict, **overrides):
         gate_path=settings.get("gate_path", True),
         gate_radio=settings.get("gate_radio", True),
         drop_out=settings.get("use_drop_out", False),
+        train_type=settings.get("train_type"),
+        n_layers=settings.get("n_layers", 1),
         pretrained=bool(settings.get("train_type")),
         batch_size=settings.get("batch_size", 1),
         seed=settings.get("seed", 1),

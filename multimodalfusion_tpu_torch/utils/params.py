@@ -5,11 +5,14 @@ The port's own copy of the mapping that the JAX package keeps in
 utils/torch_interop.py (``build_spec`` / ``variables_to_torch``): flax
 Dense kernels are [in, out], torch Linear weights [out, in].  The keys are
 the reference's (ref model_attention_mil_path.py, model_genomic.py,
-model_mm_attention_mil.py, model_modules.py), the same the JAX package's
-``.pt`` side export writes.
+model_mm_attention_mil.py, model_modules.py, nll_models_pretrained.py,
+coxranking_models_pretrained.py), the same the JAX package's ``.pt`` side
+export writes, BatchNorm running statistics included.
 
 A spec is a list of entries:
   ("linear", torch_prefix, jax_path)
+  ("bn", torch_prefix, jax_path)     BatchNorm: params scale/bias and the
+                                     batch_stats mean/var
   ("attn", torch_prefix, jax_path, gated, attn_dropout)
   ("fill_linear", torch_prefix, (in, out))
   ("fill_attn", torch_prefix, (L, D), gated, attn_dropout)
@@ -24,10 +27,13 @@ from __future__ import annotations
 
 import zlib
 from collections import OrderedDict
-from typing import Dict, Iterator, List, Mapping, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from multimodalfusion_tpu_torch.models.pretrained_heads import (
+    LATE_NAMES, is_nll, present_modalities)
 
 Entry = Tuple
 
@@ -70,6 +76,87 @@ def _xfusion_entries(prefix: str, path: List[str], n_mod: int,
                    path + [f"reduce_{i}_o"]))
     es.append(("linear", f"{prefix}.encoder1.0", path + ["encoder1"]))
     es.append(("linear", f"{prefix}.encoder2.0", path + ["encoder2"]))
+    return es
+
+
+def _highway_entries(prefix: str, path: List[str], n_layers: int
+                     ) -> List[Entry]:
+    """Highway (ref model_modules.py:5-26; JAX torch_interop.py:88-96)."""
+    es: List[Entry] = [("bn", f"{prefix}.bn1", path + ["bn1"]),
+                       ("bn", f"{prefix}.bn2", path + ["bn2"])]
+    for i in range(n_layers):
+        es += [("linear", f"{prefix}.{name}.{i}", path + [f"{name}_{i}"])
+               for name in ("nonlinear", "linear", "gate")]
+    return es
+
+
+def _residual_entries(prefix: str, path: List[str], n_layers: int
+                      ) -> List[Entry]:
+    """Residual stack (ref model_modules.py:28-59; JAX
+    torch_interop.py:99-108)."""
+    es: List[Entry] = []
+    for i in range(n_layers):
+        base, sub = f"{prefix}.blocks.{i}", path + [f"ResidualBlock_{i}"]
+        es += [("linear", f"{base}.fc1", sub + ["Dense_0"]),
+               ("bn", f"{base}.bn1", sub + ["BatchNorm_0"]),
+               ("linear", f"{base}.fc2", sub + ["Dense_1"]),
+               ("bn", f"{base}.bn2", sub + ["BatchNorm_1"])]
+    return es
+
+
+def _unimodal_pretrained_spec(train_type: str, bag_loss: str,
+                              n_layers: int) -> List[Entry]:
+    """UnimodalPretrained (ref nll_models_pretrained.py:14-62,
+    coxranking_models_pretrained.py:14-58; JAX torch_interop.py:248-266)."""
+    if train_type == "fcnn":
+        if is_nll(bag_loss):
+            return [("linear", "classifier.0", ["classifier"])]
+        return [("linear", "classifier.0", ["classifier_0"]),
+                ("bn", "classifier.1", ["classifier_bn"]),
+                ("linear", "classifier.4", ["classifier_1"])]
+    if train_type == "highway":
+        es = _highway_entries("highway", ["highway"], n_layers)
+    elif train_type == "residual":
+        es = _residual_entries("residual", ["residual"], n_layers)
+    else:
+        raise ValueError(f"train_type {train_type!r} of a unimodal head")
+    return es + [("linear", "classifier", ["classifier"])]
+
+
+def _multimodal_pretrained_spec(mode: str, train_type: str, bag_loss: str,
+                                n_layers: int) -> List[Entry]:
+    """MultimodalPretrained (ref nll_models_pretrained.py:66-197,
+    coxranking_models_pretrained.py:62-183; JAX
+    torch_interop.py:269-305).  multimodal-dropout builds late-fcnn."""
+    if train_type == "multimodal-dropout":
+        train_type = "late-fcnn"
+    present = present_modalities(mode)
+    es: List[Entry] = []
+    if train_type == "late-fcnn":
+        for m in present:
+            t = f"layer_{LATE_NAMES[m]}"
+            es += [("linear", f"{t}.0", [f"{t}_0"]),
+                   ("bn", f"{t}.1", [f"{t}_bn"])]
+            if not is_nll(bag_loss):
+                es.append(("linear", f"{t}.4", [f"{t}_1"]))
+        es.append(("linear", "classifier.0", ["classifier"]))
+    elif train_type == "early-fcnn":
+        es += [("linear", "classifier.0", ["classifier_0"]),
+               ("bn", "classifier.1", ["classifier_bn"]),
+               ("linear", "classifier.4", ["classifier_1"])]
+    elif train_type == "early-highway":
+        es += _highway_entries("highway", ["highway"], n_layers)
+        es.append(("linear", "classifier", ["classifier"]))
+    elif train_type == "late-highway":
+        for m in present:
+            es += _highway_entries(f"highway_{m}", [f"highway_{m}"],
+                                   n_layers)
+        es.append(("linear", "classifier", ["classifier"]))
+    elif train_type == "kronecker":
+        es += _xfusion_entries("xfusion", ["xfusion"], len(present))
+        es.append(("linear", "classifier", ["classifier"]))
+    else:
+        raise ValueError(f"train_type {train_type!r} of a multimodal head")
     return es
 
 
@@ -116,10 +203,19 @@ def _mm_attention_mil_spec(mode: str, fusion: str, radio_fusion: str,
 def build_spec(model_type: str, *, mode: str = "path", gated: bool = True,
                attn_dropout: bool = False, fusion: str = "tensor",
                radio_fusion: str = "concat", gate: bool = True,
-               gate_radio: bool = True, n_modalities: int = 4
+               gate_radio: bool = True, n_modalities: int = 4,
+               pretrained: bool = False, train_type: Optional[str] = None,
+               bag_loss: str = "nll_surv", n_layers: int = 1
                ) -> List[Entry]:
     """The spec of a model the port builds (``engine/train.build_model``).
-    ``gated`` is the pathology attention net's gate (``gate_path``)."""
+    ``gated`` is the pathology attention net's gate (``gate_path``).  With
+    ``pretrained``, the stage-4 head of ``train_type``: multimodal for
+    ``mm_attention_mil``, unimodal otherwise."""
+    if pretrained:
+        if model_type == "mm_attention_mil":
+            return _multimodal_pretrained_spec(mode, train_type, bag_loss,
+                                               n_layers)
+        return _unimodal_pretrained_spec(train_type, bag_loss, n_layers)
     if model_type == "path_attention_mil":
         return [("linear", "attention_net_WSI.0", ["fc"]),
                 ("attn", "attention_net_WSI.3", ["attention_net"], gated,
@@ -134,8 +230,7 @@ def build_spec(model_type: str, *, mode: str = "path", gated: bool = True,
                                       n_modalities)
     raise NotImplementedError(
         f"{model_type} (mode {mode}): not ported yet (ROADMAP.md, port "
-        "queue: radio AMIL and the radiology branch are item 4, stage-4 "
-        "heads item 3)")
+        "queue: radio AMIL and the radiology branch are item 4)")
 
 
 def spec_from_config(cfg) -> List[Entry]:
@@ -145,14 +240,26 @@ def spec_from_config(cfg) -> List[Entry]:
                       attn_dropout=cfg.drop_out, fusion=cfg.fusion or "tensor",
                       radio_fusion=cfg.radio_fusion or "concat",
                       gate=cfg.gate, gate_radio=cfg.gate_radio,
-                      n_modalities=len(cfg.modalities))
+                      n_modalities=len(cfg.modalities),
+                      pretrained=cfg.pretrained, train_type=cfg.train_type,
+                      bag_loss=cfg.bag_loss, n_layers=cfg.n_layers)
+
+
+def _at(tree: Mapping, path: Sequence[str]):
+    for p in path:
+        tree = tree[p]
+    return tree
 
 
 def state_dict_from_jax(model_type, params: Mapping, gated: bool = True,
-                        attn_dropout: bool = False, **spec_kw
+                        attn_dropout: bool = False,
+                        batch_stats: Optional[Mapping] = None, **spec_kw
                         ) -> Dict[str, torch.Tensor]:
     """The port's state_dict for the JAX package's params (a nested dict
-    of arrays: ``fc/kernel``, ``attention_net/Wa`` ... ``cc``, ...).
+    of arrays: ``fc/kernel``, ``attention_net/Wa`` ... ``cc``, ...) and,
+    for a model with BatchNorm, its ``batch_stats`` (the running mean and
+    var; without them a BatchNorm gets zeros and ones and
+    ``num_batches_tracked`` is 0, as the JAX export writes).
     ``model_type``: a model type (its spec is built from the keyword
     arguments) or a spec.  Placeholders are not included."""
     spec = (build_spec(model_type, gated=gated, attn_dropout=attn_dropout,
@@ -161,14 +268,24 @@ def state_dict_from_jax(model_type, params: Mapping, gated: bool = True,
     sd: Dict[str, torch.Tensor] = OrderedDict()
     for entry in spec:
         kind, prefix = entry[0], entry[1]
-        if kind not in ("linear", "attn"):
+        if kind not in ("linear", "attn", "bn"):
             continue
-        at = params
-        for p in entry[2]:
-            at = at[p]
+        at = _at(params, entry[2])
         if kind == "linear":
             sd[f"{prefix}.weight"] = _tensor(np.asarray(at["kernel"]).T)
             sd[f"{prefix}.bias"] = _tensor(at["bias"])
+        elif kind == "bn":
+            stats = (None if batch_stats is None
+                     else _at(batch_stats, entry[2]))
+            n = np.asarray(at["scale"]).shape[0]
+            sd[f"{prefix}.weight"] = _tensor(at["scale"])
+            sd[f"{prefix}.bias"] = _tensor(at["bias"])
+            sd[f"{prefix}.running_mean"] = _tensor(
+                np.zeros(n) if stats is None else stats["mean"])
+            sd[f"{prefix}.running_var"] = _tensor(
+                np.ones(n) if stats is None else stats["var"])
+            sd[f"{prefix}.num_batches_tracked"] = torch.tensor(
+                0, dtype=torch.long)
         else:
             for tp, w, b in _attn_pairs(prefix, entry[3], entry[4]):
                 sd[f"{tp}.weight"] = _tensor(np.asarray(at[w]).T)
@@ -206,8 +323,14 @@ def _fill_layers(entry: Entry) -> Iterator[Tuple[str, int, int]]:
                mmhid1 + (dim_og * n_mod if skip else 0), mmhid2)
 
 
+_BN_KEYS = ("weight", "bias", "running_mean", "running_var",
+            "num_batches_tracked")
+
+
 def _entry_keys(entry: Entry) -> List[str]:
     kind, prefix = entry[0], entry[1]
+    if kind == "bn":
+        return [f"{prefix}.{k}" for k in _BN_KEYS]
     if kind == "linear":
         prefixes = [prefix]
     elif kind == "attn":

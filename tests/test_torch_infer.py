@@ -116,8 +116,7 @@ def test_other_kinds_raise_not_implemented():
     for cfg in (TrainConfig(model_type="radio_attention_mil", mode="radio"),
                 TrainConfig(model_type="mm_attention_mil",
                             mode="radio_path_omic"),
-                TrainConfig(model_type="path_attention_mil", mode="path",
-                            pretrained=True)):
+                TrainConfig(model_type="mm_attention_mil", mode="path")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_model(cfg)
 
@@ -149,7 +148,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(files) > 15
     scanned = {os.path.relpath(p, REPO) for p in files}
     for new in ("native.py", "models/genomic.py", "models/mm_amil.py",
-                "models/modules.py", "utils/params.py", "data/bags.py"):
+                "models/modules.py", "utils/params.py", "data/bags.py",
+                "models/pretrained_heads.py", "engine/evaluate.py",
+                "cli/pre_trained_feature.py", "cli/main_pretrained.py",
+                "cli/eval_pretrained.py"):
         assert os.path.join("multimodalfusion_tpu_torch", new) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]
