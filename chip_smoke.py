@@ -14,8 +14,11 @@ Phases, each fatal on failure:
                 keep masks on both sides), ragged masks with a fully
                 masked bag and a padding row, both published PathAMIL
                 widths, a narrow D=Da=64 case whose row count ends the
-                backward's last dW split mid-chunk, and one N=32,768
-                bag.  f32 at rel 1e-4, bf16 at
+                backward's last dW split mid-chunk, one N=32,768 bag, the
+                radiology shapes (B=8 bags of 140-155 slices padded to
+                256 at D, Da = 256, 256 / 256, 384 / 512, 384) and two
+                widths that are not the kernels' multiples (200, 72 and
+                96, 40), which the wrappers zero-pad.  f32 at rel 1e-4, bf16 at
                 rel 2e-2 (pooled, ml, dh and the parameter gradients);
                 dcc == 0, dh == 0 on masked rows, and two launches of
                 either kernel on the same inputs agree bit for bit.
@@ -66,6 +69,22 @@ Phases, each fatal on failure:
                 CPU, risks agreeing at rel 1e-5.  Alone (--phases
                 pretrained) it first trains its own stage-2 experiments,
                 one epoch each.
+  4d. radio  -- radiology on the card: a synthetic 32-subject glioma
+                cohort (4 MRI sequences x 140-155 common slices x 1024 f32
+                through the port's h5 writer, 80 genomic columns, small
+                slides).  cli.main trains RadioAMIL small (concat,
+                --gate_radio --drop_out, B=8: [8, 256, 4096] bag batches)
+                for two epochs, one forward per train step and evaluated
+                batch, one backward per train step; three kernel train
+                steps agree with three plain ones; cli.infer serves it and
+                cli.pre_trained_feature extracts its embeddings, both
+                against the plain pooling at rel 1e-4;
+                mm_attention_mil radio_path_omic (tensor fusion) trains
+                two epochs, two forwards and two backwards per train step;
+                a stage-4 early-fcnn head trains on the port's own radio,
+                path and omic embeddings (no launch); the full-width
+                Kronecker fusion of the sequences trains one epoch and is
+                served.  Counters reset just before each run.
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak) and,
                 for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
@@ -73,7 +92,11 @@ Phases, each fatal on failure:
                 under torch.profiler; a training step's breakdown with
                 CUDA events: load, collate and the copy from page-locked
                 buffers on the host clock, beside the yardstick of
-                pad_bags_plain and a pageable copy of the same batch.
+                pad_bags_plain and a pageable copy of the same batch;
+                both kernels at the radiology shape (B=8, N=256, D=Da=256)
+                with the CTAs of the plan each launch ran (log line only),
+                and the host time per call of each wrapper against the
+                launch it wraps.
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -107,6 +130,14 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # last-bit difference in f32 can round one element the other way, so bf16
 # holds at 2e-2 like its dh
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the radiology bags of a B=8 batch: 140-155 common slices, padded to 256
+RADIO_LENS = [155, 140, 151, 147, 143, 155, 149, 152]
+# (D, Da) of the radiology attention nets: RadioAMIL and mm_attention_mil
+# small (256, 256), mm_attention_mil big (256, 384), RadioAMIL big
+# (512, 384); and widths that are not the kernels' multiples, which the
+# wrappers zero-pad (D to 32 forward and 64 backward, Da to 8 and 64)
+RADIO_WIDTHS = [(256, 256), (256, 384), (512, 384)]
+ODD_WIDTHS = [(200, 72), (96, 40)]
 KERNELS = {
     "mil_pool_fwd": {
         "name": "mil_pool_fwd",
@@ -189,6 +220,13 @@ def phase_kernels():
         cases.append(("serving", 32, 4096, 256, 256, dtype, True, None))
         cases.append(("bigbag", 2, 32768, 256, 256, dtype, True,
                       [32768, 20001]))
+    # the radiology shapes (f32 bags): short bags of 140-155 slices padded
+    # to 256, at RadioAMIL small, mm_attention_mil big (Da=384) and
+    # RadioAMIL big (D=512, Da=384); then the odd widths the wrapper pads
+    for D, Da in RADIO_WIDTHS + ODD_WIDTHS:
+        for gated in (True, False):
+            cases.append(("radio", 8, 256, D, Da, "float32", gated,
+                          RADIO_LENS))
     worst = 0.0
     for i, (tag, B, N, D, Da, dtype, gated, lens) in enumerate(cases):
         h, mask, params = make_pool_case(B, N, D, Da, dtype, seed=i,
@@ -243,6 +281,16 @@ def phase_kernels_train():
                               dropout, [300, 0, 129]))
         cases.append(("bigbag", 2, 32768, 256, 256, dtype, True, True,
                       [32768, 20001]))
+    for D, Da in RADIO_WIDTHS:
+        for dropout in (False, True):
+            cases.append(("radio", 8, 256, D, Da, "float32", True, dropout,
+                          RADIO_LENS))
+    for D, Da in ODD_WIDTHS:
+        for dtype in ("float32", "bfloat16"):
+            for gated in (True, False):
+                for dropout in (False, True):
+                    cases.append(("odd", 3, 300, D, Da, dtype, gated,
+                                  dropout, [300, 0, 129]))
     worst = {"mil_pool_fwd": 0.0, "mil_pool_bwd": 0.0}
     for i, (tag, B, N, D, Da, dtype, gated, dropout, lens) in enumerate(
             cases):
@@ -497,34 +545,58 @@ def phase_slice(launch_counters):
         return launches
 
 
+RADIO_SEQS = ("T1", "T2", "T1Gd", "FLAIR")
+
+
 def _write_train_experiment(root, n_subjects=32, n_val=8, seed=1,
-                            n_genes=0):
+                            n_genes=0, bag_range=(1000, 4097),
+                            radio_slices=0):
     """Synthetic labelled stage-2 cohort in the training CLI's layout:
-    one slide per subject, bags of 1,000-4,096 instances x 1024 (one of
-    exactly 4,096, so a batch pads to 4,096), survival times and
+    one slide per subject, bags of ``bag_range`` instances x 1024 (one of
+    the largest size, so a batch pads to its bucket), survival times and
     censorship from ``seed``, ``n_genes`` genomic columns G0.. (normal),
-    and a splits_0.csv with ``n_val`` validation subjects.  Returns the
-    CLI's data arguments."""
-    from multimodalfusion_tpu_torch.data.io import save_pt
+    and a splits_0.csv with ``n_val`` validation subjects.  With
+    ``radio_slices``, a glioma cohort: each subject's four MRI sequences
+    (T1, T2, T1Gd, FLAIR) of a ``radio_slices``-slice volume x 1024 f32,
+    written through the port's h5 writer, each sequence missing 0-3
+    slices and storing the rest shuffled, so that ``intersect_slices``
+    aligns them (from a generator of its own, so the other draws do not
+    move).  Returns the CLI's data arguments."""
+    from multimodalfusion_tpu_torch.data.io import save_hdf5, save_pt
     rng = np.random.default_rng(seed)
+    radio_rng = np.random.default_rng(seed + 1000)
     feat = os.path.join(root, "features", "brain", "path_pt_files")
     cohort = os.path.join(root, "dataset_csv", "brain")
     splits = os.path.join(root, "splits", "brain", "smoke")
-    for d in (feat, cohort, splits):
+    seqs = RADIO_SEQS if radio_slices else ()
+    for d in (feat, cohort, splits) + tuple(
+            os.path.join(root, "features", "brain", "radio_h5_files", m)
+            for m in seqs):
         os.makedirs(d)
     sids = [f"SUBJ{i:03d}" for i in range(n_subjects)]
     rows = []
     for i, sid in enumerate(sids):
-        n = 4096 if i == 0 else int(rng.integers(1000, 4097))
+        n = bag_range[1] - 1 if i == 0 else int(rng.integers(*bag_range))
         bag = rng.standard_normal((n, 1024), dtype=np.float32) * 0.5
         save_pt(os.path.join(feat, f"{sid}-A.pt"), bag)
+        for m in seqs:
+            drop = int(radio_rng.integers(0, 4))
+            ids = radio_rng.permutation(radio_slices)[drop:]
+            save_hdf5(os.path.join(root, "features", "brain",
+                                   "radio_h5_files", m, f"{sid}.h5"),
+                      {"features": radio_rng.standard_normal(
+                          (len(ids), 1024), dtype=np.float32) * 0.5,
+                       "slice_index": ids.astype(np.int64)})
         months = float(rng.uniform(1.0, 120.0))
         censored = float(rng.uniform() < 0.3)
         genes = ("".join(f",{g:.4f}" for g in rng.standard_normal(n_genes))
                  if n_genes else "")
-        rows.append(f"{sid},{sid}-A.svs,{months:.1f},{censored},1{genes}")
+        cells = "".join(f",{m}_file" for m in seqs)
+        rows.append(f"{sid},{sid}-A.svs{cells},{months:.1f},{censored},1"
+                    f"{genes}")
     with open(os.path.join(cohort, "survival.csv"), "w") as f:
-        f.write("subject_id,slide_id,survival_months,censorship,train"
+        f.write("subject_id,slide_id" + "".join(f",{m}" for m in seqs)
+                + ",survival_months,censorship,train"
                 + "".join(f",G{g}" for g in range(n_genes)) + "\n"
                 + "\n".join(rows) + "\n")
     order = rng.permutation(n_subjects)
@@ -805,10 +877,6 @@ def phase_omic(launch_counters, n_genes=80, root=None):
     from multimodalfusion_tpu_torch.data.survival_dataset import \
         SurvivalDataset
     from multimodalfusion_tpu_torch.engine import train as ttrain
-    from multimodalfusion_tpu_torch.utils.experiment import (
-        config_from_settings, read_settings)
-    from multimodalfusion_tpu_torch.utils.params import spec_from_config
-    dev = torch.device("cuda")
     B, epochs, n_subjects, n_val = 8, 2, 32, 8
     with _workdir(root, "omic") as td:
         t0 = time.perf_counter()
@@ -885,26 +953,9 @@ def phase_omic(launch_counters, n_genes=80, root=None):
                 "_fused_pool_bwd_cuda": 0}:
             raise AssertionError(f"serving launches "
                                  f"{launches['path_omic_serving']}")
-        exp = exps["path_omic"]
-        settings = read_settings(os.path.join(
-            exp, f"experiment_{os.path.basename(exp)}.txt"))
-        cfg = config_from_settings(settings, batch_size=B,
-                                   omic_input_dim=n_genes)
-        model = ttrain.build_model(cfg).to(dev).eval()
-        ttrain.load_checkpoint(model, os.path.join(
-            exp, "s_0_minloss_checkpoint.pt"), spec_from_config(cfg))
-        view = infer._scored_split(settings, settings["csv_path"],
-                                   settings["data_root_dir"], 0)
-        plain = {}
-        with torch.no_grad(), _plain_pooling():
-            for batch in iter_batches(view, batch_size=B):
-                risk = model(**ttrain.model_inputs(cfg, batch, dev))["risk"]
-                for sid, v, ok in zip(batch["subject_ids"],
-                                      risk.cpu().numpy(), batch["valid"]):
-                    if ok:
-                        plain[sid] = float(v)
+        plain = _plain_outputs(exps["path_omic"], B)
         got = np.array([served["path_omic"][k] for k in sorted(plain)])
-        ref = np.array([plain[k] for k in sorted(plain)])
+        ref = np.array([float(plain[k]) for k in sorted(plain)])
         err = float(np.max(np.abs(got - ref) / np.abs(ref)))
         log(f"[omic] served path+omic risks vs the plain pooling: max rel "
             f"err {err:.2e} (tol 1e-4)")
@@ -990,15 +1041,10 @@ def phase_pretrained(launch_counters, path_exp=None, omic_exp=None,
                                                 main_pretrained,
                                                 pre_trained_feature)
     from multimodalfusion_tpu_torch.data.io import load_pt
-    from multimodalfusion_tpu_torch.data.loaders import (iter_batches,
-                                                         usable_indices)
+    from multimodalfusion_tpu_torch.data.loaders import usable_indices
     from multimodalfusion_tpu_torch.data.survival_dataset import \
         SurvivalDataset
-    from multimodalfusion_tpu_torch.engine import train as ttrain
-    from multimodalfusion_tpu_torch.utils.experiment import (
-        config_from_settings, read_settings)
-    from multimodalfusion_tpu_torch.utils.params import spec_from_config
-    dev = torch.device("cuda")
+    from multimodalfusion_tpu_torch.utils.experiment import read_settings
     B3, B4, n_keep = 8, 16, 24
     wall, launches = {}, {}
 
@@ -1040,7 +1086,6 @@ def phase_pretrained(launch_counters, path_exp=None, omic_exp=None,
             out, "--batch_size", str(B3), "--extraction_csv_path", keep,
             "--device", "cuda"])
         launches["stage3_path"] = count()
-        cfg = config_from_settings(settings, batch_size=B3, device="cuda")
         ds = SurvivalDataset(settings["csv_path"], "path",
                              settings["data_root_dir"])
         view = ds.whole_split(os.path.join(settings["split_dir"],
@@ -1052,24 +1097,15 @@ def phase_pretrained(launch_counters, path_exp=None, omic_exp=None,
             raise AssertionError(f"stage 3 (path) launched "
                                  f"{launches['stage3_path']}, expected "
                                  f"{want}: one forward per batch")
-        model = ttrain.build_model(cfg).to(dev).eval()
-        ttrain.load_checkpoint(model, os.path.join(
-            path_exp, "s_0_minloss_checkpoint.pt"), spec_from_config(cfg))
         path_dir = os.path.join(out, "brain", "path_pt_files")
         written = sorted(os.listdir(path_dir))
         if written != sorted(f"{s}.pt" for s in subjects[:n_keep]):
             raise AssertionError(f"stage 3 (path) wrote {written}")
-        err = 0.0
-        with torch.no_grad(), _plain_pooling():
-            for batch in iter_batches(view, batch_size=B3, indices=idx):
-                plain = model(**ttrain.model_inputs(cfg, batch, dev),
-                              return_features=True).cpu().numpy()
-                for sid, p, ok in zip(batch["subject_ids"], plain,
-                                      batch["valid"]):
-                    if ok and f"{sid}.pt" in written:
-                        got = load_pt(os.path.join(path_dir, f"{sid}.pt"))
-                        err = max(err, float(np.abs(got.reshape(-1) - p)
-                                             .max() / np.abs(p).max()))
+        plain = _plain_outputs(path_exp, B3, features=True)
+        err = max(float(np.abs(load_pt(os.path.join(path_dir, f"{k}.pt"))
+                               .reshape(-1) - plain[k]).max()
+                        / np.abs(plain[k]).max())
+                  for k in subjects[:n_keep])
         log(f"[pretrained] stage 3 (path): {len(written)} embeddings in "
             f"{wall['stage3_path']:.2f} s, launches "
             f"{launches['stage3_path']}; max rel err vs the plain pooling "
@@ -1148,6 +1184,269 @@ def phase_pretrained(launch_counters, path_exp=None, omic_exp=None,
         + f"; mil_pool_fwd launches in stage 3 (path) "
         f"{launches['stage3_path']['_fused_pool_cuda']}")
     return launches
+
+
+RADIO_FLAGS = {
+    # RadioAMIL small on the 4 glioma sequences, concatenated and reduced
+    # (4096 -> 1024), gated attention, attention-branch dropout
+    "radio": ["--model_type", "radio_attention_mil", "--mode", "radio",
+              "--radio_fusion", "concat", "--gate_radio", "--drop_out",
+              "--bag_loss", "nll_surv"],
+    # the paper's trimodal model: two attention branches, Kronecker fusion
+    "radio_path_omic": ["--model_type", "mm_attention_mil", "--mode",
+                        "radio_path_omic", "--fusion", "tensor",
+                        "--gate_path", "--gate_radio", "--drop_out",
+                        "--bag_loss", "nll_surv"],
+    # the sequences fused per slice by a Kronecker product (17^4 = 83,521
+    # wide, encoder1 85.5 M parameters)
+    "radio_tensor": ["--model_type", "radio_attention_mil", "--mode",
+                     "radio", "--radio_fusion", "tensor", "--gate_radio",
+                     "--drop_out", "--bag_loss", "nll_surv"],
+    # the unimodal path and omic experiments whose embeddings stage 4
+    # fuses with the radio ones
+    "path": ["--model_type", "path_attention_mil", "--mode", "path",
+             "--gate_path", "--drop_out", "--bag_loss", "nll_surv"],
+    "omic": ["--model_type", "max_net", "--mode", "omic", "--bag_loss",
+             "cox_surv"],
+}
+
+
+def _plain_outputs(exp, B, features=False):
+    """The experiment's model (its minloss checkpoint) on every scoreable
+    subject of its cohort, pooling through the plain versions on the card:
+    {subject: risk}, or {subject: 256-d embedding} with ``features``."""
+    import torch
+    from multimodalfusion_tpu_torch.cli import infer
+    from multimodalfusion_tpu_torch.data.loaders import iter_batches
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    from multimodalfusion_tpu_torch.utils.experiment import (
+        config_from_settings, read_settings)
+    from multimodalfusion_tpu_torch.utils.params import spec_from_config
+    dev = torch.device("cuda")
+    settings = read_settings(os.path.join(
+        exp, f"experiment_{os.path.basename(exp)}.txt"))
+    view = infer._scored_split(settings, settings["csv_path"],
+                               settings["data_root_dir"], 0)
+    cfg = config_from_settings(settings, batch_size=B, omic_input_dim=(
+        view.genomic_features.shape[1]))
+    model = ttrain.build_model(cfg).to(dev).eval()
+    ttrain.load_checkpoint(model, os.path.join(
+        exp, "s_0_minloss_checkpoint.pt"), spec_from_config(cfg))
+    out = {}
+    with torch.no_grad(), _plain_pooling():
+        for batch in iter_batches(view, batch_size=B):
+            kw = ttrain.model_inputs(cfg, batch, dev)
+            if features:
+                got = model(**kw, return_features=True).cpu().numpy()
+            else:
+                got = model(**kw)["risk"].cpu().numpy()
+            for sid, v, ok in zip(batch["subject_ids"], got, batch["valid"]):
+                if ok:
+                    out[sid] = v
+    return out
+
+
+def phase_radio(launch_counters, root=None):
+    """[radio] Radiology on the card.  A synthetic 32-subject glioma
+    cohort (4 MRI sequences x 140-155 common slices x 1024 f32 through the
+    port's h5 writer, 80 genomic columns, slides of 500-1,000 instances;
+    24 train / 8 validation) and, with the launch counters reset just
+    before each run and read just after:
+      - cli.main trains RadioAMIL small (concat, gated, dropout, B=8: bag
+        batches [8, 256, 4096]) for two epochs: the forward launches once
+        per train step and evaluated batch, the backward once per train
+        step, every loss finite; three kernel train steps agree with three
+        plain ones;
+      - cli.infer serves it (one forward per batch), risks against the
+        plain pooling on the card at rel 1e-4;
+      - cli.pre_trained_feature extracts its radio embeddings (one forward
+        per batch), against the plain pooling at rel 1e-4;
+      - mm_attention_mil radio_path_omic (tensor fusion, both attention
+        nets gated, dropout) trains two epochs: two forwards and two
+        backwards per train step;
+      - path AMIL and max_net train one epoch each, stage 3 extracts their
+        embeddings, and a stage-4 early-fcnn head trains two epochs on the
+        port's radio, path and omic embeddings: finite losses, no launch;
+      - the Kronecker radiology fusion at full width trains one epoch and
+        is served.
+    Returns (the launch counts by run, the wall seconds by stage)."""
+    import csv
+    import math
+
+    import torch
+    from multimodalfusion_tpu_torch.cli import (infer, main as cli_main,
+                                                main_pretrained,
+                                                pre_trained_feature)
+    from multimodalfusion_tpu_torch.data.io import load_pt
+    from multimodalfusion_tpu_torch.data.loaders import iter_batches
+    from multimodalfusion_tpu_torch.data.survival_dataset import \
+        SurvivalDataset
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    B, epochs, n_subjects, n_val = 8, 2, 32, 8
+    steps, evals = -(-(n_subjects - n_val) // B), -(-n_val // B)
+    wall, launches = {}, {}
+
+    def count():
+        return {c.__name__: c.launches for c in launch_counters}
+
+    def run(stage, fn, argv):
+        for c in launch_counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = fn(argv)
+        torch.cuda.synchronize()
+        wall[stage] = time.perf_counter() - t0
+        launches[stage] = count()
+        if rc != 0:
+            raise AssertionError(f"[radio] {stage}: rc={rc}")
+
+    def fold(name, flags, n_epochs):
+        results = os.path.join(td, "results", name)
+        run(f"train_{name}", cli_main.main, data_args + flags + [
+            "--k", "1", "--max_epochs", str(n_epochs), "--batch_size",
+            str(B), "--results_dir", results, "--device", "cuda"])
+        sub = os.path.join(results, "brain", "smoke")
+        exp = os.path.join(sub, os.listdir(sub)[0])
+        with open(os.path.join(exp, "0", "metrics.jsonl")) as f:
+            recs = [json.loads(x) for x in f]
+        losses = [r[k] for r in recs for k in ("train_loss", "val_loss")]
+        log(f"[radio] cli.main {' '.join(flags)}: {n_epochs} epochs in "
+            f"{wall[f'train_{name}']:.2f} s; kernel launches "
+            f"{launches[f'train_{name}']}; losses (train, val) "
+            + ", ".join(f"{v:.4f}" for v in losses))
+        if len(recs) != n_epochs or not np.isfinite(losses).all():
+            raise AssertionError(f"[radio] {name}: {recs}")
+        return exp
+
+    def expect(stage, fwd, bwd):
+        want = {"_fused_pool_cuda": fwd, "_fused_pool_bwd_cuda": bwd}
+        if launches[stage] != want:
+            raise AssertionError(f"[radio] {stage} launched "
+                                 f"{launches[stage]}, expected {want}")
+
+    def train_launches(n_epochs, branches=1):
+        fwd = n_epochs * (steps + evals) + 2 * evals
+        return branches * fwd, branches * n_epochs * steps
+
+    def served_vs_plain(stage, exp):
+        out_csv = os.path.join(td, f"risks_{stage}.csv")
+        run(stage, infer.main, ["--model_path", exp, "--which_k", "0",
+                                "--out", out_csv, "--batch_size", str(B),
+                                "--device", "cuda"])
+        with open(out_csv, newline="") as f:
+            served = {r["subject_id"]: float(r["risk"])
+                      for r in csv.DictReader(f)}
+        plain = _plain_outputs(exp, B)
+        err = max(abs(served[k] - float(v)) / abs(float(v))
+                  for k, v in plain.items())
+        log(f"[radio] cli.infer {stage}: {len(served)} subjects in "
+            f"{wall[stage]:.2f} s, kernel launches {launches[stage]}; risks "
+            f"vs the plain pooling on the card: max rel err {err:.2e} "
+            f"(tol 1e-4)")
+        if sorted(served) != sorted(plain) or len(served) != n_subjects \
+                or not all(math.isfinite(v) for v in served.values()) \
+                or err > 1e-4:
+            raise AssertionError(f"[radio] serving {stage} failed")
+
+    with _workdir(root, "radio") as td:
+        t0 = time.perf_counter()
+        data_args = _write_train_experiment(
+            td, n_subjects, n_val, seed=4, n_genes=80, bag_range=(500, 1001),
+            radio_slices=155)
+        wall["write_cohort"] = time.perf_counter() - t0
+        ds = SurvivalDataset(os.path.join(td, "dataset_csv", "brain",
+                                          "survival.csv"), "radio",
+                             os.path.join(td, "features", "brain"), n_bins=4)
+        common = [ds.get_sample(i).radio.shape[0] for i in range(len(ds))]
+        log(f"[radio] wrote a {n_subjects}-subject glioma cohort (4 "
+            f"sequences, {min(common)}-{max(common)} common slices, 80 "
+            f"genomic columns) in {wall['write_cohort']:.2f} s")
+        if min(common) < 140 or max(common) > 155:
+            raise AssertionError(f"common slices {common}")
+
+        # RadioAMIL, concat: train, kernel vs plain steps, serve, stage 3
+        exp = fold("radio", RADIO_FLAGS["radio"], epochs)
+        expect("train_radio", *train_launches(epochs))
+        train_split, _ = ds.load_splits(os.path.join(
+            td, "splits", "brain", "smoke", "splits_0.csv"))
+        batches = []
+        for b in iter_batches(train_split, batch_size=B, shuffle=True,
+                              seed=3):
+            b.pop("subject_ids")
+            batches.append(b)
+        if batches[0]["radio_bags"].shape != (B, 256, 4096):
+            raise AssertionError(f"radio batch "
+                                 f"{batches[0]['radio_bags'].shape}")
+        cfg = ttrain.TrainConfig(model_type="radio_attention_mil",
+                                 mode="radio", radio_fusion="concat",
+                                 gate_radio=True, drop_out=True,
+                                 bag_loss="nll_surv", batch_size=B,
+                                 device="cuda")
+        _steps_agree("radio", cfg, batches[:3], launch_counters)
+        served_vs_plain("serve_radio", exp)
+        expect("serve_radio", -(-n_subjects // B), 0)
+        out = os.path.join(td, "pretrained_feature")
+        run("stage3_radio", pre_trained_feature.main, [
+            "--checkpoint_path", exp, "--which_k", "0", "--output_dir", out,
+            "--batch_size", str(B), "--device", "cuda"])
+        expect("stage3_radio", -(-n_subjects // B), 0)
+        radio_dir = os.path.join(out, "brain", "radio_pt_files")
+        plain = _plain_outputs(exp, B, features=True)
+        err = max(float(np.abs(load_pt(os.path.join(radio_dir, f"{k}.pt"))
+                               .reshape(-1) - v).max() / np.abs(v).max())
+                  for k, v in plain.items())
+        log(f"[radio] stage 3 (radio): {len(os.listdir(radio_dir))} "
+            f"embeddings in {wall['stage3_radio']:.2f} s, launches "
+            f"{launches['stage3_radio']}; max rel err vs the plain pooling "
+            f"{err:.2e} (tol 1e-4)")
+        if len(os.listdir(radio_dir)) != n_subjects or err > 1e-4:
+            raise AssertionError("stage-3 radio embeddings differ from the "
+                                 "plain pooling")
+
+        # the trimodal fusion: two attention branches per step
+        fold("radio_path_omic", RADIO_FLAGS["radio_path_omic"], epochs)
+        expect("train_radio_path_omic", *train_launches(epochs, 2))
+
+        # stage 4 on the port's own radio, path and omic embeddings
+        for m in ("path", "omic"):
+            sub_exp = fold(m, RADIO_FLAGS[m], 1)
+            run(f"stage3_{m}", pre_trained_feature.main, [
+                "--checkpoint_path", sub_exp, "--which_k", "0",
+                "--output_dir", out, "--batch_size", str(B), "--device",
+                "cuda"])
+        args = list(data_args)
+        args[args.index("--data_root_dir") + 1] = out
+        results = os.path.join(td, "s4")
+        run("stage4_early_fcnn", main_pretrained.main, args + [
+            "--model_type", "mm_attention_mil", "--mode", "radio_path_omic",
+            "--train_type", "early-fcnn", "--bag_loss", "nll_surv", "--k",
+            "1", "--max_epochs", "2", "--batch_size", "16", "--results_dir",
+            results, "--device", "cuda"])
+        sub = os.path.join(results, "brain", "smoke")
+        with open(os.path.join(sub, os.listdir(sub)[0], "0",
+                               "metrics.jsonl")) as f:
+            recs = [json.loads(x) for x in f]
+        losses = [r[k] for r in recs for k in ("train_loss", "val_loss")]
+        log(f"[radio] stage 4 early-fcnn radio_path_omic on the port's "
+            f"embeddings: 2 epochs in {wall['stage4_early_fcnn']:.2f} s, "
+            f"launches {launches['stage4_early_fcnn']}; losses (train, val) "
+            + ", ".join(f"{v:.4f}" for v in losses))
+        expect("stage4_early_fcnn", 0, 0)
+        if len(recs) != 2 or not np.isfinite(losses).all():
+            raise AssertionError(f"[radio] stage 4: {recs}")
+
+        # the Kronecker fusion of the 4 sequences at full width
+        torch.cuda.reset_peak_memory_stats()
+        exp = fold("radio_tensor", RADIO_FLAGS["radio_tensor"], 1)
+        expect("train_radio_tensor", *train_launches(1))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        served_vs_plain("serve_radio_tensor", exp)
+        expect("serve_radio_tensor", -(-n_subjects // B), 0)
+        log(f"[radio] tensor fusion: peak device memory {peak:.2f} GiB in "
+            f"its training epoch")
+    log("[radio] wall s: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in wall.items()))
+    return launches, wall
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -1318,6 +1617,112 @@ def phase_timing(B=32, N=4096, D=256, Da=256):
     return res
 
 
+def phase_timing_radio(B=8, N=256, D=256, Da=256):
+    """Both kernels at the radiology shape (RadioAMIL small: B=8 bags of
+    140-155 slices padded to 256, D=Da=256, gated, f32): the serving and
+    evaluation forward, the training forward (dropout) and the training
+    backward (dropout) and its variant without; kernel vs plain on the same
+    inputs, timed plain, kernel, plain; the bound; and, on the log line
+    only, how many CTAs each launch gave the card's SMs, from the plan the
+    wrapper launched with."""
+    import torch
+    from multimodalfusion_tpu_torch.ops import mil_attention as mil
+    res = {"mil_pool_fwd": {}, "mil_pool_bwd": {}}
+    h, mask, params = make_pool_case(B, N, D, Da, "float32", seed=321,
+                                     lens=RADIO_LENS)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    masks = mil.make_dropout_masks(gen, (B, N, Da), True)
+    g = torch.randn(B, D, generator=gen, device="cuda")
+    sms = mil._sms(torch.device("cuda"))
+    launched = {"mil_pool_fwd": mil._fused_pool_cuda,
+                "mil_pool_bwd": mil._fused_pool_bwd_cuda}
+    for dropout in (False, True):
+        da, db = masks if dropout else (None, None)
+        variant = (f"B={B} N={N} D={D} Da={Da} float32 gated"
+                   + (" dropout" if dropout else ""))
+        with torch.no_grad():
+            out, _ = mil._fused_pool_cuda(h, mask, params, True, da, db)
+            ref, ref_ml = mil._pool_plain(h, mask, params, True, da, db)
+            kb = mil._fused_pool_bwd_cuda(h, mask, params, ref, ref_ml, g,
+                                          True, da, db)
+            pb = mil._pool_bwd_plain(h, mask, params, ref, ref_ml, g, True,
+                                     da, db)
+            runs = {
+                "mil_pool_fwd": ((out,), (ref,), lambda: mil._fused_pool_cuda(
+                    h, mask, params, True, da, db), lambda: mil._pool_plain(
+                    h, mask, params, True, da, db)),
+                "mil_pool_bwd": ((kb[0], *kb[1]), (pb[0], *pb[1]),
+                                 lambda: mil._fused_pool_bwd_cuda(
+                                     h, mask, params, ref, ref_ml, g, True,
+                                     da, db),
+                                 lambda: mil._pool_bwd_plain(
+                                     h, mask, params, ref, ref_ml, g, True,
+                                     da, db)),
+            }
+            for name, (got, want, kern, plain) in runs.items():
+                err = _max_abs(got, want)
+                plain1 = _time_ms(plain, iters=50)
+                ms = _time_ms(kern, iters=50)
+                ctas = launched[name].last_plan.ctas()
+                plain2 = _time_ms(plain, iters=50)
+                bound_ms, bound_by = _bound(h, mask, Da, True, dropout,
+                                            backward=name == "mil_pool_bwd")
+                res[name][variant] = {
+                    "ms": ms, "plain_ms": min(plain1, plain2),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": err}
+                log(f"[timing] radio {name} {variant}: kernel {ms:.4f} ms, "
+                    f"plain {plain1:.4f}/{plain2:.4f} ms, bound "
+                    f"{bound_ms * 1e3:.2f} us ({bound_by}), kernel/bound "
+                    f"{ms / bound_ms:.1f}, max abs err {err:.2e}; CTAs per "
+                    f"launch {ctas} on {sms} SMs")
+    _log_wrapper_host_time(h, mask, params, g)
+    return res
+
+
+def _host_us(fn, iters=50):
+    """Host microseconds per call of ``fn`` to enqueue its work: the
+    calls run back to back from an idle card, with no synchronize between
+    them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return us
+
+
+def _log_wrapper_host_time(h, mask, params, g):
+    """What the width-padding layer costs the host per call at widths that
+    take no padding: each wrapper against the launch it wraps, on the same
+    inputs, in turns (wrapper, launch, wrapper, launch), the lower of each
+    pair kept."""
+    import torch
+    from multimodalfusion_tpu_torch.ops import mil_attention as mil
+    rate = mil.ATTN_DROPOUT_RATE
+    with torch.no_grad():
+        out, ml = mil._pool_plain(h, mask, params, True)
+        pairs = {
+            "forward": (lambda: mil._fused_pool_cuda(h, mask, params, True),
+                        lambda: mil._launch_fwd(h, mask, params, True, None,
+                                                None, rate)),
+            "backward": (lambda: mil._fused_pool_bwd_cuda(
+                h, mask, params, out, ml, g, True),
+                lambda: mil._launch_bwd(h, mask, params, out, ml, g, True,
+                                        None, None, rate))}
+        parts = []
+        for name, (wrapper, launch) in pairs.items():
+            times = [_host_us(f) for f in (wrapper, launch, wrapper, launch)]
+            parts.append(f"{name} wrapper {min(times[0::2]):.1f} us, its "
+                         f"launch alone {min(times[1::2]):.1f} us")
+    log(f"[timing] host time per call to enqueue, radio shape, no padding "
+        f"(host clock, 50 calls back to back, lower of two): "
+        + "; ".join(parts))
+
+
 def _pinned_copy(batch, pool):
     """``batch`` with its bags copied into ``pool``'s page-locked buffers,
     as the loader collates them for a CUDA device."""
@@ -1433,8 +1838,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
-                         "slice,train,omic,pretrained,timing (default: all "
-                         "but digest, which prints the result lines)")
+                         "slice,train,omic,pretrained,radio,timing "
+                         "(default: all but digest, which prints the "
+                         "result lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1475,8 +1881,11 @@ def _partial(phases, counters, work, t_all) -> int:
                              omic_args, work)
         else:
             phase_pretrained(counters, root=work)
+    if "radio" in phases:
+        phase_radio(counters, work)
     if "timing" in phases:
         phase_timing()
+        phase_timing_radio()
         if "train" in phases:
             phase_step_breakdown(cfg, batches, host_ms)
     log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
@@ -1505,7 +1914,11 @@ def _full(counters, work, t_all) -> int:
                                            work)
     log(f"[pretrained] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    radio_launches, _ = phase_radio(counters, work)
+    log(f"[radio] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     timing = phase_timing()
+    timing_radio = phase_timing_radio()
     step = phase_step_breakdown(cfg, batches, host_ms)
     log(f"[timing] done in {time.perf_counter() - t:.1f} s")
     # the headline variant of each kernel: the forward as serving and
@@ -1524,13 +1937,16 @@ def _full(counters, work, t_all) -> int:
                      max_abs_err=head["max_abs_err"], ms=head["ms"],
                      plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                      bound_by=head["bound_by"], library_ms=None,
-                     shape=main_variant[name], variants=timing[name])
+                     shape=main_variant[name], variants=timing[name],
+                     radio_shape=timing_radio[name])
         if name == "mil_pool_fwd":
             entry["launches_serving"] = serve_launches["_fused_pool_cuda"]
             entry["cublas_product_ms"] = head["cublas_product_ms"]
         for path, counts in list(omic_launches.items()) + list(
                 pretrained_launches.items()):
             entry[f"launches_{path}"] = counts[counter_of[name]]
+        for path, counts in radio_launches.items():
+            entry[f"launches_radio_{path}"] = counts[counter_of[name]]
         entries.append(entry)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,10 +1,10 @@
 """Label-free scoring CLI (port of multimodalfusion_tpu/cli/infer.py).
 
-Loads a trained stage-2 experiment (``path_attention_mil``, ``max_net``
-or ``mm_attention_mil``) or stage-4 experiment (a head over pretrained
-embeddings: its settings carry ``train_type``), reads a cohort CSV that
-may lack labels, and
-writes ``risks.csv`` with one row per scoreable subject: ``subject_id``,
+Loads a trained stage-2 experiment (``path_attention_mil``,
+``radio_attention_mil``, ``max_net`` or ``mm_attention_mil``, in any of
+their modes) or stage-4 experiment (a head over pretrained embeddings:
+its settings carry ``train_type``), reads a cohort CSV that may lack
+labels, and writes ``risks.csv`` with one row per scoreable subject: ``subject_id``,
 ``risk`` and, for the discrete-hazard heads, ``hazard_k`` and ``S_k``.
 The weights come from the reference-layout ``.pt`` export that JAX
 training writes beside every checkpoint
@@ -16,10 +16,11 @@ embeddings from ``{data_root_dir}/{radio,path,omic}_pt_files/``, a
 missing one as zeros, the omic one min-max scaled per subject (JAX
 cli/infer.py:76-86); every subject of the cohort is scored.
 
-Runs on ``cuda`` unless ``--device cpu`` is given; the attention pooling
-then goes through the hand-written CUDA kernel, fed from page-locked
-buffers.  Other experiment kinds raise NotImplementedError naming the
-ROADMAP.md item that ports them.
+Radiology bags are read from ``{data_root_dir}/radio_h5_files/`` with
+the experiment's sequences (``radio_modality``).  Runs on ``cuda`` unless
+``--device cpu`` is given; the attention pooling of each radiology and
+pathology branch then goes through the hand-written CUDA kernel, fed
+from page-locked buffers.
 
     python -m multimodalfusion_tpu_torch.cli.infer --model_path EXP \\
         --which_k 0 [--csv COHORT.csv] [--out risks.csv] [--device cuda]
@@ -123,11 +124,18 @@ def main(argv=None) -> int:
     settings = read_settings(os.path.join(args.model_path,
                                           f"experiment_{exp_code}.txt"))
     cfg = config_from_settings(settings, batch_size=args.batch_size)
-    check_supported(cfg)  # raises for the kinds not ported yet
+    check_supported(cfg)
     view = _scored_split(settings, args.csv or settings["csv_path"],
                          args.data_root_dir or settings["data_root_dir"],
                          args.which_k)
-    cfg.omic_input_dim = view.genomic_features.shape[1]
+    # the genomic width: the scored cohort's columns, which a mode with
+    # omic has checked against the training cohort's; without omic, the
+    # training cohort's (the width of mm_attention_mil's placeholder SNN)
+    cfg.omic_input_dim = (view.genomic_features.shape[1]
+                          if "omic" in cfg.mode or cfg.pretrained else
+                          len(SurvivalDataset(
+                              settings["csv_path"], mode=cfg.mode,
+                              modalities=cfg.modalities).genomic_cols))
     idx = usable_indices(view)
     if not idx:
         print("no scoreable subjects (missing modalities?)",

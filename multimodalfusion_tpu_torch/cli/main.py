@@ -6,10 +6,14 @@ itself flag-compatible with the reference's main.py).
         --drop_out --bag_loss nll_surv --which_splits 5foldcv ... \\
         [--device cuda]
 
-The models: ``path_attention_mil`` (``--mode path``), ``max_net``
-(``--mode omic``) and ``mm_attention_mil`` (``--mode path_omic`` or
-``omic``; ``--fusion tensor``, the default, or ``concat``).  The genomic
-input width is the cohort's number of genomic columns.
+The models: ``path_attention_mil`` (``--mode path``),
+``radio_attention_mil`` (``--mode radio``; ``--radio_fusion concat``, the
+default, or ``tensor``), ``max_net`` (``--mode omic``) and
+``mm_attention_mil`` (any ``--mode`` of radio, path and omic joined by
+``_``; ``--fusion tensor``, the default, or ``concat``).  A radiology bag
+holds the ``--modality`` sequences, in that order (the settings keep it
+as ``radio_modality``).  The genomic input width is the cohort's number
+of genomic columns.
 
 It takes the JAX CLI's flags plus ``--device`` (``cuda`` unless ``cpu`` is
 asked for) and writes the JAX CLI's files: ``experiment_{code}.txt``,
@@ -17,9 +21,10 @@ per-fold ``{k}/metrics.jsonl``, ``split_train_val_{k}_results.pkl`` (a dict
 of numpy arrays), the ``s_{k}_*checkpoint.pt`` state_dicts and
 ``summary.csv`` (or ``summary_partial_{a}_{b}.csv``, ``eval_``-prefixed
 with ``--eval_only``) with pandas' ``to_csv`` layout.  The flags of work
-not ported yet (radiology, stage 4, ``--split``, ``--profile_dir``,
-``--resume``, ``--tb``, ``--ckpt_format orbax``, ``--data_parallel``,
-``--bag_shard*``) raise NotImplementedError naming their ROADMAP.md item.
+not ported yet (``--split``, ``--profile_dir``, ``--resume``, ``--tb``,
+``--ckpt_format orbax``: ROADMAP.md port queue item 7;
+``--data_parallel``, ``--bag_shard*``: item 6) raise NotImplementedError
+naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -138,6 +143,7 @@ def _config(args, results_dir: str, omic_dim: int = 0) -> TrainConfig:
         radio_fusion=args.radio_fusion,
         modalities=tuple(args.modality.split(",")),
         model_size_wsi=args.model_size_wsi,
+        model_size_radio=args.model_size_radio,
         model_size_omic=args.model_size_omic, omic_input_dim=omic_dim,
         seed=args.seed,
         results_dir=results_dir, split_mode=args.split_mode,

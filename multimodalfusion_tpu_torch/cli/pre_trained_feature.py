@@ -6,16 +6,17 @@ Reads the stage-2 experiment's settings and its fold's
 ``s_{k}_minloss_checkpoint.pt`` (the port's own, or the ``.pt`` that JAX
 training writes beside its msgpack), runs every usable subject of the
 cohort through the model's features, and writes
-``{output_dir}/{cancer_type}/{path,omic}_pt_files/{subject}.pt`` as
+``{output_dir}/{cancer_type}/{radio,path,omic}_pt_files/{subject}.pt`` as
 [1, 256] tensors, the files stage 4 reads.  Genomic inputs are z-scored
 with the fold's training split, as training saw them.  An existing file
 is kept, not rewritten; ``--extraction_csv_path`` (a CSV with a
 ``subject_id`` column) limits which subjects are written.
 
-Path experiments (``path_attention_mil``) pool through the hand-written
-CUDA forward kernel on the card, once per batch.  Genomic experiments
-(``max_net``) run stock torch ops.  Radiology raises (ROADMAP.md, port
-queue item 4).  Runs on ``cuda`` unless ``--device cpu`` is given.
+Radiology and path experiments (``radio_attention_mil``,
+``path_attention_mil``) pool through the hand-written CUDA forward kernel
+on the card, once per batch; a radiology bag holds the experiment's
+sequences (``radio_modality``).  Genomic experiments (``max_net``) run
+stock torch ops.  Runs on ``cuda`` unless ``--device cpu`` is given.
 
     python -m multimodalfusion_tpu_torch.cli.pre_trained_feature \\
         --checkpoint_path EXP --which_k 0 --output_dir OUT [--device cuda]
@@ -74,18 +75,18 @@ def main(argv=None) -> int:
     settings = read_settings(os.path.join(args.checkpoint_path,
                                           f"experiment_{exp_code}.txt"))
     mode = settings["mode"]
-    if mode not in ("path", "omic"):
-        raise NotImplementedError(
-            f"stage 3 on a mode {mode!r} experiment: the radiology models "
-            "are not ported yet (ROADMAP.md, port queue item 4)")
+    if mode not in _MODE_TO_MODEL:
+        raise ValueError(f"stage 3 extracts the embedding of a unimodal "
+                         f"experiment (mode radio, path or omic), not of "
+                         f"mode {mode!r}")
     cfg = config_from_settings(
         settings, batch_size=args.batch_size, pretrained=False,
         model_type=settings.get("model_type") or _MODE_TO_MODEL[mode],
         device=args.device)
-    if cfg.model_type not in ("path_attention_mil", "max_net"):
+    if cfg.model_type != _MODE_TO_MODEL[mode]:
         raise ValueError(f"stage 3 extracts the embeddings of "
-                         f"path_attention_mil and max_net experiments, not "
-                         f"of {cfg.model_type}")
+                         f"{', '.join(_MODE_TO_MODEL.values())} "
+                         f"experiments, not of {cfg.model_type}")
     device = resolve_device(args.device)
 
     dataset = SurvivalDataset(

@@ -7,6 +7,7 @@ mask; the bucket ladder keeps the number of distinct shapes small.
 (``multimodalfusion_tpu_torch/native.py``), into page-locked buffers of a
 ``PinnedPool`` when the batch is bound for a CUDA device.  The numpy
 version stays as ``pad_bags_plain``, the oracle of the tests.
+``intersect_slices`` aligns the sequences of a radiology bag.
 """
 from __future__ import annotations
 
@@ -68,6 +69,40 @@ def pad_bags(bags: Sequence[Optional[np.ndarray]], feat_dim: int,
         out, mask = pool.take(shape), pool.take(shape[:2])
     native.pad_bags_into(bags, out, mask)
     return out, mask
+
+
+def intersect_slices(features: List[np.ndarray],
+                     slice_ids: List[np.ndarray],
+                     return_ids: bool = False):
+    """Align multi-sequence radiology bags on their common slice ids and
+    concatenate them along the feature axis (ref dataset_survival.py:
+    346-348; JAX data/bags.py:55-89).
+
+    Row i of the result is slice ``sorted(common)[i]`` of every modality:
+    each modality is reindexed to the shared sorted id order (the
+    reference's boolean-mask indexing misaligns rows when modalities
+    store their slices in different orders).  Duplicate ids within a
+    modality raise ValueError.  Returns [N_common, sum(D_m)], plus the
+    sorted common ids when ``return_ids`` is set."""
+    for s in slice_ids:
+        if len(np.unique(s)) != len(s):
+            raise ValueError(
+                "duplicate slice ids within a modality: "
+                f"{np.asarray(s).tolist()}")
+    common = set(np.asarray(slice_ids[0]).tolist())
+    for s in slice_ids[1:]:
+        common &= set(np.asarray(s).tolist())
+    common_sorted = np.array(sorted(common))
+    aligned = []
+    for f, s in zip(features, slice_ids):
+        pos = {v: i for i, v in enumerate(np.asarray(s).tolist())}
+        order = np.array([pos[v] for v in common_sorted.tolist()],
+                         dtype=np.intp)
+        aligned.append(np.asarray(f)[order])
+    out = np.concatenate(aligned, axis=1)
+    if return_ids:
+        return out, common_sorted
+    return out
 
 
 def _pinned_empty(shape) -> np.ndarray:

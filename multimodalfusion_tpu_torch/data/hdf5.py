@@ -1,0 +1,559 @@
+"""A read-only parser of the HDF5 files h5py writes by default, and a
+write-once writer of plain ones, in numpy and the standard library (the
+port's stand-in for h5py, which the machine with the card lacks).
+
+The reader takes what h5py's default ("earliest") file format holds:
+
+- superblock version 0 or 1, after a user block or not;
+- version-1 object headers, with continuation blocks;
+- groups stored as symbol tables: a version-1 B-tree of type 0 over
+  symbol-table nodes (``SNOD``) and the group's local heap of names;
+- datasets: their dataspace, datatype (little-endian IEEE float and
+  fixed-point integers), fill value and data layout (message version 3:
+  compact, contiguous, and chunked over a version-1 B-tree of type 1 of
+  any depth); a chunk that was never written reads as the fill value.
+
+It raises ``NotImplementedError``, naming what is missing, for what it
+does not take: compressed or filtered data (a filter pipeline message),
+superblock versions 2 and 3 and version-2 object headers (h5py's
+``libver="latest"``), the newer chunk indexes and layout versions, other
+datatypes.  A file that is truncated or is not HDF5 raises ``OSError``,
+and a name the file does not hold ``KeyError``: the JAX package's loader
+counts ``(OSError, KeyError)`` as a missing radiology bag, so the port
+reaches the same verdict on the same files.
+
+The writer (``write``) makes a superblock-0 file whose root group holds
+contiguous datasets; h5py reads it back bit for bit.  It writes a file
+once and has no append mode.
+
+Format reference: the HDF5 File Format Specification, version 2.0
+(superblock 0/1, object header 1, B-tree 1, symbol table, local heap, and
+messages 0x0001 dataspace, 0x0003 datatype, 0x0004/0x0005 fill value,
+0x0008 layout, 0x000B filter pipeline, 0x0010 continuation, 0x0011
+symbol table).
+"""
+from __future__ import annotations
+
+import struct
+from typing import Dict, List, Mapping, NamedTuple, Tuple
+
+import numpy as np
+
+SIGNATURE = b"\x89HDF\r\n\x1a\n"
+
+# object header message types
+_DATASPACE, _DATATYPE, _FILL_OLD, _FILL = 0x0001, 0x0003, 0x0004, 0x0005
+_LINK_INFO, _LINK, _LAYOUT, _GROUP_INFO = 0x0002, 0x0006, 0x0008, 0x000A
+_FILTERS, _CONTINUATION, _SYMBOL_TABLE = 0x000B, 0x0010, 0x0011
+
+
+class _Dataset(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: np.dtype
+    fill: bytes                 # one element, or b"" for zeros
+    layout: tuple               # ("compact", raw) | ("contiguous", addr,
+                                # size) | ("chunked", btree, chunk shape)
+
+
+class File:
+    """An HDF5 file read whole into memory: ``f["name"]`` or
+    ``f["group/name"]`` is the dataset as a numpy array; ``"name" in f``
+    says whether the root group (or a path) holds it.  Use as a context
+    manager or call ``close``; nothing is read lazily."""
+
+    def __init__(self, path: str):
+        with open(path, "rb") as fh:
+            self._buf = fh.read()
+        self.path = path
+        self._parse_superblock()
+
+    def __enter__(self) -> "File":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+    def close(self) -> None:
+        self._buf = b""
+
+    # -- raw access ------------------------------------------------------
+
+    def _bytes(self, addr: int, n: int) -> bytes:
+        """``n`` bytes at file address ``addr`` (relative to the base)."""
+        start = self._base + addr
+        if addr < 0 or start + n > len(self._buf):
+            raise OSError(f"{self.path}: truncated HDF5 file (wanted "
+                          f"{n} bytes at {start}, the file has "
+                          f"{len(self._buf)})")
+        return self._buf[start:start + n]
+
+    def _unpack(self, fmt: str, addr: int) -> tuple:
+        return struct.unpack("<" + fmt, self._bytes(addr, struct.calcsize(
+            "<" + fmt)))
+
+    def _undefined(self, addr: int) -> bool:
+        return addr == (1 << (8 * self._so)) - 1
+
+    def _offset(self, data: bytes, pos: int) -> int:
+        return int.from_bytes(data[pos:pos + self._so], "little")
+
+    def _length(self, data: bytes, pos: int) -> int:
+        return int.from_bytes(data[pos:pos + self._sl], "little")
+
+    # -- superblock ------------------------------------------------------
+
+    def _parse_superblock(self) -> None:
+        base = 0
+        while base + 8 <= len(self._buf):
+            if self._buf[base:base + 8] == SIGNATURE:
+                break
+            base = 512 if base == 0 else base * 2
+        else:
+            raise OSError(f"{self.path}: not an HDF5 file (no signature)")
+        self._base = base
+        head = self._buf[base:base + 24]
+        if len(head) < 24:
+            raise OSError(f"{self.path}: truncated HDF5 superblock")
+        version = head[8]
+        if version in (2, 3):
+            raise NotImplementedError(
+                f"{self.path}: HDF5 superblock version {version} (h5py's "
+                f"libver='latest' format); the port reads versions 0 and 1")
+        if version not in (0, 1):
+            raise OSError(f"{self.path}: unknown HDF5 superblock version "
+                          f"{version}")
+        self._so, self._sl = head[13], head[14]
+        if self._so not in (2, 4, 8) or self._sl not in (2, 4, 8):
+            raise OSError(f"{self.path}: bad offset/length sizes "
+                          f"{self._so}/{self._sl}")
+        pos = 24 + (4 if version == 1 else 0)
+        # base address, free space, end of file, driver info; then the root
+        # group's symbol table entry
+        n = 4 * self._so + self._entry_size()
+        sb = self._buf[base + pos:base + pos + n]
+        if len(sb) < n:
+            raise OSError(f"{self.path}: truncated HDF5 superblock")
+        # addresses count from the base address (the superblock's, after a
+        # user block); the end-of-file address, as h5py writes it, counts
+        # from the start of the file
+        self._base = self._offset(sb, 0)
+        eof = self._offset(sb, 2 * self._so)
+        if eof > len(self._buf):
+            raise OSError(f"{self.path}: truncated HDF5 file (end of file "
+                          f"address {eof}, the file has {len(self._buf)} "
+                          f"bytes)")
+        self._root = self._offset(sb, 4 * self._so + self._so)
+
+    def _entry_size(self) -> int:
+        """A symbol table entry: name offset, object header address, cache
+        type (4), reserved (4), scratch pad (16)."""
+        return 2 * self._so + 24
+
+    # -- object headers --------------------------------------------------
+
+    def _messages(self, addr: int) -> List[Tuple[int, bytes]]:
+        """(type, data) of every message of the version-1 object header at
+        ``addr``, continuation blocks included."""
+        if self._bytes(addr, 4) == b"OHDR":
+            raise NotImplementedError(
+                f"{self.path}: version-2 object header (h5py's "
+                f"libver='latest' format); the port reads version 1")
+        version, _, n_msgs, _, size = self._unpack("BBHII", addr)
+        if version != 1:
+            raise OSError(f"{self.path}: unknown object header version "
+                          f"{version} at {addr}")
+        blocks = [(addr + 16, size)]
+        out: List[Tuple[int, bytes]] = []
+        while blocks and len(out) < n_msgs:
+            start, size = blocks.pop(0)
+            block = self._bytes(start, size)
+            pos = 0
+            while pos + 8 <= size and len(out) < n_msgs:
+                mtype, msize, _ = struct.unpack_from("<HHB", block, pos)
+                data = block[pos + 8:pos + 8 + msize]
+                if len(data) < msize:
+                    raise OSError(f"{self.path}: object header message "
+                                  f"runs past its block at {start}")
+                pos += 8 + msize
+                out.append((mtype, data))
+                if mtype == _CONTINUATION:
+                    blocks.append((self._offset(data, 0),
+                                   self._length(data, self._so)))
+        return out
+
+    # -- groups ----------------------------------------------------------
+
+    def _group_links(self, addr: int, msgs=None) -> Dict[str, int]:
+        """name -> object header address of each member of the group whose
+        object header is at ``addr``."""
+        msgs = self._messages(addr) if msgs is None else msgs
+        for mtype, data in msgs:
+            if mtype == _SYMBOL_TABLE:
+                btree = self._offset(data, 0)
+                heap = self._offset(data, self._so)
+                links: Dict[str, int] = {}
+                self._walk_group_btree(btree, self._heap_data(heap), links)
+                return links
+            if mtype in (_LINK_INFO, _LINK, _GROUP_INFO):
+                raise NotImplementedError(
+                    f"{self.path}: a group stored as links (the newer group "
+                    f"format); the port reads symbol-table groups")
+        raise KeyError(f"{self.path}: object at {addr} is not a group")
+
+    def _heap_data(self, addr: int) -> bytes:
+        if self._bytes(addr, 4) != b"HEAP":
+            raise OSError(f"{self.path}: no local heap at {addr}")
+        head = self._bytes(addr + 8, 2 * self._sl + self._so)
+        size = self._length(head, 0)
+        return self._bytes(self._offset(head, 2 * self._sl), size)
+
+    def _btree_node(self, addr: int, node_type: int, key: int):
+        """(level, children, keys) of the version-1 B-tree node at addr
+        whose keys take ``key`` bytes; keys as raw bytes."""
+        if self._bytes(addr, 4) != b"TREE":
+            raise OSError(f"{self.path}: no B-tree node at {addr}")
+        ntype, level, used = self._unpack("BBH", addr + 4)
+        if ntype != node_type:
+            raise OSError(f"{self.path}: B-tree node of type {ntype} at "
+                          f"{addr}, expected {node_type}")
+        pos = addr + 8 + 2 * self._so
+        raw = self._bytes(pos, used * (key + self._so) + key)
+        keys, children = [], []
+        for i in range(used):
+            at = i * (key + self._so)
+            keys.append(raw[at:at + key])
+            children.append(self._offset(raw, at + key))
+        return level, children, keys
+
+    def _walk_group_btree(self, addr: int, heap: bytes,
+                          links: Dict[str, int]) -> None:
+        level, children, _ = self._btree_node(addr, 0, self._sl)
+        for child in children:
+            if level > 0:
+                self._walk_group_btree(child, heap, links)
+                continue
+            if self._bytes(child, 4) != b"SNOD":
+                raise OSError(f"{self.path}: no symbol table node at "
+                              f"{child}")
+            (n,) = self._unpack("H", child + 6)
+            es = self._entry_size()
+            raw = self._bytes(child + 8, n * es)
+            for i in range(n):
+                name_at = self._offset(raw, i * es)
+                end = heap.index(b"\0", name_at)
+                links[heap[name_at:end].decode("utf-8")] = self._offset(
+                    raw, i * es + self._so)
+
+    def _lookup(self, name: str) -> int:
+        addr = self._root
+        parts = [p for p in name.split("/") if p]
+        for i, part in enumerate(parts):
+            links = self._group_links(addr)
+            if part not in links:
+                raise KeyError(f"{self.path}: no object "
+                               f"{'/'.join(parts[:i + 1])!r}")
+            addr = links[part]
+        return addr
+
+    def keys(self) -> List[str]:
+        """The names in the root group, sorted as HDF5 stores them."""
+        return sorted(self._group_links(self._root))
+
+    def __contains__(self, name: str) -> bool:
+        try:
+            self._lookup(name)
+        except KeyError:
+            return False
+        return True
+
+    # -- datasets --------------------------------------------------------
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        addr = self._lookup(name)
+        return self._read(self._dataset(addr, name))
+
+    def _dataset(self, addr: int, name: str) -> _Dataset:
+        shape = dtype = layout = None
+        fill = b""
+        for mtype, data in self._messages(addr):
+            if mtype == _DATASPACE:
+                shape = self._dataspace(data)
+            elif mtype == _DATATYPE:
+                dtype = _datatype(data, self.path)
+            elif mtype == _FILL_OLD and not fill:
+                (size,) = struct.unpack_from("<I", data, 0)
+                fill = data[4:4 + size]
+            elif mtype == _FILL:
+                fill = _fill_value(data, self.path) or fill
+            elif mtype == _LAYOUT:
+                layout = data
+            elif mtype == _FILTERS:
+                raise NotImplementedError(
+                    f"{self.path}: dataset {name!r} has a filter pipeline "
+                    f"(compressed or filtered data); the port reads "
+                    f"unfiltered datasets only")
+            elif mtype == _SYMBOL_TABLE:
+                raise KeyError(f"{self.path}: {name!r} is a group, not a "
+                               f"dataset")
+        if shape is None or dtype is None or layout is None:
+            raise KeyError(f"{self.path}: {name!r} is not a dataset")
+        if fill and len(fill) != dtype.itemsize:
+            raise OSError(f"{self.path}: fill value of {len(fill)} bytes "
+                          f"for a {dtype} dataset {name!r}")
+        return _Dataset(shape, dtype, fill, self._layout(layout, shape,
+                                                         dtype, name))
+
+    def _dataspace(self, data: bytes) -> Tuple[int, ...]:
+        version, rank = data[0], data[1]
+        if version == 1:
+            pos = 8
+        elif version == 2:
+            if data[3] == 2:
+                raise NotImplementedError(
+                    f"{self.path}: a null dataspace")
+            pos = 4
+        else:
+            raise NotImplementedError(f"{self.path}: dataspace message "
+                                      f"version {version}")
+        return tuple(self._length(data, pos + i * self._sl)
+                     for i in range(rank))
+
+    def _layout(self, data: bytes, shape, dtype, name) -> tuple:
+        version, cls = data[0], data[1]
+        if version != 3:
+            raise NotImplementedError(
+                f"{self.path}: dataset {name!r} has a layout message of "
+                f"version {version} (version 4 holds the newer chunk "
+                f"indexes of h5py's libver='latest'); the port reads "
+                f"version 3")
+        if cls == 0:
+            (size,) = struct.unpack_from("<H", data, 2)
+            return ("compact", data[4:4 + size])
+        if cls == 1:
+            return ("contiguous", self._offset(data, 2),
+                    self._length(data, 2 + self._so))
+        if cls == 2:
+            ndim = data[2]
+            btree = self._offset(data, 3)
+            pos = 3 + self._so
+            dims = struct.unpack_from(f"<{ndim}I", data, pos)
+            if len(dims) != len(shape) + 1 or dims[-1] != dtype.itemsize:
+                raise OSError(f"{self.path}: chunk dims {dims} do not fit "
+                              f"dataset {name!r} {shape} {dtype}")
+            return ("chunked", btree, tuple(dims[:-1]))
+        raise NotImplementedError(f"{self.path}: layout class {cls}")
+
+    def _filled(self, ds: _Dataset) -> np.ndarray:
+        if ds.fill and any(ds.fill):
+            value = np.frombuffer(ds.fill, ds.dtype)[0]
+            return np.full(ds.shape, value, ds.dtype)
+        return np.zeros(ds.shape, ds.dtype)
+
+    def _read(self, ds: _Dataset) -> np.ndarray:
+        n = int(np.prod(ds.shape, dtype=np.int64)) * ds.dtype.itemsize
+        kind = ds.layout[0]
+        if kind == "compact":
+            return np.frombuffer(ds.layout[1][:n], ds.dtype).reshape(
+                ds.shape).copy()
+        if kind == "contiguous":
+            addr = ds.layout[1]
+            if self._undefined(addr) or n == 0:
+                return self._filled(ds)
+            return np.frombuffer(self._bytes(addr, n), ds.dtype).reshape(
+                ds.shape).copy()
+        out = self._filled(ds)
+        btree, chunk = ds.layout[1], ds.layout[2]
+        if self._undefined(btree) or out.size == 0:
+            return out
+        csize = int(np.prod(chunk, dtype=np.int64)) * ds.dtype.itemsize
+        self._read_chunks(btree, chunk, csize, out)
+        return out
+
+    def _read_chunks(self, addr: int, chunk, csize: int,
+                     out: np.ndarray) -> None:
+        # a chunk's key: its size, filter mask and offset (one more
+        # dimension than the dataset's, for the element)
+        level, children, keys = self._btree_node(addr, 1,
+                                                 8 + 8 * (len(chunk) + 1))
+        for child, key in zip(children, keys):
+            if level > 0:
+                self._read_chunks(child, chunk, csize, out)
+                continue
+            size, mask = struct.unpack_from("<II", key, 0)
+            if mask:
+                raise NotImplementedError(
+                    f"{self.path}: a chunk with filter mask {mask:#x}")
+            if size != csize:
+                raise OSError(f"{self.path}: chunk of {size} bytes, "
+                              f"expected {csize} (filtered data?)")
+            offset = struct.unpack_from(f"<{len(chunk)}Q", key, 8)
+            data = np.frombuffer(self._bytes(child, size), out.dtype
+                                 ).reshape(chunk)
+            dst = tuple(slice(o, min(o + c, s))
+                        for o, c, s in zip(offset, chunk, out.shape))
+            src = tuple(slice(0, d.stop - d.start) for d in dst)
+            out[dst] = data[src]
+
+
+def _datatype(data: bytes, path: str) -> np.dtype:
+    cls, version = data[0] & 0x0F, data[0] >> 4
+    bits = int.from_bytes(data[1:4], "little")
+    (size,) = struct.unpack_from("<I", data, 4)
+    if bits & 1:
+        raise NotImplementedError(f"{path}: a big-endian datatype")
+    if cls == 0:
+        if size not in (1, 2, 4, 8):
+            raise NotImplementedError(f"{path}: a {size}-byte integer")
+        return np.dtype(f"<{'i' if bits & 0x08 else 'u'}{size}")
+    if cls == 1:
+        if size not in (2, 4, 8):
+            raise NotImplementedError(f"{path}: a {size}-byte float")
+        return np.dtype(f"<f{size}")
+    raise NotImplementedError(f"{path}: datatype class {cls} (version "
+                              f"{version}); the port reads integers and "
+                              f"IEEE floats")
+
+
+def _fill_value(data: bytes, path: str) -> bytes:
+    """The fill value a fill value message (type 5) defines, or b""."""
+    version = data[0]
+    if version in (1, 2):
+        defined = data[3]
+        if version == 2 and not defined:
+            return b""
+        (size,) = struct.unpack_from("<I", data, 4)
+        return data[8:8 + size]
+    if version == 3:
+        flags = data[1]
+        if not flags & 0x20:
+            return b""
+        (size,) = struct.unpack_from("<I", data, 2)
+        return data[6:6 + size]
+    raise NotImplementedError(f"{path}: fill value message version "
+                              f"{version}")
+
+
+def read(path: str, name: str) -> np.ndarray:
+    """The dataset ``name`` of the file at ``path``."""
+    with File(path) as f:
+        return f[name]
+
+
+# ---------------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------------
+
+_UNDEF = b"\xff" * 8
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + b"\0" * (-len(b) % 8)
+
+
+def _header(messages: List[Tuple[int, bytes]]) -> bytes:
+    """A version-1 object header holding ``messages`` (each padded to 8)."""
+    body = b"".join(struct.pack("<HHB3x", t, len(_pad8(d)), 0) + _pad8(d)
+                    for t, d in messages)
+    return struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body
+
+
+def _datatype_message(dtype: np.dtype) -> bytes:
+    size = dtype.itemsize
+    if dtype.kind in "iu":
+        bits = 0x08 if dtype.kind == "i" else 0
+        return (struct.pack("<B3sI", 0x10, bits.to_bytes(3, "little"), size)
+                + struct.pack("<HH", 0, 8 * size))
+    if dtype.kind == "f" and size in (2, 4, 8):
+        exp, mant, bias = {2: (5, 10, 15), 4: (8, 23, 127),
+                           8: (11, 52, 1023)}[size]
+        # little-endian, mantissa normalised with an implied leading 1
+        # (bits 4-5 = 2), the sign at the top bit (bits 8-15)
+        bits = (2 << 4) | ((8 * size - 1) << 8)
+        return (struct.pack("<B3sI", 0x11, bits.to_bytes(3, "little"), size)
+                + struct.pack("<HHBBBBI", 0, 8 * size, mant, exp, 0, mant,
+                              bias))
+    raise NotImplementedError(f"dtype {dtype}: the writer writes integers "
+                              f"and IEEE floats")
+
+
+def write(path: str, arrays: Mapping[str, np.ndarray]) -> str:
+    """Write a new HDF5 file at ``path`` (superblock 0, 8-byte offsets) whose
+    root group holds one contiguous dataset per entry of ``arrays``
+    (little-endian integers or floats, any shape).  Overwrites ``path``."""
+    names = sorted(arrays)
+    data = {}
+    for k in names:
+        if not k or "/" in k or "\0" in k:
+            raise ValueError(f"dataset name {k!r}")
+        a = np.asarray(arrays[k])
+        data[k] = a.astype(a.dtype.newbyteorder("<"), order="C", copy=False)
+    leaf_k = max(4, -(-len(names) // 2))
+    # the local heap: "" at 0, then each name, each padded to 8 bytes
+    heap_data, name_at = b"\0" * 8, {}
+    for k in names:
+        name_at[k] = len(heap_data)
+        heap_data += _pad8(k.encode("utf-8") + b"\0")
+
+    sb_size = 8 + 16 + 4 * 8 + 40
+    root_oh = sb_size
+    root_oh_size = len(_header([(_SYMBOL_TABLE, b"\0" * 16)]))
+    btree = root_oh + root_oh_size
+    internal_k = 16
+    btree_size = 24 + (2 * internal_k + 1) * 8 + 2 * internal_k * 8
+    snod = btree + btree_size
+    snod_size = 8 + 2 * leaf_k * 40
+    heap = snod + snod_size
+    heap_size = 32
+    heap_seg = heap + heap_size
+    pos = heap_seg + len(heap_data)
+
+    headers, data_at = {}, {}
+    for k in names:
+        a = data[k]
+        dspace = struct.pack("<BBB5x", 1, a.ndim, 0) + b"".join(
+            struct.pack("<Q", d) for d in a.shape)
+        # fill value v2: allocated late, written if set, the library's
+        # default (zeros), as h5py writes it
+        fill = struct.pack("<BBBBI", 2, 2, 2, 1, 0)
+        msgs = [(_DATASPACE, dspace), (_DATATYPE, _datatype_message(a.dtype)),
+                (_FILL, fill), (_LAYOUT, None)]
+        oh_size = len(_header([(t, d if d is not None else b"\0" * 18)
+                               for t, d in msgs]))
+        headers[k] = (pos, msgs)
+        data_at[k] = pos + oh_size
+        pos = data_at[k] + len(_pad8(a.tobytes()))
+    eof = pos
+
+    out = bytearray()
+    out += SIGNATURE + struct.pack("<BBBBBBBxHHI", 0, 0, 0, 0, 0, 8, 8,
+                                   leaf_k, internal_k, 0)
+    out += struct.pack("<Q", 0) + _UNDEF + struct.pack("<Q", eof) + _UNDEF
+    out += struct.pack("<QQII", 0, root_oh, 1, 0) + struct.pack(
+        "<QQ", btree, heap)
+    out += _header([(_SYMBOL_TABLE, struct.pack("<QQ", btree, heap))])
+    # the group's B-tree: one leaf node over one symbol table node; key 0
+    # is the empty name, key 1 the last name of the node
+    node = (b"TREE" + struct.pack("<BBH", 0, 0, 1) + _UNDEF + _UNDEF
+            + struct.pack("<QQQ", 0, snod,
+                          name_at[names[-1]] if names else 0))
+    out += node + b"\0" * (btree_size - len(node))
+    entries = b"".join(struct.pack("<QQII16x", name_at[k], headers[k][0], 0,
+                                   0) for k in names)
+    node = b"SNOD" + struct.pack("<BBH", 1, 0, len(names)) + entries
+    out += node + b"\0" * (snod_size - len(node))
+    # no free block: the library's "null" free-list offset is 1
+    out += b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data), 1, heap_seg)
+    out += heap_data
+    for k in names:
+        addr, msgs = headers[k]
+        a = data[k]
+        # an empty dataset has no storage: an undefined address
+        layout = struct.pack("<BB8sQ", 3, 1, _UNDEF if a.nbytes == 0 else
+                             struct.pack("<Q", data_at[k]), a.nbytes)
+        out += _header([(t, d if d is not None else layout)
+                        for t, d in msgs])
+        out += _pad8(a.tobytes())
+    with open(path, "wb") as fh:
+        fh.write(bytes(out))
+    return path

@@ -1,14 +1,46 @@
-"""On-disk artifact IO (port of the ``.pt`` and ``.pkl`` parts of
-multimodalfusion_tpu/data/io.py): per-slide bags are torch-serialized
-float tensors (ref feature_extraction.py:149-156); fold results are
-pickles (ref utils/file_utils.py:22-33)."""
+"""On-disk artifact IO (port of multimodalfusion_tpu/data/io.py):
+per-slide bags are torch-serialized float tensors (ref
+feature_extraction.py:149-156); radiology bags are feature h5 files with
+datasets ``features`` [N, D] float32 and ``slice_index`` [N] (ref
+feature_extraction.py:57-61), read and written by the port's own
+``data/hdf5.py``; fold results are pickles (ref utils/file_utils.py:
+22-33)."""
 from __future__ import annotations
 
 import os
 import pickle
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from multimodalfusion_tpu_torch.data import hdf5
+
+
+def save_hdf5(output_path: str, asset_dict: Dict[str, np.ndarray],
+              attr_dict: Optional[dict] = None, mode: str = "w") -> str:
+    """Write a new feature h5 holding one dataset per entry of
+    ``asset_dict`` (contiguous; the JAX writer makes chunked resizable
+    ones, which read back the same).  Only mode ``"w"``: the JAX writer's
+    append mode and dataset attributes serve stage-1 extraction, which is
+    not ported yet (ROADMAP.md, port queue item 6)."""
+    if mode != "w" or attr_dict:
+        raise NotImplementedError(
+            "save_hdf5 writes new files without attributes (mode 'w'); "
+            "appending and attributes come with stage-1 extraction "
+            "(ROADMAP.md, port queue item 6)")
+    return hdf5.write(output_path, asset_dict)
+
+
+def load_features_h5(path: str):
+    """(features, slice_index) of a radiology or pathology feature h5;
+    slice_index is None when the file has none.  A missing, truncated or
+    non-HDF5 file raises OSError and a file without ``features``
+    KeyError, as h5py does."""
+    with hdf5.File(path) as f:
+        features = f["features"]
+        slice_index = f["slice_index"] if "slice_index" in f else None
+    return features, slice_index
 
 
 def save_pt(path: str, array: np.ndarray) -> None:

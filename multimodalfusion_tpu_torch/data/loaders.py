@@ -1,14 +1,14 @@
 """Host-side batch iterators producing fixed-shape (bucketed) numpy
-batches (port of the path, omic and pretrained parts of
-multimodalfusion_tpu/data/loaders.py).
+batches (port of multimodalfusion_tpu/data/loaders.py).
 
 Batches are dicts of numpy arrays with static shapes per (batch_size,
 bag-bucket) pair; partial batches are padded and masked via ``valid``.
 A pretrained view's batches carry the embeddings ``h_radio``, ``h_path``
 and ``h_omic`` [B, 256] instead of bags, with no collation library.
-A view is a ``SurvivalDataset`` (pathology only) or a ``Split`` of one:
-anything with ``mode``, ``pretrained``, ``__len__``, ``probe_present`` and
-``get_sample``.
+A view is a ``SurvivalDataset`` or a ``Split`` of one: anything with
+``mode``, ``modalities``, ``pretrained``, ``__len__``, ``probe_present``
+and ``get_sample``.  A radiology bag is ``len(modalities) * 1024`` wide
+(the sequences side by side, JAX data/loaders.py:119).
 Bags are collated by the native library (``data/bags.py``), into the
 page-locked buffers of a ``PinnedPool`` when one is given.
 """
@@ -50,7 +50,7 @@ def usable_indices(view) -> List[int]:
 def _batch_from_samples(samples: List[Sample], mode: str, batch_size: int,
                         pool: Optional[PinnedPool] = None,
                         n_path_feat: int = FEAT_DIM,
-                        pretrained: bool = False
+                        pretrained: bool = False, n_radio_feat: int = 0
                         ) -> Dict[str, np.ndarray]:
     B, n = batch_size, len(samples)
     batch = {"Y": np.zeros(B, np.int32), "t": np.zeros(B, np.float32),
@@ -71,6 +71,9 @@ def _batch_from_samples(samples: List[Sample], mode: str, batch_size: int,
                 h[i] = getattr(s, f"h_{m}")
             batch[f"h_{m}"] = h
         return batch
+    if "radio" in mode:
+        batch["radio_bags"], batch["radio_mask"] = pad_bags(
+            [s.radio for s in samples] + [None] * (B - n), n_radio_feat, pool)
     if "path" in mode:
         batch["path_bags"], batch["path_mask"] = pad_bags(
             [s.path for s in samples] + [None] * (B - n), n_path_feat, pool)
@@ -126,7 +129,9 @@ def iter_batches(view, batch_size: int = 1, shuffle: bool = False,
                   f"modalities (corrupt files?): {bad[:5]}...")
             warned = True
         if kept:
-            yield _batch_from_samples(kept, view.mode, batch_size, pool)
+            yield _batch_from_samples(
+                kept, view.mode, batch_size, pool,
+                n_radio_feat=len(view.modalities) * FEAT_DIM)
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:

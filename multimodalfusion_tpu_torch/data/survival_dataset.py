@@ -1,8 +1,16 @@
 """Cohort CSVs, labels, splits, genomic features and per-sample loading
-of pathology bags and genomics (stage 2) or of pretrained 256-d
-embeddings (stage 4) (port of the ``path`` and ``omic`` modes and the
-pretrained mode of multimodalfusion_tpu/data/survival_dataset.py, without
-pandas or scikit-learn).
+of radiology and pathology bags and genomics (stage 2) or of pretrained
+256-d embeddings (stage 4) (port of multimodalfusion_tpu/data/
+survival_dataset.py, without pandas, scikit-learn or h5py).
+
+A radiology bag is the subject's per-sequence feature h5 files,
+``<data_dir>/radio_h5_files/<modality>/<subject>.h5``, aligned on their
+common slice ids (``data/bags.intersect_slices``) and concatenated along
+the features in ``modalities`` order.  A subject has one when the CSV's
+cells of every modality carry a value and every file loads: an
+unreadable file (OSError, KeyError) counts as missing, and so does a
+sequence with duplicate slice ids, with a warning (JAX
+survival_dataset.py:175-198).
 
 CSVs are read with the stdlib ``csv`` module.  Cells that pandas reads as
 missing (its default NA strings) count as missing here too, so the
@@ -36,6 +44,7 @@ import numpy as np
 
 from multimodalfusion_tpu_torch.data import io
 from multimodalfusion_tpu_torch.data import labels as labels_mod
+from multimodalfusion_tpu_torch.data.bags import intersect_slices
 
 # pandas.read_csv's default NA strings
 _NA = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN",
@@ -54,6 +63,7 @@ EMBED_DIM = 256  # a stage-3 embedding's width
 @dataclass
 class Sample:
     subject_id: str
+    radio: Optional[np.ndarray] = None     # [N, n_mod * D] aligned bag
     path: Optional[np.ndarray] = None      # [N, D] bag
     omic: Optional[np.ndarray] = None      # [G] z-scored genomic features
     # pretrained embeddings [256] (zeros when missing)
@@ -142,21 +152,24 @@ def read_cohort(csv_path: str):
 
 
 class SurvivalDataset:
-    """Cohort over pathology bags in ``<data_dir>/path_pt_files/<slide>.pt``
-    and the cohort CSV's genomic columns.
+    """Cohort over radiology bags in ``<data_dir>/radio_h5_files/``,
+    pathology bags in ``<data_dir>/path_pt_files/<slide>.pt`` and the
+    cohort CSV's genomic columns.
 
-    ``mode`` names the modalities a sample needs: ``path``, ``omic`` or
-    ``path_omic`` (radiology raises).  With ``pretrained``, a sample is
-    the subject's three embeddings instead, in any mode (radio too).
+    ``mode`` names the modalities a sample needs: any of ``radio``,
+    ``path`` and ``omic`` joined by ``_`` (the JAX CLI's modes).  With
+    ``pretrained``, a sample is the subject's three embeddings instead.
     With ``n_bins``, the cohort's labels are read and discretized (ref
     Generic_Survival_Dataset.__init__ :14-93): ``disc_label``, ``label``
     (the (bin, censorship) class), event time (``label_col``) and
     censorship per patient; the bin edges come
     from the uncensored patients with ``train == 1``.  Without it, the
-    cohort is label-free.  With ``omic`` in the mode, the genomic columns
-    are every column outside ``METADATA_BASE + modalities +
-    METADATA_TAIL + [label_col]``, read as float64 from each subject's
-    first row.
+    cohort is label-free.  The genomic columns are every column outside
+    ``METADATA_BASE + modalities + METADATA_TAIL + [label_col]``, read as
+    float64 from each subject's first row, whatever the mode, as the JAX
+    package reads them (their count is the width of the reference's
+    genomic SNN, which mm_attention_mil builds in every mode); the
+    genomic features of a sample are read in a mode with ``omic``.
     """
 
     def __init__(self, csv_path: str, mode: str = "path",
@@ -165,14 +178,9 @@ class SurvivalDataset:
                  label_col: str = "survival_months", eps: float = 1e-6,
                  modalities: Sequence[str] = MODALITIES,
                  print_info: bool = False, pretrained: bool = False):
-        if "radio" in mode and not pretrained:
-            raise NotImplementedError(
-                f"mode {mode!r}: radiology bags are not ported yet "
-                "(ROADMAP.md, port queue item 4)")
-        if not any(m in mode for m in ("path", "omic")
-                   + (("radio",) if pretrained else ())):
-            raise ValueError(f"mode {mode!r} selects no modality (path, "
-                             f"omic or path_omic)")
+        if not any(m in mode for m in ("radio", "path", "omic")):
+            raise ValueError(f"mode {mode!r} selects no modality (radio, "
+                             f"path or omic)")
         self.csv_path = csv_path
         self.mode = mode
         self.pretrained = pretrained
@@ -186,13 +194,15 @@ class SurvivalDataset:
         metadata = set(METADATA_BASE + self.modalities + METADATA_TAIL
                        + [label_col])
         self.genomic_cols = ([c for c in columns if c not in metadata]
-                             if "omic" in mode and not pretrained else [])
+                             if not pretrained else [])
         self.genomic = np.array(
             [[_float(first[s][c]) for c in self.genomic_cols]
              for s in self.patients], np.float64).reshape(
                  len(self.patients), len(self.genomic_cols))
         self.disc_label = self.label = self.event_time = None
         self.censorship = None
+        # the CSV's modality cells of each subject's first row (radio)
+        self._first = first
         if n_bins is None:
             return
         for col in (label_col, "censorship", "train"):
@@ -227,23 +237,65 @@ class SurvivalDataset:
                              _slide_pt_name(s))
                 for s in self.slides_dict.get(subject_id, [])]
 
+    def _radio_cells_present(self, subject_id: str) -> bool:
+        """Do the CSV's cells of every modality carry a value (a missing
+        column or a cell pandas reads as NA does not)?  Shared by the probe
+        and the loader, as in the JAX package."""
+        row = self._first[subject_id]
+        return all(row.get(m) is not None and row.get(m) not in _NA
+                   for m in self.modalities)
+
+    def _radio_paths(self, subject_id: str) -> List[str]:
+        return [os.path.join(self.data_dir, "radio_h5_files", m,
+                             f"{subject_id}.h5") for m in self.modalities]
+
     def probe_present(self, idx: int) -> Dict[str, bool]:
-        """Cheap presence probe of the pathology bags: file existence only,
-        no array loads.  (A split adds the genomic features.)  Pretrained:
-        every modality counts as present, a missing embedding being
-        zeros."""
+        """Cheap presence probe of the bags: CSV cells and file existence
+        only, no array loads (JAX Split.probe_present).  (A split adds the
+        genomic features.)  Pretrained: every modality counts as present,
+        a missing embedding being zeros."""
         if self.pretrained:
             return {m: True for m in ("radio", "path", "omic")}
-        if "path" not in self.mode:
-            return {}
-        paths = self._slide_paths(self.patients[idx])
-        return {"path": any(os.path.exists(p) for p in paths)}
+        sid = self.patients[idx]
+        present = {}
+        if "radio" in self.mode:
+            present["radio"] = (bool(self.data_dir)
+                                and self._radio_cells_present(sid)
+                                and all(os.path.exists(p)
+                                        for p in self._radio_paths(sid)))
+        if "path" in self.mode:
+            present["path"] = any(os.path.exists(p)
+                                  for p in self._slide_paths(sid))
+        return present
+
+    def _load_radio(self, subject_id: str) -> Optional[np.ndarray]:
+        """The subject's aligned radiology bag [N, n_mod * D] float32, or
+        None: a blank modality cell, a file that fails to load (OSError,
+        KeyError) or one without slice ids or with duplicate ones (a
+        warning) make it missing (JAX survival_dataset.py:175-198)."""
+        if not self.data_dir or not self._radio_cells_present(subject_id):
+            return None
+        feats, sids = [], []
+        try:
+            for p in self._radio_paths(subject_id):
+                f, si = io.load_features_h5(p)
+                if si is None:
+                    raise ValueError(f"{p} has no slice_index")
+                feats.append(f)
+                sids.append(np.asarray(si))
+            return intersect_slices(feats, sids).astype(np.float32)
+        except (OSError, KeyError):
+            return None
+        except ValueError as e:
+            print(f"WARNING: skipping radio bag for {subject_id}: {e}")
+            return None
 
     def get_sample(self, idx: int) -> Sample:
-        """The subject's labels and, in a mode with ``path``, its slides
-        concatenated into one float32 bag (ref :355-367) in one copy, or in
-        none for a single float32 slide; a slide that fails to load is
-        skipped.  (A split adds the genomic features.)"""
+        """The subject's labels; in a mode with ``radio``, its aligned
+        radiology bag; in a mode with ``path``, its slides concatenated
+        into one float32 bag (ref :355-367) in one copy, or in none for a
+        single float32 slide, a slide that fails to load being skipped.
+        (A split adds the genomic features.)"""
         s = Sample(subject_id=self.patients[idx])
         if self.labelled:
             s.disc_label = int(self.disc_label[idx])
@@ -252,6 +304,9 @@ class SurvivalDataset:
         if self.pretrained:
             self._load_pretrained(s)
             return s
+        if "radio" in self.mode:
+            s.radio = self._load_radio(s.subject_id)
+            s.present["radio"] = s.radio is not None
         if "path" not in self.mode:
             return s
         parts = []
@@ -374,6 +429,10 @@ class Split:
     @property
     def mode(self) -> str:
         return self.ds.mode
+
+    @property
+    def modalities(self) -> List[str]:
+        return self.ds.modalities
 
     @property
     def pretrained(self) -> bool:

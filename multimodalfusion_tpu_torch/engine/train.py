@@ -1,6 +1,6 @@
-"""Per-fold training engine for the stage-2 models (pathology
-attention-MIL, the genomic SNN and path+omic fusion) and the stage-4
-heads over pretrained embeddings (port of
+"""Per-fold training engine for the stage-2 models (pathology and
+radiology attention-MIL, the genomic SNN and their fusion) and the
+stage-4 heads over pretrained embeddings (port of
 multimodalfusion_tpu/engine/train.py).
 
 The epoch loop feeds fixed-shape bucketed batches through one train step
@@ -45,7 +45,7 @@ from multimodalfusion_tpu_torch.data.bags import PinnedPool
 from multimodalfusion_tpu_torch.data.loaders import (iter_batches, prefetch,
                                                      usable_indices)
 from multimodalfusion_tpu_torch.data.survival_dataset import MODALITIES
-from multimodalfusion_tpu_torch.models.amil import PathAMIL
+from multimodalfusion_tpu_torch.models.amil import PathAMIL, RadioAMIL
 from multimodalfusion_tpu_torch.models.genomic import MaxNet
 from multimodalfusion_tpu_torch.models.mm_amil import MMAttentionMIL
 from multimodalfusion_tpu_torch.models.pretrained_heads import (
@@ -53,9 +53,12 @@ from multimodalfusion_tpu_torch.models.pretrained_heads import (
     UnimodalPretrained)
 from multimodalfusion_tpu_torch.utils import params as params_mod
 
-# the modes each ported model trains and serves in
-_MODES = {"path_attention_mil": ("path",), "max_net": ("omic",),
-          "mm_attention_mil": ("path_omic", "omic")}
+# the modes each stage-2 model trains and serves in (the JAX CLI's)
+_MODES = {"path_attention_mil": ("path",), "radio_attention_mil": ("radio",),
+          "max_net": ("omic",),
+          "mm_attention_mil": ("radio", "path", "omic", "radio_path",
+                               "radio_omic", "path_omic",
+                               "radio_path_omic")}
 
 
 @dataclasses.dataclass
@@ -87,6 +90,7 @@ class TrainConfig:
     radio_fusion: Optional[str] = None
     modalities: Tuple[str, ...] = MODALITIES
     model_size_wsi: str = "small"
+    model_size_radio: str = "small"
     model_size_omic: str = "small"
     omic_input_dim: int = 0          # the cohort's genomic columns
     seed: int = 1
@@ -115,15 +119,8 @@ class TrainConfig:
 # ---------------------------------------------------------------------------
 
 def _unsupported(cfg: TrainConfig) -> Exception:
-    """The error for a model and mode the port does not run, naming the
-    ROADMAP.md item that brings it."""
+    """The error for a model and mode that no CLI of the repo runs."""
     where = f"{cfg.model_type} (mode {cfg.mode})"
-    if cfg.model_type == "radio_attention_mil" or "radio" in cfg.mode:
-        return NotImplementedError(f"{where}: radiology bags and radio AMIL "
-                                   "are ROADMAP.md port queue item 4")
-    if cfg.model_type == "mm_attention_mil" and cfg.mode == "path":
-        return NotImplementedError(f"{where}: the path-only fusion mode "
-                                   "comes with ROADMAP.md port queue item 4")
     if cfg.model_type not in _MODES:
         return NotImplementedError(f"{where}: not a model of this repo")
     return ValueError(f"{where}: {cfg.model_type} runs in mode "
@@ -180,8 +177,9 @@ def check_supported(cfg: TrainConfig) -> None:
 def build_model(cfg: TrainConfig,
                 generator: Optional[torch.Generator] = None):
     """Model dispatch (ref core_utils.py:76-98,
-    core_utils_pretrained.py:74-87).  The omic models take their input
-    width from ``cfg.omic_input_dim``."""
+    core_utils_pretrained.py:74-87).  The models with a genomic branch
+    take its input width from ``cfg.omic_input_dim``; a radiology bag has
+    ``len(cfg.modalities)`` sequences."""
     _check_model(cfg)
     if cfg.pretrained:
         head = (MultimodalPretrained if cfg.model_type == "mm_attention_mil"
@@ -193,7 +191,14 @@ def build_model(cfg: TrainConfig,
         return PathAMIL(model_size=cfg.model_size_wsi, gate=cfg.gate_path,
                         attn_dropout=cfg.drop_out, n_classes=cfg.n_classes,
                         compute_dtype=cfg.bag_dtype, generator=generator)
-    if cfg.omic_input_dim <= 0:
+    if cfg.model_type == "radio_attention_mil":
+        return RadioAMIL(n_modalities=len(cfg.modalities),
+                         radio_fusion=cfg.radio_fusion or "concat",
+                         model_size=cfg.model_size_radio,
+                         gate=cfg.gate_radio, attn_dropout=cfg.drop_out,
+                         n_classes=cfg.n_classes,
+                         compute_dtype=cfg.bag_dtype, generator=generator)
+    if "omic" in cfg.mode and cfg.omic_input_dim <= 0:
         raise ValueError(f"{cfg.model_type}: omic_input_dim must be the "
                          f"cohort's number of genomic columns, got "
                          f"{cfg.omic_input_dim}")
@@ -207,7 +212,12 @@ def build_model(cfg: TrainConfig,
                           attn_dropout=cfg.drop_out,
                           model_size_wsi=cfg.model_size_wsi,
                           model_size_omic=cfg.model_size_omic,
-                          n_classes=cfg.n_classes, generator=generator)
+                          n_classes=cfg.n_classes,
+                          n_modalities=len(cfg.modalities),
+                          radio_fusion=cfg.radio_fusion or "concat",
+                          gate_radio=cfg.gate_radio,
+                          model_size_radio=cfg.model_size_radio,
+                          generator=generator)
 
 
 def _to(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -228,14 +238,16 @@ def model_inputs(cfg: TrainConfig, batch: Dict[str, np.ndarray],
         # `valid` keeps the padding rows out of the BatchNorm statistics
         return {k: _to(batch[k], device)
                 for k in ("h_radio", "h_path", "h_omic", "valid")}
-    bags = ("path_bags", "path_mask") if "path" in cfg.mode else ()
-    if cfg.model_type == "path_attention_mil":
-        kw = dict(bags=_to(batch["path_bags"], device),
-                  mask=_to(batch["path_mask"], device))
+    bags = tuple(f"{m}_{k}" for m in ("radio", "path") if m in cfg.mode
+                 for k in ("bags", "mask"))
+    if cfg.model_type in ("path_attention_mil", "radio_attention_mil"):
+        kw = dict(bags=_to(batch[bags[0]], device),
+                  mask=_to(batch[bags[1]], device))
     elif cfg.model_type == "max_net":
         kw = dict(genomic_features=_to(batch["genomic"], device))
     else:
-        kw = {k: _to(batch[k], device) for k in bags + ("genomic",)}
+        kw = {k: _to(batch[k], device)
+              for k in bags + (("genomic",) if "omic" in cfg.mode else ())}
     if pool is not None and bags:
         pool.release([batch[k] for k in bags],
                      torch.cuda.current_stream(device)

@@ -1,5 +1,6 @@
 """Attention-MIL survival models over padded, batched bags (port of
-multimodalfusion_tpu/models/amil.py; ``PathAMIL`` only so far).
+multimodalfusion_tpu/models/amil.py): ``PathAMIL`` over pathology bags,
+``RadioAMIL`` over radiology bags.
 
 Every random draw of a training forward (the FC dropout and the
 attention-branch masks) comes from the ``generator`` passed to
@@ -13,7 +14,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from multimodalfusion_tpu_torch.models.heads import survival_outputs
-from multimodalfusion_tpu_torch.models.modules import Dense, Dropout
+from multimodalfusion_tpu_torch.models.modules import (Dense, Dropout,
+                                                       RadioFusion)
 from multimodalfusion_tpu_torch.models.pooling import AttentionPool
 
 SIZE_DICT = {"small": (1024, 256, 256), "big": (1024, 512, 384)}
@@ -54,6 +56,66 @@ class PathAMIL(nn.Module):
         fc, relu, drop = self.attention_net_WSI[:3]
         cdt = self.compute_dtype
         h = F.linear(bags.to(cdt), fc.weight.to(cdt), fc.bias.to(cdt))
+        return drop(relu(h), generator)
+
+    def head(self, M):
+        """Survival outputs of the pooled features M [B, L] (f32)."""
+        out = survival_outputs(self.classifier(M))
+        out["features"] = M
+        return out
+
+    def forward(self, bags, mask, return_features: bool = False,
+                generator: Optional[torch.Generator] = None):
+        M = self.pool(self.embed(bags, generator), mask, generator).float()
+        if return_features:
+            return M
+        return self.head(M)
+
+
+class RadioAMIL(RadioFusion, nn.Module):
+    """Radiology bag -> modality fusion -> FC+ReLU+Drop(.25) -> attention
+    pool -> Linear classifier (ref MIL_Attention_fc_surv_radio:66-115; JAX
+    models/amil.py:63-128).
+
+    ``bags`` [B, N, n_modalities * 1024]: each slice's features of every
+    sequence side by side, slice-aligned by the data layer's
+    intersection; [B, N, 1024] with one sequence (lung CT), which goes
+    straight to ``fc``.  With more than one, ``radio_fusion`` is
+    ``concat`` or ``tensor`` (``modules.RadioFusion``).
+
+    Parameters follow the reference's state_dict: ``attention_net_radio``
+    = [fc, ReLU, Dropout(.25), AttentionPool], ``classifier`` and
+    ``reduce_dim`` or ``radio_xfusion``.  ``compute_dtype`` as in
+    ``PathAMIL`` (``reduce_dim`` and ``fc``; the Kronecker fusion stays
+    f32, as in the JAX package).
+    """
+
+    def __init__(self, n_modalities: int = 4, radio_fusion: str = "concat",
+                 model_size: str = "small", gate: bool = True,
+                 attn_dropout: bool = False, n_classes: int = 4,
+                 compute_dtype: str = "float32",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        size = SIZE_DICT[model_size]
+        self.compute_dtype = getattr(torch, compute_dtype)
+        self.init_radio_fusion(n_modalities, radio_fusion, size[0],
+                               generator)
+        self.attention_net_radio = nn.ModuleList([
+            Dense(size[0], size[1], generator), nn.ReLU(), Dropout(0.25),
+            AttentionPool(size[1], size[2], gated=gate,
+                          attn_dropout=attn_dropout, generator=generator)])
+        self.classifier = Dense(size[1], n_classes, generator)
+
+    @property
+    def pool(self) -> AttentionPool:
+        return self.attention_net_radio[3]
+
+    def embed(self, bags, generator: Optional[torch.Generator] = None):
+        """Per-instance features h [B, N, L] in the compute dtype."""
+        fc, relu, drop = self.attention_net_radio[:3]
+        cdt = self.compute_dtype
+        h = self.fuse_radio(bags, generator, cdt).to(cdt)
+        h = F.linear(h, fc.weight.to(cdt), fc.bias.to(cdt))
         return drop(relu(h), generator)
 
     def head(self, M):

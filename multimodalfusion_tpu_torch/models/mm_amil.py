@@ -1,12 +1,13 @@
-"""Multimodal attention-MIL fusion, pathology + genomics (port of
-multimodalfusion_tpu/models/mm_amil.py; ref MM_MIL_Attention_fc_surv,
-models/model_mm_attention_mil.py:117-200), batched.
+"""Multimodal attention-MIL fusion of radiology, pathology and genomics
+(port of multimodalfusion_tpu/models/mm_amil.py; ref
+MM_MIL_Attention_fc_surv, models/model_mm_attention_mil.py:117-200),
+batched.
 
-The pathology branch pools through ``models/pooling.AttentionPool``, and so
-through the fused pooling kernels on the card.  The radiology branch is
-not ported yet (ROADMAP.md, port queue item 4).  Only the branches of the
-mode are built, as in the JAX package; ``utils/params.py`` adds the
-reference's never-trained placeholders of the others to a checkpoint.
+The radiology and pathology branches pool through
+``models/pooling.AttentionPool``, and so through the fused pooling kernels
+on the card.  Only the branches of the mode are built, as in the JAX
+package; ``utils/params.py`` adds the reference's never-trained
+placeholders of the others to a checkpoint.
 """
 from __future__ import annotations
 
@@ -17,25 +18,30 @@ from torch import nn
 
 from multimodalfusion_tpu_torch.models.heads import survival_outputs
 from multimodalfusion_tpu_torch.models.modules import (Dense, Dropout,
-                                                       SNNBlock,
+                                                       RadioFusion, SNNBlock,
                                                        XlinearFusion)
 from multimodalfusion_tpu_torch.models.pooling import AttentionPool
 
+SIZE_RADIO = {"small": (1024, 256, 256), "big": (1024, 256, 384)}
 SIZE_WSI = {"small": (1024, 256, 256), "big": (1024, 256, 384)}
 SIZE_OMIC = {"small": (256, 256), "big": (1024, 256)}
 
 
-class MMAttentionMIL(nn.Module):
-    """Pathology AMIL + genomic SNN branches fused by Kronecker products
-    (``fusion="tensor"``, the CLI's default) or concatenation
-    (``"concat"``).
+class MMAttentionMIL(RadioFusion, nn.Module):
+    """Radiology AMIL + pathology AMIL + genomic SNN branches, those of the
+    mode, fused by Kronecker products (``fusion="tensor"``, the CLI's
+    default) or concatenation (``"concat"``), in the order radio, path,
+    omic.
 
-    Inputs (those of the mode): path_bags [B, N, 1024], path_mask [B, N],
-    genomic [B, G].  State_dict keys are the reference's:
-    ``attention_net_WSI.{0,3}`` (FC, attention net), ``fc_omic.{0,1}.0``,
-    ``mm.*`` and ``classifier.{0,3}`` (tensor) or ``classifier`` (concat).
-    ``gate`` gates the fusion (the CLI's ``--gate_omic``), ``gate_path`` the
-    attention net.
+    Inputs (those of the mode): radio_bags [B, Nr, n_modalities * 1024],
+    radio_mask [B, Nr], path_bags [B, Np, 1024], path_mask [B, Np],
+    genomic [B, G].  The radiology branch fuses its sequences as
+    ``RadioAMIL`` does (``modules.RadioFusion``).  State_dict keys are the
+    reference's: ``attention_net_radio.{0,3}`` and ``attention_net_WSI.{0,3}`` (FC,
+    attention net), ``fc_omic.{0,1}.0``, ``mm.*`` and ``classifier.{0,3}``
+    (tensor) or ``classifier`` (concat).  ``gate`` gates the fusion (the
+    CLI's ``--gate_omic``), ``gate_radio`` and ``gate_path`` the attention
+    nets.
     """
 
     def __init__(self, mode: str = "path_omic", omic_input_dim: int = 80,
@@ -43,16 +49,24 @@ class MMAttentionMIL(nn.Module):
                  gate_path: bool = True, attn_dropout: bool = False,
                  model_size_wsi: str = "small",
                  model_size_omic: str = "small", n_classes: int = 4,
+                 n_modalities: int = 4, radio_fusion: str = "concat",
+                 gate_radio: bool = True, model_size_radio: str = "small",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if "radio" in mode:
-            raise NotImplementedError(
-                f"mode {mode!r}: the radiology branch of mm_attention_mil "
-                "is not ported yet (ROADMAP.md, port queue item 4)")
         if fusion not in ("tensor", "concat"):
             raise ValueError(f"fusion {fusion!r}: tensor or concat")
         self.mode, self.fusion = mode, fusion
         n_branches = 0
+        if "radio" in mode:
+            size = SIZE_RADIO[model_size_radio]
+            self.init_radio_fusion(n_modalities, radio_fusion, size[0],
+                                   generator)
+            self.attention_net_radio = nn.ModuleList([
+                Dense(size[0], size[1], generator), nn.ReLU(), Dropout(0.25),
+                AttentionPool(size[1], size[2], gated=gate_radio,
+                              attn_dropout=attn_dropout,
+                              generator=generator)])
+            n_branches += 1
         if "path" in mode:
             size = SIZE_WSI[model_size_wsi]
             self.attention_net_WSI = nn.ModuleList([
@@ -79,9 +93,15 @@ class MMAttentionMIL(nn.Module):
         else:
             self.classifier = Dense(256 * n_branches, n_classes, generator)
 
-    def forward(self, path_bags=None, path_mask=None, genomic=None,
+    def forward(self, radio_bags=None, radio_mask=None, path_bags=None,
+                path_mask=None, genomic=None,
                 generator: Optional[torch.Generator] = None):
         branches = []
+        if "radio" in self.mode:
+            fc, relu, drop, pool = self.attention_net_radio
+            h = self.fuse_radio(radio_bags, generator)
+            h = drop(relu(fc(h)), generator)
+            branches.append(pool(h, radio_mask, generator).float())
         if "path" in self.mode:
             fc, relu, drop, pool = self.attention_net_WSI
             h = drop(relu(fc(path_bags)), generator)

@@ -6,6 +6,7 @@ bias).  ``Dropout`` and ``AlphaDropout``: dropout whose mask comes from an
 explicit generator.  ``SNNBlock``: Linear -> SELU -> AlphaDropout with the
 SNN init (ref utils/utils.py:228 ``init_max_weights``).
 ``XlinearFusion``: the Kronecker fusion of modality embeddings.
+``RadioFusion``: the radiology branch's fusion of its sequences.
 ``MaskedBatchNorm``, ``Highway`` and ``Residual``: the stage-4 heads'
 blocks, with batch statistics over the valid rows of a padded batch.
 Submodules carry the reference's state_dict names.
@@ -155,6 +156,47 @@ class XlinearFusion(nn.Module):
         if self.skip:
             out = torch.cat([out] + list(v_list), dim=1)
         return self.drop(F.relu(self.encoder2[0](out)), generator)
+
+
+class RadioFusion:
+    """Mixin of the models with a radiology branch (``RadioAMIL`` and
+    ``MMAttentionMIL``): the fusion of each slice's sequences into one
+    ``dim``-wide instance.  One sequence (lung CT) goes straight in; more
+    are fused by ``reduce_dim`` (``concat``: Linear(n * dim -> dim)) or
+    ``radio_xfusion`` (``tensor``: a per-instance Kronecker fusion, as the
+    JAX package implements the reference's broken tensor path).  Both are
+    registered on the model itself, so their state_dict keys are the
+    reference's top-level ones."""
+
+    def init_radio_fusion(self, n_modalities: int, radio_fusion: str,
+                          dim: int,
+                          generator: Optional[torch.Generator] = None):
+        if radio_fusion not in ("concat", "tensor"):
+            raise ValueError(f"radio_fusion {radio_fusion!r}: concat or "
+                             f"tensor")
+        self.n_modalities, self.radio_fusion = n_modalities, radio_fusion
+        if n_modalities == 1:
+            return
+        if radio_fusion == "concat":
+            self.reduce_dim = Dense(dim * n_modalities, dim, generator)
+        else:
+            self.radio_xfusion = XlinearFusion(
+                dim=dim, scale_dim=64, num_modalities=n_modalities,
+                mmhid1=dim, mmhid2=dim, skip=False, generator=generator)
+
+    def fuse_radio(self, bags, generator: Optional[torch.Generator] = None,
+                   compute_dtype: torch.dtype = torch.float32):
+        """Bags [B, N, n_modalities * dim] fused to [B, N, dim]:
+        ``reduce_dim`` in ``compute_dtype``, the Kronecker fusion in f32."""
+        if self.n_modalities == 1:
+            return bags
+        if self.radio_fusion == "concat":
+            rd, cdt = self.reduce_dim, compute_dtype
+            return F.linear(bags.to(cdt), rd.weight.to(cdt), rd.bias.to(cdt))
+        B, N, _ = bags.shape
+        per_mod = bags.float().reshape(B * N, self.n_modalities, -1)
+        return self.radio_xfusion(list(per_mod.unbind(1)),
+                                  generator).reshape(B, N, -1)
 
 
 class MaskedBatchNorm(nn.Module):

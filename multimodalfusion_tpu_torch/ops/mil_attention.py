@@ -15,7 +15,10 @@ optionally with attention-branch dropout: uint8 keep masks ``da``/``db``
 ``attention_pool`` and ``attention_pool_dropout`` are
 ``torch.autograd.Function``s.  For a tensor on the CPU their forward and
 backward are the plain versions; for a tensor on the card they are the
-CUDA kernels.  A wrapper never falls back from one to the other.
+CUDA kernels.  A wrapper never falls back from one to the other.  The
+wrappers take any D up to 512 and any Da: the kernels' own steps (D in
+multiples of 32 forward and 64 backward, Da in multiples of 8 and 64) are
+met by zero-padding around the launch, which leaves the result exact.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.nn import functional as F
 
 NEG_INF = -1e30
 
@@ -310,6 +314,12 @@ class FwdPlan(NamedTuple):
     part_acc: Tuple[int, int, int]  # [B, splits, D] f32
     part_ml: Tuple[int, int, int]   # [B, splits, 2] f32
 
+    def ctas(self) -> dict:
+        """CTAs of the launch's kernels: the partial (splits x B) and the
+        merge (one per bag)."""
+        B = self.part_acc[0]
+        return {"partial": self.splits * B, "merge": B}
+
 
 def fwd_plan(B: int, N: int, D: int, Da: int, gated: bool, bf16: bool,
              sms: int, ctas_per_sm: int) -> FwdPlan:
@@ -343,12 +353,11 @@ def _fwd_ctas_per_sm(device: torch.device, D: int, gated: bool, bf16: bool,
     return n
 
 
-def _check_inputs(h, mask, params: AttnParams, gated: bool, da, db,
-                  d_mult: int, da_mult: int):
-    """Shared argument checks of the two CUDA wrappers: D must be a
-    multiple of ``d_mult`` up to _MAX_D and Da one of ``da_mult``.
-    Returns (mask, ba, bb, wc, cc) as contiguous f32 and the dropout
-    masks (db aliased to da when ungated)."""
+def _check_inputs(h, mask, params: AttnParams, gated: bool, da, db):
+    """Shared argument checks of the two launches (the widths are checked
+    and padded before, by ``_padded_widths``).  Returns (mask, ba, bb, wc,
+    cc) as contiguous f32 and the dropout masks (db aliased to da when
+    ungated)."""
     if not h.is_cuda:
         raise ValueError(f"the CUDA pooling kernels need a CUDA tensor, got "
                          f"one on {h.device}")
@@ -358,14 +367,8 @@ def _check_inputs(h, mask, params: AttnParams, gated: bool, da, db,
     if h.dim() != 3 or mask.shape != h.shape[:2]:
         raise ValueError(f"expected h [B, N, D] and mask [B, N], got "
                          f"{tuple(h.shape)} and {tuple(mask.shape)}")
-    B, N, D = h.shape
+    B, N = h.shape[:2]
     Da = params.Wa.shape[1]
-    if (tuple(params.Wa.shape) != (D, Da) or D > _MAX_D or D % d_mult
-            or Da % da_mult):
-        raise ValueError(f"unsupported widths: h D={D}, Wa "
-                         f"{tuple(params.Wa.shape)} (D must be a multiple "
-                         f"of {d_mult} up to {_MAX_D}, Da a multiple of "
-                         f"{da_mult})")
     f32 = torch.float32
     mask = mask.to(f32).contiguous()
     ba, bb, wc, cc = (p.reshape(-1).to(f32).contiguous()
@@ -393,11 +396,107 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+# ---------------------------------------------------------------------------
+# Widths: the kernels take D in multiples of d and Da in multiples of da,
+# (d, da) below; the wrappers take any D up to _MAX_D and any Da, as the
+# Pallas kernels do, by zero-padding around the launch.
+# ---------------------------------------------------------------------------
+
+FWD_MULTIPLES = (32, 8)    # the forward's column and attention-unit steps
+BWD_MULTIPLES = (64, 64)   # the backward's (its 64-wide SGEMM core tiles)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pad_widths(D_to: int, Da_to: int, h, params: AttnParams, da=None,
+               db=None, rows=()):
+    """Zero-pad the pooling's inputs from widths (D, Da) to (D_to, Da_to):
+    h's feature columns, the rows of Wa and Wb and each [.., D] tensor of
+    ``rows`` (out and g of the backward) to D_to; the columns of Wa and
+    Wb, ba, bb, wc and the keep masks to Da_to.  The padding is exact: a
+    zero feature column adds 0 to every product, and a padded attention
+    unit scores tanh(0) [* sigmoid(0)] * 0 = 0 with a zero mask, so the
+    logits, the softmax and the pooled real columns do not change, and
+    the padded columns pool to 0.  Returns (h, params, da, db, rows)."""
+    dD, dA = D_to - h.shape[-1], Da_to - params.Wa.shape[1]
+
+    def cols(x, n):  # zeros after the last dimension's entries
+        return F.pad(x, (0, n)) if n else x
+    W = [cols(F.pad(w, (0, 0, 0, dD)), dA) for w in (params.Wa, params.Wb)]
+    params = AttnParams(Wa=W[0], ba=cols(params.ba, dA), Wb=W[1],
+                        bb=cols(params.bb, dA),
+                        wc=F.pad(params.wc, (0, 0, 0, dA)), cc=params.cc)
+    masks = [None if m is None else cols(m, dA) for m in (da, db)]
+    return (cols(h, dD), params, masks[0], masks[1],
+            tuple(cols(r, dD) for r in rows))
+
+
+def unpad_grads(grads: AttnParams, D: int, Da: int) -> AttnParams:
+    """The parameter gradients of padded widths cut back to (D, Da)."""
+    return AttnParams(Wa=grads.Wa[:D, :Da], ba=grads.ba[:Da],
+                      Wb=grads.Wb[:D, :Da], bb=grads.bb[:Da],
+                      wc=grads.wc[:Da], cc=grads.cc)
+
+
+def _padded_widths(h, params: AttnParams, multiples) -> Tuple[int, int]:
+    """The one check of the wrappers' widths (D up to _MAX_D, Wa and Wb
+    [D, Da]), and the widths padded up to ``multiples``."""
+    D, Da = h.shape[-1], params.Wa.shape[1]
+    if D > _MAX_D:
+        raise ValueError(f"D={D}: the kernels take D up to {_MAX_D}")
+    for name in ("Wa", "Wb"):
+        if tuple(getattr(params, name).shape) != (D, Da):
+            raise ValueError(f"{name} must be [D, Da] = {(D, Da)}, got "
+                             f"{tuple(getattr(params, name).shape)}")
+    return _round_up(D, multiples[0]), _round_up(Da, multiples[1])
+
+
+def pool_padded(launch, multiples, h, mask, params: AttnParams, gated: bool,
+                da=None, db=None, rate: float = ATTN_DROPOUT_RATE):
+    """``launch`` (a forward with ``_pool_plain``'s arguments and results)
+    at widths padded up to ``multiples``, the padded columns of pooled cut
+    off.  Widths that are already multiples take no copy."""
+    D, Da = h.shape[-1], params.Wa.shape[1]
+    D_to, Da_to = _padded_widths(h, params, multiples)
+    if (D_to, Da_to) == (D, Da):
+        return launch(h, mask, params, gated, da, db, rate)
+    h, params, da, db, _ = pad_widths(D_to, Da_to, h, params, da, db)
+    out, ml = launch(h, mask, params, gated, da, db, rate)
+    return out[:, :D], ml
+
+
+def pool_bwd_padded(launch, multiples, h, mask, params: AttnParams, out, ml,
+                    g, gated: bool, da=None, db=None,
+                    rate: float = ATTN_DROPOUT_RATE):
+    """``launch`` (a backward with ``_pool_bwd_plain``'s arguments and
+    results) at widths padded up to ``multiples`` (out and g too), dh and
+    the parameter gradients cut back.  Widths that are already multiples
+    take no copy."""
+    D, Da = h.shape[-1], params.Wa.shape[1]
+    D_to, Da_to = _padded_widths(h, params, multiples)
+    if (D_to, Da_to) == (D, Da):
+        return launch(h, mask, params, out, ml, g, gated, da, db, rate)
+    h, params, da, db, (out, g) = pad_widths(D_to, Da_to, h, params, da, db,
+                                             (out, g))
+    dh, grads = launch(h, mask, params, out, ml, g, gated, da, db, rate)
+    return dh[..., :D], unpad_grads(grads, D, Da)
+
+
 def _fused_pool_cuda(h, mask, params: AttnParams, gated: bool, da=None,
                      db=None, rate: float = ATTN_DROPOUT_RATE):
-    """Launch ``csrc/mil_pool_fwd.cu`` on the bag's device and stream."""
+    """Launch ``csrc/mil_pool_fwd.cu`` on the bag's device and stream, at
+    any D up to _MAX_D and any Da: other widths than the kernel's
+    multiples are zero-padded around the launch (``pool_padded``)."""
+    return pool_padded(_launch_fwd, FWD_MULTIPLES, h, mask, params, gated,
+                       da, db, rate)
+
+
+def _launch_fwd(h, mask, params: AttnParams, gated: bool, da, db,
+                rate: float):
     mask, ba, bb, wc, cc, da, db = _check_inputs(h, mask, params, gated,
-                                                 da, db, 32, 8)
+                                                 da, db)
     B, N, D = h.shape
     Da = params.Wa.shape[1]
     bf16 = h.dtype == torch.bfloat16
@@ -433,10 +532,12 @@ def _fused_pool_cuda(h, mask, params: AttnParams, gated: bool, da=None,
     if err != 0:
         raise RuntimeError(f"mil_pool_fwd launch failed: CUDA error {err}")
     _fused_pool_cuda.launches += 1
+    _fused_pool_cuda.last_plan = plan
     return out, ml
 
 
 _fused_pool_cuda.launches = 0
+_fused_pool_cuda.last_plan = None  # the FwdPlan of the latest launch
 
 
 class BwdPlan(NamedTuple):
@@ -450,6 +551,15 @@ class BwdPlan(NamedTuple):
     part_vec: Tuple[int, int, int]  # [tiles, 3, Da]
     part_grp: Tuple[int, int, int]  # [ceil(tiles / VG), 3, Da]
     part_dw: Tuple[int, int, int]   # [splits, D, Kc]
+
+    def ctas(self) -> dict:
+        """CTAs of the launch's kernels that scale with the shape: the
+        rows kernel (one per tile), dh (per tile and 128-column block) and
+        the dW partial (per 128 x 128 output tile and split)."""
+        tiles, (splits, D, Kc) = self.part_vec[0], self.part_dw
+        n_col = -(-D // _BWD_TILE)
+        return {"rows": tiles, "dh": n_col * tiles,
+                "dw_partial": -(-Kc // _BWD_TILE) * n_col * splits}
 
 
 def bwd_plan(B: int, N: int, D: int, Da: int, gated: bool, sms: int,
@@ -488,11 +598,19 @@ def _fused_pool_bwd_cuda(h, mask, params: AttnParams, out, ml, g,
                          gated: bool, da=None, db=None,
                          rate: float = ATTN_DROPOUT_RATE
                          ) -> Tuple[torch.Tensor, AttnParams]:
-    """Launch ``csrc/mil_pool_bwd.cu`` on the bag's device and stream.
-    Returns dh [B, N, D] in the bag's dtype and the parameter gradients in
-    f32 (Wb/bb zero for ungated calls, cc an exact 0)."""
+    """Launch ``csrc/mil_pool_bwd.cu`` on the bag's device and stream, at
+    any D up to _MAX_D and any Da (zero-padded around the launch, as the
+    forward is).  Returns dh [B, N, D] in the bag's dtype and the
+    parameter gradients in f32 (Wb/bb zero for ungated calls, cc an exact
+    0)."""
+    return pool_bwd_padded(_launch_bwd, BWD_MULTIPLES, h, mask, params, out,
+                           ml, g, gated, da, db, rate)
+
+
+def _launch_bwd(h, mask, params: AttnParams, out, ml, g, gated: bool, da,
+                db, rate: float) -> Tuple[torch.Tensor, AttnParams]:
     mask, ba, bb, wc, cc, da, db = _check_inputs(h, mask, params, gated,
-                                                 da, db, 64, 64)
+                                                 da, db)
     B, N, D = h.shape
     Da = params.Wa.shape[1]
     dev = h.device
@@ -550,6 +668,7 @@ def _fused_pool_bwd_cuda(h, mask, params: AttnParams, out, ml, g,
             raise RuntimeError(f"mil_pool_bwd launch failed: CUDA error "
                                f"{err}")
         _fused_pool_bwd_cuda.launches += 1
+        _fused_pool_bwd_cuda.last_plan = plan
     else:
         dh.zero_()
         dW.zero_()
@@ -564,6 +683,7 @@ def _fused_pool_bwd_cuda(h, mask, params: AttnParams, out, ml, g,
 
 
 _fused_pool_bwd_cuda.launches = 0
+_fused_pool_bwd_cuda.last_plan = None  # the BwdPlan of the latest launch
 
 
 def _fused_pool(h, mask, params: AttnParams, gated: bool, da=None, db=None,

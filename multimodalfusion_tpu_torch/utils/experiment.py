@@ -83,6 +83,7 @@ def config_from_settings(settings: dict, **overrides):
         alpha_surv=settings.get("alpha_surv", 0.0),
         nll_ratio=settings.get("nll_ratio", 0.2),
         model_size_wsi=settings.get("model_size_wsi", "small"),
+        model_size_radio=settings.get("model_size_radio", "small"),
         model_size_omic=settings.get("model_size_omic", "small"),
         fusion=settings.get("fusion"),
         radio_fusion=settings.get("radio_fusion") or "concat",

@@ -4,7 +4,7 @@ placeholders of unbuilt branches.
 The port's own copy of the mapping that the JAX package keeps in
 utils/torch_interop.py (``build_spec`` / ``variables_to_torch``): flax
 Dense kernels are [in, out], torch Linear weights [out, in].  The keys are
-the reference's (ref model_attention_mil_path.py, model_genomic.py,
+the reference's (ref model_attention_mil_{path,radio}.py, model_genomic.py,
 model_mm_attention_mil.py, model_modules.py, nll_models_pretrained.py,
 coxranking_models_pretrained.py), the same the JAX package's ``.pt`` side
 export writes, BatchNorm running statistics included.
@@ -160,26 +160,52 @@ def _multimodal_pretrained_spec(mode: str, train_type: str, bag_loss: str,
     return es
 
 
+def _radio_fusion_entries(radio_fusion: str, built: bool,
+                          n_modalities: int) -> List[Entry]:
+    """The radiology sequences' fusion: ``radio_xfusion`` (tensor) or
+    ``reduce_dim`` (concat).  The reference builds it from
+    ``radio_fusion`` alone, whatever the mode and the number of
+    sequences, and ``radio_xfusion`` always for 4 sequences
+    (model_mm_attention_mil.py:56-61, model_attention_mil_radio.py:
+    28-32): a model that does not build it (no radiology branch, or one
+    sequence) carries a placeholder of the reference's shapes.  A model
+    that builds it carries its own parameters, at its own number of
+    sequences.  (For 2 or 3 sequences with tensor fusion the JAX export
+    writes the 4-sequence placeholder there instead, JAX
+    torch_interop.py:80-92, so its ``.pt`` holds no trained fusion and
+    the port refuses to load it.)"""
+    if radio_fusion == "tensor":
+        if built:
+            return _xfusion_entries("radio_xfusion", ["radio_xfusion"],
+                                    n_modalities)
+        return [("fill_xfusion", "radio_xfusion",
+                 (1024, 64, 1024, 1024, 4, True, False))]
+    if built:
+        return [("linear", "reduce_dim", ["reduce_dim"])]
+    return [("fill_linear", "reduce_dim", (1024 * n_modalities, 1024))]
+
+
 def _mm_attention_mil_spec(mode: str, fusion: str, radio_fusion: str,
                            gate: bool, gate_path: bool, gate_radio: bool,
-                           attn_dropout: bool, n_modalities: int
-                           ) -> List[Entry]:
+                           attn_dropout: bool, n_modalities: int,
+                           omic_input_dim: int = 0) -> List[Entry]:
     """MM_MIL_Attention_fc_surv (ref model_mm_attention_mil.py:34-200;
-    JAX torch_interop.py:177-245) for the port's modes (path_omic, omic).
-    The reference builds the radiology branch, its radio_fusion module
-    (from ``radio_fusion`` alone, always for 4 modalities) and the
-    pathology branch whatever the mode: the ones the mode lacks are
-    placeholders."""
-    es: List[Entry] = [
-        ("fill_linear", "attention_net_radio.0", (1024, 256)),
-        ("fill_attn", "attention_net_radio.3", (256, 256), gate_radio,
-         attn_dropout)]
-    if radio_fusion == "tensor":
-        es.append(("fill_xfusion", "radio_xfusion",
-                   (1024, 64, 1024, 1024, 4, True, False)))
+    JAX torch_interop.py:177-245).  The reference builds the radiology
+    branch, its sequences' fusion, the pathology branch and the genomic
+    SNN whatever the mode: the ones the mode lacks are placeholders (the
+    SNN's only with the cohort's genomic width, ``omic_input_dim``)."""
+    if "radio" in mode:
+        es: List[Entry] = [
+            ("linear", "attention_net_radio.0", ["fc_radio"]),
+            ("attn", "attention_net_radio.3", ["attention_net_radio"],
+             gate_radio, attn_dropout)]
     else:
-        es.append(("fill_linear", "reduce_dim",
-                   (1024 * n_modalities, 1024)))
+        es = [("fill_linear", "attention_net_radio.0", (1024, 256)),
+              ("fill_attn", "attention_net_radio.3", (256, 256), gate_radio,
+               attn_dropout)]
+    es += _radio_fusion_entries(radio_fusion,
+                                "radio" in mode and n_modalities > 1,
+                                n_modalities)
     if "path" in mode:
         es += [("linear", "attention_net_WSI.0", ["fc_WSI"]),
                ("attn", "attention_net_WSI.3", ["attention_net_WSI"],
@@ -188,8 +214,12 @@ def _mm_attention_mil_spec(mode: str, fusion: str, radio_fusion: str,
         es += [("fill_linear", "attention_net_WSI.0", (1024, 256)),
                ("fill_attn", "attention_net_WSI.3", (256, 256), gate_path,
                 attn_dropout)]
-    es += _snn_entries("fc_omic")
-    n_branches = ("path" in mode) + ("omic" in mode)
+    if "omic" in mode:
+        es += _snn_entries("fc_omic")
+    elif omic_input_dim > 0:
+        es += [("fill_linear", "fc_omic.0.0", (omic_input_dim, 256)),
+               ("fill_linear", "fc_omic.1.0", (256, 256))]
+    n_branches = sum(m in mode for m in ("radio", "path", "omic"))
     if fusion == "tensor":
         es += _xfusion_entries("mm", ["mm"], n_branches, gate=gate)
         # classifier = Sequential(Linear(512, 256), ReLU, Dropout, Linear)
@@ -204,43 +234,50 @@ def build_spec(model_type: str, *, mode: str = "path", gated: bool = True,
                attn_dropout: bool = False, fusion: str = "tensor",
                radio_fusion: str = "concat", gate: bool = True,
                gate_radio: bool = True, n_modalities: int = 4,
-               pretrained: bool = False, train_type: Optional[str] = None,
-               bag_loss: str = "nll_surv", n_layers: int = 1
-               ) -> List[Entry]:
+               omic_input_dim: int = 0, pretrained: bool = False,
+               train_type: Optional[str] = None, bag_loss: str = "nll_surv",
+               n_layers: int = 1) -> List[Entry]:
     """The spec of a model the port builds (``engine/train.build_model``).
-    ``gated`` is the pathology attention net's gate (``gate_path``).  With
-    ``pretrained``, the stage-4 head of ``train_type``: multimodal for
-    ``mm_attention_mil``, unimodal otherwise."""
+    ``gated`` is the gate of a path or radio AMIL's attention net, and of
+    mm_attention_mil's pathology one (``gate_radio`` its radiology one).
+    With ``pretrained``, the stage-4 head of ``train_type``: multimodal
+    for ``mm_attention_mil``, unimodal otherwise."""
     if pretrained:
         if model_type == "mm_attention_mil":
             return _multimodal_pretrained_spec(mode, train_type, bag_loss,
                                                n_layers)
         return _unimodal_pretrained_spec(train_type, bag_loss, n_layers)
-    if model_type == "path_attention_mil":
-        return [("linear", "attention_net_WSI.0", ["fc"]),
-                ("attn", "attention_net_WSI.3", ["attention_net"], gated,
-                 attn_dropout),
-                ("linear", "classifier", ["classifier"])]
+    if model_type in ("path_attention_mil", "radio_attention_mil"):
+        net = ("attention_net_WSI" if model_type == "path_attention_mil"
+               else "attention_net_radio")
+        es = [("linear", f"{net}.0", ["fc"]),
+              ("attn", f"{net}.3", ["attention_net"], gated, attn_dropout),
+              ("linear", "classifier", ["classifier"])]
+        if model_type == "radio_attention_mil":
+            es += _radio_fusion_entries(radio_fusion, n_modalities > 1,
+                                        n_modalities)
+        return es
     if model_type == "max_net":
         return _snn_entries("fc_omic") + [("linear", "classifier",
                                            ["classifier"])]
-    if model_type == "mm_attention_mil" and "radio" not in mode:
+    if model_type == "mm_attention_mil":
         return _mm_attention_mil_spec(mode, fusion, radio_fusion, gate,
                                       gated, gate_radio, attn_dropout,
-                                      n_modalities)
-    raise NotImplementedError(
-        f"{model_type} (mode {mode}): not ported yet (ROADMAP.md, port "
-        "queue: radio AMIL and the radiology branch are item 4)")
+                                      n_modalities, omic_input_dim)
+    raise NotImplementedError(f"{model_type}: not a model of this repo")
 
 
 def spec_from_config(cfg) -> List[Entry]:
     """The spec of ``build_model(cfg)`` (JAX torch_interop.spec_from_config
     for the port's models)."""
-    return build_spec(cfg.model_type, mode=cfg.mode, gated=cfg.gate_path,
+    gated = (cfg.gate_radio if cfg.model_type == "radio_attention_mil"
+             else cfg.gate_path)
+    return build_spec(cfg.model_type, mode=cfg.mode, gated=gated,
                       attn_dropout=cfg.drop_out, fusion=cfg.fusion or "tensor",
                       radio_fusion=cfg.radio_fusion or "concat",
                       gate=cfg.gate, gate_radio=cfg.gate_radio,
                       n_modalities=len(cfg.modalities),
+                      omic_input_dim=cfg.omic_input_dim,
                       pretrained=cfg.pretrained, train_type=cfg.train_type,
                       bag_loss=cfg.bag_loss, n_layers=cfg.n_layers)
 

@@ -347,7 +347,7 @@ def test_kernel_launches_run_under_the_bags_device(monkeypatch):
             seen.append(("bwd", current[-1] if current else None))
             return 0
 
-    def no_cuda_check(h, mask, params, gated, da, db, d_mult, da_mult):
+    def no_cuda_check(h, mask, params, gated, da, db):
         return (mask.float(), params.ba, params.bb,
                 params.wc.reshape(-1), params.cc, da, db)
 

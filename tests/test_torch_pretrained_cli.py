@@ -328,10 +328,14 @@ def test_main_pretrained_unported_flags_raise(stage2, embeddings, tmp_path,
 
 
 def test_stage3_refuses_a_radiology_experiment(stage2, tmp_path):
+    """A path experiment whose settings say mode radio is refused: its
+    model is not the radiology model that stage 3 extracts from (radio
+    experiments themselves are extracted, tests/test_torch_radio_cli.py).
+    """
     exp = tmp_path / "RADIO_exp"
     shutil.copytree(stage2[1]["path"], exp)
     settings = (exp / f"experiment_{stage2[1]['path'].name}.txt")
     text = settings.read_text().replace("'mode': 'path'", "'mode': 'radio'")
     (exp / "experiment_RADIO_exp.txt").write_text(text)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="not of path_attention_mil"):
         port_stage3(stage3_argv(exp, tmp_path / "out") + ["--device", "cpu"])

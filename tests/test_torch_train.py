@@ -335,8 +335,15 @@ def test_eval_only_matches_jax(cohort, jax_experiment, tmp_path):
     ids=lambda e: e[0].lstrip("-") + (f"_{e[-1]}" if len(e) > 2 else ""))
 def test_unported_flags_raise(cohort, tmp_path, extra):
     """Each flag of work not ported yet raises, naming its ROADMAP.md
-    item, before anything is written."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    item, before anything is written.  The radiology models are ported:
+    a model asked for in a mode it does not run in (radio AMIL on
+    genomics, path AMIL on radiology) raises ValueError naming its mode,
+    also before anything is written."""
+    if "--mode" in extra:
+        err, match = ValueError, "runs in mode"
+    else:
+        err, match = NotImplementedError, "ROADMAP.md"
+    with pytest.raises(err, match=match):
         port_main(cli_args(cohort, tmp_path / "r", "--device", "cpu",
                            *extra))
     assert not (tmp_path / "r").exists()
