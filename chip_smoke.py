@@ -84,7 +84,27 @@ Phases, each fatal on failure:
                 a stage-4 early-fcnn head trains on the port's own radio,
                 path and omic embeddings (no launch); the full-width
                 Kronecker fusion of the sequences trains one epoch and is
-                served.  Counters reset just before each run.
+                served; a 2-sequence Kronecker fusion trains one epoch and
+                is served from its checkpoint and again from the same
+                weights in the JAX export's layout (the 4-sequence
+                placeholder in the .pt, the trained fusion in the flax
+                msgpack beside it), risks equal.  Counters reset just
+                before each run.
+  4e. interpret -- stage 5 on the [radio] experiments, each check against
+                the CPU in the same call: the attention read-out
+                (attention_only) of the radio model on a served batch and
+                of a PathAMIL on one 32,768 x 1024 bag, raw scores at rel
+                1e-5 with no launch, and masked_softmax_pool of them
+                against the pooled features of mil_pool_fwd (one launch)
+                at rel 1e-5; MMAttentionMIL return_attention's A_raw at
+                rel 1e-5; cli.create_attributions on the stage-4 head
+                (attr.csv at rel 1e-4, the IG completeness gap printed);
+                cli.create_heatmaps radio (scores.csv: the same groups,
+                attention at rel 1e-5) and omic (ig and
+                expected_gradients with the same draws, rel 1e-4).  No CLI
+                launches a kernel.  One wall-seconds line with the card's
+                name and power limit.  Alone (--phases interpret) it runs
+                [radio] first for its experiments.
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak) and,
                 for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
@@ -1202,6 +1222,16 @@ RADIO_FLAGS = {
     "radio_tensor": ["--model_type", "radio_attention_mil", "--mode",
                      "radio", "--radio_fusion", "tensor", "--gate_radio",
                      "--drop_out", "--bag_loss", "nll_surv"],
+    # 2 of the sequences fused by a Kronecker product (17^2 = 289 wide),
+    # from a copy of the cohort CSV without the other two sequences'
+    # columns; its checkpoint is then rewritten as the JAX package writes
+    # one (the 4-sequence placeholder in the .pt, the trained fusion in
+    # the flax msgpack beside it) and served again
+    "radio_tensor_2seq": ["--task", "survival_2seq", "--modality", "T1,T2",
+                          "--model_type", "radio_attention_mil", "--mode",
+                          "radio", "--radio_fusion", "tensor",
+                          "--gate_radio", "--drop_out", "--bag_loss",
+                          "nll_surv"],
     # the unimodal path and omic experiments whose embeddings stage 4
     # fuses with the radio ones
     "path": ["--model_type", "path_attention_mil", "--mode", "path",
@@ -1246,6 +1276,59 @@ def _plain_outputs(exp, B, features=False):
     return out
 
 
+def _two_sequence_task(root):
+    """dataset_csv/brain/survival_2seq.csv: the radio cohort's CSV without
+    the T1Gd and FLAIR columns (in a cohort read for T1 and T2 they would
+    count as genomic columns)."""
+    import csv
+    src = os.path.join(root, "dataset_csv", "brain", "survival.csv")
+    with open(src, newline="") as f:
+        rows = list(csv.reader(f))
+    keep = [i for i, c in enumerate(rows[0]) if c not in ("T1Gd", "FLAIR")]
+    with open(src.replace("survival.csv", "survival_2seq.csv"), "w",
+              newline="") as f:
+        csv.writer(f, lineterminator="\n").writerows(
+            [r[i] for i in keep] for r in rows)
+
+
+def _as_jax_export(exp):
+    """Rewrite the experiment's s_0_minloss_checkpoint.pt as the JAX
+    package writes a 2- or 3-sequence tensor-fusion radio model's (JAX
+    engine/train.py:420-440, utils/torch_interop.py:80-92): the .pt with
+    the reference's 4-sequence radio_xfusion placeholder, and every
+    trained parameter, in flax's layout ([in, out] kernels under
+    params/...), in the msgpack beside it."""
+    import torch
+    from multimodalfusion_tpu_torch.utils import msgpack_io
+    from multimodalfusion_tpu_torch.utils import params as pm
+    from multimodalfusion_tpu_torch.utils.experiment import (
+        config_from_settings, read_settings)
+    settings = read_settings(os.path.join(
+        exp, f"experiment_{os.path.basename(exp)}.txt"))
+    spec = pm.spec_from_config(config_from_settings(settings))
+    pt = os.path.join(exp, "s_0_minloss_checkpoint.pt")
+    sd = torch.load(pt, weights_only=True)
+    tree = {}
+    for entry in spec:
+        kind, prefix = entry[0], entry[1]
+        pairs = ([(prefix, "kernel", "bias")] if kind == "linear" else
+                 pm._attn_pairs(prefix, entry[3], entry[4]))
+        node = tree
+        for key in entry[2]:
+            node = node.setdefault(key, {})
+        for tp, w, b in pairs:
+            node[w] = sd[f"{tp}.weight"].numpy().T.copy()
+            node[b] = sd[f"{tp}.bias"].numpy().copy()
+    jspec = [e for e in spec if not e[1].startswith("radio_xfusion.")]
+    jsd = pm.reference_state_dict(
+        {k: v for k, v in sd.items() if not k.startswith("radio_xfusion.")},
+        jspec + [pm.RADIO_XFUSION_PLACEHOLDER])
+    torch.save(jsd, pt)
+    with open(pt.replace(".pt", ".msgpack"), "wb") as f:
+        f.write(msgpack_io.packb({"params": tree}))
+    return tuple(jsd["radio_xfusion.encoder1.0.weight"].shape)
+
+
 def phase_radio(launch_counters, root=None):
     """[radio] Radiology on the card.  A synthetic 32-subject glioma
     cohort (4 MRI sequences x 140-155 common slices x 1024 f32 through the
@@ -1268,8 +1351,13 @@ def phase_radio(launch_counters, root=None):
         embeddings, and a stage-4 early-fcnn head trains two epochs on the
         port's radio, path and omic embeddings: finite losses, no launch;
       - the Kronecker radiology fusion at full width trains one epoch and
-        is served.
-    Returns (the launch counts by run, the wall seconds by stage)."""
+        is served;
+      - a 2-sequence Kronecker fusion trains one epoch and is served; its
+        checkpoint, rewritten as the JAX package writes it (the
+        4-sequence placeholder in the .pt, the trained fusion in the flax
+        msgpack beside it), is served again with the same risks.
+    Returns (the launch counts by run, the wall seconds by stage, the
+    experiments by name: radio, radio_path_omic, omic, stage4)."""
     import csv
     import math
 
@@ -1404,12 +1492,13 @@ def phase_radio(launch_counters, root=None):
                                  "plain pooling")
 
         # the trimodal fusion: two attention branches per step
-        fold("radio_path_omic", RADIO_FLAGS["radio_path_omic"], epochs)
+        rpo = fold("radio_path_omic", RADIO_FLAGS["radio_path_omic"], epochs)
         expect("train_radio_path_omic", *train_launches(epochs, 2))
 
+        exps = {"radio": exp}
         # stage 4 on the port's own radio, path and omic embeddings
         for m in ("path", "omic"):
-            sub_exp = fold(m, RADIO_FLAGS[m], 1)
+            exps[m] = sub_exp = fold(m, RADIO_FLAGS[m], 1)
             run(f"stage3_{m}", pre_trained_feature.main, [
                 "--checkpoint_path", sub_exp, "--which_k", "0",
                 "--output_dir", out, "--batch_size", str(B), "--device",
@@ -1423,8 +1512,9 @@ def phase_radio(launch_counters, root=None):
             "1", "--max_epochs", "2", "--batch_size", "16", "--results_dir",
             results, "--device", "cuda"])
         sub = os.path.join(results, "brain", "smoke")
-        with open(os.path.join(sub, os.listdir(sub)[0], "0",
-                               "metrics.jsonl")) as f:
+        exps.update(radio_path_omic=rpo,
+                    stage4=os.path.join(sub, os.listdir(sub)[0]))
+        with open(os.path.join(exps["stage4"], "0", "metrics.jsonl")) as f:
             recs = [json.loads(x) for x in f]
         losses = [r[k] for r in recs for k in ("train_loss", "val_loss")]
         log(f"[radio] stage 4 early-fcnn radio_path_omic on the port's "
@@ -1444,9 +1534,298 @@ def phase_radio(launch_counters, root=None):
         expect("serve_radio_tensor", -(-n_subjects // B), 0)
         log(f"[radio] tensor fusion: peak device memory {peak:.2f} GiB in "
             f"its training epoch")
+
+        # 2 sequences, tensor fusion: the port's checkpoint, then the JAX
+        # export's layout of the same weights
+        _two_sequence_task(td)
+        exp = fold("radio_tensor_2seq", RADIO_FLAGS["radio_tensor_2seq"], 1)
+        expect("train_radio_tensor_2seq", *train_launches(1))
+        served_vs_plain("serve_radio_tensor_2seq", exp)
+        expect("serve_radio_tensor_2seq", -(-n_subjects // B), 0)
+        placeholder = _as_jax_export(exp)
+        out_csv = os.path.join(td, "risks_jax_layout.csv")
+        run("serve_radio_tensor_2seq_jax_layout", infer.main, [
+            "--model_path", exp, "--which_k", "0", "--out", out_csv,
+            "--batch_size", str(B), "--device", "cuda"])
+        expect("serve_radio_tensor_2seq_jax_layout", -(-n_subjects // B), 0)
+        served = {}
+        for name in ("risks_serve_radio_tensor_2seq.csv",
+                     "risks_jax_layout.csv"):
+            with open(os.path.join(td, name), newline="") as f:
+                served[name] = {r["subject_id"]: float(r["risk"])
+                                for r in csv.DictReader(f)}
+        own, jax_layout = served.values()
+        err = max(abs(jax_layout[k] - v) / abs(v) for k, v in own.items())
+        log(f"[radio] 2-sequence tensor fusion in the JAX export's layout "
+            f"(.pt radio_xfusion.encoder1 {placeholder}, the trained fusion "
+            f"from the msgpack): {len(jax_layout)} subjects served in "
+            f"{wall['serve_radio_tensor_2seq_jax_layout']:.2f} s, launches "
+            f"{launches['serve_radio_tensor_2seq_jax_layout']}; risks vs the "
+            f"port's own checkpoint: max rel err {err:.2e} (tol 1e-6)")
+        if sorted(jax_layout) != sorted(own) or err > 1e-6:
+            raise AssertionError("[radio] the JAX layout of the 2-sequence "
+                                 "tensor experiment serves other risks")
     log("[radio] wall s: " + ", ".join(f"{k} {v:.3f}"
                                        for k, v in wall.items()))
-    return launches, wall
+    return launches, wall, exps
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def _csv_rows(path):
+    import csv
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _same_table(tag, got, want, key, text, sort_col=None, rtol=1e-4):
+    """Two CSVs of one CLI (card, CPU): the same rows by ``key``, the
+    ``text`` columns equal, every other column within ``rtol`` of its
+    largest |value|.  The card's row order must be the CPU's, or, where
+    ``sort_col`` ranks the rows (within the key's leading columns), an
+    order of the CPU's values that is non-increasing within that
+    tolerance (two near-equal values may swap).  Returns the largest
+    relative error."""
+    def keyed(rows):
+        return {tuple(r[k] for k in key): r for r in rows}
+    g, w = keyed(got), keyed(want)
+    if list(g) != list(w) and (sorted(g) != sorted(w) or sort_col is None):
+        raise AssertionError(f"[interpret] {tag}: rows differ")
+    num = [c for c in want[0] if c not in text and c not in key]
+    err = 0.0
+    for c in num:
+        wv = np.array([float(w[k][c]) for k in w])
+        gv = np.array([float(g[k][c]) for k in w])
+        err = max(err, float(np.abs(gv - wv).max()
+                             / max(np.abs(wv).max(), 1e-30)))
+        if c == sort_col and list(g) != list(w):
+            scale = rtol * max(np.abs(wv).max(), 1e-30)
+            ks = list(g)
+            if [k[:-1] for k in ks] != [k[:-1] for k in w] or any(
+                    a[:-1] == b[:-1] and
+                    float(w[b][c]) - float(w[a][c]) > scale
+                    for a, b in zip(ks, ks[1:])):
+                raise AssertionError(f"[interpret] {tag}: order differs")
+    for c in text:
+        if any(g[k][c] != w[k][c] for k in w):
+            raise AssertionError(f"[interpret] {tag}: column {c} differs")
+    if err > rtol:
+        raise AssertionError(f"[interpret] {tag}: rel err {err:.2e} > "
+                             f"{rtol:g}")
+    return err
+
+
+def phase_interpret(launch_counters, exps, root=None):
+    """[interpret] Stage 5 on the card, each check against the CPU in the
+    same call, all in f32, on the experiments of [radio] (``exps``), with
+    the launch counters reset just before each run and read just after:
+      - the attention read-out (``attention_only``) of the radio
+        experiment on its first served batch and of a PathAMIL (small,
+        seeded weights) on one 32,768 x 1024 bag: its raw scores against
+        the CPU's at rel 1e-5, launching no kernel; then
+        ``masked_softmax_pool`` of those scores against the pooled
+        features that ``forward(return_features=True)`` gets from
+        mil_pool_fwd (one launch), at rel 1e-5;
+      - MMAttentionMIL(return_attention=True) on a radio_path_omic batch:
+        A_raw of both branches at rel 1e-5, no launch;
+      - cli.create_attributions on the stage-4 early-fcnn experiment:
+        attr.csv and attr_orig.csv at rel 1e-4 (the IG completeness gap
+        printed by the CLI);
+      - cli.create_heatmaps, radio branch over every subject: scores.csv
+        with the same slices and groups, attention at rel 1e-5;
+      - cli.create_heatmaps, omic branch on the max_net: ig, and
+        expected_gradients with the same draws on both devices, both CSVs
+        at rel 1e-4.
+    No CLI of the phase launches a kernel.  Returns the launch counts by
+    run."""
+    import torch
+    from multimodalfusion_tpu_torch.cli import (create_attributions,
+                                                create_heatmaps, infer)
+    from multimodalfusion_tpu_torch.data.loaders import iter_batches
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    from multimodalfusion_tpu_torch.models.amil import PathAMIL
+    from multimodalfusion_tpu_torch.ops import mil_attention as mil
+    from multimodalfusion_tpu_torch.utils.experiment import (
+        config_from_settings, read_settings)
+    from multimodalfusion_tpu_torch.utils.params import spec_from_config
+    wall, launches = {}, {}
+    none = {c.__name__: 0 for c in launch_counters}
+    one_fwd = dict(none, _fused_pool_cuda=1)
+
+    def reset():
+        for c in launch_counters:
+            c.launches = 0
+
+    def timed(stage, fn, *args, want=none):
+        reset()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        wall[stage] = time.perf_counter() - t0
+        launches[stage] = {c.__name__: c.launches for c in launch_counters}
+        if launches[stage] != want:
+            raise AssertionError(f"[interpret] {stage} launched "
+                                 f"{launches[stage]}, expected {want}")
+        return out
+
+    def served_batch(exp, B=8):
+        """(model on the card, model on the CPU, the first served batch
+        as each one's inputs)."""
+        settings = read_settings(os.path.join(
+            exp, f"experiment_{os.path.basename(exp)}.txt"))
+        view = infer._scored_split(settings, settings["csv_path"],
+                                   settings["data_root_dir"], 0)
+        cfg = config_from_settings(settings, batch_size=B, omic_input_dim=(
+            view.genomic_features.shape[1]))
+        batch = next(iter_batches(view, batch_size=B))
+        out = []
+        for dev in ("cuda", "cpu"):
+            model = ttrain.build_model(cfg).to(dev).eval()
+            ttrain.load_checkpoint(model, os.path.join(
+                exp, "s_0_minloss_checkpoint.pt"), spec_from_config(cfg))
+            out += [model, ttrain.model_inputs(cfg, batch,
+                                               torch.device(dev))]
+        return out
+
+    def readout_vs_kernel(tag, gpu, cpu, kw, kw_cpu):
+        with torch.no_grad():
+            s = timed(f"readout_{tag}", lambda: gpu(**kw,
+                                                    attention_only=True))
+            e_s = rel_err(s.cpu(), cpu(**kw_cpu, attention_only=True))
+            h = gpu.embed(kw["bags"]).float()
+            pooled = mil.masked_softmax_pool(s, h, kw["mask"])[0]
+            fused = timed(f"pooled_{tag}", lambda: gpu(
+                **kw, return_features=True), want=one_fwd)
+        e_p = rel_err(pooled, fused)
+        log(f"[interpret] read-out {tag} {tuple(kw['bags'].shape)}: raw "
+            f"scores card vs CPU rel {e_s:.2e}, launches "
+            f"{launches[f'readout_{tag}']}; masked_softmax_pool(scores) vs "
+            f"mil_pool_fwd's pooled features rel {e_p:.2e}, launches "
+            f"{launches[f'pooled_{tag}']} (tol 1e-5)")
+        if max(e_s, e_p) > 1e-5:
+            raise AssertionError(f"[interpret] read-out {tag} disagrees")
+
+    with _workdir(root, "interpret") as td:
+        # the read-out against the forward kernel: a radio batch, then a
+        # realistic WSI bag
+        gpu, kw, cpu, kw_cpu = served_batch(exps["radio"])
+        readout_vs_kernel("radio", gpu, cpu, kw, kw_cpu)
+        cpu = PathAMIL("small", gate=True,
+                       generator=torch.Generator().manual_seed(11)).eval()
+        gpu = PathAMIL("small", gate=True).cuda().eval()
+        gpu.load_state_dict(cpu.state_dict())
+        bag = torch.randn(1, 32768, 1024,
+                          generator=torch.Generator().manual_seed(12)) * 0.5
+        mask = torch.ones(1, 32768)
+        readout_vs_kernel("path_32768", gpu, cpu,
+                          {"bags": bag.cuda(), "mask": mask.cuda()},
+                          {"bags": bag, "mask": mask})
+
+        # the trimodal model's A_raw
+        gpu, kw, cpu, kw_cpu = served_batch(exps["radio_path_omic"])
+        with torch.no_grad():
+            out = timed("return_attention_radio_path_omic", lambda: gpu(
+                **kw, return_attention=True))
+            want = cpu(**kw_cpu, return_attention=True)
+        errs = {n: rel_err(out["A_raw"][n].cpu(), want["A_raw"][n])
+                for n in ("radiology", "pathology")}
+        log(f"[interpret] MMAttentionMIL radio_path_omic return_attention: "
+            f"A_raw card vs CPU rel "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (tol 1e-5), launches "
+            f"{launches['return_attention_radio_path_omic']}")
+        if sorted(out["A_raw"]) != ["pathology", "radiology"] or \
+                max(errs.values()) > 1e-5:
+            raise AssertionError("[interpret] A_raw disagrees")
+
+        # the CLIs, on the card and on the CPU
+        def both(stage, fn, argv, out_dir):
+            for dev in ("cuda", "cpu"):
+                rc = timed(f"{stage}_{dev}", fn, argv(dev) + [
+                    "--device", dev])
+                if rc != 0:
+                    raise AssertionError(f"[interpret] {stage} on {dev}: "
+                                         f"rc={rc}")
+            return [os.path.join(td, stage, dev, out_dir)
+                    for dev in ("cuda", "cpu")]
+
+        s4 = exps["stage4"]
+        s4_settings = read_settings(os.path.join(
+            s4, f"experiment_{os.path.basename(s4)}.txt"))
+        sub = os.path.join("brain", os.path.basename(
+            s4_settings["split_dir"]), os.path.basename(s4))
+        dirs = both("create_attributions", create_attributions.main,
+                    lambda dev: ["--model_path", s4, "--save_dir",
+                                 os.path.join(td, "create_attributions",
+                                              dev)], sub)
+        for name in ("attr.csv", "attr_orig.csv"):
+            e = _same_table(f"create_attributions {name}",
+                            *[_csv_rows(os.path.join(d, name))
+                              for d in dirs], ["subject_id"], [])
+            log(f"[interpret] create_attributions {name}: "
+                f"{len(_csv_rows(os.path.join(dirs[1], name)))} subjects, "
+                f"card vs CPU rel {e:.2e} (tol 1e-4)")
+
+        radio_settings = read_settings(os.path.join(
+            exps["radio"], f"experiment_{os.path.basename(exps['radio'])}"
+            f".txt"))
+        subjects = os.path.join(td, "subjects.csv")
+        with open(subjects, "w") as f:
+            f.write("subject_id\n" + "".join(f"{r['subject_id']}\n" for r in
+                                             _csv_rows(radio_settings[
+                                                 "csv_path"])))
+
+        def config(stage, dev, branch, data, model, method=None):
+            """A heatmap config, as examples/heatmap_*.yaml, saving to
+            td/stage/dev."""
+            path = os.path.join(td, f"{stage}_{dev}.yaml")
+            with open(path, "w") as f:
+                f.write(f"exp_arguments:\n  branch: {branch}\n  save_dir: "
+                        f"'{os.path.join(td, stage, dev)}'\n"
+                        f"data_arguments: {data}\nmodel_arguments:\n  "
+                        f"ckpt_path: '{model}'\n  which_k: 0\n"
+                        + (f"heatmap_arguments: {{method: {method}}}\n"
+                           if method else ""))
+            return ["--config", path]
+
+        seqs = ", ".join(radio_settings["radio_modality"])
+        data = (f"{{process_list: '{subjects}', feat_dir: "
+                f"'{radio_settings['data_root_dir']}', modalities: "
+                f"[{seqs}]}}")
+        dirs = both("heatmap_radio", create_heatmaps.main,
+                    lambda dev: config("heatmap_radio", dev, "radio", data,
+                                       exps["radio"]), "")
+        rows = [_csv_rows(os.path.join(d, "scores.csv")) for d in dirs]
+        e = _same_table("create_heatmaps radio scores.csv", *rows,
+                        ["subject_id", "slice_index"], ["group"],
+                        sort_col="attention", rtol=1e-5)
+        log(f"[interpret] create_heatmaps radio: {len(rows[1])} slices of "
+            f"{len({r['subject_id'] for r in rows[1]})} subjects, groups "
+            f"equal, attention card vs CPU rel {e:.2e} (tol 1e-5)")
+
+        for method in ("ig", "expected_gradients"):
+            stage = f"heatmap_omic_{method}"
+            dirs = both(stage, create_heatmaps.main,
+                        lambda dev: config(stage, dev, "omic", "{}",
+                                           exps["omic"], method), "")
+            for name, key, sort_col in (
+                    ("omic_attr_per_patient.csv", "subject_id", None),
+                    ("omic_attr_global.csv", "gene", "mean_abs_attr")):
+                e = _same_table(f"create_heatmaps omic {method} {name}",
+                                *[_csv_rows(os.path.join(d, name))
+                                  for d in dirs], [key], [],
+                                sort_col=sort_col)
+                log(f"[interpret] create_heatmaps omic {method} {name}: "
+                    f"card vs CPU rel {e:.2e} (tol 1e-4)")
+    log(f"[interpret] wall s ({_card()}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in wall.items()))
+    return launches
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -1838,7 +2217,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
-                         "slice,train,omic,pretrained,radio,timing "
+                         "slice,train,omic,pretrained,radio,interpret,timing "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -1881,8 +2260,11 @@ def _partial(phases, counters, work, t_all) -> int:
                              omic_args, work)
         else:
             phase_pretrained(counters, root=work)
-    if "radio" in phases:
-        phase_radio(counters, work)
+    if "radio" in phases or "interpret" in phases:
+        # [interpret] alone first writes and trains its own radio cohort
+        _, _, radio_exps = phase_radio(counters, work)
+    if "interpret" in phases:
+        phase_interpret(counters, radio_exps, work)
     if "timing" in phases:
         phase_timing()
         phase_timing_radio()
@@ -1914,8 +2296,11 @@ def _full(counters, work, t_all) -> int:
                                            work)
     log(f"[pretrained] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    radio_launches, _ = phase_radio(counters, work)
+    radio_launches, _, radio_exps = phase_radio(counters, work)
     log(f"[radio] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    interpret_launches = phase_interpret(counters, radio_exps, work)
+    log(f"[interpret] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     timing = phase_timing()
     timing_radio = phase_timing_radio()
@@ -1947,15 +2332,13 @@ def _full(counters, work, t_all) -> int:
             entry[f"launches_{path}"] = counts[counter_of[name]]
         for path, counts in radio_launches.items():
             entry[f"launches_radio_{path}"] = counts[counter_of[name]]
+        for path, counts in interpret_launches.items():
+            entry[f"launches_interpret_{path}"] = counts[counter_of[name]]
         entries.append(entry)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
     log(f"[timing] train step ms {json.dumps(step)}")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
-    print(f"nvidia-smi: {smi.stdout.strip()}")
+    print(f"nvidia-smi: {_card()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

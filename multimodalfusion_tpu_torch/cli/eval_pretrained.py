@@ -25,13 +25,13 @@ import sys
 
 import numpy as np
 
-from multimodalfusion_tpu_torch.cli.main import write_summary
 from multimodalfusion_tpu_torch.data.io import save_pkl
 from multimodalfusion_tpu_torch.data.survival_dataset import (MODALITIES,
                                                               SurvivalDataset)
 from multimodalfusion_tpu_torch.engine.evaluate import eval_model
 from multimodalfusion_tpu_torch.utils.experiment import (config_from_settings,
                                                          read_settings)
+from multimodalfusion_tpu_torch.utils.table import write_csv
 
 
 def build_parser():
@@ -111,7 +111,7 @@ def main(argv=None) -> int:
             for k2, v in row.items()))
 
     cols = {c: [r[c] for r in rows] for c in rows[0]}
-    write_summary(summary_path, cols, index=False)
+    write_csv(summary_path, cols)
     print("mean:", {c: float(np.nanmean(v)) for c, v in cols.items()
                     if c != "folds"})
     return 0

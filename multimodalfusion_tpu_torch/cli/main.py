@@ -29,7 +29,6 @@ naming their ROADMAP.md item.
 from __future__ import annotations
 
 import argparse
-import csv
 import os
 import sys
 from timeit import default_timer as timer
@@ -43,6 +42,7 @@ from multimodalfusion_tpu_torch.engine.train import (TrainConfig,
                                                      train_fold)
 from multimodalfusion_tpu_torch.utils.experiment import (experiment_code,
                                                          write_settings)
+from multimodalfusion_tpu_torch.utils.table import write_csv
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -162,23 +162,6 @@ def _refuse_unported(args) -> None:
     check_supported(_config(args, args.results_dir))
 
 
-def write_summary(path: str, cols: dict, index: bool = True) -> None:
-    """``pd.DataFrame(cols).to_csv(path, index=index)``: an unnamed index
-    column when ``index``, then the columns; floats as Python's repr, NaN
-    as an empty cell."""
-    def cell(v):
-        if isinstance(v, (float, np.floating)):
-            return "" if np.isnan(v) else repr(float(v))
-        return str(v)
-    n = len(next(iter(cols.values())))
-    lead = (lambda i: [i]) if index else (lambda i: [])
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(([""] if index else []) + list(cols))
-        for i in range(n):
-            w.writerow(lead(i) + [cell(v[i]) for v in cols.values()])
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
@@ -284,7 +267,7 @@ def main(argv=None) -> int:
     cols = {"folds": folds, "val_cindex": val_cindex}
     if args.split_mode == "train_val_test":
         cols["test_cindex"] = test_cindex
-    write_summary(os.path.join(results_dir, save_name), cols)
+    write_csv(os.path.join(results_dir, save_name), cols, index=True)
     return 0
 
 

@@ -34,7 +34,6 @@ from timeit import default_timer as timer
 
 import numpy as np
 
-from multimodalfusion_tpu_torch.cli.main import write_summary
 from multimodalfusion_tpu_torch.data.io import ensure_dir, save_pkl
 from multimodalfusion_tpu_torch.data.survival_dataset import SurvivalDataset
 from multimodalfusion_tpu_torch.engine.train import (TrainConfig,
@@ -42,6 +41,7 @@ from multimodalfusion_tpu_torch.engine.train import (TrainConfig,
                                                      train_fold)
 from multimodalfusion_tpu_torch.utils.experiment import (experiment_code,
                                                          write_settings)
+from multimodalfusion_tpu_torch.utils.table import write_csv
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -202,7 +202,7 @@ def main(argv=None) -> int:
     cols = {"folds": folds, "val_cindex": val_cindex}
     if args.split_mode == "train_val_test":
         cols["test_cindex"] = test_cindex
-    write_summary(os.path.join(results_dir, save_name), cols)
+    write_csv(os.path.join(results_dir, save_name), cols, index=True)
     return 0
 
 

@@ -266,11 +266,15 @@ def load_checkpoint(model: torch.nn.Module, path: str,
     """Load a reference-layout ``.pt`` state_dict (the JAX package writes
     one beside every checkpoint) into ``model`` on the device the model is
     on: the placeholders that ``spec`` names are dropped, and any other
-    missing or unexpected key fails the strict load."""
+    missing or unexpected key fails the strict load.  A JAX export of a 2-
+    or 3-sequence tensor-fusion radiology model takes its trained fusion
+    from the flax checkpoint beside it
+    (``params_mod.with_trained_radio_fusion``)."""
     device = next(model.parameters()).device
     sd = torch.load(path, map_location=device, weights_only=True)
     if spec is not None:
         sd = params_mod.without_fillers(sd, spec)
+        sd = params_mod.with_trained_radio_fusion(sd, spec, path)
     model.load_state_dict(sd, strict=True)
     return model
 

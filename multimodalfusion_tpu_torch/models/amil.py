@@ -65,8 +65,15 @@ class PathAMIL(nn.Module):
         return out
 
     def forward(self, bags, mask, return_features: bool = False,
+                attention_only: bool = False,
                 generator: Optional[torch.Generator] = None):
-        M = self.pool(self.embed(bags, generator), mask, generator).float()
+        """Survival outputs; the pooled features [B, L] with
+        ``return_features``; with ``attention_only`` the raw attention
+        scores [B, N] of the read-out (no kernel; JAX amil.py:51-53)."""
+        h = self.embed(bags, generator)
+        if attention_only:
+            return self.pool(h, mask, generator, return_attn=True)[2]
+        M = self.pool(h, mask, generator).float()
         if return_features:
             return M
         return self.head(M)
@@ -125,8 +132,15 @@ class RadioAMIL(RadioFusion, nn.Module):
         return out
 
     def forward(self, bags, mask, return_features: bool = False,
+                attention_only: bool = False,
                 generator: Optional[torch.Generator] = None):
-        M = self.pool(self.embed(bags, generator), mask, generator).float()
+        """Survival outputs; the pooled features [B, L] with
+        ``return_features``; with ``attention_only`` the raw attention
+        scores [B, N] of the read-out (no kernel; JAX amil.py:51-53)."""
+        h = self.embed(bags, generator)
+        if attention_only:
+            return self.pool(h, mask, generator, return_attn=True)[2]
+        M = self.pool(h, mask, generator).float()
         if return_features:
             return M
         return self.head(M)

@@ -94,18 +94,30 @@ class MMAttentionMIL(RadioFusion, nn.Module):
             self.classifier = Dense(256 * n_branches, n_classes, generator)
 
     def forward(self, radio_bags=None, radio_mask=None, path_bags=None,
-                path_mask=None, genomic=None,
+                path_mask=None, genomic=None, return_attention: bool = False,
                 generator: Optional[torch.Generator] = None):
-        branches = []
+        """Survival outputs, ``features`` (the branches' features) and
+        ``A_raw``: with ``return_attention`` the raw attention scores
+        [B, N] of the ``"radiology"`` and ``"pathology"`` branches, whose
+        pooled features then come from the read-out (no kernel; JAX
+        mm_amil.py:51, 76-95), else empty."""
+        A_raw, branches = {}, []
+
+        def pooled(pool, h, mask, name):
+            if not return_attention:
+                return pool(h, mask, generator).float()
+            M, _, A_raw[name] = pool(h, mask, generator, return_attn=True)
+            return M
+
         if "radio" in self.mode:
             fc, relu, drop, pool = self.attention_net_radio
             h = self.fuse_radio(radio_bags, generator)
             h = drop(relu(fc(h)), generator)
-            branches.append(pool(h, radio_mask, generator).float())
+            branches.append(pooled(pool, h, radio_mask, "radiology"))
         if "path" in self.mode:
             fc, relu, drop, pool = self.attention_net_WSI
             h = drop(relu(fc(path_bags)), generator)
-            branches.append(pool(h, path_mask, generator).float())
+            branches.append(pooled(pool, h, path_mask, "pathology"))
         if "omic" in self.mode:
             x = genomic
             for block in self.fc_omic:
@@ -118,5 +130,6 @@ class MMAttentionMIL(RadioFusion, nn.Module):
         else:
             logits = self.classifier(torch.cat(branches, dim=1))
         out = survival_outputs(logits)
+        out["A_raw"] = A_raw
         out["features"] = branches
         return out

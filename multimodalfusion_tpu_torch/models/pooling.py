@@ -1,6 +1,7 @@
 """AttentionPool: the attention-net parameters in the reference's layout,
 pooled through ``ops/mil_attention.py`` (port of
-multimodalfusion_tpu/models/pooling.py)."""
+multimodalfusion_tpu/models/pooling.py): the fused pooling kernels, or the
+unfused read-out that also returns the attention and its raw scores."""
 from __future__ import annotations
 
 from typing import Optional
@@ -57,16 +58,29 @@ class AttentionPool(nn.Module):
         return mil.AttnParams(Wa=a.weight.t(), ba=a.bias, Wb=Wb, bb=bb,
                               wc=c.weight.t(), cc=c.bias)
 
-    def forward(self, h, mask, generator: Optional[torch.Generator] = None):
+    def forward(self, h, mask, generator: Optional[torch.Generator] = None,
+                return_attn: bool = False):
         """In training with ``attn_dropout`` the branch keep masks are drawn
         with ``generator`` (on h's device) and applied inside the fused
         kernels, forward and backward alike (JAX models/pooling.py:53-74);
-        otherwise no dropout."""
+        otherwise no dropout.
+
+        ``return_attn``: the unfused read-out (JAX models/pooling.py:
+        76-90), (pooled [B, L], attn [B, N], raw scores s [B, N]) through
+        stock ops in h's type promoted with the parameters', with the same
+        keep masks, scaled by 1/(1-rate), on both branches.  It launches
+        no kernel."""
         params = self.attn_params()
+        da = db = None
         if self.attn_dropout and self.training:
             da, db = mil.make_dropout_masks(
                 generator, (h.shape[0], h.shape[1], params.Wa.shape[1]),
                 gated=self.gated, device=h.device)
+        if return_attn:
+            h = h.to(torch.promote_types(h.dtype, params.Wa.dtype))
+            return mil.attention_pool_with_attn(h, mask, params, self.gated,
+                                                da, db)
+        if da is not None:
             return mil.attention_pool_dropout(h, mask, da, db, params,
                                               self.gated)
         return mil.attention_pool(h, mask, params, self.gated)

@@ -133,6 +133,19 @@ def masked_softmax_pool(s, h, mask):
     return _softmax_pool(s, h, mask)[:2]
 
 
+def attention_pool_with_attn(h, mask, params: AttnParams,
+                             gated: bool = True, da=None, db=None):
+    """The unfused read-out: (pooled [B, D], attn [B, N], raw scores s
+    [B, N]) for interpretability (JAX ops/mil_attention.py:800-806; ref
+    model_attention_mil_path.py:68-70), with the branch keep masks
+    ``da``/``db`` when given (JAX models/pooling.py:76-90).  Plain
+    PyTorch ops on any device: no kernel."""
+    s = (attention_scores(h, params, gated) if da is None else
+         attention_scores_dropout(h, da, db, params, gated))
+    pooled, attn = masked_softmax_pool(s, h, mask)
+    return pooled, attn, s
+
+
 def _pool_reference(h, mask, params: AttnParams, gated: bool):
     s = attention_scores(h, params, gated)
     return masked_softmax_pool(s, h, mask)[0]

@@ -25,6 +25,7 @@ load drops exactly their keys.
 """
 from __future__ import annotations
 
+import os
 import zlib
 from collections import OrderedDict
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
@@ -34,6 +35,7 @@ import torch
 
 from multimodalfusion_tpu_torch.models.pretrained_heads import (
     LATE_NAMES, is_nll, present_modalities)
+from multimodalfusion_tpu_torch.utils import msgpack_io
 
 Entry = Tuple
 
@@ -160,6 +162,12 @@ def _multimodal_pretrained_spec(mode: str, train_type: str, bag_loss: str,
     return es
 
 
+# the reference's radiology fusion, built for 4 sequences whatever their
+# number (model_mm_attention_mil.py:57, model_attention_mil_radio.py:29)
+RADIO_XFUSION_PLACEHOLDER = ("fill_xfusion", "radio_xfusion",
+                             (1024, 64, 1024, 1024, 4, True, False))
+
+
 def _radio_fusion_entries(radio_fusion: str, built: bool,
                           n_modalities: int) -> List[Entry]:
     """The radiology sequences' fusion: ``radio_xfusion`` (tensor) or
@@ -172,14 +180,13 @@ def _radio_fusion_entries(radio_fusion: str, built: bool,
     that builds it carries its own parameters, at its own number of
     sequences.  (For 2 or 3 sequences with tensor fusion the JAX export
     writes the 4-sequence placeholder there instead, JAX
-    torch_interop.py:80-92, so its ``.pt`` holds no trained fusion and
-    the port refuses to load it.)"""
+    torch_interop.py:80-92: ``with_trained_radio_fusion`` takes the
+    trained fusion from the flax checkpoint beside such a ``.pt``.)"""
     if radio_fusion == "tensor":
         if built:
             return _xfusion_entries("radio_xfusion", ["radio_xfusion"],
                                     n_modalities)
-        return [("fill_xfusion", "radio_xfusion",
-                 (1024, 64, 1024, 1024, 4, True, False))]
+        return [RADIO_XFUSION_PLACEHOLDER]
     if built:
         return [("linear", "reduce_dim", ["reduce_dim"])]
     return [("fill_linear", "reduce_dim", (1024 * n_modalities, 1024))]
@@ -422,3 +429,37 @@ def filler_state_dict(spec: Sequence[Entry]) -> Dict[str, torch.Tensor]:
             sd[f"{prefix}.weight"] = torch.from_numpy(w)
             sd[f"{prefix}.bias"] = torch.zeros(n_out)
     return sd
+
+
+def with_trained_radio_fusion(sd: Mapping, spec: Sequence[Entry],
+                              path: str) -> Mapping:
+    """``sd`` (loaded from ``path``) with the trained radiology fusion of a
+    2- or 3-sequence tensor model in place of the 4-sequence placeholder
+    that the JAX export writes there (JAX torch_interop.py:80-92): the
+    fusion comes from the flax checkpoint that JAX training writes beside
+    every ``.pt`` (``s_{k}_*_checkpoint.msgpack``, JAX
+    engine/train.py:420-440), ``params/radio_xfusion``, mapped by
+    ``state_dict_from_jax``.  Any other ``sd`` is returned as it is.
+    Without that file it raises ``RuntimeError``, naming it."""
+    built = [e for e in spec
+             if e[0] == "linear" and e[1].startswith("radio_xfusion.")]
+    placeholder = set(_entry_keys(RADIO_XFUSION_PLACEHOLDER))
+    have = {k for k in sd if k.startswith("radio_xfusion.")}
+    if (not built or have != placeholder
+            or {k for e in built for k in _entry_keys(e)} == placeholder):
+        return sd
+    n_seq = sum(e[2][-1].startswith("reduce_") and e[2][-1].endswith("_h")
+                for e in built)
+    flax_path = os.path.splitext(path)[0] + ".msgpack"
+    if not os.path.exists(flax_path):
+        raise RuntimeError(
+            f"{path} holds the reference's 4-sequence radio_xfusion "
+            f"placeholder where this {n_seq}-sequence tensor-fusion model's "
+            f"trained fusion should be (the JAX export writes it so); the "
+            f"trained fusion is read from the flax checkpoint beside it, "
+            f"{flax_path}, which does not exist")
+    fusion = state_dict_from_jax(built, msgpack_io.read(flax_path)["params"])
+    device = next(iter(sd.values())).device
+    out = OrderedDict((k, v) for k, v in sd.items() if k not in placeholder)
+    out.update((k, v.to(device)) for k, v in fusion.items())
+    return out

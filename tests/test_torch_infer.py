@@ -23,7 +23,8 @@ from multimodalfusion_tpu_torch.engine.train import (TrainConfig, build_model,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pandas", "h5py", "sklearn",
-             "tensorboardX", "multimodalfusion_tpu"}
+             "tensorboardX", "multimodalfusion_tpu", "yaml", "msgpack",
+             "cv2", "matplotlib"}
 
 
 def read_rows(path):
@@ -160,7 +161,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "models/modules.py", "utils/params.py", "data/bags.py",
                 "models/pretrained_heads.py", "engine/evaluate.py",
                 "cli/pre_trained_feature.py", "cli/main_pretrained.py",
-                "cli/eval_pretrained.py", "data/hdf5.py", "data/io.py"):
+                "cli/eval_pretrained.py", "data/hdf5.py", "data/io.py",
+                "interpret/__init__.py", "interpret/ig.py",
+                "utils/msgpack_io.py", "utils/yaml_subset.py",
+                "utils/table.py", "cli/create_attributions.py",
+                "cli/create_heatmaps.py"):
         assert os.path.join("multimodalfusion_tpu_torch", new) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]

@@ -7,6 +7,8 @@ gradients at rel 1e-4; five Adam steps from one JAX init give JAX's
 losses at rel 1e-4; checkpoints load strictly both ways, placeholders
 included.  The Kronecker radiology fusion runs at 2 sequences (17^2 = 289
 wide) for the steps and once at 4 (17^4 = 83,521 wide) for a forward."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -344,16 +346,20 @@ def test_checkpoints_load_strictly_both_ways(case, tmp_path):
         assert np.array_equal(np.asarray(a), np.asarray(c)), path
 
 
-def test_two_sequence_tensor_fusion_checkpoint(tmp_path):
-    """2 sequences, tensor fusion, the one interop limit: the JAX export
-    holds the reference's 4-sequence placeholder where the trained fusion
-    should be, so the port refuses it (size mismatch); the port's
-    checkpoint carries its trained radio_xfusion at its own shapes and
-    loads back into the port, while the JAX package imports every other
-    parameter from it and keeps its own radio_xfusion (its spec reads
-    nothing there)."""
-    b = inputs(7, 2)
-    jcfg, tcfg = config("radio_attention_mil", "radio", 2,
+@pytest.mark.parametrize("n_mod", [2, 3])
+def test_two_sequence_tensor_fusion_checkpoint(n_mod, tmp_path):
+    """2 or 3 sequences, tensor fusion: the JAX package's checkpoint
+    writer (its training's save_checkpoint) puts the reference's
+    4-sequence placeholder in the .pt where the trained fusion should be,
+    and the trained radio_xfusion in the flax msgpack beside it.  The port
+    loads the .pt with the fusion from the msgpack and gives JAX's outputs
+    at rel 1e-5; without the msgpack it refuses the .pt, naming the
+    missing file.  The port's own checkpoint carries its trained
+    radio_xfusion at its own shapes and loads back into the port, while
+    the JAX package imports every other parameter from it and keeps its
+    own radio_xfusion (its spec reads nothing there)."""
+    b = inputs(7, n_mod)
+    jcfg, tcfg = config("radio_attention_mil", "radio", n_mod,
                         radio_fusion="tensor")
     spec = tparams.spec_from_config(tcfg)
     jspec = torch_interop.spec_from_config(jcfg)
@@ -362,9 +368,21 @@ def test_two_sequence_tensor_fusion_checkpoint(tmp_path):
     assert not tparams.filler_keys(spec)
     jm = jtrain.build_model(jcfg)
     variables = jm.init(jax.random.PRNGKey(7), **jax_inputs(jcfg, b))
-    jax_pt = str(tmp_path / "jax.pt")
-    torch_interop.export_pt(jax_pt, jspec, variables)
-    with pytest.raises(RuntimeError, match="size mismatch"):
+    flax_ckpt = str(tmp_path / "s_0_minloss_checkpoint.msgpack")
+    jtrain.save_checkpoint(flax_ckpt, variables, jspec)
+    jax_pt = str(tmp_path / "s_0_minloss_checkpoint.pt")
+    assert tuple(torch.load(jax_pt, weights_only=True)[
+        "radio_xfusion.encoder1.0.weight"].shape) == (1024, 17 ** 4)
+    served = ttrain.load_checkpoint(ttrain.build_model(tcfg), jax_pt, spec)
+    want = jm.apply(variables, **jax_inputs(jcfg, b))
+    with torch.no_grad():
+        got = served.eval()(**port_inputs(tcfg, b))
+    for k in ("hazards", "S", "risk"):
+        close(got[k], want[k])
+    os.remove(flax_ckpt)
+    with pytest.raises(RuntimeError, match=(
+            f"{n_mod}-sequence .*/s_0_minloss_checkpoint.msgpack, which "
+            f"does not exist")):
         ttrain.load_checkpoint(ttrain.build_model(tcfg), jax_pt, spec)
 
     model = ttrain.build_model(tcfg, torch.Generator().manual_seed(1))
