@@ -117,6 +117,23 @@ Phases, each fatal on failure:
                 with the CTAs of the plan each launch ran (log line only),
                 and the host time per call of each wrapper against the
                 launch it wraps.
+  6. extract  -- radiology stage 1 on the card: a glioma cohort (8
+                subjects x 4 sequences of 155 x 240 x 240 int16 NIfTI) and
+                a lung cohort (2 DICOM series of 60 x 512 x 512 int16, one
+                JPEG Lossless SV1) written by the port's writers and run
+                through cli.feature_extraction in bf16 with seeded
+                --weights: no pooling launch, the C++ JPEG decoder used,
+                every h5 finite, the JPEG series' host preprocessing
+                timed step by step; the card's slice inputs equal the host
+                path bit for bit; f32 on the card against the CPU at rel
+                1e-3, bf16 against f32 at 2e-2; embed_images and trunk
+                images per second (bf16, f32) beside the bound of 6.556
+                GFLOP per image; the short last chunk padded or not;
+                cli.infer serves the glioma features with [radio]'s
+                RadioAMIL, one forward launch per batch, risks against the
+                plain pooling at rel 1e-4.  Alone (--phases extract) it
+                runs [radio] first for its experiment.  It runs last, after
+                every earlier phase.
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -1241,9 +1258,10 @@ RADIO_FLAGS = {
 }
 
 
-def _plain_outputs(exp, B, features=False):
+def _plain_outputs(exp, B, features=False, csv_path=None, data_dir=None):
     """The experiment's model (its minloss checkpoint) on every scoreable
-    subject of its cohort, pooling through the plain versions on the card:
+    subject of its cohort (or of ``csv_path``'s, with the bags of
+    ``data_dir``), pooling through the plain versions on the card:
     {subject: risk}, or {subject: 256-d embedding} with ``features``."""
     import torch
     from multimodalfusion_tpu_torch.cli import infer
@@ -1259,6 +1277,8 @@ def _plain_outputs(exp, B, features=False):
                                settings["data_root_dir"], 0)
     cfg = config_from_settings(settings, batch_size=B, omic_input_dim=(
         view.genomic_features.shape[1]))
+    if csv_path is not None:
+        view = infer._scored_split(settings, csv_path, data_dir, 0)
     model = ttrain.build_model(cfg).to(dev).eval()
     ttrain.load_checkpoint(model, os.path.join(
         exp, "s_0_minloss_checkpoint.pt"), spec_from_config(cfg))
@@ -1568,6 +1588,421 @@ def phase_radio(launch_counters, root=None):
     log("[radio] wall s: " + ", ".join(f"{k} {v:.3f}"
                                        for k, v in wall.items()))
     return launches, wall, exps
+
+
+# the glioma cohort of [extract]: the SRI24 grid of TCGA-GBM/LGG and BraTS
+# volumes (155 x 240 x 240 at 1 mm), in cli.feature_extraction's sequence
+# order; and a lung CT series (60 slices of 512 x 512, 2.5 mm x 0.7 mm)
+GLIOMA_SEQS = ("FLAIR", "T1", "T1Gd", "T2")
+GLIOMA_GRID = (155, 240, 240)
+LUNG_SERIES = (60, 512, 512)
+LUNG_SPACING = (2.5, 0.7, 0.7)
+
+
+def _seeded_resnet(seed):
+    """A torchvision-layout ResNet50 trunk state_dict from a CPU
+    torch.Generator: normal convs at the scale of torch's default init
+    (std 1 / sqrt(3 fan_in)), BatchNorm weights in [0.8, 1.2], biases and
+    running means near 0, running variances in [0.5, 1.5]."""
+    import math
+
+    import torch
+    from multimodalfusion_tpu_torch.models.resnet import ResNet50Trunc
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in ResNet50Trunc().state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if v.dim() == 4:
+            w = torch.randn(v.shape, generator=g) / math.sqrt(
+                3 * v[0].numel())
+        elif k.endswith("running_var"):
+            w = torch.rand(v.shape, generator=g) + 0.5
+        elif k.endswith("weight"):
+            w = torch.rand(v.shape, generator=g) * 0.4 + 0.8
+        else:
+            w = torch.randn(v.shape, generator=g) * 0.05
+        sd[k] = w
+    return sd
+
+
+def _write_glioma_cohort(root, sids, seed, grid=GLIOMA_GRID):
+    """Each subject's four MRI sequences: an ellipsoidal brain of
+    int16 intensities (a contrast per sequence) on a black background, in
+    the reference layout radio_dir/<subject>/<file>, FLAIR as .nii.gz
+    and the others as .nii, through the port's NIfTI writer, eight
+    volumes at a time.  Returns (radio_dir, csv_path)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from multimodalfusion_tpu_torch.data.nifti import write_nifti
+    radio_dir = os.path.join(root, "glioma_scans")
+
+    def volume(sid, k, seed):
+        rng = np.random.default_rng(seed)
+        Z, Y, X = grid
+        zz, yy, xx = np.ogrid[:Z, :Y, :X]
+        c = rng.normal([Z / 2, Y / 2, X / 2], 2)
+        r = rng.uniform([0.44, 0.36, 0.3], [0.47, 0.4, 0.34]) * grid
+        brain = (((zz - c[0]) / r[0]) ** 2 + ((yy - c[1]) / r[1]) ** 2
+                 + ((xx - c[2]) / r[2]) ** 2) <= 1
+        vol = np.where(brain, rng.integers(100 + 80 * k, 900 + 120 * k,
+                                           grid, dtype=np.int16), 0)
+        name = f"{sid}_{GLIOMA_SEQS[k]}.nii" + (".gz" if k == 0 else "")
+        write_nifti(os.path.join(radio_dir, sid, name), vol.astype(np.int16),
+                    origin_lps=(0.0, -239.0, 0.0))
+        return name
+
+    for sid in sids:
+        os.makedirs(os.path.join(radio_dir, sid))
+    # a subject's sequences share one brain: one seed per subject
+    seeds = np.random.default_rng(seed).integers(0, 2 ** 31, len(sids))
+    with ThreadPoolExecutor(8) as ex:
+        names = list(ex.map(lambda a: volume(*a),
+                            [(sid, k, int(s)) for sid, s in zip(sids, seeds)
+                             for k in range(4)]))
+    csv_path = os.path.join(root, "glioma.csv")
+    with open(csv_path, "w") as f:
+        f.write("subject_id," + ",".join(GLIOMA_SEQS) + "\n")
+        for i, sid in enumerate(sids):
+            f.write(sid + "," + ",".join(names[4 * i:4 * i + 4]) + "\n")
+    return radio_dir, csv_path
+
+
+def _lung_hu(seed, shape=LUNG_SERIES):
+    """A chest CT in Hounsfield units: outside air, an elliptical body of
+    soft tissue, two ellipsoidal lungs joined by an airway, noise."""
+    rng = np.random.default_rng(seed)
+    Z, H, W = shape
+    zz, yy, xx = np.ogrid[:Z, :H, :W]
+    vol = np.full(shape, -1000, np.int16)
+    body = (((yy - H / 2) / (H * 0.42)) ** 2
+            + ((xx - W / 2) / (W * 0.45)) ** 2) <= 1
+    vol[np.broadcast_to(body, shape)] = 40
+    lungs = np.zeros(shape, bool)
+    for cx in (0.32, 0.68):
+        lungs |= (((zz - Z / 2) / (Z * 0.45)) ** 2
+                  + ((yy - H / 2) / (H * 0.28)) ** 2
+                  + ((xx - W * cx) / (W * 0.13)) ** 2) <= 1
+    lungs[Z // 2 - 2:Z // 2 + 2, H // 2 - 3:H // 2 + 3,
+          int(W * 0.32):int(W * 0.68)] = True
+    vol[lungs & body] = -850
+    return vol + rng.integers(-20, 21, shape).astype(np.int16)
+
+
+def _write_lung_cohort(root, sids, seed, shape=LUNG_SERIES):
+    """One DICOM series per subject through the port's writer (stored
+    value HU + 1024, intercept -1024): the first uncompressed, the others
+    JPEG Lossless SV1, slices written eight at a time.  Returns
+    (radio_dir, csv_path, the HU volumes)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from multimodalfusion_tpu_torch.data import dicom
+    radio_dir = os.path.join(root, "lung_scans")
+    vols = {}
+    jobs = []
+    for i, sid in enumerate(sids):
+        vols[sid] = _lung_hu(seed + i, shape)
+        d = os.path.join(radio_dir, sid, "ct")
+        os.makedirs(d)
+        jobs += [(os.path.join(d, f"{z:03d}.dcm"), vols[sid][z], z,
+                  "jpeg_lossless" if i else None) for z in range(shape[0])]
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda j: dicom.write_ct_slice(
+            j[0], j[1] + 1024, z=LUNG_SPACING[0] * j[2],
+            spacing=LUNG_SPACING[1:], thickness=LUNG_SPACING[0],
+            intercept=-1024.0, compression=j[3]), jobs))
+    csv_path = os.path.join(root, "lung.csv")
+    with open(csv_path, "w") as f:
+        f.write("subject_id,CT\n" + "".join(f"{s},ct\n" for s in sids))
+    return radio_dir, csv_path, vols
+
+
+def _rel_fro(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _images_per_s(fn, n, reps=3):
+    """Images per second of ``fn`` (n images a call), CUDA events around
+    each of ``reps`` calls after one warm-up call; the best of them."""
+    import torch
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(stop) / 1e3)
+    return n / best
+
+
+def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
+                  n_lung=2):
+    """[extract] Radiology stage 1 on the card, through
+    cli.feature_extraction, then served:
+      - a glioma cohort (``n_glioma`` subjects x 4 sequences of 155 x 240
+        x 240 int16 NIfTI, FLAIR gzipped) and a lung cohort (``n_lung``
+        DICOM series of 60 x 512 x 512 int16, the first uncompressed, the
+        others JPEG Lossless SV1), through the port's writers;
+      - both extracted on the card in bf16 (the CLI's default) with
+        seeded --weights, TF32 left at torch's default (on): no pooling
+        kernel launches, the C++ JPEG decoder decodes every compressed
+        slice, every h5 and .pt is written and finite, the JPEG series
+        reads back to the HU volume written;
+      - the slice inputs made on the card equal the host path bit for bit;
+        the first 8 slices of one scan in f32 on the card (the embedder
+        turns TF32 off) against the CPU at rel (Frobenius) 1e-3; the
+        card's bf16 features of that scan against its f32 ones at 2e-2;
+      - Embedder.embed_images at 224 x 224, batch 128, bf16 and f32:
+        images per second (uint8 images from the host, and the trunk
+        alone on the card) beside the bound of the convolutions' 6.556
+        GFLOP per image over the type's peak; a scan's short last chunk
+        at its own size or padded to the batch, with and without cuDNN's
+        autotuning;
+      - cli.infer serves the glioma features with [radio]'s RadioAMIL
+        experiment (its stage-2 layout reads {root}/brain, a symlink to
+        the CLI's {root}/glioma), one forward launch per batch, risks
+        against the plain pooling on the card at rel 1e-4.
+    Returns the launch counts by run."""
+    import io
+
+    import torch
+    from multimodalfusion_tpu_torch import native
+    from multimodalfusion_tpu_torch.cli import feature_extraction, infer
+    from multimodalfusion_tpu_torch.data import ct_preprocess
+    from multimodalfusion_tpu_torch.data.io import load_features_h5, load_pt
+    from multimodalfusion_tpu_torch.data.radiology import (
+        preprocess_glioma_scan, slices_to_rgb)
+    from multimodalfusion_tpu_torch.extract.features import (Embedder,
+                                                             _fit_spatial)
+    from multimodalfusion_tpu_torch.models import resnet
+    wall, launches = {}, {}
+    none = {c.__name__: 0 for c in launch_counters}
+
+    def count():
+        return {c.__name__: c.launches for c in launch_counters}
+
+    with _workdir(root, "extract") as td:
+        t0 = time.perf_counter()
+        glioma_ids = [f"TCGA-GL-{i:04d}" for i in range(n_glioma)]
+        lung_ids = [f"LUNG-{i:03d}" for i in range(n_lung)]
+        g_dir, g_csv = _write_glioma_cohort(td, glioma_ids, seed=31)
+        l_dir, l_csv, lung_hu = _write_lung_cohort(td, lung_ids, seed=41)
+        state = _seeded_resnet(7)
+        weights = os.path.join(td, "resnet50_seeded.pt")
+        torch.save(state, weights)
+        wall["write_cohorts"] = time.perf_counter() - t0
+        log(f"[extract] wrote {n_glioma} glioma subjects x 4 sequences of "
+            f"{GLIOMA_GRID} int16 NIfTI and {n_lung} lung DICOM series of "
+            f"{LUNG_SERIES} int16 ({n_lung - 1} JPEG Lossless SV1) in "
+            f"{wall['write_cohorts']:.2f} s")
+
+        out = os.path.join(td, "features")
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True  # torch's default
+        try:
+            summaries = {}
+            for cancer, radio_dir, csv_path in (("glioma", g_dir, g_csv),
+                                                ("lung", l_dir, l_csv)):
+                for c in launch_counters:
+                    c.launches = 0
+                native.jpeg_lossless_decode.calls = 0
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = feature_extraction.main([
+                        "--radio_dir", radio_dir, "--csv_path", csv_path,
+                        "--output_dir", out, "--cancer_type", cancer,
+                        "--weights", weights, "--device", "cuda"])
+                torch.cuda.synchronize()
+                wall[f"extract_{cancer}"] = time.perf_counter() - t0
+                launches[cancer] = count()
+                text = buf.getvalue()
+                summaries[cancer] = [x for x in text.splitlines()
+                                     if x.startswith("stage 1 wall s")][0]
+                decodes = native.jpeg_lossless_decode.calls
+                log(f"[extract] cli.feature_extraction {cancer} (bf16): "
+                    f"{summaries[cancer]}; pooling launches "
+                    f"{launches[cancer]}; C++ JPEG decodes {decodes}")
+                if rc != 0 or "FAILED" in text or launches[cancer] != none:
+                    raise AssertionError(f"[extract] {cancer}: rc={rc}\n"
+                                         f"{text}")
+                want_decodes = (n_lung - 1) * LUNG_SERIES[0] \
+                    if cancer == "lung" else 0
+                if decodes != want_decodes:
+                    raise AssertionError(f"[extract] {decodes} C++ JPEG "
+                                         f"decodes, expected {want_decodes}")
+            # every file written, finite, slice ids increasing
+            n_h5 = 0
+            for cancer, seqs, ids in (("glioma", GLIOMA_SEQS, glioma_ids),
+                                      ("lung", ("CT",), lung_ids)):
+                for seq in seqs:
+                    for sid in ids:
+                        h5 = os.path.join(out, cancer, "radio_h5_files", seq,
+                                          f"{sid}.h5")
+                        f, si = load_features_h5(h5)
+                        pt = load_pt(h5.replace("radio_h5_files",
+                                                "radio_pt_files")
+                                     .replace(".h5", ".pt"))
+                        if (f.shape != (len(si), 1024) or len(si) < 50
+                                or si.dtype != np.int64
+                                or not np.all(np.diff(si) > 0)
+                                or not np.isfinite(f).all()
+                                or not np.array_equal(pt, f)):
+                            raise AssertionError(f"[extract] {h5}: "
+                                                 f"{f.shape} {si}")
+                        n_h5 += 1
+            # the JPEG series again, step by step as preprocess_lung_scan
+            # runs it (its orientation is the identity), on the host clock
+            jpeg_sid = lung_ids[-1]
+            t = [time.perf_counter()]
+            series = ct_preprocess.load_scan(os.path.join(l_dir, jpeg_sid,
+                                                          "ct"))
+            hu = ct_preprocess.get_pixels_hu(series)
+            t.append(time.perf_counter())
+            if not np.array_equal(hu, lung_hu[jpeg_sid]):
+                raise AssertionError("[extract] the JPEG series does not "
+                                     "read back to the volume written")
+            vol = np.maximum(hu, -1000)
+            res, _ = ct_preprocess.resample(
+                vol, (float(series[0].SliceThickness),
+                      *map(float, series[0].PixelSpacing)), (1.0, 1.5, 1.5))
+            t.append(time.perf_counter())
+            seg = ct_preprocess.lung_mask(res)
+            t.append(time.perf_counter())
+            ct_preprocess.largest_lung_box(res, seg)
+            t.append(time.perf_counter())
+            steps = np.diff(t)
+            log(f"[extract] {n_h5} h5 files (and their .pt copies) finite, "
+                f"slice ids increasing; the JPEG Lossless series reads back "
+                f"to the HU volume written.  Its host preprocessing, step by "
+                f"step (s): read and decode {steps[0]:.3f}, cubic resample "
+                f"to {res.shape} {steps[1]:.3f}, lung segmentation "
+                f"{steps[2]:.3f}, boxes {steps[3]:.3f}")
+
+            # card against the host and the CPU, on one glioma scan
+            scan = os.path.join(g_dir, glioma_ids[0],
+                                f"{glioma_ids[0]}_T1.nii")
+            slices, ids = preprocess_glioma_scan(scan)
+            gpu32 = Embedder(state_dict=state, dtype="float32")
+            cpu32 = Embedder(state_dict=state, dtype="float32", device="cpu")
+            host = resnet.preprocess_images(torch.from_numpy(_fit_spatial(
+                slices_to_rgb(slices[:8]), 224)))
+            same_inputs = torch.equal(gpu32.slice_inputs(slices[:8]).cpu(),
+                                      host)
+            tf32_outside = torch.backends.cudnn.allow_tf32
+            with gpu32._compute():
+                tf32_inside = torch.backends.cudnn.allow_tf32
+            e_cpu = _rel_fro(gpu32.embed_slices(slices[:8]),
+                             cpu32.embed_slices(slices[:8]))
+            f32 = gpu32.embed_slices(slices)
+            bf16, h5_ids = load_features_h5(os.path.join(
+                out, "glioma", "radio_h5_files", "T1",
+                f"{glioma_ids[0]}.h5"))
+            e_bf16 = _rel_fro(bf16, f32)
+            log(f"[extract] {glioma_ids[0]} T1 ({len(ids)} slices): card "
+                f"slice inputs equal the host path's bit for bit: "
+                f"{same_inputs}; f32 card vs CPU (first 8 slices, TF32 "
+                f"{tf32_inside} inside the f32 embedder, {tf32_outside} "
+                f"outside): "
+                f"rel {e_cpu:.2e} (tol 1e-3); bf16 (the CLI's h5) vs f32 on "
+                f"the card: rel {e_bf16:.2e} (tol 2e-2)")
+            if not same_inputs or tf32_inside or e_cpu > 1e-3 \
+                    or e_bf16 > 2e-2 or not np.array_equal(h5_ids, ids):
+                raise AssertionError("[extract] card vs CPU or bf16 vs f32")
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+
+        # throughput beside the bound of the trunk's convolutions
+        flops = resnet.conv_flops(resnet.ResNet50Trunc())
+        imgs = np.random.default_rng(5).integers(0, 256, (1024, 224, 224, 3),
+                                                 dtype=np.uint8)
+        for dtype in ("bfloat16", "float32"):
+            emb = Embedder(state_dict=state, dtype=dtype, batch_size=128)
+            x = emb._prepare_images(torch.from_numpy(imgs[:128]).cuda())
+
+            def trunk():
+                with torch.inference_mode(), emb._compute():
+                    emb.model(x)
+            bound = PEAK_FLOPS[dtype] / flops
+            r = {"embed_images": _images_per_s(
+                     lambda: emb.embed_images(imgs), len(imgs)),
+                 "trunk": _images_per_s(trunk, 128, reps=5)}
+            log(f"[extract] {dtype} batch 128 at 224 x 224: embed_images "
+                f"(uint8 from the host) {r['embed_images']:.0f} images/s "
+                f"({1e6 / r['embed_images']:.2f} us an image, "
+                f"{r['embed_images'] / bound:.1%} of the bound), trunk on "
+                f"the card {r['trunk']:.0f} images/s "
+                f"({1e6 / r['trunk']:.2f} us, {r['trunk'] / bound:.1%}); "
+                f"bound {bound:.0f} images/s ({1e6 / bound:.2f} us) = "
+                f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s / "
+                f"{flops / 1e9:.3f} GFLOP per image")
+        if abs(flops / 6.556e9 - 1) > 5e-4:
+            raise AssertionError(f"[extract] {flops} conv FLOP per image")
+
+        # a scan's short last chunk at its own size (the embedder's way) or
+        # padded with black slices to the batch (JAX's way), with cuDNN's
+        # autotuning off (torch's default) and on, on three scans
+        scans = [preprocess_glioma_scan(os.path.join(
+            g_dir, sid, f"{sid}_T2.nii"))[0] for sid in glioma_ids[1:4]]
+        emb = Embedder(state_dict=state)
+        bench = torch.backends.cudnn.benchmark
+        try:
+            for pad, autotune in ((False, False), (True, False),
+                                  (True, True), (False, True)):
+                torch.backends.cudnn.benchmark = autotune
+                times = []
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    for sl in scans:
+                        if pad:
+                            sl = np.concatenate([sl, np.zeros(
+                                (-len(sl) % 128,) + sl.shape[1:],
+                                sl.dtype)])
+                        emb.embed_slices(sl)
+                    times.append(time.perf_counter() - t0)
+                log(f"[extract] bf16 embed_slices of 3 scans "
+                    f"({'+'.join(str(len(sl)) for sl in scans)} slices), "
+                    f"{'padded to 128' if pad else 'unpadded'}, cuDNN "
+                    f"autotuning {'on' if autotune else 'off'}: first "
+                    f"{times[0] * 1e3:.1f} ms, again {times[1] * 1e3:.1f} ms")
+        finally:
+            torch.backends.cudnn.benchmark = bench
+
+        # serving: the [radio] experiment on the extracted features
+        os.symlink(os.path.join(out, "glioma"), os.path.join(out, "brain"))
+        risks = os.path.join(td, "risks.csv")
+        for c in launch_counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = infer.main(["--model_path", radio_exp, "--which_k", "0",
+                         "--csv", g_csv, "--data_root_dir",
+                         os.path.join(out, "brain"), "--out", risks,
+                         "--batch_size", "8", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall["serve"] = time.perf_counter() - t0
+        launches["serve"] = count()
+        served = {r["subject_id"]: float(r["risk"]) for r in _csv_rows(risks)}
+        plain = _plain_outputs(radio_exp, 8, csv_path=g_csv,
+                               data_dir=os.path.join(out, "brain"))
+        err = max(abs(served[k] - float(v)) / abs(float(v))
+                  for k, v in plain.items())
+        want = dict(none, _fused_pool_cuda=-(-n_glioma // 8))
+        log(f"[extract] cli.infer of [radio]'s RadioAMIL on the extracted "
+            f"glioma features: {len(served)} subjects in "
+            f"{wall['serve']:.2f} s, launches {launches['serve']} (expected "
+            f"{want}); risks vs the plain pooling on the card: max rel err "
+            f"{err:.2e} (tol 1e-4)")
+        if rc != 0 or sorted(served) != sorted(glioma_ids) \
+                or sorted(plain) != sorted(glioma_ids) \
+                or launches["serve"] != want or err > 1e-4:
+            raise AssertionError("[extract] serving the extracted features "
+                                 "failed")
+    log(f"[extract] wall s ({_card()}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in wall.items()))
+    return launches
 
 
 def _card() -> str:
@@ -2217,7 +2652,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
-                         "slice,train,omic,pretrained,radio,interpret,timing "
+                         "slice,train,omic,pretrained,radio,extract,"
+                         "interpret,timing "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -2260,8 +2696,9 @@ def _partial(phases, counters, work, t_all) -> int:
                              omic_args, work)
         else:
             phase_pretrained(counters, root=work)
-    if "radio" in phases or "interpret" in phases:
-        # [interpret] alone first writes and trains its own radio cohort
+    if {"radio", "extract", "interpret"} & set(phases):
+        # [extract] and [interpret] alone first write and train their own
+        # radio cohort
         _, _, radio_exps = phase_radio(counters, work)
     if "interpret" in phases:
         phase_interpret(counters, radio_exps, work)
@@ -2270,6 +2707,8 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_timing_radio()
         if "train" in phases:
             phase_step_breakdown(cfg, batches, host_ms)
+    if "extract" in phases:
+        phase_extract(counters, radio_exps["radio"], work)
     log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
         f"no result)")
     return 0
@@ -2306,6 +2745,10 @@ def _full(counters, work, t_all) -> int:
     timing_radio = phase_timing_radio()
     step = phase_step_breakdown(cfg, batches, host_ms)
     log(f"[timing] done in {time.perf_counter() - t:.1f} s")
+    # stage 1 last, after every earlier phase, on [radio]'s experiment
+    t = time.perf_counter()
+    extract_launches = phase_extract(counters, radio_exps["radio"], work)
+    log(f"[extract] done in {time.perf_counter() - t:.1f} s")
     # the headline variant of each kernel: the forward as serving and
     # evaluation run it (f32, no dropout), the backward as the training
     # CLI runs it (f32, --drop_out)
@@ -2334,6 +2777,8 @@ def _full(counters, work, t_all) -> int:
             entry[f"launches_radio_{path}"] = counts[counter_of[name]]
         for path, counts in interpret_launches.items():
             entry[f"launches_interpret_{path}"] = counts[counter_of[name]]
+        for path, counts in extract_launches.items():
+            entry[f"launches_extract_{path}"] = counts[counter_of[name]]
         entries.append(entry)
     log(f"[timing] train step ms {json.dumps(step)}")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

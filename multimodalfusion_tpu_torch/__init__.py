@@ -3,7 +3,9 @@
 The port keeps the JAX package's module names so each counterpart is easy
 to find, imports nothing of the JAX package, and runs on ``cuda`` unless
 the caller asks for the CPU (``device="cpu"``, ``--device cpu``).  It
-trains the stage-2 models over radiology, pathology and genomics
+extracts the ResNet50 features of radiology scans (stage 1,
+``cli/feature_extraction.py``), trains the stage-2 models over
+radiology, pathology and genomics
 (``cli/main.py``), serves them without labels (``cli/infer.py``),
 extracts their embeddings (stage 3) and trains, scores and serves the
 stage-4 heads over them; ROADMAP.md lists what comes next.

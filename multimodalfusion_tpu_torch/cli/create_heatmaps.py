@@ -19,11 +19,11 @@ create_heatmaps.py; the config's sections as in
   ``omic_attr_global.csv``.
 
 The CSVs have pandas' layout, the JAX CLI's columns and row order.  What
-needs a slide reader, stage-1 preprocessing or an image library is not
-ported (the machine with the card has none of OpenCV, openslide, PIL or
-matplotlib): the ``path`` branch and the radio branch's slice images
-(``scan_list``) raise ``NotImplementedError`` before any work, naming
-ROADMAP.md port queue item 6; the omic branch writes no figures and says
+needs a slide reader or an image library is not ported (the machine with
+the card has none of OpenCV, openslide, PIL or matplotlib): the ``path``
+branch and the radio branch's slice images (``scan_list``) raise
+``NotImplementedError`` before any work, naming ROADMAP.md port queue
+item 6d or 6b; the omic branch writes no figures and says
 so after its CSVs.  The weights come from ``s_{k}_minloss_checkpoint.pt``
 (``model_arguments.which_k``).  Stock torch ops: no kernel.  Runs on
 ``cuda`` unless ``--device cpu`` is given.
@@ -60,8 +60,8 @@ from multimodalfusion_tpu_torch.utils.experiment import (config_from_settings,
 from multimodalfusion_tpu_torch.utils.params import spec_from_config
 from multimodalfusion_tpu_torch.utils.table import write_csv
 
-_STAGE1 = "ROADMAP.md, port queue item 6 (slide reader, ResNet50, stage-1 " \
-          "preprocessing)"
+_IMAGES = "ROADMAP.md, port queue item 6b, its image half"
+_WSI = "ROADMAP.md, port queue item 6d"
 
 
 def build_parser():
@@ -147,8 +147,8 @@ def _column(csv_path: str, name: str):
 def run_path_branch(cfg_ns, device) -> int:
     raise NotImplementedError(
         f"the path branch (attention heatmaps over a slide, patch "
-        f"sampling) needs a slide reader, OpenCV and the ResNet50 "
-        f"extractor: not ported yet ({_STAGE1})")
+        f"sampling) needs a slide reader and OpenCV: not ported yet "
+        f"({_WSI})")
 
 
 def run_radio_branch(cfg_ns, device) -> int:
@@ -156,8 +156,8 @@ def run_radio_branch(cfg_ns, device) -> int:
     if getattr(d, "scan_list", None):
         raise NotImplementedError(
             f"data_arguments.scan_list: the top/low slice images need "
-            f"stage-1 scan preprocessing and an image writer: not ported "
-            f"yet ({_STAGE1})")
+            f"OpenCV's resize and blur and an image writer: not ported "
+            f"yet ({_IMAGES})")
     save_dir = ensure_dir(cfg_ns.exp_arguments.save_dir)
     subjects = _column(d.process_list, "subject_id")
     modalities = list(getattr(d, "modalities",

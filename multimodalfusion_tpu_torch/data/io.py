@@ -21,14 +21,14 @@ def save_hdf5(output_path: str, asset_dict: Dict[str, np.ndarray],
               attr_dict: Optional[dict] = None, mode: str = "w") -> str:
     """Write a new feature h5 holding one dataset per entry of
     ``asset_dict`` (contiguous; the JAX writer makes chunked resizable
-    ones, which read back the same).  Only mode ``"w"``: the JAX writer's
-    append mode and dataset attributes serve stage-1 extraction, which is
-    not ported yet (ROADMAP.md, port queue item 6)."""
+    ones, which read back the same).  Only mode ``"w"``: no caller of the
+    JAX writer appends, and its dataset attributes serve WSI patching,
+    which is not ported yet (ROADMAP.md, port queue item 6d)."""
     if mode != "w" or attr_dict:
         raise NotImplementedError(
             "save_hdf5 writes new files without attributes (mode 'w'); "
-            "appending and attributes come with stage-1 extraction "
-            "(ROADMAP.md, port queue item 6)")
+            "attributes come with WSI patching (ROADMAP.md, port queue "
+            "item 6d)")
     return hdf5.write(output_path, asset_dict)
 
 

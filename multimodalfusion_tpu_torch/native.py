@@ -1,5 +1,6 @@
 """The port's native host library (``csrc/bagio.cpp``): threaded
-collation of ragged bags into a padded batch.
+collation of ragged bags into a padded batch, and the entropy decode of
+lossless-JPEG DICOM frames.
 
 The library is built with g++ at its first use into
 ``<checkout>/build/native/bagio-<hash>.so``, where the hash covers the
@@ -66,6 +67,11 @@ def lib() -> ctypes.CDLL:
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_int]
             loaded.mmf_pad_bags_f32.restype = None
+            loaded.mmf_jpeg_lossless_decode.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
+            loaded.mmf_jpeg_lossless_decode.restype = ctypes.c_int
             _lib = loaded
         return _lib
 
@@ -98,3 +104,24 @@ def pad_bags_into(bags: Sequence[Optional[np.ndarray]], out: np.ndarray,
         lens[i] = b.shape[0]
     lib().mmf_pad_bags_f32(ptrs, lens, B, n_pad, D, out.ctypes.data,
                            mask.ctypes.data, 0)
+
+
+def jpeg_lossless_decode(entropy: bytes, counts: bytes, symbols: bytes,
+                         rows: int, cols: int, psv: int,
+                         default_pred: int) -> Optional[np.ndarray]:
+    """T.81 process-14 entropy decode and prediction of one frame (JAX
+    native.py:133-150): the entropy-coded bytes with the stuffing removed,
+    the DHT's 16 code counts and its symbols (their lengths checked by the
+    caller), the predictor selection value and the first sample's
+    prediction.  Returns uint16 [rows, cols] without the point transform,
+    or None when the stream is malformed (the caller then raises the
+    precise error).  Counts one call in ``jpeg_lossless_decode.calls``."""
+    out = np.empty((rows, cols), np.uint16)
+    rc = lib().mmf_jpeg_lossless_decode(
+        bytes(entropy), len(entropy), bytes(counts), bytes(symbols), rows,
+        cols, psv, default_pred, out.ctypes.data)
+    jpeg_lossless_decode.calls += 1
+    return out if rc == 0 else None
+
+
+jpeg_lossless_decode.calls = 0

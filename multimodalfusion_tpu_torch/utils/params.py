@@ -35,6 +35,7 @@ import torch
 
 from multimodalfusion_tpu_torch.models.pretrained_heads import (
     LATE_NAMES, is_nll, present_modalities)
+from multimodalfusion_tpu_torch.models.resnet import STAGE_SIZES
 from multimodalfusion_tpu_torch.utils import msgpack_io
 
 Entry = Tuple
@@ -463,3 +464,44 @@ def with_trained_radio_fusion(sd: Mapping, spec: Sequence[Entry],
     out = OrderedDict((k, v) for k, v in sd.items() if k not in placeholder)
     out.update((k, v.to(device)) for k, v in fusion.items())
     return out
+
+
+# ---------------------------------------------------------------------------
+# the truncated ResNet50 of stage 1
+# ---------------------------------------------------------------------------
+
+def resnet_state_dict_from_flax(variables: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """The torchvision-layout state_dict of the JAX package's
+    ``ResNet50Trunc`` variables ({'params', 'batch_stats'}): the inverse
+    of JAX ``port_torch_state_dict`` (models/resnet.py:139-182).  Conv
+    kernels HWIO -> OIHW; BatchNorm ``scale``/``bias`` -> ``weight``/
+    ``bias`` and ``mean``/``var`` -> ``running_mean``/``running_var``.
+    The stem kernel has its canonical [7, 7, 3, 64] shape whether or not
+    the JAX model ran the space-to-depth stem."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+
+    def conv(torch_key, node):
+        sd[torch_key] = _tensor(np.transpose(np.asarray(node["kernel"]),
+                                             (3, 2, 0, 1)))
+
+    def bn(torch_prefix, path):
+        p, s = _at(params, path), _at(stats, path)
+        sd[f"{torch_prefix}.weight"] = _tensor(p["scale"])
+        sd[f"{torch_prefix}.bias"] = _tensor(p["bias"])
+        sd[f"{torch_prefix}.running_mean"] = _tensor(s["mean"])
+        sd[f"{torch_prefix}.running_var"] = _tensor(s["var"])
+
+    conv("conv1.weight", params["conv1"])
+    bn("bn1", ["bn1"])
+    for stage, n_blocks in enumerate(STAGE_SIZES, start=1):
+        for i in range(n_blocks):
+            t, f = f"layer{stage}.{i}", f"layer{stage}_{i}"
+            for c in (1, 2, 3):
+                conv(f"{t}.conv{c}.weight", params[f][f"conv{c}"])
+                bn(f"{t}.bn{c}", [f, f"bn{c}"])
+            if "downsample_conv" in params[f]:
+                conv(f"{t}.downsample.0.weight", params[f]["downsample_conv"])
+                bn(f"{t}.downsample.1", [f, "downsample_bn"])
+    return sd

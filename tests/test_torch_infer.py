@@ -24,7 +24,7 @@ from multimodalfusion_tpu_torch.engine.train import (TrainConfig, build_model,
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pandas", "h5py", "sklearn",
              "tensorboardX", "multimodalfusion_tpu", "yaml", "msgpack",
-             "cv2", "matplotlib"}
+             "cv2", "matplotlib", "PIL", "pydicom", "torchvision"}
 
 
 def read_rows(path):
@@ -165,7 +165,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "interpret/__init__.py", "interpret/ig.py",
                 "utils/msgpack_io.py", "utils/yaml_subset.py",
                 "utils/table.py", "cli/create_attributions.py",
-                "cli/create_heatmaps.py"):
+                "cli/create_heatmaps.py", "models/resnet.py",
+                "extract/__init__.py", "extract/features.py",
+                "data/nifti.py", "data/ct_preprocess.py", "data/dicom.py",
+                "data/radiology.py", "cli/feature_extraction.py"):
         assert os.path.join("multimodalfusion_tpu_torch", new) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]

@@ -367,3 +367,42 @@ def test_csv_writer_and_group_means_match_pandas(tmp_path):
         assert means["v"].dtype == want["v"].dtype == np.float32
         np.testing.assert_allclose(means["v"], want["v"].to_numpy(),
                                    rtol=1e-6)
+
+
+def test_create_attributions_with_numeric_ids_matches_jax(tmp_path):
+    """A cohort whose subject ids are all numbers, of 1 to 3 digits (text
+    order differs from numeric order): both CLIs write the same rows of
+    attr.csv and attr_orig.csv in the same (numeric) order, at rel 1e-4."""
+    _, df, latent = make_cohort_csv(str(tmp_path / "dataset_csv" / "brain"),
+                                    n=20, seed=21, modalities=["T1", "T2"])
+    ids = [str(5 + 13 * i) for i in range(20)]
+    df["subject_id"] = ids
+    df["slide_id"] = [f"{s}-SLIDE.svs" for s in ids]
+    df.to_csv(tmp_path / "dataset_csv" / "brain" / "survival.csv",
+              index=False)
+    make_pretrained_store(str(tmp_path / "features" / "brain"), df, latent,
+                          seed=21)
+    make_splits(str(tmp_path / "splits" / "brain" / "2foldcv"), df, k=2,
+                seed=21)
+    assert jax_stage4([
+        "--cancer_type", "brain", "--which_splits", "2foldcv", "--k", "2",
+        "--data_root_dir", str(tmp_path / "features"),
+        "--dataset_root", str(tmp_path / "dataset_csv"),
+        "--splits_root", str(tmp_path / "splits"), "--overwrite",
+        "--lr", "1e-3", "--results_dir", str(tmp_path / "s4"),
+        "--model_type", "mm_attention_mil", "--mode", "radio_path_omic",
+        "--train_type", "early-fcnn", "--bag_loss", "nll_surv",
+        "--batch_size", "8", "--max_epochs", "1"]) == 0
+    exp = next((tmp_path / "s4" / "brain" / "2foldcv").iterdir())
+    args = ["--model_path", str(exp), "--batch_size", "8"]
+    assert jax_attr(args + ["--save_dir", str(tmp_path / "jax")]) == 0
+    assert port_attr(args + ["--save_dir", str(tmp_path / "port"),
+                             "--device", "cpu"]) == 0
+    sub = os.path.join("brain", "2foldcv", exp.name)
+    for name in ("attr.csv", "attr_orig.csv"):
+        same_csv(tmp_path / "port" / sub / name, tmp_path / "jax" / sub / name,
+                 {"subject_id"})
+    _, rows = read(tmp_path / "port" / sub / "attr.csv")
+    got = [int(r[0]) for r in rows]
+    assert got == sorted(got) and [str(i) for i in got] != sorted(
+        str(i) for i in got)
