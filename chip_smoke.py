@@ -132,8 +132,24 @@ Phases, each fatal on failure:
                 cli.infer serves the glioma features with [radio]'s
                 RadioAMIL, one forward launch per batch, risks against the
                 plain pooling at rel 1e-4.  Alone (--phases extract) it
-                runs [radio] first for its experiment.  It runs last, after
+                runs [radio] first for its experiment.  It runs after
                 every earlier phase.
+  7. gradcam  -- stage 5's radiology images on [extract]'s glioma cohort
+                and [radio]'s RadioAMIL: cli.create_heatmaps radio with a
+                scan_list (4 subjects, T1 and FLAIR displayed; no launch;
+                every slice PNG read back equal to its preprocessed
+                slice); cli.gradcam cohort, top slices, aug-smooth, 4
+                subjects x 4 sequences (6 forward and 6 backward launches
+                a scan); one scan's CamRunner through the kernels against
+                the plain pooling on the card (CAMs at atol 1e-4, the
+                AMIL's risk at rel 1e-5); --all_slices on one subject's
+                T1 (its volume finite, in [0, 1]); single-scan lung on a DICOM series (the CAM
+                inside the lung mask over twice the CAM outside); an
+                8-slice glioma scan at 96 x 96 on the card against the CPU
+                (cam_volume at atol 1e-4); card time per CAM image against
+                the f32 trunk's bound and the pooling kernels' share of a
+                CAM pass.  Alone (--phases gradcam) it runs [radio] and
+                [extract] first.  It runs last.
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -1081,7 +1097,7 @@ def phase_pretrained(launch_counters, path_exp=None, omic_exp=None,
     from multimodalfusion_tpu_torch.data.loaders import usable_indices
     from multimodalfusion_tpu_torch.data.survival_dataset import \
         SurvivalDataset
-    from multimodalfusion_tpu_torch.utils.experiment import read_settings
+    from multimodalfusion_tpu_torch.utils.experiment import read_experiment
     B3, B4, n_keep = 8, 16, 24
     wall, launches = {}, {}
 
@@ -1108,8 +1124,7 @@ def phase_pretrained(launch_counters, path_exp=None, omic_exp=None,
             log(f"[pretrained] trained its own stage-2 path and omic "
                 f"experiments in {time.perf_counter() - t0:.1f} s")
         out = os.path.join(td, "pretrained_feature")
-        settings = read_settings(os.path.join(
-            path_exp, f"experiment_{os.path.basename(path_exp)}.txt"))
+        settings = read_experiment(path_exp)
         subjects = SurvivalDataset(settings["csv_path"], "path").patients
         keep = os.path.join(td, "keep.csv")
         with open(keep, "w") as f:
@@ -1268,11 +1283,10 @@ def _plain_outputs(exp, B, features=False, csv_path=None, data_dir=None):
     from multimodalfusion_tpu_torch.data.loaders import iter_batches
     from multimodalfusion_tpu_torch.engine import train as ttrain
     from multimodalfusion_tpu_torch.utils.experiment import (
-        config_from_settings, read_settings)
+        config_from_settings, read_experiment)
     from multimodalfusion_tpu_torch.utils.params import spec_from_config
     dev = torch.device("cuda")
-    settings = read_settings(os.path.join(
-        exp, f"experiment_{os.path.basename(exp)}.txt"))
+    settings = read_experiment(exp)
     view = infer._scored_split(settings, settings["csv_path"],
                                settings["data_root_dir"], 0)
     cfg = config_from_settings(settings, batch_size=B, omic_input_dim=(
@@ -1322,9 +1336,8 @@ def _as_jax_export(exp):
     from multimodalfusion_tpu_torch.utils import msgpack_io
     from multimodalfusion_tpu_torch.utils import params as pm
     from multimodalfusion_tpu_torch.utils.experiment import (
-        config_from_settings, read_settings)
-    settings = read_settings(os.path.join(
-        exp, f"experiment_{os.path.basename(exp)}.txt"))
+        config_from_settings, read_experiment)
+    settings = read_experiment(exp)
     spec = pm.spec_from_config(config_from_settings(settings))
     pt = os.path.join(exp, "s_0_minloss_checkpoint.pt")
     sd = torch.load(pt, weights_only=True)
@@ -1765,7 +1778,9 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
         experiment (its stage-2 layout reads {root}/brain, a symlink to
         the CLI's {root}/glioma), one forward launch per batch, risks
         against the plain pooling on the card at rel 1e-4.
-    Returns the launch counts by run."""
+    Returns the launch counts by run and what [gradcam] reads: the glioma
+    and lung scans, their ids, the extracted features and the weights
+    (kept under ``root``)."""
     import io
 
     import torch
@@ -2002,6 +2017,291 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
                                  "failed")
     log(f"[extract] wall s ({_card()}): " + ", ".join(
         f"{k} {v:.3f}" for k, v in wall.items()))
+    return launches, {"glioma_dir": g_dir, "glioma_csv": g_csv,
+                      "glioma_ids": glioma_ids,
+                      "lung_dir": l_dir, "lung_ids": lung_ids,
+                      "features": os.path.join(out, "glioma"),
+                      "weights": weights}
+
+
+# the kernels of this repo, by the names torch.profiler gives them
+POOL_KERNELS = ("pool_partial_f32_kernel", "pool_partial_bf16_kernel",
+                "pool_merge_kernel", "bwd_rows_kernel", "bwd_dh_kernel",
+                "bwd_dw_partial_kernel", "bwd_vec_partial_kernel",
+                "bwd_reduce_kernel")
+
+
+def phase_gradcam(launch_counters, radio_exp, cohort, root=None,
+                  n_subjects=4):
+    """[gradcam] Stage 5's radiology images on the card, on [extract]'s
+    glioma cohort (its scans, its h5 features and its seeded --weights)
+    and [radio]'s RadioAMIL (4 sequences, concat, gated, D = Da = 256),
+    TF32 left at torch's default (on) for cuDNN; the launch counters reset
+    just before each run and read just after:
+      - cli.create_heatmaps radio with a scan_list and a 2-sequence
+        display_modality on ``n_subjects`` subjects: no launch; every PNG
+        read back by utils/png.read_png equals the preprocessed slice made
+        uint8;
+      - cli.gradcam cohort, top slices by that scores.csv, aug-smooth on,
+        on the same subjects x 4 sequences: 6 forward and 6 backward
+        launches a scan; every overlay read back;
+      - one scan's CamRunner through the kernels and through the plain
+        pooling on the card: CAMs (the backward kernel's dh) at atol 1e-4,
+        and the AMIL's risk on the scan's layer3 maps (the forward
+        kernel's output) at rel 1e-5;
+      - --all_slices on one subject's T1: its NIfTI finite and in [0, 1];
+      - single-scan lung on one DICOM series: 6 / 6 launches, the mean CAM
+        inside the lung mask more than twice the mean outside (the CLI
+        zeroes the CAM outside the mask before its blur: this holds that
+        the mask was applied and left a CAM inside);
+      - single-scan glioma of 8 slices at --image_size 96 on the card and
+        on the CPU: cam_volume.nii.gz at atol 1e-4;
+      - card time per CAM image (one trunk forward, the head's forward and
+        backward: CUDA events over one aug variant of a scan) beside the
+        f32 trunk's bound, and the pooling kernels' share of that pass
+        (torch.profiler).
+    Returns the launch counts by run."""
+    import torch
+    from multimodalfusion_tpu_torch.cli import create_heatmaps
+    from multimodalfusion_tpu_torch.cli import gradcam as gc
+    from multimodalfusion_tpu_torch.data.nifti import read_nifti, write_nifti
+    from multimodalfusion_tpu_torch.data.radiology import (
+        preprocess_glioma_scan, preprocess_lung_scan)
+    from multimodalfusion_tpu_torch.models import resnet
+    from multimodalfusion_tpu_torch.utils.experiment import read_experiment
+    from multimodalfusion_tpu_torch.utils.png import read_png
+    wall, launches = {}, {}
+    none = {c.__name__: 0 for c in launch_counters}
+
+    def per_scan(n):
+        return {"_fused_pool_cuda": 6 * n, "_fused_pool_bwd_cuda": 6 * n}
+
+    def run(stage, fn, argv, want):
+        for c in launch_counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = fn(argv)
+        torch.cuda.synchronize()
+        wall[stage] = time.perf_counter() - t0
+        launches[stage] = {c.__name__: c.launches for c in launch_counters}
+        log(f"[gradcam] {stage}: rc {rc}, {wall[stage]:.2f} s, launches "
+            f"{launches[stage]} (expected {want})")
+        if rc != 0 or launches[stage] != want:
+            raise AssertionError(f"[gradcam] {stage} failed")
+
+    g_dir, sids = cohort["glioma_dir"], cohort["glioma_ids"][:n_subjects]
+    weights = cohort["weights"]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default
+    try:
+        with _workdir(root, "gradcam") as td:
+            # the scan list with paths relative to the scans' directory
+            names = {r["subject_id"]: r
+                     for r in _csv_rows(cohort["glioma_csv"])}
+            scans = os.path.join(td, "scans.csv")
+            with open(scans, "w") as f:
+                f.write("subject_id," + ",".join(GLIOMA_SEQS) + "\n")
+                for sid in sids:
+                    f.write(sid + "," + ",".join(
+                        f"{sid}/{names[sid][m]}" for m in GLIOMA_SEQS)
+                        + "\n")
+            subjects = os.path.join(td, "subjects.csv")
+            with open(subjects, "w") as f:
+                f.write("subject_id\n" + "".join(f"{s}\n" for s in sids))
+            heat = os.path.join(td, "heatmap")
+            config = os.path.join(td, "heatmap.yaml")
+            with open(config, "w") as f:
+                f.write(f"exp_arguments:\n  branch: radio\n  save_dir: "
+                        f"'{heat}'\ndata_arguments:\n  process_list: "
+                        f"'{subjects}'\n  feat_dir: '{cohort['features']}'\n"
+                        f"  modalities: [{', '.join(RADIO_SEQS)}]\n"
+                        f"  scan_list: '{scans}'\n  scan_dir: '{g_dir}'\n"
+                        f"  display_modality: [T1, FLAIR]\n"
+                        f"model_arguments:\n  ckpt_path: '{radio_exp}'\n"
+                        f"  which_k: 0\n")
+            run("heatmap_scan_list", create_heatmaps.main,
+                ["--config", config, "--device", "cuda"], none)
+            n_png = 0
+            for sid in sids:
+                for m in ("T1", "FLAIR"):
+                    slices, ids = preprocess_glioma_scan(os.path.join(
+                        g_dir, sid, names[sid][m]))
+                    at = {int(s): i for i, s in enumerate(ids)}
+                    for group in ("top", "low"):
+                        d = os.path.join(heat, sid, m, group)
+                        for name in os.listdir(d):
+                            i = at[int(name[5:name.index("_a")])]
+                            want = (np.clip(slices[i], 0, 1) * 255).astype(
+                                np.uint8)
+                            if not np.array_equal(read_png(
+                                    os.path.join(d, name)), want):
+                                raise AssertionError(f"[gradcam] {d}/{name}")
+                            n_png += 1
+            want = 2 * sum(r["group"] != "mid" for r in _csv_rows(
+                os.path.join(heat, "scores.csv")))
+            log(f"[gradcam] create_heatmaps scan_list: {n_png} slice PNGs "
+                f"(expected {want}) of {n_subjects} subjects x T1, FLAIR "
+                f"read back equal to their preprocessed slices")
+            if n_png != want:
+                raise AssertionError(f"[gradcam] {n_png} slice PNGs")
+
+            common = ["--ckpt_path", radio_exp, "--weights", weights,
+                      "--device", "cuda"]
+            top = os.path.join(td, "top")
+            run("cohort_top", gc.main, common + [
+                "--csv_path", scans, "--radio_dir", g_dir, "--scores_csv",
+                os.path.join(heat, "scores.csv"), "--save_dir", top],
+                per_scan(4 * n_subjects))
+            n_png = 0
+            for sid in sids:
+                d = os.path.join(top, sid, "ig_heatmap")
+                for name in sorted(os.listdir(d)):
+                    img = read_png(os.path.join(d, name))
+                    if img.dtype != np.uint8 or img.ndim != 3 \
+                            or img.shape[2] != 3:
+                        raise AssertionError(f"[gradcam] {d}/{name}")
+                    n_png += 1
+            log(f"[gradcam] cli.gradcam cohort: {n_png} overlays read back")
+            if n_png != 20 * 4 * n_subjects:
+                raise AssertionError(f"[gradcam] {n_png} overlays")
+
+            # one scan through the kernels and through the plain pooling
+            args = gc.build_parser().parse_args(common + ["--save_dir", td])
+            dev = torch.device("cuda")
+            embedder = gc._load_resnet(args, dev)
+            amil = gc._load_amil(args, read_experiment(radio_exp), dev)
+            slices, _ = preprocess_glioma_scan(os.path.join(
+                g_dir, sids[0], names[sids[0]]["T1"]))
+            x = embedder.slice_inputs(slices)
+            runner = gc.CamRunner(embedder, amil, len(RADIO_SEQS), True)
+            for c in launch_counters:
+                c.launches = 0
+            cams, scores = runner(x, RADIO_SEQS.index("T1"))
+            kernel_launches = {c.__name__: c.launches
+                               for c in launch_counters}
+            with _plain_pooling():
+                cams_p, _ = runner(x, RADIO_SEQS.index("T1"))
+            plain_launches = {c.__name__: c.launches - kernel_launches[
+                c.__name__] for c in launch_counters}
+            # the risk is the forward kernel's output; the scores come from
+            # the unfused read-out and launch no kernel on either side
+            with torch.no_grad():
+                bag = runner._bag(embedder.spatial_maps(x),
+                                  RADIO_SEQS.index("T1"))
+                ones = torch.ones(1, bag.shape[1], device=dev)
+                risk = amil(bag, ones)["risk"]
+                with _plain_pooling():
+                    risk_p = amil(bag, ones)["risk"]
+            e_cam = float(np.abs(cams - cams_p).max())
+            e_r = float((risk - risk_p).abs().max() / risk_p.abs().max())
+            log(f"[gradcam] {sids[0]} T1 ({len(slices)} slices), aug-smooth: "
+                f"CamRunner through the kernels (launches {kernel_launches}) "
+                f"vs the plain pooling on the card (launches "
+                f"{plain_launches}): CAMs, from the backward kernel's dh, "
+                f"max abs err {e_cam:.2e} (tol 1e-4); the AMIL's risk on the "
+                f"scan's layer3 maps, the forward kernel's output, rel "
+                f"{e_r:.2e} (tol 1e-5)")
+            if kernel_launches != per_scan(1) or plain_launches != none \
+                    or e_cam > 1e-4 or e_r > 1e-5:
+                raise AssertionError("[gradcam] kernels vs plain pooling")
+
+            # card time per CAM image, and the pooling kernels' share
+            one = gc.CamRunner(embedder, amil, len(RADIO_SEQS), False)
+            n = len(slices)
+            cam_ms = _time_ms(lambda: one(x, 0), iters=3, warmup=1)
+            trunk_ms = _time_ms(lambda: embedder.spatial_maps(x), iters=3,
+                                warmup=1)
+            per_kernel, wall_ms = _device_time(lambda: one(x, 0), reps=3)
+            pool_us = sum(v for k, v in per_kernel.items()
+                          if k in POOL_KERNELS)
+            busy_us = sum(per_kernel.values())
+            bound_us = resnet.conv_flops(resnet.ResNet50Trunc()) \
+                / PEAK_FLOPS["float32"] * 1e6
+            if not pool_us:
+                raise AssertionError(f"[gradcam] no pooling kernel in the "
+                                     f"profile of a CAM pass: {per_kernel}")
+            log(f"[gradcam] one CAM pass of {n} slices at 224 x 224 (f32, "
+                f"TF32 off; CUDA events): {cam_ms * 1e3 / n:.2f} us an image "
+                f"(the trunk alone {trunk_ms * 1e3 / n:.2f} us), bound of the "
+                f"trunk's convolutions {bound_us:.2f} us an image "
+                f"({bound_us * n / (cam_ms * 1e3):.1%} of it); "
+                f"torch.profiler: {busy_us / 1e3:.3f} ms of kernels in "
+                f"{wall_ms:.3f} ms wall a pass, the pooling kernels "
+                f"{pool_us:.1f} us ({pool_us / busy_us:.2%} of the kernel "
+                f"time): " + ", ".join(f"{k} {v:.1f} us" for k, v in
+                                       per_kernel.items()
+                                       if k in POOL_KERNELS))
+            # the pooling's bound at the shape a CAM pass gives it
+            params = amil.pool.attn_params()
+            h = torch.zeros(1, n, params.Wa.shape[0], device=dev)
+            mask = torch.ones(1, n, device=dev)
+            fwd_us = sum(v for k, v in per_kernel.items()
+                         if k in POOL_KERNELS and k.startswith("pool_"))
+            bounds = [_bound(h, mask, params.Wa.shape[1], amil.pool.gated,
+                             backward=b) for b in (False, True)]
+            log(f"[gradcam] the pooling of a CAM pass, B=1 N={n} "
+                f"D={params.Wa.shape[0]} Da={params.Wa.shape[1]} f32 gated: "
+                f"forward kernels {fwd_us:.1f} us, backward kernels "
+                f"{pool_us - fwd_us:.1f} us (torch.profiler), bounds "
+                f"{bounds[0][0] * 1e3:.3f} us ({bounds[0][1]}) and "
+                f"{bounds[1][0] * 1e3:.3f} us ({bounds[1][1]})")
+
+            # one sequence: the side-by-side PNGs are host work
+            every = os.path.join(td, "all")
+            run("all_slices", gc.main, common + [
+                "--csv_path", scans, "--radio_dir", g_dir, "--scores_csv",
+                os.path.join(heat, "scores.csv"), "--save_dir", every,
+                "--all_slices", "--subject", sids[1], "--modalities", "T1"],
+                per_scan(1))
+            attr = read_nifti(os.path.join(
+                every, sids[1], f"{sids[1]}_T1_attr.nii.gz")).data
+            if not np.isfinite(attr).all() or attr.min() < 0 \
+                    or attr.max() > 1 + 1e-5:
+                raise AssertionError("[gradcam] T1 attr volume")
+            log(f"[gradcam] --all_slices {sids[1]} T1: attr volume of "
+                f"{attr.shape} finite, in [0, 1]; "
+                f"{len(os.listdir(os.path.join(every, sids[1], 'ig_heatmap_all', 'T1')))}"
+                f" side-by-side PNGs")
+
+            lung = os.path.join(cohort["lung_dir"], cohort["lung_ids"][0],
+                                "ct")
+            run("lung_single", gc.main, common + [
+                "--scan", lung, "--cancer_type", "lung", "--save_dir",
+                os.path.join(td, "lung")], per_scan(1))
+            cam = read_nifti(os.path.join(td, "lung",
+                                          "cam_volume.nii.gz")).data
+            _, _, mask = preprocess_lung_scan(lung, return_mask=True)
+            inside, outside = cam[mask].mean(), cam[~mask].mean()
+            log(f"[gradcam] lung {cohort['lung_ids'][0]}: CAM volume "
+                f"{cam.shape}, mean inside the lung mask {inside:.4f}, "
+                f"outside {outside:.4f}")
+            if cam.shape != mask.shape or not np.isfinite(cam).all() \
+                    or not inside > 2 * max(outside, 1e-9):
+                raise AssertionError("[gradcam] lung CAM")
+
+            rng = np.random.default_rng(61)
+            vol = np.zeros((10, 96, 96), np.float32)
+            vol[1:9, 16:80, 16:80] = rng.uniform(5, 90, (8, 64, 64))
+            small = write_nifti(os.path.join(td, "small.nii.gz"), vol,
+                                origin_lps=(0.0, -239.0, 0.0))
+            vols = {}
+            for d in ("cuda", "cpu"):
+                run(f"glioma_single_{d}", gc.main, [
+                    "--scan", small, "--ckpt_path", radio_exp, "--weights",
+                    weights, "--image_size", "96", "--top_frac", "0.4",
+                    "--save_dir", os.path.join(td, d), "--device", d],
+                    per_scan(1) if d == "cuda" else none)
+                vols[d] = read_nifti(os.path.join(td, d,
+                                                  "cam_volume.nii.gz")).data
+            e = float(np.abs(vols["cuda"] - vols["cpu"]).max())
+            log(f"[gradcam] single-scan glioma {vols['cpu'].shape}: "
+                f"cam_volume card vs CPU max abs err {e:.2e} (tol 1e-4)")
+            if vols["cuda"].shape != (8, 64, 64) or e > 1e-4:
+                raise AssertionError("[gradcam] card vs CPU")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log(f"[gradcam] wall s ({_card()}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in wall.items()))
     return launches
 
 
@@ -2087,7 +2387,7 @@ def phase_interpret(launch_counters, exps, root=None):
     from multimodalfusion_tpu_torch.models.amil import PathAMIL
     from multimodalfusion_tpu_torch.ops import mil_attention as mil
     from multimodalfusion_tpu_torch.utils.experiment import (
-        config_from_settings, read_settings)
+        config_from_settings, read_experiment)
     from multimodalfusion_tpu_torch.utils.params import spec_from_config
     wall, launches = {}, {}
     none = {c.__name__: 0 for c in launch_counters}
@@ -2112,8 +2412,7 @@ def phase_interpret(launch_counters, exps, root=None):
     def served_batch(exp, B=8):
         """(model on the card, model on the CPU, the first served batch
         as each one's inputs)."""
-        settings = read_settings(os.path.join(
-            exp, f"experiment_{os.path.basename(exp)}.txt"))
+        settings = read_experiment(exp)
         view = infer._scored_split(settings, settings["csv_path"],
                                    settings["data_root_dir"], 0)
         cfg = config_from_settings(settings, batch_size=B, omic_input_dim=(
@@ -2191,8 +2490,7 @@ def phase_interpret(launch_counters, exps, root=None):
                     for dev in ("cuda", "cpu")]
 
         s4 = exps["stage4"]
-        s4_settings = read_settings(os.path.join(
-            s4, f"experiment_{os.path.basename(s4)}.txt"))
+        s4_settings = read_experiment(s4)
         sub = os.path.join("brain", os.path.basename(
             s4_settings["split_dir"]), os.path.basename(s4))
         dirs = both("create_attributions", create_attributions.main,
@@ -2207,9 +2505,7 @@ def phase_interpret(launch_counters, exps, root=None):
                 f"{len(_csv_rows(os.path.join(dirs[1], name)))} subjects, "
                 f"card vs CPU rel {e:.2e} (tol 1e-4)")
 
-        radio_settings = read_settings(os.path.join(
-            exps["radio"], f"experiment_{os.path.basename(exps['radio'])}"
-            f".txt"))
+        radio_settings = read_experiment(exps["radio"])
         subjects = os.path.join(td, "subjects.csv")
         with open(subjects, "w") as f:
             f.write("subject_id\n" + "".join(f"{r['subject_id']}\n" for r in
@@ -2653,7 +2949,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,omic,pretrained,radio,extract,"
-                         "interpret,timing "
+                         "gradcam,interpret,timing "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -2696,9 +2992,9 @@ def _partial(phases, counters, work, t_all) -> int:
                              omic_args, work)
         else:
             phase_pretrained(counters, root=work)
-    if {"radio", "extract", "interpret"} & set(phases):
-        # [extract] and [interpret] alone first write and train their own
-        # radio cohort
+    if {"radio", "extract", "interpret", "gradcam"} & set(phases):
+        # [extract], [interpret] and [gradcam] alone first write and train
+        # their own radio cohort
         _, _, radio_exps = phase_radio(counters, work)
     if "interpret" in phases:
         phase_interpret(counters, radio_exps, work)
@@ -2707,8 +3003,11 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_timing_radio()
         if "train" in phases:
             phase_step_breakdown(cfg, batches, host_ms)
-    if "extract" in phases:
-        phase_extract(counters, radio_exps["radio"], work)
+    if {"extract", "gradcam"} & set(phases):
+        # [gradcam] runs on [extract]'s cohort
+        _, cohort = phase_extract(counters, radio_exps["radio"], work)
+    if "gradcam" in phases:
+        phase_gradcam(counters, radio_exps["radio"], cohort, work)
     log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
         f"no result)")
     return 0
@@ -2747,8 +3046,14 @@ def _full(counters, work, t_all) -> int:
     log(f"[timing] done in {time.perf_counter() - t:.1f} s")
     # stage 1 last, after every earlier phase, on [radio]'s experiment
     t = time.perf_counter()
-    extract_launches = phase_extract(counters, radio_exps["radio"], work)
+    extract_launches, cohort = phase_extract(counters, radio_exps["radio"],
+                                             work)
     log(f"[extract] done in {time.perf_counter() - t:.1f} s")
+    # stage 5's radiology images on the extracted cohort
+    t = time.perf_counter()
+    gradcam_launches = phase_gradcam(counters, radio_exps["radio"], cohort,
+                                     work)
+    log(f"[gradcam] done in {time.perf_counter() - t:.1f} s")
     # the headline variant of each kernel: the forward as serving and
     # evaluation run it (f32, no dropout), the backward as the training
     # CLI runs it (f32, --drop_out)
@@ -2779,6 +3084,8 @@ def _full(counters, work, t_all) -> int:
             entry[f"launches_interpret_{path}"] = counts[counter_of[name]]
         for path, counts in extract_launches.items():
             entry[f"launches_extract_{path}"] = counts[counter_of[name]]
+        for path, counts in gradcam_launches.items():
+            entry[f"launches_gradcam_{path}"] = counts[counter_of[name]]
         entries.append(entry)
     log(f"[timing] train step ms {json.dumps(step)}")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

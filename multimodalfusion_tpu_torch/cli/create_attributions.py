@@ -31,13 +31,10 @@ from multimodalfusion_tpu_torch import resolve_device
 from multimodalfusion_tpu_torch.data.loaders import iter_batches
 from multimodalfusion_tpu_torch.data.survival_dataset import (MODALITIES,
                                                               SurvivalDataset)
-from multimodalfusion_tpu_torch.engine.train import (build_model,
-                                                     load_checkpoint)
 from multimodalfusion_tpu_torch.interpret.ig import (completeness_gap,
                                                      integrated_gradients)
-from multimodalfusion_tpu_torch.utils.experiment import (config_from_settings,
-                                                         read_settings)
-from multimodalfusion_tpu_torch.utils.params import spec_from_config
+from multimodalfusion_tpu_torch.utils.experiment import (
+    config_from_settings, load_experiment_model, read_experiment)
 from multimodalfusion_tpu_torch.utils.table import group_mean, write_csv
 
 _ATTR_COL = {"radio": "radio_attr", "path": "path_attr",
@@ -58,9 +55,7 @@ def build_parser():
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    exp_code = os.path.basename(os.path.normpath(args.model_path))
-    settings = read_settings(os.path.join(args.model_path,
-                                          f"experiment_{exp_code}.txt"))
+    settings = read_experiment(args.model_path)
     mode = settings["mode"]
     present = [m for m in ("radio", "path", "omic") if m in mode]
     dataset = SurvivalDataset(
@@ -77,10 +72,7 @@ def main(argv=None) -> int:
     for k in range(settings["num_splits"]):
         _, val_split = dataset.load_splits(os.path.join(
             settings["split_dir"], f"splits_{k}.csv"))
-        model = build_model(cfg).to(device).eval()
-        load_checkpoint(model, os.path.join(
-            args.model_path, f"s_{k}_minloss_checkpoint.pt"),
-            spec_from_config(cfg))
+        model = load_experiment_model(args.model_path, k, cfg, device)
 
         def risk_fn(*embeds):
             kw = dict(zip([f"h_{m}" for m in present], embeds))
@@ -104,7 +96,8 @@ def main(argv=None) -> int:
 
     save_path = os.path.join(args.save_dir, settings["cancer_type"],
                              os.path.basename(settings["split_dir"]),
-                             exp_code)
+                             os.path.basename(os.path.normpath(
+                                 args.model_path)))
     os.makedirs(save_path, exist_ok=True)
     for name, sums in (("attr.csv", attr), ("attr_orig.csv", attr_orig)):
         keys, means = group_mean(ids, {_ATTR_COL[m]: np.concatenate(v)

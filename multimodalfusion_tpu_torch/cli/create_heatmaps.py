@@ -18,15 +18,22 @@ create_heatmaps.py; the config's sections as in
   the experiment's seed): ``omic_attr_per_patient.csv`` and
   ``omic_attr_global.csv``.
 
-The CSVs have pandas' layout, the JAX CLI's columns and row order.  What
-needs a slide reader or an image library is not ported (the machine with
-the card has none of OpenCV, openslide, PIL or matplotlib): the ``path``
-branch and the radio branch's slice images (``scan_list``) raise
-``NotImplementedError`` before any work, naming ROADMAP.md port queue
-item 6d or 6b; the omic branch writes no figures and says
-so after its CSVs.  The weights come from ``s_{k}_minloss_checkpoint.pt``
-(``model_arguments.which_k``).  Stock torch ops: no kernel.  Runs on
-``cuda`` unless ``--device cpu`` is given.
+With ``data_arguments.scan_list`` (``subject_id`` and one scan path per
+sequence, relative to ``scan_dir``) the radio branch also renders each
+subject's top and low slices of ``display_modality`` as grayscale PNGs
+``slice{id}_a{attention:.3f}.png`` under ``{subject}/{top,low}`` (one
+sequence named) or ``{subject}/{sequence}/{top,low}`` (a list), from the
+scan preprocessed again (lung CT when ``cancer_type`` is ``lung`` or the
+sequence is ``CT``), through the port's PNG writer (``utils/png.py``).
+
+The CSVs have pandas' layout, the JAX CLI's columns and row order.  The
+``path`` branch needs a slide reader (the machine with the card has none
+of openslide, OpenCV or PIL): it raises ``NotImplementedError`` before any
+work, naming ROADMAP.md port queue item 6d; the omic branch writes no
+figures (no matplotlib there) and says so after its CSVs.  The weights
+come from ``s_{k}_minloss_checkpoint.pt`` (``model_arguments.which_k``).
+Stock torch ops: no kernel.  Runs on ``cuda`` unless ``--device cpu`` is
+given.
 
     python -m multimodalfusion_tpu_torch.cli.create_heatmaps \\
         --config CONFIG.yaml [--device cuda]
@@ -47,20 +54,18 @@ from multimodalfusion_tpu_torch.data.bags import intersect_slices
 from multimodalfusion_tpu_torch.data.io import ensure_dir, load_features_h5
 from multimodalfusion_tpu_torch.data.loaders import (iter_batches,
                                                      usable_indices)
+from multimodalfusion_tpu_torch.data.radiology import preprocess_scan
 from multimodalfusion_tpu_torch.data.survival_dataset import (
-    MODALITIES, SurvivalDataset, read_split_ids)
-from multimodalfusion_tpu_torch.engine.train import (build_model,
-                                                     load_checkpoint)
+    _NA, MODALITIES, SurvivalDataset, read_split_ids)
 from multimodalfusion_tpu_torch.interpret.ig import (expected_gradient_draws,
                                                      expected_gradients,
                                                      integrated_gradients)
 from multimodalfusion_tpu_torch.utils import yaml_subset
-from multimodalfusion_tpu_torch.utils.experiment import (config_from_settings,
-                                                         read_settings)
-from multimodalfusion_tpu_torch.utils.params import spec_from_config
+from multimodalfusion_tpu_torch.utils.experiment import (
+    config_from_settings, load_experiment_model, read_experiment)
+from multimodalfusion_tpu_torch.utils.png import write_png
 from multimodalfusion_tpu_torch.utils.table import write_csv
 
-_IMAGES = "ROADMAP.md, port queue item 6b, its image half"
 _WSI = "ROADMAP.md, port queue item 6d"
 
 
@@ -124,21 +129,6 @@ def slice_group_size(n: int) -> int:
     return min(max(int(np.ceil(n * 0.1)), 20), n // 2)
 
 
-def _experiment(model_args):
-    """(settings, which_k) of the config's stage-2 experiment."""
-    exp_code = os.path.basename(os.path.normpath(model_args.ckpt_path))
-    settings = read_settings(os.path.join(model_args.ckpt_path,
-                                          f"experiment_{exp_code}.txt"))
-    return settings, int(getattr(model_args, "which_k", 0))
-
-
-def _load(model_args, cfg, which_k, device):
-    model = build_model(cfg).to(device).eval()
-    return load_checkpoint(model, os.path.join(
-        model_args.ckpt_path, f"s_{which_k}_minloss_checkpoint.pt"),
-        spec_from_config(cfg))
-
-
 def _column(csv_path: str, name: str):
     with open(csv_path, newline="") as f:
         return [row[name] for row in csv.DictReader(f)]
@@ -153,18 +143,15 @@ def run_path_branch(cfg_ns, device) -> int:
 
 def run_radio_branch(cfg_ns, device) -> int:
     d = cfg_ns.data_arguments
-    if getattr(d, "scan_list", None):
-        raise NotImplementedError(
-            f"data_arguments.scan_list: the top/low slice images need "
-            f"OpenCV's resize and blur and an image writer: not ported "
-            f"yet ({_IMAGES})")
     save_dir = ensure_dir(cfg_ns.exp_arguments.save_dir)
     subjects = _column(d.process_list, "subject_id")
     modalities = list(getattr(d, "modalities",
                               ["FLAIR", "T1", "T1Gd", "T2"]))
-    settings, which_k = _experiment(cfg_ns.model_arguments)
+    m = cfg_ns.model_arguments
+    settings = read_experiment(m.ckpt_path)
     cfg = config_from_settings(settings, batch_size=1, device=str(device))
-    model = _load(cfg_ns.model_arguments, cfg, which_k, device)
+    model = load_experiment_model(m.ckpt_path, int(getattr(m, "which_k", 0)),
+                                  cfg, device)
     rows = {"subject_id": [], "slice_index": [], "attention": [],
             "group": []}
     for subject in subjects:
@@ -197,13 +184,82 @@ def run_radio_branch(cfg_ns, device) -> int:
                                  "low" if rank >= n - k else "mid")
     write_csv(os.path.join(save_dir, "scores.csv"), rows)
     print(f"wrote slice attention scores -> {save_dir}/scores.csv")
+
+    # the top and low slices of the display sequence(s), re-preprocessed
+    # from the raw scans (ref create_heatmaps.py:604-659,
+    # heatmap_utils.radio_img :177-226)
+    scan_csv = getattr(d, "scan_list", None)
+    if scan_csv:
+        with open(scan_csv, newline="") as f:
+            scans = {r["subject_id"]: r for r in csv.DictReader(f)}
+        # one sequence (text) keeps subject/{top,low}; a list renders each
+        # under subject/{sequence}/{top,low}
+        display = getattr(d, "display_modality", modalities[0])
+        nest = not isinstance(display, str)
+        for display_mod in (list(display) if nest else [display]):
+            _render_radio_slices(d, rows, scans, display_mod, save_dir,
+                                 nest)
     return 0
+
+
+def _render_radio_slices(d, rows, scans, display_mod, save_dir, nest):
+    """The top and low slices of ``display_mod`` of every scored subject
+    as grayscale PNGs (JAX create_heatmaps.py:458-512)."""
+    is_ct = (getattr(d, "cancer_type", "glioma") == "lung"
+             or display_mod == "CT")
+    by_subject = {}
+    for i, subject in enumerate(rows["subject_id"]):
+        by_subject.setdefault(subject, []).append(i)
+    for subject, idx in by_subject.items():
+        scan = scans.get(subject)
+        if scan is None or display_mod not in scan:
+            continue
+        cell = scan[display_mod]
+        if cell is None or cell in _NA:
+            print(f"cannot render {subject}: no {display_mod} scan in "
+                  f"the scan list")
+            continue
+        path = os.path.join(getattr(d, "scan_dir", "."), cell)
+        # the display sequence's feature h5 holds the slice ids that the
+        # preprocessed volume will have: skip the preprocessing when none
+        # of the selected slices is among them
+        sel_ids = {rows["slice_index"][i] for i in idx
+                   if rows["group"][i] in ("top", "low")}
+        try:
+            _, disp_ids = load_features_h5(os.path.join(
+                d.feat_dir, "radio_h5_files", display_mod, f"{subject}.h5"))
+            if disp_ids is not None and not sel_ids & {
+                    int(s) for s in np.asarray(disp_ids).reshape(-1)}:
+                print(f"skipping {subject}: no selected slice exists "
+                      f"in {display_mod}")
+                continue
+        except (OSError, KeyError, TypeError, ValueError):
+            pass  # no usable h5 to pre-check; preprocess and see
+        try:
+            slices, slice_ids, _ = preprocess_scan(path, is_ct)
+        except (OSError, ValueError) as e:
+            print(f"cannot render {subject}: {e}")
+            continue
+        id_to_slice = {int(s): j for j, s in enumerate(slice_ids)}
+        for group in ("top", "low"):
+            parts = ([subject, display_mod, group] if nest
+                     else [subject, group])
+            out_dir = ensure_dir(os.path.join(save_dir, *parts))
+            for i in idx:
+                j = id_to_slice.get(rows["slice_index"][i])
+                if rows["group"][i] != group or j is None:
+                    continue
+                write_png(os.path.join(
+                    out_dir, f"slice{rows['slice_index'][i]}_"
+                             f"a{rows['attention'][i]:.3f}.png"),
+                    (np.clip(slices[j], 0, 1) * 255).astype(np.uint8))
 
 
 def run_omic_branch(cfg_ns, device) -> int:
     m = cfg_ns.model_arguments
     save_dir = ensure_dir(cfg_ns.exp_arguments.save_dir)
-    settings, which_k = _experiment(m)
+    settings = read_experiment(m.ckpt_path)
+    which_k = int(getattr(m, "which_k", 0))
     split_csv = os.path.join(settings["split_dir"], f"splits_{which_k}.csv")
     dataset = SurvivalDataset(
         settings["csv_path"], mode="omic", data_dir=settings["data_root_dir"],
@@ -216,7 +272,7 @@ def run_omic_branch(cfg_ns, device) -> int:
                                batch_size=len(idx), pretrained=False,
                                omic_input_dim=len(split.genomic_cols),
                                device=str(device))
-    model = _load(m, cfg, which_k, device)
+    model = load_experiment_model(m.ckpt_path, which_k, cfg, device)
 
     def risk_fn(g):
         return model(genomic_features=g)["risk"]

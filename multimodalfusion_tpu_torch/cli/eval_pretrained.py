@@ -30,7 +30,7 @@ from multimodalfusion_tpu_torch.data.survival_dataset import (MODALITIES,
                                                               SurvivalDataset)
 from multimodalfusion_tpu_torch.engine.evaluate import eval_model
 from multimodalfusion_tpu_torch.utils.experiment import (config_from_settings,
-                                                         read_settings)
+                                                         read_experiment)
 from multimodalfusion_tpu_torch.utils.table import write_csv
 
 
@@ -62,9 +62,7 @@ def build_parser():
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    exp_code = os.path.basename(os.path.normpath(args.model_path))
-    settings = read_settings(os.path.join(args.model_path,
-                                          f"experiment_{exp_code}.txt"))
+    settings = read_experiment(args.model_path)
     out_dir = args.results_dir or args.model_path
     os.makedirs(out_dir, exist_ok=True)
     summary_path = os.path.join(out_dir, "eval_summary.csv")

@@ -40,13 +40,10 @@ from multimodalfusion_tpu_torch.data.loaders import (iter_batches,
                                                      usable_indices)
 from multimodalfusion_tpu_torch.data.survival_dataset import (
     MODALITIES, SurvivalDataset, Split, read_split_ids)
-from multimodalfusion_tpu_torch.engine.train import (build_model,
-                                                     check_supported,
-                                                     load_checkpoint,
+from multimodalfusion_tpu_torch.engine.train import (check_supported,
                                                      model_inputs)
-from multimodalfusion_tpu_torch.utils.params import spec_from_config
-from multimodalfusion_tpu_torch.utils.experiment import (config_from_settings,
-                                                         read_settings)
+from multimodalfusion_tpu_torch.utils.experiment import (
+    config_from_settings, load_experiment_model, read_experiment)
 
 
 def build_parser():
@@ -120,9 +117,7 @@ def _scored_split(settings: dict, csv_path: str, data_dir: str,
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    exp_code = os.path.basename(os.path.normpath(args.model_path))
-    settings = read_settings(os.path.join(args.model_path,
-                                          f"experiment_{exp_code}.txt"))
+    settings = read_experiment(args.model_path)
     cfg = config_from_settings(settings, batch_size=args.batch_size)
     check_supported(cfg)
     view = _scored_split(settings, args.csv or settings["csv_path"],
@@ -141,10 +136,7 @@ def main(argv=None) -> int:
         print("no scoreable subjects (missing modalities?)",
               file=sys.stderr)
         return 1
-    model = build_model(cfg).to(device).eval()
-    load_checkpoint(model, os.path.join(
-        args.model_path, f"s_{args.which_k}_minloss_checkpoint.pt"),
-        spec_from_config(cfg))
+    model = load_experiment_model(args.model_path, args.which_k, cfg, device)
 
     pool = (PinnedPool() if device.type == "cuda" and not cfg.pretrained
             else None)

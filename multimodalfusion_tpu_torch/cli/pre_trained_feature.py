@@ -37,12 +37,9 @@ from multimodalfusion_tpu_torch.data.loaders import (iter_batches,
                                                      usable_indices)
 from multimodalfusion_tpu_torch.data.survival_dataset import (
     MODALITIES, SurvivalDataset, _NA)
-from multimodalfusion_tpu_torch.engine.train import (build_model,
-                                                     load_checkpoint,
-                                                     model_inputs)
-from multimodalfusion_tpu_torch.utils.experiment import (config_from_settings,
-                                                         read_settings)
-from multimodalfusion_tpu_torch.utils.params import spec_from_config
+from multimodalfusion_tpu_torch.engine.train import model_inputs
+from multimodalfusion_tpu_torch.utils.experiment import (
+    config_from_settings, load_experiment_model, read_experiment)
 
 _MODE_TO_MODEL = {"radio": "radio_attention_mil",
                   "path": "path_attention_mil", "omic": "max_net"}
@@ -71,9 +68,7 @@ def _subject_ids(csv_path: str) -> set:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    exp_code = os.path.basename(os.path.normpath(args.checkpoint_path))
-    settings = read_settings(os.path.join(args.checkpoint_path,
-                                          f"experiment_{exp_code}.txt"))
+    settings = read_experiment(args.checkpoint_path)
     mode = settings["mode"]
     if mode not in _MODE_TO_MODEL:
         raise ValueError(f"stage 3 extracts the embedding of a unimodal "
@@ -101,10 +96,8 @@ def main(argv=None) -> int:
                                          settings["cancer_type"],
                                          f"{mode}_pt_files"))
 
-    model = build_model(cfg).to(device).eval()
-    load_checkpoint(model, os.path.join(
-        args.checkpoint_path, f"s_{args.which_k}_minloss_checkpoint.pt"),
-        spec_from_config(cfg))
+    model = load_experiment_model(args.checkpoint_path, args.which_k, cfg,
+                                  device)
     pool = PinnedPool() if device.type == "cuda" else None
     n_written = 0
     with torch.inference_mode():

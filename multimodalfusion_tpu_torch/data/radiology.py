@@ -110,6 +110,16 @@ def preprocess_lung_scan(path: str, segment_each_slice: bool = False,
                                   return_mask)
 
 
+def preprocess_scan(path: str, lung: bool):
+    """(slices [N, H, W] in [0, 1], slice ids, lung mask [N, H, W] or
+    None) of a lung CT (``preprocess_lung_scan``, with its mask) or a
+    glioma MRI (``preprocess_glioma_scan``, no mask)."""
+    if lung:
+        return preprocess_lung_scan(path, return_mask=True)
+    slices, slice_ids = preprocess_glioma_scan(path)
+    return slices, slice_ids, None
+
+
 def slices_to_rgb(slices: np.ndarray) -> np.ndarray:
     """[N, H, W] grayscale -> [N, H, W, 3] (ref dataset_raw.py:103-116
     repeats the channel)."""

@@ -182,6 +182,16 @@ class Embedder:
         return _fit_spatial(s[..., None], self.image_size).reshape(
             n, self.image_size, self.image_size)
 
+    def spatial_maps(self, x: torch.Tensor) -> torch.Tensor:
+        """The trunk's layer3 maps [N, 1024, h, w] float32 of normalised
+        NCHW inputs on the device, ``batch_size`` at a time, without
+        autograd (the GradCAM target layer)."""
+        with torch.no_grad(), self._compute():
+            return torch.cat([
+                self.model(self._layout(x[i:i + self.batch_size]),
+                           return_spatial=True)
+                for i in range(0, x.shape[0], self.batch_size)])
+
     def slice_inputs(self, slices: np.ndarray) -> torch.Tensor:
         """The trunk's inputs for ``slices`` as ``embed_slices`` makes them
         on the device (float32 NCHW)."""

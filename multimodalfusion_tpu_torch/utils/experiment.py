@@ -68,6 +68,26 @@ def read_settings(path: str) -> dict:
         return ast.literal_eval(f.read())
 
 
+def read_experiment(results_dir: str) -> dict:
+    """The settings of the experiment in ``results_dir``: its
+    ``experiment_{code}.txt``, the code being the directory's name."""
+    code = os.path.basename(os.path.normpath(results_dir))
+    return read_settings(os.path.join(results_dir, f"experiment_{code}.txt"))
+
+
+def load_experiment_model(results_dir: str, which_k: int, cfg, device):
+    """``cfg``'s model on ``device`` in eval mode, holding fold
+    ``which_k``'s weights from ``s_{which_k}_minloss_checkpoint.pt`` in
+    ``results_dir`` (the port's, or the ``.pt`` that JAX exports)."""
+    from multimodalfusion_tpu_torch.engine.train import (build_model,
+                                                         load_checkpoint)
+    from multimodalfusion_tpu_torch.utils.params import spec_from_config
+    model = build_model(cfg).to(device).eval()
+    return load_checkpoint(model, os.path.join(
+        results_dir, f"s_{which_k}_minloss_checkpoint.pt"),
+        spec_from_config(cfg))
+
+
 def config_from_settings(settings: dict, **overrides):
     """Hydrate a TrainConfig from an experiment settings dict, with the
     JAX package's key mapping and defaults (JAX utils/experiment.py:72-107).

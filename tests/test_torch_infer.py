@@ -168,7 +168,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "cli/create_heatmaps.py", "models/resnet.py",
                 "extract/__init__.py", "extract/features.py",
                 "data/nifti.py", "data/ct_preprocess.py", "data/dicom.py",
-                "data/radiology.py", "cli/feature_extraction.py"):
+                "data/radiology.py", "cli/feature_extraction.py",
+                "utils/image_ops.py", "utils/png.py",
+                "interpret/gradcam.py", "cli/gradcam.py"):
         assert os.path.join("multimodalfusion_tpu_torch", new) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]
