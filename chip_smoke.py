@@ -150,6 +150,24 @@ Phases, each fatal on failure:
                 the f32 trunk's bound and the pooling kernels' share of a
                 CAM pass.  Alone (--phases gradcam) it runs [radio] and
                 [extract] first.  It runs last.
+  8. dist     -- multi-GPU on the one card: two ranks on cuda:0 over
+                gloo (NCCL refuses two ranks on one GPU) run the
+                bag-sharded pooling at B=8 N=4096 D=Da=256 f32 gated, with
+                and without dropout (each rank its 2048-row block, one
+                forward and one backward launch), against the unsharded
+                kernels at rel 1e-5 (pooled, dh, parameter gradients), and
+                two bag-sharded and two data-parallel PathAMIL small
+                training steps (B=8, N=2048, --drop_out; batches from the
+                loader, each rank collating its rows into page-locked
+                buffers; one launch of each kernel per rank per step)
+                against two one-process kernel steps (losses at rel 1e-4,
+                the first step's summed gradients at 1e-4 of their norm,
+                parameters to 1e-3 of their movement), and the peak
+                device memory of one bag-sharded step at B=1 N=32768
+                against one process's (at most 0.75 of it).  Then
+                torchrun --nproc_per_node=1 runs
+                cli.main --data_parallel --bag_shard over NCCL: the JAX
+                package's unsharded lines.  Alone: --phases dist.
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -693,8 +711,9 @@ def _collect_batches(view, batch_size, seed, n, pool):
         for way in (("pinned", "plain") if i % 2 else ("plain", "pinned")):
             t0 = time.perf_counter()
             if way == "pinned":
-                pinned = _batch_from_samples(samples, view.mode, batch_size,
-                                             pool)
+                pinned = _batch_from_samples(
+                    samples + [None] * (batch_size - len(samples)),
+                    view.mode, pool)
                 spent["collate"] = time.perf_counter() - t0
                 t0 = time.perf_counter()
                 for k in ("path_bags", "path_mask"):
@@ -2305,6 +2324,371 @@ def phase_gradcam(launch_counters, radio_exp, cohort, root=None,
     return launches
 
 
+DIST_B, DIST_N, DIST_D = 8, 4096, 256     # the sharded pool's shape
+DIST_STEP_B, DIST_STEP_N = 8, 2048        # the training steps' batches
+DIST_MEM_N = 32768                        # the peak-memory step's bag
+
+
+class _MemoryView:
+    """A cohort held in memory, read by the loader as it reads a
+    ``SurvivalDataset``: ``Sample``s in order, every modality present."""
+    modalities, pretrained, mode = (), False, "path"
+
+    def __init__(self, samples):
+        self.samples = samples
+
+    def __len__(self):
+        return len(self.samples)
+
+    def probe_present(self, i):
+        return self.samples[i].present
+
+    def get_sample(self, i):
+        return self.samples[i]
+
+
+def _dist_view(n, lens, seed):
+    """A seeded full-width PathAMIL cohort of ``n`` subjects whose bags
+    [len, 1024] have the lengths ``lens(rng)``."""
+    from multimodalfusion_tpu_torch.data.survival_dataset import Sample
+    rng = np.random.default_rng(seed)
+    samples = []
+    for i in range(n):
+        samples.append(Sample(
+            subject_id=f"d{i}", path=rng.standard_normal(
+                (int(lens(rng)), 1024), dtype=np.float32) * 0.5,
+            present={"path": True}, disc_label=int(rng.integers(0, 4)),
+            event_time=float(rng.uniform(1, 60)),
+            censorship=float(rng.uniform() < 0.3)))
+    return _MemoryView(samples)
+
+
+def _dist_rank(rank, world, work):
+    """One of the [dist] ranks: gloo on cuda:0 (NCCL refuses two ranks on
+    one GPU), the engine and op functions called directly.  Writes
+    ``dist_rank{rank}.json``; a failure writes its traceback there and
+    exits non-zero."""
+    import datetime
+    import traceback
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+    out = {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{work}/pg", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=240))
+        out.update(_dist_rank_work(rank, world))
+        dist.destroy_process_group()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(work, f"dist_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if "error" in out:
+        sys.exit(1)
+
+
+def _median_ms(fn, reps=5):
+    """Median CUDA-event time of ``fn`` over ``reps`` calls after one."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _dist_rank_work(rank, world):
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from multimodalfusion_tpu_torch.data.bags import PinnedPool
+    from multimodalfusion_tpu_torch.data.loaders import iter_batches
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    from multimodalfusion_tpu_torch.ops import mil_attention as mil
+    from multimodalfusion_tpu_torch.parallel import mesh as par
+    counters = [mil._fused_pool_cuda, mil._fused_pool_bwd_cuda]
+
+    def counts():
+        torch.cuda.synchronize()
+        return {c.__name__: c.launches for c in counters}
+
+    def reset():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+    res = {}
+    # the sharded pool: every rank makes the same seeded inputs, pools its
+    # block of the instance axis and holds it against the unsharded kernels
+    h, mask, params = make_pool_case(DIST_B, DIST_N, DIST_D, DIST_D,
+                                     "float32", seed=41)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    g = torch.randn(DIST_B, DIST_D, generator=gen, device="cuda")
+    da, db = mil.make_dropout_masks(gen, (DIST_B, DIST_N, DIST_D))
+    lo, hi = par.block(DIST_N, world, rank)
+    for dropout in (False, True):
+        tag = "dropout" if dropout else "plain"
+        kw = ((da, db) if dropout else (None, None))
+
+        def leaves():
+            return mil.AttnParams(*(p.clone().requires_grad_()
+                                    for p in params))
+        ref_p, ref_h = leaves(), h.clone().requires_grad_()
+        ref = (mil.attention_pool_dropout(ref_h, mask, da, db, ref_p)
+               if dropout else mil.attention_pool(ref_h, mask, ref_p))
+        ref.backward(g)
+        blk_p = leaves()
+        blk_h = h[:, lo:hi].clone().requires_grad_()
+        blk = (mask[:, lo:hi],) + tuple(None if m is None else m[:, lo:hi]
+                                        for m in kw)
+
+        def sharded():
+            out = (mil.attention_pool_dropout(blk_h, *blk, blk_p,
+                                              group=dist.group.WORLD)
+                   if dropout else
+                   mil.attention_pool(blk_h, blk[0], blk_p,
+                                      group=dist.group.WORLD))
+            out.backward(g)
+            return out
+        reset()
+        got = sharded()
+        launches = counts()
+        errs = {"out": rel_err(got.detach(), ref.detach()),
+                "dh": rel_err(blk_h.grad, ref_h.grad[:, lo:hi])}
+        for name in ("Wa", "ba", "Wb", "bb", "wc"):
+            errs[name] = rel_err(getattr(blk_p, name).grad,
+                                 getattr(ref_p, name).grad)
+        # the median of 5 warm calls each, the other rank running beside
+        # this one on the same card
+        res[f"pool_{tag}"] = {
+            "launches": launches, "rel_err": errs,
+            "ms": _median_ms(sharded),
+            "unsharded_ms": _median_ms(lambda: (
+                mil.attention_pool_dropout(ref_h, mask, da, db, ref_p)
+                if dropout else mil.attention_pool(ref_h, mask, ref_p)
+            ).backward(g))}
+    # two training steps of PathAMIL small per layout against two steps
+    # of the one-process engine on the same card, generator seeds and
+    # init, every batch made by the loader (this rank's rows only, into
+    # page-locked buffers)
+    cfg = ttrain.TrainConfig(model_type="path_attention_mil", mode="path",
+                             gate_path=True, drop_out=True,
+                             bag_loss="nll_surv", batch_size=DIST_STEP_B,
+                             device="cuda:0")
+    view = _dist_view(2 * DIST_STEP_B, lambda rng: rng.integers(
+        DIST_STEP_N // 2, DIST_STEP_N + 1), seed=31)
+    dev = torch.device("cuda:0")
+    pool = PinnedPool()
+
+    def steps(view, mesh=None, bag=False, cfg=cfg):
+        model = ttrain.build_model(cfg, torch.Generator().manual_seed(0),
+                                   mesh if bag else None).to(dev)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        opt = ttrain.make_optimizer(cfg, model.parameters())
+        step, _ = ttrain.make_steps(cfg, model, opt, dev, pool=pool,
+                                    mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        losses, grads = [], []
+        for b in iter_batches(view, batch_size=cfg.batch_size, pool=pool,
+                              mesh=mesh):
+            losses.append(float(step(b, gen)["loss"]))
+            grads.append({k: p.grad.detach().clone()
+                          for k, p in model.named_parameters()
+                          if p.grad is not None})
+        return losses, init, {k: v.detach().clone()
+                              for k, v in model.state_dict().items()}, grads
+    want_loss, init, want, want_grads = steps(view)
+    for tag, mesh in (("bag_shard", par.make_bag_mesh()),
+                      ("data_parallel", par.make_mesh())):
+        reset()
+        t0 = time.perf_counter()
+        loss, _, state, grads = steps(view, mesh, tag == "bag_shard")
+        wall = time.perf_counter() - t0
+        launches = counts()
+        e_state = e_elem = 0.0
+        for k in init:
+            moved = float((want[k] - init[k]).norm())
+            e_state = max(e_state, float((state[k] - want[k]).norm())
+                          / max(moved, 1e-30))
+            e_elem = max(e_elem, float((state[k] - want[k]).abs().max()))
+        # the first step's gradients after the group sums: per tensor
+        # |diff| / (|g| + 1e-2 max |g|), tolerance 1e-4 (a gradient scaled
+        # by a group's size or summed twice is off by its whole norm,
+        # which Adam's update would hide)
+        g0, w0 = grads[0], want_grads[0]
+        scale = max(float(g.norm()) for g in w0.values())
+        e_grad = max(float((g0[k] - g).norm())
+                     / (float(g.norm()) + 1e-2 * scale)
+                     for k, g in w0.items()) if sorted(g0) == sorted(w0) \
+            else float("inf")
+        res[tag] = {"launches": launches, "losses": loss,
+                    "want_losses": want_loss,
+                    "loss_rel_err": max(abs(a - b) / abs(b)
+                                        for a, b in zip(loss, want_loss)),
+                    "state_rel_err": e_state, "elem_err": e_elem,
+                    "grad_rel_err": e_grad, "lr": cfg.lr, "wall_s": wall}
+    # peak device memory of one bag-sharded step with dropout against the
+    # one-process step, each process its own (both share the card)
+    big = _dist_view(1, lambda rng: DIST_MEM_N, seed=37)
+    one = dataclasses.replace(cfg, batch_size=1)
+    peaks = {}
+    for tag, mesh in (("one_process", None),
+                      ("bag_shard", par.make_bag_mesh())):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        steps(big, mesh, mesh is not None, one)
+        torch.cuda.synchronize()
+        peaks[tag] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    res["memory"] = {"peak_mib": peaks, "n": DIST_MEM_N}
+    return res
+
+
+def _run_dist_ranks(td, world=2, timeout=300):
+    """Spawn the [dist] ranks and join them; a rank still running at the
+    timeout is killed.  Returns the processes."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, args=(r, world, td))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    return procs
+
+
+def phase_dist(root=None):
+    """[dist]: two ranks on cuda:0 over gloo (the card's machine has one
+    GPU; NCCL refuses two ranks on one) run the bag-sharded pooling and
+    two bag-sharded and two data-parallel PathAMIL training steps, each
+    rank launching each kernel once per step, against the unsharded
+    kernels and the one-process steps; then a torchrun launch of one rank
+    runs cli.main --data_parallel --bag_shard over NCCL and prints the
+    JAX package's unsharded lines.  Returns each rank's launch counts by
+    path."""
+    t_phase = time.perf_counter()
+    with _workdir(root, "dist") as td:
+        # one rank under torchrun (NCCL; JAX's lines at world size 1),
+        # beside the two gloo ranks
+        data_args = _write_train_experiment(td, n_subjects=8, n_val=2,
+                                            bag_range=(100, 400))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node=1", "-m",
+               "multimodalfusion_tpu_torch.cli.main", *data_args, "--k", "1",
+               "--max_epochs", "1", "--model_type", "path_attention_mil",
+               "--mode", "path", "--gate_path", "--drop_out",
+               "--batch_size", "4", "--data_parallel", "--bag_shard",
+               "--bag_shard_devices", "1", "--results_dir",
+               os.path.join(td, "results"), "--device", "cuda"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t_run = time.perf_counter()
+        # its own session, so that its worker goes with it if killed
+        run = subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE,
+                               start_new_session=True)
+        try:
+            procs = _run_dist_ranks(td)
+            stdout, stderr = run.communicate(timeout=300)
+        finally:
+            if run.poll() is None:
+                os.killpg(run.pid, 9)
+                run.communicate()
+        ranks = []
+        for r in range(2):
+            path = os.path.join(td, f"dist_rank{r}.json")
+            ranks.append(json.load(open(path)) if os.path.exists(path)
+                         else {"error": "no result"})
+        codes = [p.exitcode for p in procs]
+        bad = [(r, x.get("error")) for r, x in enumerate(ranks)
+               if "error" in x]
+        if bad or any(codes):
+            raise AssertionError(f"[dist] ranks failed (exit codes "
+                                 f"{codes}): {bad}")
+        launches = {}
+        for r, x in enumerate(ranks):
+            for tag in ("pool_plain", "pool_dropout"):
+                p = x[tag]
+                errs = p["rel_err"]
+                log(f"[dist] rank {r} sharded pool ({tag[5:]}, B={DIST_B} "
+                    f"N={DIST_N} D=Da={DIST_D} f32 gated, its block "
+                    f"{DIST_N // 2} rows): fwd+bwd {p['ms']:.3f} ms with "
+                    f"its collectives (the whole bag unsharded "
+                    f"{p['unsharded_ms']:.3f} ms; both medians of 5, the "
+                    f"other rank on the same card), launches "
+                    f"{p['launches']}; rel err vs "
+                    f"the unsharded kernels "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + " (tol 1e-5)")
+                if max(errs.values()) > 1e-5 or list(
+                        p["launches"].values()) != [1, 1]:
+                    raise AssertionError(f"[dist] sharded pool {tag}")
+            for tag in ("bag_shard", "data_parallel"):
+                s = x[tag]
+                log(f"[dist] rank {r} {tag}: 2 PathAMIL steps (B="
+                    f"{DIST_STEP_B} N={DIST_STEP_N} --drop_out) in "
+                    f"{s['wall_s']:.3f} s, launches {s['launches']}; losses "
+                    + ", ".join(f"{v:.6f}" for v in s["losses"])
+                    + " vs one process "
+                    + ", ".join(f"{v:.6f}" for v in s["want_losses"])
+                    + f": rel err {s['loss_rel_err']:.2e} (tol 1e-4); "
+                    f"first step's gradients |diff| / (|g| + 1e-2 max |g|) "
+                    f"{s['grad_rel_err']:.2e} (tol 1e-4); "
+                    f"parameters |diff| / |moved| {s['state_rel_err']:.2e} "
+                    f"(tol 1e-3), max element {s['elem_err']:.2e} (tol lr "
+                    f"= {s['lr']:g})")
+                if (s["loss_rel_err"] > 1e-4 or s["grad_rel_err"] > 1e-4
+                        or s["state_rel_err"] > 1e-3
+                        or s["elem_err"] > s["lr"]
+                        or list(s["launches"].values()) != [2, 2]):
+                    raise AssertionError(f"[dist] {tag} steps")
+            mem = x["memory"]["peak_mib"]
+            log(f"[dist] rank {r} peak device memory of one PathAMIL step "
+                f"(B=1 N={x['memory']['n']} --drop_out): one process "
+                f"{mem['one_process']:.1f} MiB, this rank's bag-sharded "
+                f"step {mem['bag_shard']:.1f} MiB (tol 0.75 of one "
+                f"process)")
+            if mem["bag_shard"] > 0.75 * mem["one_process"]:
+                raise AssertionError("[dist] bag-sharded peak memory")
+            for tag in ("pool_plain", "pool_dropout", "bag_shard",
+                        "data_parallel"):
+                for name, n in x[tag]["launches"].items():
+                    launches.setdefault(tag, {}).setdefault(name, []).append(
+                        n)
+        lines = stdout.splitlines()
+        want = ["bag_shard: only one device visible, running unsharded",
+                "data_parallel: only one device visible, running unsharded"]
+        group = [x for x in lines if x.startswith("torch.distributed:")]
+        log(f"[dist] torchrun --nproc_per_node=1 cli.main --data_parallel "
+            f"--bag_shard: rc={run.returncode} in "
+            f"{time.perf_counter() - t_run:.1f} s; "
+            + " | ".join(group + [x for x in lines if x in want]))
+        if run.returncode != 0 or not all(x in lines for x in want) or \
+                not any("over nccl" in x for x in group):
+            raise AssertionError(f"[dist] torchrun run: {stdout[-3000:]}"
+                                 f"\n{stderr[-3000:]}")
+    log(f"[dist] wall {time.perf_counter() - t_phase:.1f} s ({_card()})")
+    return launches
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -2949,7 +3333,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,omic,pretrained,radio,extract,"
-                         "gradcam,interpret,timing "
+                         "gradcam,interpret,timing,dist "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -3008,6 +3392,8 @@ def _partial(phases, counters, work, t_all) -> int:
         _, cohort = phase_extract(counters, radio_exps["radio"], work)
     if "gradcam" in phases:
         phase_gradcam(counters, radio_exps["radio"], cohort, work)
+    if "dist" in phases:
+        phase_dist(work)
     log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
         f"no result)")
     return 0
@@ -3054,6 +3440,9 @@ def _full(counters, work, t_all) -> int:
     gradcam_launches = phase_gradcam(counters, radio_exps["radio"], cohort,
                                      work)
     log(f"[gradcam] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    dist_launches = phase_dist(work)
+    log(f"[dist] done in {time.perf_counter() - t:.1f} s")
     # the headline variant of each kernel: the forward as serving and
     # evaluation run it (f32, no dropout), the backward as the training
     # CLI runs it (f32, --drop_out)
@@ -3086,6 +3475,9 @@ def _full(counters, work, t_all) -> int:
             entry[f"launches_extract_{path}"] = counts[counter_of[name]]
         for path, counts in gradcam_launches.items():
             entry[f"launches_gradcam_{path}"] = counts[counter_of[name]]
+        # per rank of the two on the card, one list entry each
+        for path, counts in dist_launches.items():
+            entry[f"launches_dist_{path}"] = counts[counter_of[name]]
         entries.append(entry)
     log(f"[timing] train step ms {json.dumps(step)}")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

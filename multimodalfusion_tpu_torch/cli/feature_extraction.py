@@ -16,12 +16,19 @@ h5 exists is skipped.  The host preprocessing of scan k+1 runs in a
 prefetch thread while scan k is embedded.  Subject ids stay text: ``007``
 writes ``007.h5``, where the JAX CLI, through pandas, writes ``7.h5``.
 
-Runs on ``cuda`` unless ``--device cpu`` is given.
+Runs on ``cuda`` unless ``--device cpu`` is given.  ``--data_parallel``
+under torchrun gives rank r of K every K-th scan of the cohort, then one
+collective gathers the failed scans for rank 0's ``not_processed.pkl``:
+the PyTorch form of the JAX CLI's batch-sharded trunk with replicated
+parameters.  A scan's features depend on that scan alone, so the files
+are those of one process.
 
     python -m multimodalfusion_tpu_torch.cli.feature_extraction \\
         --radio_dir SCANS --csv_path scans.csv --output_dir FEATURES \\
         --cancer_type glioma --weights resnet50.pt [--dtype float32] \\
         [--device cpu]
+    torchrun --nproc_per_node=K -m \\
+        multimodalfusion_tpu_torch.cli.feature_extraction --data_parallel ...
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import time
 from typing import Dict, List
 
 import numpy as np
+import torch.distributed as dist
 
 from multimodalfusion_tpu_torch.data.io import (ensure_dir, save_hdf5,
                                                 save_pkl, save_pt)
@@ -41,6 +49,7 @@ from multimodalfusion_tpu_torch.data.radiology import (preprocess_glioma_scan,
                                                        preprocess_lung_scan)
 from multimodalfusion_tpu_torch.data.survival_dataset import _NA
 from multimodalfusion_tpu_torch.extract.features import Embedder
+from multimodalfusion_tpu_torch.parallel import mesh as par
 
 GLIOMA_MODALITIES = ["FLAIR", "T1", "T1Gd", "T2"]
 
@@ -52,8 +61,8 @@ def build_parser():
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--data_parallel", action="store_true", default=False,
-                   help="not ported: raises (ROADMAP.md, port queue item "
-                        "6c, multi-GPU)")
+                   help="shard embedding batches over all visible devices "
+                        "(1-D data mesh; params replicated)")
     p.add_argument("--planes", type=str, default="axial")
     p.add_argument("--cancer_type", type=str, default="glioma",
                    choices=["glioma", "lung"])
@@ -113,8 +122,9 @@ def _write_outputs(h5_path: str, pt_path: str, features: np.ndarray,
     save_pt(pt_path, features.astype(np.float32))
 
 
-def _iter_jobs(args, out_root):
-    """Yield (label, h5_path, pt_path, preprocess_thunk) per pending scan."""
+def _scans(args, out_root):
+    """(label, h5_path, pt_path, preprocess_thunk) of every scan of the
+    cohort, in the CSV's order."""
     if args.cancer_type == "glioma":
         subj_mods: Dict[str, Dict[str, str]] = {}
         for subject, *files in read_scans_csv(
@@ -123,32 +133,36 @@ def _iter_jobs(args, out_root):
         for m in GLIOMA_MODALITIES:
             ensure_dir(os.path.join(out_root, "radio_h5_files", m))
             ensure_dir(os.path.join(out_root, "radio_pt_files", m))
-        for subject, mods in subj_mods.items():
-            for modality, fname in mods.items():
-                h5_path = os.path.join(out_root, "radio_h5_files", modality,
-                                       f"{subject}.h5")
-                pt_path = os.path.join(out_root, "radio_pt_files", modality,
-                                       f"{subject}.pt")
-                if os.path.exists(h5_path):  # idempotent (ref :184-186)
-                    continue
-                scan = _resolve_scan(args.radio_dir, subject, fname)
-                yield ((subject, modality), h5_path, pt_path,
-                       lambda p=scan: preprocess_glioma_scan(p))
-    else:  # lung CT
-        ensure_dir(os.path.join(out_root, "radio_h5_files", "CT"))
-        ensure_dir(os.path.join(out_root, "radio_pt_files", "CT"))
-        for subject, scan_dir in read_scans_csv(args.csv_path,
-                                                ["subject_id", "CT"]):
-            h5_path = os.path.join(out_root, "radio_h5_files", "CT",
-                                   f"{subject}.h5")
-            pt_path = os.path.join(out_root, "radio_pt_files", "CT",
-                                   f"{subject}.pt")
-            if os.path.exists(h5_path):
-                continue
-            scan = _resolve_scan(args.radio_dir, subject, scan_dir)
-            yield ((subject,), h5_path, pt_path,
-                   lambda p=scan: preprocess_lung_scan(
-                       p, segment_each_slice=args.segment))
+        return [((subject, modality),
+                 os.path.join(out_root, "radio_h5_files", modality,
+                              f"{subject}.h5"),
+                 os.path.join(out_root, "radio_pt_files", modality,
+                              f"{subject}.pt"),
+                 lambda p=_resolve_scan(args.radio_dir, subject, fname):
+                 preprocess_glioma_scan(p))
+                for subject, mods in subj_mods.items()
+                for modality, fname in mods.items()]
+    # lung CT
+    ensure_dir(os.path.join(out_root, "radio_h5_files", "CT"))
+    ensure_dir(os.path.join(out_root, "radio_pt_files", "CT"))
+    return [((subject,),
+             os.path.join(out_root, "radio_h5_files", "CT", f"{subject}.h5"),
+             os.path.join(out_root, "radio_pt_files", "CT", f"{subject}.pt"),
+             lambda p=_resolve_scan(args.radio_dir, subject, scan_dir):
+             preprocess_lung_scan(p, segment_each_slice=args.segment))
+            for subject, scan_dir in read_scans_csv(args.csv_path,
+                                                    ["subject_id", "CT"])]
+
+
+def _iter_jobs(args, out_root, shard=(0, 1)):
+    """Yield (label, h5_path, pt_path, preprocess_thunk) per pending scan:
+    with ``shard`` = (rank, ranks) every ranks-th scan of the cohort from
+    the rank-th, counted before the scans whose h5 exists are skipped
+    (idempotent, ref :184-186), so the ranks split the cohort alike
+    whatever has been written."""
+    for i, job in enumerate(_scans(args, out_root)):
+        if i % shard[1] == shard[0] and not os.path.exists(job[1]):
+            yield job
 
 
 def _preprocessed(jobs):
@@ -167,10 +181,21 @@ def _preprocessed(jobs):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    with par.distributed(args.device, args.data_parallel) as device:
+        args.device = device
+        with par.quiet_unless_rank0():
+            return _run(args)
+
+
+def _run(args) -> int:
+    shard = (0, 1)
     if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP.md, port queue "
-            "item 6c, multi-GPU)")
+        if par.world_size() < 2:
+            print("--data_parallel: only one device visible, running "
+                  "unsharded")
+        else:
+            shard = (par.rank(), par.world_size())
+            print(f"--data_parallel: scans split over {shard[1]} ranks")
     t_start = time.perf_counter()
     embedder = Embedder(weights_path=args.weights,
                         batch_size=args.batch_size,
@@ -184,7 +209,7 @@ def main(argv=None) -> int:
     # host preprocessing of scan k+1 overlaps the embedding of scan k
     # (the reference gets this from DataLoader workers, :97-101)
     t_loop = time.perf_counter()
-    jobs = _preprocessed(_iter_jobs(args, out_root))
+    jobs = _preprocessed(_iter_jobs(args, out_root, shard))
     for label, h5_path, pt_path, slices, slice_ids, err, prep_dt in \
             prefetch(jobs, depth=2):
         name = "/".join(str(p) for p in label)
@@ -208,7 +233,12 @@ def main(argv=None) -> int:
         print(f"FAILED {name}: {err}")
         not_processed.append(label + (str(err),))
 
-    if not_processed:
+    if shard[1] > 1:
+        # the one barrier: every rank's failures reach rank 0
+        parts = [None] * shard[1]
+        dist.all_gather_object(parts, not_processed)
+        not_processed = [job for part in parts for job in part]
+    if not_processed and shard[0] == 0:
         save_pkl(os.path.join(out_root, "not_processed.pkl"), not_processed)
         print(f"{len(not_processed)} scans failed -> not_processed.pkl")
     t_end = time.perf_counter()

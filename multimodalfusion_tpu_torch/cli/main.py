@@ -22,9 +22,20 @@ of numpy arrays), the ``s_{k}_*checkpoint.pt`` state_dicts and
 ``summary.csv`` (or ``summary_partial_{a}_{b}.csv``, ``eval_``-prefixed
 with ``--eval_only``) with pandas' ``to_csv`` layout.  The flags of work
 not ported yet (``--split``, ``--profile_dir``, ``--resume``, ``--tb``,
-``--ckpt_format orbax``: ROADMAP.md port queue item 7;
-``--data_parallel``, ``--bag_shard*``: item 6) raise NotImplementedError
-naming their ROADMAP.md item.
+``--ckpt_format orbax``: ROADMAP.md port queue item 7) raise
+NotImplementedError naming their ROADMAP.md item.
+
+Multi-GPU runs start one process per GPU with torchrun:
+
+    torchrun --nproc_per_node=K -m multimodalfusion_tpu_torch.cli.main \
+        --data_parallel [--bag_shard --bag_shard_devices S] ...
+
+``--data_parallel`` splits each batch's rows over the ranks,
+``--bag_shard`` each bag's instances (AMIL models), both together a 2-D
+(K / S data) x (S bag) layout.  The ranks join NCCL (gloo with ``--device
+cpu``); only rank 0 prints and writes, the files of a one-process run.
+Without torchrun's environment the run is one process, and raises on a
+machine with more than one visible GPU.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ from multimodalfusion_tpu_torch.data.survival_dataset import SurvivalDataset
 from multimodalfusion_tpu_torch.engine.train import (TrainConfig,
                                                      check_supported,
                                                      train_fold)
+from multimodalfusion_tpu_torch.parallel import mesh as par
 from multimodalfusion_tpu_torch.utils.experiment import (experiment_code,
                                                          write_settings)
 from multimodalfusion_tpu_torch.utils.table import write_csv
@@ -52,13 +64,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--k", type=int, default=5)
     p.add_argument("--results_dir", default="./results")
     p.add_argument("--data_parallel", action="store_true", default=False,
-                   help="not ported yet (ROADMAP.md, port queue item 6)")
+                   help="shard training batches over all visible devices")
     p.add_argument("--tb", action="store_true", default=False,
                    help="not ported yet (ROADMAP.md, port queue item 7)")
     p.add_argument("--bag_shard", action="store_true", default=False,
-                   help="not ported yet (ROADMAP.md, port queue item 6)")
+                   help="shard the bag (instance) axis over all devices: "
+                        "AMIL attention pooling runs as fused per-shard "
+                        "partials combined with collectives (for bags "
+                        "beyond one chip's HBM)")
     p.add_argument("--bag_shard_devices", type=int, default=0,
-                   help="not ported yet (ROADMAP.md, port queue item 6)")
+                   help="with --data_parallel: bag-axis size of the 2-D "
+                        "(data, bag) mesh (DP x SP composition)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="not ported yet (ROADMAP.md, port queue item 7)")
     p.add_argument("--mode", type=str, default="radio")
@@ -165,6 +181,15 @@ def _refuse_unported(args) -> None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    with par.distributed(args.device,
+                         args.data_parallel or args.bag_shard) as device:
+        args.device = device
+        with par.quiet_unless_rank0():
+            return _run(args)
+
+
+def _run(args) -> int:
+    writer = par.rank() == 0
     dataset_path = os.path.join(args.dataset_root, args.cancer_type)
     args.results_dir = os.path.join(args.results_dir, args.cancer_type)
     split_dir = os.path.join(args.splits_root, args.cancer_type,
@@ -225,7 +250,8 @@ def main(argv=None) -> int:
         "gate_omic": args.gate_omic,
         "early_stopping": args.early_stopping,
     }
-    write_settings(results_dir, exp_code, settings)
+    if writer:
+        write_settings(results_dir, exp_code, settings)
     print("################# Settings ###################")
     for key, val in settings.items():
         print(f"{key}:  {val}")
@@ -247,14 +273,17 @@ def main(argv=None) -> int:
         if args.split_mode == "train_val_test":
             val_res, val_c, test_res, test_c = out
             test_cindex.append(test_c)
-            save_pkl(os.path.join(results_dir,
-                                  f"split_train_test_{i}_results.pkl"),
-                     test_res)
+            if writer:
+                save_pkl(os.path.join(results_dir,
+                                      f"split_train_test_{i}_results.pkl"),
+                         test_res)
         else:
             val_res, val_c = out
         val_cindex.append(val_c)
-        save_pkl(os.path.join(results_dir,
-                              f"split_train_val_{i}_results.pkl"), val_res)
+        if writer:
+            save_pkl(os.path.join(results_dir,
+                                  f"split_train_val_{i}_results.pkl"),
+                     val_res)
         print(f"Fold {i} Time: {timer() - t0:.1f} seconds")
 
     print(f"Average validation c_index: {np.mean(val_cindex)}")
@@ -267,7 +296,8 @@ def main(argv=None) -> int:
     cols = {"folds": folds, "val_cindex": val_cindex}
     if args.split_mode == "train_val_test":
         cols["test_cindex"] = test_cindex
-    write_csv(os.path.join(results_dir, save_name), cols, index=True)
+    if writer:
+        write_csv(os.path.join(results_dir, save_name), cols, index=True)
     return 0
 
 

@@ -22,8 +22,12 @@ unless ``cpu`` is asked for) and writes the JAX CLI's files:
 ``experiment_{code}.txt``, ``{k}/metrics.jsonl``, the
 ``s_{k}_*checkpoint.pt`` state_dicts (BatchNorm running statistics
 included), ``split_train_val_{k}_results.pkl`` and ``summary.csv``.
-``--resume``, ``--tb``, ``--ckpt_format orbax`` and ``--data_parallel``
-raise NotImplementedError naming their ROADMAP.md item.
+``--resume``, ``--tb`` and ``--ckpt_format orbax`` raise
+NotImplementedError naming their ROADMAP.md item.  ``--data_parallel``
+splits each batch's rows over the ranks of a torchrun launch (``torchrun
+--nproc_per_node=K -m multimodalfusion_tpu_torch.cli.main_pretrained
+--data_parallel ...``), the heads' batch statistics over the global
+batch; only rank 0 prints and writes.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from multimodalfusion_tpu_torch.data.survival_dataset import SurvivalDataset
 from multimodalfusion_tpu_torch.engine.train import (TrainConfig,
                                                      check_supported,
                                                      train_fold)
+from multimodalfusion_tpu_torch.parallel import mesh as par
 from multimodalfusion_tpu_torch.utils.experiment import (experiment_code,
                                                          write_settings)
 from multimodalfusion_tpu_torch.utils.table import write_csv
@@ -89,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gc", type=int, default=1)
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--data_parallel", action="store_true", default=False,
-                   help="not ported yet (ROADMAP.md, port queue item 6)")
+                   help="shard training batches over all visible devices")
     p.add_argument("--tb", action="store_true", default=False,
                    help="not ported yet (ROADMAP.md, port queue item 7)")
     p.add_argument("--nll_ratio", type=float, default=0.2)
@@ -130,6 +135,14 @@ def _config(args, results_dir: str) -> TrainConfig:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     check_supported(_config(args, args.results_dir))
+    with par.distributed(args.device, args.data_parallel) as device:
+        args.device = device
+        with par.quiet_unless_rank0():
+            return _run(args)
+
+
+def _run(args) -> int:
+    writer = par.rank() == 0
     dataset_path = os.path.join(args.dataset_root, args.cancer_type)
     args.results_dir = os.path.join(args.results_dir, args.cancer_type)
     split_dir = os.path.join(args.splits_root, args.cancer_type,
@@ -170,7 +183,8 @@ def main(argv=None) -> int:
         "reg_type": args.reg_type, "lambda_reg": args.lambda_reg,
         "early_stopping": args.early_stopping,
     }
-    write_settings(results_dir, exp_code, settings)
+    if writer:
+        write_settings(results_dir, exp_code, settings)
 
     start_fold = 0 if args.k_start == -1 else args.k_start
     end_fold = args.k if args.k_end == -1 else args.k_end
@@ -186,14 +200,17 @@ def main(argv=None) -> int:
         if args.split_mode == "train_val_test":
             val_res, val_c, test_res, test_c = out
             test_cindex.append(test_c)
-            save_pkl(os.path.join(results_dir,
-                                  f"split_train_test_{i}_results.pkl"),
-                     test_res)
+            if writer:
+                save_pkl(os.path.join(results_dir,
+                                      f"split_train_test_{i}_results.pkl"),
+                         test_res)
         else:
             val_res, val_c = out
         val_cindex.append(val_c)
-        save_pkl(os.path.join(results_dir,
-                              f"split_train_val_{i}_results.pkl"), val_res)
+        if writer:
+            save_pkl(os.path.join(results_dir,
+                                  f"split_train_val_{i}_results.pkl"),
+                     val_res)
         print(f"Fold {i} Time: {timer() - t0:.1f} seconds")
 
     print(f"Average validation c_index: {np.mean(val_cindex)}")
@@ -202,7 +219,8 @@ def main(argv=None) -> int:
     cols = {"folds": folds, "val_cindex": val_cindex}
     if args.split_mode == "train_val_test":
         cols["test_cindex"] = test_cindex
-    write_csv(os.path.join(results_dir, save_name), cols, index=True)
+    if writer:
+        write_csv(os.path.join(results_dir, save_name), cols, index=True)
     return 0
 
 

@@ -53,15 +53,22 @@ def pad_bags_plain(bags: Sequence[Optional[np.ndarray]], feat_dim: int,
 
 
 def pad_bags(bags: Sequence[Optional[np.ndarray]], feat_dim: int,
-             pool: Optional["PinnedPool"] = None
+             pool: Optional["PinnedPool"] = None,
+             length: Optional[int] = None
              ) -> Tuple[np.ndarray, np.ndarray]:
     """``pad_bags_plain`` for float32, collated by the native library into
     buffers of ``pool`` (page-locked, for a batch bound for a CUDA device)
     or, without one, into new arrays.  A bag that is not float32
-    C-contiguous is converted first."""
+    C-contiguous is converted first.  ``length``: the padded length
+    instead of the bucket (a bag-sharded block's; no bag may be
+    longer)."""
     bags = [None if b is None else np.ascontiguousarray(b, np.float32)
             for b in bags]
-    shape = (len(bags), _padded_len(bags), feat_dim)
+    if length is not None and any(b is not None and b.shape[0] > length
+                                  for b in bags):
+        raise ValueError(f"a bag is longer than the padded length {length}")
+    shape = (len(bags), _padded_len(bags) if length is None else length,
+             feat_dim)
     if pool is None:
         out = np.empty(shape, np.float32)
         mask = np.empty(shape[:2], np.float32)

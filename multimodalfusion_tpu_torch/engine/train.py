@@ -20,6 +20,22 @@ On a CUDA device the loader collates the bags into the page-locked
 buffers of a ``PinnedPool``, and ``model_inputs`` copies them to the card
 with ``non_blocking`` and hands them back to the pool.
 
+Multi-GPU (``--data_parallel``, ``--bag_shard``, ``--bag_shard_devices``;
+one process per GPU under torchrun, ``parallel/mesh.py``): each rank's
+loader yields its rows of the global batch.  Under data parallelism the
+heads' outputs and the labels are gathered over the data group and every
+rank computes the JAX package's loss of the global, padded batch (a Cox
+risk set spans the ranks); each rank backpropagates it through its own
+rows, so the gradients are summed over the data group once, after the
+backward.  Under bag sharding the attention pool merges the instance
+blocks with collectives (``ops/sharded_pool.py``), which also sum the
+attention parameters' gradients; the per-instance layers before it
+(``instance_parameters``) see only the block's rows and are summed over
+the bag group; the classifier sees the same pooled features on every rank
+and is not.  The L1 term's gradient is added after the sums, once.
+Dropout bits are the global batch's (``mesh.draw``), so a sharded step
+equals the step at world size 1.  Only rank 0 writes files.
+
 A stage-4 head trains in train mode, so its ``MaskedBatchNorm``s use the
 batch statistics of the valid rows and move their running ones.  With
 ``multimodal-dropout`` a branch whose modality the whole batch lacks
@@ -37,6 +53,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodalfusion_tpu_torch import losses as losses_mod
 from multimodalfusion_tpu_torch import metrics as metrics_mod
@@ -51,6 +68,8 @@ from multimodalfusion_tpu_torch.models.mm_amil import MMAttentionMIL
 from multimodalfusion_tpu_torch.models.pretrained_heads import (
     MULTIMODAL_TYPES, UNIMODAL_TYPES, MultimodalPretrained,
     UnimodalPretrained)
+from multimodalfusion_tpu_torch.parallel import mesh as par
+from multimodalfusion_tpu_torch.parallel.mesh import BAG_AXIS, DATA_AXIS
 from multimodalfusion_tpu_torch.utils import params as params_mod
 
 # the modes each stage-2 model trains and serves in (the JAX CLI's)
@@ -157,30 +176,57 @@ _UNPORTED = (
     (lambda c: c.tb, "--tb (tensorboard event files)", "port queue item 7"),
     (lambda c: c.ckpt_format != "msgpack", "--ckpt_format orbax",
      "port queue item 7"),
-    (lambda c: c.data_parallel, "--data_parallel", "port queue item 6"),
-    (lambda c: c.bag_shard or c.bag_shard_devices,
-     "--bag_shard / --bag_shard_devices", "port queue item 6"),
 )
+
+_AMIL = ("path_attention_mil", "radio_attention_mil")
+
+
+def check_layout(cfg: TrainConfig, world: int) -> None:
+    """The JAX package's errors for the multi-device layouts (JAX
+    engine/train.py:609-632) at world size ``world``."""
+    if not cfg.bag_shard:
+        return
+    if cfg.model_type not in _AMIL:
+        raise ValueError("bag_shard applies to AMIL models only")
+    if cfg.data_parallel and not cfg.bag_shard_devices:
+        raise ValueError("bag_shard + data_parallel needs "
+                         "--bag_shard_devices (bag-axis size of the "
+                         "2-D mesh)")
+    if world < 2 or not cfg.data_parallel:
+        return
+    if world % cfg.bag_shard_devices:
+        raise ValueError(f"{world} devices not divisible by bag_devices="
+                         f"{cfg.bag_shard_devices}")
+    n_data = world // cfg.bag_shard_devices
+    if cfg.batch_size % n_data:
+        raise ValueError(
+            f"--batch_size {cfg.batch_size} must be divisible by the "
+            f"data-axis size {n_data} of the 2-D mesh (= devices / "
+            f"--bag_shard_devices {cfg.bag_shard_devices})")
 
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise for a model, mode or engine knob that the port does not do
-    yet, naming the ROADMAP.md item that brings it; nothing is silently
-    ignored."""
+    yet, naming the ROADMAP.md item that brings it, and for a layout that
+    the launch's world size cannot take; nothing is silently ignored."""
     _check_model(cfg)
     for asked, what, item in _UNPORTED:
         if asked(cfg):
             raise NotImplementedError(f"{what} is not ported yet "
                                       f"(ROADMAP.md, {item})")
+    check_layout(cfg, par.launch_world_size())
 
 
 def build_model(cfg: TrainConfig,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                bag_mesh: Optional[par.Mesh] = None):
     """Model dispatch (ref core_utils.py:76-98,
     core_utils_pretrained.py:74-87).  The models with a genomic branch
     take its input width from ``cfg.omic_input_dim``; a radiology bag has
-    ``len(cfg.modalities)`` sequences."""
+    ``len(cfg.modalities)`` sequences.  ``bag_mesh``: a mesh with a "bag"
+    axis routes the AMIL attention pooling through the sharded op."""
     _check_model(cfg)
+    bag_group = bag_mesh.group(BAG_AXIS) if bag_mesh is not None else None
     if cfg.pretrained:
         head = (MultimodalPretrained if cfg.model_type == "mm_attention_mil"
                 else UnimodalPretrained)
@@ -190,14 +236,16 @@ def build_model(cfg: TrainConfig,
     if cfg.model_type == "path_attention_mil":
         return PathAMIL(model_size=cfg.model_size_wsi, gate=cfg.gate_path,
                         attn_dropout=cfg.drop_out, n_classes=cfg.n_classes,
-                        compute_dtype=cfg.bag_dtype, generator=generator)
+                        compute_dtype=cfg.bag_dtype, generator=generator,
+                        bag_group=bag_group)
     if cfg.model_type == "radio_attention_mil":
         return RadioAMIL(n_modalities=len(cfg.modalities),
                          radio_fusion=cfg.radio_fusion or "concat",
                          model_size=cfg.model_size_radio,
                          gate=cfg.gate_radio, attn_dropout=cfg.drop_out,
                          n_classes=cfg.n_classes,
-                         compute_dtype=cfg.bag_dtype, generator=generator)
+                         compute_dtype=cfg.bag_dtype, generator=generator,
+                         bag_group=bag_group)
     if "omic" in cfg.mode and cfg.omic_input_dim <= 0:
         raise ValueError(f"{cfg.model_type}: omic_input_dim must be the "
                          f"cohort's number of genomic columns, got "
@@ -369,12 +417,17 @@ _MODALITY_MARKERS = {"radio": ("MRI", "radio"), "path": ("WSI", "path"),
                      "omic": ("omic",)}
 
 
-def frozen_parameters(model: torch.nn.Module,
-                      batch: Dict[str, np.ndarray]) -> List[torch.Tensor]:
+def frozen_parameters(model: torch.nn.Module, batch: Dict[str, np.ndarray],
+                      group=None) -> List[torch.Tensor]:
     """The parameters of the branches whose modality has all-zero
-    embeddings in the whole batch (JAX ``_modality_scale_tree``)."""
-    absent = {m for m in _MODALITY_MARKERS
-              if f"h_{m}" in batch and not np.any(np.abs(batch[f"h_{m}"]) > 0)}
+    embeddings in the whole batch (JAX ``_modality_scale_tree``): with a
+    data ``group``, the whole global batch."""
+    kinds = [m for m in _MODALITY_MARKERS if f"h_{m}" in batch]
+    present = [bool(np.any(np.abs(batch[f"h_{m}"]) > 0)) for m in kinds]
+    if group is not None and kinds:
+        device = next(model.parameters()).device
+        present = par.all_reduce_max(present, group, device)
+    absent = {m for m, here in zip(kinds, present) if not here}
     frozen = []
     for name, p in model.named_parameters():
         owner = next((m for m, marks in _MODALITY_MARKERS.items()
@@ -416,12 +469,55 @@ def step_with_frozen(opt: torch.optim.Optimizer,
 # steps
 # ---------------------------------------------------------------------------
 
+def _shard_eval_batch(batch: Dict[str, np.ndarray], mesh, device
+                      ) -> Optional[par.Shard]:
+    """Where this rank's rows of the batch sit in the global batch
+    (``mesh.Shard``), or None without a mesh.  The JAX package's
+    ``_shard_eval_batch`` places a host batch on the mesh; here the loader
+    has already cut this rank's rows (``rows``, ``{kind}_rows``), and
+    under data parallelism each rank bucketed its own bags, so the global
+    batch's bag length is the longest over the data group."""
+    if mesh is None:
+        return None
+    B = batch["valid"].shape[0]
+    rows = tuple(int(v) for v in batch.get("rows", (0, B, B)))
+    bags = {k[:-len("_rows")]: tuple(int(v) for v in batch[k])
+            for k in batch if k.endswith("_rows")}
+    data_group = mesh.group(DATA_AXIS)
+    if data_group is not None and bags:
+        kinds = sorted(bags)
+        lengths = par.all_reduce_max([bags[k][2] for k in kinds], data_group,
+                                     device)
+        bags = {k: bags[k][:2] + (n,) for k, n in zip(kinds, lengths)}
+    return par.Shard(rows, bags, data_group)
+
+
+def _gather_global(out: dict, lab: dict, group) -> Tuple[dict, dict]:
+    """The heads' outputs (differentiable) and the labels of every rank's
+    rows, in the global batch's order."""
+    keys = [k for k in ("hazards", "S", "risk") if out.get(k) is not None]
+    parts = [out[k].reshape(out[k].shape[0], -1) for k in keys]
+    got = par.gather_rows(torch.cat(parts, dim=1), group).split(
+        [t.shape[1] for t in parts], dim=1)
+    out = dict(out)
+    for k, t in zip(keys, got):
+        out[k] = t.reshape((t.shape[0],) + out[k].shape[1:])
+    names = ("Y", "t", "c", "valid")
+    lab_all = par.gather_rows(torch.stack(
+        [lab[k].to(torch.float32) for k in names], dim=1), group)
+    lab = {k: lab_all[:, i].to(lab[k].dtype) for i, k in enumerate(names)}
+    return out, lab
+
+
 def make_steps(cfg: TrainConfig, model: torch.nn.Module, opt,
-               device: torch.device, pool: Optional[PinnedPool] = None):
+               device: torch.device, pool: Optional[PinnedPool] = None,
+               mesh: Optional[par.Mesh] = None):
     """(train_step(batch, generator), eval_step(batch)) over host batches
     (collated into ``pool``, when given).  Each returns the survival loss
-    ``loss``, ``total`` = loss + the L1 term, and the batch's ``risk`` and
-    ``S`` (None for a scalar-risk head), as tensors."""
+    ``loss``, ``total`` = loss + the L1 term, the batch's ``risk`` and
+    ``S`` (None for a scalar-risk head), as tensors, and ``labels``: the
+    batch's Y, t, c and valid in numpy.  On a ``mesh`` with a data axis
+    these are the global batch's (see the module's docstring)."""
     if cfg.bag_loss in ("ranking_surv", "ranking_nll_surv") \
             and cfg.batch_size < 2:
         # the ranking term has no comparable pairs at B=1 (the reference
@@ -439,42 +535,63 @@ def make_steps(cfg: TrainConfig, model: torch.nn.Module, opt,
             "be masked by only the final microbatch's modality presence")
     loss_spec = make_loss_spec(cfg)
     reg_fn = _reg_fn(cfg)
+    data_group = mesh.group(DATA_AXIS) if mesh is not None else None
+    bag_group = mesh.group(BAG_AXIS) if mesh is not None else None
+    instance_params = (model.instance_parameters() if bag_group is not None
+                       else [])
+    params = list(model.parameters())
 
-    def _losses(out, lab):
+    def _forward(batch, **kw):
+        with par.local_rows(_shard_eval_batch(batch, mesh, device)):
+            out = model(**model_inputs(cfg, batch, device, pool), **kw)
+        lab = label_inputs(batch, device)
+        if data_group is not None:
+            out, lab = _gather_global(out, lab, data_group)
         loss = loss_spec.apply(hazards=out["hazards"], S=out["S"],
                                risks=out["risk"], Y=lab["Y"],
                                times=lab["t"], c=lab["c"],
                                valid=lab["valid"])
-        total = loss
-        if reg_fn is not None:
-            total = total + cfg.lambda_reg * reg_fn(model)
-        return loss, total
+        labels = ({k: v.cpu().numpy() for k, v in lab.items()}
+                  if data_group is not None else
+                  {k: batch[k] for k in ("Y", "t", "c", "valid")})
+        return out, loss, labels
+
+    def _reg():
+        return cfg.lambda_reg * reg_fn(model)
 
     def train_step(batch, generator: Optional[torch.Generator]):
         model.train()
         opt.zero_grad(set_to_none=True)
-        out = model(**model_inputs(cfg, batch, device, pool),
-                    generator=generator)
-        loss, total = _losses(out, label_inputs(batch, device))
-        total.backward()
+        out, loss, labels = _forward(batch, generator=generator)
+        loss.backward()
+        if bag_group is not None:
+            par.sum_gradients(instance_params, bag_group)
+        if data_group is not None:
+            par.sum_gradients(params, data_group)
+        total = loss
+        if reg_fn is not None:
+            # after the sums: every rank adds the same L1 gradient once
+            reg = _reg()
+            reg.backward()
+            total = loss + reg
         if mm_dropout:
-            step_with_frozen(opt, frozen_parameters(model, batch))
+            step_with_frozen(opt, frozen_parameters(model, batch, data_group))
         else:
             opt.step()
         S = out["S"]
         return {"loss": loss.detach(), "total": total.detach(),
                 "risk": out["risk"].detach(),
-                "S": None if S is None else S.detach()}
+                "S": None if S is None else S.detach(), "labels": labels}
 
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
-        out = model(**model_inputs(cfg, batch, device, pool))
-        loss, total = _losses(out, label_inputs(batch, device))
+        out, loss, labels = _forward(batch)
         # the reference's val/loss also carries the L1 term
         # (core_utils.py:305-312,337-340)
+        total = loss + _reg() if reg_fn is not None else loss
         return {"loss": loss, "total": total, "risk": out["risk"],
-                "S": out["S"], "hazards": out["hazards"]}
+                "S": out["S"], "hazards": out["hazards"], "labels": labels}
 
     return train_step, eval_step
 
@@ -546,21 +663,22 @@ def _cindex(c, t, risk) -> float:
 
 
 def _run_epoch(cfg, split, indices, train_step, eval_step, generator,
-               training: bool, seed: int, pool=None) -> dict:
+               training: bool, seed: int, pool=None, mesh=None) -> dict:
     all_risk, all_c, all_t, losses, totals = [], [], [], [], []
     for batch in prefetch(iter_batches(split, batch_size=cfg.batch_size,
                                        shuffle=training,
                                        weighted=training
                                        and cfg.weighted_sample,
                                        seed=seed, indices=indices,
-                                       pool=pool)):
+                                       pool=pool, mesh=mesh)):
         batch.pop("subject_ids")
         out = (train_step(batch, generator) if training
                else eval_step(batch))
-        valid = batch["valid"] > 0
+        lab = out["labels"]
+        valid = lab["valid"] > 0
         all_risk.append(out["risk"].float().cpu().numpy().reshape(-1)[valid])
-        all_c.append(batch["c"][valid])
-        all_t.append(batch["t"][valid])
+        all_c.append(lab["c"][valid])
+        all_t.append(lab["t"][valid])
         losses.append(float(out["loss"]))
         totals.append(float(out["total"]))
     all_risk = np.concatenate(all_risk) if all_risk else np.zeros(0)
@@ -572,25 +690,32 @@ def _run_epoch(cfg, split, indices, train_step, eval_step, generator,
             "c": all_c, "t": all_t}
 
 
-def summary_survival(cfg, split, eval_step, indices=None, pool=None
-                     ) -> Tuple[dict, float]:
+def summary_survival(cfg, split, eval_step, indices=None, pool=None,
+                     mesh=None) -> Tuple[dict, float]:
     """Sequential pass collecting per-patient risks (ref
     core_utils.py:358-429): a dict of numpy arrays with the JAX package's
-    keys (no ``prob`` for a scalar-risk head), and the c-index."""
+    keys (no ``prob`` for a scalar-risk head), and the c-index.  On a
+    data-parallel ``mesh`` every rank returns the global batches'."""
     if indices is None:
         indices = usable_indices(split)
+    data_group = mesh.group(DATA_AXIS) if mesh is not None else None
     ids, risk, c, t, label, S = [], [], [], [], [], []
     for batch in prefetch(iter_batches(split, batch_size=cfg.batch_size,
                                        shuffle=False, indices=indices,
-                                       pool=pool)):
-        subject_ids = batch.pop("subject_ids")
+                                       pool=pool, mesh=mesh)):
+        subject_ids = list(batch.pop("subject_ids"))
         out = eval_step(batch)
-        valid = batch["valid"] > 0
-        ids.append(np.asarray(subject_ids)[valid])
+        if data_group is not None:
+            parts = [None] * dist.get_world_size(data_group)
+            dist.all_gather_object(parts, subject_ids, group=data_group)
+            subject_ids = [s for part in parts for s in part]
+        lab = out["labels"]
+        valid = lab["valid"] > 0
+        ids.append(np.asarray(subject_ids, dtype=object)[valid])
         risk.append(out["risk"].float().cpu().numpy().reshape(-1)[valid])
-        c.append(batch["c"][valid])
-        t.append(batch["t"][valid])
-        label.append(batch["Y"][valid])
+        c.append(lab["c"][valid])
+        t.append(lab["t"][valid])
+        label.append(lab["Y"][valid])
         if out["S"] is not None:
             S.append(out["S"].float().cpu().numpy()[valid])
 
@@ -605,17 +730,56 @@ def summary_survival(cfg, split, eval_step, indices=None, pool=None
                             results["risk"])
 
 
+def _bag_mesh(cfg: TrainConfig) -> Optional[par.Mesh]:
+    """The fold's bag or 2-D mesh (JAX engine/train.py:609-640; its
+    errors are ``check_layout``'s, raised by ``check_supported`` before
+    anything is written)."""
+    if not cfg.bag_shard:
+        return None
+    if par.world_size() < 2:
+        print("bag_shard: only one device visible, running unsharded")
+        return None
+    if cfg.data_parallel:
+        mesh = par.make_dp_bag_mesh(cfg.bag_shard_devices)
+        print(f"bag_shard x data_parallel: 2-D mesh {mesh.shape}")
+        return mesh
+    mesh = par.make_bag_mesh()
+    print(f"bag_shard: instance axis sharded over {mesh.size} devices")
+    return mesh
+
+
+def _activate_mesh(cfg: TrainConfig, bag_mesh) -> Optional[par.Mesh]:
+    """The active mesh: the bag or 2-D mesh of build time, or a fresh
+    data-parallel one.  JAX replicates the trees onto it; here every rank
+    already holds the same parameters, built from ``cfg.seed`` or loaded
+    from one checkpoint."""
+    mesh = None
+    if cfg.data_parallel and bag_mesh is None:
+        if par.world_size() < 2:
+            print("data_parallel: only one device visible, "
+                  "running unsharded")
+        else:
+            mesh = par.make_mesh()
+            print(f"data_parallel: batch axis sharded over "
+                  f"{mesh.size} devices")
+    elif bag_mesh is not None:
+        mesh = bag_mesh
+    return mesh
+
+
 def train_fold(datasets, cur: int, cfg: TrainConfig,
                eval_only: bool = False):
     """Train (or evaluate) one fold; returns the reference's result tuple
     (ref core_utils.py train :21-171): (results_val, val_c) or, with
     split_mode train_val_test, (results_val, val_c, results_test,
-    test_c)."""
+    test_c).  Under torch.distributed every rank of the group calls it;
+    only rank 0 writes."""
     check_supported(cfg)
     device = resolve_device(cfg.device)
-    os.makedirs(cfg.results_dir, exist_ok=True)
+    writer = par.rank() == 0
     fold_dir = os.path.join(cfg.results_dir, str(cur))
-    os.makedirs(fold_dir, exist_ok=True)
+    if writer:
+        os.makedirs(fold_dir, exist_ok=True)
     log_path = os.path.join(fold_dir, "metrics.jsonl")
 
     if cfg.split_mode == "train_val_test":
@@ -632,13 +796,14 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
                 f"'{name}' column of the fold's splits csv (split_mode="
                 f"{cfg.split_mode})")
 
-    model = build_model(cfg, torch.Generator().manual_seed(cfg.seed))
+    bag_mesh = _bag_mesh(cfg)
+    model = build_model(cfg, torch.Generator().manual_seed(cfg.seed),
+                        bag_mesh)
     model = model.to(device)
     spec = params_mod.spec_from_config(cfg)
     opt = make_optimizer(cfg, model.parameters())
     pool = (PinnedPool() if device.type == "cuda" and not cfg.pretrained
             else None)
-    train_step, eval_step = make_steps(cfg, model, opt, device, pool)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     train_idx = usable_indices(train_split)
@@ -658,17 +823,22 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
 
     def summaries():
         results_val, val_c = summary_survival(cfg, val_split, eval_step,
-                                              val_idx, pool)
+                                              val_idx, pool, mesh)
         if cfg.split_mode != "train_val_test":
             return results_val, val_c
         results_test, test_c = summary_survival(cfg, test_split, eval_step,
-                                                test_idx, pool)
+                                                test_idx, pool, mesh)
         return results_val, val_c, results_test, test_c
 
     if eval_only:
         load_checkpoint(model, minloss_ckpt, spec)
+        mesh = _activate_mesh(cfg, bag_mesh)
+        train_step, eval_step = make_steps(cfg, model, opt, device, pool,
+                                           mesh)
         return summaries()
 
+    mesh = _activate_mesh(cfg, bag_mesh)
+    train_step, eval_step = make_steps(cfg, model, opt, device, pool, mesh)
     stopper = (EarlyStopping(warmup=0, patience=20,
                              stop_epoch=100 if not cfg.pretrained else 50,
                              verbose=True, spec=spec)
@@ -677,9 +847,9 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
         t0 = time.time()
         tr = _run_epoch(cfg, train_split, train_idx, train_step, eval_step,
                         generator, True, seed=cfg.seed * 100003 + epoch,
-                        pool=pool)
+                        pool=pool, mesh=mesh)
         va = _run_epoch(cfg, val_split, val_idx, train_step, eval_step,
-                        generator, False, seed=0, pool=pool)
+                        generator, False, seed=0, pool=pool, mesh=mesh)
         rec = {"epoch": epoch, "train_loss": tr["loss"],
                "train_c_index": tr["c_index"], "val_loss": va["loss"],
                "val_c_index": va["c_index"],
@@ -689,22 +859,28 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
               f"train_loss {tr['loss']:.4f} c {tr['c_index']:.4f} | "
               f"val_loss {va['loss']:.4f} c {va['c_index']:.4f} "
               f"({rec['sec']:.1f}s)")
-        with open(log_path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
-        if epoch == 10:
-            save_checkpoint(mid_ckpt, model, spec)  # ref core_utils.py:342
+        if writer:
+            with open(log_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+            if epoch == 10:
+                save_checkpoint(mid_ckpt, model, spec)  # ref core_utils:342
         if stopper is not None:
-            stopper(epoch, va["loss"], model, minloss_ckpt)
+            # every rank sees the same val loss and decides alike
+            stopper(epoch, va["loss"], model,
+                    minloss_ckpt if writer else None)
             if stopper.early_stop:
                 print("Early stopping")
                 break
 
-    save_checkpoint(ckpt, model, spec)
+    if writer:
+        save_checkpoint(ckpt, model, spec)
     _, final_val_c = summary_survival(cfg, val_split, eval_step, val_idx,
-                                      pool)
+                                      pool, mesh)
+    if cfg.early_stopping:
+        par.barrier()  # rank 0 has written its checkpoints
     if cfg.early_stopping and os.path.exists(minloss_ckpt):
         load_checkpoint(model, minloss_ckpt, spec)
-    else:
+    elif writer:
         # no early stopping: minloss == final (keep downstream contracts)
         save_checkpoint(minloss_ckpt, model, spec)
     out = summaries()

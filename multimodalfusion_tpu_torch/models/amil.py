@@ -4,7 +4,13 @@ multimodalfusion_tpu/models/amil.py): ``PathAMIL`` over pathology bags,
 
 Every random draw of a training forward (the FC dropout and the
 attention-branch masks) comes from the ``generator`` passed to
-``forward``."""
+``forward``.
+
+``bag_group`` (cfg.bag_shard; JAX ``bag_mesh``): the bags arrive as this
+rank's block of their instances and the attention pool is sharded over
+the group.  The layers before the pooling see only the block's rows, so
+their gradients (``instance_parameters``) are partial sums over the
+group; the classifier sees the same pooled features on every rank."""
 from __future__ import annotations
 
 from typing import Optional
@@ -17,6 +23,7 @@ from multimodalfusion_tpu_torch.models.heads import survival_outputs
 from multimodalfusion_tpu_torch.models.modules import (Dense, Dropout,
                                                        RadioFusion)
 from multimodalfusion_tpu_torch.models.pooling import AttentionPool
+from multimodalfusion_tpu_torch.parallel import mesh
 
 SIZE_DICT = {"small": (1024, 256, 256), "big": (1024, 512, 384)}
 
@@ -37,19 +44,26 @@ class PathAMIL(nn.Module):
     def __init__(self, model_size: str = "small", gate: bool = True,
                  attn_dropout: bool = False, n_classes: int = 4,
                  compute_dtype: str = "float32",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bag_group=None):
         super().__init__()
         size = SIZE_DICT[model_size]
         self.compute_dtype = getattr(torch, compute_dtype)
         self.attention_net_WSI = nn.ModuleList([
             Dense(size[0], size[1], generator), nn.ReLU(), Dropout(0.25),
             AttentionPool(size[1], size[2], gated=gate,
-                          attn_dropout=attn_dropout, generator=generator)])
+                          attn_dropout=attn_dropout, generator=generator,
+                          bag_group=bag_group)])
         self.classifier = Dense(size[1], n_classes, generator)
 
     @property
     def pool(self) -> AttentionPool:
         return self.attention_net_WSI[3]
+
+    def instance_parameters(self):
+        """The parameters of the per-instance layers before the pooling
+        (``fc``)."""
+        return list(self.attention_net_WSI[0].parameters())
 
     def embed(self, bags, generator: Optional[torch.Generator] = None):
         """Per-instance features h [B, N, L] in the compute dtype."""
@@ -70,10 +84,11 @@ class PathAMIL(nn.Module):
         """Survival outputs; the pooled features [B, L] with
         ``return_features``; with ``attention_only`` the raw attention
         scores [B, N] of the read-out (no kernel; JAX amil.py:51-53)."""
-        h = self.embed(bags, generator)
-        if attention_only:
-            return self.pool(h, mask, generator, return_attn=True)[2]
-        M = self.pool(h, mask, generator).float()
+        with mesh.bag_axis("path"):
+            h = self.embed(bags, generator)
+            if attention_only:
+                return self.pool(h, mask, generator, return_attn=True)[2]
+            M = self.pool(h, mask, generator).float()
         if return_features:
             return M
         return self.head(M)
@@ -101,7 +116,8 @@ class RadioAMIL(RadioFusion, nn.Module):
                  model_size: str = "small", gate: bool = True,
                  attn_dropout: bool = False, n_classes: int = 4,
                  compute_dtype: str = "float32",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bag_group=None):
         super().__init__()
         size = SIZE_DICT[model_size]
         self.compute_dtype = getattr(torch, compute_dtype)
@@ -110,12 +126,21 @@ class RadioAMIL(RadioFusion, nn.Module):
         self.attention_net_radio = nn.ModuleList([
             Dense(size[0], size[1], generator), nn.ReLU(), Dropout(0.25),
             AttentionPool(size[1], size[2], gated=gate,
-                          attn_dropout=attn_dropout, generator=generator)])
+                          attn_dropout=attn_dropout, generator=generator,
+                          bag_group=bag_group)])
         self.classifier = Dense(size[1], n_classes, generator)
 
     @property
     def pool(self) -> AttentionPool:
         return self.attention_net_radio[3]
+
+    def instance_parameters(self):
+        """The parameters of the per-instance layers before the pooling
+        (``reduce_dim`` or ``radio_xfusion``, and ``fc``)."""
+        fusion = [m for name in ("reduce_dim", "radio_xfusion")
+                  for m in [getattr(self, name, None)] if m is not None]
+        return [p for m in fusion + [self.attention_net_radio[0]]
+                for p in m.parameters()]
 
     def embed(self, bags, generator: Optional[torch.Generator] = None):
         """Per-instance features h [B, N, L] in the compute dtype."""
@@ -137,10 +162,11 @@ class RadioAMIL(RadioFusion, nn.Module):
         """Survival outputs; the pooled features [B, L] with
         ``return_features``; with ``attention_only`` the raw attention
         scores [B, N] of the read-out (no kernel; JAX amil.py:51-53)."""
-        h = self.embed(bags, generator)
-        if attention_only:
-            return self.pool(h, mask, generator, return_attn=True)[2]
-        M = self.pool(h, mask, generator).float()
+        with mesh.bag_axis("radio"):
+            h = self.embed(bags, generator)
+            if attention_only:
+                return self.pool(h, mask, generator, return_attn=True)[2]
+            M = self.pool(h, mask, generator).float()
         if return_features:
             return M
         return self.head(M)

@@ -21,6 +21,7 @@ from multimodalfusion_tpu_torch.models.modules import (Dense, Dropout,
                                                        RadioFusion, SNNBlock,
                                                        XlinearFusion)
 from multimodalfusion_tpu_torch.models.pooling import AttentionPool
+from multimodalfusion_tpu_torch.parallel import mesh
 
 SIZE_RADIO = {"small": (1024, 256, 256), "big": (1024, 256, 384)}
 SIZE_WSI = {"small": (1024, 256, 256), "big": (1024, 256, 384)}
@@ -111,13 +112,15 @@ class MMAttentionMIL(RadioFusion, nn.Module):
 
         if "radio" in self.mode:
             fc, relu, drop, pool = self.attention_net_radio
-            h = self.fuse_radio(radio_bags, generator)
-            h = drop(relu(fc(h)), generator)
-            branches.append(pooled(pool, h, radio_mask, "radiology"))
+            with mesh.bag_axis("radio"):
+                h = self.fuse_radio(radio_bags, generator)
+                h = drop(relu(fc(h)), generator)
+                branches.append(pooled(pool, h, radio_mask, "radiology"))
         if "path" in self.mode:
             fc, relu, drop, pool = self.attention_net_WSI
-            h = drop(relu(fc(path_bags)), generator)
-            branches.append(pooled(pool, h, path_mask, "pathology"))
+            with mesh.bag_axis("path"):
+                h = drop(relu(fc(path_bags)), generator)
+                branches.append(pooled(pool, h, path_mask, "pathology"))
         if "omic" in self.mode:
             x = genomic
             for block in self.fc_omic:

@@ -10,6 +10,10 @@ SNN init (ref utils/utils.py:228 ``init_max_weights``).
 ``MaskedBatchNorm``, ``Highway`` and ``Residual``: the stage-4 heads'
 blocks, with batch statistics over the valid rows of a padded batch.
 Submodules carry the reference's state_dict names.
+
+Under data parallelism (``parallel/mesh.py``) a dropout mask is this
+rank's block of the global batch's mask and the batch statistics span the
+global batch.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from multimodalfusion_tpu_torch.parallel import mesh
 
 
 class Dense(nn.Linear):
@@ -30,6 +36,14 @@ class Dense(nn.Linear):
         super().__init__(in_features, out_features)
         nn.init.xavier_normal_(self.weight, generator=generator)
         nn.init.zeros_(self.bias)
+
+
+def _uniform(x, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Uniform [0, 1) f32 draws of x's shape from ``generator``: this
+    rank's block of the global batch's draw (``mesh.draw``)."""
+    return mesh.draw(lambda shape, g: torch.rand(
+        shape, generator=g, device=x.device, dtype=torch.float32),
+        x.shape, generator, x.device)
 
 
 class Dropout(nn.Module):
@@ -47,8 +61,7 @@ class Dropout(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=torch.float32) >= self.p
+        keep = _uniform(x, generator) >= self.p
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
     def extra_repr(self) -> str:
@@ -71,8 +84,7 @@ class AlphaDropout(Dropout):
         if not self.training or self.p == 0.0:
             return x
         p, q = self.p, 1.0 - self.p
-        keep = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=torch.float32) >= p
+        keep = _uniform(x, generator) >= p
         a = (q + _ALPHA_PRIME ** 2 * q * p) ** -0.5
         b = -a * _ALPHA_PRIME * p
         return a * torch.where(keep, x, torch.full_like(x, _ALPHA_PRIME)) + b
@@ -209,7 +221,11 @@ class MaskedBatchNorm(nn.Module):
     ``running_var`` by the unbiased one (n / max(n - 1, 1)); ``momentum``
     is torch's (0.1, flax's 0.9).  In eval mode it uses the running
     statistics.  The buffers are ``nn.BatchNorm1d``'s, so the
-    reference-layout state_dict round-trips."""
+    reference-layout state_dict round-trips.  Under data parallelism the
+    statistics span the valid rows of the global batch, as the JAX
+    package's program over the whole batch computes them: the sums over
+    rows are summed over the data group (with their backward), so every
+    rank normalises alike and keeps the same running statistics."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -228,9 +244,14 @@ class MaskedBatchNorm(nn.Module):
         else:
             v = (torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
                  if valid is None else valid.to(x.dtype))
-            n = v.sum().clamp_min(1.0)
-            mean = (x * v[:, None]).sum(0) / n
-            var = (v[:, None] * (x - mean) ** 2).sum(0) / n
+            group = mesh.active_data_group()
+
+            def total(t):  # a sum over the valid rows of the global batch
+                return t if group is None else mesh.all_reduce_sum(t, group)
+            sums = total(torch.cat([(x * v[:, None]).sum(0), v.sum()[None]]))
+            n = sums[-1].clamp_min(1.0)
+            mean = sums[:-1] / n
+            var = total((v[:, None] * (x - mean) ** 2).sum(0)) / n
             with torch.no_grad():
                 m = 1.0 - self.momentum
                 unbiased = var * n / (n - 1.0).clamp_min(1.0)

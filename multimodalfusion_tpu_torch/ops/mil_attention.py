@@ -29,6 +29,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.nn import functional as F
 
+from multimodalfusion_tpu_torch.ops import sharded_pool
+
 NEG_INF = -1e30
 
 # the reference hardcodes 0.25 on both attention branches
@@ -727,17 +729,21 @@ def _fused_pool_bwd(h, mask, params: AttnParams, out, ml, g, gated: bool,
 # ---------------------------------------------------------------------------
 
 class _AttentionPool(torch.autograd.Function):
-    """pooled = pool(h, mask, params[, da, db]); the forward saves
-    (h, mask, params, out, ml[, da, db]) and the backward is one call of
-    the fused backward.  Ungated calls return no gradient for Wb/bb."""
+    """pooled = pool(h, mask, params[, da, db]), over the bag blocks of
+    ``group`` when one is given (``ops/sharded_pool.py``); the forward
+    saves (h, mask, params, out, ml[, da, db]) and the backward is one
+    call of the fused backward.  Ungated calls return no gradient for
+    Wb/bb."""
 
     @staticmethod
-    def forward(ctx, h, mask, da, db, Wa, ba, Wb, bb, wc, cc, gated, rate):
+    def forward(ctx, h, mask, da, db, Wa, ba, Wb, bb, wc, cc, gated, rate,
+                group):
         params = AttnParams(Wa, ba, Wb, bb, wc, cc)
-        out, ml = _fused_pool(h, mask, params, gated, da, db, rate)
+        out, ml = sharded_pool.merge(
+            *_fused_pool(h, mask, params, gated, da, db, rate), group)
         ctx.save_for_backward(h, mask, da, db, Wa, ba, Wb, bb, wc, cc, out,
                               ml)
-        ctx.gated, ctx.rate = gated, rate
+        ctx.gated, ctx.rate, ctx.group = gated, rate, group
         return out
 
     @staticmethod
@@ -746,31 +752,36 @@ class _AttentionPool(torch.autograd.Function):
         params = AttnParams(*p)
         dh, grads = _fused_pool_bwd(h, mask, params, out, ml, g, ctx.gated,
                                     da, db, ctx.rate)
+        grads = sharded_pool.sum_over(grads, ctx.group)
         dp = [d.to(w.dtype) for d, w in zip(grads, params)]
         if not ctx.gated:
             dp[2] = dp[3] = None
-        return (dh, None, None, None, *dp, None, None)
+        return (dh, None, None, None, *dp, None, None, None)
 
 
-def attention_pool(h, mask, params: AttnParams, gated: bool = True):
+def attention_pool(h, mask, params: AttnParams, gated: bool = True,
+                   group=None):
     """Fused gated/ungated attention-MIL pooling, differentiable in h and
     the parameters.
 
     h:    [B, N, D] padded bag features (post-FC), f32 or bf16
     mask: [B, N]    1.0 for real instances, 0.0 for padding
-    Returns pooled [B, D] in f32.
+    group: a process group over whose ranks the instance axis is split;
+          h and mask are then this rank's block (``ops/sharded_pool.py``)
+    Returns pooled [B, D] in f32 (of the whole bags).
     """
     return _AttentionPool.apply(h, mask, None, None, *params, gated,
-                                ATTN_DROPOUT_RATE)
+                                ATTN_DROPOUT_RATE, group)
 
 
 def attention_pool_dropout(h, mask, da, db, params: AttnParams,
                            gated: bool = True,
-                           rate: float = ATTN_DROPOUT_RATE):
+                           rate: float = ATTN_DROPOUT_RATE, group=None):
     """Fused attention-MIL pooling with attention-branch dropout (ref
     model_modules.py:97-99; every published reference recipe passes
     --drop_out).  ``da``/``db``: uint8 [B, N, Da] keep masks from
-    ``make_dropout_masks``, applied by the forward and the backward alike.
-    Returns pooled [B, D] in f32."""
+    ``make_dropout_masks``, applied by the forward and the backward alike
+    (under a ``group``, this rank's rows of them, cut as h is).  Returns
+    pooled [B, D] in f32."""
     return _AttentionPool.apply(h, mask, da, db if gated else da, *params,
-                                gated, rate)
+                                gated, rate, group)

@@ -328,9 +328,14 @@ def test_cli_refusals(tmp_path, weights, case, monkeypatch):
     csv_path.write_text("subject_id,FLAIR,T1,T1Gd,T2\n")
     argv = ["--radio_dir", str(tmp_path), "--csv_path", str(csv_path),
             "--output_dir", str(tmp_path / "out")]
+    if case == "data_parallel":
+        # two visible GPUs and no torchrun environment: one process would
+        # leave a GPU idle, so it raises and says how to launch
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     extra, error, match = {
-        "data_parallel": (["--data_parallel", "--weights", weights,
-                           "--device", "cpu"], NotImplementedError, "6c"),
+        "data_parallel": (["--data_parallel", "--weights", weights],
+                          RuntimeError, "torchrun --nproc_per_node=2"),
         "no_weights": (["--device", "cpu"], ValueError, "ResNet50 weights"),
         "missing_weights_file": (["--weights", str(tmp_path / "none.pt"),
                                   "--device", "cpu"], FileNotFoundError, ""),

@@ -128,7 +128,7 @@ def test_other_kinds_raise_not_implemented():
         build_model(TrainConfig(model_type="clam_sb", mode="path"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         check_supported(TrainConfig(model_type="radio_attention_mil",
-                                    mode="radio", data_parallel=True))
+                                    mode="radio", resume=True))
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
@@ -170,7 +170,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "data/nifti.py", "data/ct_preprocess.py", "data/dicom.py",
                 "data/radiology.py", "cli/feature_extraction.py",
                 "utils/image_ops.py", "utils/png.py",
-                "interpret/gradcam.py", "cli/gradcam.py"):
+                "interpret/gradcam.py", "cli/gradcam.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "ops/sharded_pool.py"):
         assert os.path.join("multimodalfusion_tpu_torch", new) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]

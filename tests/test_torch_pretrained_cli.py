@@ -316,12 +316,22 @@ def test_port_runs_stage4_end_to_end(stage2, embeddings, jax_stage4_runs,
 
 @pytest.mark.parametrize("extra", [
     ("--resume",), ("--tb",), ("--ckpt_format", "orbax"),
-    ("--data_parallel",)], ids=lambda e: e[0].lstrip("-"))
+    ("--data_parallel", "--device", "cuda")],
+    ids=lambda e: e[0].lstrip("-"))
 def test_main_pretrained_unported_flags_raise(stage2, embeddings, tmp_path,
-                                              extra):
+                                              extra, monkeypatch):
     """Each flag of work not ported yet raises, naming its ROADMAP.md item,
-    before anything is written."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    before anything is written.  ``--data_parallel`` is ported: a torchrun
+    launch of more ranks than the node's GPUs raises before anything is
+    written (ranks never share a GPU)."""
+    err, match = NotImplementedError, "ROADMAP.md"
+    if "--data_parallel" in extra:
+        err, match = RuntimeError, "ranks never share a GPU"
+        for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+            monkeypatch.setenv(k, v)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(err, match=match):
         port_stage4(stage4_args(stage2[0], embeddings[1], tmp_path / "r",
                                 "kronecker_nll", "--device", "cpu", *extra))
     assert not (tmp_path / "r").exists()

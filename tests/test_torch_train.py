@@ -326,20 +326,41 @@ def test_eval_only_matches_jax(cohort, jax_experiment, tmp_path):
         np.testing.assert_array_equal(tres[k], jres[k], err_msg=k)
 
 
+# the multi-device flags are ported: misused, they raise the JAX
+# package's errors, also before anything is written
+LAYOUT_ERRORS = {
+    "data_parallel": (("--data_parallel", "--bag_shard"),
+                      "bag_shard \\+ data_parallel needs --bag_shard_devices",
+                      None),
+    "bag_shard": (("--bag_shard", "--model_type", "max_net", "--mode",
+                   "omic"), "bag_shard applies to AMIL models only", None),
+    "bag_shard_devices": (("--bag_shard_devices", "3", "--bag_shard",
+                           "--data_parallel"),
+                          "4 devices not divisible by bag_devices=3", "4"),
+}
+
+
 @pytest.mark.parametrize("extra", [
-    ("--data_parallel",), ("--bag_shard",), ("--bag_shard_devices", "2"),
+    pytest.param(name, id=name) for name in LAYOUT_ERRORS] + [
     ("--resume",), ("--ckpt_format", "orbax"), ("--tb",),
     ("--profile_dir", "prof"), ("--split", "threemod"),
     ("--model_type", "radio_attention_mil", "--mode", "omic"),
     ("--mode", "radio")],
     ids=lambda e: e[0].lstrip("-") + (f"_{e[-1]}" if len(e) > 2 else ""))
-def test_unported_flags_raise(cohort, tmp_path, extra):
+def test_unported_flags_raise(cohort, tmp_path, extra, monkeypatch):
     """Each flag of work not ported yet raises, naming its ROADMAP.md
     item, before anything is written.  The radiology models are ported:
     a model asked for in a mode it does not run in (radio AMIL on
     genomics, path AMIL on radiology) raises ValueError naming its mode,
-    also before anything is written."""
-    if "--mode" in extra:
+    also before anything is written.  So do the multi-device flags
+    misused (``LAYOUT_ERRORS``; the world size of a torchrun launch comes
+    from its environment)."""
+    if extra in LAYOUT_ERRORS:
+        extra, match, world = LAYOUT_ERRORS[extra]
+        err = ValueError
+        if world is not None:
+            monkeypatch.setenv("WORLD_SIZE", world)
+    elif "--mode" in extra:
         err, match = ValueError, "runs in mode"
     else:
         err, match = NotImplementedError, "ROADMAP.md"
