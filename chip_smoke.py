@@ -168,6 +168,29 @@ Phases, each fatal on failure:
                 torchrun --nproc_per_node=1 runs
                 cli.main --data_parallel --bag_shard over NCCL: the JAX
                 package's unsharded lines.  Alone: --phases dist.
+  9. ops      -- operations on [train]'s 32 bags (PathAMIL small, gated,
+                --drop_out, nll_surv, B=8, f32; 4 MRI columns blank and no
+                censored subject in the cohort CSV, so --split pre_trained
+                leaves 28 train and 4 validation subjects in fold 0):
+                cli.main --split pre_trained --k 2 --tb --profile_dir for
+                two epochs then --resume to four; the same fold in a
+                subprocess killed with SIGKILL after its second epoch's
+                record, then resumed; a straight 4-epoch fold; two epochs
+                with --ckpt_format orbax (DCP) resumed to four.  Each
+                resumed fold against the straight one, bit for bit or
+                within the step check's tolerances (both reported); each
+                run's launches as expected (one forward per train step and
+                evaluated batch, one backward per train step).  The
+                bundle's write time and size; an epoch with and without
+                the profiler; the pooling sub-kernels in the trace against
+                the launch counters; cli.export_model --platforms cuda
+                --check (2 forward launches), --platforms cpu --check
+                and --platforms cuda cpu --check (none: exported and
+                checked on the CPU); the cuda artifact serves B=8, N=512
+                through one forward launch, equal to the eager model,
+                timed against it; cli.doctor --full holds both kernels
+                against their plain versions.  Alone: --phases ops
+                (writes its own bags).
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -743,18 +766,11 @@ def _collect_batches(view, batch_size, seed, n, pool):
     return plain_batches, ms
 
 
-@contextlib.contextmanager
 def _plain_pooling():
     """The pooling forward and backward through their plain versions on
     the card instead of the kernels, while the context lasts."""
     from multimodalfusion_tpu_torch.ops import mil_attention as mil
-    kernels = mil._fused_pool, mil._fused_pool_bwd
-    mil._fused_pool, mil._fused_pool_bwd = (mil._pool_plain,
-                                            mil._pool_bwd_plain)
-    try:
-        yield
-    finally:
-        mil._fused_pool, mil._fused_pool_bwd = kernels
+    return mil.pooling_route("plain")
 
 
 def _run_steps(cfg, batches, plain=False):
@@ -2689,6 +2705,350 @@ def phase_dist(root=None):
     return launches
 
 
+OPS_SUBKERNELS = {"_fused_pool_cuda": ("pool_partial_f32_kernel",
+                                       "pool_merge_kernel"),
+                  "_fused_pool_bwd_cuda": ("bwd_rows_kernel", "bwd_dh_kernel",
+                                           "bwd_dw_partial_kernel",
+                                           "bwd_vec_partial_kernel",
+                                           "bwd_reduce_kernel")}
+
+
+def _ops_cohort(root):
+    """[ops]' data arguments: [train]'s 32 bags (written anew when [train]
+    did not run) under a cohort CSV of their own, with the four MRI
+    columns blank (so --split pre_trained takes every subject for the path
+    mode) and no censored subject (so the 4 label classes fit the 4
+    validation subjects that a 0.1 test size leaves of 32)."""
+    import csv
+    td = os.path.join(root, "train")
+    if not os.path.isdir(os.path.join(td, "features")):
+        td = os.path.join(root, "ops_bags")
+        os.makedirs(td)
+        _write_train_experiment(td)
+    with open(os.path.join(td, "dataset_csv", "brain", "survival.csv"),
+              newline="") as f:
+        rows = list(csv.DictReader(f))
+    cohort = os.path.join(root, "ops", "dataset_csv", "brain")
+    os.makedirs(cohort)
+    cols = (["subject_id", "slide_id"] + list(RADIO_SEQS)
+            + ["survival_months", "censorship", "train"])
+    with open(os.path.join(cohort, "survival.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, cols, extrasaction="ignore")
+        w.writeheader()
+        for r in rows:
+            w.writerow(dict(r, censorship="0.0"))
+    return ["--cancer_type", "brain", "--which_splits", "ops",
+            "--data_root_dir", os.path.join(td, "features"),
+            "--dataset_root", os.path.join(root, "ops", "dataset_csv"),
+            "--splits_root", os.path.join(root, "ops", "splits")]
+
+
+def _same_or_distance(tag, got_exp, want_exp, init):
+    """Whether fold 0 of ``got_exp`` equals ``want_exp``'s bit for bit
+    (metrics but ``sec``, the final checkpoint); if not, the losses'
+    largest relative difference and the parameters' distance as a share
+    of their movement from ``init``, held to the step check's 1e-4 and
+    1e-3."""
+    import torch
+
+    def recs(exp):
+        with open(os.path.join(exp, "0", "metrics.jsonl")) as f:
+            return [json.loads(x) for x in f]
+    g, w = recs(got_exp), recs(want_exp)
+    if [r["epoch"] for r in g] != [r["epoch"] for r in w]:
+        raise AssertionError(f"[ops] {tag}: epochs {[r['epoch'] for r in g]}"
+                             f" vs {[r['epoch'] for r in w]}")
+    gs = torch.load(os.path.join(got_exp, "s_0_checkpoint.pt"))
+    ws = torch.load(os.path.join(want_exp, "s_0_checkpoint.pt"))
+    same_metrics = all({k: v for k, v in a.items() if k != "sec"}
+                       == {k: v for k, v in b.items() if k != "sec"}
+                       for a, b in zip(g, w))
+    same_params = all(torch.equal(gs[k], ws[k]) for k in ws)
+    if same_metrics and same_params:
+        log(f"[ops] {tag}: equal to the straight fold bit for bit "
+            f"(metrics but sec, checkpoint)")
+        return True
+    keys = ("train_loss", "val_loss", "train_c_index", "val_c_index")
+    e_loss = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                 for a, b in zip(g, w) for k in keys[:2])
+    moved = sum(float((ws[k].float() - init[k].float()).norm()) ** 2
+                for k in init if ws[k].is_floating_point()) ** 0.5
+    dist = sum(float((gs[k].float() - ws[k].float()).norm()) ** 2
+               for k in init if ws[k].is_floating_point()) ** 0.5
+    share = dist / max(moved, 1e-30)
+    log(f"[ops] {tag}: NOT bit for bit: losses max rel diff {e_loss:.3e} "
+        f"(tol 1e-4), parameters |diff| / |moved| {share:.3e} (tol 1e-3)")
+    if e_loss > 1e-4 or share > 1e-3:
+        raise AssertionError(f"[ops] {tag}: resumed and straight folds "
+                             f"disagree")
+    return False
+
+
+def _trace_kernels(path):
+    """{sub-kernel name: count} of the pooling kernels' sub-kernels among
+    the device kernels of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {n: 0 for names in OPS_SUBKERNELS.values() for n in names}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for n in counts:
+            if n in e.get("name", ""):
+                counts[n] += 1
+    return counts
+
+
+def phase_ops(launch_counters, root):
+    """[ops] Operations on the card, on [train]'s 32 bags (PathAMIL small,
+    gated, --drop_out, nll_surv, B=8, f32), each run with the launch
+    counters reset just before and read just after:
+      - cli.main --split pre_trained --k 2 (fold 0: 28 train, 4
+        validation subjects) --tb --profile_dir for two epochs, then
+        --resume to four;
+      - the same fold in a subprocess, killed with SIGKILL after its second
+        epoch's record, then --resume to four;
+      - a straight 4-epoch fold, and two epochs with --ckpt_format orbax
+        (a DCP bundle) resumed to four;
+      - each resumed fold against the straight one: bit for bit, or the
+        losses' and parameters' distance (tolerances of the step check);
+      - the bundle's write time and size (.pt and DCP), an epoch's time
+        with and without the profiler, the six pooling sub-kernels in the
+        trace against the launch counters;
+      - cli.export_model --platforms cuda --check, --platforms cpu
+        --check and --platforms cuda cpu --check (on the CPU) on the
+        straight fold; the cuda artifact's served batch
+        (B=8, N=512) launches the forward once, equals the eager model's
+        and is timed against it under CUDA events;
+      - cli.doctor --full: both kernels match their plain versions.
+    Returns the launch counts by run."""
+    import contextlib
+    import io
+    import signal
+
+    import torch
+    from multimodalfusion_tpu_torch.cli import doctor, export_model
+    from multimodalfusion_tpu_torch.cli import main as cli_main
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    from multimodalfusion_tpu_torch.utils import model_export
+    from multimodalfusion_tpu_torch.utils.experiment import (
+        config_from_settings, load_experiment_model, read_experiment)
+    B, n_train, n_val = 8, 28, 4
+    steps, evals = -(-n_train // B), -(-n_val // B)
+    data_args = _ops_cohort(root)
+    flags = data_args + ["--k", "2", "--k_end", "1", "--model_type",
+                         "path_attention_mil", "--mode", "path",
+                         "--gate_path", "--drop_out", "--bag_loss",
+                         "nll_surv", "--batch_size", str(B), "--device",
+                         "cuda"]
+    launches, wall = {}, {}
+
+    def count():
+        return {c.__name__: c.launches for c in launch_counters}
+
+    def run(stage, fn, argv, fwd=None, bwd=None):
+        for c in launch_counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = fn(argv)
+        torch.cuda.synchronize()
+        wall[stage] = time.perf_counter() - t0
+        launches[stage] = count()
+        want = {"_fused_pool_cuda": fwd, "_fused_pool_bwd_cuda": bwd}
+        if rc != 0 or (fwd is not None and launches[stage] != want):
+            raise AssertionError(f"[ops] {stage}: rc={rc}, launches "
+                                 f"{launches[stage]}, expected {want}")
+
+    def fold(stage, name, max_epochs, *extra, epochs=2):
+        """The fold in ``ops/name`` trained to ``max_epochs``, ``epochs``
+        of them in this run."""
+        run(stage, cli_main.main, flags + [
+            "--results_dir", os.path.join(root, "ops", name),
+            "--max_epochs", str(max_epochs)] + list(extra),
+            fwd=epochs * (steps + evals) + 2 * evals, bwd=epochs * steps)
+
+    def exp_of(name):
+        sub = os.path.join(root, "ops", name, "brain", "ops")
+        return os.path.join(sub, os.listdir(sub)[0])
+
+    prof = os.path.join(root, "ops", "prof")
+    fold("traced", "traced", 2, "--split", "pre_trained", "--tb",
+         "--profile_dir", prof)
+    splits = os.path.join(root, "ops", "splits", "brain", "ops")
+    with open(os.path.join(splits, "splits_0.csv")) as f:
+        cells = [r.split(",") for r in f.read().splitlines()[1:]]
+    sizes = [sum(1 for c in cells if c[i]) for i in (0, 1)]
+    log(f"[ops] --split pre_trained wrote {sorted(os.listdir(splits))}; "
+        f"fold 0: {sizes[0]} train, {sizes[1]} validation subjects")
+    if sizes != [n_train, n_val]:
+        raise AssertionError(f"[ops] split sizes {sizes}")
+    fold("traced_resume", "traced", 4, "--resume", "--tb", "--overwrite")
+
+    # a subprocess killed with SIGKILL after its second epoch's record
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    boot = ("import sys; from multimodalfusion_tpu_torch.cli.main import "
+            "main; sys.exit(main(sys.argv[1:]))")
+    killed = os.path.join(root, "ops", "killed")
+    err_path = os.path.join(root, "ops", "killed.stderr")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen([sys.executable, "-c", boot] + flags + [
+            "--results_dir", killed, "--max_epochs", "4"], env=env,
+            stdout=subprocess.DEVNULL, stderr=err_file)
+    log_path = None
+    try:
+        deadline = time.time() + 300
+        while time.time() < deadline and proc.poll() is None:
+            found = [os.path.join(d, "0", "metrics.jsonl") for d in (
+                [os.path.join(killed, "brain", "ops", e) for e in
+                 os.listdir(os.path.join(killed, "brain", "ops"))]
+                if os.path.isdir(os.path.join(killed, "brain", "ops"))
+                else [])]
+            found = [p for p in found if os.path.exists(p)]
+            if found and len(open(found[0]).read().splitlines()) >= 2:
+                log_path = found[0]
+                break
+            time.sleep(0.05)
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(60)
+    if log_path is None:
+        with open(err_path) as f:
+            raise AssertionError(f"[ops] the subprocess never logged epoch "
+                                 f"2 (rc {proc.returncode}): "
+                                 f"{f.read()[-2000:]}")
+    bundle = ttrain.load_resume(os.path.join(exp_of("killed"),
+                                             "s_0_resume.pt"))
+    log(f"[ops] subprocess SIGKILLed {time.perf_counter() - t0:.1f} s after "
+        f"its start, after {len(open(log_path).read().splitlines())} "
+        f"epoch records; its bundle holds epoch {int(bundle['epoch'])}")
+    run("killed_resume", cli_main.main, flags + [
+        "--results_dir", killed, "--max_epochs", "4", "--resume",
+        "--overwrite"])
+
+    fold("straight", "straight", 4, epochs=4)
+    fold("orbax", "orbax", 2, "--ckpt_format", "orbax")
+    fold("orbax_resume", "orbax", 4, "--ckpt_format", "orbax", "--resume",
+         "--overwrite")
+
+    cfg = ttrain.TrainConfig(model_type="path_attention_mil", mode="path",
+                             gate_path=True, drop_out=True)
+    init = ttrain.build_model(cfg, torch.Generator().manual_seed(1)
+                              ).state_dict()
+    straight = exp_of("straight")
+    same = {name: _same_or_distance(f"{name} vs straight", exp_of(name),
+                                    straight, init)
+            for name in ("traced", "killed", "orbax")}
+
+    # the bundle's write, from the card's tensors as training writes it
+    bundle = {k: v if k == "generator" else v.cuda()
+              for k, v in ttrain.load_resume(
+                  os.path.join(straight, "s_0_resume.pt")).items()}
+    for ext in ("pt", "dcp"):
+        path = os.path.join(root, "ops", f"bundle.{ext}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ttrain.save_resume(path, bundle)
+            times.append((time.perf_counter() - t0) * 1e3)
+        size = (os.path.getsize(path) if ext == "pt" else
+                sum(os.path.getsize(os.path.join(path, f))
+                    for f in os.listdir(path)))
+        log(f"[ops] resume bundle .{ext}: {size / 1e6:.3f} MB written in "
+            + ", ".join(f"{t:.3f}" for t in times) + " ms (3 writes, host "
+            "clock)")
+
+    # an epoch with and without the profiler
+    def secs(name):
+        with open(os.path.join(exp_of(name), "0", "metrics.jsonl")) as f:
+            return [json.loads(x)["sec"] for x in f][:2]
+    log(f"[ops] epoch s with the profiler (traced, epochs 0-1) "
+        + ", ".join(f"{s:.3f}" for s in secs("traced")) + "; without "
+        "(straight, epochs 0-1) " + ", ".join(f"{s:.3f}" for s in
+                                               secs("straight")))
+    trace = os.path.join(prof, "fold0.pt.trace.json")
+    counts = _trace_kernels(trace)
+    first = {"_fused_pool_cuda": 2 * (steps + evals) + 2 * evals,
+             "_fused_pool_bwd_cuda": 2 * steps}
+    log(f"[ops] trace {os.path.getsize(trace) / 1e6:.1f} MB: sub-kernel "
+        f"launches " + ", ".join(
+            f"{n} {counts[n]} ({counts[n] / first[c]:.2f} per "
+            f"{c.strip('_')} launch)" for c, names in OPS_SUBKERNELS.items()
+            for n in names) + f" over {first} counted launches")
+    if not all(counts.values()):
+        raise AssertionError(f"[ops] sub-kernels missing from the trace: "
+                             f"{counts}")
+    with open(os.path.join(prof, "stage_timings.json")) as f:
+        log(f"[ops] stage_timings.json {f.read().split()}")
+    tb = [n for n in os.listdir(os.path.join(exp_of("traced"), "0"))
+          if n.startswith("events.out.tfevents")]
+    if len(tb) != 1:
+        raise AssertionError(f"[ops] event files {tb}")
+
+    # export, check, serve
+    art = os.path.join(root, "ops", "scorer.pt2")
+    run("export_cuda", export_model.main, [
+        "--model_path", straight, "--platforms", "cuda", "--check",
+        "--out", art], fwd=2, bwd=0)
+    log(f"[ops] export --platforms cuda --check: {wall['export_cuda']:.2f} "
+        f"s, artifact {os.path.getsize(art) / 1e6:.3f} MB")
+    run("export_cpu", export_model.main, [
+        "--model_path", straight, "--platforms", "cpu", "--check",
+        "--out", os.path.join(root, "ops", "scorer_cpu.pt2")], fwd=0, bwd=0)
+    log(f"[ops] export --platforms cpu --check: {wall['export_cpu']:.2f} s")
+    # any list but cuda alone is exported and checked on the CPU
+    run("export_mixed", export_model.main, [
+        "--model_path", straight, "--platforms", "cuda", "cpu", "--check",
+        "--out", os.path.join(root, "ops", "scorer_mixed.pt2")], fwd=0,
+        bwd=0)
+    log(f"[ops] export --platforms cuda cpu --check: "
+        f"{wall['export_mixed']:.2f} s")
+    scorer = model_export.load_scorer(art)
+    with open(art + ".json") as f:
+        probe = {k: torch.as_tensor(v, device="cuda") for k, v in
+                 export_model.probe_inputs(json.load(f)).items()}
+    model = load_experiment_model(
+        straight, 0, config_from_settings(read_experiment(straight)),
+        torch.device("cuda"))
+    for c in launch_counters:
+        c.launches = 0
+    got = scorer(probe)
+    torch.cuda.synchronize()
+    launches["served_artifact"] = count()
+    with torch.inference_mode():
+        want = model(**probe)
+        t_art = _time_ms(lambda: scorer(probe))
+        t_eager = _time_ms(lambda: model(**probe))
+        t_art2 = _time_ms(lambda: scorer(probe))
+    err = max(float((got[k] - want[k]).abs().max()) for k in got)
+    log(f"[ops] artifact served B=8 N=512: launches "
+        f"{launches['served_artifact']}; max |artifact - eager| {err:.2e}; "
+        f"{t_art:.3f} / {t_art2:.3f} ms against the eager model's "
+        f"{t_eager:.3f} ms (CUDA events, 20 calls after 3)")
+    if launches["served_artifact"] != {"_fused_pool_cuda": 1,
+                                       "_fused_pool_bwd_cuda": 0} \
+            or err > 1e-5:
+        raise AssertionError("[ops] the artifact did not serve through the "
+                             "forward kernel")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run("doctor", doctor.main, ["--full"], fwd=1, bwd=1)
+    text = out.getvalue()
+    for line in text.splitlines():
+        if "kernels" in line or "numerics" in line or "doctor" in line:
+            log(f"[ops] doctor {line}")
+    for name in ("mil_pool_fwd", "mil_pool_bwd"):
+        if f"[ok]   numerics: {name} matches its plain version" not in text:
+            raise AssertionError(f"[ops] doctor --full: {name}")
+    log(f"[ops] resumed folds bit for bit: {same}; wall s "
+        + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
+    log(f"[ops] kernel launches {launches}")
+    return launches
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -3333,7 +3693,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,omic,pretrained,radio,extract,"
-                         "gradcam,interpret,timing,dist "
+                         "gradcam,interpret,timing,dist,ops "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -3394,6 +3754,8 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_gradcam(counters, radio_exps["radio"], cohort, work)
     if "dist" in phases:
         phase_dist(work)
+    if "ops" in phases:
+        phase_ops(counters, work)
     log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
         f"no result)")
     return 0
@@ -3443,6 +3805,9 @@ def _full(counters, work, t_all) -> int:
     t = time.perf_counter()
     dist_launches = phase_dist(work)
     log(f"[dist] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ops_launches = phase_ops(counters, work)
+    log(f"[ops] done in {time.perf_counter() - t:.1f} s")
     # the headline variant of each kernel: the forward as serving and
     # evaluation run it (f32, no dropout), the backward as the training
     # CLI runs it (f32, --drop_out)
@@ -3478,6 +3843,8 @@ def _full(counters, work, t_all) -> int:
         # per rank of the two on the card, one list entry each
         for path, counts in dist_launches.items():
             entry[f"launches_dist_{path}"] = counts[counter_of[name]]
+        for path, counts in ops_launches.items():
+            entry[f"launches_ops_{path}"] = counts[counter_of[name]]
         entries.append(entry)
     log(f"[timing] train step ms {json.dumps(step)}")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

@@ -8,7 +8,10 @@ extracts the ResNet50 features of radiology scans (stage 1,
 radiology, pathology and genomics
 (``cli/main.py``), serves them without labels (``cli/infer.py``),
 extracts their embeddings (stage 3) and trains, scores and serves the
-stage-4 heads over them; ROADMAP.md lists what comes next.
+stage-4 heads over them.  Operations: folds resume from their last
+epoch, write TensorBoard event files and profiler traces, cohorts are
+split, a fold is exported for serving (``cli/export_model.py``) and
+``cli/doctor.py`` checks a deployment; ROADMAP.md lists what comes next.
 """
 from __future__ import annotations
 

@@ -20,10 +20,15 @@ asked for) and writes the JAX CLI's files: ``experiment_{code}.txt``,
 per-fold ``{k}/metrics.jsonl``, ``split_train_val_{k}_results.pkl`` (a dict
 of numpy arrays), the ``s_{k}_*checkpoint.pt`` state_dicts and
 ``summary.csv`` (or ``summary_partial_{a}_{b}.csv``, ``eval_``-prefixed
-with ``--eval_only``) with pandas' ``to_csv`` layout.  The flags of work
-not ported yet (``--split``, ``--profile_dir``, ``--resume``, ``--tb``,
-``--ckpt_format orbax``: ROADMAP.md port queue item 7) raise
-NotImplementedError naming their ROADMAP.md item.
+with ``--eval_only``) with pandas' ``to_csv`` layout.  Operations:
+``--split threemod|pre_trained`` first writes the stratified
+``splits_{k}.csv`` files (``SurvivalDataset.do_split``); ``--resume``
+continues each fold from its resume bundle (``s_{k}_resume.pt``, or the
+DCP directory ``s_{k}_resume.dcp`` with ``--ckpt_format orbax``);
+``--tb`` writes TensorBoard event files per fold; ``--profile_dir DIR``
+writes a ``torch.profiler`` Chrome trace per fold (per rank under
+torchrun), ``fold{k}[.rank{r}].pt.trace.json``, and
+``stage_timings.json``.
 
 Multi-GPU runs start one process per GPU with torchrun:
 
@@ -54,6 +59,7 @@ from multimodalfusion_tpu_torch.engine.train import (TrainConfig,
 from multimodalfusion_tpu_torch.parallel import mesh as par
 from multimodalfusion_tpu_torch.utils.experiment import (experiment_code,
                                                          write_settings)
+from multimodalfusion_tpu_torch.utils.profiling import StageTimer, trace
 from multimodalfusion_tpu_torch.utils.table import write_csv
 
 
@@ -66,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", action="store_true", default=False,
                    help="shard training batches over all visible devices")
     p.add_argument("--tb", action="store_true", default=False,
-                   help="not ported yet (ROADMAP.md, port queue item 7)")
+                   help="also write tensorboard event files per fold "
+                        "(reference core_utils.py:31-36 writer tags)")
     p.add_argument("--bag_shard", action="store_true", default=False,
                    help="shard the bag (instance) axis over all devices: "
                         "AMIL attention pooling runs as fused per-shard "
@@ -76,7 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --data_parallel: bag-axis size of the 2-D "
                         "(data, bag) mesh (DP x SP composition)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="not ported yet (ROADMAP.md, port queue item 7)")
+                   help="write a torch.profiler Chrome trace per fold "
+                        "(Perfetto, chrome://tracing) and the stage "
+                        "timings JSON here")
     p.add_argument("--mode", type=str, default="radio")
     p.add_argument("--modality", type=str, default="T1,T2,T1Gd,FLAIR")
     p.add_argument("--task", type=str, default="survival")
@@ -84,7 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default="brain")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--split", type=str, default=None,
-                   help="not ported yet (ROADMAP.md, port queue item 7)")
+                   choices=["threemod", "pre_trained"],
+                   help="first write stratified splits_{k}.csv files into "
+                        "the split directory (seeded by --seed)")
     p.add_argument("--model_type", type=str, default=None)
     p.add_argument("--n_classes", type=int, default=4)
     p.add_argument("--split_mode", type=str,
@@ -131,11 +142,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="root containing {cancer_type}/{task}.csv")
     p.add_argument("--splits_root", type=str, default="./splits")
     p.add_argument("--resume", action="store_true", default=False,
-                   help="not ported yet (ROADMAP.md, port queue item 7)")
+                   help="continue each fold from its last saved epoch")
     p.add_argument("--ckpt_format", type=str, default="msgpack",
                    choices=["msgpack", "orbax"],
-                   help="the port writes .pt checkpoints; orbax is not "
-                        "ported yet (ROADMAP.md, port queue item 7)")
+                   help="resume-bundle format: msgpack (the port writes "
+                        "one .pt file) or orbax (a torch.distributed."
+                        "checkpoint directory, each rank writing its "
+                        "share)")
     p.add_argument("--eval_only", action="store_true", default=False,
                    help="evaluate existing minloss checkpoints instead of "
                         "training (ref core_utils.py eval_mode :109-127)")
@@ -168,19 +181,10 @@ def _config(args, results_dir: str, omic_dim: int = 0) -> TrainConfig:
         tb=args.tb, ckpt_format=args.ckpt_format, device=args.device)
 
 
-def _refuse_unported(args) -> None:
-    """Raise before any work for what this port does not do yet."""
-    for flag, item in (("split", 7), ("profile_dir", 7)):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP.md, port queue item "
-                f"{item})")
-    check_supported(_config(args, args.results_dir))
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    # raise before any work for a model, mode or layout the run cannot take
+    check_supported(_config(args, args.results_dir))
     with par.distributed(args.device,
                          args.data_parallel or args.bag_shard) as device:
         args.device = device
@@ -211,6 +215,11 @@ def _run(args) -> int:
                               data_dir=data_root_dir, n_bins=args.n_classes,
                               label_col="survival_months",
                               modalities=modalities, print_info=True)
+    if args.split is not None:
+        if writer:
+            dataset.do_split(args.split, split_dir, k=args.k, seed=args.seed)
+            print(f"wrote splits to {split_dir}")
+        par.barrier()
 
     ensure_dir(args.results_dir)
     results_dir = ensure_dir(os.path.join(args.results_dir,
@@ -260,6 +269,8 @@ def _run(args) -> int:
     end_fold = args.k if args.k_end == -1 else args.k_end
     folds = list(range(start_fold, end_fold))
     val_cindex, test_cindex = [], []
+    timings = StageTimer()
+    trace_suffix = f".rank{par.rank()}" if par.world_size() > 1 else ""
     for i in folds:
         t0 = timer()
         keys = (("train", "val", "test")
@@ -268,8 +279,10 @@ def _run(args) -> int:
             os.path.join(split_dir, f"splits_{i}.csv"), keys=keys)
         omic_dim = (splits[0].genomic_features.shape[1]
                     if splits[0] is not None else 0)
-        out = train_fold(splits, i, _config(args, results_dir, omic_dim),
-                         eval_only=args.eval_only)
+        with trace(args.profile_dir, f"fold{i}{trace_suffix}"), \
+                timings.stage(f"fold{i}"):
+            out = train_fold(splits, i, _config(args, results_dir, omic_dim),
+                             eval_only=args.eval_only)
         if args.split_mode == "train_val_test":
             val_res, val_c, test_res, test_c = out
             test_cindex.append(test_c)
@@ -286,6 +299,9 @@ def _run(args) -> int:
                      val_res)
         print(f"Fold {i} Time: {timer() - t0:.1f} seconds")
 
+    if args.profile_dir and writer:
+        ensure_dir(args.profile_dir)
+        timings.dump(os.path.join(args.profile_dir, "stage_timings.json"))
     print(f"Average validation c_index: {np.mean(val_cindex)}")
     if args.split_mode == "train_val_test":
         print(f"Average test c_index: {np.mean(test_cindex)}")

@@ -22,8 +22,9 @@ unless ``cpu`` is asked for) and writes the JAX CLI's files:
 ``experiment_{code}.txt``, ``{k}/metrics.jsonl``, the
 ``s_{k}_*checkpoint.pt`` state_dicts (BatchNorm running statistics
 included), ``split_train_val_{k}_results.pkl`` and ``summary.csv``.
-``--resume``, ``--tb`` and ``--ckpt_format orbax`` raise
-NotImplementedError naming their ROADMAP.md item.  ``--data_parallel``
+``--resume``, ``--tb`` and ``--ckpt_format orbax`` work as in
+``cli.main``; ``--split`` is parsed and unused, as in the JAX CLI.
+``--data_parallel``
 splits each batch's rows over the ranks of a torchrun launch (``torchrun
 --nproc_per_node=K -m multimodalfusion_tpu_torch.cli.main_pretrained
 --data_parallel ...``), the heads' batch statistics over the global
@@ -96,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", action="store_true", default=False,
                    help="shard training batches over all visible devices")
     p.add_argument("--tb", action="store_true", default=False,
-                   help="not ported yet (ROADMAP.md, port queue item 7)")
+                   help="also write tensorboard event files per fold "
+                        "(reference core_utils.py:31-36 writer tags)")
     p.add_argument("--nll_ratio", type=float, default=0.2)
     p.add_argument("--n_layers", type=int, default=1)
     p.add_argument("--overwrite", action="store_true", default=False)
@@ -104,11 +106,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset_root", type=str, default="dataset_csv")
     p.add_argument("--splits_root", type=str, default="./splits")
     p.add_argument("--resume", action="store_true", default=False,
-                   help="not ported yet (ROADMAP.md, port queue item 7)")
+                   help="continue each fold from its last saved epoch")
     p.add_argument("--ckpt_format", type=str, default="msgpack",
                    choices=["msgpack", "orbax"],
-                   help="the port writes .pt checkpoints; orbax is not "
-                        "ported yet (ROADMAP.md, port queue item 7)")
+                   help="resume-bundle format: msgpack (the port writes "
+                        "one .pt file) or orbax (a torch.distributed."
+                        "checkpoint directory, each rank writing its "
+                        "share)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
     return p

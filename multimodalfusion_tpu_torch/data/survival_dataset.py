@@ -44,6 +44,8 @@ import numpy as np
 
 from multimodalfusion_tpu_torch.data import io
 from multimodalfusion_tpu_torch.data import labels as labels_mod
+from multimodalfusion_tpu_torch.data import stratified
+from multimodalfusion_tpu_torch.utils import table
 from multimodalfusion_tpu_torch.data.bags import intersect_slices
 
 # pandas.read_csv's default NA strings
@@ -189,6 +191,7 @@ class SurvivalDataset:
         self.modalities = list(modalities)
         columns, self.patients, self.slides_dict, first = read_cohort(
             csv_path)
+        self.columns = columns
         # the label column is always metadata, so a non-default label_col
         # never leaks into the features (JAX survival_dataset.py:291-293)
         metadata = set(METADATA_BASE + self.modalities + METADATA_TAIL
@@ -384,6 +387,111 @@ class SurvivalDataset:
             if train is not None and train.genomic_features.size:
                 split.apply_scaler(train.get_scaler())
         return split
+
+
+    # ------------------------------------------------------------------
+    # writing splits (JAX survival_dataset.py:341-440)
+    # ------------------------------------------------------------------
+
+    def omics_columns(self) -> List[str]:
+        return [c for c in self.columns if "_cnv" in c or "_mut" in c]
+
+    def _rows_with(self, cols: Sequence[str], rows=None) -> List[int]:
+        """The patients (of ``rows``) whose first row has every cell of
+        ``cols`` (pandas' ``dropna(subset=cols)``, which raises KeyError
+        for a column the CSV lacks)."""
+        missing = [c for c in cols if c not in self.columns]
+        if missing:
+            raise KeyError(f"{missing} not in {self.csv_path}'s columns")
+        rows = range(len(self.patients)) if rows is None else rows
+        return [i for i in rows
+                if all(self._first[self.patients[i]][c] not in _NA
+                       and self._first[self.patients[i]][c] is not None
+                       for c in cols)]
+
+    def _strat_splits(self, rows: List[int], how: str,
+                      test_size: Optional[float], k: int, seed: int
+                      ) -> List[Dict[str, list]]:
+        """Stratified train/val columns over ``rows`` by the (bin,
+        censorship) class, with the reference's singleton-class fallback
+        (ref :268-293): a class of one subject is left out of the split
+        and added to fold 0's val and every other fold's train.  Both
+        columns are padded to a common length with NaN cells."""
+        labels = self.label[rows]
+        count = {c: int(n) for c, n in zip(*np.unique(labels,
+                                                      return_counts=True))}
+        single = [self.patients[r] for r in rows if count[self.label[r]] == 1]
+        work = [r for r in rows if count[self.label[r]] > 1]
+        ids = np.array([self.patients[r] for r in work], dtype=object)
+        y = self.label[work]
+        folds = (stratified.stratified_kfold(y, k, seed) if how == "k_fold"
+                 else stratified.stratified_shuffle_split(y, k, test_size,
+                                                          seed))
+        outs = []
+        for i, (tr, va) in enumerate(folds):
+            cols = {"train": list(ids[tr]), "val": list(ids[va])}
+            cols["val" if i == 0 else "train"] += single
+            n = max(map(len, cols.values()))
+            outs.append({key: v + [np.nan] * (n - len(v))
+                         for key, v in cols.items()})
+        return outs
+
+    def do_split(self, split: str, split_dir: str, k: int = 5,
+                 seed: int = 7, overwrite: bool = True
+                 ) -> List[Dict[str, list]]:
+        """Write ``splits_{i}.csv`` for i < k into ``split_dir`` (ref
+        do_split :173-243), seeded by ``seed`` (the JAX dataset's):
+
+        - ``threemod``: the train == 1 patients with a slide, every
+          modality and every omic (``_cnv``/``_mut``) cell; stratified
+          k-fold from 120 of them, else k stratified shuffle splits with
+          test_size 0.2; when the cohort has train == 0 patients, a
+          ``test`` column of those with all three, sorted as pandas'
+          ``np.unique`` sorts them (as numbers when every id is one).
+        - ``pre_trained``: the patients with the mode's one modality
+          (radio, omic or path), less the threemod ones; stratified
+          shuffle splits with test_size 0.1.
+
+        Returns the columns of each file."""
+        if not self.labelled:
+            raise ValueError("do_split needs a labelled cohort (n_bins)")
+        omics = self.omics_columns()
+        everything = ["slide_id"] + self.modalities + omics
+        train = [_float(self._first[s]["train"]) for s in self.patients]
+        three = self._rows_with(everything,
+                                [i for i, t in enumerate(train) if t == 1])
+        os.makedirs(split_dir, exist_ok=True)
+        if os.listdir(split_dir) and not overwrite:
+            raise FileExistsError(f"splits already exist in {split_dir}")
+        if split == "threemod":
+            how = "k_fold" if len(three) >= 120 else "shuffle_split"
+            splits = self._strat_splits(three, how,
+                                        None if how == "k_fold" else 0.2, k,
+                                        seed)
+            if any(t == 0 for t in train):
+                held_out = [self.patients[i] for i in self._rows_with(
+                    everything, [i for i, t in enumerate(train) if t == 0])]
+                test = sorted(set(held_out), key=table._sort_key(held_out))
+                for sp in splits:
+                    n = max(len(sp["train"]), len(test))
+                    for key in ("train", "val"):
+                        sp[key] += [np.nan] * (n - len(sp[key]))
+                    sp["test"] = test + [np.nan] * (n - len(test))
+        elif split == "pre_trained":
+            cols = {"radio": self.modalities, "omic": omics,
+                    "path": ["slide_id"]}.get(self.mode)
+            if cols is None:
+                raise ValueError(self.mode)
+            taken = {self.patients[i] for i in three}
+            splits = self._strat_splits(
+                [i for i in self._rows_with(cols)
+                 if self.patients[i] not in taken],
+                "shuffle_split", 0.1, k, seed)
+        else:
+            raise ValueError(split)
+        for i, sp in enumerate(splits):
+            table.write_csv(os.path.join(split_dir, f"splits_{i}.csv"), sp)
+        return splits
 
 
 def read_split_ids(csv_path: str, keys) -> Dict[str, List[str]]:

@@ -36,6 +36,17 @@ and is not.  The L1 term's gradient is added after the sums, once.
 Dropout bits are the global batch's (``mesh.draw``), so a sharded step
 equals the step at world size 1.  Only rank 0 writes files.
 
+Operations (JAX engine/train.py:673-858): after every epoch the fold's
+resume bundle is written (``resume_state``: the model, the optimizer, the
+``MultiSteps`` accumulator and count, the fold generator's state, the
+epoch and the early-stopping fields), as ``s_{k}_resume.pt`` or, with
+``--ckpt_format orbax``, as the DCP directory ``s_{k}_resume.dcp``
+(``utils/orbax_io.py``); ``--resume`` continues from it, so a resumed
+fold equals the straight one.  A JAX bundle (``.msgpack`` or ``.orbax``)
+is refused: its ``rbg`` key cannot continue a ``torch.Generator``.
+``--tb`` writes the scalars of ``metrics.jsonl`` as TensorBoard event
+files with the port's own writer (``utils/tb_writer.py``).
+
 A stage-4 head trains in train mode, so its ``MaskedBatchNorm``s use the
 batch statistics of the valid rows and move their running ones.  With
 ``multimodal-dropout`` a branch whose modality the whole batch lacks
@@ -70,6 +81,7 @@ from multimodalfusion_tpu_torch.models.pretrained_heads import (
     UnimodalPretrained)
 from multimodalfusion_tpu_torch.parallel import mesh as par
 from multimodalfusion_tpu_torch.parallel.mesh import BAG_AXIS, DATA_AXIS
+from multimodalfusion_tpu_torch.utils import orbax_io, tb_writer
 from multimodalfusion_tpu_torch.utils import params as params_mod
 
 # the modes each stage-2 model trains and serves in (the JAX CLI's)
@@ -168,16 +180,6 @@ def _check_model(cfg: TrainConfig) -> None:
         raise _unsupported(cfg)
 
 
-# engine knobs of the JAX package that the port does not do yet, each with
-# the ROADMAP.md item that brings it: (is it asked for, what it is, item)
-_UNPORTED = (
-    (lambda c: c.resume, "--resume (resume bundles)",
-     "port queue item 7"),
-    (lambda c: c.tb, "--tb (tensorboard event files)", "port queue item 7"),
-    (lambda c: c.ckpt_format != "msgpack", "--ckpt_format orbax",
-     "port queue item 7"),
-)
-
 _AMIL = ("path_attention_mil", "radio_attention_mil")
 
 
@@ -206,14 +208,13 @@ def check_layout(cfg: TrainConfig, world: int) -> None:
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for a model, mode or engine knob that the port does not do
-    yet, naming the ROADMAP.md item that brings it, and for a layout that
-    the launch's world size cannot take; nothing is silently ignored."""
+    """Raise for a model or mode that no CLI of the repo runs, for a
+    checkpoint format that is not one, and for a layout that the launch's
+    world size cannot take; nothing is silently ignored."""
     _check_model(cfg)
-    for asked, what, item in _UNPORTED:
-        if asked(cfg):
-            raise NotImplementedError(f"{what} is not ported yet "
-                                      f"(ROADMAP.md, {item})")
+    if cfg.ckpt_format not in ("msgpack", "orbax"):
+        raise ValueError(f"--ckpt_format {cfg.ckpt_format!r}: msgpack or "
+                         f"orbax")
     check_layout(cfg, par.launch_world_size())
 
 
@@ -337,6 +338,124 @@ def save_checkpoint(path: str, model: torch.nn.Module, spec=None) -> None:
     tmp = path + ".tmp"
     torch.save(sd, tmp)
     os.replace(tmp, path)
+
+
+# ---------------------------------------------------------------------------
+# resume bundles (JAX engine/train.py:673-695, :846-858)
+# ---------------------------------------------------------------------------
+
+_ES_FIELDS = ("es_best", "es_counter", "es_val_loss_min", "es_has_best",
+              "stopped")
+
+
+def resume_state(model: torch.nn.Module, opt, generator: torch.Generator,
+                 epoch: int, stopper=None, stopped: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+    """The fold's resume bundle after ``epoch`` as a flat dict of tensors:
+    ``model.*`` (the state_dict), ``optim.{i}.*`` (the optimizer's
+    per-parameter state), ``multisteps.*`` (a ``MultiSteps``' running
+    mean and count, which carry across epochs), ``generator`` (the fold
+    generator's state: a CUDA generator's is its Philox seed and offset),
+    ``epoch`` and the early-stopping fields that JAX keeps."""
+    inner = opt.opt if isinstance(opt, MultiSteps) else opt
+    out = {f"model.{k}": v.detach() for k, v in model.state_dict().items()}
+    for i, state in inner.state_dict()["state"].items():
+        out.update({f"optim.{i}.{k}": v for k, v in state.items()})
+    if isinstance(opt, MultiSteps):
+        out["multisteps.count"] = torch.tensor(opt.mini_step)
+        out.update({f"multisteps.acc.{i}": a for i, a in enumerate(opt.acc)})
+    has_best = stopper is not None and stopper.best_score is not None
+    f64 = torch.float64
+    out.update(
+        generator=generator.get_state(), epoch=torch.tensor(epoch),
+        es_best=torch.tensor(stopper.best_score if has_best else 0.0,
+                             dtype=f64),
+        es_counter=torch.tensor(stopper.counter if stopper else 0),
+        es_val_loss_min=torch.tensor(stopper.val_loss_min if stopper
+                                     else np.inf, dtype=f64),
+        es_has_best=torch.tensor(int(has_best)),
+        stopped=torch.tensor(int(stopped)))
+    return out
+
+
+def restore_resume(bundle: Dict[str, torch.Tensor], model: torch.nn.Module,
+                   opt, generator: torch.Generator) -> dict:
+    """Put a ``resume_state`` bundle (host tensors) back into ``model``,
+    ``opt`` and ``generator``; returns the epoch and the early-stopping
+    fields as Python numbers."""
+    model.load_state_dict({k[len("model."):]: v for k, v in bundle.items()
+                           if k.startswith("model.")}, strict=True)
+    inner = opt.opt if isinstance(opt, MultiSteps) else opt
+    state: Dict[int, dict] = {}
+    for k, v in bundle.items():
+        if k.startswith("optim."):
+            i, name = k[len("optim."):].split(".", 1)
+            state.setdefault(int(i), {})[name] = v
+    inner.load_state_dict({"state": state,
+                           "param_groups": inner.state_dict()["param_groups"]})
+    if isinstance(opt, MultiSteps):
+        opt.mini_step = int(bundle["multisteps.count"])
+        with torch.no_grad():
+            for i, a in enumerate(opt.acc):
+                a.copy_(bundle[f"multisteps.acc.{i}"])
+    generator.set_state(bundle["generator"])
+    return {k: bundle[k].item() for k in ("epoch",) + _ES_FIELDS}
+
+
+def save_resume(path: str, bundle: Dict[str, torch.Tensor]) -> None:
+    """Write ``bundle``: a ``.dcp`` path through torch.distributed.checkpoint
+    (every rank calls it), any other by rank 0 alone as one ``torch.save``
+    file, atomically (tmp file + os.replace)."""
+    if path.endswith(".dcp"):
+        orbax_io.save_tree(path, bundle)
+    elif par.rank() == 0:
+        tmp = path + ".tmp"
+        torch.save({k: v.cpu() for k, v in bundle.items()}, tmp)
+        os.replace(tmp, path)
+
+
+def resume_exists(path: str) -> bool:
+    if path.endswith(".dcp"):
+        return orbax_io.exists(path)
+    return os.path.exists(path)
+
+
+def load_resume(path: str) -> Dict[str, torch.Tensor]:
+    """A bundle written by ``save_resume``, on the host."""
+    if path.endswith(".dcp"):
+        return orbax_io.restore_tree(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _prune_log(log_path: str, start_epoch: int) -> None:
+    """Keep the parseable records of ``metrics.jsonl`` below the resume
+    point (a SIGKILL can truncate the last line or leave an epoch newer
+    than the bundle)."""
+    kept = []
+    if os.path.exists(log_path):
+        for line in open(log_path).read().splitlines():
+            try:
+                if json.loads(line)["epoch"] < start_epoch:
+                    kept.append(line)
+            except (json.JSONDecodeError, KeyError):
+                pass
+        tmp = log_path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write("".join(line + "\n" for line in kept))
+        os.replace(tmp, log_path)
+
+
+def _tb_scalars(writer, rec: dict) -> None:
+    """One epoch's scalars with the reference's exact tags, including its
+    'c_index' vs 'c-index' inconsistency (core_utils.py:262-264,338-340)."""
+    e = rec["epoch"]
+    writer.add_scalar("train/loss_surv", rec["train_loss"], e)
+    writer.add_scalar("train/loss", rec.get("train_total", rec["train_loss"]),
+                      e)
+    writer.add_scalar("train/c_index", rec["train_c_index"], e)
+    writer.add_scalar("val/loss_surv", rec["val_loss"], e)
+    writer.add_scalar("val/loss", rec.get("val_total", rec["val_loss"]), e)
+    writer.add_scalar("val/c-index", rec["val_c_index"], e)
 
 
 # ---------------------------------------------------------------------------
@@ -767,6 +886,50 @@ def _activate_mesh(cfg: TrainConfig, bag_mesh) -> Optional[par.Mesh]:
     return mesh
 
 
+def _resume(cfg: TrainConfig, cur: int, path: str, model, opt, generator,
+            stopper, log_path: Optional[str]) -> int:
+    """With ``--resume``: restore the bundle at ``path`` (every rank, after
+    a barrier) and the stopper, and return the epoch after it; a fold that
+    already stopped early skips to its summary.  Without a bundle, 0; a
+    JAX bundle in its place raises.  Either way ``log_path`` (rank 0's) is
+    pruned to the epochs before the returned one, so that a kill before
+    the first bundle leaves no stale record."""
+    if not cfg.resume:
+        return 0
+    par.barrier()
+    if not resume_exists(path):
+        jax_bundle = os.path.join(
+            cfg.results_dir, f"s_{cur}_resume."
+            + ("orbax" if cfg.ckpt_format == "orbax" else "msgpack"))
+        if os.path.exists(jax_bundle):
+            raise RuntimeError(
+                f"{jax_bundle} is a resume bundle of the JAX package: its "
+                f"rbg key cannot continue a torch.Generator, so the port "
+                f"cannot resume it.  Resume the fold with the JAX package, "
+                f"or remove the file to train the fold from epoch 0")
+        if log_path is not None:
+            _prune_log(log_path, 0)
+        return 0
+    state = restore_resume(load_resume(path), model, opt, generator)
+    start_epoch = int(state["epoch"]) + 1
+    if state["stopped"]:
+        # the fold finished by early stopping: training it further would
+        # overwrite its checkpoints and metrics with longer-trained ones
+        start_epoch = cfg.max_epochs
+        print(f"fold {cur} already early-stopped; skipping to summary")
+    elif start_epoch < cfg.max_epochs:
+        print(f"resuming fold {cur} from epoch {start_epoch}")
+    if stopper is not None and state["es_has_best"]:
+        # so that the resumed fold cannot clobber the saved best
+        # checkpoint with worse weights
+        stopper.best_score = state["es_best"]
+        stopper.counter = int(state["es_counter"])
+        stopper.val_loss_min = state["es_val_loss_min"]
+    if log_path is not None:
+        _prune_log(log_path, start_epoch)
+    return start_epoch
+
+
 def train_fold(datasets, cur: int, cfg: TrainConfig,
                eval_only: bool = False):
     """Train (or evaluate) one fold; returns the reference's result tuple
@@ -843,7 +1006,26 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
                              stop_epoch=100 if not cfg.pretrained else 50,
                              verbose=True, spec=spec)
                if cfg.early_stopping else None)
-    for epoch in range(cfg.max_epochs):
+    resume_path = os.path.join(
+        cfg.results_dir,
+        f"s_{cur}_resume." + ("dcp" if cfg.ckpt_format == "orbax" else "pt"))
+    start_epoch = _resume(cfg, cur, resume_path, model, opt, generator,
+                          stopper, log_path if writer else None)
+    tb = None
+    if cfg.tb and writer:
+        if cfg.resume:
+            # an old event file may hold scalars past the resume point
+            # (metrics.jsonl was pruned): drop it and replay the log
+            for name in os.listdir(fold_dir):
+                if name.startswith("events.out.tfevents"):
+                    os.remove(os.path.join(fold_dir, name))
+        tb = tb_writer.EventWriter(fold_dir)
+        if cfg.resume and os.path.exists(log_path):
+            for line in open(log_path).read().splitlines():
+                _tb_scalars(tb, json.loads(line))
+            tb.flush()
+    stop = False
+    for epoch in range(start_epoch, cfg.max_epochs):
         t0 = time.time()
         tr = _run_epoch(cfg, train_split, train_idx, train_step, eval_step,
                         generator, True, seed=cfg.seed * 100003 + epoch,
@@ -862,6 +1044,9 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
         if writer:
             with open(log_path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+            if tb is not None:
+                _tb_scalars(tb, rec)
+                tb.flush()
             if epoch == 10:
                 save_checkpoint(mid_ckpt, model, spec)  # ref core_utils:342
         if stopper is not None:
@@ -870,8 +1055,14 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
                     minloss_ckpt if writer else None)
             if stopper.early_stop:
                 print("Early stopping")
-                break
+                stop = True
+        save_resume(resume_path, resume_state(model, opt, generator, epoch,
+                                               stopper, stop))
+        if stop:
+            break
 
+    if tb is not None:
+        tb.close()
     if writer:
         save_checkpoint(ckpt, model, spec)
     _, final_val_c = summary_survival(cfg, val_split, eval_step, val_idx,

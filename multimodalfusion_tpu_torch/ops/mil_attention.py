@@ -19,9 +19,14 @@ CUDA kernels.  A wrapper never falls back from one to the other.  The
 wrappers take any D up to 512 and any Da: the kernels' own steps (D in
 multiples of 32 forward and 64 backward, Da in multiples of 8 and 64) are
 met by zero-padding around the launch, which leaves the result exact.
+Only on request (``pooling_route``) does a call on the card take another
+route: "op" sends the forward through the custom op ``mmf::fused_pool``
+so that ``torch.export`` keeps the kernel, and "plain" takes the plain
+versions, as the reference the kernels are held against.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
@@ -701,14 +706,71 @@ _fused_pool_bwd_cuda.launches = 0
 _fused_pool_bwd_cuda.last_plan = None  # the BwdPlan of the latest launch
 
 
+# How ``_fused_pool`` and ``_fused_pool_bwd`` route a tensor on the card:
+# "kernel" launches the kernels directly; "op" sends the forward through the
+# custom op ``mmf::fused_pool`` (so that ``torch.export`` keeps it in its
+# graph); "plain" takes the plain versions on any device, as the reference
+# that the kernels are held against.  A tensor on the CPU takes the plain
+# versions under "kernel" and "plain".  Set with ``pooling_route``.
+_ROUTES = ("kernel", "op", "plain")
+_route = "kernel"
+
+
+@contextlib.contextmanager
+def pooling_route(route: str):
+    """Route the pooling as ``route`` (one of ``_ROUTES``) while the
+    context lasts."""
+    global _route
+    if route not in _ROUTES:
+        raise ValueError(f"pooling route {route!r} is not one of {_ROUTES}")
+    before, _route = _route, route
+    try:
+        yield
+    finally:
+        _route = before
+
+
+@torch.library.custom_op("mmf::fused_pool", mutates_args=())
+def fused_pool_op(h: torch.Tensor, mask: torch.Tensor, Wa: torch.Tensor,
+                  ba: torch.Tensor, Wb: torch.Tensor, bb: torch.Tensor,
+                  wc: torch.Tensor, cc: torch.Tensor,
+                  da: Optional[torch.Tensor], db: Optional[torch.Tensor],
+                  gated: bool, rate: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as the torch custom op ``mmf::fused_pool``, so that
+    ``torch.export`` keeps the kernel in its graph (the ctypes launch reads
+    ``data_ptr()``, which a traced tensor lacks).  A tensor on the CPU
+    takes the plain version; any other device launches
+    ``csrc/mil_pool_fwd.cu`` (width padding included) or raises."""
+    params = AttnParams(Wa, ba, Wb, bb, wc, cc)
+    if h.device.type == "cpu":
+        return _pool_plain(h, mask, params, gated, da, db, rate)
+    out, ml = _fused_pool_cuda(h, mask, params, gated, da, db, rate)
+    return out.contiguous(), ml  # a padded launch's out is a column slice
+
+
+@fused_pool_op.register_fake
+def _fused_pool_fake(h, mask, Wa, ba, Wb, bb, wc, cc, da, db, gated, rate):
+    acc = _acc_dtype(h)
+    return (h.new_empty((h.shape[0], h.shape[2]), dtype=acc),
+            h.new_empty((h.shape[0], 2), dtype=acc))
+
+
 def _fused_pool(h, mask, params: AttnParams, gated: bool, da=None, db=None,
                 rate: float = ATTN_DROPOUT_RATE
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pooled [B, D] f32, ml [B, 2] f32) with the residuals of the TPU
     kernel: ml = (max logit, softmax normalizer) per bag.  A tensor on the
     CPU takes the plain version; any other device launches the kernel or
-    raises."""
-    if h.device.type == "cpu":
+    raises.  Under the route "op" the call goes through ``fused_pool_op``,
+    and a tensor on neither the CPU nor a card is refused here: the op
+    would hand a meta tensor to its shape function."""
+    if _route == "op":
+        if h.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"the CUDA pooling kernels need a CUDA tensor, "
+                             f"got one on {h.device}")
+        return fused_pool_op(h, mask, *params, da, db, gated, rate)
+    if h.device.type == "cpu" or _route == "plain":
         return _pool_plain(h, mask, params, gated, da, db, rate)
     return _fused_pool_cuda(h, mask, params, gated, da, db, rate)
 
@@ -717,7 +779,7 @@ def _fused_pool_bwd(h, mask, params: AttnParams, out, ml, g, gated: bool,
                     da=None, db=None, rate: float = ATTN_DROPOUT_RATE):
     """(dh, parameter gradients): the plain version for a tensor on the
     CPU, the backward kernel (or an error) on any other device."""
-    if h.device.type == "cpu":
+    if h.device.type == "cpu" or _route == "plain":
         return _pool_bwd_plain(h, mask, params, out, ml, g, gated, da, db,
                                rate)
     return _fused_pool_bwd_cuda(h, mask, params, out, ml, g, gated, da, db,

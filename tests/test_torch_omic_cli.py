@@ -199,16 +199,19 @@ def exp_dir(results_dir):
 @pytest.mark.parametrize("model", list(MODELS))
 def test_cli_writes_the_jax_file_set(cohort, jax_runs, tmp_path, model):
     """Two epochs of the port's CLI on the CPU: the JAX CLI's files (.pt
-    checkpoints only), metrics keys, result keys and shapes; each
+    checkpoints only, the resume bundle as the port's .pt), metrics keys,
+    result keys and shapes; each
     checkpoint has the JAX export's keys (placeholders included), and
     cli.infer serves it."""
     assert port_main(cli_args(cohort, tmp_path / "port", model,
                               "--device", "cpu")) == 0
     jexp, texp = exp_dir(jax_runs[model]), exp_dir(tmp_path / "port")
     assert jexp.name == texp.name
-    jfiles = {p.relative_to(jexp).as_posix() for p in jexp.rglob("*")
-              if p.is_file() and not p.name.endswith(".msgpack")
-              and not p.name.startswith("risks")}
+    jfiles = {p.relative_to(jexp).as_posix().replace(
+        "_resume.msgpack", "_resume.pt") for p in jexp.rglob("*")
+        if p.is_file() and (not p.name.endswith(".msgpack")
+                            or p.name.endswith("_resume.msgpack"))
+        and not p.name.startswith("risks")}
     tfiles = {p.relative_to(texp).as_posix() for p in texp.rglob("*")
               if p.is_file()}
     assert tfiles == jfiles

@@ -261,7 +261,8 @@ def test_port_runs_stage4_end_to_end(stage2, embeddings, jax_stage4_runs,
                                      tmp_path, case):
     """The port alone on the CPU: its stage-3 embeddings -> main_pretrained
     -> eval_pretrained -> cli.infer.  Training writes the JAX CLI's files
-    (.pt checkpoints only, BatchNorm running statistics included) under
+    (.pt checkpoints only, BatchNorm running statistics included, and the
+    resume bundle as the port's .pt) under
     the same experiment code, settings, metrics and summary layout, with
     finite losses; evaluation gives a finite c-index (and IBS for nll)."""
     base = stage2[0]
@@ -270,8 +271,10 @@ def test_port_runs_stage4_end_to_end(stage2, embeddings, jax_stage4_runs,
                                    "--device", "cpu")) == 0
     jexp, texp = jax_stage4_runs[case], exp_dir(texp_root)
     assert texp.name == jexp.name
-    jfiles = {p.relative_to(jexp).as_posix() for p in jexp.rglob("*")
-              if p.is_file() and not p.name.endswith(".msgpack")}
+    jfiles = {p.relative_to(jexp).as_posix().replace(
+        "_resume.msgpack", "_resume.pt") for p in jexp.rglob("*")
+        if p.is_file() and (not p.name.endswith(".msgpack")
+                            or p.name.endswith("_resume.msgpack"))}
     tfiles = {p.relative_to(texp).as_posix() for p in texp.rglob("*")
               if p.is_file()}
     assert tfiles == jfiles
@@ -315,22 +318,18 @@ def test_port_runs_stage4_end_to_end(stage2, embeddings, jax_stage4_runs,
 
 
 @pytest.mark.parametrize("extra", [
-    ("--resume",), ("--tb",), ("--ckpt_format", "orbax"),
     ("--data_parallel", "--device", "cuda")],
     ids=lambda e: e[0].lstrip("-"))
 def test_main_pretrained_unported_flags_raise(stage2, embeddings, tmp_path,
                                               extra, monkeypatch):
-    """Each flag of work not ported yet raises, naming its ROADMAP.md item,
-    before anything is written.  ``--data_parallel`` is ported: a torchrun
-    launch of more ranks than the node's GPUs raises before anything is
-    written (ranks never share a GPU)."""
-    err, match = NotImplementedError, "ROADMAP.md"
-    if "--data_parallel" in extra:
-        err, match = RuntimeError, "ranks never share a GPU"
-        for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):
-            monkeypatch.setenv(k, v)
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    """A torchrun launch of more ranks than the node's GPUs raises before
+    anything is written (ranks never share a GPU).  (The operations flags
+    are ported: tests/test_torch_ops_resume.py.)"""
+    err, match = RuntimeError, "ranks never share a GPU"
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(err, match=match):
         port_stage4(stage4_args(stage2[0], embeddings[1], tmp_path / "r",
                                 "kronecker_nll", "--device", "cpu", *extra))

@@ -118,8 +118,11 @@ def test_port_trains_radio_folds(cohort, port_runs, model, tmp_path):
 def test_port_radio_file_set_is_the_jax_clis(port_runs, jax_radio):
     jexp, texp = exp_dir(jax_radio), port_runs["radio"]
     assert jexp.name == texp.name
-    jfiles = {p.relative_to(jexp).as_posix() for p in jexp.rglob("*")
-              if p.is_file() and not p.name.endswith(".msgpack")}
+    # .pt checkpoints only; JAX's resume bundle is the port's .pt one
+    jfiles = {p.relative_to(jexp).as_posix().replace(
+        "_resume.msgpack", "_resume.pt") for p in jexp.rglob("*")
+        if p.is_file() and (not p.name.endswith(".msgpack")
+                            or p.name.endswith("_resume.msgpack"))}
     tfiles = {p.relative_to(texp).as_posix() for p in texp.rglob("*")
               if p.is_file()}
     assert tfiles == jfiles

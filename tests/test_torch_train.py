@@ -254,14 +254,17 @@ def exp_dir(results_dir):
 
 def test_cli_writes_the_jax_file_set(cohort, jax_experiment, tmp_path):
     """Two epochs of the port's CLI on the CPU: the JAX CLI's files (but
-    .pt checkpoints only) with the same keys and columns, and the minloss
-    checkpoint is served by the port's cli.infer."""
+    .pt checkpoints only, and the resume bundle as the port's .pt) with the
+    same keys and columns, and the minloss checkpoint is served by the
+    port's cli.infer."""
     assert port_main(cli_args(cohort, tmp_path / "port",
                               "--device", "cpu")) == 0
     jexp, texp = exp_dir(jax_experiment), exp_dir(tmp_path / "port")
     assert jexp.name == texp.name
-    jfiles = {p.relative_to(jexp).as_posix() for p in jexp.rglob("*")
-              if p.is_file() and not p.name.endswith(".msgpack")}
+    jfiles = {p.relative_to(jexp).as_posix().replace(
+        "_resume.msgpack", "_resume.pt") for p in jexp.rglob("*")
+        if p.is_file() and (not p.name.endswith(".msgpack")
+                            or p.name.endswith("_resume.msgpack"))}
     tfiles = {p.relative_to(texp).as_posix() for p in texp.rglob("*")
               if p.is_file()}
     assert tfiles == jfiles
@@ -342,28 +345,23 @@ LAYOUT_ERRORS = {
 
 @pytest.mark.parametrize("extra", [
     pytest.param(name, id=name) for name in LAYOUT_ERRORS] + [
-    ("--resume",), ("--ckpt_format", "orbax"), ("--tb",),
-    ("--profile_dir", "prof"), ("--split", "threemod"),
     ("--model_type", "radio_attention_mil", "--mode", "omic"),
     ("--mode", "radio")],
     ids=lambda e: e[0].lstrip("-") + (f"_{e[-1]}" if len(e) > 2 else ""))
 def test_unported_flags_raise(cohort, tmp_path, extra, monkeypatch):
-    """Each flag of work not ported yet raises, naming its ROADMAP.md
-    item, before anything is written.  The radiology models are ported:
-    a model asked for in a mode it does not run in (radio AMIL on
+    """A model asked for in a mode it does not run in (radio AMIL on
     genomics, path AMIL on radiology) raises ValueError naming its mode,
-    also before anything is written.  So do the multi-device flags
-    misused (``LAYOUT_ERRORS``; the world size of a torchrun launch comes
-    from its environment)."""
+    before anything is written.  So do the multi-device flags misused
+    (``LAYOUT_ERRORS``; the world size of a torchrun launch comes from its
+    environment).  (The operations flags are ported:
+    tests/test_torch_ops_*.py.)"""
     if extra in LAYOUT_ERRORS:
         extra, match, world = LAYOUT_ERRORS[extra]
         err = ValueError
         if world is not None:
             monkeypatch.setenv("WORLD_SIZE", world)
-    elif "--mode" in extra:
-        err, match = ValueError, "runs in mode"
     else:
-        err, match = NotImplementedError, "ROADMAP.md"
+        err, match = ValueError, "runs in mode"
     with pytest.raises(err, match=match):
         port_main(cli_args(cohort, tmp_path / "r", "--device", "cpu",
                            *extra))
