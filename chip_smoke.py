@@ -176,7 +176,8 @@ Phases, each fatal on failure:
                 two epochs then --resume to four; the same fold in a
                 subprocess killed with SIGKILL after its second epoch's
                 record, then resumed; a straight 4-epoch fold; two epochs
-                with --ckpt_format orbax (DCP) resumed to four.  Each
+                with --ckpt_format orbax (the same .pt bundle) resumed to
+                four.  Each
                 resumed fold against the straight one, bit for bit or
                 within the step check's tolerances (both reported); each
                 run's launches as expected (one forward per train step and
@@ -191,6 +192,22 @@ Phases, each fatal on failure:
                 timed against it; cli.doctor --full holds both kernels
                 against their plain versions.  Alone: --phases ops
                 (writes its own bags).
+  10. report  -- the reporting stage over the work tree: cli.main trains
+                a 3-fold RadioAMIL small on [radio]'s cohort at its full
+                width (B=8, [8, 256, 4096] f32 batches, two epochs; one
+                forward per train step and evaluated or summary batch, one
+                backward per train step; three kernel train steps against
+                three plain ones); cli.summarize with --km, quartile
+                strata, --hazard_hist, --cohort_csv, --bootstrap 1000,
+                --pivot and --emit_heatmap_yamls over every experiment of
+                the earlier phases and this one (no launch; one
+                cv_summary.csv row per summary.csv; the new experiment's
+                pooled c-index equal to its pkls', finite IPCW metrics
+                and CI; one YAML per fold of each PATH, RADIO and OMICS
+                experiment, then one per experiment at its best fold);
+                cli.create_heatmaps on an emitted RADIO and OMICS config
+                (no launch).  Alone: --phases report (runs [radio]
+                first).
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -2809,10 +2826,10 @@ def phase_ops(launch_counters, root):
       - the same fold in a subprocess, killed with SIGKILL after its second
         epoch's record, then --resume to four;
       - a straight 4-epoch fold, and two epochs with --ckpt_format orbax
-        (a DCP bundle) resumed to four;
+        (which writes the same s_0_resume.pt bundle) resumed to four;
       - each resumed fold against the straight one: bit for bit, or the
         losses' and parameters' distance (tolerances of the step check);
-      - the bundle's write time and size (.pt and DCP), an epoch's time
+      - the bundle's write time and size, an epoch's time
         with and without the profiler, the six pooling sub-kernels in the
         trace against the launch counters;
       - cli.export_model --platforms cuda --check, --platforms cpu
@@ -2929,6 +2946,9 @@ def phase_ops(launch_counters, root):
 
     fold("straight", "straight", 4, epochs=4)
     fold("orbax", "orbax", 2, "--ckpt_format", "orbax")
+    kept = sorted(f for f in os.listdir(exp_of("orbax")) if "resume" in f)
+    if kept != ["s_0_resume.pt"]:
+        raise AssertionError(f"[ops] --ckpt_format orbax bundle {kept}")
     fold("orbax_resume", "orbax", 4, "--ckpt_format", "orbax", "--resume",
          "--overwrite")
 
@@ -2945,20 +2965,16 @@ def phase_ops(launch_counters, root):
     bundle = {k: v if k == "generator" else v.cuda()
               for k, v in ttrain.load_resume(
                   os.path.join(straight, "s_0_resume.pt")).items()}
-    for ext in ("pt", "dcp"):
-        path = os.path.join(root, "ops", f"bundle.{ext}")
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ttrain.save_resume(path, bundle)
-            times.append((time.perf_counter() - t0) * 1e3)
-        size = (os.path.getsize(path) if ext == "pt" else
-                sum(os.path.getsize(os.path.join(path, f))
-                    for f in os.listdir(path)))
-        log(f"[ops] resume bundle .{ext}: {size / 1e6:.3f} MB written in "
-            + ", ".join(f"{t:.3f}" for t in times) + " ms (3 writes, host "
-            "clock)")
+    path = os.path.join(root, "ops", "bundle.pt")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ttrain.save_resume(path, bundle)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"[ops] resume bundle .pt: {os.path.getsize(path) / 1e6:.3f} MB "
+        f"written in " + ", ".join(f"{t:.3f}" for t in times) + " ms (3 "
+        "writes, host clock)")
 
     # an epoch with and without the profiler
     def secs(name):
@@ -3685,6 +3701,273 @@ def phase_step_breakdown(cfg, batches, host_ms):
     return res
 
 
+def _expected_yamls(root, all_folds):
+    """The heatmap configs that cli.summarize must emit for the tree at
+    ``root``: every fold (or the best validation fold) of each PATH, RADIO
+    and OMICS experiment whose summary.csv names it and whose minloss
+    checkpoint exists; none for the MMF fusion heads."""
+    out = set()
+    for dirpath, _, files in os.walk(root):
+        code = os.path.basename(dirpath).upper()
+        if "summary.csv" not in files or not code.startswith(
+                ("PATH", "RADIO", "OMIC")):
+            continue
+        rows = _csv_rows(os.path.join(dirpath, "summary.csv"))
+        folds = [int(r["folds"]) for r in rows]
+        vals = np.array([float(r["val_cindex"] or "nan") for r in rows])
+        if not all_folds:
+            if np.isnan(vals).all():
+                continue
+            folds = [folds[int(np.nanargmax(vals))]]
+        exp = os.path.relpath(dirpath, root).replace(os.sep, "__")
+        out |= {f"heatmap_config_{exp}_val_{k}.yaml" for k in folds
+                if os.path.isfile(os.path.join(
+                    dirpath, f"s_{k}_minloss_checkpoint.pt"))}
+    return out
+
+
+def phase_report(launch_counters, root):
+    """[report] The reporting stage over the work tree, with the launch
+    counters reset just before each run and read just after:
+      - cli.main trains a 3-fold RadioAMIL small at [radio]'s full width on
+        a 3-fold split of [radio]'s 32-subject cohort (concat, gated,
+        --drop_out, nll_surv, B=8: [8, 256, 4096] f32 batches, two
+        epochs): the forward once per train step and evaluated or summary
+        batch, the backward once per train step, every loss finite; three
+        kernel train steps on fold 0's batches agree with three plain ones;
+      - cli.summarize over the whole work tree ([train]'s, [omic]'s,
+        [radio]'s, [pretrained]'s and [ops]' experiments and this one) with
+        --km --km_thresh 1.0 --percentiles 25,50,75 --hazard_hist
+        --cohort_csv ([radio]'s cohort) --bootstrap 1000 --pivot
+        --emit_heatmap_yamls --heatmap_template (examples/heatmap_radio.yaml
+        rewritten with [radio]'s paths) --all_folds: no launch; one
+        cv_summary.csv row per summary.csv; the new experiment's
+        pooled_cindex equal to the c-index of its three pkls
+        concatenated, finite iauc, ipcw_cindex and bootstrap bounds; one
+        YAML per fold of each PATH, RADIO and OMICS experiment;
+      - again without --all_folds, with examples/heatmap_omic.yaml
+        rewritten the same way: one YAML per PATH, RADIO and OMICS
+        experiment, none for MMF;
+      - cli.create_heatmaps on an emitted RADIO config (the new
+        experiment's fold 0) and an emitted OMICS config, unmodified: no
+        launch, scores.csv and omic_attr_global.csv written.
+    Returns the launch counts by run."""
+    import contextlib
+    import io
+
+    import torch
+    from multimodalfusion_tpu_torch import metrics
+    from multimodalfusion_tpu_torch.cli import create_heatmaps
+    from multimodalfusion_tpu_torch.cli import main as cli_main
+    from multimodalfusion_tpu_torch.cli import summarize
+    from multimodalfusion_tpu_torch.data.io import load_pkl
+    from multimodalfusion_tpu_torch.data.loaders import iter_batches
+    from multimodalfusion_tpu_torch.data.survival_dataset import \
+        SurvivalDataset
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    from multimodalfusion_tpu_torch.utils import yaml_subset
+    from multimodalfusion_tpu_torch.utils.experiment import read_experiment
+    B, epochs, k_folds, n_subjects = 8, 2, 3, 32
+    radio = os.path.join(root, "radio")
+    td = os.path.join(root, "report")
+    os.makedirs(td)
+    launches, wall = {}, {}
+
+    def run(stage, fn, argv, fwd, bwd, quiet=False):
+        for c in launch_counters:
+            c.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out) if quiet else \
+                contextlib.nullcontext():
+            rc = fn(argv)
+        torch.cuda.synchronize()
+        wall[stage] = time.perf_counter() - t0
+        launches[stage] = {c.__name__: c.launches for c in launch_counters}
+        want = {"_fused_pool_cuda": fwd, "_fused_pool_bwd_cuda": bwd}
+        if rc != 0 or launches[stage] != want:
+            raise AssertionError(f"[report] {stage}: rc={rc}, launches "
+                                 f"{launches[stage]}, expected {want}")
+        return out.getvalue()
+
+    # 1. a 3-fold split of [radio]'s cohort, trained through both kernels
+    cohort_csv = os.path.join(radio, "dataset_csv", "brain", "survival.csv")
+    sids = [r["subject_id"] for r in _csv_rows(cohort_csv)]
+    order = np.random.default_rng(15).permutation(len(sids))
+    splits = os.path.join(td, "splits", "brain", "smoke3")
+    os.makedirs(splits)
+    want_fwd = want_bwd = 0
+    for k in range(k_folds):
+        val = [sids[i] for i in order[k::k_folds]]
+        train = [s for s in sids if s not in set(val)]
+        with open(os.path.join(splits, f"splits_{k}.csv"), "w") as f:
+            f.write("train,val\n" + "".join(
+                f"{t},{val[i] if i < len(val) else ''}\n"
+                for i, t in enumerate(train)))
+        steps, evals = -(-len(train) // B), -(-len(val) // B)
+        want_fwd += epochs * (steps + evals) + 2 * evals
+        want_bwd += epochs * steps
+    results = os.path.join(td, "results")
+    run("train_3fold", cli_main.main, [
+        "--cancer_type", "brain", "--which_splits", "smoke3",
+        "--data_root_dir", os.path.join(radio, "features"),
+        "--dataset_root", os.path.join(radio, "dataset_csv"),
+        "--splits_root", os.path.join(td, "splits")] + RADIO_FLAGS["radio"]
+        + ["--k", str(k_folds), "--max_epochs", str(epochs),
+           "--batch_size", str(B), "--results_dir", results, "--device",
+           "cuda"], want_fwd, want_bwd)
+    sub = os.path.join(results, "brain", "smoke3")
+    exp = os.path.join(sub, os.listdir(sub)[0])
+    losses = []
+    for k in range(k_folds):
+        with open(os.path.join(exp, str(k), "metrics.jsonl")) as f:
+            losses += [json.loads(x)[c] for x in f
+                       for c in ("train_loss", "val_loss")]
+    log(f"[report] cli.main {k_folds}-fold RadioAMIL ({epochs} epochs): "
+        f"{wall['train_3fold']:.2f} s, kernel launches "
+        f"{launches['train_3fold']} (expected {want_fwd} / {want_bwd}); "
+        f"losses finite: {bool(np.isfinite(losses).all())}")
+    if len(losses) != 2 * k_folds * epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"[report] losses {losses}")
+    ds = SurvivalDataset(cohort_csv, "radio",
+                         os.path.join(radio, "features", "brain"), n_bins=4)
+    train_split, _ = ds.load_splits(os.path.join(splits, "splits_0.csv"))
+    batches = []
+    for b in iter_batches(train_split, batch_size=B, shuffle=True, seed=3):
+        b.pop("subject_ids")
+        batches.append(b)
+    if batches[0]["radio_bags"].shape != (B, 256, 4096):
+        raise AssertionError(f"radio batch {batches[0]['radio_bags'].shape}")
+    cfg = ttrain.TrainConfig(model_type="radio_attention_mil", mode="radio",
+                             radio_fusion="concat", gate_radio=True,
+                             drop_out=True, bag_loss="nll_surv",
+                             batch_size=B, device="cuda")
+    _steps_agree("report", cfg, batches[:3], launch_counters)
+
+    # the templates, rewritten with [radio]'s paths
+    settings = read_experiment(exp)
+    subjects = os.path.join(td, "subjects.csv")
+    with open(subjects, "w") as f:
+        f.write("subject_id\n" + "".join(f"{s}\n" for s in sids[:8]))
+    templates = {}
+    for branch in ("radio", "omic"):
+        tpl = yaml_subset.load_file(os.path.join(
+            REPO, "examples", f"heatmap_{branch}.yaml"))
+        tpl["exp_arguments"]["save_dir"] = os.path.join(td, "heatmaps")
+        tpl["model_arguments"]["ckpt_path"] = exp
+        if branch == "radio":
+            # the cohort has feature h5 files and no raw scans to render
+            tpl["data_arguments"] = {
+                "process_list": subjects,
+                "feat_dir": settings["data_root_dir"],
+                "modalities": list(settings["radio_modality"])}
+        templates[branch] = os.path.join(td, f"template_{branch}.yaml")
+        yaml_subset.dump_file(tpl, templates[branch])
+
+    # 2. every fold's config
+    n_summaries = sum("summary.csv" in files
+                      for _, _, files in os.walk(root))
+    report = os.path.join(td, "summary_all")
+    yamls = os.path.join(td, "yamls_all")
+    common = ["--results_root", root, "--km", "--km_thresh", "1.0",
+              "--percentiles", "25,50,75", "--hazard_hist", "--cohort_csv",
+              cohort_csv, "--bootstrap", "1000", "--pivot"]
+    text = run("summarize_all_folds", summarize.main, common + [
+        "--save_dir", report, "--emit_heatmap_yamls", yamls,
+        "--heatmap_template", templates["radio"], "--all_folds"], 0, 0,
+        quiet=True)
+    with open(os.path.join(td, "summarize_all_folds.log"), "w") as f:
+        f.write(text)
+    summary = _csv_rows(os.path.join(report, "cv_summary.csv"))
+    stats = {r["experiment"]: r for r in _csv_rows(os.path.join(
+        report, "risk_group_stats.csv"))}
+    pivot = _csv_rows(os.path.join(report, "cv_pivot.csv"))
+    name = os.path.relpath(exp, root).replace(os.sep, "__")
+    pkls = [load_pkl(os.path.join(exp, f"split_train_val_{k}_results.pkl"))
+            for k in range(k_folds)]
+    cat = {c: np.concatenate([p[c] for p in pkls])
+           for c in ("risk", "survival", "censorship")}
+    want_c = metrics.concordance_index_censored(
+        (1 - cat["censorship"]).astype(bool), cat["survival"],
+        cat["risk"])[0]
+    row = stats[name]
+    got = {c: float(row[c]) for c in ("pooled_cindex", "iauc",
+                                      "ipcw_cindex", "cindex_lo",
+                                      "cindex_hi")}
+    emitted = set(os.listdir(yamls)) - {"heatmap_results"}
+    want_yamls = _expected_yamls(root, all_folds=True)
+    skipped = [x for x in text.splitlines() if "skipped" in x
+               or x.startswith("skipping")]
+    log(f"[report] cli.summarize --all_folds over the work tree: "
+        f"{wall['summarize_all_folds']:.2f} s, launches "
+        f"{launches['summarize_all_folds']}; {len(summary)} cv_summary rows "
+        f"for {n_summaries} summary.csv, pivot {len(pivot)} models x "
+        f"{len(pivot[0]) - 1 if pivot else 0} cohorts, "
+        f"{len(stats)} risk-group rows ({len(skipped)} lines skipped "
+        f"something), {len(emitted)} YAMLs for {len(want_yamls)} folds; "
+        f"{name}: n {row['n']}, pooled c-index {got['pooled_cindex']!r} "
+        f"(concatenated pkls {want_c!r}), iauc {got['iauc']:.4f}, "
+        f"ipcw_cindex {got['ipcw_cindex']:.4f}, bootstrap CI "
+        f"[{got['cindex_lo']:.4f}, {got['cindex_hi']:.4f}]")
+    for line in skipped:
+        log(f"[report]   {line}")
+    if len(summary) != n_summaries or int(row["n"]) != n_subjects \
+            or got["pooled_cindex"] != want_c \
+            or not all(np.isfinite(v) for v in got.values()) \
+            or not got["cindex_lo"] <= got["pooled_cindex"] \
+            <= got["cindex_hi"]:
+        raise AssertionError(f"[report] summary {len(summary)} rows for "
+                             f"{n_summaries}; {name}: {row}, c-index of "
+                             f"the pkls {want_c}")
+    prefixes = {y.split("__")[-1].split("_")[0] for y in emitted}
+    if emitted != want_yamls or not {"PATH", "RADIO", "OMICS"} <= {
+            p.upper() for p in prefixes} or not all(
+            f"heatmap_config_{name}_val_{k}.yaml" in emitted
+            for k in range(k_folds)):
+        raise AssertionError(f"[report] emitted {sorted(emitted)}, "
+                             f"expected {sorted(want_yamls)}")
+
+    # 3. the best fold of each experiment
+    yamls_best = os.path.join(td, "yamls_best")
+    text = run("summarize_best_fold", summarize.main, common + [
+        "--save_dir", os.path.join(td, "summary_best"),
+        "--emit_heatmap_yamls", yamls_best, "--heatmap_template",
+        templates["omic"]], 0, 0, quiet=True)
+    best = set(os.listdir(yamls_best)) - {"heatmap_results"}
+    want_best = _expected_yamls(root, all_folds=False)
+    n_exps = len({y.rsplit("_val_", 1)[0] for y in want_yamls})
+    log(f"[report] cli.summarize best fold: "
+        f"{wall['summarize_best_fold']:.2f} s, launches "
+        f"{launches['summarize_best_fold']}; {len(best)} YAMLs for "
+        f"{n_exps} PATH, RADIO and OMICS experiments, none for MMF")
+    if best != want_best or len(best) != n_exps or any(
+            "__MMF" in y for y in best):
+        raise AssertionError(f"[report] best-fold YAMLs {sorted(best)}, "
+                             f"expected {sorted(want_best)}")
+
+    # 4. stage 5 from the emitted configs, unmodified
+    radio_cfg = os.path.join(yamls, f"heatmap_config_{name}_val_0.yaml")
+    omic_cfg = os.path.join(yamls_best, sorted(
+        y for y in best if "__OMICS" in y)[0])
+    for stage, cfg_path, out in (("heatmaps_radio", radio_cfg, "scores.csv"),
+                                 ("heatmaps_omic", omic_cfg,
+                                  "omic_attr_global.csv")):
+        run(stage, create_heatmaps.main, ["--config", cfg_path], 0, 0,
+            quiet=True)
+        save_dir = yaml_subset.load_file(cfg_path)["exp_arguments"][
+            "save_dir"]
+        rows = _csv_rows(os.path.join(save_dir, out))
+        log(f"[report] cli.create_heatmaps {os.path.basename(cfg_path)}: "
+            f"{wall[stage]:.2f} s, launches {launches[stage]}; {out} "
+            f"{len(rows)} rows")
+        if not rows:
+            raise AssertionError(f"[report] {stage}: {out} is empty")
+    log(f"[report] wall s: " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in wall.items())
+        + f"; card {_card()}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3693,7 +3976,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,omic,pretrained,radio,extract,"
-                         "gradcam,interpret,timing,dist,ops "
+                         "gradcam,interpret,timing,dist,ops,report "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -3736,9 +4019,9 @@ def _partial(phases, counters, work, t_all) -> int:
                              omic_args, work)
         else:
             phase_pretrained(counters, root=work)
-    if {"radio", "extract", "interpret", "gradcam"} & set(phases):
-        # [extract], [interpret] and [gradcam] alone first write and train
-        # their own radio cohort
+    if {"radio", "extract", "interpret", "gradcam", "report"} & set(phases):
+        # [extract], [interpret], [gradcam] and [report] alone first write
+        # and train their own radio cohort
         _, _, radio_exps = phase_radio(counters, work)
     if "interpret" in phases:
         phase_interpret(counters, radio_exps, work)
@@ -3756,6 +4039,8 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_dist(work)
     if "ops" in phases:
         phase_ops(counters, work)
+    if "report" in phases:
+        phase_report(counters, work)
     log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
         f"no result)")
     return 0
@@ -3808,6 +4093,10 @@ def _full(counters, work, t_all) -> int:
     t = time.perf_counter()
     ops_launches = phase_ops(counters, work)
     log(f"[ops] done in {time.perf_counter() - t:.1f} s")
+    # the report over every experiment the phases above left
+    t = time.perf_counter()
+    report_launches = phase_report(counters, work)
+    log(f"[report] done in {time.perf_counter() - t:.1f} s")
     # the headline variant of each kernel: the forward as serving and
     # evaluation run it (f32, no dropout), the backward as the training
     # CLI runs it (f32, --drop_out)
@@ -3845,6 +4134,8 @@ def _full(counters, work, t_all) -> int:
             entry[f"launches_dist_{path}"] = counts[counter_of[name]]
         for path, counts in ops_launches.items():
             entry[f"launches_ops_{path}"] = counts[counter_of[name]]
+        for path, counts in report_launches.items():
+            entry[f"launches_report_{path}"] = counts[counter_of[name]]
         entries.append(entry)
     log(f"[timing] train step ms {json.dumps(step)}")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

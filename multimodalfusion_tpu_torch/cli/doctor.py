@@ -88,8 +88,8 @@ class Doctor:
     # what the JAX package imports and the port replaces with its own code
     STAND_INS = (
         ("tensorboardX", "--tb event files: utils/tb_writer.py"),
-        ("orbax", "--ckpt_format orbax: torch.distributed.checkpoint "
-                  "(utils/orbax_io.py)"),
+        ("orbax", "--ckpt_format orbax: the .pt resume bundle "
+                  "(engine/train.save_resume)"),
         ("scikit-learn", "--split: data/stratified.py"),
         ("pandas", "CSV files: the csv module, utils/table.py"),
         ("h5py", "feature h5 files: data/hdf5.py"),

@@ -23,8 +23,8 @@ of numpy arrays), the ``s_{k}_*checkpoint.pt`` state_dicts and
 with ``--eval_only``) with pandas' ``to_csv`` layout.  Operations:
 ``--split threemod|pre_trained`` first writes the stratified
 ``splits_{k}.csv`` files (``SurvivalDataset.do_split``); ``--resume``
-continues each fold from its resume bundle (``s_{k}_resume.pt``, or the
-DCP directory ``s_{k}_resume.dcp`` with ``--ckpt_format orbax``);
+continues each fold from its resume bundle (``s_{k}_resume.pt``, in
+either ``--ckpt_format``);
 ``--tb`` writes TensorBoard event files per fold; ``--profile_dir DIR``
 writes a ``torch.profiler`` Chrome trace per fold (per rank under
 torchrun), ``fold{k}[.rank{r}].pt.trace.json``, and
@@ -145,10 +145,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continue each fold from its last saved epoch")
     p.add_argument("--ckpt_format", type=str, default="msgpack",
                    choices=["msgpack", "orbax"],
-                   help="resume-bundle format: msgpack (the port writes "
-                        "one .pt file) or orbax (a torch.distributed."
-                        "checkpoint directory, each rank writing its "
-                        "share)")
+                   help="resume-bundle format, kept for the JAX CLI's "
+                        "command lines: the port writes one .pt file in "
+                        "either, and refuses the JAX bundle of the one "
+                        "named")
     p.add_argument("--eval_only", action="store_true", default=False,
                    help="evaluate existing minloss checkpoints instead of "
                         "training (ref core_utils.py eval_mode :109-127)")

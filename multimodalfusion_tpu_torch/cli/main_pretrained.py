@@ -109,10 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continue each fold from its last saved epoch")
     p.add_argument("--ckpt_format", type=str, default="msgpack",
                    choices=["msgpack", "orbax"],
-                   help="resume-bundle format: msgpack (the port writes "
-                        "one .pt file) or orbax (a torch.distributed."
-                        "checkpoint directory, each rank writing its "
-                        "share)")
+                   help="resume-bundle format, kept for the JAX CLI's "
+                        "command lines: the port writes one .pt file in "
+                        "either, and refuses the JAX bundle of the one "
+                        "named")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
     return p

@@ -59,6 +59,14 @@ def save_pkl(filename: str, obj) -> None:
         pickle.dump(obj, f)
 
 
+def load_pkl(filename: str):
+    """A pickle of either package: a fold's results are a dict of numpy
+    arrays (JAX's ``subject_id`` holds numbers for a numeric cohort, the
+    port's holds text)."""
+    with open(filename, "rb") as f:
+        return pickle.load(f)
+
+
 def ensure_dir(path: str) -> str:
     os.makedirs(path, exist_ok=True)
     return path

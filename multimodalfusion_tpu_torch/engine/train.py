@@ -39,11 +39,12 @@ equals the step at world size 1.  Only rank 0 writes files.
 Operations (JAX engine/train.py:673-858): after every epoch the fold's
 resume bundle is written (``resume_state``: the model, the optimizer, the
 ``MultiSteps`` accumulator and count, the fold generator's state, the
-epoch and the early-stopping fields), as ``s_{k}_resume.pt`` or, with
-``--ckpt_format orbax``, as the DCP directory ``s_{k}_resume.dcp``
-(``utils/orbax_io.py``); ``--resume`` continues from it, so a resumed
-fold equals the straight one.  A JAX bundle (``.msgpack`` or ``.orbax``)
-is refused: its ``rbg`` key cannot continue a ``torch.Generator``.
+epoch and the early-stopping fields), as ``s_{k}_resume.pt`` in either
+``--ckpt_format`` (every layout of the port replicates what the bundle
+holds, so rank 0 writes it alone); ``--resume`` continues from it, so a
+resumed fold equals the straight one.  A JAX bundle (``.msgpack`` or
+``.orbax``) is refused: its ``rbg`` key cannot continue a
+``torch.Generator``.
 ``--tb`` writes the scalars of ``metrics.jsonl`` as TensorBoard event
 files with the port's own writer (``utils/tb_writer.py``).
 
@@ -81,7 +82,7 @@ from multimodalfusion_tpu_torch.models.pretrained_heads import (
     UnimodalPretrained)
 from multimodalfusion_tpu_torch.parallel import mesh as par
 from multimodalfusion_tpu_torch.parallel.mesh import BAG_AXIS, DATA_AXIS
-from multimodalfusion_tpu_torch.utils import orbax_io, tb_writer
+from multimodalfusion_tpu_torch.utils import tb_writer
 from multimodalfusion_tpu_torch.utils import params as params_mod
 
 # the modes each stage-2 model trains and serves in (the JAX CLI's)
@@ -403,27 +404,16 @@ def restore_resume(bundle: Dict[str, torch.Tensor], model: torch.nn.Module,
 
 
 def save_resume(path: str, bundle: Dict[str, torch.Tensor]) -> None:
-    """Write ``bundle``: a ``.dcp`` path through torch.distributed.checkpoint
-    (every rank calls it), any other by rank 0 alone as one ``torch.save``
-    file, atomically (tmp file + os.replace)."""
-    if path.endswith(".dcp"):
-        orbax_io.save_tree(path, bundle)
-    elif par.rank() == 0:
+    """Write ``bundle`` by rank 0 alone as one ``torch.save`` file,
+    atomically (tmp file + os.replace); every rank calls it."""
+    if par.rank() == 0:
         tmp = path + ".tmp"
         torch.save({k: v.cpu() for k, v in bundle.items()}, tmp)
         os.replace(tmp, path)
 
 
-def resume_exists(path: str) -> bool:
-    if path.endswith(".dcp"):
-        return orbax_io.exists(path)
-    return os.path.exists(path)
-
-
 def load_resume(path: str) -> Dict[str, torch.Tensor]:
     """A bundle written by ``save_resume``, on the host."""
-    if path.endswith(".dcp"):
-        return orbax_io.restore_tree(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -897,7 +887,7 @@ def _resume(cfg: TrainConfig, cur: int, path: str, model, opt, generator,
     if not cfg.resume:
         return 0
     par.barrier()
-    if not resume_exists(path):
+    if not os.path.exists(path):
         jax_bundle = os.path.join(
             cfg.results_dir, f"s_{cur}_resume."
             + ("orbax" if cfg.ckpt_format == "orbax" else "msgpack"))
@@ -1006,9 +996,7 @@ def train_fold(datasets, cur: int, cfg: TrainConfig,
                              stop_epoch=100 if not cfg.pretrained else 50,
                              verbose=True, spec=spec)
                if cfg.early_stopping else None)
-    resume_path = os.path.join(
-        cfg.results_dir,
-        f"s_{cur}_resume." + ("dcp" if cfg.ckpt_format == "orbax" else "pt"))
+    resume_path = os.path.join(cfg.results_dir, f"s_{cur}_resume.pt")
     start_epoch = _resume(cfg, cur, resume_path, model, opt, generator,
                           stopper, log_path if writer else None)
     tb = None

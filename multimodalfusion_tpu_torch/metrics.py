@@ -1,7 +1,9 @@
-"""Survival metrics on host arrays (port of the concordance index and the
-integrated Brier score of multimodalfusion_tpu/metrics.py:1-156), with
-the semantics of ``sksurv.metrics`` that the reference calls (ref
-utils/core_utils.py:258,426, utils/core_utils_pretrained.py:537-556)."""
+"""Survival metrics on host arrays (port of multimodalfusion_tpu/
+metrics.py:1-294: the concordance index, the integrated Brier score, and
+the IPCW c-index and time-dependent AUC of the reporting stage), with the
+semantics of ``sksurv.metrics`` that the reference calls (ref
+utils/core_utils.py:258,426, utils/core_utils_pretrained.py:537-556,
+utils_analysis/evaluation.py:577-578)."""
 from __future__ import annotations
 
 import numpy as np
@@ -24,11 +26,7 @@ def concordance_index_censored(event_indicator, event_time, estimate,
     if not event.any():
         raise ValueError("All samples are censored")
 
-    later = time[None, :] > time[:, None]
-    tied_at = (time[None, :] == time[:, None]) & (~event)[None, :]
-    comp = event[:, None] & (later | tied_at)
-    np.fill_diagonal(comp, False)
-
+    comp, tied_at = _comparable(event, time)
     diff = est[:, None] - est[None, :]
     tied_risk_mat = np.abs(diff) <= tied_tol
     concordant = int(np.sum(comp & (diff > 0) & ~tied_risk_mat))
@@ -125,5 +123,127 @@ def integrated_brier_score(train_event, train_time, test_event, test_time,
                                 test_time, estimate, times)
     if len(times) < 2:
         raise ValueError("need at least two time points")
-    area = (np.diff(times) * (scores[1:] + scores[:-1]) / 2.0).sum()
-    return area / (times[-1] - times[0])
+    return _trapezoid(scores, times) / (times[-1] - times[0])
+
+
+def _trapezoid(y, x):
+    """``np.trapezoid(y, x)`` of 1-D arrays, in its order of operations
+    (numpy before 2.0 has no ``trapezoid``)."""
+    return (np.diff(x) * (y[1:] + y[:-1]) / 2.0).sum()
+
+
+def _ipcw_weights(train_event, train_time, test_event, test_time):
+    """1 / G(t_i) for the test events (0 for the censored), G the training
+    cohort's censoring survival (reverse Kaplan-Meier), as sksurv's
+    ``CensoringDistributionEstimator.predict_ipcw``; a time past the last
+    training time takes G's last value.  A zero G at an event raises."""
+    g_t, g_v = censoring_survival(train_event, train_time)
+    test_event = np.asarray(test_event, dtype=bool)
+    test_time = np.asarray(test_time, dtype=np.float64)
+    G = _step_lookup(g_t, g_v, test_time)
+    if np.any((G <= 0) & test_event):
+        raise ValueError("censoring survival function is zero at one or "
+                         "more event times")
+    w = np.zeros(len(test_time))
+    w[test_event] = 1.0 / G[test_event]
+    return w
+
+
+def _comparable(event, time):
+    """Harrell's comparable pairs (event i; j outlived i or was censored at
+    i's time) and the pairs tied in time."""
+    later = time[None, :] > time[:, None]
+    tied_at = (time[None, :] == time[:, None]) & (~event)[None, :]
+    comp = event[:, None] & (later | tied_at)
+    np.fill_diagonal(comp, False)
+    return comp, tied_at
+
+
+def concordance_index_ipcw(train_event, train_time, test_event, test_time,
+                           estimate, tau=None, tied_tol: float = 1e-8):
+    """Uno's IPCW concordance index (sksurv's ``concordance_index_ipcw``,
+    which the reference calls in utils_analysis/evaluation.py:578).
+    Harrell's pairs, row i weighted by 1 / G(t_i)^2 with G the training
+    cohort's censoring survival; with ``tau``, rows with t_i >= tau weigh
+    0, and they are cut before the weights are taken, so a zero G at such
+    an event does not raise (as in sksurv).
+
+    Returns (cindex, concordant, discordant, tied_risk, tied_time), the
+    counts unweighted as sksurv's."""
+    event = np.asarray(test_event, dtype=bool)
+    time = np.asarray(test_time, dtype=np.float64)
+    est = np.asarray(estimate, dtype=np.float64)
+    if not event.any():
+        raise ValueError("All samples are censored")
+    if tau is not None:
+        in_tau = time < tau
+        ipcw = np.zeros(len(time))
+        ipcw[in_tau] = _ipcw_weights(train_event, train_time, event[in_tau],
+                                     time[in_tau])
+    else:
+        ipcw = _ipcw_weights(train_event, train_time, event, time)
+    w = np.square(ipcw)
+
+    comp, tied_at = _comparable(event, time)
+    diff = est[:, None] - est[None, :]
+    tied_risk_mat = np.abs(diff) <= tied_tol
+    concordant_mat = (diff > 0) & ~tied_risk_mat
+    numerator = np.sum(w[:, None] * comp * (concordant_mat
+                                            + 0.5 * tied_risk_mat))
+    denominator = np.sum(w[:, None] * comp)
+    if denominator == 0:
+        raise ValueError("No comparable pairs")
+    concordant = int(np.sum(comp & concordant_mat))
+    tied_risk = int(np.sum(comp & tied_risk_mat))
+    discordant = int(np.sum(comp)) - concordant - tied_risk
+    tied_time = int(np.sum(event[:, None] & tied_at))
+    return (numerator / denominator, concordant, discordant, tied_risk,
+            tied_time)
+
+
+def cumulative_dynamic_auc(train_event, train_time, test_event, test_time,
+                           estimate, times):
+    """Time-dependent cumulative/dynamic AUC (sksurv's
+    ``cumulative_dynamic_auc``, reference utils_analysis/evaluation.py:
+    577).  At each time t the cases are the events by t, weighted by
+    1 / G(t_i), and the controls the subjects still at risk after t;
+    AUC(t) is the area under the weighted ROC whose thresholds pool tied
+    estimates (the last of each run of equal ones).  ``mean_auc`` weighs
+    AUC(t_k) by the test cohort's Kaplan-Meier mass d_k = S(t_{k-1}) -
+    S(t_k) over the times where AUC(t) is defined: an undefined AUC(t)
+    (no case or no control) leaves both the sum and the mass, where
+    sksurv refuses such a grid.
+
+    Returns (auc per time [len(times)], mean_auc)."""
+    event = np.asarray(test_event, dtype=bool)
+    time = np.asarray(test_time, dtype=np.float64)
+    est = np.asarray(estimate, dtype=np.float64)
+    times = np.atleast_1d(np.asarray(times, dtype=np.float64))
+    ipcw = _ipcw_weights(train_event, train_time, event, time)
+
+    order = np.argsort(-est, kind="stable")
+    time_ord, event_ord, ipcw_ord = time[order], event[order], ipcw[order]
+    keep = np.concatenate([np.diff(est[order]) != 0, [True]])
+    scores = np.empty(len(times))
+    for k, t in enumerate(times):
+        is_case = (time_ord <= t) & event_ord
+        is_control = time_ord > t
+        n_controls = int(is_control.sum())
+        cum_tp = np.cumsum(is_case * ipcw_ord)
+        cum_fp = np.cumsum(is_control)
+        if cum_tp[-1] == 0 or n_controls == 0:
+            scores[k] = np.nan
+            continue
+        tpr = cum_tp[keep] / cum_tp[-1]
+        fpr = cum_fp[keep] / n_controls
+        scores[k] = _trapezoid(np.concatenate([[0.0], tpr]),
+                               np.concatenate([[0.0], fpr]))
+    if len(times) == 1:
+        return scores, float(scores[0])
+    s_t, s_v = kaplan_meier(event, time)
+    d = -np.diff(np.concatenate([[1.0], _step_lookup(s_t, s_v, times)]))
+    valid = ~np.isnan(scores)
+    denom = float(np.sum(d[valid]))
+    mean_auc = (float(np.sum(scores[valid] * d[valid]) / denom)
+                if denom > 0 else float("nan"))
+    return scores, mean_auc

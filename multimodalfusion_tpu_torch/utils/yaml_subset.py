@@ -1,8 +1,9 @@
-"""A reader of the YAML subset that the heatmap configs use, in the
-standard library (the port's stand-in for PyYAML, which the machine with
-the card lacks).  ``load`` returns what ``yaml.safe_load`` returns for a
-document inside the subset, and raises ``ValueError`` for anything
-outside it: it never guesses.
+"""A reader and a writer of the YAML subset that the heatmap configs use,
+in the standard library (the port's stand-in for PyYAML, which the machine
+with the card lacks).  ``load`` returns what ``yaml.safe_load`` returns for
+a document inside the subset, and raises ``ValueError`` for anything
+outside it: it never guesses.  ``dump`` writes block YAML that both
+``load`` and ``yaml.safe_load`` read back as the object it was given.
 
 The subset:
 
@@ -25,8 +26,11 @@ another base or with ``_`` or ``:``.
 """
 from __future__ import annotations
 
+import json
 import re
 from typing import Any, List, Tuple
+
+import numpy as np
 
 _NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
 _TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
@@ -377,3 +381,102 @@ def load(src: str) -> Any:
 def load_file(path: str) -> Any:
     with open(path, encoding="utf-8") as f:
         return load(f.read())
+
+
+
+# a plain scalar may not start with an indicator, nor hold ': ' or ' #';
+# one that starts with a digit, a sign or a dot is quoted too
+_PLAIN_START = set("-?:,[]{}#&*!|>'\"%@`. +0123456789~")
+_PRINTABLE = re.compile("^[\x21-\x7e\u00a0-\ud7ff\ue000-\ufffd]"
+                        "[\x20-\x7e\u00a0-\ud7ff\ue000-\ufffd]*$")
+
+
+def _plain_ok(text: str) -> bool:
+    """True when ``text`` may be written unquoted: printable on one line,
+    no indicator, digit, sign or dot first, no ': ' or ' #', no ' ' or ':'
+    last, and read back as this same string."""
+    if not _PRINTABLE.match(text) or text[0] in _PLAIN_START \
+            or ": " in text or " #" in text or text[-1] in " :":
+        return False
+    try:
+        return _resolve(text, 0) == text
+    except ValueError:
+        return False
+
+
+def _scalar(v) -> str:
+    """A scalar as PyYAML's safe_dump would write one that reads back
+    equal: strings plain when they are safe, else double-quoted."""
+    if v is None:
+        return "null"
+    if isinstance(v, (bool, np.bool_)):
+        return "true" if v else "false"
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    if isinstance(v, (float, np.floating)):
+        v = float(v)
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        if "." not in text:  # 1e-05: YAML 1.1 floats need a dot and a sign
+            mant, _, exp = text.partition("e")
+            text = f"{mant}.0e{exp if exp[0] in '+-' else '+' + exp}"
+        return text
+    if isinstance(v, str):
+        return v if _plain_ok(v) else json.dumps(v, ensure_ascii=False)
+    raise TypeError(f"dump: a {type(v).__name__} is outside the subset")
+
+
+def _is_block(v) -> bool:
+    return isinstance(v, (dict, list, tuple)) and len(v) > 0
+
+
+def _inline(v) -> str:
+    if isinstance(v, dict):
+        return "{}"
+    if isinstance(v, (list, tuple)):
+        return "[]"
+    return _scalar(v)
+
+
+def _block(v) -> List[str]:
+    """The lines of a non-empty mapping or sequence at column 0, laid out
+    as ``yaml.dump(default_flow_style=False, sort_keys=False)`` lays them
+    out: keys in insertion order, a sequence under a key at the key's
+    column."""
+    out: List[str] = []
+    if isinstance(v, dict):
+        for k, item in v.items():
+            if isinstance(k, (dict, list, tuple)):
+                raise TypeError("dump: a collection as a mapping key")
+            key = _scalar(k) + ":"
+            if not _is_block(item):
+                out.append(f"{key} {_inline(item)}")
+                continue
+            out.append(key)
+            sub = _block(item)
+            out += sub if isinstance(item, (list, tuple)) else [
+                "  " + line for line in sub]
+        return out
+    for item in v:
+        if not _is_block(item):
+            out.append(f"- {_inline(item)}")
+            continue
+        sub = _block(item)
+        out += ["- " + sub[0]] + ["  " + line for line in sub[1:]]
+    return out
+
+
+def dump(obj) -> str:
+    """``obj`` (nested dicts and lists of str, int, float, bool and None)
+    as block YAML that ``load`` and ``yaml.safe_load`` read back equal."""
+    if _is_block(obj):
+        return "\n".join(_block(obj)) + "\n"
+    return _inline(obj) + "\n"
+
+
+def dump_file(obj, path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(dump(obj))

@@ -169,9 +169,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "interpret/gradcam.py", "cli/gradcam.py",
                 "parallel/__init__.py", "parallel/mesh.py",
                 "ops/sharded_pool.py", "utils/tb_writer.py",
-                "utils/profiling.py", "utils/orbax_io.py",
-                "data/stratified.py", "utils/model_export.py",
-                "cli/export_model.py", "cli/doctor.py"):
+                "utils/profiling.py", "data/stratified.py",
+                "utils/model_export.py", "cli/export_model.py",
+                "cli/doctor.py", "analysis.py", "cli/summarize.py"):
         assert os.path.join("multimodalfusion_tpu_torch", new) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]

@@ -1,9 +1,10 @@
 """The port's --resume on the CPU: a fold stopped after epoch 2 (or killed
 with SIGKILL) and resumed to epoch 4 writes the straight 4-epoch fold's
 metrics (all but ``sec``), checkpoints and results bit for bit, with
-dropout on, with gradient accumulation, in both bundle formats, for a
-stage-4 multimodal-dropout head whose frozen branches keep their moments,
-and over two gloo ranks with ``--ckpt_format orbax``.  The epoch sequence
+dropout on, with gradient accumulation, under both --ckpt_format names (both write
+the one .pt bundle), for a stage-4 multimodal-dropout head whose frozen
+branches keep their moments, and over two gloo ranks with ``--ckpt_format
+orbax`` (rank 0 writes the .pt, every rank resumes from it).  The epoch sequence
 is held to the JAX package's, a fold that stopped early is not trained
 further, and a JAX bundle is refused."""
 import json
@@ -125,15 +126,15 @@ def straight(cohort, tmp_path_factory):
 def test_resumed_fold_equals_straight(cohort, straight, tmp_path, gc, fmt):
     """Two epochs, then --resume to four: the straight fold's files, bit for
     bit (dropout on; with --gc 2 the accumulator and its count carry over
-    the resume point, since 3 batches an epoch leave one step pending)."""
+    the resume point, since 3 batches an epoch leave one step pending).
+    Either --ckpt_format writes the one s_0_resume.pt bundle."""
     extra = ("--gc", gc, "--ckpt_format", fmt)
     assert port_main(stage2_args(cohort, tmp_path, *extra,
                                  "--max_epochs", "2")) == 0
     exp = exp_dir(tmp_path)
-    bundle = exp / ("s_0_resume.dcp" if fmt == "orbax" else "s_0_resume.pt")
-    assert bundle.exists()
-    if fmt == "orbax":
-        assert (bundle / ".metadata").is_file()
+    assert (exp / "s_0_resume.pt").is_file()
+    assert sorted(f for f in os.listdir(exp) if "resume" in f) == \
+        ["s_0_resume.pt"]
     assert [r["epoch"] for r in metrics(exp)] == [0, 1]
     assert port_main(stage2_args(cohort, tmp_path, *extra, "--resume",
                                  "--max_epochs", "4", "--overwrite")) == 0
@@ -270,12 +271,7 @@ def test_jax_bundle_is_refused(cohort, tmp_path, fmt, name):
     assert port_main(stage2_args(cohort, tmp_path, "--max_epochs", "1",
                                  "--ckpt_format", fmt)) == 0
     exp = exp_dir(tmp_path)
-    for port_bundle in ("s_0_resume.pt", "s_0_resume.dcp"):
-        if (exp / port_bundle).is_dir():
-            import shutil
-            shutil.rmtree(exp / port_bundle)
-        elif (exp / port_bundle).exists():
-            os.remove(exp / port_bundle)
+    os.remove(exp / "s_0_resume.pt")
     if fmt == "orbax":
         (exp / name).mkdir()
         (exp / name / "_METADATA").write_text("{}")
@@ -289,8 +285,9 @@ def test_jax_bundle_is_refused(cohort, tmp_path, fmt, name):
 
 def test_dcp_resume_over_two_gloo_ranks(cohort, tmp_path):
     """Two data-parallel gloo ranks: two epochs with --ckpt_format orbax
-    (each rank writes its share of the DCP directory), then --resume to
-    four; the same two ranks' straight 4-epoch fold, bit for bit."""
+    (rank 0 writes the one .pt bundle, as for msgpack), then --resume to
+    four, every rank reading that file; the same two ranks' straight
+    4-epoch fold, bit for bit."""
     def argv(res, *extra):
         return stage2_args(cohort, tmp_path / res, "--data_parallel",
                            *extra)
@@ -307,6 +304,6 @@ def test_dcp_resume_over_two_gloo_ranks(cohort, tmp_path):
         assert json.loads((work / f"rcs_rank{r}.json").read_text()) == \
             [0, 0, 0]
     resumed = exp_dir(tmp_path / "resumed")
-    assert sorted(f for f in os.listdir(resumed / "s_0_resume.dcp")
-                  if f.endswith(".distcp"))
+    assert sorted(f for f in os.listdir(resumed) if "resume" in f) == \
+        ["s_0_resume.pt"]
     assert_same_fold(resumed, exp_dir(tmp_path / "straight"))
