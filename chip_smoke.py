@@ -208,6 +208,22 @@ Phases, each fatal on failure:
                 cli.create_heatmaps on an emitted RADIO and OMICS config
                 (no launch).  Alone: --phases report (runs [radio]
                 first).
+  11. wsi    -- WSI stages 0 and 1 on the card, last: four synthetic
+                slides of 8192 x 6144 and one of 24576 x 18432 (3 levels, 3
+                blobs; the port's TIFF writer; the large one read under a
+                4 GiB MMF_TPU_WSI_MAX_BYTES) through cli.create_patches
+                (256-px patches, --stitch, --a_t 0.5 --a_h 0.05; the pixel
+                filters on the card) and cli.extract_features_fp (bf16,
+                batch 128, random weights, 256 -> 224 on the card): no
+                kernel launch in either; patches per slide, host seconds
+                of each stage-0 step, patches per second of the reads and
+                the embedding, the resize of a batch on the host and on
+                the card, the trunk's time per patch; every bag as many
+                rows as its coordinates, finite, the attributes read back;
+                then cli.infer serves the bags with [train]'s PathAMIL
+                (one forward launch per batch of 8, risks against the
+                plain pooling at rel 1e-4).  The slides are deleted.
+                Alone: --phases wsi (runs [train] first).
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -221,6 +237,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3967,6 +3984,246 @@ def phase_report(launch_counters, root):
         + f"; card {_card()}")
     return launches
 
+# [wsi]: four slides of 8192 x 6144 and one of 24576 x 18432, 3 levels each
+WSI_SLIDES = [(8192, 6144)] * 4 + [(24576, 18432)]
+WSI_MAX_BYTES = 4 << 30  # the large slide decodes to about 1.8 GB
+
+
+def _stage_line(text, prefix):
+    """The CLI's one-line summary ``{prefix} ...`` as {name: seconds}."""
+    line = [x for x in text.splitlines() if x.startswith(prefix)][-1]
+    out = {}
+    for part in line.split(";", 1)[1].replace("(read: the prefetch "
+                                              "thread)", "").split(","):
+        words = part.split()
+        if len(words) == 2:
+            out[words[0]] = float(words[1])
+    return line, out
+
+
+def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES):
+    """[wsi] WSI stages 0 and 1 on the card, then the bags served:
+      - ``slides`` synthetic slides (``data/wsi.synthetic_slide``, 3
+        levels, 3 blobs, seeds 100..) written as multi-page TIFFs by
+        ``utils/tiff.py``; the large one read under MMF_TPU_WSI_MAX_BYTES
+        of 4 GiB;
+      - cli.create_patches --patch_size 256 --step_size 256 --stitch --a_t
+        0.5 --a_h 0.05 (the filters on the card): no kernel launch; the
+        patches of each slide and the host seconds of the filters,
+        contour tracing, patch grid, mask/stitch drawing and JPEG
+        encoding and h5 writing;
+      - cli.extract_features_fp --slide_ext .tiff --target_patch_size 224
+        --allow_random_weights, bf16, batch 128: no kernel launch; patches
+        per second, split into the host's reads and the embedding (the
+        256 -> 224 resize on the card included); every bag has as many
+        rows as its h5 has coordinates, all finite; the port's reader
+        reads back each coords h5's attributes;
+      - the resize of a batch of 128 patches on the host and on the card,
+        the trunk's card time per patch at 224 and embed_images' time per
+        patch, warm, on 1024 host patches (CUDA events);
+      - cli.infer serves the bags with [train]'s PathAMIL experiment, the
+        counters reset just before: one forward launch per batch of 8,
+        risks finite and equal to the plain pooling's at rel 1e-4.
+    The slides are deleted at the end.  Returns the launch counts by run.
+    """
+    import io
+
+    import torch
+    from multimodalfusion_tpu_torch.cli import (create_patches,
+                                                extract_features_fp, infer)
+    from multimodalfusion_tpu_torch.data import hdf5, wsi
+    from multimodalfusion_tpu_torch.data.io import load_pt
+    from multimodalfusion_tpu_torch.extract.features import Embedder
+    from multimodalfusion_tpu_torch.utils import image_ops, tiff
+    wall, launches = {}, {}
+    none = {c.__name__: 0 for c in launch_counters}
+
+    def count():
+        return {c.__name__: c.launches for c in launch_counters}
+
+    def reset():
+        for c in launch_counters:
+            c.launches = 0
+
+    with _workdir(root, "wsi") as td:
+        src = os.path.join(td, "slides")
+        os.makedirs(src)
+        t0 = time.perf_counter()
+        stems = []
+        for i, (w, h) in enumerate(slides):
+            slide = wsi.synthetic_slide(w, h, n_blobs=3, seed=100 + i,
+                                        n_levels=3)
+            stems.append(f"WSI{i}_{w}x{h}")
+            tiff.write_tiff(os.path.join(src, f"{stems[-1]}.tiff"),
+                            slide.levels)
+            del slide
+        wall["write_slides"] = time.perf_counter() - t0
+        log(f"[wsi] wrote {len(slides)} synthetic slides "
+            f"({', '.join(f'{w}x{h}' for w, h in slides)}, 3 levels each) "
+            f"as TIFF in {wall['write_slides']:.2f} s")
+        env = os.environ.get("MMF_TPU_WSI_MAX_BYTES")
+        os.environ["MMF_TPU_WSI_MAX_BYTES"] = str(WSI_MAX_BYTES)
+        try:
+            # stage 0
+            out0 = os.path.join(td, "patched")
+            buf = io.StringIO()
+            reset()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = create_patches.main([
+                    "--source", src, "--save_dir", out0, "--patch_size",
+                    "256", "--step_size", "256", "--stitch", "--a_t", "0.5",
+                    "--a_h", "0.05", "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall["stage0"] = time.perf_counter() - t0
+            launches["stage0"] = count()
+            text = buf.getvalue()
+            line0, steps0 = _stage_line(text, "stage 0 wall s")
+            rows = {r["slide_id"]: r for r in _csv_rows(os.path.join(
+                out0, "process_list_autogen.csv"))}
+            n_patches = {s: int(rows[f"{s}.tiff"]["n_patches"])
+                         for s in stems}
+            log(f"[wsi] cli.create_patches: {wall['stage0']:.2f} s, "
+                f"launches {launches['stage0']}; patches per slide "
+                f"{n_patches}; {line0}")
+            if rc != 0 or "FAILED" in text or launches["stage0"] != none \
+                    or any(rows[f"{s}.tiff"]["status"] != "processed"
+                           or n_patches[s] < 1 for s in stems):
+                raise AssertionError(f"[wsi] stage 0: rc={rc}\n{text}")
+            for s in stems:
+                for d, suffix in (("masks", "_mask.jpg"),
+                                  ("stitches", "_stitch.jpg")):
+                    with open(os.path.join(out0, d, s + suffix), "rb") as f:
+                        head = f.read(4)
+                    if head[:3] != b"\xff\xd8\xff":
+                        raise AssertionError(f"[wsi] {d}/{s}{suffix} is not "
+                                             f"a JPEG")
+
+            # stage 1
+            feat = os.path.join(td, "features")
+            buf = io.StringIO()
+            reset()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = extract_features_fp.main([
+                    "--data_h5_dir", out0, "--data_slide_dir", src,
+                    "--feat_dir", feat, "--slide_ext", ".tiff",
+                    "--target_patch_size", "224", "--batch_size", "128",
+                    "--allow_random_weights", "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall["stage1"] = time.perf_counter() - t0
+            launches["stage1"] = count()
+            text = buf.getvalue()
+            line1, steps1 = _stage_line(text, "stage 1 wall s")
+            total = sum(n_patches.values())
+            log(f"[wsi] cli.extract_features_fp (bf16, batch 128, 256 -> "
+                f"224 on the card): {wall['stage1']:.2f} s, launches "
+                f"{launches['stage1']}; {total} patches: "
+                f"{total / wall['stage1']:.1f} patches/s overall, host "
+                f"reads {total / steps1['read']:.1f} patches/s (prefetch "
+                f"thread), resize + embedding "
+                f"{total / steps1['embed']:.1f} patches/s; {line1}")
+            if rc != 0 or launches["stage1"] != none:
+                raise AssertionError(f"[wsi] stage 1: rc={rc}\n{text}")
+        finally:
+            if env is None:
+                os.environ.pop("MMF_TPU_WSI_MAX_BYTES", None)
+            else:
+                os.environ["MMF_TPU_WSI_MAX_BYTES"] = env
+
+        # every bag against its coordinates; the attributes read back
+        for s, (w, h) in zip(stems, slides):
+            with hdf5.File(os.path.join(out0, "patches",
+                                        f"{s}_patches.h5")) as f:
+                coords, attrs = f["coords"], f.attrs("coords")
+            with hdf5.File(os.path.join(feat, "h5_files", f"{s}.h5")) as f:
+                feats, coords1 = f["features"], f["coords"]
+            bag = load_pt(os.path.join(feat, "path_pt_files", f"{s}.pt"))
+            ok = (bag.shape == (len(coords), 1024) and feats.shape ==
+                  bag.shape and np.array_equal(coords1, coords)
+                  and np.isfinite(bag).all() and np.array_equal(feats, bag)
+                  and attrs["name"] == s and int(attrs["patch_size"]) == 256
+                  and int(attrs["patch_level"]) == 0
+                  and attrs["level_dim"].tolist() == [w, h]
+                  and attrs["downsample"].tolist() == [1.0, 1.0])
+            if not ok:
+                raise AssertionError(f"[wsi] {s}: bag {bag.shape}, "
+                                     f"coords {coords.shape}, attrs {attrs}")
+        log(f"[wsi] {len(stems)} bags: rows equal to their h5's "
+            f"coordinates, finite, .pt equal to h5; the coords attributes "
+            f"read back by the port's reader")
+
+        # the resize of one batch on the host and on the card; the trunk
+        rng = np.random.default_rng(7)
+        batch = torch.from_numpy(rng.integers(0, 256, (128, 256, 256, 3),
+                                              dtype=np.uint8))
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            image_ops.resize_u8(batch, (224, 224))
+            host.append(time.perf_counter() - t0)
+        gpu = batch.cuda()
+        card = 1.0 / _images_per_s(
+            lambda: image_ops.resize_u8(gpu, (224, 224)), 1, reps=5)
+        same = torch.equal(image_ops.resize_u8(gpu, (224, 224)).cpu(),
+                           image_ops.resize_u8(batch, (224, 224)))
+        emb = Embedder(allow_random=True, batch_size=128, device="cuda")
+        x = emb._prepare_images(image_ops.resize_u8(gpu, (224, 224)))
+
+        def trunk():
+            with torch.inference_mode(), emb._compute():
+                emb.model(x)
+        trunk_us = 1e6 / _images_per_s(trunk, 128, reps=5)
+        # embed_images as the CLI calls it, warm, on 1024 host patches
+        patches = rng.integers(0, 256, (1024, 256, 256, 3), dtype=np.uint8)
+        embed_us = 1e6 / _images_per_s(
+            lambda: emb.embed_images(patches, resize=True), len(patches))
+        log(f"[wsi] resize of 128 patches 256 -> 224 (uint8, exact): host "
+            f"(torch CPU) {min(host) * 1e3:.2f} ms, card "
+            f"{card * 1e3:.3f} ms (CUDA events), equal {same}; bf16 trunk "
+            f"on the card {trunk_us:.2f} us a patch at 224, batch 128 "
+            f"(as [extract]'s trunk line); embed_images(resize=True) of "
+            f"1024 uint8 256-px patches from the host, warm: "
+            f"{embed_us:.2f} us a patch")
+        if not same:
+            raise AssertionError("[wsi] the card's resize differs from the "
+                                 "host's")
+
+        # serving the bags with [train]'s PathAMIL
+        cohort = os.path.join(td, "wsi_cohort.csv")
+        with open(cohort, "w") as f:
+            f.write("subject_id,slide_id\n" + "".join(
+                f"P{s},{s}.tiff\n" for s in stems))
+        risks = os.path.join(td, "risks.csv")
+        reset()
+        t0 = time.perf_counter()
+        rc = infer.main(["--model_path", path_exp, "--which_k", "0",
+                         "--csv", cohort, "--data_root_dir", feat, "--out",
+                         risks, "--batch_size", "8", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall["serve"] = time.perf_counter() - t0
+        launches["serve"] = count()
+        served = {r["subject_id"]: float(r["risk"]) for r in _csv_rows(risks)}
+        plain = _plain_outputs(path_exp, 8, csv_path=cohort, data_dir=feat)
+        err = max(abs(served[k] - float(v)) / abs(float(v))
+                  for k, v in plain.items())
+        want = dict(none, _fused_pool_cuda=-(-len(stems) // 8))
+        log(f"[wsi] cli.infer of [train]'s PathAMIL on the extracted bags: "
+            f"{len(served)} slides in {wall['serve']:.2f} s, launches "
+            f"{launches['serve']} (expected {want}); risks "
+            f"{sorted(served.values())}; vs the plain pooling on the card: "
+            f"max rel err {err:.2e} (tol 1e-4)")
+        if rc != 0 or sorted(served) != sorted(f"P{s}" for s in stems) \
+                or sorted(plain) != sorted(served) \
+                or not np.isfinite(list(served.values())).all() \
+                or launches["serve"] != want or err > 1e-4:
+            raise AssertionError("[wsi] serving the extracted bags failed")
+        shutil.rmtree(src)
+    log(f"[wsi] wall s ({_card()}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in wall.items()) + "; stage 0 steps "
+        + json.dumps(steps0) + "; stage 1 steps " + json.dumps(steps1))
+    return launches
+
 
 def main(argv=None) -> int:
     import argparse
@@ -3976,7 +4233,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,omic,pretrained,radio,extract,"
-                         "gradcam,interpret,timing,dist,ops,report "
+                         "gradcam,interpret,timing,dist,ops,report,wsi "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -4009,7 +4266,8 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_digest()
     if "slice" in phases:
         phase_slice(counters[:1])
-    if "train" in phases:
+    if {"train", "wsi"} & set(phases):
+        # [wsi] serves its bags with [train]'s experiment
         _, cfg, batches, host_ms, path_exp = phase_train(counters, work)
     if "omic" in phases:
         _, omic_exps, omic_args = phase_omic(counters, root=work)
@@ -4041,6 +4299,8 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_ops(counters, work)
     if "report" in phases:
         phase_report(counters, work)
+    if "wsi" in phases:
+        phase_wsi(counters, path_exp, work)
     log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
         f"no result)")
     return 0
@@ -4097,6 +4357,10 @@ def _full(counters, work, t_all) -> int:
     t = time.perf_counter()
     report_launches = phase_report(counters, work)
     log(f"[report] done in {time.perf_counter() - t:.1f} s")
+    # WSI stages 0 and 1, the bags served by [train]'s experiment
+    t = time.perf_counter()
+    wsi_launches = phase_wsi(counters, path_exp, work)
+    log(f"[wsi] done in {time.perf_counter() - t:.1f} s")
     # the headline variant of each kernel: the forward as serving and
     # evaluation run it (f32, no dropout), the backward as the training
     # CLI runs it (f32, --drop_out)
@@ -4136,6 +4400,8 @@ def _full(counters, work, t_all) -> int:
             entry[f"launches_ops_{path}"] = counts[counter_of[name]]
         for path, counts in report_launches.items():
             entry[f"launches_report_{path}"] = counts[counter_of[name]]
+        for path, counts in wsi_launches.items():
+            entry[f"launches_wsi_{path}"] = counts[counter_of[name]]
         entries.append(entry)
     log(f"[timing] train step ms {json.dumps(step)}")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

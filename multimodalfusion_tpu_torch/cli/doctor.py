@@ -97,7 +97,10 @@ class Doctor:
         ("PyYAML", "heatmap configs: utils/yaml_subset.py"),
         ("pydicom", "DICOM: data/dicom.py (JPEG Lossless in csrc/bagio.cpp)"),
         ("OpenCV / matplotlib / PIL", "images: utils/image_ops.py, "
-                                      "utils/png.py"),
+                                      "utils/contours.py, utils/png.py, "
+                                      "utils/jpeg.py, utils/tiff.py"),
+        ("openslide", "slides: data/wsi.py reads uncompressed TIFF and "
+                      "PNG; openslide formats are refused"),
         ("lungmask", "lung masks: the classical estimator in "
                      "data/ct_preprocess.py"),
     )

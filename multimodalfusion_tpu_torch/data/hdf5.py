@@ -11,7 +11,11 @@ The reader takes what h5py's default ("earliest") file format holds:
 - datasets: their dataspace, datatype (little-endian IEEE float and
   fixed-point integers), fill value and data layout (message version 3:
   compact, contiguous, and chunked over a version-1 B-tree of type 1 of
-  any depth); a chunk that was never written reads as the fill value.
+  any depth); a chunk that was never written reads as the fill value;
+- a dataset's attributes (``File.attrs``): attribute messages of version
+  1 or 3 holding scalars or arrays of those numbers, fixed-length strings,
+  or variable-length strings kept in a global heap collection (``GCOL``),
+  as h5py stores a Python ``str``.
 
 It raises ``NotImplementedError``, naming what is missing, for what it
 does not take: compressed or filtered data (a filter pipeline message),
@@ -23,19 +27,21 @@ counts ``(OSError, KeyError)`` as a missing radiology bag, so the port
 reaches the same verdict on the same files.
 
 The writer (``write``) makes a superblock-0 file whose root group holds
-contiguous datasets; h5py reads it back bit for bit.  It writes a file
-once and has no append mode.
+contiguous datasets, each with the attributes given for it (int64 and
+float64 scalars and arrays, and ``str`` as a variable-length UTF-8
+string in one global heap collection, as h5py writes them); h5py reads
+it back bit for bit.  It writes a file once and has no append mode.
 
 Format reference: the HDF5 File Format Specification, version 2.0
-(superblock 0/1, object header 1, B-tree 1, symbol table, local heap, and
-messages 0x0001 dataspace, 0x0003 datatype, 0x0004/0x0005 fill value,
-0x0008 layout, 0x000B filter pipeline, 0x0010 continuation, 0x0011
-symbol table).
+(superblock 0/1, object header 1, B-tree 1, symbol table, local heap,
+global heap, and messages 0x0001 dataspace, 0x0003 datatype, 0x0004/
+0x0005 fill value, 0x0008 layout, 0x000B filter pipeline, 0x000C
+attribute, 0x0010 continuation, 0x0011 symbol table).
 """
 from __future__ import annotations
 
 import struct
-from typing import Dict, List, Mapping, NamedTuple, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -45,6 +51,7 @@ SIGNATURE = b"\x89HDF\r\n\x1a\n"
 _DATASPACE, _DATATYPE, _FILL_OLD, _FILL = 0x0001, 0x0003, 0x0004, 0x0005
 _LINK_INFO, _LINK, _LAYOUT, _GROUP_INFO = 0x0002, 0x0006, 0x0008, 0x000A
 _FILTERS, _CONTINUATION, _SYMBOL_TABLE = 0x000B, 0x0010, 0x0011
+_ATTRIBUTE = 0x000C
 
 
 class _Dataset(NamedTuple):
@@ -273,6 +280,86 @@ class File:
         addr = self._lookup(name)
         return self._read(self._dataset(addr, name))
 
+    def attrs(self, name: str) -> Dict[str, object]:
+        """The attributes of the object ``name``, by name (sorted, as h5py
+        lists them): numbers as numpy scalars or arrays, strings as
+        ``str``."""
+        out = {}
+        for mtype, data in self._messages(self._lookup(name)):
+            if mtype == _ATTRIBUTE:
+                key, value = self._attribute(data, name)
+                out[key] = value
+        return dict(sorted(out.items()))
+
+    def _attribute(self, data: bytes, obj: str):
+        version = data[0]
+        if version == 1:
+            n_name, n_type, n_space = struct.unpack_from("<HHH", data, 2)
+            pos = 8
+            pad = _pad_len
+        elif version == 3:
+            n_name, n_type, n_space = struct.unpack_from("<HHH", data, 2)
+            pos = 9
+            pad = lambda n: n  # noqa: E731 (version 3 packs the fields)
+        else:
+            raise NotImplementedError(f"{self.path}: attribute message "
+                                      f"version {version} on {obj!r}")
+        key = data[pos:pos + n_name].split(b"\0")[0].decode("utf-8")
+        pos += pad(n_name)
+        dtype_msg = data[pos:pos + n_type]
+        pos += pad(n_type)
+        shape = self._dataspace(data[pos:pos + n_space])
+        pos += pad(n_space)
+        raw = data[pos:]
+        cls = dtype_msg[0] & 0x0F
+        count = int(np.prod(shape, dtype=np.int64))
+        if cls == 9:  # variable length
+            if int.from_bytes(dtype_msg[1:4], "little") & 0x0F != 1:
+                raise NotImplementedError(
+                    f"{self.path}: attribute {key!r} of {obj!r} is a "
+                    f"variable-length sequence; the port reads strings")
+            esz = 4 + self._so + 4
+            values = []
+            for i in range(count):
+                at = i * esz
+                (n,) = struct.unpack_from("<I", raw, at)
+                heap = self._offset(raw, at + 4)
+                (index,) = struct.unpack_from("<I", raw, at + 4 + self._so)
+                values.append(self._global_heap_object(heap, index)[:n]
+                              .decode("utf-8"))
+            return key, (values[0] if shape == () else
+                         np.array(values, object).reshape(shape))
+        if cls == 3:  # fixed-length string
+            (size,) = struct.unpack_from("<I", dtype_msg, 4)
+            values = [raw[i * size:(i + 1) * size].split(b"\0")[0].decode(
+                "utf-8") for i in range(count)]
+            return key, (values[0] if shape == () else
+                         np.array(values, object).reshape(shape))
+        dtype = _datatype(dtype_msg, self.path)
+        arr = np.frombuffer(raw[:count * dtype.itemsize], dtype).reshape(
+            shape).copy()
+        return key, (arr[()] if shape == () else arr)
+
+    def _global_heap_object(self, addr: int, index: int) -> bytes:
+        """The data of object ``index`` of the global heap collection at
+        ``addr``."""
+        if self._bytes(addr, 4) != b"GCOL":
+            raise OSError(f"{self.path}: no global heap collection at "
+                          f"{addr}")
+        size = self._length(self._bytes(addr + 8, self._sl), 0)
+        block = self._bytes(addr, size)
+        pos = 8 + self._sl
+        while pos + 8 + self._sl <= size:
+            (idx,) = struct.unpack_from("<H", block, pos)
+            n = self._length(block, pos + 8)
+            if idx == 0:
+                break
+            if idx == index:
+                return block[pos + 8 + self._sl:pos + 8 + self._sl + n]
+            pos += 8 + self._sl + _pad_len(n)
+        raise OSError(f"{self.path}: no object {index} in the global heap "
+                      f"collection at {addr}")
+
     def _dataset(self, addr: int, name: str) -> _Dataset:
         shape = dtype = layout = None
         fill = b""
@@ -477,11 +564,50 @@ def _datatype_message(dtype: np.dtype) -> bytes:
                               f"and IEEE floats")
 
 
-def write(path: str, arrays: Mapping[str, np.ndarray]) -> str:
+def _pad_len(n: int) -> int:
+    return n + (-n % 8)
+
+
+def _attribute_message(key: str, value, heap_ref: Optional[bytes]
+                       ) -> bytes:
+    """An attribute message (version 1): ``value`` an int64 or float64
+    scalar or array, or a ``str`` whose 16-byte global heap reference is
+    ``heap_ref``."""
+    name = key.encode("utf-8") + b"\0"
+    if isinstance(value, str):
+        # a variable-length UTF-8 string of bytes (the base type: uint8)
+        dtype = (struct.pack("<B3sI", 0x19, (0x0101).to_bytes(3, "little"),
+                             16) + _datatype_message(np.dtype("u1")))
+        shape, data = (), heap_ref
+    else:
+        a = np.asarray(value)
+        if a.dtype.kind in "iu":
+            a = a.astype("<i8")
+        elif a.dtype.kind == "f":
+            a = a.astype("<f8")
+        else:
+            raise NotImplementedError(f"attribute {key!r} of dtype "
+                                      f"{a.dtype}: the writer writes "
+                                      f"numbers and str")
+        dtype, shape, data = _datatype_message(a.dtype), a.shape, a.tobytes()
+    space = struct.pack("<BBB5x", 1, len(shape), 1 if shape else 0) + b"".join(
+        struct.pack("<Q", d) for d in shape) * 2
+    return (struct.pack("<BxHHH", 1, len(name), len(dtype), len(space))
+            + _pad8(name) + _pad8(dtype) + _pad8(space) + data)
+
+
+def write(path: str, arrays: Mapping[str, np.ndarray],
+          attrs: Optional[Mapping[str, Mapping[str, object]]] = None) -> str:
     """Write a new HDF5 file at ``path`` (superblock 0, 8-byte offsets) whose
     root group holds one contiguous dataset per entry of ``arrays``
-    (little-endian integers or floats, any shape).  Overwrites ``path``."""
+    (little-endian integers or floats, any shape), each with the
+    attributes ``attrs[name]`` (see ``_attribute_message``).  Overwrites
+    ``path``."""
+    attrs = dict(attrs or {})
     names = sorted(arrays)
+    unknown = sorted(set(attrs) - set(names))
+    if unknown:
+        raise KeyError(f"attributes for datasets {unknown} not written")
     data = {}
     for k in names:
         if not k or "/" in k or "\0" in k:
@@ -494,6 +620,10 @@ def write(path: str, arrays: Mapping[str, np.ndarray]) -> str:
     for k in names:
         name_at[k] = len(heap_data)
         heap_data += _pad8(k.encode("utf-8") + b"\0")
+    # the strings go in one global heap collection after the datasets
+    strings = [(k, a, v.encode("utf-8")) for k in names
+               for a, v in sorted((attrs.get(k) or {}).items())
+               if isinstance(v, str)]
 
     sb_size = 8 + 16 + 4 * 8 + 40
     root_oh = sb_size
@@ -508,21 +638,40 @@ def write(path: str, arrays: Mapping[str, np.ndarray]) -> str:
     heap_seg = heap + heap_size
     pos = heap_seg + len(heap_data)
 
-    headers, data_at = {}, {}
-    for k in names:
+    def messages(k, layout, heap_refs):
         a = data[k]
         dspace = struct.pack("<BBB5x", 1, a.ndim, 0) + b"".join(
             struct.pack("<Q", d) for d in a.shape)
         # fill value v2: allocated late, written if set, the library's
         # default (zeros), as h5py writes it
         fill = struct.pack("<BBBBI", 2, 2, 2, 1, 0)
-        msgs = [(_DATASPACE, dspace), (_DATATYPE, _datatype_message(a.dtype)),
-                (_FILL, fill), (_LAYOUT, None)]
-        oh_size = len(_header([(t, d if d is not None else b"\0" * 18)
-                               for t, d in msgs]))
-        headers[k] = (pos, msgs)
+        return ([(_DATASPACE, dspace),
+                 (_DATATYPE, _datatype_message(a.dtype)), (_FILL, fill),
+                 (_LAYOUT, layout)]
+                + [(_ATTRIBUTE, _attribute_message(
+                    key, v, heap_refs.get((k, key))))
+                   for key, v in sorted((attrs.get(k) or {}).items())])
+
+    no_refs = {(k, a): b"\0" * 16 for k, a, _ in strings}
+    headers, data_at = {}, {}
+    for k in names:
+        oh_size = len(_header(messages(k, b"\0" * 18, no_refs)))
+        headers[k] = pos
         data_at[k] = pos + oh_size
-        pos = data_at[k] + len(_pad8(a.tobytes()))
+        pos = data_at[k] + len(_pad8(data[k].tobytes()))
+    gcol = pos
+    refs, objects = {}, b""
+    for i, (k, a, raw) in enumerate(strings, start=1):
+        refs[(k, a)] = struct.pack("<IQI", len(raw), gcol, i)
+        objects += struct.pack("<HH4xQ", i, 0, len(raw)) + _pad8(raw)
+    if strings:
+        # a collection holds at least 4096 bytes; the rest is object 0,
+        # the free space, its size counting its own 16-byte header
+        size = max(4096, 16 + len(objects) + 16)
+        objects += struct.pack("<HH4xQ", 0, 0, size - 16 - len(objects))
+        gcol_block = b"GCOL" + struct.pack("<B3xQ", 1, size) + objects
+        gcol_block += b"\0" * (size - len(gcol_block))
+        pos += size
     eof = pos
 
     out = bytearray()
@@ -538,22 +687,22 @@ def write(path: str, arrays: Mapping[str, np.ndarray]) -> str:
             + struct.pack("<QQQ", 0, snod,
                           name_at[names[-1]] if names else 0))
     out += node + b"\0" * (btree_size - len(node))
-    entries = b"".join(struct.pack("<QQII16x", name_at[k], headers[k][0], 0,
-                                   0) for k in names)
+    entries = b"".join(struct.pack("<QQII16x", name_at[k], headers[k], 0, 0)
+                       for k in names)
     node = b"SNOD" + struct.pack("<BBH", 1, 0, len(names)) + entries
     out += node + b"\0" * (snod_size - len(node))
     # no free block: the library's "null" free-list offset is 1
     out += b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data), 1, heap_seg)
     out += heap_data
     for k in names:
-        addr, msgs = headers[k]
         a = data[k]
         # an empty dataset has no storage: an undefined address
         layout = struct.pack("<BB8sQ", 3, 1, _UNDEF if a.nbytes == 0 else
                              struct.pack("<Q", data_at[k]), a.nbytes)
-        out += _header([(t, d if d is not None else layout)
-                        for t, d in msgs])
+        out += _header(messages(k, layout, refs))
         out += _pad8(a.tobytes())
+    if strings:
+        out += gcol_block
     with open(path, "wb") as fh:
         fh.write(bytes(out))
     return path

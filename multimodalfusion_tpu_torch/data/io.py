@@ -3,7 +3,8 @@ per-slide bags are torch-serialized float tensors (ref
 feature_extraction.py:149-156); radiology bags are feature h5 files with
 datasets ``features`` [N, D] float32 and ``slice_index`` [N] (ref
 feature_extraction.py:57-61), read and written by the port's own
-``data/hdf5.py``; fold results are pickles (ref utils/file_utils.py:
+``data/hdf5.py``, as are the WSI patch coordinates with their
+attributes; fold results are pickles (ref utils/file_utils.py:
 22-33)."""
 from __future__ import annotations
 
@@ -21,15 +22,15 @@ def save_hdf5(output_path: str, asset_dict: Dict[str, np.ndarray],
               attr_dict: Optional[dict] = None, mode: str = "w") -> str:
     """Write a new feature h5 holding one dataset per entry of
     ``asset_dict`` (contiguous; the JAX writer makes chunked resizable
-    ones, which read back the same).  Only mode ``"w"``: no caller of the
-    JAX writer appends, and its dataset attributes serve WSI patching,
-    which is not ported yet (ROADMAP.md, port queue item 6d)."""
-    if mode != "w" or attr_dict:
+    ones, which read back the same), with ``attr_dict[name]`` as the
+    attributes of dataset ``name`` (numbers and ``str``, as the WSI
+    patcher writes on ``coords``).  Only mode ``"w"``: no caller of the
+    JAX writer appends."""
+    if mode != "w":
         raise NotImplementedError(
-            "save_hdf5 writes new files without attributes (mode 'w'); "
-            "attributes come with WSI patching (ROADMAP.md, port queue "
-            "item 6d)")
-    return hdf5.write(output_path, asset_dict)
+            f"save_hdf5 mode {mode!r}: the port writes new files only "
+            f"(mode 'w'); no caller of the JAX writer appends")
+    return hdf5.write(output_path, asset_dict, attr_dict)
 
 
 def load_features_h5(path: str):

@@ -1,5 +1,7 @@
 """Batched embedding of WSI patches and radiology slices (port of
-multimodalfusion_tpu/extract/features.py).
+multimodalfusion_tpu/extract/features.py).  WSI patches are resized to
+the trunk's input on the device, bit for bit as ``cv2.resize`` does on
+the JAX host path.
 
 The truncated ResNet50 (``models/resnet.py``) runs in inference mode on
 fixed-size chunks of ``batch_size`` images.  ``bfloat16`` (the JAX
@@ -29,6 +31,7 @@ from multimodalfusion_tpu_torch.models.resnet import (FEATURE_DIM,
                                                       load_trunk_state_dict,
                                                       normalize_nchw,
                                                       preprocess_images)
+from multimodalfusion_tpu_torch.utils.image_ops import resize_u8
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -163,11 +166,20 @@ class Embedder:
         done[slot].synchronize()
         out[start:start + n] = results[slot][:n].numpy()
 
-    def embed_images(self, images: np.ndarray) -> np.ndarray:
+    def embed_images(self, images: np.ndarray, resize: bool = False
+                     ) -> np.ndarray:
         """Any number of NHWC images (uint8 or float) -> [N, 1024] float32
         features; each is centre-cropped to ``image_size`` and normalised
-        on the device."""
-        return self._embed(np.asarray(images), self._prepare_images)
+        on the device.  With ``resize`` (uint8 images), each is first
+        resized to ``image_size`` on the device as ``cv2.resize`` does
+        (``utils/image_ops.resize_u8``): the WSI patches' path."""
+        prepare = self._prepare_images
+        if resize:
+            size = (self.image_size, self.image_size)
+
+            def prepare(x):
+                return self._prepare_images(resize_u8(x, size))
+        return self._embed(np.asarray(images), prepare)
 
     def embed_slices(self, slices: np.ndarray) -> np.ndarray:
         """[N, H, W] grayscale in [0, 1] -> [N, 1024]; the slices are

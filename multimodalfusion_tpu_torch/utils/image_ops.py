@@ -12,10 +12,36 @@ after the call it replaces and works on tensors on any device.
   matplotlib's 256-entry lookup table, indexed by ``int(x * 256)``.
 - ``add_weighted(a, alpha, b, beta)`` is ``cv2.addWeighted`` on uint8
   images: rounded half to even and saturated.
+
+The uint8 stand-ins of the WSI stages equal OpenCV bit for bit (tests/
+test_torch_wsi_ops.py holds them to cv2 by seeded fuzz):
+
+- ``hsv_saturation(rgb)`` is channel 1 of ``cv2.cvtColor(rgb,
+  COLOR_RGB2HSV)``: OpenCV's fixed-point division table, not
+  ``round(255 (v - min) / v)``.
+- ``median_blur(x, k)`` is ``cv2.medianBlur`` for odd ``k``, the border
+  replicated.
+- ``threshold(x, t, maxval, otsu)`` is ``cv2.threshold`` with
+  ``THRESH_BINARY`` (``> t``), with ``THRESH_OTSU`` the threshold from the
+  256-bin histogram as OpenCV searches it.
+- ``morph_close(x, k)`` is ``cv2.morphologyEx(x, MORPH_CLOSE, ones((k,
+  k)))``: the anchor at (k // 2, k // 2) for both passes, so an even
+  ``k`` shifts the mask by one pixel; outside the image takes no part.
+- ``resize_u8(x, (h, w))`` is ``cv2.resize(x, (w, h))`` (INTER_LINEAR) on
+  uint8: 11-bit coefficients, OpenCV's fixed-point vertical pass.
+
+These run on tensors on any device.  The drawing calls work in place on
+host uint8 arrays [H, W, C], as OpenCV does: ``rectangle`` (thickness
+1), ``ellipse`` (filled: OpenCV's polygon of the ellipse filled by its
+fixed-point convex fill, edges included) and ``draw_contours`` (thickness
+2: every segment clipped to the image grown by 2, then OpenCV's thick
+line, a filled rectangle and a radius-1 disc at its end).
 """
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+import math
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,3 +167,449 @@ def to_uint8_gray(img: torch.Tensor) -> torch.Tensor:
 def repeat_rgb(gray: torch.Tensor) -> torch.Tensor:
     """[..., H, W] -> [..., H, W, 3], the channel repeated."""
     return gray.unsqueeze(-1).expand(*gray.shape, 3)
+
+
+# ---------------------------------------------------------------------------
+# uint8 pixel filters of the WSI stages (tensors on any device)
+# ---------------------------------------------------------------------------
+
+# OpenCV's table for the saturation of uint8 HSV: round((255 << 12) / v)
+_SAT_TAB = torch.tensor([0] + [int(round((255 << 12) / v))
+                               for v in range(1, 256)], dtype=torch.int32)
+
+
+def hsv_saturation(rgb: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., H, W] saturation of uint8 RGB [..., H, W, 3]:
+    ``((v - min) * tab[v] + 2048) >> 12`` with ``v`` the largest channel."""
+    x = rgb.to(torch.int32)
+    v = x.amax(dim=-1)
+    diff = v - x.amin(dim=-1)
+    s = (diff * _SAT_TAB.to(x.device)[v] + (1 << 11)) >> 12
+    return s.to(torch.uint8)
+
+
+def median_blur(x: torch.Tensor, ksize: int, rows: int = 256
+                ) -> torch.Tensor:
+    """``cv2.medianBlur(x, ksize)`` of a uint8 image [H, W], ``ksize`` odd:
+    the median of each ``ksize`` x ``ksize`` window, the border replicated.
+    ``rows`` output rows at a time bound the window stack."""
+    if ksize % 2 != 1 or ksize < 1:
+        raise ValueError(f"median_blur takes an odd ksize, got {ksize}")
+    if ksize == 1:
+        return x.clone()
+    h, w = x.shape
+    r = ksize // 2
+    xp = x.index_select(1, torch.arange(-r, w + r, device=x.device).clamp(
+        0, w - 1))
+    out = torch.empty_like(x)
+    for y0 in range(0, h, rows):
+        n = min(rows, h - y0)
+        rows_in = torch.arange(y0 - r, y0 + n + r, device=x.device)
+        band = xp.index_select(0, rows_in.clamp(0, h - 1))
+        win = band.unfold(0, ksize, 1).unfold(1, ksize, 1)
+        out[y0:y0 + n] = win.reshape(n, w, ksize * ksize).median(
+            dim=-1).values
+    return out
+
+
+def otsu_threshold(x: torch.Tensor) -> int:
+    """The threshold ``cv2.threshold(..., THRESH_OTSU)`` picks for a uint8
+    image: OpenCV's search over the 256-bin histogram in double."""
+    hist = torch.bincount(x.reshape(-1).to(torch.int64),
+                          minlength=256).cpu().tolist()
+    scale = 1.0 / x.numel()
+    mu = 0.0
+    for i, h in enumerate(hist):
+        mu += i * float(h)
+    mu *= scale
+    eps = float(np.finfo(np.float32).eps)
+    mu1 = q1 = 0.0
+    max_sigma = max_val = 0.0
+    for i, h in enumerate(hist):
+        p_i = h * scale
+        mu1 *= q1
+        q1 += p_i
+        q2 = 1.0 - q1
+        if min(q1, q2) < eps or max(q1, q2) > 1.0 - eps:
+            continue
+        mu1 = (mu1 + i * p_i) / q1
+        mu2 = (mu - q1 * mu1) / q2
+        sigma = q1 * q2 * (mu1 - mu2) * (mu1 - mu2)
+        if sigma > max_sigma:
+            max_sigma = sigma
+            max_val = i
+    return int(max_val)
+
+
+def threshold(x: torch.Tensor, thresh: float, maxval: int,
+              otsu: bool = False) -> Tuple[int, torch.Tensor]:
+    """``cv2.threshold(x, thresh, maxval, THRESH_BINARY [+ THRESH_OTSU])``
+    of a uint8 image: (the threshold used, ``maxval`` where ``x`` exceeds
+    it, else 0)."""
+    t = otsu_threshold(x) if otsu else int(math.floor(thresh))
+    fill = max(0, min(255, int(round(maxval))))
+    out = torch.where(x > t, fill, 0).to(torch.uint8)
+    return t, out
+
+
+def _sweep(x: torch.Tensor, k: int, dim: int, grow: bool) -> torch.Tensor:
+    """max (``grow``) or min over offsets -k//2 .. k-1-k//2 along ``dim``,
+    positions outside the image taking no part."""
+    a, n = k // 2, x.shape[dim]
+    lo, hi = list(x.shape), list(x.shape)
+    lo[dim], hi[dim] = a, k - 1 - a
+    fill = 0 if grow else 255
+    xp = torch.cat([x.new_full(lo, fill), x, x.new_full(hi, fill)], dim)
+    pick = torch.maximum if grow else torch.minimum
+    out = xp.narrow(dim, 0, n)
+    for j in range(1, k):
+        out = pick(out, xp.narrow(dim, j, n))
+    return out
+
+
+def morph_close(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """``cv2.morphologyEx(x, MORPH_CLOSE, np.ones((k, k), np.uint8))`` of a
+    uint8 image [H, W]: dilation then erosion, both over offsets
+    -k//2 .. k-1-k//2 in each direction."""
+    dil = _sweep(_sweep(x, ksize, 1, True), ksize, 0, True)
+    return _sweep(_sweep(dil, ksize, 1, False), ksize, 0, False)
+
+
+def _linear_taps(n_src: int, n_dst: int):
+    """OpenCV's INTER_LINEAR source index and fraction of each output
+    position: centres at (d + 0.5) * scale - 0.5 in float32."""
+    scale = 1.0 / (n_dst / n_src)
+    f = torch.from_numpy(((np.arange(n_dst) + 0.5) * scale - 0.5).astype(
+        np.float32))
+    s = torch.floor(f)
+    return s.to(torch.int64), f - s
+
+
+def _weights(f: torch.Tensor):
+    """11-bit weights (1 - f, f), rounded half to even as OpenCV's
+    ``saturate_cast<short>``."""
+    one = torch.tensor(2048.0, dtype=torch.float32)
+    return (torch.round((1 - f) * one).to(torch.int32),
+            torch.round(f * one).to(torch.int32))
+
+
+def resize_u8(x: torch.Tensor, size: Sequence[int],
+              rows: int = 1024) -> torch.Tensor:
+    """``cv2.resize(x, (w, h))`` (INTER_LINEAR) of uint8 images
+    [..., H, W, C] or [H, W], ``size`` = (h, w), in int32 on ``x``'s
+    device, ``rows`` output rows at a time.  Columns: the centre clamped
+    into the image, weights (2048 - a, a); rows: the two taps clamped,
+    then OpenCV's ``((S0 >> 4) b0 >> 16) + ((S1 >> 4) b1 >> 16)`` and
+    ``(y + 2) >> 2``."""
+    h, w = int(size[0]), int(size[1])
+    gray = x.dim() == 2
+    img = x.unsqueeze(-1) if gray else x
+    H, W = img.shape[-3], img.shape[-2]
+    dev = x.device
+    # columns: the centre itself clamped (weight 0 on the far tap)
+    sx, fx = _linear_taps(W, w)
+    fx = torch.where((sx < 0) | (sx >= W - 1), torch.zeros_like(fx), fx)
+    sx = sx.clamp(0, W - 1)
+    a0, a1 = (a.to(dev).unsqueeze(-1) for a in _weights(fx))
+    x0, x1 = sx.to(dev), (sx + 1).clamp(max=W - 1).to(dev)
+    # rows: both taps clamped, the weights kept
+    sy, fy = _linear_taps(H, h)
+    b0, b1 = (b.view(-1, 1, 1) for b in _weights(fy))
+    y0, y1 = sy.clamp(0, H - 1), (sy + 1).clamp(0, H - 1)
+    out = torch.empty(img.shape[:-3] + (h, w, img.shape[-1]),
+                      dtype=torch.uint8, device=dev)
+    for r0 in range(0, h, rows):
+        r1 = min(r0 + rows, h)
+        lo, hi = int(y0[r0:r1].min()), int(y1[r0:r1].max()) + 1
+        p = img.narrow(-3, lo, hi - lo).to(torch.int32)
+        S = p.index_select(-2, x0) * a0 + p.index_select(-2, x1) * a1
+        t0 = ((S.index_select(-3, (y0[r0:r1] - lo).to(dev)) >> 4)
+              * b0[r0:r1].to(dev)) >> 16
+        t1 = ((S.index_select(-3, (y1[r0:r1] - lo).to(dev)) >> 4)
+              * b1[r0:r1].to(dev)) >> 16
+        out.narrow(-3, r0, r1 - r0).copy_(((t0 + t1 + 2) >> 2).clamp(0, 255))
+    return out.squeeze(-1) if gray else out
+
+
+# ---------------------------------------------------------------------------
+# drawing on host uint8 arrays (OpenCV's fixed-point rasteriser)
+# ---------------------------------------------------------------------------
+
+XY_SHIFT = 16
+XY_ONE = 1 << XY_SHIFT
+# OpenCV's table of sin(i degrees), i = 0..450, as float32 of the value
+# rounded to 7 decimals
+_SIN_TABLE = np.array([round(math.sin(math.radians(i)), 7)
+                       for i in range(451)], np.float32)
+
+
+def _tdiv(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def _put(img: np.ndarray, xs, ys, color) -> None:
+    xs, ys = np.asarray(xs, np.int64), np.asarray(ys, np.int64)
+    keep = (xs >= 0) & (xs < img.shape[1]) & (ys >= 0) & (ys < img.shape[0])
+    img[ys[keep], xs[keep]] = color
+
+
+def _clip_line(w: int, h: int, p1: List[int], p2: List[int]) -> bool:
+    """OpenCV's ``clipLine`` on fixed-point points of an image of (w, h)
+    (already shifted): clips both ends in place; False when the line
+    misses the image."""
+    right, bottom = w - 1, h - 1
+    x1, y1 = p1
+    x2, y2 = p2
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    p1[:] = [x1, y1]
+    p2[:] = [x2, y2]
+    return (c1 | c2) == 0
+
+
+def _line2(img: np.ndarray, p1, p2, color) -> None:
+    """OpenCV's ``Line2``: an 8-connected line between fixed-point points
+    (XY_SHIFT bits), as ``FillConvexPoly`` draws a polygon's edges."""
+    h, w = img.shape[:2]
+    p1, p2 = list(p1), list(p2)
+    if not _clip_line(w << XY_SHIFT, h << XY_SHIFT, p1, p2):
+        return
+    dx, dy = p2[0] - p1[0], p2[1] - p1[1]
+    ax, ay = abs(dx), abs(dy)
+    if ax > ay:
+        if dx < 0:
+            p1, p2 = p2, p1
+            dy = -dy
+        x_step, y_step = XY_ONE, _tdiv(dy << XY_SHIFT, ax | 1)
+        ecount = (p2[0] - p1[0]) >> XY_SHIFT
+    else:
+        if dy < 0:
+            p1, p2 = p2, p1
+            dx = -dx
+        x_step, y_step = _tdiv(dx << XY_SHIFT, ay | 1), XY_ONE
+        ecount = (p2[1] - p1[1]) >> XY_SHIFT
+    x1 = p1[0] + (XY_ONE >> 1)
+    y1 = p1[1] + (XY_ONE >> 1)
+    _put(img, [(p2[0] + (XY_ONE >> 1)) >> XY_SHIFT],
+         [(p2[1] + (XY_ONE >> 1)) >> XY_SHIFT], color)
+    if ecount < 0:
+        return
+    k = np.arange(ecount + 1, dtype=np.int64)
+    if ax > ay:
+        _put(img, (x1 >> XY_SHIFT) + k, (y1 + k * y_step) >> XY_SHIFT, color)
+    else:
+        _put(img, (x1 + k * x_step) >> XY_SHIFT, (y1 >> XY_SHIFT) + k, color)
+
+
+def _fill_convex_poly(img: np.ndarray, v: Sequence[Tuple[int, int]],
+                      color) -> None:
+    """OpenCV's ``FillConvexPoly`` for LINE_8 at XY_SHIFT: the edges drawn
+    by ``_line2``, then the scanlines between the two edge chains."""
+    npts = len(v)
+    shift = XY_SHIFT
+    delta = 1 << shift >> 1
+    delta1 = delta2 = XY_ONE >> 1
+    h, w = img.shape[:2]
+    xs = [p[0] for p in v]
+    ys = [p[1] for p in v]
+    imin = int(np.argmin(ys))
+    p0 = v[-1]
+    for p in v:
+        _line2(img, p0, p, color)
+        p0 = p
+    xmin = (min(xs) + delta) >> shift
+    xmax = (max(xs) + delta) >> shift
+    ymin = (min(ys) + delta) >> shift
+    ymax = (max(ys) + delta) >> shift
+    if npts < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    edge = [{"idx": imin, "di": 1, "x": -XY_ONE, "dx": 0, "ye": ymin},
+            {"idx": imin, "di": npts - 1, "x": -XY_ONE, "dx": 0,
+             "ye": ymin}]
+    edges = npts
+    y = ymin
+    while True:
+        for e in edge:
+            if y < e["ye"]:
+                continue
+            idx0, di = e["idx"], e["di"]
+            idx = idx0 + di
+            if idx >= npts:
+                idx -= npts
+            while True:
+                left = edges
+                edges -= 1
+                if left <= 0:
+                    break
+                ty = (v[idx][1] + delta) >> shift
+                if ty > y:
+                    xs0, xe = v[idx0][0], v[idx][0]
+                    e["ye"] = ty
+                    e["dx"] = _tdiv((xe - xs0) * 2 + (ty - y),
+                                    2 * (ty - y))
+                    e["x"] = xs0
+                    e["idx"] = idx
+                    break
+                idx0 = idx
+                idx += di
+                if idx >= npts:
+                    idx -= npts
+        if edges < 0:
+            break
+        if y >= 0:
+            lo, hi = (1, 0) if edge[0]["x"] > edge[1]["x"] else (0, 1)
+            xx1 = (edge[lo]["x"] + delta1) >> XY_SHIFT
+            xx2 = (edge[hi]["x"] + delta2) >> XY_SHIFT
+            if xx2 >= 0 and xx1 < w:
+                img[y, max(xx1, 0):min(xx2, w - 1) + 1] = color
+        edge[0]["x"] += edge[0]["dx"]
+        edge[1]["x"] += edge[1]["dx"]
+        y += 1
+        if y > ymax:
+            break
+
+
+def _ellipse_poly(center, axes, angle: float) -> List[Tuple[int, int]]:
+    """The fixed-point polygon ``cv2.ellipse`` fills for a whole ellipse
+    (``ellipse2Poly`` at OpenCV's step for the axes, rounded to XY_SHIFT
+    bits, repeated points dropped)."""
+    cx, cy = (int(c) << XY_SHIFT for c in center)
+    aw, ah = (abs(int(a)) << XY_SHIFT for a in axes)
+    delta = (max(aw, ah) + (XY_ONE >> 1)) >> XY_SHIFT
+    delta = 90 if delta < 3 else 30 if delta < 10 else 18 if delta < 15 \
+        else 5
+    ang = int(np.rint(angle))  # cvRound: half to even
+    while ang < 0:
+        ang += 360
+    while ang > 360:
+        ang -= 360
+    alpha = float(_SIN_TABLE[450 - ang])
+    beta = float(_SIN_TABLE[ang])
+    pts: List[Tuple[int, int]] = []
+    for i in range(0, 360 + delta, delta):
+        a = min(i, 360)
+        x = aw * float(_SIN_TABLE[450 - a])
+        y = ah * float(_SIN_TABLE[a])
+        px = cx + x * alpha - y * beta
+        py = cy + x * beta + y * alpha
+        qx = int(np.rint(px / XY_ONE)) << XY_SHIFT
+        qy = int(np.rint(py / XY_ONE)) << XY_SHIFT
+        qx += int(np.rint(px - qx))
+        qy += int(np.rint(py - qy))
+        if not pts or pts[-1] != (qx, qy):
+            pts.append((qx, qy))
+    if len(pts) == 1:
+        pts = [(cx, cy)] * 2
+    return pts
+
+
+def ellipse(img: np.ndarray, center, axes, angle: float, color) -> None:
+    """``cv2.ellipse(img, center, axes, angle, 0, 360, color, -1)`` in
+    place: the filled ellipse, LINE_8."""
+    _fill_convex_poly(img, _ellipse_poly(center, axes, angle), color)
+
+
+def rectangle(img: np.ndarray, pt1, pt2, color) -> None:
+    """``cv2.rectangle(img, pt1, pt2, color, 1)`` in place: the four sides
+    of the box between the two corners, ends included, clipped."""
+    (x1, y1), (x2, y2) = pt1, pt2
+    x1, x2 = sorted((int(x1), int(x2)))
+    y1, y2 = sorted((int(y1), int(y2)))
+    h, w = img.shape[:2]
+    xa, xb = max(x1, 0), min(x2, w - 1)
+    ya, yb = max(y1, 0), min(y2, h - 1)
+    for y in (y1, y2):
+        if 0 <= y < h and xa <= xb:
+            img[y, xa:xb + 1] = color
+    for x in (x1, x2):
+        if 0 <= x < w and ya <= yb:
+            img[ya:yb + 1, x] = color
+
+
+def _thick_segment(img: np.ndarray, p0, p1, color) -> None:
+    """OpenCV's thickness-2 segment of a closed polyline, LINE_8, between
+    integer points: the segment clipped to the image grown by the
+    thickness, then the rectangle one pixel either side of it and the
+    radius-1 disc at its (clipped) end ``p1``."""
+    h, w = img.shape[:2]
+    a = [int(p0[0]) + 2, int(p0[1]) + 2]
+    b = [int(p1[0]) + 2, int(p1[1]) + 2]
+    if not _clip_line(w + 4, h + 4, a, b):
+        return
+    x0, y0 = (a[0] - 2) << XY_SHIFT, (a[1] - 2) << XY_SHIFT
+    x1, y1 = (b[0] - 2) << XY_SHIFT, (b[1] - 2) << XY_SHIFT
+    dx = (x0 - x1) / XY_ONE
+    dy = (y1 - y0) / XY_ONE
+    r = dx * dx + dy * dy
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (1 << XY_SHIFT) / math.sqrt(r)
+        dpx, dpy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        _fill_convex_poly(img, [(x0 + dpx, y0 + dpy), (x0 - dpx, y0 - dpy),
+                                (x1 - dpx, y1 - dpy), (x1 + dpx, y1 + dpy)],
+                          color)
+    cx, cy = b[0] - 2, b[1] - 2
+    _put(img, [cx - 1, cx, cx + 1, cx, cx], [cy, cy, cy, cy - 1, cy + 1],
+         color)
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_stamp(dx: int, dy: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pixel offsets (from the segment's start) that ``_thick_segment``
+    paints for a step of (dx, dy) in -1..1 away from the image border."""
+    canvas = np.zeros((9, 9), np.uint8)
+    _thick_segment(canvas, (4, 4), (4 + dx, 4 + dy), 1)
+    ys, xs = np.nonzero(canvas)
+    return xs - 4, ys - 4
+
+
+def draw_contours(img: np.ndarray, contours, color) -> None:
+    """``cv2.drawContours(img, contours, -1, color, 2)`` in place: each
+    contour closed, every segment a thickness-2 line.  Segments between
+    neighbouring pixels inside the image (the contours of
+    ``find_contours``) are stamped from ``_unit_stamp`` in bulk; the
+    others are drawn one by one."""
+    h, w = img.shape[:2]
+    xs_all, ys_all = [], []
+    for c in contours:
+        pts = np.asarray(c, np.int64).reshape(-1, 2)
+        if len(pts) == 0:
+            continue
+        prev = np.roll(pts, 1, axis=0)
+        step = pts - prev
+        inside = ((pts[:, 0] >= 0) & (pts[:, 0] < w) & (pts[:, 1] >= 0)
+                  & (pts[:, 1] < h))
+        unit = (np.abs(step).max(axis=1) <= 1) & inside & np.roll(inside, 1)
+        for (ddx, ddy) in {tuple(s) for s in step[unit].tolist()}:
+            sel = unit & (step[:, 0] == ddx) & (step[:, 1] == ddy)
+            ox, oy = _unit_stamp(int(ddx), int(ddy))
+            xs_all.append((prev[sel, 0, None] + ox[None]).ravel())
+            ys_all.append((prev[sel, 1, None] + oy[None]).ravel())
+        for i in np.flatnonzero(~unit):
+            _thick_segment(img, prev[i], pts[i], color)
+    if xs_all:
+        _put(img, np.concatenate(xs_all), np.concatenate(ys_all), color)

@@ -113,14 +113,24 @@ _FLOAT_CELL = re.compile(r"""^[+-]?(?:[0-9]+\.?[0-9]*(?:[eE][+-]?[0-9]+)?
                          |inf|Inf|INF|[Ii]nfinity|nan|NaN|NAN)$""", re.X)
 
 
+_BOOL_CELL = {"True": True, "TRUE": True, "true": True, "False": False,
+              "FALSE": False, "false": False}
+
+
 def _column(cells: List[str]) -> np.ndarray:
     """One column as ``read_csv`` types it for these files: int64 when
-    every cell is an int, float64 (an empty cell NaN) when every filled
-    cell is a number, else text with NaN for the empty cells."""
+    every cell is an int, bool when every cell is a boolean (booleans and
+    NaN when some are empty), float64 (an empty cell NaN) when every
+    filled cell is a number, else text with NaN for the empty cells."""
     filled = [c for c in cells if c != ""]
     if filled and len(filled) == len(cells) and all(
             _INT_CELL.match(c) for c in cells):
         return np.array([int(c) for c in cells], np.int64)
+    if filled and all(c in _BOOL_CELL for c in filled):
+        if len(filled) == len(cells):
+            return np.array([_BOOL_CELL[c] for c in cells], bool)
+        return np.array([_BOOL_CELL[c] if c else np.nan for c in cells],
+                        object)
     if all(_FLOAT_CELL.match(c) for c in filled):
         return np.array([float(c) if c else np.nan for c in cells],
                         np.float64)

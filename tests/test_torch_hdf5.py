@@ -151,10 +151,12 @@ def test_writer_takes_many_datasets_and_refuses_what_it_cannot(tmp_path):
     got = _h5py_all(p)
     for k, v in arrays.items():
         _same(got[k], v)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="appends"):
         tio.save_hdf5(p, {"x": np.zeros(2)}, mode="a")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tio.save_hdf5(p, {"x": np.zeros(2)}, {"x": {"a": 1}})
+    with pytest.raises(NotImplementedError, match="numbers and str"):
+        tio.save_hdf5(p, {"x": np.zeros(2)}, {"x": {"a": np.array([True])}})
+    with pytest.raises(KeyError, match="not written"):
+        tio.save_hdf5(p, {"x": np.zeros(2)}, {"y": {"a": 1}})
     with pytest.raises(NotImplementedError, match="integers and IEEE"):
         hdf5.write(p, {"x": np.array(["a"])})
     with pytest.raises(ValueError, match="dataset name"):

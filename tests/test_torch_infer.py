@@ -24,7 +24,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pandas", "h5py", "sklearn",
              "tensorboardX", "tensorboard", "orbax", "multimodalfusion_tpu",
              "yaml", "msgpack", "cv2", "matplotlib", "PIL", "pydicom",
-             "torchvision"}
+             "torchvision", "openslide"}
 
 
 def read_rows(path):
@@ -171,7 +171,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "ops/sharded_pool.py", "utils/tb_writer.py",
                 "utils/profiling.py", "data/stratified.py",
                 "utils/model_export.py", "cli/export_model.py",
-                "cli/doctor.py", "analysis.py", "cli/summarize.py"):
+                "cli/doctor.py", "analysis.py", "cli/summarize.py",
+                "utils/contours.py", "utils/tiff.py", "utils/jpeg.py",
+                "data/wsi.py", "cli/create_patches.py",
+                "cli/extract_features_fp.py"):
         assert os.path.join("multimodalfusion_tpu_torch", new) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]

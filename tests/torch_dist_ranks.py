@@ -210,10 +210,12 @@ def train_cases(rank, world, work):
 def cli_runs(rank, world, work):
     """Each argv of ``cli_runs.json`` through its CLI's ``main``; writes
     the return codes."""
-    from multimodalfusion_tpu_torch.cli import feature_extraction, main
-    from multimodalfusion_tpu_torch.cli import main_pretrained
+    from multimodalfusion_tpu_torch.cli import (extract_features_fp,
+                                                feature_extraction, main,
+                                                main_pretrained)
     mains = {"main": main.main, "main_pretrained": main_pretrained.main,
-             "feature_extraction": feature_extraction.main}
+             "feature_extraction": feature_extraction.main,
+             "extract_features_fp": extract_features_fp.main}
     with open(os.path.join(work, "cli_runs.json")) as f:
         runs = json.load(f)
     rcs = [mains[cli](argv) for cli, argv in runs]
