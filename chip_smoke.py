@@ -4001,7 +4001,8 @@ def _stage_line(text, prefix):
     return line, out
 
 
-def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES):
+def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
+              before_delete=None):
     """[wsi] WSI stages 0 and 1 on the card, then the bags served:
       - ``slides`` synthetic slides (``data/wsi.synthetic_slide``, 3
         levels, 3 blobs, seeds 100..) written as multi-page TIFFs by
@@ -4024,7 +4025,9 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES):
       - cli.infer serves the bags with [train]'s PathAMIL experiment, the
         counters reset just before: one forward launch per batch of 8,
         risks finite and equal to the plain pooling's at rel 1e-4.
-    The slides are deleted at the end.  Returns the launch counts by run.
+    Then ``before_delete(td, slides dir, features dir, stems)`` when
+    given ([heatmap]).  The slides are deleted at the end.  Returns (the
+    launch counts by run, what ``before_delete`` returned).
     """
     import io
 
@@ -4218,11 +4221,317 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES):
                 or not np.isfinite(list(served.values())).all() \
                 or launches["serve"] != want or err > 1e-4:
             raise AssertionError("[wsi] serving the extracted bags failed")
+        log(f"[wsi] wall s ({_card()}): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in wall.items()) + "; stage 0 steps "
+            + json.dumps(steps0) + "; stage 1 steps " + json.dumps(steps1))
+        extra = None
+        if before_delete is not None:
+            extra = before_delete(td, src, feat, stems)
         shutil.rmtree(src)
-    log(f"[wsi] wall s ({_card()}): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in wall.items()) + "; stage 0 steps "
-        + json.dumps(steps0) + "; stage 1 steps " + json.dumps(steps1))
-    return launches
+    return launches, extra
+
+
+# [heatmap] run B's small slide, and the sampling specs of its list form
+HEATMAP_B_SAMPLES = [
+    {"name": "topk_high", "sample": True, "k": 8, "mode": "topk"},
+    {"name": "mid_band", "sample": True, "seed": 1, "k": 8,
+     "mode": "range_sample", "score_start": 0.45, "score_end": 0.55},
+    {"name": "skipped", "sample": False, "k": 8, "mode": "reverse_topk"},
+]
+
+
+def phase_heatmap(launch_counters, path_exp, td, src, feat, stems):
+    """[heatmap] The path branch of cli.create_heatmaps on [wsi]'s slides
+    (``src``) and feature h5 files (``feat``), with [train]'s PathAMIL
+    small (1024 -> 256, gated), the counters reset just before each run
+    and read just after:
+      - run A: cli.summarize --emit_heatmap_yamls over [train]'s
+        experiment with examples/heatmap_path.yaml as the template, its
+        data paths rewritten to [wsi]'s and resnet_weights swapped for
+        allow_random_weights (coolwarm, overlap 0.75, vis_level -1,
+        segment, use_holes, save_orig, jpg, floor 200, save_n 16); the
+        emitted config run unmodified over the five slides: no launch;
+        each slide's blockmap with its h5's coordinates and finite scores,
+        its heatmap, orig and fine heatmap JPEGs, 16 PNGs and a mosaic for
+        topk and reverse_topk;
+      - run B: the first slide with an empty feat_dir (extraction on a
+        miss), RdYlBu_r, blur, custom_downsample 2, use_ref_scores, png and
+        the list form with a range_sample spec: no launch;
+      - run C: run B's coarse pass (overlap 0) with --device cpu on the
+        features run B wrote: blockmap scores at rel 1e-5 of the card's,
+        the orig PNG's pixels equal, the heatmap's equal or else only
+        where near-tied scores change percentile rank between the two
+        read-outs (the share of pixels and the patches that moved are
+        printed), and the card's scores drawn again on the CPU equal to
+        run B's heatmap pixel for pixel;
+      - the read-out against mil_pool_fwd on the largest coarse and fine
+        bags (B=1): masked_softmax_pool of the raw scores against the
+        pooled features at rel 1e-4, one launch each; the kernel timed
+        against its bound and the plain version.
+    Each CLI prints one line of stage seconds per slide.  Returns (launch
+    counts by run, the kernel's times at the slide bags)."""
+    import io
+
+    import torch
+    from multimodalfusion_tpu_torch.cli import create_heatmaps, summarize
+    from multimodalfusion_tpu_torch.data import hdf5, wsi
+    from multimodalfusion_tpu_torch.interpret import heatmaps as hmaps
+    from multimodalfusion_tpu_torch.ops import mil_attention as mil
+    from multimodalfusion_tpu_torch.utils import png, yaml_subset
+    from multimodalfusion_tpu_torch.utils.experiment import (
+        config_from_settings, load_experiment_model, read_experiment)
+    t_phase = time.perf_counter()
+    hm = os.path.join(td, "heatmap")
+    os.makedirs(hm)
+    launches, wall = {}, {}
+    none = {c.__name__: 0 for c in launch_counters}
+    one_fwd = dict(none, _fused_pool_cuda=1)
+
+    def reset():
+        for c in launch_counters:
+            c.launches = 0
+
+    def count():
+        return {c.__name__: c.launches for c in launch_counters}
+
+    def run(stage, fn, argv):
+        reset()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        torch.cuda.synchronize()
+        wall[stage] = time.perf_counter() - t0
+        launches[stage] = count()
+        text = buf.getvalue()
+        with open(os.path.join(hm, f"{stage}.log"), "w") as f:
+            f.write(text)
+        for line in text.splitlines():
+            if "path heatmap stages" in line:
+                log(f"[heatmap] {stage}: {line}")
+        log(f"[heatmap] {stage}: {wall[stage]:.2f} s, launches "
+            f"{launches[stage]}")
+        if rc != 0 or launches[stage] != none:
+            raise AssertionError(f"[heatmap] {stage}: rc={rc}, launches "
+                                 f"{launches[stage]}\n{text}")
+        return text
+
+    # the largest fine bag of run A, kept for the kernel check below
+    fine_bags = {}
+    fine_scores = create_heatmaps.compute_fine_scores
+
+    def recording(*args, **kw):
+        score = args[4]
+
+        def keep(feats):
+            if len(feats) > len(fine_bags.get("feats", ())):
+                fine_bags["feats"] = feats
+            return score(feats)
+        return fine_scores(*args[:4], keep, *args[5:], **kw)
+
+    plist = os.path.join(hm, "slides.csv")
+    with open(plist, "w") as f:
+        f.write("slide_id\n" + "".join(f"{s}.tiff\n" for s in stems))
+    tpl = yaml_subset.load_file(os.path.join(REPO, "examples",
+                                             "heatmap_path.yaml"))
+    tpl["data_arguments"] = {"process_list": plist, "data_dir": src,
+                             "feat_dir": feat}
+    tpl["model_arguments"].pop("resnet_weights")
+    tpl["model_arguments"]["allow_random_weights"] = True
+    template = os.path.join(hm, "template_path.yaml")
+    yaml_subset.dump_file(tpl, template)
+    env = os.environ.get("MMF_TPU_WSI_MAX_BYTES")
+    os.environ["MMF_TPU_WSI_MAX_BYTES"] = str(WSI_MAX_BYTES)
+    create_heatmaps.compute_fine_scores = recording
+    try:
+        yamls = os.path.join(hm, "yamls")
+        run("summarize", summarize.main, [
+            "--results_root", os.path.dirname(path_exp), "--save_dir",
+            os.path.join(hm, "summary"), "--emit_heatmap_yamls", yamls,
+            "--heatmap_template", template])
+        emitted = sorted(y for y in os.listdir(yamls) if y.endswith(".yaml"))
+        if len(emitted) != 1:
+            raise AssertionError(f"[heatmap] emitted {emitted}")
+        cfg_a = os.path.join(yamls, emitted[0])
+        cfg = yaml_subset.load_file(cfg_a)
+        h = cfg["heatmap_arguments"]
+        log(f"[heatmap] run A config {emitted[0]} (emitted by "
+            f"cli.summarize): branch {cfg['exp_arguments']['branch']}, "
+            f"cmap {h['cmap']}, overlap {h['overlap']}, vis_level "
+            f"{h['vis_level']}, save_ext {h['save_ext']}, sample "
+            f"{cfg['sample_arguments']}, model "
+            f"{cfg['model_arguments']}")
+        if cfg["exp_arguments"]["branch"] != "path" or h["cmap"] != \
+                "coolwarm" or float(h["overlap"]) != 0.75:
+            raise AssertionError(f"[heatmap] emitted config {cfg}")
+        run("A", create_heatmaps.main, ["--config", cfg_a])
+    finally:
+        create_heatmaps.compute_fine_scores = fine_scores
+    save_a = cfg["exp_arguments"]["save_dir"]
+    summary = []
+    for s in stems:
+        with hdf5.File(os.path.join(save_a, f"{s}_blockmap.h5")) as f:
+            scores, coords = f["attention_scores"], f["coords"]
+        with hdf5.File(os.path.join(feat, "h5_files", f"{s}.h5")) as f:
+            want_coords = f["coords"]
+        pngs = {n: len(os.listdir(os.path.join(save_a, f"{s}_{n}")))
+                for n in ("topk", "reverse_topk")}
+        files = [f"{s}_{x}" for x in ("heatmap.jpg", "orig.jpg",
+                                      "fine_heatmap.jpg", "topk_mosaic.png",
+                                      "reverse_topk_mosaic.png")]
+        missing = [x for x in files
+                   if not os.path.isfile(os.path.join(save_a, x))]
+        summary.append(f"{s}: {len(scores)} coarse scores, PNGs {pngs}")
+        if not np.array_equal(coords, want_coords) or \
+                not np.isfinite(scores).all() or missing or \
+                any(n != min(16, len(scores)) for n in pngs.values()):
+            raise AssertionError(f"[heatmap] run A {s}: missing {missing}, "
+                                 f"PNGs {pngs}")
+    log("[heatmap] run A outputs: " + "; ".join(summary))
+
+    # runs B (card) and C (CPU) on the first slide
+    stem = stems[0]
+    plist_b = os.path.join(hm, "slide_b.csv")
+    with open(plist_b, "w") as f:
+        f.write(f"slide_id\n{stem}.tiff\n")
+    feat_b = os.path.join(hm, "feat_b")
+
+    def config_b(name, overlap):
+        path = os.path.join(hm, f"{name}.yaml")
+        yaml_subset.dump_file({
+            "exp_arguments": {"branch": "path",
+                              "save_dir": os.path.join(hm, name)},
+            "data_arguments": {"process_list": plist_b, "data_dir": src,
+                               "feat_dir": feat_b},
+            "patching_arguments": tpl["patching_arguments"],
+            "model_arguments": {"ckpt_path": path_exp, "which_k": 0,
+                                "allow_random_weights": True},
+            "heatmap_arguments": {
+                "alpha": 0.4, "overlap": overlap, "vis_level": -1,
+                "segment": True, "use_holes": True, "save_orig": True,
+                "save_ext": "png", "blur": True, "custom_downsample": 2,
+                "use_ref_scores": True},
+            "sample_arguments": {"samples": HEATMAP_B_SAMPLES}}, path)
+        return path
+    run("B", create_heatmaps.main, ["--config", config_b("B", 0.75)])
+    if not os.path.isfile(os.path.join(feat_b, "h5_files", f"{stem}.h5")):
+        raise AssertionError("[heatmap] run B wrote no features h5")
+    run("C", create_heatmaps.main, ["--config", config_b("C", 0.0),
+                                    "--device", "cpu"])
+    if env is None:
+        os.environ.pop("MMF_TPU_WSI_MAX_BYTES", None)
+    else:
+        os.environ["MMF_TPU_WSI_MAX_BYTES"] = env
+    blocks = []
+    for name in ("B", "C"):
+        with hdf5.File(os.path.join(hm, name, f"{stem}_blockmap.h5")) as f:
+            blocks.append((f["attention_scores"], f["coords"]))
+    err = float(np.abs(blocks[0][0] - blocks[1][0]).max()
+                / np.abs(blocks[1][0]).max())
+    same = {}
+    for x in ("heatmap", "orig"):
+        a, b = (png.read_png(os.path.join(hm, n, f"{stem}_{x}.png"))
+                for n in ("B", "C"))
+        same[x] = (a.shape, float(np.any(a != b, axis=-1).mean())
+                   if a.shape == b.shape else 1.0)
+    sampled = {n: sorted(os.listdir(os.path.join(hm, "B", f"{stem}_{n}")))
+               for n in ("topk_high", "mid_band")}
+    # use_ref_scores draws percentile ranks: where the card's and the
+    # CPU's read-outs order two near-tied scores differently, the ranks
+    # and so the pixels differ.  The card's scores drawn again on the
+    # CPU must give run B's PNG exactly.
+    ranks = [hmaps.score_to_percentile(b[0], b[0]) for b in blocks]
+    n_moved = int(np.sum(ranks[0] != ranks[1]))
+    slide = wsi.open_slide(os.path.join(src, f"{stem}.tiff"))
+    patching = tpl["patching_arguments"]
+    tissue, holes = wsi.segment_tissue(
+        slide, a_t=float(patching["a_t"]), a_h=float(patching["a_h"]),
+        device="cpu")
+    redraw = hmaps.draw_heatmap(
+        slide, ranks[0] / 100.0, blocks[0][1], patch_size=256, alpha=0.4,
+        blur=True, use_percentiles=False, custom_downsample=2,
+        segment=True, tissue=tissue, holes=holes, use_holes=True,
+        device="cpu")
+    redrawn_equal = np.array_equal(redraw, png.read_png(os.path.join(
+        hm, "B", f"{stem}_heatmap.png")))
+    # a patch whose rank moved changes at most its square at the vis level
+    # grown by the blur's radius (the coarse pass blurs with 2 ps + 1 taps)
+    w_vis, h_vis = slide.level_dimensions[-1]
+    ps_vis = int(np.ceil(256 / slide.level_downsamples[-1][0]))
+    share_max = n_moved * (3 * ps_vis) ** 2 / (w_vis * h_vis)
+    log(f"[heatmap] runs B (card) and C (CPU) on {stem}: "
+        f"{len(blocks[0][0])} patches extracted on a miss; blockmap scores "
+        f"card vs CPU max rel err {err:.2e} (tol 1e-5), coords equal "
+        f"{np.array_equal(blocks[0][1], blocks[1][1])}; PNG (shape, share "
+        f"of pixels that differ) {same}; {n_moved} patches of "
+        f"{len(ranks[0])} change percentile rank between the card's and "
+        f"the CPU's scores (at most {share_max:.4f} of the pixels may "
+        f"differ); the card's scores drawn on the CPU equal run "
+        f"B's heatmap: {redrawn_equal}; sampled PNGs "
+        f"{ {n: len(v) for n, v in sampled.items()} }, skipped spec absent "
+        f"{not os.path.exists(os.path.join(hm, 'B', stem + '_skipped'))}")
+    if err > 1e-5 or not np.array_equal(blocks[0][1], blocks[1][1]) or \
+            same["orig"][1] != 0.0 or not redrawn_equal or \
+            same["heatmap"][1] > share_max or \
+            os.path.exists(os.path.join(hm, "B", f"{stem}_skipped")) or \
+            not all(sampled.values()):
+        raise AssertionError("[heatmap] run B and run C disagree")
+
+    # the read-out against the forward kernel on the slide bags, B=1
+    settings = read_experiment(path_exp)
+    dev = torch.device("cuda")
+    model = load_experiment_model(path_exp, 0, config_from_settings(
+        settings, batch_size=1, device="cuda"), dev)
+    params, gated = model.pool.attn_params(), model.pool.gated
+    with hdf5.File(os.path.join(feat, "h5_files",
+                                f"{stems[-1]}.h5")) as f:
+        coarse = f["features"]
+    timing = {}
+    for tag, feats in (("coarse", coarse), ("fine", fine_bags["feats"])):
+        bag = torch.from_numpy(np.ascontiguousarray(feats)).cuda()[None]
+        mask = torch.ones(1, bag.shape[1], device=dev)
+        with torch.no_grad():
+            reset()
+            s = model(bag, mask, attention_only=True)
+            h = model.embed(bag).float()
+            pooled = mil.masked_softmax_pool(s, h, mask)[0]
+            launches[f"readout_{tag}"] = count()
+            reset()
+            fused = model(bag, mask, return_features=True)
+            torch.cuda.synchronize()
+            launches[f"pooled_{tag}"] = count()
+            e = rel_err(pooled, fused)
+            out, _ = mil._fused_pool_cuda(h, mask, params, gated, None, None)
+            ref, _ = mil._pool_plain(h, mask, params, gated, None, None)
+            plain1 = _time_ms(lambda: mil._pool_plain(h, mask, params, gated,
+                                                      None, None))
+            ms = _time_ms(lambda: mil._fused_pool_cuda(h, mask, params,
+                                                       gated, None, None))
+            plain2 = _time_ms(lambda: mil._pool_plain(h, mask, params, gated,
+                                                      None, None))
+        bound_ms, bound_by = _bound(h, mask, params.Wa.shape[1], gated)
+        shape = (f"B=1 N={bag.shape[1]} D={h.shape[-1]} "
+                 f"Da={params.Wa.shape[1]} float32 "
+                 f"{'gated' if gated else 'ungated'}")
+        timing[tag] = {"shape": shape, "ms": ms,
+                       "plain_ms": min(plain1, plain2),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": _max_abs((out,), (ref,)),
+                       "readout_rel_err": e}
+        log(f"[heatmap] read-out of the largest {tag} bag ({shape}): "
+            f"masked_softmax_pool(raw scores) vs mil_pool_fwd's pooled "
+            f"features rel {e:.2e} (tol 1e-4), launches read-out "
+            f"{launches[f'readout_{tag}']}, pooled "
+            f"{launches[f'pooled_{tag}']}; kernel {ms:.3f} ms, plain "
+            f"{plain1:.3f}/{plain2:.3f} ms, bound {bound_ms * 1e3:.1f} us "
+            f"({bound_by}), kernel/bound {ms / bound_ms:.1f}")
+        if e > 1e-4 or launches[f"readout_{tag}"] != none or \
+                launches[f"pooled_{tag}"] != one_fwd:
+            raise AssertionError(f"[heatmap] read-out {tag} disagrees")
+    wall["phase"] = time.perf_counter() - t_phase
+    log(f"[heatmap] wall s ({_card()}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in wall.items()))
+    return launches, timing
 
 
 def main(argv=None) -> int:
@@ -4233,7 +4542,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,omic,pretrained,radio,extract,"
-                         "gradcam,interpret,timing,dist,ops,report,wsi "
+                         "gradcam,interpret,timing,dist,ops,report,wsi,"
+                         "heatmap "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -4266,7 +4576,7 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_digest()
     if "slice" in phases:
         phase_slice(counters[:1])
-    if {"train", "wsi"} & set(phases):
+    if {"train", "wsi", "heatmap"} & set(phases):
         # [wsi] serves its bags with [train]'s experiment
         _, cfg, batches, host_ms, path_exp = phase_train(counters, work)
     if "omic" in phases:
@@ -4299,8 +4609,11 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_ops(counters, work)
     if "report" in phases:
         phase_report(counters, work)
-    if "wsi" in phases:
-        phase_wsi(counters, path_exp, work)
+    if {"wsi", "heatmap"} & set(phases):
+        # [heatmap] runs on [wsi]'s slides before they are deleted
+        phase_wsi(counters, path_exp, work, before_delete=(
+            (lambda *a: phase_heatmap(counters, path_exp, *a))
+            if "heatmap" in phases else None))
     log(f"[total] {time.perf_counter() - t_all:.1f} s (partial run, "
         f"no result)")
     return 0
@@ -4357,10 +4670,13 @@ def _full(counters, work, t_all) -> int:
     t = time.perf_counter()
     report_launches = phase_report(counters, work)
     log(f"[report] done in {time.perf_counter() - t:.1f} s")
-    # WSI stages 0 and 1, the bags served by [train]'s experiment
+    # WSI stages 0 and 1, the bags served by [train]'s experiment, then
+    # the heatmap path branch on the same slides and features
     t = time.perf_counter()
-    wsi_launches = phase_wsi(counters, path_exp, work)
-    log(f"[wsi] done in {time.perf_counter() - t:.1f} s")
+    wsi_launches, (heatmap_launches, heatmap_timing) = phase_wsi(
+        counters, path_exp, work, before_delete=lambda *a: phase_heatmap(
+            counters, path_exp, *a))
+    log(f"[wsi] and [heatmap] done in {time.perf_counter() - t:.1f} s")
     # the headline variant of each kernel: the forward as serving and
     # evaluation run it (f32, no dropout), the backward as the training
     # CLI runs it (f32, --drop_out)
@@ -4402,6 +4718,10 @@ def _full(counters, work, t_all) -> int:
             entry[f"launches_report_{path}"] = counts[counter_of[name]]
         for path, counts in wsi_launches.items():
             entry[f"launches_wsi_{path}"] = counts[counter_of[name]]
+        for path, counts in heatmap_launches.items():
+            entry[f"launches_heatmap_{path}"] = counts[counter_of[name]]
+        if name == "mil_pool_fwd":
+            entry["heatmap_slide_bags"] = heatmap_timing
         entries.append(entry)
     log(f"[timing] train step ms {json.dumps(step)}")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

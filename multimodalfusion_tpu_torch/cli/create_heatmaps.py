@@ -4,6 +4,28 @@ create_heatmaps.py; the config's sections as in
 ``examples/heatmap_{path,radio,omic}.yaml``, read by the port's own
 ``utils/yaml_subset.py``).  ``exp_arguments.branch`` picks the branch:
 
+- ``path`` (the default): for each slide of ``data_arguments.
+  process_list`` (a CSV with a ``slide_id`` column, and optionally the
+  ROI columns ``x1``, ``x2``, ``y1``, ``y2``), its patch features
+  ``feat_dir/h5_files/{stem}.h5`` (segmented, patched, embedded and
+  written there first when missing) through the trained PathAMIL's
+  attention read-out (``attention_only``, no kernel):
+  ``{stem}_blockmap.h5`` (``attention_scores``, ``coords``), the overlay
+  ``{stem}_heatmap.{save_ext}`` and with ``save_orig`` the slide
+  ``{stem}_orig.{save_ext}`` (``interpret/heatmaps.draw_heatmap`` on the
+  port's stand-ins for OpenCV, PIL and matplotlib), with ``overlap`` > 0
+  the fine pass ``{stem}_fine_heatmap.jpg`` (the tissue re-gridded at the
+  overlapping stride and embedded again), and the sampled patches
+  ``{stem}_{name}/{rank}_x{x}_y{y}_a{score:.3f}.png`` with their mosaic
+  ``{stem}_{name}_mosaic.png``, from ``sample_arguments``' shorthand
+  (``floor``, ``save_n``: top-k and reverse top-k of the dynamic k) or its
+  list form (``samples``).  JPEGs come from the port's encoder
+  (``utils/jpeg.py``), PNGs from its writer (``utils/png.py``); an
+  unsupported ``cmap`` or ``save_ext`` raises before any work, and so do
+  slides in openslide formats.  The embedder (ResNet50 trunk) takes
+  ``model_arguments.resnet_weights`` (or ``allow_random_weights``) and
+  ``patching_arguments.batch_size`` / ``target_patch_size``.  Each slide
+  prints one line of its stage timings;
 - ``radio``: for each subject of ``data_arguments.process_list`` (a CSV
   with a ``subject_id`` column), its sequences' feature h5 files
   (``feat_dir/radio_h5_files/{sequence}/{subject}.h5``), aligned on their
@@ -27,13 +49,11 @@ scan preprocessed again (lung CT when ``cancer_type`` is ``lung`` or the
 sequence is ``CT``), through the port's PNG writer (``utils/png.py``).
 
 The CSVs have pandas' layout, the JAX CLI's columns and row order.  The
-``path`` branch needs a slide reader (the machine with the card has none
-of openslide, OpenCV or PIL): it raises ``NotImplementedError`` before any
-work, naming ROADMAP.md port queue item 6d; the omic branch writes no
-figures (no matplotlib there) and says so after its CSVs.  The weights
-come from ``s_{k}_minloss_checkpoint.pt`` (``model_arguments.which_k``).
-Stock torch ops: no kernel.  Runs on ``cuda`` unless ``--device cpu`` is
-given.
+omic branch writes no figures (no matplotlib on the card's machine) and
+says so after its CSVs.  The weights come from
+``s_{k}_minloss_checkpoint.pt`` (``model_arguments.which_k``), loaded
+once.  No kernel: the read-outs are stock torch ops.  Runs on ``cuda``
+unless ``--device cpu`` is given.
 
     python -m multimodalfusion_tpu_torch.cli.create_heatmaps \\
         --config CONFIG.yaml [--device cuda]
@@ -44,6 +64,8 @@ import argparse
 import csv
 import os
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -60,14 +82,18 @@ from multimodalfusion_tpu_torch.data.survival_dataset import (
 from multimodalfusion_tpu_torch.interpret.ig import (expected_gradient_draws,
                                                      expected_gradients,
                                                      integrated_gradients)
-from multimodalfusion_tpu_torch.utils import yaml_subset
+from multimodalfusion_tpu_torch.data import hdf5
+from multimodalfusion_tpu_torch.data import wsi as wsi_mod
+from multimodalfusion_tpu_torch.data.io import save_hdf5
+from multimodalfusion_tpu_torch.interpret.heatmaps import (
+    compute_fine_scores, draw_heatmap, dynamic_k, patch_mosaic, sample_rois,
+    score_to_percentile)
+from multimodalfusion_tpu_torch.utils import image_ops, yaml_subset
 from multimodalfusion_tpu_torch.utils.experiment import (
     config_from_settings, load_experiment_model, read_experiment)
+from multimodalfusion_tpu_torch.utils.jpeg import write_jpeg
 from multimodalfusion_tpu_torch.utils.png import write_png
 from multimodalfusion_tpu_torch.utils.table import write_csv
-
-_WSI = "ROADMAP.md, port queue item 6d"
-
 
 def build_parser():
     p = argparse.ArgumentParser(description="attention heatmaps")
@@ -134,11 +160,281 @@ def _column(csv_path: str, name: str):
         return [row[name] for row in csv.DictReader(f)]
 
 
+SAVE_EXTS = ("jpg", "jpeg", "png")
+
+
+def _write_image(path: str, rgb: np.ndarray) -> str:
+    """``cv2.imwrite`` of an RGB image as JAX calls it (the BGR array of
+    the same pixels): PNG by the port's writer, JPEG by its encoder."""
+    if path.lower().endswith(".png"):
+        return write_png(path, rgb)
+    return write_jpeg(path, rgb)
+
+
+def _embedder_from_config(m, p, device):
+    from multimodalfusion_tpu_torch.extract.features import Embedder
+    return Embedder(
+        weights_path=getattr(m, "resnet_weights", None),
+        batch_size=int(getattr(p, "batch_size", 128)),
+        image_size=int(getattr(p, "target_patch_size", 224)),
+        allow_random=bool(getattr(m, "allow_random_weights", False)),
+        device=device)
+
+
+def _extract_missing_features(slide, feat_h5, tissue, holes, embedder,
+                              patch_size, patch_level=0, chunk=512):
+    """Segment -> patch -> embed a slide whose features h5 is missing, and
+    write ``features`` (f32) and ``coords`` (int64) there (JAX
+    create_heatmaps.py:106-143, ref heatmap_utils.process_single_slide
+    :288-411): the patches read ``chunk`` at a time on a prefetch thread
+    and resized to the trunk's input on its device."""
+    from multimodalfusion_tpu_torch.data.loaders import prefetch
+    coords, _ = wsi_mod.process_contours(slide, tissue, holes,
+                                         patch_level=patch_level,
+                                         patch_size=patch_size,
+                                         step_size=patch_size)
+    if len(coords) == 0:
+        raise ValueError("no tissue patches found for on-the-fly "
+                         "feature extraction")
+
+    def chunks():
+        for start in range(0, len(coords), chunk):
+            yield wsi_mod.read_patches(slide, coords[start:start + chunk],
+                                       patch_level, patch_size)
+
+    feats = np.concatenate(
+        [embedder.embed_images(x, resize=x.shape[1] != embedder.image_size)
+         for x in prefetch(chunks(), depth=2)], axis=0)
+    ensure_dir(os.path.dirname(feat_h5))
+    save_hdf5(feat_h5, {"features": feats.astype(np.float32),
+                        "coords": np.asarray(coords, np.int64)}, mode="w")
+    return feats, np.asarray(coords)
+
+
+def _roi(row):
+    """The ROI (top_left, bot_right) of a process-list row, or None when
+    a column is missing or a cell is empty or NA (``pd.isna`` in JAX)."""
+    cells = [row.get(c) for c in ("x1", "x2", "y1", "y2")]
+    if any(c is None or c in _NA for c in cells):
+        return None
+    x1, x2, y1, y2 = (int(float(c)) for c in cells)
+    return (x1, y1), (x2, y2)
+
+
+def _sample_specs(s, n_scores, sampling_mode):
+    """The sampling specs (JAX create_heatmaps.py:313-327): the list form
+    ``samples``, or the shorthand ``floor`` / ``save_n`` as top-k and
+    reverse top-k of the dynamic k; none when sampling is off."""
+    if not sampling_mode:
+        return []
+    specs = getattr(s, "samples", None)
+    if specs is not None:
+        return specs
+    k = dynamic_k(n_scores, floor=int(getattr(s, "floor", 200)))
+    save_n = int(getattr(s, "save_n", 8))
+    return [{"name": "topk", "mode": "topk", "k": k, "save_n": save_n},
+            {"name": "reverse_topk", "mode": "reverse_topk", "k": k,
+             "save_n": save_n}]
+
+
 def run_path_branch(cfg_ns, device) -> int:
-    raise NotImplementedError(
-        f"the path branch (attention heatmaps over a slide, patch "
-        f"sampling) needs a slide reader and OpenCV: not ported yet "
-        f"({_WSI})")
+    d = cfg_ns.data_arguments
+    m = cfg_ns.model_arguments
+    h = getattr(cfg_ns, "heatmap_arguments", SimpleNamespace())
+    s = getattr(cfg_ns, "sample_arguments", SimpleNamespace())
+    p = getattr(cfg_ns, "patching_arguments", SimpleNamespace())
+    # checked before any work
+    cmap = getattr(h, "cmap", "RdYlBu_r")
+    image_ops.colormap(cmap)
+    ext = str(getattr(h, "save_ext", "jpg"))
+    if ext.lower() not in SAVE_EXTS:
+        raise ValueError(f"heatmap_arguments.save_ext {ext!r}: the port "
+                         f"writes {', '.join(SAVE_EXTS)}")
+    with open(d.process_list, newline="") as f:
+        rows = list(csv.DictReader(f))
+    save_dir = ensure_dir(cfg_ns.exp_arguments.save_dir)
+    # phase gating (ref create_heatmaps.py:54-55,69-70): both on unless
+    # --sampling / --heatmap asked for exactly one
+    heatmap_mode = bool(getattr(cfg_ns.exp_arguments, "heatmap_mode", True))
+    sampling_mode = bool(getattr(cfg_ns.exp_arguments, "sampling_mode",
+                                 True))
+    which_k = int(getattr(m, "which_k", 0))
+    settings = read_experiment(m.ckpt_path)
+    cfg = config_from_settings(settings, batch_size=1, device=str(device))
+    model = load_experiment_model(m.ckpt_path, which_k, cfg, device)
+
+    def read_out(feats: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            bag = torch.from_numpy(np.ascontiguousarray(
+                feats, np.float32))[None].to(device)
+            return model(bag, torch.ones(1, bag.shape[1], device=device),
+                         attention_only=True)[0].float().cpu().numpy()
+
+    segment = bool(getattr(h, "segment", True))
+    patch_size = int(getattr(p, "patch_size", 256))
+    alpha = float(getattr(h, "alpha", 0.4))
+    use_ref_scores = bool(getattr(h, "use_ref_scores", False))
+    overlap = float(getattr(h, "overlap", 0.0) or 0.0)
+    vis_level = getattr(h, "vis_level", None)
+    if vis_level is not None and int(vis_level) < 0:
+        vis_level = None
+    elif vis_level is not None:
+        vis_level = int(vis_level)
+    embedder = None
+    for row in rows:
+        slide_file = row["slide_id"]
+        stem = os.path.splitext(slide_file)[0]
+        slide = wsi_mod.open_slide(os.path.join(d.data_dir, slide_file))
+        wall = {}
+        tissue = holes = None
+
+        def contours():
+            nonlocal tissue, holes
+            if tissue is None:
+                tissue, holes = wsi_mod.segment_tissue(
+                    slide, seg_level=getattr(p, "seg_level", None),
+                    a_t=float(getattr(p, "a_t", 100.0)),
+                    a_h=float(getattr(p, "a_h", 16.0)), device=device)
+            return tissue, holes
+
+        feat_h5 = os.path.join(d.feat_dir, "h5_files", f"{stem}.h5")
+        if os.path.isfile(feat_h5):
+            with hdf5.File(feat_h5) as f:
+                feats, coords = f["features"], f["coords"]
+        else:
+            print(f"{stem}: features h5 missing, extracting inline")
+            if embedder is None:
+                embedder = _embedder_from_config(m, p, device)
+            t0 = time.perf_counter()
+            feats, coords = _extract_missing_features(
+                slide, feat_h5, *contours(), embedder, patch_size)
+            wall["extract"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scores = read_out(feats)
+        wall["readout"] = time.perf_counter() - t0
+
+        # the blockmap: coarse attention and coords (ref :306-309)
+        blockmap = os.path.join(save_dir, f"{stem}_blockmap.h5")
+        if not os.path.isfile(blockmap):
+            save_hdf5(blockmap,
+                      {"attention_scores": scores.astype(np.float32),
+                       "coords": np.asarray(coords, np.int64)}, mode="w")
+
+        seg_kwargs = {}
+        if segment and heatmap_mode:
+            t, hl = contours()
+            seg_kwargs = dict(segment=True, tissue=t, holes=hl,
+                              use_holes=bool(getattr(h, "use_holes", True)))
+        roi = _roi(row) if bool(getattr(h, "use_roi", False)) else None
+        roi_kwargs = ({} if roi is None else
+                      dict(top_left=roi[0], bot_right=roi[1]))
+        # use_ref_scores: the scores reach draw_heatmap as percentiles of
+        # the coarse blockmap's distribution (ref heatmap_utils.py:99,138)
+        draw_scores = scores
+        if use_ref_scores:
+            draw_scores = score_to_percentile(scores, scores) / 100.0
+        images = []
+        if heatmap_mode:
+            heat = draw_heatmap(
+                slide, draw_scores, coords, patch_size=patch_size,
+                vis_level=vis_level, **roi_kwargs, alpha=alpha,
+                blur=bool(getattr(h, "blur", False)),
+                use_percentiles=not use_ref_scores,
+                binarize=bool(getattr(h, "binarize", False)),
+                threshold=float(getattr(h, "binary_thresh", -1.0)),
+                blank_canvas=bool(getattr(h, "blank_canvas", False)),
+                custom_downsample=int(getattr(h, "custom_downsample", 1)),
+                cmap=cmap, device=device, timings=wall, **seg_kwargs)
+            out = os.path.join(save_dir, f"{stem}_heatmap.{ext}")
+            images.append((out, heat))
+            print(f"{stem}: heatmap -> {out}")
+            if bool(getattr(h, "save_orig", False)):
+                vl = vis_level if vis_level is not None \
+                    else slide.level_count - 1
+                images.append((os.path.join(save_dir, f"{stem}_orig.{ext}"),
+                               slide.read_region((0, 0), vl,
+                                                 slide.level_dimensions[vl])))
+
+        # the fine heatmap at an overlapping stride (ref
+        # heatmap_utils.compute_from_patches)
+        n_fine = 0
+        if overlap > 0 and heatmap_mode:
+            if embedder is None:
+                embedder = _embedder_from_config(m, p, device)
+            fscores, fcoords = compute_fine_scores(
+                slide, *contours(), embedder, read_out,
+                patch_size=patch_size, overlap=overlap,
+                use_center_shift=bool(getattr(h, "use_center_shift", True)),
+                timings=wall)
+            n_fine = len(fcoords)
+            if n_fine:
+                # use_ref_scores ranks the fine scores on the coarse
+                # blockmap's distribution
+                fdraw = fscores
+                if use_ref_scores:
+                    fdraw = score_to_percentile(fscores, scores) / 100.0
+                fine_wall = {}
+                fine = draw_heatmap(slide, fdraw, fcoords,
+                                    patch_size=patch_size, alpha=alpha,
+                                    blur=True, overlap=overlap,
+                                    use_percentiles=not use_ref_scores,
+                                    cmap=cmap, device=device,
+                                    timings=fine_wall, **seg_kwargs)
+                for k, v in fine_wall.items():
+                    wall[f"fine_{k}"] = v
+                out_f = os.path.join(save_dir, f"{stem}_fine_heatmap.jpg")
+                images.append((out_f, fine))
+                print(f"{stem}: fine heatmap ({n_fine} patches at "
+                      f"overlap {overlap}) -> {out_f}")
+        # the slide's images encoded at once, one host thread each (numpy
+        # releases the GIL in the encoders' array work)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max(len(images), 1)) as pool:
+            list(pool.map(lambda item: _write_image(*item), images))
+        wall["encode"] = time.perf_counter() - t0
+
+        # patch sampling (ref :481-556)
+        t0 = time.perf_counter()
+        n_png = n_mosaic = 0
+        for spec in _sample_specs(s, len(scores), sampling_mode):
+            if not spec.get("sample", True):
+                continue
+            mode_name = spec.get("mode", "topk")
+            k = min(int(spec.get("k", 8)), len(scores))
+            sc, cc = sample_rois(
+                scores, coords, k=k, mode=mode_name,
+                seed=int(spec.get("seed", 1)),
+                score_range=(float(spec.get("score_start", 0.45)),
+                             float(spec.get("score_end", 0.55))))
+            name = spec.get("name", mode_name)
+            sample_dir = ensure_dir(os.path.join(save_dir,
+                                                 f"{stem}_{name}"))
+            save_n = int(spec.get("save_n", spec.get("k", 8)))
+            sampled = []
+            for rank, (sc_i, (x, y)) in enumerate(
+                    zip(sc[:save_n], cc[:save_n])):
+                patch = slide.read_region((int(x), int(y)), 0,
+                                          (patch_size, patch_size))
+                sampled.append(patch)
+                write_png(os.path.join(
+                    sample_dir, f"{rank}_x{x}_y{y}_a{sc_i:.3f}.png"), patch)
+                n_png += 1
+            if sampled:
+                mosaic = patch_mosaic(
+                    np.stack(sampled),
+                    n_cols=int(spec.get("mosaic_cols", 5)),
+                    downscale=int(spec.get("mosaic_downscale", 2)))
+                write_png(os.path.join(save_dir,
+                                       f"{stem}_{name}_mosaic.png"), mosaic)
+                n_mosaic += 1
+        wall["sampling"] = time.perf_counter() - t0
+        if n_fine and "fine_embed" in wall:
+            wall["fine_embed_us_a_patch"] = wall["fine_embed"] / n_fine * 1e6
+        print(f"{stem}: path heatmap stages: coarse {len(scores)} patches, "
+              f"fine {n_fine} patches, {n_png} sampled PNGs, {n_mosaic} "
+              f"mosaics; seconds " + ", ".join(
+                  f"{k} {v:.6f}" for k, v in wall.items()))
+    return 0
 
 
 def run_radio_branch(cfg_ns, device) -> int:

@@ -99,6 +99,13 @@ class Doctor:
         ("OpenCV / matplotlib / PIL", "images: utils/image_ops.py, "
                                       "utils/contours.py, utils/png.py, "
                                       "utils/jpeg.py, utils/tiff.py"),
+        ("PIL's bicubic Image.resize", "heatmap resizes: "
+                                       "image_ops.resize_bicubic_pil"),
+        ("matplotlib's colormaps", "heatmap colours: image_ops.colormap "
+                                   "(jet, coolwarm, RdYlBu, their _r)"),
+        ("OpenCV's uint8 GaussianBlur and filled drawContours",
+         "heatmap blur and tissue mask: image_ops.gaussian_blur_u8, "
+         "image_ops.fill_contours"),
         ("openslide", "slides: data/wsi.py reads uncompressed TIFF and "
                       "PNG; openslide formats are refused"),
         ("lungmask", "lung masks: the classical estimator in "

@@ -97,6 +97,59 @@ def resample(image: np.ndarray, spacing_zyx: Sequence[float],
     return out, new_spacing_real
 
 
+def _linear_weight_mat(n_in: int, n_out: int) -> np.ndarray:
+    """float32 [n_in, n_out] weights of ``jax.image.resize``'s "linear"
+    kernel along one axis (``jax._src.image.scale.compute_weight_mat``):
+    the triangle kernel at the sample centres, widened by the downscale
+    factor (antialiasing), each column normalised to sum 1, and columns
+    whose centre falls outside the input zeroed."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale \
+        - f32(0.0) - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = np.sum(w, axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= f32(n_in) - f32(0.5))
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resample_xla(image, spacing_zyx, new_spacing=(1.0, 1.5, 1.5),
+                 device=None):
+    """Trilinear resample on the device, the port of the JAX package's
+    ``jax.image.resize(method="trilinear")`` path (same target-shape rule
+    as ``resample``): separable, each axis whose size changes contracted
+    with ``_linear_weight_mat`` in float32, TF32 off.  Like JAX, and
+    unlike ``F.interpolate``, it antialiases when it downsamples.
+    Returns (float32 tensor on ``device``, the real new spacing)."""
+    import torch
+
+    from multimodalfusion_tpu_torch import resolve_device
+    dev = resolve_device(device)
+    spacing = np.array(spacing_zyx, np.float32)
+    factor = spacing / np.asarray(new_spacing, np.float32)
+    new_shape = tuple(int(x) for x in
+                      np.round(np.asarray(np.shape(image)) * factor))
+    x = torch.as_tensor(np.asarray(image, np.float32), device=dev)
+    matmul = torch.backends.cuda.matmul
+    tf32 = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        for axis, (n_in, n_out) in enumerate(zip(x.shape, new_shape)):
+            if n_in == n_out:
+                continue
+            w = torch.from_numpy(_linear_weight_mat(n_in, n_out)).to(dev)
+            x = torch.movedim(torch.movedim(x, axis, -1) @ w, -1, axis)
+    finally:
+        matmul.allow_tf32 = tf32
+    real = spacing / (np.asarray(new_shape) / np.asarray(np.shape(image)))
+    return x.contiguous(), real
+
+
 def normalize(image: np.ndarray, min_bound: float,
               max_bound: float) -> np.ndarray:
     """Window + scale to [0, 1] (ref normalize :240-244)."""

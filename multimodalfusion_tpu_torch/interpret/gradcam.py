@@ -15,7 +15,8 @@ import torch
 from torch.nn import functional as F
 
 from multimodalfusion_tpu_torch.utils.image_ops import (add_weighted,
-                                                        gaussian_blur, jet,
+                                                        colormap,
+                                                        gaussian_blur,
                                                         repeat_rgb,
                                                         resize_bilinear,
                                                         to_uint8_gray)
@@ -107,4 +108,4 @@ def cam_overlay(image_gray: torch.Tensor, cam: torch.Tensor,
         cam = gaussian_blur(cam, blur)
         cam = cam / cam.max().clamp_min(1e-12)
     base = repeat_rgb(to_uint8_gray(image_gray))
-    return add_weighted(base, 1 - alpha, jet(cam), alpha)
+    return add_weighted(base, 1 - alpha, colormap("jet")(cam), alpha)

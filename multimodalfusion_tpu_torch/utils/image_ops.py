@@ -8,8 +8,6 @@ after the call it replaces and works on tensors on any device.
 - ``gaussian_blur(x, k)`` is ``cv2.GaussianBlur(x, (k, k), 0)`` on float
   images: sigma from the kernel size as OpenCV derives it, the border
   reflected without repeating the edge (``BORDER_REFLECT_101``).
-- ``jet(x)`` is ``(matplotlib.cm.jet(x)[..., :3] * 255).astype(uint8)``:
-  matplotlib's 256-entry lookup table, indexed by ``int(x * 256)``.
 - ``add_weighted(a, alpha, b, beta)`` is ``cv2.addWeighted`` on uint8
   images: rounded half to even and saturated.
 
@@ -36,6 +34,28 @@ host uint8 arrays [H, W, C], as OpenCV does: ``rectangle`` (thickness
 fixed-point convex fill, edges included) and ``draw_contours`` (thickness
 2: every segment clipped to the image grown by 2, then OpenCV's thick
 line, a filled rectangle and a radius-1 disc at its end).
+
+The heatmap path's stand-ins, equal to their libraries bit for bit
+(tests/test_torch_heatmap_ops.py holds them by seeded fuzz):
+
+- ``gaussian_blur_u8(x, (kx, ky))`` is ``cv2.GaussianBlur(x, (kx, ky), 0)``
+  on uint8 images: OpenCV's bit-exact 8-bit path, taps in units of 1/256
+  (the cumulative sums of the float kernel rounded, so that they sum to
+  256), integer rows then columns, rounded once at the end; on tensors
+  on any device.
+- ``fill_contours(img, contours, idx, color, offset)`` is
+  ``cv2.drawContours(..., contourIdx=idx, thickness=-1, offset=offset)``
+  in place on a host array: every edge drawn as an 8-connected line, then
+  the even-odd scanline fill of pixel centres between the edges, an edge
+  that leaves the image running between its clipped ends.
+- ``resize_bicubic_pil(x, (h, w))`` is ``np.asarray(Image.fromarray(x)
+  .resize((w, h)))``: PIL's bicubic (a = -0.5), its support widened by
+  the downscale factor, 22-bit coefficients, a horizontal pass then a
+  vertical one, each rounded and clipped to uint8; on tensors on any
+  device.
+- ``colormap(name)`` is ``(matplotlib.colormaps[name](x)[..., :3] *
+  255).astype(uint8)`` for ``jet``, ``coolwarm`` and ``RdYlBu`` and their
+  ``_r`` reversals, from matplotlib's segment data; another name raises.
 """
 from __future__ import annotations
 
@@ -55,7 +75,38 @@ _JET_SEGMENTS = (
      (1.0, 0, 0)),
     ((0.0, 0.5, 0.5), (0.11, 1, 1), (0.34, 1, 1), (0.65, 0, 0), (1.0, 0, 0)),
 )
-JET_N = 256
+# matplotlib's "coolwarm" (_cm._coolwarm_data): per channel, the value at
+# x = i / 32, equal on both sides
+_COOLWARM = (
+    (0.2298057, 0.26623388, 0.30386891, 0.342804478, 0.38301334,
+     0.424369608, 0.46666708, 0.509635204, 0.552953156, 0.596262162,
+     0.639176211, 0.681291281, 0.722193294, 0.761464949, 0.798691636,
+     0.833466556, 0.865395197, 0.897787179, 0.924127593, 0.944468518,
+     0.958852946, 0.96732803, 0.969954137, 0.966811177, 0.958003065,
+     0.943660866, 0.923944917, 0.89904617, 0.869186849, 0.834620542,
+     0.795631745, 0.752534934, 0.705673158),
+    (0.298717966, 0.353094838, 0.406535296, 0.458757618, 0.50941904,
+     0.558148092, 0.604562568, 0.648280772, 0.688929332, 0.726149107,
+     0.759599947, 0.788964712, 0.813952739, 0.834302879, 0.849786142,
+     0.860207984, 0.86541021, 0.848937047, 0.827384882, 0.800927443,
+     0.769767752, 0.734132809, 0.694266682, 0.650421156, 0.602842431,
+     0.551750968, 0.49730856, 0.439559467, 0.378313092, 0.312874446,
+     0.24128379, 0.157246067, 0.01555616),
+    (0.753683153, 0.801466763, 0.84495867, 0.883725899, 0.917387822,
+     0.945619588, 0.968154911, 0.98478814, 0.995375608, 0.999836203,
+     0.998151185, 0.990363227, 0.976574709, 0.956945269, 0.931688648,
+     0.901068838, 0.865395561, 0.820880546, 0.774508472, 0.726736146,
+     0.678007945, 0.628751763, 0.579375448, 0.530263762, 0.481775914,
+     0.434243684, 0.387970225, 0.343229596, 0.300267182, 0.259301199,
+     0.220525627, 0.184115123, 0.150232812),
+)
+# ColorBrewer's "RdYlBu" (_cm._RdYlBu_data, each value k / 255), which
+# matplotlib spreads evenly over [0, 1] (LinearSegmentedColormap.from_list)
+_RDYLBU = ((165, 0, 38), (215, 48, 39), (244, 109, 67), (253, 174, 97),
+           (254, 224, 144), (255, 255, 191), (224, 243, 248),
+           (171, 217, 233), (116, 173, 209), (69, 117, 180), (49, 54, 149))
+CMAPS = ("jet", "coolwarm", "RdYlBu")
+CMAP_N = 256  # matplotlib's table size of these maps
 
 
 def _lookup_table(segments, n: int) -> np.ndarray:
@@ -71,26 +122,62 @@ def _lookup_table(segments, n: int) -> np.ndarray:
     return np.clip(lut, 0.0, 1.0)
 
 
-def jet_table() -> np.ndarray:
-    """matplotlib's jet as float64 RGB [256, 3]: ``cm.jet(np.arange(256))``
-    without its alpha column."""
-    return np.stack([_lookup_table(s, JET_N) for s in _JET_SEGMENTS], axis=1)
+def _segments(name: str):
+    """Per channel, the rows (x, y0, y1) of matplotlib's segment data of
+    ``name``; ``_r`` reverses them as ``LinearSegmentedColormap.reversed``
+    does.  Any other name raises ``ValueError``."""
+    base = name[:-2] if name.endswith("_r") else name
+    if base == "jet":
+        segs = [[tuple(map(float, row)) for row in ch] for ch in _JET_SEGMENTS]
+    elif base == "coolwarm":
+        segs = [[(i / 32, v, v) for i, v in enumerate(ch)] for ch in _COOLWARM]
+    elif base == "RdYlBu":
+        vals = np.linspace(0, 1, len(_RDYLBU))
+        rgb = np.array(_RDYLBU, np.float64) / 255
+        segs = [np.column_stack([vals, rgb[:, c], rgb[:, c]])
+                for c in range(3)]
+    else:
+        raise ValueError(
+            f"colormap {name!r} is not supported: the port has "
+            f"{', '.join(CMAPS)} and their _r reversals")
+    if base != name:
+        segs = [[(1.0 - x, y1, y0) for x, y0, y1 in reversed(list(ch))]
+                for ch in segs]
+    return segs
 
 
-# what jet() reads: the table times 255, truncated, as matplotlib's callers
-# in the JAX package convert it
-_JET_U8 = torch.from_numpy((jet_table() * 255).astype(np.uint8))
+@functools.lru_cache(maxsize=None)
+def colormap_table(name: str) -> np.ndarray:
+    """matplotlib's ``name`` as float64 RGB [256, 3]:
+    ``colormaps[name](np.arange(256))`` without its alpha column."""
+    table = np.stack([_lookup_table(s, CMAP_N) for s in _segments(name)],
+                     axis=1)
+    table.flags.writeable = False
+    return table
 
 
-def jet(x: torch.Tensor) -> torch.Tensor:
-    """uint8 RGB [..., 3] of float values ``x``: entry ``int(x * 256)`` of
-    the table, 1.0 and above taking entry 255, values below 0 entry 0, and
-    NaN black, as ``matplotlib.cm.jet`` indexes it."""
-    xa = x * JET_N  # in x's own float type, exact (a power of two)
-    bad = torch.isnan(xa)
-    idx = xa.nan_to_num(0.0).clamp(0, JET_N - 1).to(torch.int64)
-    out = _JET_U8.to(x.device)[idx]
-    return out.masked_fill(bad.unsqueeze(-1), 0)
+@functools.lru_cache(maxsize=None)
+def _table_u8(name: str) -> torch.Tensor:
+    # what a colormap reads: the table times 255, truncated, as
+    # matplotlib's callers in the JAX package convert it
+    return torch.from_numpy((colormap_table(name) * 255).astype(np.uint8))
+
+
+def colormap(name: str):
+    """The function x -> uint8 RGB [..., 3] of matplotlib's colormap
+    ``name`` on float values ``x``: entry ``int(x * 256)`` of the table,
+    1.0 and above taking entry 255, values below 0 entry 0, and NaN black,
+    as matplotlib indexes it.  An unsupported name raises here, before any
+    work."""
+    table = _table_u8(name)
+
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        xa = x * CMAP_N  # in x's own float type, exact (a power of two)
+        bad = torch.isnan(xa)
+        idx = xa.nan_to_num(0.0).clamp(0, CMAP_N - 1).to(torch.int64)
+        out = table.to(x.device)[idx]
+        return out.masked_fill(bad.unsqueeze(-1), 0)
+    return apply
 
 
 def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
@@ -144,6 +231,67 @@ def gaussian_blur(x: torch.Tensor, ksize: int = 11) -> torch.Tensor:
     first, as multiply-adds (no convolution routine, so no TF32)."""
     taps = gaussian_kernel(ksize).to(x.device)
     return _blur_axis(_blur_axis(x.float(), taps, -1), taps, -2)
+
+
+# OpenCV's fixed taps of the small 8-bit kernels, in units of 1/256
+_SMALL_TAPS_U8 = {1: (256,), 3: (64, 128, 64), 5: (16, 64, 96, 64, 16),
+                  7: (8, 28, 56, 72, 56, 28, 8),
+                  9: (4, 13, 30, 51, 60, 51, 30, 13, 4)}
+
+
+def gaussian_taps_u8(ksize: int) -> Tuple[int, ...]:
+    """The taps (units of 1/256, summing to 256) of OpenCV's bit-exact
+    8-bit Gaussian of odd size ``ksize`` and sigma 0: the fixed small
+    kernels up to 9; above, the float kernel's cumulative sums from the
+    edge, rounded, differenced, and the centre the rest of 256."""
+    if ksize in _SMALL_TAPS_U8:
+        return _SMALL_TAPS_U8[ksize]
+    sigma = ksize * 0.15 + 0.35
+    scale2 = -0.125 / (sigma * sigma)
+    half = (ksize - 1) // 2
+    values = [math.exp(float(x * x) * scale2)
+              for x in range(1 - ksize, 0, 2)]
+    total = 0.0
+    for v in values:
+        total += v
+    mul = 1.0 / (total * 2.0 + 1.0)
+    taps, cum, prev = [0] * ksize, 0.0, 0
+    for i, v in enumerate(values):
+        cum += v * mul
+        r = int(np.rint(cum * 256))
+        taps[i] = taps[ksize - 1 - i] = r - prev
+        prev = r
+    taps[half] = 256 - 2 * prev
+    return tuple(taps)
+
+
+def _blur_axis_u8(x: torch.Tensor, taps, dim: int) -> torch.Tensor:
+    k, n = len(taps), x.shape[dim]
+    xp = x.index_select(dim, _reflect101(n, k // 2, x.device))
+    out = xp.narrow(dim, 0, n) * taps[0]
+    for j in range(1, k):
+        if taps[j]:
+            out += xp.narrow(dim, j, n) * taps[j]
+    return out
+
+
+def gaussian_blur_u8(x: torch.Tensor, ksize: Sequence[int]) -> torch.Tensor:
+    """``cv2.GaussianBlur(x, (kx, ky), 0)`` of a uint8 image [H, W] or
+    [H, W, C] (``ksize`` = (kx, ky), OpenCV's order, both odd): the rows
+    by ``gaussian_taps_u8(kx)``, then the columns by
+    ``gaussian_taps_u8(ky)``, in int32, the border reflected
+    (``BORDER_REFLECT_101``), then ``(sum + 2**15) >> 16``.  Integer work
+    only, so every device gives the same bytes."""
+    kx, ky = int(ksize[0]), int(ksize[1])
+    if kx < 1 or ky < 1 or kx % 2 != 1 or ky % 2 != 1:
+        raise ValueError(f"gaussian_blur_u8 takes odd kernel sizes, got "
+                         f"{(kx, ky)}")
+    gray = x.dim() == 2
+    img = (x.unsqueeze(-1) if gray else x).to(torch.int32)
+    acc = _blur_axis_u8(img, gaussian_taps_u8(kx), 1)
+    acc = _blur_axis_u8(acc, gaussian_taps_u8(ky), 0)
+    out = ((acc + (1 << 15)) >> 16).clamp_(0, 255).to(torch.uint8)
+    return out.squeeze(-1) if gray else out
 
 
 def add_weighted(a: torch.Tensor, alpha: float, b: torch.Tensor,
@@ -329,6 +477,95 @@ def resize_u8(x: torch.Tensor, size: Sequence[int],
               * b1[r0:r1].to(dev)) >> 16
         out.narrow(-3, r0, r1 - r0).copy_(((t0 + t1 + 2) >> 2).clamp(0, 255))
     return out.squeeze(-1) if gray else out
+
+
+PIL_BITS = 22  # PIL's fixed-point precision for 8-bit images
+
+
+def _bicubic(x: float) -> float:
+    """PIL's bicubic filter, a = -0.5."""
+    a = -0.5
+    if x < 0.0:
+        x = -x
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+def _pil_coeffs(n_in: int, n_out: int):
+    """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for the
+    bicubic filter: (first source index [n_out], int64 coefficients
+    [n_out, ksize], zero past each output's window)."""
+    scale = n_in / n_out
+    fs = max(scale, 1.0)
+    support = 2.0 * fs
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(n_out, np.int64)
+    kk = np.zeros((n_out, ksize), np.int64)
+    ss = 1.0 / fs
+    for o in range(n_out):
+        center = (o + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), n_in) - xmin
+        w = [_bicubic((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        total = 0.0
+        for v in w:
+            total += v
+        for x, v in enumerate(w):
+            if total != 0.0:
+                v /= total
+            kk[o, x] = int((-0.5 if v < 0 else 0.5) + v * (1 << PIL_BITS))
+        first[o] = xmin
+    return first, kk
+
+
+def _pil_pass(x: torch.Tensor, n_out: int, dim: int, rows: int
+              ) -> torch.Tensor:
+    n_in = x.shape[dim]
+    first, kk = _pil_coeffs(n_in, n_out)
+    dev = x.device
+    shape = list(x.shape)
+    shape[dim] = n_out
+    out = torch.empty(shape, dtype=torch.uint8, device=dev)
+    view = [1] * x.dim()
+    view[dim] = -1
+    for o0 in range(0, n_out, rows):
+        o1 = min(o0 + rows, n_out)
+        acc = None
+        for t in range(kk.shape[1]):
+            w = torch.from_numpy(kk[o0:o1, t]).to(dev)
+            if not bool(w.any()):
+                continue
+            idx = torch.from_numpy(np.minimum(first[o0:o1] + t, n_in - 1))
+            term = x.index_select(dim, idx.to(dev)).to(torch.int64) * \
+                w.view(view)
+            acc = term if acc is None else acc + term
+        acc = acc + (1 << (PIL_BITS - 1))
+        out.narrow(dim, o0, o1 - o0).copy_(
+            (acc >> PIL_BITS).clamp_(0, 255))
+    return out
+
+
+def resize_bicubic_pil(x: torch.Tensor, size: Sequence[int],
+                       rows: int = 512) -> torch.Tensor:
+    """``np.asarray(Image.fromarray(x).resize((w, h)))`` (PIL's default
+    bicubic) of a uint8 image [H, W, C] or [H, W], ``size`` = (h, w): the
+    horizontal pass when the width changes, then the vertical pass when
+    the height does, each from its own 22-bit coefficients, accumulated in
+    int64 on ``x``'s device ``rows`` output lines at a time, then
+    ``(sum + 2**21) >> 22`` clipped to uint8."""
+    h, w = int(size[0]), int(size[1])
+    if h < 1 or w < 1:
+        raise ValueError(f"resize_bicubic_pil takes a positive size, got "
+                         f"{(h, w)}")
+    out = x
+    if w != x.shape[1]:
+        out = _pil_pass(out, w, 1, rows)
+    if h != x.shape[0]:
+        out = _pil_pass(out, h, 0, rows)
+    return out.clone() if out is x else out
 
 
 # ---------------------------------------------------------------------------
@@ -613,3 +850,140 @@ def draw_contours(img: np.ndarray, contours, color) -> None:
             _thick_segment(img, prev[i], pts[i], color)
     if xs_all:
         _put(img, np.concatenate(xs_all), np.concatenate(ys_all), color)
+
+
+def _line8(img: np.ndarray, p1, p2, color) -> None:
+    """OpenCV's ``Line`` for LINE_8 between integer points: the line
+    clipped to the image, then its ``LineIterator`` (left to right,
+    Bresenham's error term)."""
+    h, w = img.shape[:2]
+    p1, p2 = [int(p1[0]), int(p1[1])], [int(p2[0]), int(p2[1])]
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h
+            and 0 <= p2[1] < h) and not _clip_line(w, h, p1, p2):
+        return
+    dx, dy = p2[0] - p1[0], p2[1] - p1[1]
+    if dx < 0:
+        dx, dy = -dx, -dy
+        p1, p2 = p2, p1
+    step_x, step_y = 1, 1
+    if dy < 0:
+        dy, step_y = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+        step_x, step_y = step_y, step_x
+    # each step moves "minus" along the major axis and "plus" diagonally
+    minus = (step_x, 0) if not vert else (0, step_x)
+    plus = (0, step_y) if not vert else (step_y, 0)
+    err, plus_delta, minus_delta = dx - 2 * dy, 2 * dx, -2 * dy
+    x, y = p1
+    xs, ys = [], []
+    for _ in range(dx + 1):
+        xs.append(x)
+        ys.append(y)
+        up = err < 0
+        err += minus_delta + (plus_delta if up else 0)
+        x += minus[0] + (plus[0] if up else 0)
+        y += minus[1] + (plus[1] if up else 0)
+    img[ys, xs] = color
+
+
+def _poly_edges(img: np.ndarray, pts: np.ndarray, offset, color,
+                edges: list) -> None:
+    """OpenCV's ``CollectPolyEdges`` (LINE_8, shift 0) for one closed
+    polygon: each edge drawn by ``_line8``, and each edge that is not
+    horizontal kept as [y0, y1, x at y0, dx per row] in XY_SHIFT fixed
+    point, running through its vertices, or through its clipped ends
+    where it leaves the image."""
+    h, w = img.shape[:2]
+    ox, oy = int(offset[0]), int(offset[1])
+    xs = [(int(x) + ox) << XY_SHIFT for x in pts[:, 0]]
+    ys = [int(y) + oy for y in pts[:, 1]]
+    # unit steps inside the image draw just their two ends
+    inside = [0 <= x >> XY_SHIFT < w and 0 <= y < h for x, y in zip(xs, ys)]
+    px, py = [], []
+    x0, y0, in0 = xs[-1], ys[-1], inside[-1]
+    for x1, y1, in1 in zip(xs, ys, inside):
+        t0 = [(x0 + (XY_ONE >> 1)) >> XY_SHIFT, y0]
+        t1 = [(x1 + (XY_ONE >> 1)) >> XY_SHIFT, y1]
+        c0x, c0y, c1x, c1y = x0, y0, x1, y1
+        if in0 and in1:
+            if abs(t1[0] - t0[0]) <= 1 and abs(t1[1] - t0[1]) <= 1:
+                px += (t0[0], t1[0])
+                py += (t0[1], t1[1])
+            else:
+                _line8(img, t0, t1, color)
+        else:
+            _line8(img, t0, t1, color)
+            _clip_line(w, h, t0, t1)
+            if t0[1] != t1[1]:
+                c0y, c1y = t0[1], t1[1]
+            c0x, c1x = t0[0] << XY_SHIFT, t1[0] << XY_SHIFT
+        if y0 != y1:
+            dx = _tdiv(c1x - c0x, c1y - c0y)
+            if y0 < y1:
+                edges.append([y0, y1, c0x + (y0 - c0y) * dx, dx])
+            else:
+                edges.append([y1, y0, c1x + (y1 - c1y) * dx, dx])
+        x0, y0, in0 = x1, y1, in1
+    if px:
+        img[py, px] = color
+
+
+def _fill_edges(img: np.ndarray, edges: list, color) -> None:
+    """OpenCV's ``FillEdgeCollection``: the edges sorted by (y0, x, dx);
+    on each row the active edges in x order, paired, and the pixels whose
+    centres lie between a pair filled (``ceil(x_left)`` to
+    ``floor(x_right)``), then each paired edge stepped by its dx."""
+    h, w = img.shape[:2]
+    if len(edges) < 2:
+        return
+    y_min = min(e[0] for e in edges)
+    y_max = max(e[1] for e in edges)
+    ends = [e[2] for e in edges] + [e[2] + (e[1] - e[0]) * e[3]
+                                    for e in edges]
+    if y_max < 0 or y_min >= h or max(ends) < 0 or \
+            min(ends) >= (w << XY_SHIFT):
+        return
+    edges = sorted(edges, key=lambda e: (e[0], e[2], e[3]))
+    y_max = min(y_max, h)
+    active, i, total = [], 0, len(edges)
+    y = edges[0][0]
+    while y < y_max:
+        active = [e for e in active if e[1] != y]
+        merged, j = [], 0
+        while j < len(active) or (i < total and edges[i][0] == y):
+            if j < len(active) and not (i < total and edges[i][0] == y
+                                        and active[j][2] >= edges[i][2]):
+                merged.append(active[j])
+                j += 1
+            else:
+                merged.append(edges[i])
+                i += 1
+        for k in range(0, len(merged) - 1, 2):
+            a, b = merged[k], merged[k + 1]
+            if y >= 0:
+                lo, hi = (b[2], a[2]) if a[2] > b[2] else (a[2], b[2])
+                x1 = (lo + XY_ONE - 1) >> XY_SHIFT
+                x2 = hi >> XY_SHIFT
+                if x1 < w and x2 >= 0:
+                    img[y, max(x1, 0):min(x2, w - 1) + 1] = color
+            a[2] += a[3]
+            b[2] += b[3]
+        active = sorted(merged, key=lambda e: e[2])  # stable, as OpenCV's
+        y += 1
+
+
+def fill_contours(img: np.ndarray, contours, idx: int, color,
+                  offset=(0, 0)) -> None:
+    """``cv2.drawContours(img, contours, idx, color, thickness=-1,
+    offset=offset)`` in place on a host array: contour ``idx`` (every
+    contour when ``idx`` is negative) filled as one polygon set, even-odd,
+    LINE_8."""
+    chosen = range(len(contours)) if idx < 0 else [idx]
+    edges: list = []
+    for c in chosen:
+        pts = np.asarray(contours[c]).reshape(-1, 2)
+        if len(pts):
+            _poly_edges(img, pts, offset, color, edges)
+    _fill_edges(img, edges, color)

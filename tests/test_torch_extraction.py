@@ -152,6 +152,31 @@ def test_ct_building_blocks_equal_jax():
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("spacing, new", [
+    ((2.0, 1.0, 1.0), (1.0, 1.5, 1.5)),      # up in z, down in y and x
+    ((0.5, 3.1, 2.2), (1.0, 1.5, 1.5)),      # down in z, up in y and x
+    ((1.0, 0.7, 4.0), (1.0, 1.5, 1.5)),      # z kept: not contracted
+])
+def test_resample_xla_equals_jax(spacing, new):
+    """The device resample against jax.image.resize's trilinear (which
+    antialiases when it downsamples): the same shape and real spacing,
+    the values at rel 1e-5 of the largest."""
+    vol = np.random.default_rng(7).normal(size=(9, 31, 17)).astype(
+        np.float32)
+    want, want_sp = jct.resample_xla(vol, spacing, new)
+    got, got_sp = tct.resample_xla(vol, spacing, new, device="cpu")
+    want = np.asarray(want)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got_sp, want_sp)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    # F.interpolate(trilinear) does not antialias: it is not this function
+    plain = torch.nn.functional.interpolate(
+        torch.from_numpy(vol)[None, None], size=want.shape,
+        mode="trilinear", align_corners=False)[0, 0].numpy()
+    assert np.abs(plain - want).max() > 1e-3 * np.abs(want).max()
+
+
 def _write_series(d, vol_hu, spacing=(2.0, 1.5, 1.5), jpeg_every=0):
     os.makedirs(d)
     for i in range(vol_hu.shape[0]):

@@ -34,7 +34,7 @@ def t(x):
 
 
 def test_jet_table_is_matplotlibs():
-    np.testing.assert_array_equal(image_ops.jet_table(),
+    np.testing.assert_array_equal(image_ops.colormap_table("jet"),
                                   cm.jet(np.arange(256))[:, :3])
 
 
@@ -49,7 +49,7 @@ def test_jet_matches_matplotlib(dtype):
         [0.0, 1.0, -1e-9, 1 + 1e-7, 2.0, -5.0, np.nan, np.inf, -np.inf]])
     x = x.astype(dtype).reshape(2, -1)
     want = (cm.jet(x)[..., :3] * 255).astype(np.uint8)
-    got = image_ops.jet(t(x))
+    got = image_ops.colormap("jet")(t(x))
     assert got.dtype == torch.uint8 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
 

@@ -174,7 +174,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "cli/doctor.py", "analysis.py", "cli/summarize.py",
                 "utils/contours.py", "utils/tiff.py", "utils/jpeg.py",
                 "data/wsi.py", "cli/create_patches.py",
-                "cli/extract_features_fp.py"):
+                "cli/extract_features_fp.py", "interpret/heatmaps.py",
+                "interpret/explanations.py"):
         assert os.path.join("multimodalfusion_tpu_torch", new) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]

@@ -6,8 +6,7 @@ stage-4 trimodal early-fcnn head (two folds), a max_net, and a 2-sequence
 tensor-fusion radio AMIL, which the port serves from the JAX export and
 the flax checkpoint beside it.  attr.csv, attr_orig.csv, scores.csv and
 both omic CSVs agree at rel 1e-4 with identical ids, groups, columns and
-order.  Also: what the port does not do raises, naming its ROADMAP.md
-item; its YAML reader against PyYAML; its CSV writer and group means
+order.  Also: its YAML reader against PyYAML; its CSV writer and group means
 against pandas."""
 import csv
 import os
@@ -36,7 +35,6 @@ from multimodalfusion_tpu_torch.cli.infer import main as port_infer
 from multimodalfusion_tpu_torch.utils import table, yaml_subset
 
 port_heatmaps = port_hm_mod.main
-ROADMAP_ITEM = "ROADMAP.md, port queue item 6"
 
 
 def read(path):
@@ -198,21 +196,6 @@ def test_heatmap_omic_branch_matches_jax(trained, tmp_path, monkeypatch,
     same_csv(tmp_path / "port" / "omic_attr_global.csv",
              tmp_path / "jax" / "omic_attr_global.csv", {"gene"})
     assert not list((tmp_path / "port").glob("*.png"))
-
-
-def test_unported_parts_raise_before_any_work(trained, tmp_path):
-    """The path branch needs WSI stage 1 (a slide reader); it raises,
-    naming its ROADMAP.md item, before any work.  The radio branch's slice
-    images (scan_list) are ported: tests/test_torch_gradcam_cli.py."""
-    _, _, exps = trained
-    path_cfg = _config(tmp_path / "path.yaml", {
-        "exp_arguments": {"branch": "path",
-                          "save_dir": str(tmp_path / "path")},
-        "data_arguments": {"process_list": "slides.csv"},
-        "model_arguments": {"ckpt_path": str(exps["s2r"])}})
-    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM + "d"):
-        port_heatmaps(["--config", path_cfg, "--device", "cpu"])
-    assert not (tmp_path / "path").exists()
 
 
 def test_new_clis_need_cuda_unless_cpu_is_asked(trained, tmp_path):
