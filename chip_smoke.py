@@ -108,8 +108,10 @@ Phases, each fatal on failure:
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak) and,
                 for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
-                the same shape as a yardstick; device time per sub-kernel
-                under torch.profiler; a training step's breakdown with
+                the same shape as a yardstick, for the bf16 backward
+                cuBLAS's bf16 products of its three shapes, each alone;
+                device time per sub-kernel under torch.profiler; a
+                training step's breakdown with
                 CUDA events: load, collate and the copy from page-locked
                 buffers on the host clock, beside the yardstick of
                 pad_bags_plain and a pageable copy of the same batch;
@@ -117,6 +119,17 @@ Phases, each fatal on failure:
                 with the CTAs of the plan each launch ran (log line only),
                 and the host time per call of each wrapper against the
                 launch it wraps.
+  5b. bf16step -- the JAX package's benchmark step (bench.py) through the
+                port's engine: gated PathAMIL small, nll_surv, Adam, B=48
+                bags of 4096 x 1024 f32 with 90% valid rows drawn on the
+                card, bag_dtype bfloat16, without and with --drop_out.
+                Per arm three kernel steps against three plain ones (one
+                forward and one backward launch per kernel step, none in
+                the plain ones; losses at rel 2e-2, parameters to 2e-2 of
+                their movement, at most 1e-4 of the elements over one
+                step), the step split with CUDA events as [timing]'s
+                f32 step, and its torch.profiler kernel time and busy
+                share.  Alone: --phases bf16step.
   6. extract  -- radiology stage 1 on the card: a glioma cohort (8
                 subjects x 4 sequences of 155 x 240 x 240 int16 NIfTI) and
                 a lung cohort (2 DICOM series of 60 x 512 x 512 int16, one
@@ -258,6 +271,17 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # last-bit difference in f32 can round one element the other way, so bf16
 # holds at 2e-2 like its dh
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# kernel train steps against plain ones (_steps_agree), by bag dtype: the
+# losses' relative error, each tensor's |difference| over |movement|, and
+# the share of elements allowed to differ by more than one Adam step (lr).
+# f32 differs in the order of f32 sums only.  bf16 casts dh and
+# [dpa | dpb] to bf16 on both sides after f32 sums in another order, so an
+# element can round one bf16 ulp (2^-8) the other way; it holds at the
+# kernels' own bf16 tolerance, and where a parameter's gradient is near 0
+# Adam turns such a difference into a step of the other sign (up to 2 lr;
+# 1-2 of the 400k elements of a B=8 bf16 PathAMIL in 3 steps on the CPU),
+# so a share of 1e-4 of the elements may differ by more than lr.
+STEP_TOL = {"float32": (1e-4, 1e-3, 0.0), "bfloat16": (2e-2, 2e-2, 1e-4)}
 # the radiology bags of a B=8 batch: 140-155 common slices, padded to 256
 RADIO_LENS = [155, 140, 151, 147, 143, 155, 149, 152]
 # (D, Da) of the radiology attention nets: RadioAMIL and mm_attention_mil
@@ -825,12 +849,14 @@ def _run_steps(cfg, batches, plain=False):
                           for k, v in model.state_dict().items()}
 
 
-def _steps_agree(tag, cfg, batches, launch_counters):
+def _steps_agree(tag, cfg, batches, launch_counters, arm=""):
     """Three train steps through the kernels against three through the
     plain versions on the card, from one init and the same generator
     seeds: each kernel launches once per kernel step and never in the
-    plain steps; the losses agree at rel 1e-4 and the parameters to 1e-3
-    of their movement (each element to one step, lr)."""
+    plain steps; the losses and parameters agree within ``STEP_TOL`` of
+    the bag dtype (f32: losses at rel 1e-4, parameters to 1e-3 of their
+    movement, each element to one step, lr).  ``arm`` names the run in
+    the log line."""
     before = {c.__name__: c.launches for c in launch_counters}
     k_loss, init, k_state = _run_steps(cfg, batches)
     mid = {c.__name__: c.launches for c in launch_counters}
@@ -845,23 +871,29 @@ def _steps_agree(tag, cfg, batches, launch_counters):
     # Adam divides by sqrt(v): an element whose gradient is near 0
     # turns a last-bit difference of the summation order into a
     # visible part of one step.  So each tensor's difference is held
-    # against how far it moved (1e-3 of that, in norm) and each element
-    # to one step (lr).
-    e_state, e_elem = 0.0, 0.0
+    # against how far it moved (in norm) and each element to one step
+    # (lr), all but the share STEP_TOL allows.
+    tol_loss, tol_state, tol_share = STEP_TOL[cfg.bag_dtype]
+    e_state, e_elem, n_over, n_all = 0.0, 0.0, 0, 0
     for k in init:
         moved = float((p_state[k] - init[k]).norm())
-        diff = float((k_state[k] - p_state[k]).norm())
-        e_state = max(e_state, diff / max(moved, 1e-30))
-        e_elem = max(e_elem, float((k_state[k] - p_state[k]).abs()
-                                   .max()))
-    log(f"[{tag}] 3 steps kernel vs plain on the card: losses "
+        delta = (k_state[k] - p_state[k]).abs()
+        e_state = max(e_state, float(delta.norm()) / max(moved, 1e-30))
+        e_elem = max(e_elem, float(delta.max()))
+        n_over += int((delta > cfg.lr).sum())
+        n_all += delta.numel()
+    log(f"[{tag}] {arm}3 steps kernel vs plain on the card: losses "
         f"{', '.join(f'{v:.6f}' for v in k_loss)} vs "
         f"{', '.join(f'{v:.6f}' for v in p_loss)}; max rel err "
-        f"{e_loss:.2e} (tol 1e-4); parameters: max |diff| / |moved| "
-        f"{e_state:.2e} (tol 1e-3), max element {e_elem:.2e} "
-        f"(tol lr = {cfg.lr:g})")
-    if e_loss > 1e-4 or e_state > 1e-3 or e_elem > cfg.lr:
+        f"{e_loss:.2e} (tol {tol_loss:g}); parameters: max |diff| / "
+        f"|moved| {e_state:.2e} (tol {tol_state:g}), max element "
+        f"{e_elem:.2e}, {n_over} of {n_all} elements over lr = "
+        f"{cfg.lr:g} (tol {tol_share:g} of them)")
+    if (e_loss > tol_loss or e_state > tol_state
+            or n_over > tol_share * n_all):
         raise AssertionError("kernel and plain train steps disagree")
+    return {"loss_rel": e_loss, "moved_rel": e_state, "max_element": e_elem,
+            "elements_over_lr": n_over}
 
 
 @contextlib.contextmanager
@@ -3428,13 +3460,36 @@ def phase_timing(B=32, N=4096, D=256, Da=256):
     timed plain, kernel, plain; gated, at the training and serving shape.
     The f32 forward also against cuBLAS's f32 product h [Wa | Wb] of the
     same shape (TF32 off): not the same function (no score, softmax or
-    pooling), a yardstick for the SGEMM core on its dominant product."""
+    pooling), a yardstick for the SGEMM core on its dominant product.  The
+    bf16 backward against cuBLAS's bf16 products of its three shapes, each
+    timed alone (scores h [Wa | Wb], dh = dp Wcat, dW = h^T dp at M = B N
+    rows): a yardstick for its tensor-core products, which the port never
+    calls.  The forward variants and the backward's dropout and bf16
+    variants are also profiled kernel by kernel."""
     import torch
     from multimodalfusion_tpu_torch.ops import mil_attention as mil
     res = {"mil_pool_fwd": {}, "mil_pool_bwd": {}}
     for dtype in ("float32", "bfloat16"):
         h, mask, params = make_pool_case(B, N, D, Da, dtype, seed=123)
-        cublas_ms = None
+        cublas_ms = bwd_cublas = None
+        if dtype == "bfloat16":
+            hv = h.view(-1, D)
+            w = torch.cat([params.Wa, params.Wb], 1).to(h.dtype)
+            wcat = w.t().contiguous()
+            dp = torch.randn(B * N, 2 * Da, device="cuda").to(h.dtype)
+            with torch.no_grad():
+                bwd_cublas = {"scores": _time_ms(lambda: hv @ w),
+                              "dh": _time_ms(lambda: dp @ wcat),
+                              "dW": _time_ms(lambda: hv.t() @ dp)}
+            bwd_cublas["sum"] = sum(bwd_cublas.values())
+            gflop = 2 * B * N * D * 2 * Da / 1e9
+            log(f"[timing] yardstick: cuBLAS bf16 products of the backward "
+                f"({B * N} x {D} x {2 * Da}, {gflop:.1f} GFLOP each, "
+                f"alone): h.view(-1, {D}) @ cat([Wa, Wb], 1) "
+                f"{bwd_cublas['scores']:.3f} ms, dp @ Wcat "
+                f"{bwd_cublas['dh']:.3f} ms, h.view(-1, {D}).t() @ dp "
+                f"{bwd_cublas['dW']:.3f} ms; sum {bwd_cublas['sum']:.3f} ms")
+            del dp
         if dtype == "float32":
             assert not torch.backends.cuda.matmul.allow_tf32
             w = torch.cat([params.Wa, params.Wb], 1)
@@ -3487,14 +3542,20 @@ def phase_timing(B=32, N=4096, D=256, Da=256):
                         "max_abs_err": err}
                     if name == "mil_pool_fwd" and cublas_ms is not None:
                         res[name][variant]["cublas_product_ms"] = cublas_ms
+                    yardstick = ""
+                    if name == "mil_pool_bwd" and bwd_cublas is not None:
+                        res[name][variant]["cublas_products_ms"] = bwd_cublas
+                        yardstick = (f", cuBLAS bf16 products "
+                                     f"{bwd_cublas['sum']:.3f} ms")
                     log(f"[timing] {name} {variant}: kernel {ms:.3f} ms, "
                         f"plain {plain1:.3f}/{plain2:.3f} ms, bound "
                         f"{bound_ms * 1e3:.1f} us ({bound_by}), "
                         f"kernel/bound {ms / bound_ms:.1f}, max abs err "
-                        f"{err:.2e}")
+                        f"{err:.2e}{yardstick}")
                     # every forward variant and the backward's training
-                    # variants, kernel by kernel
-                    if dropout or name == "mil_pool_fwd":
+                    # and bf16 variants, kernel by kernel
+                    if (dropout or name == "mil_pool_fwd"
+                            or dtype == "bfloat16"):
                         per_kernel, _ = _device_time(kern)
                         res[name][variant]["profile_us"] = per_kernel
                         log(f"[timing] {name} {variant}, torch.profiler "
@@ -3506,64 +3567,69 @@ def phase_timing(B=32, N=4096, D=256, Da=256):
 
 def phase_timing_radio(B=8, N=256, D=256, Da=256):
     """Both kernels at the radiology shape (RadioAMIL small: B=8 bags of
-    140-155 slices padded to 256, D=Da=256, gated, f32): the serving and
-    evaluation forward, the training forward (dropout) and the training
-    backward (dropout) and its variant without; kernel vs plain on the same
-    inputs, timed plain, kernel, plain; the bound; and, on the log line
-    only, how many CTAs each launch gave the card's SMs, from the plan the
-    wrapper launched with."""
+    140-155 slices padded to 256, D=Da=256, gated, f32, then the same
+    bags in bf16): the serving and evaluation forward, the training
+    forward (dropout) and the training backward (dropout) and its variant
+    without; kernel vs plain on the same inputs, timed plain, kernel,
+    plain; the bound; and, on the log line only, how many CTAs each launch
+    gave the card's SMs, from the plan the wrapper launched with."""
     import torch
     from multimodalfusion_tpu_torch.ops import mil_attention as mil
     res = {"mil_pool_fwd": {}, "mil_pool_bwd": {}}
-    h, mask, params = make_pool_case(B, N, D, Da, "float32", seed=321,
-                                     lens=RADIO_LENS)
+    h32, mask, params = make_pool_case(B, N, D, Da, "float32", seed=321,
+                                       lens=RADIO_LENS)
     gen = torch.Generator(device="cuda").manual_seed(9)
     masks = mil.make_dropout_masks(gen, (B, N, Da), True)
     g = torch.randn(B, D, generator=gen, device="cuda")
     sms = mil._sms(torch.device("cuda"))
     launched = {"mil_pool_fwd": mil._fused_pool_cuda,
                 "mil_pool_bwd": mil._fused_pool_bwd_cuda}
-    for dropout in (False, True):
-        da, db = masks if dropout else (None, None)
-        variant = (f"B={B} N={N} D={D} Da={Da} float32 gated"
-                   + (" dropout" if dropout else ""))
-        with torch.no_grad():
-            out, _ = mil._fused_pool_cuda(h, mask, params, True, da, db)
-            ref, ref_ml = mil._pool_plain(h, mask, params, True, da, db)
-            kb = mil._fused_pool_bwd_cuda(h, mask, params, ref, ref_ml, g,
-                                          True, da, db)
-            pb = mil._pool_bwd_plain(h, mask, params, ref, ref_ml, g, True,
-                                     da, db)
-            runs = {
-                "mil_pool_fwd": ((out,), (ref,), lambda: mil._fused_pool_cuda(
-                    h, mask, params, True, da, db), lambda: mil._pool_plain(
-                    h, mask, params, True, da, db)),
-                "mil_pool_bwd": ((kb[0], *kb[1]), (pb[0], *pb[1]),
-                                 lambda: mil._fused_pool_bwd_cuda(
-                                     h, mask, params, ref, ref_ml, g, True,
-                                     da, db),
-                                 lambda: mil._pool_bwd_plain(
-                                     h, mask, params, ref, ref_ml, g, True,
-                                     da, db)),
-            }
-            for name, (got, want, kern, plain) in runs.items():
-                err = _max_abs(got, want)
-                plain1 = _time_ms(plain, iters=50)
-                ms = _time_ms(kern, iters=50)
-                ctas = launched[name].last_plan.ctas()
-                plain2 = _time_ms(plain, iters=50)
-                bound_ms, bound_by = _bound(h, mask, Da, True, dropout,
-                                            backward=name == "mil_pool_bwd")
-                res[name][variant] = {
-                    "ms": ms, "plain_ms": min(plain1, plain2),
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "max_abs_err": err}
-                log(f"[timing] radio {name} {variant}: kernel {ms:.4f} ms, "
-                    f"plain {plain1:.4f}/{plain2:.4f} ms, bound "
-                    f"{bound_ms * 1e3:.2f} us ({bound_by}), kernel/bound "
-                    f"{ms / bound_ms:.1f}, max abs err {err:.2e}; CTAs per "
-                    f"launch {ctas} on {sms} SMs")
-    _log_wrapper_host_time(h, mask, params, g)
+    for dtype in ("float32", "bfloat16"):
+        h = h32.to(getattr(torch, dtype))
+        for dropout in (False, True):
+            da, db = masks if dropout else (None, None)
+            variant = (f"B={B} N={N} D={D} Da={Da} {dtype} gated"
+                       + (" dropout" if dropout else ""))
+            with torch.no_grad():
+                out, _ = mil._fused_pool_cuda(h, mask, params, True, da, db)
+                ref, ref_ml = mil._pool_plain(h, mask, params, True, da, db)
+                kb = mil._fused_pool_bwd_cuda(h, mask, params, ref, ref_ml,
+                                              g, True, da, db)
+                pb = mil._pool_bwd_plain(h, mask, params, ref, ref_ml, g,
+                                         True, da, db)
+                runs = {
+                    "mil_pool_fwd": (
+                        (out,), (ref,),
+                        lambda: mil._fused_pool_cuda(h, mask, params, True,
+                                                     da, db),
+                        lambda: mil._pool_plain(h, mask, params, True, da,
+                                                db)),
+                    "mil_pool_bwd": (
+                        (kb[0], *kb[1]), (pb[0], *pb[1]),
+                        lambda: mil._fused_pool_bwd_cuda(
+                            h, mask, params, ref, ref_ml, g, True, da, db),
+                        lambda: mil._pool_bwd_plain(
+                            h, mask, params, ref, ref_ml, g, True, da, db)),
+                }
+                for name, (got, want, kern, plain) in runs.items():
+                    err = _max_abs(got, want)
+                    plain1 = _time_ms(plain, iters=50)
+                    ms = _time_ms(kern, iters=50)
+                    ctas = launched[name].last_plan.ctas()
+                    plain2 = _time_ms(plain, iters=50)
+                    bound_ms, bound_by = _bound(
+                        h, mask, Da, True, dropout,
+                        backward=name == "mil_pool_bwd")
+                    res[name][variant] = {
+                        "ms": ms, "plain_ms": min(plain1, plain2),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "max_abs_err": err}
+                    log(f"[timing] radio {name} {variant}: kernel "
+                        f"{ms:.4f} ms, plain {plain1:.4f}/{plain2:.4f} ms, "
+                        f"bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+                        f"kernel/bound {ms / bound_ms:.1f}, max abs err "
+                        f"{err:.2e}; CTAs per launch {ctas} on {sms} SMs")
+    _log_wrapper_host_time(h32, mask, params, g)
     return res
 
 
@@ -3620,27 +3686,70 @@ def _pinned_copy(batch, pool):
     return out
 
 
+STEP_STAGES = ("fc fwd", "pool fwd", "head+loss", "pool bwd", "fc bwd",
+               "optimizer")
+
+
+def _step_parts(cfg):
+    """(model on the card in training mode, optimizer, loss spec) of
+    ``cfg`` from the seeded init."""
+    import torch
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    model = ttrain.build_model(cfg, torch.Generator().manual_seed(0)).cuda()
+    model.train()
+    return (model, ttrain.make_optimizer(cfg, model.parameters()),
+            ttrain.make_loss_spec(cfg))
+
+
+def _device_step(model, opt, spec, kw, lab, gen, timed=False):
+    """One training step of a PathAMIL on inputs already on the card
+    (``kw``: bags and mask; ``lab``: the labels).  ``timed``: CUDA events
+    split it into ``STEP_STAGES`` (ms each, returned after a
+    synchronize); autograd hooks mark where the backward leaves the head
+    (gradient of the pooled features) and the pooling (gradient of the FC
+    output)."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    mark = (lambda i: ev[i].record()) if timed else (lambda i: None)
+    opt.zero_grad(set_to_none=True)
+    mark(0)
+    h = model.embed(kw["bags"], gen)
+    mark(1)
+    M = model.pool(h, kw["mask"], gen).float()
+    mark(2)
+    out = model.head(M)
+    loss = spec.apply(hazards=out["hazards"], S=out["S"], risks=out["risk"],
+                      Y=lab["Y"], times=lab["t"], c=lab["c"],
+                      valid=lab["valid"])
+    if timed:
+        M.register_hook(lambda grad: ev[4].record())
+        h.register_hook(lambda grad: ev[5].record())
+    loss.backward()
+    mark(6)
+    opt.step()
+    mark(7)
+    if not timed:
+        return None
+    torch.cuda.synchronize()
+    return [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+            ev[2].elapsed_time(ev[4]), ev[4].elapsed_time(ev[5]),
+            ev[5].elapsed_time(ev[6]), ev[6].elapsed_time(ev[7])]
+
+
 def phase_step_breakdown(cfg, batches, host_ms):
     """One training step split into stages with CUDA events (host clock
     for the load, the collation and the copy), averaged over ``batches``
     after one untimed step.  The step copies its batch from page-locked
     buffers (``non_blocking``), as training on the card does; load,
-    collate and the plain yardstick come from ``_collect_batches``.
-    Autograd hooks mark where the backward leaves the head (gradient of
-    the pooled features) and the pooling (gradient of the FC output)."""
+    collate and the plain yardstick come from ``_collect_batches``."""
     import torch
     from multimodalfusion_tpu_torch.data.bags import PinnedPool
     from multimodalfusion_tpu_torch.engine import train as ttrain
     dev = torch.device("cuda")
     pool = PinnedPool()
-    model = ttrain.build_model(cfg, torch.Generator().manual_seed(0)).cuda()
-    model.train()
-    opt = ttrain.make_optimizer(cfg, model.parameters())
-    spec = ttrain.make_loss_spec(cfg)
+    model, opt, spec = _step_parts(cfg)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    stages = ("fc fwd", "pool fwd", "head+loss", "pool bwd", "fc bwd",
-              "optimizer")
-    spent = dict.fromkeys(("copy",) + stages, 0.0)
+    spent = dict.fromkeys(("copy",) + STEP_STAGES, 0.0)
     step_ms = 0.0
     for i, batch in enumerate([batches[0]] + list(batches)):
         timed = i > 0
@@ -3650,32 +3759,11 @@ def phase_step_breakdown(cfg, batches, host_ms):
         lab = ttrain.label_inputs(batch, dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-        opt.zero_grad(set_to_none=True)
-        ev[0].record()
-        h = model.embed(kw["bags"], gen)
-        ev[1].record()
-        M = model.pool(h, kw["mask"], gen).float()
-        ev[2].record()
-        out = model.head(M)
-        loss = spec.apply(hazards=out["hazards"], S=out["S"],
-                          risks=out["risk"], Y=lab["Y"], times=lab["t"],
-                          c=lab["c"], valid=lab["valid"])
-        ev[3].record()
-        M.register_hook(lambda grad: ev[4].record())
-        h.register_hook(lambda grad: ev[5].record())
-        loss.backward()
-        ev[6].record()
-        opt.step()
-        ev[7].record()
-        torch.cuda.synchronize()
+        parts = _device_step(model, opt, spec, kw, lab, gen, timed=True)
         if timed:
             spent["copy"] += (t1 - t0) * 1e3
             step_ms += (time.perf_counter() - t0) * 1e3
-            parts = [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
-                     ev[2].elapsed_time(ev[4]), ev[4].elapsed_time(ev[5]),
-                     ev[5].elapsed_time(ev[6]), ev[6].elapsed_time(ev[7])]
-            for k, v in zip(stages, parts):
+            for k, v in zip(STEP_STAGES, parts):
                 spent[k] += v
     n = len(batches)
     res = {"load": float(np.mean(host_ms["load"])),
@@ -3716,6 +3804,81 @@ def phase_step_breakdown(cfg, batches, host_ms):
         f"largest: "
         + ", ".join(f"{k} {v:.1f} us" for k, v in top))
     return res
+
+
+def _bench_batch(B, N, seed):
+    """The JAX package's benchmark batch (bench.py ``_setup``): bags [B, N,
+    1024] f32 from a standard normal and a mask with 90% valid rows, drawn
+    on the card from ``seed``; labels Y in 0..3, t in [1, 100), c in {0, 1}
+    from numpy.  Returns (the host batch the engine's steps take, the bags
+    and mask on the card, the labels on the card)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bags = torch.randn(B, N, 1024, generator=gen, device="cuda")
+    mask = (torch.rand(B, N, generator=gen, device="cuda") < 0.9).float()
+    rng = np.random.default_rng(seed)
+    labels = {"Y": rng.integers(0, 4, size=B).astype(np.int32),
+              "t": rng.uniform(1, 100, size=B).astype(np.float32),
+              "c": rng.integers(0, 2, size=B).astype(np.float32),
+              "valid": np.ones(B, np.float32)}
+    batch = dict(labels, path_bags=bags.cpu().numpy(),
+                 path_mask=mask.cpu().numpy())
+    return batch, {"bags": bags, "mask": mask}, {
+        k: torch.from_numpy(v).cuda() for k, v in labels.items()}
+
+
+def phase_bf16step(launch_counters, B=48, N=4096, reps=5):
+    """The JAX package's benchmark step through the port's engine: gated
+    PathAMIL small with nll_surv and Adam at B=48 bags of 4096 x 1024 f32
+    (90% valid rows), ``bag_dtype="bfloat16"`` (bench.py), without and
+    with attention dropout.  Per arm: three train steps through the
+    kernels against three through the plain versions (``_steps_agree``,
+    one forward and one backward launch per kernel step, the bf16
+    ``STEP_TOL``); the step on bags already on the card split with CUDA
+    events as the f32 step is (``STEP_STAGES``, mean of ``reps`` after one
+    untimed step); and the same step under torch.profiler: kernel time,
+    wall and busy share.  Returns per arm the agreement, the split and
+    the profile, and the launch counts of the kernel steps."""
+    import torch
+    from multimodalfusion_tpu_torch.engine import train as ttrain
+    batch, kw, lab = _bench_batch(B, N, seed=0)
+    res, launches = {}, {}
+    for drop in (False, True):
+        arm = "dropout" if drop else "no dropout"
+        cfg = ttrain.TrainConfig(model_type="path_attention_mil",
+                                 mode="path", bag_loss="nll_surv",
+                                 gate_path=True, batch_size=B,
+                                 bag_dtype="bfloat16", drop_out=drop,
+                                 device="cuda")
+        before = {c.__name__: c.launches for c in launch_counters}
+        agree = _steps_agree("bf16step", cfg, [batch] * 3, launch_counters,
+                             arm=f"{arm}: ")
+        launches[arm] = {c.__name__: c.launches - before[c.__name__]
+                         for c in launch_counters}
+        model, opt, spec = _step_parts(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        parts = [_device_step(model, opt, spec, kw, lab, gen, timed=True)
+                 for _ in range(reps + 1)][1:]
+        split = {k: float(np.mean([p[i] for p in parts]))
+                 for i, k in enumerate(STEP_STAGES)}
+        split["step (sum)"] = sum(split.values())
+        per_kernel, wall_ms = _device_time(
+            lambda: _device_step(model, opt, spec, kw, lab, gen), reps)
+        busy_ms = sum(per_kernel.values()) / 1e3
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[bf16step] {arm}: B={B} N={N} x 1024 f32 bags on the card, "
+            f"PathAMIL small gated, nll_surv, bf16, mean of {reps} steps "
+            f"(CUDA events): " + ", ".join(f"{k} {v:.3f} ms"
+                                           for k, v in split.items()))
+        log(f"[bf16step] {arm}: the step under torch.profiler: wall "
+            f"{wall_ms:.3f} ms, kernels {busy_ms:.3f} ms "
+            f"({busy_ms / wall_ms:.1%} busy); largest: "
+            + ", ".join(f"{k} {v:.1f} us" for k, v in top))
+        res[arm] = dict(agree, split_ms=split, profiled_wall_ms=wall_ms,
+                        profiled_kernels_ms=busy_ms, profile_us=per_kernel)
+        del model, opt
+    log(f"[bf16step] launches in the kernel steps: {launches}")
+    return res, launches
 
 
 def _expected_yamls(root, all_folds):
@@ -4542,8 +4705,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,omic,pretrained,radio,extract,"
-                         "gradcam,interpret,timing,dist,ops,report,wsi,"
-                         "heatmap "
+                         "gradcam,interpret,timing,bf16step,dist,ops,"
+                         "report,wsi,heatmap "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -4598,6 +4761,8 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_timing_radio()
         if "train" in phases:
             phase_step_breakdown(cfg, batches, host_ms)
+    if "bf16step" in phases:
+        phase_bf16step(counters)
     if {"extract", "gradcam"} & set(phases):
         # [gradcam] runs on [extract]'s cohort
         _, cohort = phase_extract(counters, radio_exps["radio"], work)
@@ -4650,6 +4815,9 @@ def _full(counters, work, t_all) -> int:
     timing_radio = phase_timing_radio()
     step = phase_step_breakdown(cfg, batches, host_ms)
     log(f"[timing] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    bf16step, bf16step_launches = phase_bf16step(counters)
+    log(f"[bf16step] done in {time.perf_counter() - t:.1f} s")
     # stage 1 last, after every earlier phase, on [radio]'s experiment
     t = time.perf_counter()
     extract_launches, cohort = phase_extract(counters, radio_exps["radio"],
@@ -4701,6 +4869,11 @@ def _full(counters, work, t_all) -> int:
         for path, counts in list(omic_launches.items()) + list(
                 pretrained_launches.items()):
             entry[f"launches_{path}"] = counts[counter_of[name]]
+        for arm, counts in bf16step_launches.items():
+            entry[f"launches_bf16step_{arm.replace(' ', '_')}"] = counts[
+                counter_of[name]]
+        if name == "mil_pool_bwd":
+            entry["bf16step"] = bf16step
         for path, counts in radio_launches.items():
             entry[f"launches_radio_{path}"] = counts[counter_of[name]]
         for path, counts in interpret_launches.items():

@@ -277,9 +277,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _TILE_ROWS = {torch.float32: 128, torch.bfloat16: 64}
 _MAX_D = 512     # MAX_D in both sources
 # GT of sgemm_core.cuh (the backward's row tile, as the f32 forward's,
-# and the SGEMM output tile), its GK (the core's staged depth) and the
-# backward source's VG (row tiles per group of column sums)
-_BWD_TILE, _BWD_DEPTH, _BWD_VEC_GROUP = _TILE_ROWS[torch.float32], 8, 64
+# and the output tile of both its cores), the staged depth of the dW
+# kernel by bag dtype (GK of sgemm_core.cuh for f32, BK of mma_core.cuh
+# for bf16) and the backward source's VG (row tiles per group of column
+# sums)
+_BWD_TILE, _BWD_VEC_GROUP = _TILE_ROWS[torch.float32], 64
+_BWD_DEPTH = {torch.float32: 8, torch.bfloat16: 32}
 
 
 def _fwd_lib():
@@ -310,12 +313,15 @@ def _bwd_lib():
                                      + [_VP])
         lib.mil_pool_bwd.restype = ctypes.c_int
         lib.mil_pool_bwd_dw_ctas_per_sm.argtypes = [_INT]
-        built = (lib.mil_pool_bwd_tile(), lib.mil_pool_bwd_depth(),
-                 lib.mil_pool_bwd_vec_group())
-        want = (_BWD_TILE, _BWD_DEPTH, _BWD_VEC_GROUP)
+        lib.mil_pool_bwd_depth.argtypes = [_INT]
+        built = (lib.mil_pool_bwd_tile(), lib.mil_pool_bwd_depth(0),
+                 lib.mil_pool_bwd_depth(1), lib.mil_pool_bwd_vec_group())
+        want = (_BWD_TILE, _BWD_DEPTH[torch.float32],
+                _BWD_DEPTH[torch.bfloat16], _BWD_VEC_GROUP)
         if built != want:
-            raise RuntimeError(f"mil_pool_bwd was built with (GT, GK, VG) "
-                               f"= {built}, the wrapper expects {want}")
+            raise RuntimeError(f"mil_pool_bwd was built with (GT, f32 depth, "
+                               f"bf16 depth, VG) = {built}, the wrapper "
+                               f"expects {want}")
     return lib
 
 
@@ -423,7 +429,7 @@ def _ptr(t) -> Optional[int]:
 # ---------------------------------------------------------------------------
 
 FWD_MULTIPLES = (32, 8)    # the forward's column and attention-unit steps
-BWD_MULTIPLES = (64, 64)   # the backward's (its 64-wide SGEMM core tiles)
+BWD_MULTIPLES = (64, 64)   # the backward's (the 64-wide edges of its tiles)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -583,20 +589,22 @@ class BwdPlan(NamedTuple):
 
 
 def bwd_plan(B: int, N: int, D: int, Da: int, gated: bool, sms: int,
-             ctas_per_sm: int) -> BwdPlan:
+             ctas_per_sm: int, bf16: bool = False) -> BwdPlan:
     """The backward's launch plan on a card with ``sms`` SMs that run
-    ``ctas_per_sm`` CTAs of the dW partial kernel each.  Its
-    ceil(D/128) x ceil(Kc/128) output tiles times the row splits fill at
-    most one wave; each split is a whole number of the kernel's GK-row
-    chunks and holds at least one row."""
+    ``ctas_per_sm`` CTAs of the dW partial kernel each, for f32 or
+    ``bf16`` bags.  Its ceil(D/128) x ceil(Kc/128) output tiles times the
+    row splits fill at most one wave; each split is a whole number of the
+    kernel's row chunks (8 rows deep for f32, 32 for bf16) and holds at
+    least one row."""
     rows = B * N
     Kc = 2 * Da if gated else Da
+    depth = _BWD_DEPTH[torch.bfloat16 if bf16 else torch.float32]
     tiles = -(-rows // _BWD_TILE)
     groups = -(-tiles // _BWD_VEC_GROUP)
     out_tiles = -(-D // _BWD_TILE) * -(-Kc // _BWD_TILE)
-    chunks = max(1, -(-rows // _BWD_DEPTH))
+    chunks = max(1, -(-rows // depth))
     splits = max(1, min(chunks, ctas_per_sm * sms // out_tiles))
-    rows_per_split = -(-chunks // splits) * _BWD_DEPTH
+    rows_per_split = -(-chunks // splits) * depth
     splits = max(1, -(-rows // rows_per_split))
     return BwdPlan(splits=splits, rows_per_split=rows_per_split,
                    dp=(rows, Kc), tu=(rows, Kc), part_vec=(tiles, 3, Da),
@@ -638,6 +646,8 @@ def _launch_bwd(h, mask, params: AttnParams, out, ml, g, gated: bool, da,
     h = h.contiguous()
     if h.data_ptr() % 16:
         h = h.clone()
+    if mask.data_ptr() % 16:
+        mask = mask.clone()  # 16-byte loads of the bf16 dW kernel
     for name, t in (("out", out), ("ml", ml), ("g", g)):
         if t.device != dev:
             raise ValueError(f"{name} must be on {dev}, got {t.device}")
@@ -659,7 +669,7 @@ def _launch_bwd(h, mask, params: AttnParams, out, ml, g, gated: bool, da,
     if B and N:
         bf16 = h.dtype == torch.bfloat16
         plan = bwd_plan(B, N, D, Da, gated, _sms(dev),
-                        _dw_ctas_per_sm(dev, bf16))
+                        _dw_ctas_per_sm(dev, bf16), bf16)
         # scratch: [dpa | dpb] per row in the bag's dtype; t and u per row
         # in f32 between the rows kernel's two passes (dp itself for f32
         # bags, overwritten in place); the attention weights a; per-tile

@@ -260,26 +260,42 @@ def test_backward_wrapper_refuses_cpu_tensors():
 
 def test_backward_plan_constants_match_the_source():
     """The wrapper's mirror of the backward source's constants (the row
-    and SGEMM tile GT, the SGEMM depth GK, the column-sum group VG, the
-    widest D) agrees with csrc/mil_pool_bwd.cu and the SGEMM core it
-    includes, csrc/sgemm_core.cuh; on the card the wrapper also checks the
-    built library."""
+    and output tile GT of the SGEMM core and BM of the tensor-core core,
+    the dW kernel's staged depth by dtype: GK of the SGEMM core for f32
+    and BK of the tensor-core core for bf16, the column-sum group VG, the
+    widest D) agrees with csrc/mil_pool_bwd.cu and the two cores it
+    includes, csrc/sgemm_core.cuh and csrc/mma_core.cuh; on the card the
+    wrapper also checks the built library.  Two CTAs of each bf16 kernel
+    fit one SM's shared memory (228 KB, 1 KB of it reserved per CTA)."""
     csrc = os.path.join(os.path.dirname(os.path.dirname(tmil.__file__)),
                         "csrc")
     text = ""
-    for name in ("mil_pool_bwd.cu", "sgemm_core.cuh"):
+    for name in ("mil_pool_bwd.cu", "sgemm_core.cuh", "mma_core.cuh"):
         with open(os.path.join(csrc, name)) as f:
             text += f.read()
     assert '#include "sgemm_core.cuh"' in text
+    assert '#include "mma_core.cuh"' in text
     got = {k: int(re.search(rf"constexpr int {k} = (\d+);", text)[1])
-           for k in ("GT", "GK", "VG", "MAX_D")}
-    assert got == {"GT": tmil._BWD_TILE, "GK": tmil._BWD_DEPTH,
+           for k in ("GT", "GK", "BM", "BK", "STAGES", "VG", "MAX_D")}
+    stages = got.pop("STAGES")
+    assert got == {"GT": tmil._BWD_TILE, "BM": tmil._BWD_TILE,
+                   "GK": tmil._BWD_DEPTH[torch.float32],
+                   "BK": tmil._BWD_DEPTH[torch.bfloat16],
                    "VG": tmil._BWD_VEC_GROUP, "MAX_D": tmil._MAX_D}
+    # the core's buffers: STAGES x (A, B) x 128 rows of BK + 8 bf16; the
+    # rows kernel's own arrays: s_s, ds_s, red[3][16][64], red_s[4][GT]
+    dynamic = stages * 2 * got["BM"] * (got["BK"] + 8) * 2
+    rows_static = 4 * (2 * got["GT"] + 3 * 16 * 64 + 4 * got["GT"])
+    dw_extra = 4 * stages * got["BK"]
+    for per_cta in (dynamic + rows_static, dynamic + dw_extra):
+        assert 2 * (per_cta + 1024) <= 228 * 1024, per_cta
 
 
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("sms", [1, 8, 132])
 @pytest.mark.parametrize("B,N,D,Da,gated", [
     (32, 4096, 256, 256, True),    # the training CLI's kernel shape
+    (48, 4096, 256, 256, True),    # the JAX bench's bf16 training step
     (8, 4096, 256, 256, True),     # a B=8 training step
     (3, 300, 64, 64, True),        # half a 128-wide tile; 900 rows end
     (3, 300, 64, 64, False),       # the last split mid-chunk
@@ -291,17 +307,18 @@ def test_backward_plan_constants_match_the_source():
     (4, 0, 256, 256, True),        # N = 0: nothing is launched
     (0, 100, 64, 64, True),
 ])
-def test_backward_launch_plan(B, N, D, Da, gated, sms):
+def test_backward_launch_plan(B, N, D, Da, gated, sms, bf16):
     """``bwd_plan``: the dW partial kernel's row splits cover every row,
-    each split is a whole number of the kernel's GK-row chunks and holds
-    at least one row, the grid stays within one wave, and the scratch has
-    the shapes the C interface of mil_pool_bwd.cu documents."""
+    each split is a whole number of the kernel's row chunks (GK rows for
+    f32 bags, BK for bf16) and holds at least one row, the grid stays
+    within one wave, and the scratch has the shapes the C interface of
+    mil_pool_bwd.cu documents."""
     rows, Kc = B * N, (2 * Da if gated else Da)
-    depth = tmil._BWD_DEPTH
+    depth = tmil._BWD_DEPTH[torch.bfloat16 if bf16 else torch.float32]
     out_tiles = -(-D // 128) * -(-Kc // 128)
     tiles = -(-rows // 128)
     for ctas_per_sm in (1, 2, 4):
-        plan = tmil.bwd_plan(B, N, D, Da, gated, sms, ctas_per_sm)
+        plan = tmil.bwd_plan(B, N, D, Da, gated, sms, ctas_per_sm, bf16)
         assert plan.splits >= 1
         assert plan.splits * plan.rows_per_split >= rows
         assert plan.rows_per_split >= depth
@@ -314,7 +331,15 @@ def test_backward_launch_plan(B, N, D, Da, gated, sms):
         assert plan.part_vec == (tiles, 3, Da)
         assert plan.part_grp == (-(-tiles // 64), 3, Da)
         assert plan.part_dw == (plan.splits, D, Kc)
-    if (B, N, D, Da, gated, sms) == (32, 4096, 256, 256, True, 132):
-        # 8 output tiles x 33 splits of 3,976 rows: one wave of 2 x 132
-        plan = tmil.bwd_plan(B, N, D, Da, gated, sms, 2)
-        assert (plan.splits, plan.rows_per_split) == (33, 3976)
+    if (B, N, D, Da, sms) == (32, 4096, 256, 256, 132) and gated:
+        # 8 output tiles x 33 splits: one wave of 2 x 132; f32 splits of
+        # 497 GK chunks (3,976 rows), bf16 of 125 BK chunks (4,000 rows)
+        plan = tmil.bwd_plan(B, N, D, Da, gated, sms, 2, bf16)
+        assert (plan.splits, plan.rows_per_split) == (
+            (33, 4000) if bf16 else (33, 3976))
+    if (B, N, D, Da, sms, bf16) == (48, 4096, 256, 256, 132, True):
+        # the bf16 step: 196,608 rows in 33 splits of 187 BK chunks
+        plan = tmil.bwd_plan(B, N, D, Da, gated, sms, 2, bf16)
+        assert (plan.splits, plan.rows_per_split) == (33, 5984)
+        assert plan.ctas() == {"rows": 1536, "dh": 3072,
+                               "dw_partial": 264}

@@ -3,6 +3,7 @@ against the JAX package's on the CPU: the labelled cohort and the batch
 order, five optimizer steps from one shared init, early stopping, and the
 training CLI's files and ``--eval_only`` results."""
 import csv
+import functools
 import json
 import math
 import os
@@ -25,6 +26,7 @@ from multimodalfusion_tpu.data.survival_dataset import \
     SurvivalDataset as JaxDataset
 from multimodalfusion_tpu.engine import train as jtrain
 from multimodalfusion_tpu.models import PathAMIL as JaxPathAMIL
+from multimodalfusion_tpu.ops import mil_attention as jmil
 from multimodalfusion_tpu_torch.cli.infer import main as port_infer
 from multimodalfusion_tpu_torch.cli.main import main as port_main
 from multimodalfusion_tpu_torch.data import loaders as tloaders
@@ -195,6 +197,73 @@ def test_train_steps_match_jax(case):
         moved = np.linalg.norm(w - w0)
         assert np.linalg.norm(g - w) <= 1e-3 * moved + 1e-12, k
         assert np.abs(g - w).max() <= 2e-4, k
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_bf16_train_step_matches_jax(opt, monkeypatch):
+    """One optimizer step of the gated PathAMIL with bf16 bags
+    (``bag_dtype="bfloat16"``, the JAX package's benchmark configuration,
+    bench.py) from one JAX init, dropout off.  JAX runs its pooling
+    through the Pallas kernels in interpret mode, the port its plain
+    versions on the CPU.  Both round the FC output to bf16 and cast
+    [dpa | dpb] to bf16 before the backward's products, each after f32
+    sums in its own order, so an element can land one bf16 ulp (2^-8)
+    apart.  The loss agrees at rel 1e-3 (measured 1.2e-5).  SGD's first
+    step is lr * g, so it holds the gradients: each tensor's step to 2e-2
+    of its length, the kernels' own bf16 tolerance (measured 5.5e-3).
+    Adam's first step is lr * g / (|g| + eps), which turns a one-ulp
+    difference of a near-zero gradient into a step of the other sign: at
+    most 1e-3 of the elements may differ by more than lr (measured 2.3e-4,
+    91 of 395,269)."""
+    monkeypatch.setattr(jmil, "_use_pallas", lambda: True)
+    for name in ("_fused_pool_pallas", "_fused_pool_bwd_pallas"):
+        monkeypatch.setattr(jmil, name, functools.partial(
+            getattr(jmil, name), interpret=True))
+    kw = dict(model_type="path_attention_mil", mode="path", gate_path=True,
+              n_classes=4, lr=1e-3, reg=1e-5, batch_size=4,
+              bag_loss="nll_surv", bag_dtype="bfloat16", opt=opt)
+    jcfg = jtrain.TrainConfig(**kw)
+    tcfg = ttrain.TrainConfig(device="cpu", **kw)
+    b = step_batches(0, n=1)[0]
+    jb = {k: jnp.asarray(b[k]) for k in BATCH_KEYS}
+
+    jmodel = JaxPathAMIL(model_size="small", gate=True, n_classes=4,
+                         compute_dtype="bfloat16")
+    params = jmodel.init(jax.random.PRNGKey(0), jb["path_bags"],
+                         jb["path_mask"])["params"]
+    tx = jtrain.make_optimizer(jcfg)
+    spec = jtrain.make_loss_spec(jcfg)
+
+    def loss_fn(p):
+        out = jmodel.apply({"params": p}, jb["path_bags"], jb["path_mask"],
+                           deterministic=True)
+        return spec.apply(hazards=out["hazards"], S=out["S"],
+                          risks=out["risk"], Y=jb["Y"], times=jb["t"],
+                          c=jb["c"], valid=jb["valid"])
+    jloss, grads = jax.value_and_grad(loss_fn)(params)
+    updates, _ = tx.update(grads, tx.init(params), params)
+    want = state_dict_from_jax("path_attention_mil",
+                               optax.apply_updates(params, updates))
+
+    port = PathAMIL("small", gate=True, n_classes=4,
+                    compute_dtype="bfloat16")
+    init = state_dict_from_jax("path_attention_mil", params)
+    port.load_state_dict(init)
+    port.attention_net_WSI[2].p = 0.0  # the FC dropout off
+    opt_t = ttrain.make_optimizer(tcfg, port.parameters())
+    train_step, _ = ttrain.make_steps(tcfg, port, opt_t, torch.device("cpu"))
+    out = train_step(b, torch.Generator().manual_seed(0))
+    assert float(out["loss"]) == pytest.approx(float(jloss), rel=1e-3)
+    got = port.state_dict()
+    assert list(got) == list(want)
+    over = total = 0
+    for k in want:
+        g, w, w0 = got[k].numpy(), want[k].numpy(), init[k].numpy()
+        if opt == "sgd":
+            assert np.linalg.norm(g - w) <= 2e-2 * np.linalg.norm(w - w0), k
+        over += int((np.abs(g - w) > kw["lr"]).sum())
+        total += g.size
+    assert over <= 1e-3 * total, (over, total)
 
 
 def test_train_step_draws_dropout_from_its_generator():
