@@ -372,13 +372,15 @@ def phase_kernels():
         cases.append(("serving", 32, 4096, 256, 256, dtype, True, None))
         cases.append(("bigbag", 2, 32768, 256, 256, dtype, True,
                       [32768, 20001]))
-    # the radiology shapes (f32 bags): short bags of 140-155 slices padded
-    # to 256, at RadioAMIL small, mm_attention_mil big (Da=384) and
-    # RadioAMIL big (D=512, Da=384); then the odd widths the wrapper pads
+    # the radiology shapes: short bags of 140-155 slices padded to 256 (a
+    # whole 128-row tile and a partly valid one), at RadioAMIL small,
+    # mm_attention_mil big (Da=384) and RadioAMIL big (D=512, Da=384); then
+    # the odd widths the wrapper pads
     for D, Da in RADIO_WIDTHS + ODD_WIDTHS:
-        for gated in (True, False):
-            cases.append(("radio", 8, 256, D, Da, "float32", gated,
-                          RADIO_LENS))
+        for dtype in ("float32", "bfloat16"):
+            for gated in (True, False):
+                cases.append(("radio", 8, 256, D, Da, dtype, gated,
+                              RADIO_LENS))
     worst = 0.0
     for i, (tag, B, N, D, Da, dtype, gated, lens) in enumerate(cases):
         h, mask, params = make_pool_case(B, N, D, Da, dtype, seed=i,
@@ -434,9 +436,10 @@ def phase_kernels_train():
         cases.append(("bigbag", 2, 32768, 256, 256, dtype, True, True,
                       [32768, 20001]))
     for D, Da in RADIO_WIDTHS:
-        for dropout in (False, True):
-            cases.append(("radio", 8, 256, D, Da, "float32", True, dropout,
-                          RADIO_LENS))
+        for dtype in ("float32", "bfloat16"):
+            for dropout in (False, True):
+                cases.append(("radio", 8, 256, D, Da, dtype, True, dropout,
+                              RADIO_LENS))
     for D, Da in ODD_WIDTHS:
         for dtype in ("float32", "bfloat16"):
             for gated in (True, False):
@@ -3464,11 +3467,20 @@ def phase_timing(B=32, N=4096, D=256, Da=256):
     bf16 backward against cuBLAS's bf16 products of its three shapes, each
     timed alone (scores h [Wa | Wb], dh = dp Wcat, dW = h^T dp at M = B N
     rows): a yardstick for its tensor-core products, which the port never
-    calls.  The forward variants and the backward's dropout and bf16
-    variants are also profiled kernel by kernel."""
+    calls; cuBLAS's bf16 scoring product is also the bf16 forward's
+    yardstick.  The forward variants and the backward's dropout and bf16
+    variants are also profiled kernel by kernel, and the forward's
+    partial kernel reports the CTAs it runs on an SM by variant."""
     import torch
     from multimodalfusion_tpu_torch.ops import mil_attention as mil
     res = {"mil_pool_fwd": {}, "mil_pool_bwd": {}}
+    dev = torch.device("cuda")
+    log("[timing] mil_pool_fwd partial kernel CTAs per SM (gated; "
+        "mil_pool_fwd_ctas_per_sm): " + ", ".join(
+            f"{dt} D={d}{' dropout' if drop else ''} "
+            f"{mil._fwd_ctas_per_sm(dev, d, True, dt == 'bfloat16', drop)}"
+            for dt in ("float32", "bfloat16") for d in (D, mil._MAX_D)
+            for drop in (False, True)))
     for dtype in ("float32", "bfloat16"):
         h, mask, params = make_pool_case(B, N, D, Da, dtype, seed=123)
         cublas_ms = bwd_cublas = None
@@ -3482,6 +3494,7 @@ def phase_timing(B=32, N=4096, D=256, Da=256):
                               "dh": _time_ms(lambda: dp @ wcat),
                               "dW": _time_ms(lambda: hv.t() @ dp)}
             bwd_cublas["sum"] = sum(bwd_cublas.values())
+            cublas_ms = bwd_cublas["scores"]
             gflop = 2 * B * N * D * 2 * Da / 1e9
             log(f"[timing] yardstick: cuBLAS bf16 products of the backward "
                 f"({B * N} x {D} x {2 * Da}, {gflop:.1f} GFLOP each, "
@@ -3540,9 +3553,12 @@ def phase_timing(B=32, N=4096, D=256, Da=256):
                         "ms": ms, "plain_ms": min(plain1, plain2),
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "max_abs_err": err}
-                    if name == "mil_pool_fwd" and cublas_ms is not None:
-                        res[name][variant]["cublas_product_ms"] = cublas_ms
                     yardstick = ""
+                    if name == "mil_pool_fwd":
+                        res[name][variant]["cublas_product_ms"] = cublas_ms
+                        yardstick = (f", cuBLAS {dtype} product "
+                                     f"{cublas_ms:.3f} ms (kernel/cuBLAS "
+                                     f"{ms / cublas_ms:.2f})")
                     if name == "mil_pool_bwd" and bwd_cublas is not None:
                         res[name][variant]["cublas_products_ms"] = bwd_cublas
                         yardstick = (f", cuBLAS bf16 products "

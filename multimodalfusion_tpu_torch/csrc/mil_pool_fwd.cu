@@ -24,8 +24,8 @@
 // tiles whose rows are all padding are skipped.  The partials go to a
 // scratch buffer and a second kernel merges them per bag in a fixed split
 // order with the algebra of ops/sharded_pool.py::_combine_local, so results
-// repeat bit for bit (no float atomics).  The tile height depends on the
-// bag's dtype:
+// repeat bit for bit (no float atomics).  Both dtypes tile the rows by
+// 128; their products run on different cores:
 //   f32 bags: 128-row tiles whose products h [Wa | Wb] run on the SGEMM
 //     core of sgemm_core.cuh, which the backward shares (plain f32 on the
 //     CUDA cores, no TF32).  Per 128-wide chunk of columns (gated: 64
@@ -39,12 +39,29 @@
 //     of h are read again (from L2, coalesced along d, in row order) into
 //     acc[D].  The tile is not kept in shared memory: 21 KB a CTA (40 KB
 //     with the staged keep masks), two CTAs on an SM at every D.
-//   bf16 bags: 64-row tiles kept in shared memory; the scoring products
-//     run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-//     accumulate); each warp owns a strided set of 8-column blocks of Da
-//     and reads Wt [Da, D] (the nn.Linear layout) as 32-bit fragments
-//     through L1/L2.
-// tanh, sigmoid, the softmax and the pooling run in f32 on the CUDA cores.
+//   bf16 bags: 128-row tiles resident in shared memory ([128][D + 8]
+//     bf16, 67.6 KB at D = 256), scored on the tensor-core core of
+//     mma_core.cuh that the backward shares (mma.sync m16n8k16, bf16 in,
+//     f32 accumulate, ldmatrix fragments).  One cp.async pipeline per tile
+//     streams the weights (Wt [Da, D] rows, gated: Wa's and Wb's columns
+//     interleaved by 8 so that a thread holds both pre-activations of a
+//     column) in BK = 32 deep chunks of 128 columns through the core's 3
+//     stages; the tile's own columns arrive with the first chunk of
+//     columns, so h leaves device memory once and the pooling reads the
+//     same staged rows.  The dropout variants stage each chunk's keep
+//     bytes by cp.async beside its weights (16 KB, swizzled so that the
+//     epilogue's reads are conflict-free).  Each chunk's epilogue works on
+//     the accumulators in registers; a row's score is summed over its 4
+//     lanes, then over the 4 column warps, in a fixed order; 4 warps take
+//     the tile's softmax; every thread pools a column pair over a group of
+//     rows.  Two CTAs share an SM up to D = 256 (98 KB each; 115 KB with
+//     the keep bytes), so one CTA's copies and epilogue overlap the
+//     other's products; wider bags run one.  Its tanh and sigmoid run on
+//     tanh.approx.f32 (relative error 2^-11, under the bf16 operands'
+//     rounding); bf16 bags need Da % 16 == 0 (16-byte keep pieces), which
+//     the wrapper pads to.
+// The softmax and the pooling run in f32 on the CUDA cores, and so do the
+// f32 kernel's tanhf and expf.
 //
 // Bound.  At B=32, N=4096, D=Da=256, gated, 90% of rows valid, the valid
 // rows need 2 n D 2 Da = 30.9 GFLOP of scoring products (plus 2 n D for the
@@ -56,29 +73,32 @@
 // a tile that holds any valid row (34.4 GFLOP at 90% valid rows), the
 // epilogue's tanhf, expf and division per element of h [Wa | Wb] do not
 // overlap the products, and under the 128-register cap the dropout and
-// ungated variants spill a little (PERF.md).  The bf16 kernel stages nothing asynchronously and
-// re-reads the weight fragments from L2 for every tile: wgmma fed by TMA,
-// with the weights held in shared memory across tiles, is the route to its
-// bound.  PERF.md records the gaps.
+// ungated variants spill a little (PERF.md).  The bf16 kernel (0.16 ms of
+// partial kernel on an H100 at 700 W, 5.7 times its bound) is held by
+// shared memory and the copies: its 64 x 32 warp tiles read about 1.5 MB
+// of ldmatrix fragments per 128-row tile (A again for every 128 columns),
+// and 20,480 16-byte cp.async pieces a tile bring 256 KB of weights from
+// L2 and 64 KB of h; wgmma, whose warpgroup reads its operands from shared
+// memory once, fed by TMA, is the route further (PERF.md records the
+// measurements).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_core.cuh"
 #include "sgemm_core.cuh"
 
 namespace {
 
 using namespace sgemm;
 
-constexpr int TM = 64;          // bf16: rows per tile (f32 tiles: GT)
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_D = 512;      // acc[]: MAX_D / THREADS per thread
-constexpr int D_PER_THREAD = MAX_D / THREADS;
-constexpr int PAD = 8;          // bf16: tile row padding, conflict-free frags
+constexpr int MAX_D = 512;      // f32: acc_s[]; bf16: D / 2 <= THREADS
 constexpr int KEEP_LD = 144;    // f32: bytes per row of the staged keep
                                 // masks; rows 4 apart land 16 banks apart
 constexpr float NEG_INF = -1e30f;
+
+static_assert(MAX_D / 2 <= mma::THREADS, "bf16: a column pair per thread");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -91,23 +111,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-template <bool GATED>
-__device__ __forceinline__ float gate(float za, float zb, float bak,
-                                      float bbk) {
-  float z = tanhf(za + bak);
-  if (GATED) z *= 1.f / (1.f + expf(-(zb + bbk)));
-  return z;
-}
-
-// gate() with inverted dropout: daf, dbf = keep bit * inv_keep.
-template <bool GATED>
-__device__ __forceinline__ float gate_drop(float za, float zb, float bak,
-                                           float bbk, float daf, float dbf) {
-  float z = tanhf(za + bak) * daf;
-  if (GATED) z *= (1.f / (1.f + expf(-(zb + bbk)))) * dbf;
-  return z;
 }
 
 // ---------------------------------------------------------------------------
@@ -327,156 +330,86 @@ pool_partial_f32_kernel(const float* __restrict__ h,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 bags: 64-row tiles on the tensor cores.
+// bf16 bags: 128-row tiles resident in shared memory, scored on the
+// tensor-core core of mma_core.cuh.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+using bf16 = __nv_bfloat16;
+
+constexpr int KEEP_BYTES = mma::BM * mma::BM;  // keep bytes of one chunk
+
+// Keep-byte buffers of the dropout variants at width D: one when a chunk
+// of columns is at least STAGES chunks deep (its keep bytes are staged
+// with its chunk STAGES - 1, issued after the previous chunk of columns'
+// epilogue), else one per stage (staged with its first chunk).
+__host__ __device__ constexpr int keep_bufs(int D) {
+  return D / mma::BK >= mma::STAGES ? 1 : mma::STAGES;
 }
 
-// D += A[16x16] * B[16x8], bf16 in, f32 accumulate (PTX fragment layouts:
-// lane = 4 * g + t; A regs hold rows g / g+8 at columns 2t, 2t+1 (+8);
-// B regs hold column g at k = 2t, 2t+1 (+8); D holds rows g / g+8 at
-// columns 2t, 2t+1).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Dynamic shared memory of the bf16 partial kernel: the resident tile
+// [BM][D + 8] bf16, the weight ring (STAGES x [BM][LDK] bf16), for dropout
+// the keep buffers, then the running (m, l).  After a tile's products the
+// ring holds its score and softmax scratch (RING_FLOATS); between tiles
+// the 8 padding elements of the tile's rows (16 bytes a row) hold the
+// running pooled sums, a float2 for each thread.
+size_t bf16_smem_bytes(int D, bool dropout) {
+  return (size_t)mma::BM * (D + 8) * sizeof(bf16) +
+         mma::STAGES * mma::TILE * sizeof(bf16) +
+         (dropout ? (size_t)keep_bufs(D) * KEEP_BYTES : 0) + 4 * sizeof(float);
 }
 
-// Tile rows [0, rows) of hb into hs[r][d] (row stride D + PAD).
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* hb,
-                                          __nv_bfloat16* hs, int rows,
-                                          int D) {
-  const int chunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < TM * chunks; i += THREADS) {
-    const int r = i / chunks, c = i - r * chunks;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows)
-      v = *reinterpret_cast<const uint4*>(hb + (size_t)r * D + c * 8);
-    *reinterpret_cast<uint4*>(hs + r * (D + PAD) + c * 8) = v;
-  }
+// red [4][BM] (the rows' partial scores of each column warp), p [BM]
+// (softmax numerators), stat [8] (each row warp's max, then its sum).
+constexpr int RING_FLOATS = 4 * mma::BM + mma::BM + 8;
+static_assert(RING_FLOATS * 4 <= mma::STAGES * mma::TILE * 2,
+              "the tile's scratch fits the ring");
+static_assert(mma::BM * 8 * sizeof(bf16) >= mma::THREADS * sizeof(float2),
+              "a float2 for each thread fits the tile's row padding");
+
+// tanh on one SFU instruction, tanh.approx.f32: relative error at most
+// 2^-10.99, under the rounding of the bf16 operands (2^-9); the epilogue
+// takes the sigmoid as 0.5 tanh(x / 2) + 0.5: two SFU instructions a
+// column where tanhf and expf with a division take four.
+__device__ __forceinline__ float fast_tanh(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Raw scores of the tile's rows, without cc, on the tensor cores.
-// ws: [WARPS][TM] per-warp column sums.  DROPOUT: da/db point at the
-// tile's first row of the keep masks; rows at or past `rows` are padding
-// of the tile and read no mask.
+// Byte offset of column jj of row r in a keep buffer [BM][BM] u8: the
+// 16-byte units of a row are XOR-swizzled by (r % 8) so that the
+// epilogue's reads (8 rows, 2 words each per warp) fall in distinct banks.
+__device__ __forceinline__ int keep_off(int r, int jj) {
+  return r * mma::BM + 16 * ((jj >> 4) ^ (r & 7)) + (jj & 15);
+}
+
+// One CTA = (split, bag): the running (m, l, acc[D]) over the CTA's rows,
+// in 128-row tiles.  Per live tile, one pipeline on the core runs the
+// scoring products h [Wa | Wb] in 128-wide chunks of columns, BK deep
+// each: A is the tile itself, resident in shared memory, whose columns
+// k0 .. k0 + 31 arrive by cp.async with the first chunk of columns; B is
+// the chunk's weight rows (Wt [Da, D], k-contiguous), streamed through the
+// ring.  Gated, chunk ch holds Wa's columns 64 ch .. + 63 and Wb's alike,
+// interleaved by 8 (tile columns 16 j .. + 7 are Wa's 64 ch + 8 j .. + 7,
+// the next 8 Wb's) so that a thread holds both pre-activations of its
+// columns; ungated, Wa's 128 ch .. + 127; columns past Da load zeros and
+// are skipped.  After each chunk of columns its epilogue adds tanh,
+// sigmoid, the keep factors (staged by cp.async beside the weights) and wc
+// into the rows' partial scores, which the 4 lanes of a row group reduce
+// and scatter (lane t keeps rows mma::row_of(t, 0) and (t, 2)).  Then the
+// 4 column warps of a row sum its score in a fixed order, 4 warps take the
+// softmax of the 128 rows, and every thread pools p h over the resident
+// tile: column pair q of D by row group gi (rows gi, gi + G, ..), bf16x2
+// reads of consecutive words; the groups are added in order at the end.
+// What lives across tiles (m, l, the pooled sums) stays in shared memory,
+// so that the products keep the registers.
 template <bool GATED, bool DROPOUT>
-__device__ __forceinline__ void score_tile(const __nv_bfloat16* hs, float* ws,
-                                           const __nv_bfloat16* wat,
-                                           const float* ba,
-                                           const __nv_bfloat16* wbt,
-                                           const float* bb, const float* wc,
-                                           float* s_out, int D, int Da,
-                                           const uint8_t* da,
-                                           const uint8_t* db, float inv_keep,
-                                           int rows) {
-  constexpr int MB = TM / 16;  // 16-row blocks per tile
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3, ld = D + PAD;
-  // part[m][j]: this lane's share of the score of row 16 m + g + 8 j
-  float part[MB][2];
-#pragma unroll
-  for (int m = 0; m < MB; ++m) part[m][0] = part[m][1] = 0.f;
-  for (int nb = warp; nb < Da / 8; nb += WARPS) {
-    const __nv_bfloat16* wa_g = wat + (size_t)(nb * 8 + g) * D + 2 * t;
-    const __nv_bfloat16* wb_g = wbt + (size_t)(nb * 8 + g) * D + 2 * t;
-    float za[MB][4], zb[MB][4];
-#pragma unroll
-    for (int m = 0; m < MB; ++m)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) za[m][q] = zb[m][q] = 0.f;
-#pragma unroll 4  // measured: loads of 4 steps in flight
-    for (int k0 = 0; k0 < D; k0 += 16) {
-      const uint32_t a0 = ld32(wa_g + k0), a1 = ld32(wa_g + k0 + 8);
-      uint32_t b0 = 0u, b1 = 0u;
-      if (GATED) { b0 = ld32(wb_g + k0); b1 = ld32(wb_g + k0 + 8); }
-#pragma unroll
-      for (int m = 0; m < MB; ++m) {
-        const __nv_bfloat16* x = hs + (16 * m + g) * ld + k0 + 2 * t;
-        const uint32_t frag[4] = {ld32(x), ld32(x + 8 * ld), ld32(x + 8),
-                                  ld32(x + 8 * ld + 8)};
-        mma_bf16(za[m], frag, a0, a1);
-        if (GATED) mma_bf16(zb[m], frag, b0, b1);
-      }
-    }
-    const int col = nb * 8 + 2 * t;
-    const float ba0 = ba[col], ba1 = ba[col + 1];
-    const float wc0 = wc[col], wc1 = wc[col + 1];
-    const float bb0 = GATED ? bb[col] : 0.f, bb1 = GATED ? bb[col + 1] : 0.f;
-#pragma unroll
-    for (int m = 0; m < MB; ++m) {
-      if constexpr (DROPOUT) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {  // rows 16 m + g and 16 m + g + 8
-          const int r = 16 * m + g + 8 * j;
-          uchar2 ka = make_uchar2(0, 0), kb = ka;
-          if (r < rows) {
-            ka = *reinterpret_cast<const uchar2*>(da + (size_t)r * Da + col);
-            if (GATED)
-              kb = *reinterpret_cast<const uchar2*>(db + (size_t)r * Da +
-                                                    col);
-          }
-          part[m][j] +=
-              gate_drop<GATED>(za[m][2 * j], zb[m][2 * j], ba0, bb0,
-                               ka.x * inv_keep, kb.x * inv_keep) * wc0 +
-              gate_drop<GATED>(za[m][2 * j + 1], zb[m][2 * j + 1], ba1, bb1,
-                               ka.y * inv_keep, kb.y * inv_keep) * wc1;
-        }
-      } else {
-        part[m][0] += gate<GATED>(za[m][0], zb[m][0], ba0, bb0) * wc0 +
-                      gate<GATED>(za[m][1], zb[m][1], ba1, bb1) * wc1;
-        part[m][1] += gate<GATED>(za[m][2], zb[m][2], ba0, bb0) * wc0 +
-                      gate<GATED>(za[m][3], zb[m][3], ba1, bb1) * wc1;
-      }
-    }
-  }
-  // sum the columns: over the 4 lanes of a row group, then across warps
-#pragma unroll
-  for (int m = 0; m < MB; ++m)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float v = part[m][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (t == 0) ws[warp * TM + 16 * m + g + 8 * j] = v;
-    }
-  __syncthreads();
-  if (tid < TM) {
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) v += ws[w * TM + tid];
-    s_out[tid] = v;
-  }
-}
-
-// x + sum over the tile's rows r < rows of p[r] * tile[r][d], in row order.
-__device__ __forceinline__ float pool_rows(const __nv_bfloat16* hs,
-                                           const float* p, int rows, int d,
-                                           int D, float x) {
-  for (int r = 0; r < rows; ++r)
-    x = fmaf(p[r], __bfloat162float(hs[r * (D + PAD) + d]), x);
-  return x;
-}
-
-size_t bf16_smem_bytes(int D) {
-  return (size_t)TM * (D + PAD) * sizeof(__nv_bfloat16) +
-         WARPS * TM * sizeof(float);
-}
-
-// One CTA = (split, bag): the running (m, l, acc[D]) over the CTA's rows.
-// Dynamic shared memory: the tile, then the scoring scratch.
-template <bool GATED, bool DROPOUT>
-__global__ void __launch_bounds__(THREADS)
-pool_partial_bf16_kernel(const __nv_bfloat16* __restrict__ h,
+__global__ void __launch_bounds__(mma::THREADS, 2)
+pool_partial_bf16_kernel(const bf16* __restrict__ h,
                          const float* __restrict__ mask,
-                         const __nv_bfloat16* __restrict__ wa,
+                         const bf16* __restrict__ wa,
                          const float* __restrict__ ba,
-                         const __nv_bfloat16* __restrict__ wb,
+                         const bf16* __restrict__ wb,
                          const float* __restrict__ bb,
                          const float* __restrict__ wc,
                          const float* __restrict__ cc,
@@ -486,82 +419,245 @@ pool_partial_bf16_kernel(const __nv_bfloat16* __restrict__ h,
                          float* __restrict__ part_ml,   // [B, S, 2]
                          float inv_keep, int N, int D, int Da,
                          int rows_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* ws = reinterpret_cast<float*>(
-      smem + (size_t)TM * (D + PAD) * sizeof(__nv_bfloat16));
-  __shared__ float s_s[TM];    // the tile's scores
-  __shared__ float p_s[TM];    // softmax numerators
-  __shared__ float stat_s[3];  // m_new, corr, tile sum
+  constexpr int BM = mma::BM;
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int lda = D + 8;
+  const int kbufs = keep_bufs(D);
+  bf16* tile = reinterpret_cast<bf16*>(dyn_smem);
+  bf16* ring = tile + BM * lda;
+  uint8_t* keep = reinterpret_cast<uint8_t*>(ring + mma::STAGES * mma::TILE);
+  float* ml_s = reinterpret_cast<float*>(keep + (DROPOUT ? kbufs : 0) *
+                                                    KEEP_BYTES);
+  float* red = reinterpret_cast<float*>(ring);
+  float* p_s = red + 4 * BM;
+  float* stat = p_s + BM;
+  // thread t's pooled sums: the padding of tile row t / 2
+  auto pooled = [&](int t) {
+    return reinterpret_cast<float2*>(tile + (t >> 1) * lda + D) + (t & 1);
+  };
 
   const int split = blockIdx.x, S = gridDim.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row_begin = split * rows_per_split;
   const int row_end = min(N, row_begin + rows_per_split);
-  const float* mb = mask + (size_t)b * N;
-  const float c0 = cc[0];
+  const size_t bag = (size_t)b * N;  // flattened index of the bag's row 0
+  const float* mb = mask + bag;
+  const int kd = D / mma::BK;  // chunks of depth per chunk of columns
+  // c / kd as (c * kd_magic) >> 20, exact for c < 2^16 (kd <= 16): the
+  // chunk counters take no integer division
+  const uint32_t kd_magic = ((1u << 20) + kd - 1) / kd;
+  auto col_chunk = [&](int c) { return (int)((c * kd_magic) >> 20); };
+  const int n_chunks = GATED ? (Da + 63) / 64 : (Da + BM - 1) / BM;
+  const int kload = kbufs == 1 ? mma::STAGES - 1 : 0;
+  const int P = D / 2, G = max(1, mma::THREADS / P);  // pooling layout
+  const int q = tid % P, gi = tid / P;
 
-  float m_run = NEG_INF, l_run = 0.f;
-  float acc[D_PER_THREAD];
+  // the thread's two pieces of a chunk's weights: tile columns jw and
+  // jw + 64 at k values 8 (tid % 4) .. + 7
+  const int jw = tid >> 2;
+  int wcol[2];
+  const bf16* wrow[2];
 #pragma unroll
-  for (int j = 0; j < D_PER_THREAD; ++j) acc[j] = 0.f;
+  for (int p = 0; p < 2; ++p) {
+    const int j = jw + 64 * p;
+    wcol[p] = GATED ? 8 * (j >> 4) + (j & 7) : j;
+    wrow[p] = (GATED && ((j >> 3) & 1) ? wb : wa) + (size_t)wcol[p] * D +
+              8 * (tid & 3);
+  }
 
-  for (int r0 = row_begin; r0 < row_end; r0 += TM) {
-    const int rows = min(TM, row_end - r0);
-    const bool valid = tid < rows && mb[r0 + tid] > 0.f;
+  *pooled(tid) = make_float2(0.f, 0.f);
+  if (tid == 0) {
+    ml_s[0] = NEG_INF;
+    ml_s[1] = 0.f;
+  }
+
+  for (int r0 = row_begin; r0 < row_end; r0 += BM) {
+    const int rows = min(BM, row_end - r0);
+    const bool valid = tid < rows && mb[r0 + tid] > 0.f;  // row tid
     // also the barrier that lets the previous tile's readers finish
     if (!__syncthreads_or(valid)) continue;  // all padding: contributes 0
 
-    load_tile(h + ((size_t)b * N + r0) * D, tile, rows, D);
-    __syncthreads();
-    const size_t m0 = DROPOUT ? ((size_t)b * N + r0) * Da : 0;
-    score_tile<GATED, DROPOUT>(tile, ws, wa, ba, wb, bb, wc, s_s, D, Da,
-                               da + m0, db + m0, inv_keep, rows);
-    __syncthreads();
+    const bf16* ht = h + (bag + r0) * D;
+    auto h_row = [&](int i) -> const bf16* {
+      return i < rows ? ht + (size_t)i * D : nullptr;
+    };
+    auto load = [&](int c, bf16* buf, int) {
+      const int ch = col_chunk(c), kc = c - ch * kd, k0 = kc * mma::BK;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int col = wcol[p] + (GATED ? 64 : BM) * ch;
+        const bool in = col < Da;
+        mma::cp_async16(buf + (jw + 64 * p) * mma::LDK + 8 * (tid & 3),
+                        in ? wrow[p] + (size_t)(GATED ? 64 : BM) * ch * D + k0
+                           : wa,
+                        in ? 16 : 0);
+      }
+      if (ch == 0) mma::stage_k(tile + k0, h_row, k0, h, lda);
+      if (DROPOUT && kc == kload) {
+        // the chunk's keep bytes [BM rows][da | db or da] in 16-byte units
+        // (thread: unit u = tid % 8 of rows tid / 8 + 32 p)
+        uint8_t* kt = keep + (ch % kbufs) * KEEP_BYTES;
+        const int u = tid & 7;
+        const int col = GATED ? 64 * ch + 16 * (u & 3) : BM * ch + 16 * u;
+        const uint8_t* src =
+            (GATED && u >= 4 ? db : da) + (bag + r0) * Da + col;
+#pragma unroll
+        for (int p = 0; p < KEEP_BYTES / 16 / mma::THREADS; ++p) {
+          const int i = (tid >> 3) + 32 * p;
+          const bool in = i < rows && col < Da;
+          mma::cp_async16(kt + keep_off(i, 16 * u),
+                          in ? src + (size_t)i * Da : da, in ? 16 : 0);
+        }
+      }
+    };
+    float acc[4][4][4];
+    mma::zero(acc);
+    // part[j]: the 4 lanes' share of the score of tile row
+    // mma::row_of(lane % 4, 2 j) so far
+    float part[2] = {0.f, 0.f};
+    auto epilogue = [&](int c) {
+      const int ch = col_chunk(c);
+      if (c + 1 - ch * kd != kd) return;
+      const uint8_t* kt = keep + (ch % kbufs) * KEEP_BYTES;
+      // v[k]: this chunk's share of row mma::row_of(k / 2, 2 (k % 2))
+      float v[8] = {};
+#pragma unroll
+      for (int qq = 0; qq < (GATED ? 2 : 4); ++qq) {
+        // gated: the pre-activations of Wa in n8 tile 2 qq, of Wb in
+        // 2 qq + 1; jj: the column within the chunk's keep bytes
+        const int ni = GATED ? 2 * qq : qq;
+        const int jj =
+            (GATED ? 16 : 32) * (warp & 3) + 8 * qq + 2 * (lane & 3);
+        const int col = (GATED ? 64 : BM) * ch + jj;
+        if (col >= Da) continue;  // Da % 8 == 0: both columns or neither
+        // gated, z wc = tanh(a + ba) sigmoid(b + bb) wc with
+        // sigmoid(x) wc = hw tanh(x / 2) + hw, hw = wc / 2
+        const float bak[2] = {ba[col], ba[col + 1]};
+        const float wck[2] = {(GATED ? 0.5f : 1.f) * wc[col],
+                              (GATED ? 0.5f : 1.f) * wc[col + 1]};
+        const float hbb[2] = {GATED ? 0.5f * bb[col] : 0.f,
+                              GATED ? 0.5f * bb[col + 1] : 0.f};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int mi = k >> 1, j = k & 1;
+          const int r = mma::row_of(mi, 2 * j);
+          // the keep factors: da (gated: da db) as a float, exactly, by
+          // the exponent trick (an OR and a subtraction at the full rate,
+          // where a conversion runs at a quarter of it), times inv_keep
+          // (squared when gated)
+          float keepf[2] = {1.f, 1.f};
+          if (DROPOUT) {
+            const uchar2 ka =
+                *reinterpret_cast<const uchar2*>(kt + keep_off(r, jj));
+            uint32_t kk[2] = {ka.x, ka.y};
+            if (GATED) {
+              const uchar2 kb = *reinterpret_cast<const uchar2*>(
+                  kt + keep_off(r, 64 + jj));
+              kk[0] *= kb.x;
+              kk[1] *= kb.y;
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              keepf[e] = (__uint_as_float(0x4b000000u | kk[e]) - 8388608.f) *
+                         (GATED ? inv_keep * inv_keep : inv_keep);
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float t = fast_tanh(acc[mi][ni][2 * j + e] + bak[e]);
+            if (DROPOUT) t *= keepf[e];
+            const float uw =
+                GATED ? fmaf(wck[e],
+                             fast_tanh(fmaf(0.5f, acc[mi][ni + 1][2 * j + e],
+                                            hbb[e])),
+                             wck[e])
+                      : wck[e];
+            v[k] = fmaf(t, uw, v[k]);
+          }
+        }
+      }
+      // reduce over the 4 lanes of the row group and scatter: after the
+      // exchange with lane ^ 2, lane t holds rows k = 4 (t / 2) .. + 3;
+      // after lane ^ 1, rows k = 2 t, 2 t + 1
+      const bool hi2 = lane & 2, hi1 = lane & 1;
+      float w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = (hi2 ? v[k + 4] : v[k]) +
+               __shfl_xor_sync(0xffffffffu, hi2 ? v[k] : v[k + 4], 2);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        part[k] += (hi1 ? w[k + 2] : w[k]) +
+                   __shfl_xor_sync(0xffffffffu, hi1 ? w[k] : w[k + 2], 1);
+      mma::zero(acc);
+    };
+    mma::mma_loop_resident(
+        n_chunks * kd, ring, tile, lda,
+        [&](int c) { return (c - col_chunk(c) * kd) * mma::BK; }, load,
+        epilogue, acc);
 
-    if (warp == 0) {  // lane owns rows lane and lane + 32
-      float s[2], p[2];
+    // a row's score: the 4 column warps in a fixed order (the ring is free
+    // now); the softmax of the tile's rows on warps 0-3, thread tid = row
+    // tid
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = lane + 32 * j;
-        s[j] = (r < rows && mb[r0 + r] > 0.f) ? s_s[r] + c0 : NEG_INF;
-      }
-      const float m_new = fmaxf(m_run, warp_max(fmaxf(s[0], s[1])));
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        p[j] = s[j] == NEG_INF ? 0.f : expf(s[j] - m_new);
-        p_s[lane + 32 * j] = p[j];
-      }
-      const float psum = warp_sum(p[0] + p[1]);
-      if (lane == 0) {
-        stat_s[0] = m_new;
-        stat_s[1] = expf(m_run - m_new);
-        stat_s[2] = psum;
-      }
+    for (int j = 0; j < 2; ++j)
+      red[(warp & 3) * BM + mma::row_of(lane & 3, 2 * j)] = part[j];
+    __syncthreads();
+    float s = NEG_INF;
+    if (tid < BM) {
+      const float v = (red[tid] + red[BM + tid]) +
+                      (red[2 * BM + tid] + red[3 * BM + tid]);
+      if (valid) s = v + cc[0];
+      const float wm = warp_max(s);
+      if (lane == 0) stat[warp] = wm;
     }
     __syncthreads();
-
-    const float corr = stat_s[1];
-    m_run = stat_s[0];
-    l_run = l_run * corr + stat_s[2];
-#pragma unroll
-    for (int j = 0; j < D_PER_THREAD; ++j) {
-      const int d = tid + j * THREADS;
-      if (d < D) {
-        acc[j] = pool_rows(tile, p_s, rows, d, D, acc[j] * corr);
+    const float m_old = ml_s[0];
+    const float m_new =
+        fmaxf(m_old, fmaxf(fmaxf(stat[0], stat[1]), fmaxf(stat[2], stat[3])));
+    if (tid < BM) {
+      const float p = s == NEG_INF ? 0.f : expf(s - m_new);
+      p_s[tid] = p;
+      const float ws = warp_sum(p);
+      if (lane == 0) stat[4 + warp] = ws;
+    }
+    __syncthreads();  // every thread has read m_old
+    const float corr = expf(m_old - m_new);
+    if (tid == 0) {
+      ml_s[0] = m_new;
+      ml_s[1] = ml_s[1] * corr + ((stat[4] + stat[5]) + (stat[6] + stat[7]));
+    }
+    if (gi < G) {
+      float2 x = *pooled(tid);
+      x.x *= corr;
+      x.y *= corr;
+      const bf16* hc = tile + 2 * q;
+#pragma unroll 4
+      for (int r = gi; r < rows; r += G) {
+        const float p = p_s[r];
+        const float2 hv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(hc + r * lda));
+        x.x = fmaf(p, hv.x, x.x);
+        x.y = fmaf(p, hv.y, x.y);
       }
+      *pooled(tid) = x;
     }
   }
 
-  float* pa = part_acc + ((size_t)b * S + split) * D;
-#pragma unroll
-  for (int j = 0; j < D_PER_THREAD; ++j) {
-    const int d = tid + j * THREADS;
-    if (d < D) pa[d] = acc[j];
+  // the row groups' pooled sums, added in group order
+  __syncthreads();
+  if (tid < P) {
+    float2 x = *pooled(q);
+    for (int g = 1; g < G; ++g) {
+      const float2 y = *pooled(g * P + q);
+      x.x += y.x;
+      x.y += y.y;
+    }
+    *reinterpret_cast<float2*>(part_acc + ((size_t)b * S + split) * D +
+                               2 * q) = x;
   }
-  if (tid == 0) {
-    part_ml[((size_t)b * S + split) * 2 + 0] = m_run;
-    part_ml[((size_t)b * S + split) * 2 + 1] = l_run;
+  if (tid == 0) {  // ml_s was last written by this thread
+    part_ml[((size_t)b * S + split) * 2 + 0] = ml_s[0];
+    part_ml[((size_t)b * S + split) * 2 + 1] = ml_s[1];
   }
 }
 
@@ -608,10 +704,14 @@ cudaError_t partial_kernel(int, PartialFn<float>* k, size_t* smem) {
   return cudaSuccess;
 }
 template <bool GATED, bool DROPOUT>
-cudaError_t partial_kernel(int D, PartialFn<__nv_bfloat16>* k,
-                           size_t* smem) {
+cudaError_t partial_kernel(int D, PartialFn<bf16>* k, size_t* smem) {
   *k = pool_partial_bf16_kernel<GATED, DROPOUT>;
-  *smem = bf16_smem_bytes(D);
+  *smem = bf16_smem_bytes(D, DROPOUT);
+  // all of the SM's shared memory for it, so that two CTAs of 115 KB fit
+  cudaError_t err = cudaFuncSetAttribute(
+      *k, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*smem);
 }
@@ -658,7 +758,7 @@ int mil_pool_fwd_max_d() { return MAX_D; }
 
 // Rows per tile of the partial kernel for f32 (bf16 = 0) or bf16 bags:
 // rows_per_split must be a multiple of it.
-int mil_pool_fwd_tile_rows(int bf16) { return bf16 ? TM : GT; }
+int mil_pool_fwd_tile_rows(int bf16) { return bf16 ? mma::BM : GT; }
 
 // CTAs of the partial kernel that fit on one SM of the current device at
 // width D (-1 on error): the wrapper sizes the grid to one full wave.
@@ -678,7 +778,8 @@ int mil_pool_fwd_ctas_per_sm(int D, int gated, int bf16, int dropout) {
 // inv_keep, or both null for no dropout (db is read only when gated).
 // Scratch part_acc [B, splits, D] and part_ml [B, splits, 2] f32; out
 // [B, D] and ml [B, 2] f32.  All contiguous on one device and 16-byte
-// aligned; D a multiple of 32 up to MAX_D, Da of 8.  rows_per_split is a
+// aligned; D a multiple of 32 up to MAX_D, Da of 8 (bf16 bags: of 16, up
+// to 65536).  rows_per_split is a
 // multiple of mil_pool_fwd_tile_rows(bf16).  Returns the CUDA error code
 // of the launches (0 = success).
 int mil_pool_fwd(const void* h, const void* mask, const void* wa,
@@ -688,7 +789,8 @@ int mil_pool_fwd(const void* h, const void* mask, const void* wa,
                  void* ml, float inv_keep, int B, int N, int D, int Da,
                  int splits, int rows_per_split, int gated, int bf16,
                  void* stream) {
-  if (D > MAX_D || D % 32 != 0 || Da % 8 != 0 || rows_per_split < 1 ||
+  if (D > MAX_D || D % 32 != 0 || Da % 8 != 0 ||
+      (bf16 && (Da % 16 != 0 || Da > 1 << 16)) || rows_per_split < 1 ||
       rows_per_split % mil_pool_fwd_tile_rows(bf16) != 0 ||
       (da != nullptr && db == nullptr))
     return (int)cudaErrorInvalidValue;

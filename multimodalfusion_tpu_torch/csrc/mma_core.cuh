@@ -1,5 +1,6 @@
-// The bf16 tensor-core core of the pooling backward (mil_pool_bwd.cu) for
-// Hopper (sm_90a): bf16 x bf16 -> f32 products on mma.sync.m16n8k16.
+// The bf16 tensor-core core of the pooling kernels (mil_pool_bwd.cu and
+// the bf16 forward of mil_pool_fwd.cu) for Hopper (sm_90a): bf16 x bf16 ->
+// f32 products on mma.sync.m16n8k16.
 //
 // A CTA of 256 threads (8 warps) accumulates a 128 x 128 output tile,
 // C[m][n] += sum_k A[m][k] B[k][n], over BK = 32 deep chunks that cp.async
@@ -14,6 +15,9 @@
 // row 64 (w / 4) + 16 mi + g + 8 (e / 2) and column 32 (w % 4) + 8 ni +
 // 2 t + (e % 2), lane = 4 g + t.  The tensor cores' f32 sums of a chunk are
 // added to acc in a fixed order, so a result is the same on every call.
+// mma_loop stages both operands of every chunk; mma_loop_resident takes A
+// from a k-contiguous tile that stays in shared memory for the whole loop
+// and stages B only.
 
 #pragma once
 
@@ -106,12 +110,13 @@ __device__ __forceinline__ int col_of(int ni, int e) {
   return 32 * (warp & 3) + 8 * ni + 2 * t + (e & 1);
 }
 
-// acc += the chunk's A (As) times B (Bs).  A_K: As is [128 m][LDK]
-// (k-contiguous), else [BK][LDM] (m-contiguous); B_K: Bs is [128 n][LDK],
-// else [BK][LDM].
+// acc += the chunk's A (As) times B (Bs).  A_K: As is [128 m][lda]
+// (k-contiguous; lda = LDK for a staged chunk), else [BK][LDM]
+// (m-contiguous); B_K: Bs is [128 n][LDK], else [BK][LDM].
 template <bool A_K, bool B_K>
 __device__ __forceinline__ void mma_chunk(const bf16* As, const bf16* Bs,
-                                          float (&acc)[4][4][4]) {
+                                          float (&acc)[4][4][4],
+                                          int lda = LDK) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m_w = 64 * (warp >> 2), n_w = 32 * (warp & 3);
 #pragma unroll
@@ -142,7 +147,7 @@ __device__ __forceinline__ void mma_chunk(const bf16* As, const bf16* Bs,
       const int m0 = m_w + 16 * mi;
       uint32_t a[4];
       if (A_K) {
-        ldmatrix_x4(a, As + (m0 + (lane & 15)) * LDK + kk + 8 * (lane >> 4));
+        ldmatrix_x4(a, As + (m0 + (lane & 15)) * lda + kk + 8 * (lane >> 4));
       } else {
         ldmatrix_x4_trans(a, As + (kk + (lane & 7) + 8 * (lane >> 4)) * LDM +
                                  m0 + 8 * ((lane >> 3) & 1));
@@ -154,21 +159,19 @@ __device__ __forceinline__ void mma_chunk(const bf16* As, const bf16* Bs,
   }
 }
 
-// The core's main loop over chunks 0 .. nk - 1 with STAGES buffers of
-// STAGE_ELEMS elements each from `smem`: `load(c, buf, s)` issues the
-// cp.async copies of chunk c into buffer buf (= smem + s STAGE_ELEMS);
-// `live(c, s)`, the same on every thread, says whether chunk c adds
-// anything (a chunk that is not live is skipped); `after(c)` runs after
-// chunk c on every thread (an epilogue between chunks may use acc and
-// global memory, not the buffers).  The last barrier leaves every buffer
-// free for the caller.
-template <bool A_K, bool B_K, typename Load, typename Live, typename After>
-__device__ __forceinline__ void mma_loop(int nk, bf16* smem, Load load,
-                                         Live live, After after,
-                                         float (&acc)[4][4][4]) {
+// The core's pipeline over chunks 0 .. nk - 1 with STAGES buffers of
+// `stage` elements each from `smem`: `load(c, buf, s)` issues the cp.async
+// copies of chunk c into buffer buf (= smem + s stage); `mul(c, buf)`
+// multiplies chunk c once it has landed; `after(c)` runs after chunk c on
+// every thread (an epilogue between chunks may use acc and global memory,
+// not the buffers).  The last barrier leaves every buffer free for the
+// caller.
+template <typename Load, typename Mul, typename After>
+__device__ __forceinline__ void pipeline(int nk, bf16* smem, int stage,
+                                         Load load, Mul mul, After after) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s, smem + s * STAGE_ELEMS, s);
+    if (s < nk) load(s, smem + s * stage, s);
     cp_async_commit();
   }
   for (int c = 0; c < nk; ++c) {
@@ -177,31 +180,62 @@ __device__ __forceinline__ void mma_loop(int nk, bf16* smem, Load load,
     const int next = c + STAGES - 1;
     if (next < nk) {
       const int s = next % STAGES;
-      load(next, smem + s * STAGE_ELEMS, s);
+      load(next, smem + s * stage, s);
     }
     cp_async_commit();
-    const int s = c % STAGES;
-    const bf16* buf = smem + s * STAGE_ELEMS;
-    if (live(c, s)) mma_chunk<A_K, B_K>(buf, buf + TILE, acc);
+    mul(c, smem + (c % STAGES) * stage);
     after(c);
   }
   cp_async_wait<0>();
   __syncthreads();
 }
 
+// The core's main loop: each buffer holds chunk c's A, then its B
+// (STAGE_ELEMS elements); `live(c, s)`, the same on every thread, says
+// whether chunk c adds anything (a chunk that is not live is skipped).
+template <bool A_K, bool B_K, typename Load, typename Live, typename After>
+__device__ __forceinline__ void mma_loop(int nk, bf16* smem, Load load,
+                                         Live live, After after,
+                                         float (&acc)[4][4][4]) {
+  pipeline(nk, smem, STAGE_ELEMS, load,
+           [&](int c, const bf16* buf) {
+             if (live(c, c % STAGES)) mma_chunk<A_K, B_K>(buf, buf + TILE,
+                                                          acc);
+           },
+           after);
+}
+
+// The main loop with A resident: A is [128 m][lda] k-contiguous in shared
+// memory (the caller stages it, if at all, through `load`), and chunk c
+// multiplies its columns a_k(c) .. + BK - 1; each buffer holds chunk c's
+// B only, [128 n][LDK] (TILE elements).
+template <typename Load, typename AK, typename After>
+__device__ __forceinline__ void mma_loop_resident(int nk, bf16* smem,
+                                                  const bf16* A, int lda,
+                                                  AK a_k, Load load,
+                                                  After after,
+                                                  float (&acc)[4][4][4]) {
+  pipeline(nk, smem, TILE, load,
+           [&](int c, const bf16* buf) {
+             mma_chunk<true, true>(A + a_k(c), buf, acc, lda);
+           },
+           after);
+}
+
 // Staging of a [128][BK] k-contiguous operand: row i of the tile is
 // src_row(i) (null: zeros), from which the chunk's 32 values at k0 are
-// copied; each thread copies two of the tile's 512 16-byte pieces.  A
-// zero-filled piece reads nothing; it names `any`, a valid address.
+// copied to dst + i ld; each thread copies two of the tile's 512 16-byte
+// pieces.  A zero-filled piece reads nothing; it names `any`, a valid
+// address.
 template <typename Row>
 __device__ __forceinline__ void stage_k(bf16* dst, Row src_row, int k0,
-                                        const bf16* any) {
+                                        const bf16* any, int ld = LDK) {
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const int idx = threadIdx.x + THREADS * p;
     const int i = idx >> 2, q = idx & 3;
     const bf16* src = src_row(i);
-    cp_async16(dst + i * LDK + 8 * q, src ? src + k0 + 8 * q : any,
+    cp_async16(dst + i * ld + 8 * q, src ? src + k0 + 8 * q : any,
                src ? 16 : 0);
   }
 }

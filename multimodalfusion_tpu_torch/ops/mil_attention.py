@@ -273,8 +273,8 @@ def _pool_bwd_plain(h, mask, params: AttnParams, out, ml, g, gated: bool,
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DTYPES = (torch.float32, torch.bfloat16)
 # rows per tile of the forward's partial kernel by bag dtype: GT of
-# sgemm_core.cuh for f32 bags, TM of the forward source for bf16 bags
-_TILE_ROWS = {torch.float32: 128, torch.bfloat16: 64}
+# sgemm_core.cuh for f32 bags, BM of mma_core.cuh for bf16 bags
+_TILE_ROWS = {torch.float32: 128, torch.bfloat16: 128}
 _MAX_D = 512     # MAX_D in both sources
 # GT of sgemm_core.cuh (the backward's row tile, as the f32 forward's,
 # and the output tile of both its cores), the staged depth of the dW
@@ -428,7 +428,9 @@ def _ptr(t) -> Optional[int]:
 # Pallas kernels do, by zero-padding around the launch.
 # ---------------------------------------------------------------------------
 
-FWD_MULTIPLES = (32, 8)    # the forward's column and attention-unit steps
+# the forward's column and attention-unit steps by bag dtype (bf16 stages
+# its keep bytes in 16-byte pieces)
+FWD_MULTIPLES = {torch.float32: (32, 8), torch.bfloat16: (32, 16)}
 BWD_MULTIPLES = (64, 64)   # the backward's (the 64-wide edges of its tiles)
 
 
@@ -515,8 +517,9 @@ def _fused_pool_cuda(h, mask, params: AttnParams, gated: bool, da=None,
     """Launch ``csrc/mil_pool_fwd.cu`` on the bag's device and stream, at
     any D up to _MAX_D and any Da: other widths than the kernel's
     multiples are zero-padded around the launch (``pool_padded``)."""
-    return pool_padded(_launch_fwd, FWD_MULTIPLES, h, mask, params, gated,
-                       da, db, rate)
+    multiples = FWD_MULTIPLES.get(h.dtype, FWD_MULTIPLES[torch.float32])
+    return pool_padded(_launch_fwd, multiples, h, mask, params, gated, da,
+                       db, rate)
 
 
 def _launch_fwd(h, mask, params: AttnParams, gated: bool, da, db,
@@ -531,6 +534,8 @@ def _launch_fwd(h, mask, params: AttnParams, gated: bool, da, db,
     h = h.contiguous()
     if h.data_ptr() % 16:
         h = h.clone()  # 16-byte row loads
+    if da is not None and (da.data_ptr() % 16 or db.data_ptr() % 16):
+        da, db = da.clone(), db.clone()  # 16-byte copies of the bf16 kernel
     wa, wb = ((params.Wa.t(), params.Wb.t()) if bf16
               else (params.Wa, params.Wb))
     wa = wa.to(h.dtype).contiguous()

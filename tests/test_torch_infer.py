@@ -147,7 +147,8 @@ def _imported_roots(path):
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "cuda_fwd_variants.py")]
     for root, _, names in os.walk(os.path.join(REPO,
                                                "multimodalfusion_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

@@ -129,6 +129,7 @@ def test_non_cpu_tensor_never_falls_back(tmp_path, monkeypatch):
 @pytest.mark.parametrize("sms", [1, 8, 132])
 @pytest.mark.parametrize("B,N,D,Da,gated", [
     (32, 4096, 256, 256, True),    # the serving and kernel-timing shape
+    (48, 4096, 256, 256, True),    # the JAX bench's bf16 training step
     (8, 4096, 256, 256, True),     # a B=8 training step
     (3, 300, 64, 64, True),
     (3, 300, 64, 64, False),
@@ -145,7 +146,7 @@ def test_forward_launch_plan(B, N, D, Da, gated, sms, bf16):
     whole number of the dtype's tiles and holds at least one row, the grid
     stays within one wave, and the scratch has the shapes the C interface
     of mil_pool_fwd.cu documents."""
-    tile = 64 if bf16 else 128
+    tile = 128  # GT of sgemm_core.cuh (f32), BM of mma_core.cuh (bf16)
     for ctas_per_sm in (1, 2, 4):
         plan = tmil.fwd_plan(B, N, D, Da, gated, bf16, sms, ctas_per_sm)
         assert plan.tile_rows == tile
@@ -166,6 +167,12 @@ def test_forward_launch_plan(B, N, D, Da, gated, sms, bf16):
         # 32 bags x 8 splits of 512 rows: one wave of 2 x 132 CTAs
         plan = tmil.fwd_plan(B, N, D, Da, gated, bf16, sms, 2)
         assert (plan.splits, plan.rows_per_split) == (8, 512)
+    if (B, N, D, Da, gated, sms) == (48, 4096, 256, 256, True, 132):
+        # 48 bags x 5 splits of 7 tiles (896 rows; the last 512): 240 of
+        # the 2 x 132 CTAs that fit
+        plan = tmil.fwd_plan(B, N, D, Da, gated, bf16, sms, 2)
+        assert (plan.splits, plan.rows_per_split) == (5, 896)
+        assert plan.ctas() == {"partial": 240, "merge": 48}
 
 
 def _source(name):
@@ -175,18 +182,39 @@ def _source(name):
 
 def test_forward_plan_constants_match_the_source():
     """The wrapper's per-dtype tile rows and widest D agree with the
-    constants of csrc/mil_pool_fwd.cu (TM: bf16 tiles; MAX_D) and of the
-    SGEMM core it includes, csrc/sgemm_core.cuh (GT: f32 tiles); on the
-    card the wrapper also checks the built library."""
-    fwd, core = _source("mil_pool_fwd.cu"), _source("sgemm_core.cuh")
+    constants of csrc/mil_pool_fwd.cu (MAX_D) and of the cores it
+    includes: GT of csrc/sgemm_core.cuh (f32 tiles) and BM of
+    csrc/mma_core.cuh (bf16 tiles); on the card the wrapper also checks
+    the built library.  The bf16 partial kernel scores on the tensor-core
+    core with no mma.sync wrapper of its own, and its dynamic shared
+    memory (the resident tile [BM][D + 8] bf16, the core's STAGES weight
+    buffers [BM][BK + 8] bf16, a [BM][BM] byte buffer of keep bytes with
+    dropout, the running max and normalizer) fits the CTAs per SM that
+    its design note states: two up to D = 256, one at D = 512, each
+    within 227 KB (228 KB an SM, 1 KB of it reserved per CTA)."""
+    fwd, sgemm = _source("mil_pool_fwd.cu"), _source("sgemm_core.cuh")
+    core = _source("mma_core.cuh")
 
     def const(text, k):
         return int(re.search(rf"constexpr int {k} = (\d+);", text)[1])
     assert '#include "sgemm_core.cuh"' in fwd
-    assert "return bf16 ? TM : GT;" in fwd
-    assert tmil._TILE_ROWS == {torch.float32: const(core, "GT"),
-                               torch.bfloat16: const(fwd, "TM")}
+    assert '#include "mma_core.cuh"' in fwd
+    assert "mma.sync.aligned" not in fwd and "mma_bf16(" not in fwd
+    assert "return bf16 ? mma::BM : GT;" in fwd
+    assert tmil._TILE_ROWS == {torch.float32: const(sgemm, "GT"),
+                               torch.bfloat16: const(core, "BM")}
     assert tmil._MAX_D == const(fwd, "MAX_D")
+    assert "constexpr int KEEP_BYTES = mma::BM * mma::BM;" in fwd
+    BM, BK, stages = (const(core, k) for k in ("BM", "BK", "STAGES"))
+
+    def smem(D, dropout):
+        keep_bufs = 1 if D // BK >= stages else stages
+        return (BM * (D + 8) * 2 + stages * BM * (BK + 8) * 2
+                + (keep_bufs * BM * BM if dropout else 0) + 16)
+    for dropout in (False, True):
+        assert smem(tmil._MAX_D, dropout) <= 227 * 1024
+        assert 2 * (smem(256, dropout) + 1024) <= 228 * 1024
+    assert "Two CTAs share an SM up to D = 256" in fwd
 
 
 def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
