@@ -40,6 +40,16 @@ Phases, each fatal on failure:
                 generator seeds, must agree.  Their batches are loaded
                 once and collated twice, by the native library into
                 page-locked buffers and by pad_bags_plain, each timed.
+  4a. native -- the host library's float32 -> bfloat16 cast on a batch
+                shaped like [train]'s (8 x 4096 x 1024 f32, 134 MB,
+                seeded, NaNs of every payload, ties and overflow planted):
+                bit for bit equal to native.f32_to_bf16_plain, timed
+                beside torch's CPU .to(torch.bfloat16), which the port
+                never calls; then native.read_files over [train]'s bag
+                files, byte for byte equal to Python's reads and timed
+                against them (the files warm in the page cache).  No
+                kernel launch (counters reset around both).  Alone:
+                --phases native (writes its own 32-bag cohort).
   4b. omic   -- write a synthetic labelled cohort with 80 genomic columns
                 and train one fold for two epochs each of
                 mm_attention_mil --mode path_omic (tensor fusion,
@@ -997,6 +1007,105 @@ def phase_train(launch_counters, root=None):
                                  device="cuda")
         _steps_agree("train", cfg, batches, launch_counters)
         return launches, cfg, batches, host_ms, exp
+
+
+# bit patterns planted in [native]'s batch: NaNs of either sign with and
+# without payload (the rounding add would carry 0x7F800001 into Inf and
+# 0xFFFFFFFF into 0), infinities, exact ties (0x3F808000 rounds down to
+# even, 0x3F818000 up), the largest float32 (rounds to Inf), subnormals
+NATIVE_PLANTED = (0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF,
+                  0x7FFFFFFF, 0xFF800001, 0x7F800000, 0xFF800000,
+                  0x3F808000, 0x3F818000, 0xBF808000, 0x7F7FFFFF,
+                  0xFF7FFFFF, 0x00000001, 0x80008000, 0x007FFFFF)
+
+
+def _host_ms(fn, reps):
+    """(result of the last call, host milliseconds of each of ``reps``
+    calls)."""
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def phase_native(launch_counters, train_dir=None, shape=(8, 4096, 1024),
+                 reps=5):
+    """The host library's f32 -> bf16 cast and parallel reads against their
+    plain versions, on a batch shaped like [train]'s and on the bag files
+    of [train]'s cohort under ``train_dir`` (written here when None).  No
+    kernel may launch.  Returns the host milliseconds of each timing."""
+    import torch
+    from multimodalfusion_tpu_torch import native
+    for c in launch_counters:
+        c.launches = 0
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    bits = x.reshape(-1).view(np.uint32)
+    where = rng.choice(bits.size, size=(len(NATIVE_PLANTED), 64),
+                       replace=False)
+    for pattern, idx in zip(NATIVE_PLANTED, where):
+        bits[idx] = pattern
+    native.f32_to_bf16(x)  # untimed: the library's load, first page faults
+    got, cast_ms = _host_ms(lambda: native.f32_to_bf16(x), reps)
+    theirs, torch_ms = _host_ms(
+        lambda: torch.from_numpy(x).to(torch.bfloat16), reps)
+    plain, plain_ms = _host_ms(lambda: native.f32_to_bf16_plain(x), 1)
+    got_bits, plain_bits = got.view(torch.int16), plain.view(torch.int16)
+    differ = int((got_bits != plain_bits).sum())
+    off = got_bits != theirs.view(torch.int16)
+    torch_differ = int(off.sum())
+    torch_differ_nan = int((off & torch.from_numpy(np.isnan(x))).sum())
+    mb = x.nbytes / 1e6
+    times = {"f32_to_bf16": cast_ms, "torch_cast": torch_ms,
+             "f32_to_bf16_plain": plain_ms}
+    log(f"[native] f32_to_bf16 of {list(shape)} f32 ({mb:.1f} MB, "
+        f"{len(NATIVE_PLANTED) * 64} planted NaNs, Infs, ties, maxima and "
+        f"subnormals; {os.cpu_count()} host CPUs) vs the plain version: "
+        f"{differ} bf16 elements differ (0 allowed); ms over {reps} calls "
+        f"(host clock) {', '.join(f'{v:.3f}' for v in cast_ms)}; torch's "
+        f"CPU .to(torch.bfloat16) (yardstick, never called by the port) "
+        f"{', '.join(f'{v:.3f}' for v in torch_ms)}, which differs on "
+        f"{torch_differ} elements, {torch_differ_nan} of them NaNs; plain "
+        f"{plain_ms[0]:.3f} ms ({_card()})")
+    if differ or got.shape != tuple(shape) or got.dtype != torch.bfloat16:
+        raise AssertionError("[native] f32_to_bf16 disagrees with its "
+                             "plain version")
+    with contextlib.ExitStack() as stack:
+        if train_dir is None:
+            train_dir = stack.enter_context(tempfile.TemporaryDirectory())
+            _write_train_experiment(train_dir)
+        bag_dir = os.path.join(train_dir, "features", "brain",
+                               "path_pt_files")
+        paths = sorted(os.path.join(bag_dir, f) for f in os.listdir(bag_dir))
+        sizes = [os.path.getsize(p) for p in paths]
+        ms = {native.read_files: [], native.read_files_plain: []}
+        out = {}
+        for i in range(2 * reps):  # in turns: native, plain, plain, native
+            fn = (native.read_files if i % 4 in (0, 3)
+                  else native.read_files_plain)
+            out[fn], t = _host_ms(lambda: fn(paths, sizes), 1)
+            ms[fn] += t
+        bufs, want = out[native.read_files], out[native.read_files_plain]
+        read_ms, seq_ms = ms[native.read_files], ms[native.read_files_plain]
+        same = bufs is not None and want is not None and len(bufs) == len(
+            want) and all(b.tobytes() == w.tobytes()
+                          for b, w in zip(bufs, want))
+    times.update(read_files=read_ms, read_files_plain=seq_ms)
+    launches = {c.__name__: c.launches for c in launch_counters}
+    log(f"[native] read_files of [train]'s {len(paths)} bag files "
+        f"({sum(sizes) / 1e6:.1f} MB, warm in the page cache) vs Python's "
+        f"sequential reads: bytes equal {same}; ms (host clock) "
+        f"{', '.join(f'{v:.3f}' for v in read_ms)} against "
+        f"{', '.join(f'{v:.3f}' for v in seq_ms)}; kernel launches "
+        f"{launches} ({_card()})")
+    if not same:
+        raise AssertionError("[native] read_files disagrees with Python's "
+                             "reads")
+    if any(launches.values()):
+        raise AssertionError(f"[native] launched a kernel: {launches}")
+    return times
 
 
 OMIC_FLAGS = {
@@ -4720,7 +4829,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
-                         "slice,train,omic,pretrained,radio,extract,"
+                         "slice,train,native,omic,pretrained,radio,extract,"
                          "gradcam,interpret,timing,bf16step,dist,ops,"
                          "report,wsi,heatmap "
                          "(default: all but digest, which prints the "
@@ -4758,6 +4867,9 @@ def _partial(phases, counters, work, t_all) -> int:
     if {"train", "wsi", "heatmap"} & set(phases):
         # [wsi] serves its bags with [train]'s experiment
         _, cfg, batches, host_ms, path_exp = phase_train(counters, work)
+    if "native" in phases:
+        phase_native(counters, os.path.join(work, "train") if "train" in
+                     phases else None)
     if "omic" in phases:
         _, omic_exps, omic_args = phase_omic(counters, root=work)
     if "pretrained" in phases:
@@ -4812,6 +4924,9 @@ def _full(counters, work, t_all) -> int:
     train_launches, cfg, batches, host_ms, path_exp = phase_train(counters,
                                                                   work)
     log(f"[train] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_native(counters, os.path.join(work, "train"))
+    log(f"[native] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     omic_launches, omic_exps, omic_args = phase_omic(counters, root=work)
     log(f"[omic] done in {time.perf_counter() - t:.1f} s")

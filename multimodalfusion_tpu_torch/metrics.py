@@ -1,6 +1,7 @@
 """Survival metrics on host arrays (port of multimodalfusion_tpu/
-metrics.py:1-294: the concordance index, the integrated Brier score, and
-the IPCW c-index and time-dependent AUC of the reporting stage), with the
+metrics.py: the concordance index, the integrated Brier score, the IPCW
+c-index and time-dependent AUC of the reporting stage, and per-bin
+survival stepped onto query times), with the
 semantics of ``sksurv.metrics`` that the reference calls (ref
 utils/core_utils.py:258,426, utils/core_utils_pretrained.py:537-556,
 utils_analysis/evaluation.py:577-578)."""
@@ -247,3 +248,19 @@ def cumulative_dynamic_auc(train_event, train_time, test_event, test_time,
     mean_auc = (float(np.sum(scores[valid] * d[valid]) / denom)
                 if denom > 0 else float("nan"))
     return scores, mean_auc
+
+
+def survival_probs_at_times(S_bins, bin_edges, times):
+    """Per-bin survival S[B, K] (survival through bin k) stepped onto query
+    times, float64 (JAX metrics.py:296): column k holds for t in
+    [edges[k + 1], edges[k + 2]), the last column past the last bin, and 1
+    before edges[1].  At the bin edges (``times = edges[1:]``, as the
+    reference's IBS uses them) it returns S itself."""
+    S_bins = np.asarray(S_bins, dtype=np.float64)
+    edges = np.asarray(bin_edges, dtype=np.float64)
+    times = np.asarray(times, dtype=np.float64)
+    k = np.minimum(np.searchsorted(edges[1:], times, side="right") - 1,
+                   S_bins.shape[1] - 1)
+    out = np.ones((S_bins.shape[0], len(times)))
+    out[:, k >= 0] = S_bins[:, k[k >= 0]]
+    return out

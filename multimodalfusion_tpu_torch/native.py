@@ -1,6 +1,9 @@
 """The port's native host library (``csrc/bagio.cpp``): threaded
-collation of ragged bags into a padded batch, and the entropy decode of
-lossless-JPEG DICOM frames.
+collation of ragged bags into a padded batch, the threaded float32 ->
+bfloat16 cast, parallel whole-file reads, and the entropy decode of
+lossless-JPEG DICOM frames (JAX native.py).  No path of the port calls
+``f32_to_bf16`` or ``read_files`` yet; their ``*_plain`` versions are the
+oracles of the tests and of ``chip_smoke.py``.
 
 The library is built with g++ at its first use into
 ``<checkout>/build/native/bagio-<hash>.so``, where the hash covers the
@@ -16,9 +19,10 @@ import os
 import subprocess
 import tempfile
 import threading
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(PKG_DIR, "csrc", "bagio.cpp")
@@ -67,6 +71,14 @@ def lib() -> ctypes.CDLL:
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_int]
             loaded.mmf_pad_bags_f32.restype = None
+            loaded.mmf_f32_to_bf16.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int]
+            loaded.mmf_f32_to_bf16.restype = None
+            loaded.mmf_read_files.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int]
+            loaded.mmf_read_files.restype = ctypes.c_int64
             loaded.mmf_jpeg_lossless_decode.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
                 ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -104,6 +116,88 @@ def pad_bags_into(bags: Sequence[Optional[np.ndarray]], out: np.ndarray,
         lens[i] = b.shape[0]
     lib().mmf_pad_bags_f32(ptrs, lens, B, n_pad, D, out.ctypes.data,
                            mask.ctypes.data, 0)
+
+
+def _host_f32(x: Union[np.ndarray, torch.Tensor]) -> tuple:
+    """(address, element count) of a C-contiguous float32 array on the
+    host: a numpy array or a CPU tensor.  Anything else raises."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise ValueError(f"f32_to_bf16 casts host arrays; got a tensor "
+                             f"on {x.device}")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"f32_to_bf16 needs contiguous float32; got "
+                             f"{x.dtype} contiguous={x.is_contiguous()}")
+        return x.data_ptr(), x.numel()
+    if not isinstance(x, np.ndarray):
+        raise TypeError(f"f32_to_bf16 takes a numpy array or a CPU tensor, "
+                        f"not {type(x).__name__}")
+    if x.dtype != np.float32 or not x.flags.c_contiguous:
+        raise ValueError(f"f32_to_bf16 needs C-contiguous float32; got "
+                         f"{x.dtype} c_contiguous={x.flags.c_contiguous}")
+    return x.ctypes.data, x.size
+
+
+def f32_to_bf16(x: Union[np.ndarray, torch.Tensor],
+                n_threads: int = 0) -> torch.Tensor:
+    """``x`` (C-contiguous float32, numpy or a CPU tensor) rounded to
+    nearest even as a CPU bfloat16 tensor of its shape, a NaN as its sign
+    | 0x7FC0 (JAX native.py:119; PyTorch's own cast keeps more of the
+    payload).  ``n_threads`` <= 0: one thread per hardware thread, each
+    converting at least 2**20 elements."""
+    src, n = _host_f32(x)
+    out = torch.empty(tuple(x.shape), dtype=torch.bfloat16)
+    lib().mmf_f32_to_bf16(src, out.data_ptr(), n, n_threads)
+    return out
+
+
+def f32_to_bf16_plain(x: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+    """``f32_to_bf16`` on numpy uint32 bits: the oracle of the tests and
+    ``chip_smoke.py``."""
+    _host_f32(x)
+    bits = np.asarray(x).view(np.uint32)
+    out = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
+    nan = ((bits & 0x7F800000) == 0x7F800000) & ((bits & 0x007FFFFF) != 0)
+    out[nan] = ((bits[nan] >> 16) & 0x8000) | 0x7FC0
+    return torch.from_numpy(out.view(np.int16)).view(torch.bfloat16)
+
+
+def read_files(paths: Sequence[Union[str, os.PathLike]],
+               sizes: Sequence[int],
+               n_threads: int = 0) -> Optional[List[np.ndarray]]:
+    """The first ``sizes[i]`` bytes of each file as uint8 arrays, read in
+    parallel: each thread reads a contiguous range of files, at most one
+    thread a file (``n_threads`` <= 0: one per hardware thread).  None
+    when any file is missing or shorter than its size (JAX
+    native.py:152)."""
+    if len(paths) != len(sizes):
+        raise ValueError(f"{len(paths)} paths but {len(sizes)} sizes")
+    n = len(paths)
+    bufs = [np.empty(int(s), np.uint8) for s in sizes]
+    c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    c_sizes = (ctypes.c_int64 * n)(*[int(s) for s in sizes])
+    c_bufs = (ctypes.c_void_p * n)(*[b.ctypes.data for b in bufs])
+    done = lib().mmf_read_files(c_paths, c_sizes, c_bufs, n, n_threads)
+    return bufs if done == n else None
+
+
+def read_files_plain(paths: Sequence[Union[str, os.PathLike]],
+                     sizes: Sequence[int]) -> Optional[List[np.ndarray]]:
+    """``read_files`` by Python reads, one file after another: the oracle
+    of the tests and ``chip_smoke.py``."""
+    if len(paths) != len(sizes):
+        raise ValueError(f"{len(paths)} paths but {len(sizes)} sizes")
+    out = []
+    for p, s in zip(paths, sizes):
+        try:
+            with open(p, "rb") as f:
+                data = f.read(int(s))
+        except FileNotFoundError:
+            return None
+        if len(data) != s:
+            return None
+        out.append(np.frombuffer(data, np.uint8))
+    return out
 
 
 def jpeg_lossless_decode(entropy: bytes, counts: bytes, symbols: bytes,

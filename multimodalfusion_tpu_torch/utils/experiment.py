@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ast
 import os
+from typing import Optional
 
 
 def experiment_code(args, pretrained: bool = False) -> str:
@@ -73,6 +74,15 @@ def read_experiment(results_dir: str) -> dict:
     ``experiment_{code}.txt``, the code being the directory's name."""
     code = os.path.basename(os.path.normpath(results_dir))
     return read_settings(os.path.join(results_dir, f"experiment_{code}.txt"))
+
+
+def find_settings(results_dir: str) -> Optional[str]:
+    """The first ``experiment_*.txt`` of ``results_dir`` in sorted order,
+    or None (JAX utils/experiment.py:110)."""
+    for name in sorted(os.listdir(results_dir)):
+        if name.startswith("experiment_") and name.endswith(".txt"):
+            return os.path.join(results_dir, name)
+    return None
 
 
 def load_experiment_model(results_dir: str, which_k: int, cfg, device):
