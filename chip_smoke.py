@@ -245,8 +245,21 @@ Phases, each fatal on failure:
                 rows as its coordinates, finite, the attributes read back;
                 then cli.infer serves the bags with [train]'s PathAMIL
                 (one forward launch per batch of 8, risks against the
-                plain pooling at rel 1e-4).  The slides are deleted.
-                Alone: --phases wsi (runs [train] first).
+                plain pooling at rel 1e-4).  The four 8192 x 6144
+                slides are written again as 256 x 256 tiled pyramids:
+                JPEG (YCbCr 4:2:0, quality 95, utils/jpeg.encode_jpeg's
+                tiles), JPEG with its tables in JPEGTables, Deflate, LZW
+                with Predictor 2 (chip_smoke's own writers and LZW
+                encoder).  They are read through the port's C++
+                decoders (Deflate and LZW equal to the source pixels,
+                JPEG within 1 dB of the encoder's round trip), the
+                smallest page of each again through the plain decoders
+                (bit for bit), the decode ms per megapixel of each route
+                printed, then patched (Deflate and LZW coordinates equal
+                to their uncompressed twins'), extracted and served (one
+                forward launch, risks against the plain pooling at rel
+                1e-4).  The slides are deleted.  Alone: --phases wsi
+                (runs [train] first).
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -257,6 +270,7 @@ result, when CUDA is unavailable or any phase fails.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -4289,6 +4303,411 @@ def _stage_line(text, prefix):
     return line, out
 
 
+# [wsi] slides 0..3 again as 256 x 256 tiled pyramids, one codec each
+WSI_CODECS = ("jpeg", "jpeg_tables", "deflate", "lzw")
+WSI_TILE = 256
+# TIFF LZW as libtiff writes it (Clear first and when the table fills,
+# the code width growing one code early, EOI last): the writer of
+# [wsi]'s LZW slide, built by native.build beside the slides
+LZW_ENCODER_SRC = r"""
+#include <cstdint>
+#include <vector>
+extern "C" int64_t mmf_lzw_encode(const uint8_t* src, int64_t n,
+                                  uint8_t* dst, int64_t cap) {
+    std::vector<uint16_t> child(4096 * 256, 0);
+    std::vector<int32_t> used;
+    uint64_t acc = 0;
+    int bits = 0, width = 9, next = 258;
+    int64_t out = 0;
+    auto put = [&](int code) {
+        acc = (acc << width) | (uint64_t)code;
+        bits += width;
+        while (bits >= 8) {
+            if (out >= cap) return false;
+            dst[out++] = (uint8_t)(acc >> (bits - 8));
+            bits -= 8;
+        }
+        return true;
+    };
+    auto grow = [&]() {  // after an entry: clear when full, else widen
+        if (next == 4094) {
+            if (!put(256)) return false;
+            for (int k : used) child[k] = 0;
+            used.clear();
+            next = 258;
+            width = 9;
+        } else if (next > (1 << width) - 1) {
+            ++width;
+        }
+        return true;
+    };
+    if (!put(256)) return -1;
+    if (n > 0) {
+        int w = src[0];
+        for (int64_t i = 1; i < n; ++i) {
+            int k = w * 256 + src[i];
+            if (child[k]) {
+                w = child[k];
+                continue;
+            }
+            if (!put(w)) return -1;
+            child[k] = (uint16_t)next;
+            used.push_back(k);
+            ++next;
+            if (!grow()) return -1;
+            w = src[i];
+        }
+        if (!put(w)) return -1;
+        ++next;
+        if (!grow()) return -1;
+    }
+    if (!put(257)) return -1;
+    if (bits) {
+        if (out >= cap) return -1;
+        dst[out++] = (uint8_t)(acc << (8 - bits));
+    }
+    return out;
+}
+"""
+
+
+def _lzw_encoder(build_dir):
+    """A function bytes -> TIFF LZW bytes (``LZW_ENCODER_SRC``, built by
+    g++ into ``build_dir``)."""
+    import ctypes
+
+    from multimodalfusion_tpu_torch import native
+    src = os.path.join(build_dir, "lzw_encode.cpp")
+    with open(src, "w") as f:
+        f.write(LZW_ENCODER_SRC)
+    lib = ctypes.CDLL(native.build(src, build_dir))
+    lib.mmf_lzw_encode.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.c_void_p, ctypes.c_int64]
+    lib.mmf_lzw_encode.restype = ctypes.c_int64
+
+    def encode(raw: bytes) -> bytes:
+        buf = np.frombuffer(raw, np.uint8)
+        out = np.empty(2 * len(raw) + 64, np.uint8)
+        n = lib.mmf_lzw_encode(buf.ctypes.data, len(raw), out.ctypes.data,
+                               out.size)
+        if n < 0:
+            raise RuntimeError("LZW encoder ran out of room")
+        return out[:n].tobytes()
+    return encode
+
+
+def _split_jpeg_tables(stream):
+    """(JPEGTables: SOI, the DQT and DHT segments, EOI; the stream
+    without them)."""
+    tables, rest, pos = [b"\xff\xd8"], [b"\xff\xd8"], 2
+    while True:
+        marker = stream[pos + 1]
+        n = int.from_bytes(stream[pos + 2:pos + 4], "big")
+        if marker == 0xDA:
+            rest.append(stream[pos:])
+            break
+        (tables if marker in (0xDB, 0xC4) else rest).append(
+            stream[pos:pos + 2 + n])
+        pos += 2 + n
+    return b"".join(tables) + b"\xff\xd9", b"".join(rest)
+
+
+def _write_tiled_tiff(path, levels, codec, pool, lzw=None):
+    """``levels`` (uint8 RGB) as the 256 x 256 tiled pages of a little-
+    endian TIFF: ``codec`` jpeg (YCbCr 4:2:0 at quality 95, the tiles of
+    ``utils/jpeg.encode_jpeg``, photometric 6), jpeg_tables (the same,
+    its tables moved into JPEGTables), deflate (zlib level 6) or lzw
+    (Predictor 2, ``_lzw_encoder``'s ``lzw``); tiles encoded on
+    ``pool``."""
+    import struct
+    import zlib
+
+    from multimodalfusion_tpu_torch.utils import jpeg
+    T = WSI_TILE
+
+    def encode(t):
+        if codec.startswith("jpeg"):
+            return jpeg.encode_jpeg(t)
+        if codec == "deflate":
+            return zlib.compress(t.tobytes(), 6)
+        d = t.astype(np.int16)
+        d[:, 1:] -= t[:, :-1]
+        return lzw((d & 255).astype(np.uint8).tobytes())
+
+    compression = {"deflate": 8, "lzw": 5}.get(codec, 7)
+    with open(path, "wb") as f:
+        f.write(b"II*\0\0\0\0\0")
+        link = 4
+        for lvl in levels:
+            h, w = lvl.shape[:2]
+            full = np.pad(lvl, ((0, -h % T), (0, -w % T), (0, 0)),
+                          mode="edge")
+            chunks = list(pool.map(encode, (
+                np.ascontiguousarray(full[y:y + T, x:x + T])
+                for y in range(0, h, T) for x in range(0, w, T))))
+            tables = None
+            if codec == "jpeg_tables":
+                split = [_split_jpeg_tables(c) for c in chunks]
+                tables = split[0][0]
+                if any(t != tables for t, _ in split):
+                    raise AssertionError("[wsi] tiles of other tables")
+                chunks = [c for _, c in split]
+            offsets = []
+            for c in chunks:
+                offsets.append(f.tell())
+                f.write(c)
+            entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+                       (259, 3, [compression]),
+                       (262, 3, [6 if compression == 7 else 2]),
+                       (277, 3, [3]), (284, 3, [1]), (322, 4, [T]),
+                       (323, 4, [T]), (324, 4, offsets),
+                       (325, 4, [len(c) for c in chunks])]
+            if codec == "lzw":
+                entries.append((317, 3, [2]))
+            if tables:
+                entries.append((347, 7, list(tables)))
+            if compression == 7:
+                entries.append((530, 3, [2, 2]))
+            entries.sort()
+            ifd = f.tell() + f.tell() % 2
+            f.write(b"\0" * (ifd - f.tell()))
+            extra = ifd + 2 + 12 * len(entries) + 4
+            body, blobs = struct.pack("<H", len(entries)), b""
+            for tag, typ, vals in entries:
+                raw = struct.pack(f"<{len(vals)}{'HIB'[(3, 4, 7).index(typ)]}",
+                                  *vals)
+                if len(raw) <= 4:
+                    field = raw.ljust(4, b"\0")
+                else:
+                    field = struct.pack("<I", extra + len(blobs))
+                    blobs += raw + b"\0" * (len(raw) % 2)
+                body += struct.pack("<HHI", tag, typ, len(vals)) + field
+            f.write(body + b"\0\0\0\0" + blobs)
+            end = f.tell()
+            f.seek(link)
+            f.write(struct.pack("<I", ifd))
+            f.seek(end)
+            link = ifd + 2 + 12 * len(entries)
+
+
+def _psnr(a, b) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2
+                                                             / mse))
+
+
+def _slide_seconds(text):
+    """{slide file: seconds} of a create_patches run's per-slide lines."""
+    out = {}
+    for line in text.splitlines():
+        head, _, rest = line.partition(": ")
+        if rest.endswith("s") and " patches in " in rest:
+            out[head] = float(rest.rsplit(" ", 1)[1][:-1])
+    return out
+
+
+def phase_wsi_compressed(launch_counters, path_exp, td, src_c, src_u,
+                         twins, sources, out0, steps0, seconds0, wall,
+                         launches):
+    """[wsi]'s compressed slides (the keys of ``twins``: slides 0..3 of
+    [wsi] as 256 x 256 tiled pyramids in ``src_c``, one codec each of
+    ``WSI_CODECS``; their uncompressed twins in ``src_u``, patched into
+    ``out0``; their source levels in ``sources``):
+      - each slide read through ``PILSlide`` (C++ decoders, all host
+        threads): the Deflate and LZW slides equal their source pixels;
+        each level of a JPEG slide, on its top-left 1024 x 768, within
+        1 dB of the PSNR of the encoder's round trip of that crop
+        (``encode_jpeg`` then the decoder);
+      - the smallest page of each slide decoded again through the plain
+        versions (``read_page(plain=True)``): bit for bit the C++ pages;
+      - the decode time per megapixel of each route, C++ (level 0, all
+        threads) and plain (the smallest page), beside the uncompressed
+        twin's read; the threads;
+      - cli.create_patches on them (no launch): the Deflate and LZW
+        slides give the coordinates of their uncompressed twins; the
+        per-slide seconds against the twins' (``seconds0``);
+      - cli.extract_features_fp (no launch), then cli.infer with
+        [train]'s PathAMIL, the counters reset just before: one forward
+        launch per batch of 8, risks equal to the plain pooling's at
+        rel 1e-4.
+    Adds its launch counts to ``launches`` and wall seconds to ``wall``.
+    """
+    import io
+
+    import torch
+    from multimodalfusion_tpu_torch.cli import (create_patches,
+                                                extract_features_fp, infer)
+    from multimodalfusion_tpu_torch.data import hdf5, wsi
+    from multimodalfusion_tpu_torch.data.io import load_pt
+    from multimodalfusion_tpu_torch.utils import jpeg, tiff
+    none = {c.__name__: 0 for c in launch_counters}
+
+    def count():
+        return {c.__name__: c.launches for c in launch_counters}
+
+    def reset():
+        for c in launch_counters:
+            c.launches = 0
+
+    stems_c = list(twins)
+    threads = os.cpu_count()
+    rates, plain_rates = {}, {}
+    for stem, codec in zip(stems_c, WSI_CODECS):
+        path = os.path.join(src_c, f"{stem}.tiff")
+        src = sources[stem]
+        t0 = time.perf_counter()
+        levels = wsi.PILSlide(path).levels
+        dt = time.perf_counter() - t0
+        mp = sum(l.shape[0] * l.shape[1] for l in levels) / 1e6
+        rates[codec] = dt * 1e3 / mp
+        if codec in ("deflate", "lzw"):
+            same = all(np.array_equal(a, b) for a, b in zip(levels, src))
+            if not same:
+                raise AssertionError(f"[wsi] {stem}: the {codec} slide does "
+                                     f"not decode to its source pixels")
+            detail = "equal to the source pixels"
+        else:
+            # each level's top-left 1024 x 768 (whole tiles): the slide's
+            # pixels against one JPEG of the crop, encoded and decoded
+            got, rt = [], []
+            for a, b in zip(levels, src):
+                crop = np.ascontiguousarray(b[:768, :1024])
+                got.append(_psnr(a[:768, :1024], crop))
+                rt.append(_psnr(jpeg.decode_jpeg(jpeg.encode_jpeg(crop)),
+                                crop))
+            if any(abs(g - r) > 1.0 for g, r in zip(got, rt)):
+                raise AssertionError(f"[wsi] {stem}: PSNR {got} dB, the "
+                                     f"encoder's round trip {rt} dB")
+            detail = (f"PSNR of each level's top-left 1024 x 768 "
+                      f"{[round(x, 3) for x in got]} dB, the encoder's "
+                      f"round trip of it {[round(x, 3) for x in rt]} dB")
+        pages = tiff.read_pages(path)
+        small = pages[-1]
+        t0 = time.perf_counter()
+        plain = tiff.read_page(path, small, plain=True)
+        plain_rates[codec] = ((time.perf_counter() - t0) * 1e3
+                              / (small.width * small.height / 1e6))
+        native_page = tiff.read_page(path, small)
+        if not np.array_equal(plain, native_page):
+            raise AssertionError(f"[wsi] {stem}: the C++ and plain "
+                                 f"decoders differ on its smallest page")
+        log(f"[wsi] {stem} ({codec}, {len(pages)} tiled pages, "
+            f"{os.path.getsize(path) / 2**20:.1f} MiB): read in {dt:.3f} s "
+            f"({rates[codec]:.3f} ms/MP, {threads} host threads); {detail}; "
+            f"page {small.width} x {small.height}: C++ = plain bit for bit")
+    t0 = time.perf_counter()
+    mp = 0.0
+    for stem in stems_c:
+        mp += sum(l.shape[0] * l.shape[1] for l in wsi.PILSlide(os.path.join(
+            src_u, f"{twins[stem]}.tiff")).levels) / 1e6
+    rates["uncompressed"] = (time.perf_counter() - t0) * 1e3 / mp
+    log(f"[wsi] decode ms per megapixel on the host ({_card()}): C++ "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
+        + f" (every level, {threads} threads; uncompressed: the twins, "
+        f"read as before); plain "
+        + ", ".join(f"{k} {v:.3f}" for k, v in plain_rates.items())
+        + " (the smallest page, one thread)")
+
+    # stage 0 on the compressed slides
+    out_c = os.path.join(td, "patched_compressed")
+    buf = io.StringIO()
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = create_patches.main([
+            "--source", src_c, "--save_dir", out_c, "--patch_size", "256",
+            "--step_size", "256", "--stitch", "--a_t", "0.5", "--a_h",
+            "0.05", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall["stage0_compressed"] = time.perf_counter() - t0
+    launches["stage0_compressed"] = count()
+    text = buf.getvalue()
+    line, steps = _stage_line(text, "stage 0 wall s")
+    if rc != 0 or "FAILED" in text or launches["stage0_compressed"] != none:
+        raise AssertionError(f"[wsi] stage 0 (compressed): rc={rc}\n{text}")
+    for stem, codec in zip(stems_c, WSI_CODECS):
+        if codec not in ("deflate", "lzw"):
+            continue
+        twin = twins[stem]
+        with hdf5.File(os.path.join(out_c, "patches",
+                                    f"{stem}_patches.h5")) as f:
+            got = f["coords"]
+        with hdf5.File(os.path.join(out0, "patches",
+                                    f"{twin}_patches.h5")) as f:
+            want = f["coords"]
+        if not np.array_equal(got, want) or len(got) < 1:
+            raise AssertionError(f"[wsi] {stem}: stage 0's coordinates "
+                                 f"differ from its uncompressed twin's")
+    secs = _slide_seconds(text)
+    pairs = {stem: (secs[f"{stem}.tiff"],
+                    seconds0[f"{twins[stem]}.tiff"])
+             for stem in stems_c}
+    log(f"[wsi] cli.create_patches on the compressed slides: "
+        f"{wall['stage0_compressed']:.2f} s, launches "
+        f"{launches['stage0_compressed']}; Deflate and LZW coordinates "
+        f"equal to their uncompressed twins'; seconds per slide "
+        f"(compressed, uncompressed twin) {pairs}; {line}; uncompressed "
+        f"run's steps {json.dumps(steps0)}")
+
+    # stage 1 and serving
+    feat = os.path.join(td, "features_compressed")
+    buf = io.StringIO()
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = extract_features_fp.main([
+            "--data_h5_dir", out_c, "--data_slide_dir", src_c,
+            "--feat_dir", feat, "--slide_ext", ".tiff",
+            "--target_patch_size", "224", "--batch_size", "128",
+            "--allow_random_weights", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall["stage1_compressed"] = time.perf_counter() - t0
+    launches["stage1_compressed"] = count()
+    text = buf.getvalue()
+    line1, _ = _stage_line(text, "stage 1 wall s")
+    if rc != 0 or launches["stage1_compressed"] != none:
+        raise AssertionError(f"[wsi] stage 1 (compressed): rc={rc}\n{text}")
+    for stem in stems_c:
+        with hdf5.File(os.path.join(out_c, "patches",
+                                    f"{stem}_patches.h5")) as f:
+            coords = f["coords"]
+        bag = load_pt(os.path.join(feat, "path_pt_files", f"{stem}.pt"))
+        if bag.shape != (len(coords), 1024) or not np.isfinite(bag).all():
+            raise AssertionError(f"[wsi] {stem}: bag {bag.shape} for "
+                                 f"{len(coords)} coordinates")
+    log(f"[wsi] cli.extract_features_fp on the compressed slides: "
+        f"{wall['stage1_compressed']:.2f} s, launches "
+        f"{launches['stage1_compressed']}; {line1}")
+    cohort = os.path.join(td, "wsi_compressed_cohort.csv")
+    with open(cohort, "w") as f:
+        f.write("subject_id,slide_id\n" + "".join(
+            f"P{s},{s}.tiff\n" for s in stems_c))
+    risks = os.path.join(td, "risks_compressed.csv")
+    reset()
+    t0 = time.perf_counter()
+    rc = infer.main(["--model_path", path_exp, "--which_k", "0", "--csv",
+                     cohort, "--data_root_dir", feat, "--out", risks,
+                     "--batch_size", "8", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall["serve_compressed"] = time.perf_counter() - t0
+    launches["serve_compressed"] = count()
+    served = {r["subject_id"]: float(r["risk"]) for r in _csv_rows(risks)}
+    plain = _plain_outputs(path_exp, 8, csv_path=cohort, data_dir=feat)
+    err = max(abs(served[k] - float(v)) / abs(float(v))
+              for k, v in plain.items())
+    want = dict(none, _fused_pool_cuda=-(-len(stems_c) // 8))
+    log(f"[wsi] cli.infer on the compressed slides' bags: {len(served)} "
+        f"slides in {wall['serve_compressed']:.2f} s, launches "
+        f"{launches['serve_compressed']} (expected {want}); vs the plain "
+        f"pooling on the card: max rel err {err:.2e} (tol 1e-4)")
+    if rc != 0 or sorted(served) != sorted(f"P{s}" for s in stems_c) \
+            or sorted(plain) != sorted(served) \
+            or not np.isfinite(list(served.values())).all() \
+            or launches["serve_compressed"] != want or err > 1e-4:
+        raise AssertionError("[wsi] serving the compressed slides' bags "
+                             "failed")
+
+
 def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
               before_delete=None):
     """[wsi] WSI stages 0 and 1 on the card, then the bags served:
@@ -4312,7 +4731,9 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
         patch, warm, on 1024 host patches (CUDA events);
       - cli.infer serves the bags with [train]'s PathAMIL experiment, the
         counters reset just before: one forward launch per batch of 8,
-        risks finite and equal to the plain pooling's at rel 1e-4.
+        risks finite and equal to the plain pooling's at rel 1e-4;
+      - the first four slides again as 256 x 256 tiled pyramids, one
+        codec each of ``WSI_CODECS``, through ``phase_wsi_compressed``.
     Then ``before_delete(td, slides dir, features dir, stems)`` when
     given ([heatmap]).  The slides are deleted at the end.  Returns (the
     launch counts by run, what ``before_delete`` returned).
@@ -4338,20 +4759,37 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
 
     with _workdir(root, "wsi") as td:
         src = os.path.join(td, "slides")
+        src_c = os.path.join(td, "slides_compressed")
         os.makedirs(src)
+        os.makedirs(src_c)
         t0 = time.perf_counter()
-        stems = []
+        stems, twins, sources = [], {}, {}
+        lzw = _lzw_encoder(td)
         for i, (w, h) in enumerate(slides):
             slide = wsi.synthetic_slide(w, h, n_blobs=3, seed=100 + i,
                                         n_levels=3)
             stems.append(f"WSI{i}_{w}x{h}")
             tiff.write_tiff(os.path.join(src, f"{stems[-1]}.tiff"),
                             slide.levels)
+            if i < len(WSI_CODECS):
+                codec = WSI_CODECS[i]
+                stem = f"WSIC{i}_{codec}_{w}x{h}"
+                twins[stem], sources[stem] = stems[-1], slide.levels
+                t1 = time.perf_counter()
+                with concurrent.futures.ThreadPoolExecutor(
+                        os.cpu_count()) as pool:
+                    _write_tiled_tiff(os.path.join(src_c, f"{stem}.tiff"),
+                                      slide.levels, codec, pool, lzw)
+                wall[f"write_{codec}"] = time.perf_counter() - t1
             del slide
         wall["write_slides"] = time.perf_counter() - t0
         log(f"[wsi] wrote {len(slides)} synthetic slides "
             f"({', '.join(f'{w}x{h}' for w, h in slides)}, 3 levels each) "
-            f"as TIFF in {wall['write_slides']:.2f} s")
+            f"as TIFF, and the first {len(twins)} again as 256 x 256 tiled "
+            f"pyramids ({', '.join(WSI_CODECS)}: "
+            + ", ".join(f"{wall[f'write_{c}']:.2f}" for c in WSI_CODECS)
+            + f" s, tiles encoded in {os.cpu_count()} threads), in "
+            f"{wall['write_slides']:.2f} s")
         env = os.environ.get("MMF_TPU_WSI_MAX_BYTES")
         os.environ["MMF_TPU_WSI_MAX_BYTES"] = str(WSI_MAX_BYTES)
         try:
@@ -4374,6 +4812,7 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
                 out0, "process_list_autogen.csv"))}
             n_patches = {s: int(rows[f"{s}.tiff"]["n_patches"])
                          for s in stems}
+            seconds0 = _slide_seconds(text)
             log(f"[wsi] cli.create_patches: {wall['stage0']:.2f} s, "
                 f"launches {launches['stage0']}; patches per slide "
                 f"{n_patches}; {line0}")
@@ -4509,6 +4948,11 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
                 or not np.isfinite(list(served.values())).all() \
                 or launches["serve"] != want or err > 1e-4:
             raise AssertionError("[wsi] serving the extracted bags failed")
+        phase_wsi_compressed(launch_counters, path_exp, td, src_c, src,
+                             twins, sources, out0, steps0, seconds0, wall,
+                             launches)
+        del sources
+        shutil.rmtree(src_c)
         log(f"[wsi] wall s ({_card()}): " + ", ".join(
             f"{k} {v:.3f}" for k, v in wall.items()) + "; stage 0 steps "
             + json.dumps(steps0) + "; stage 1 steps " + json.dumps(steps1))

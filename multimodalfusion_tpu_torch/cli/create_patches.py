@@ -16,8 +16,9 @@ contours, the grid and the files are host work.  ``--preset`` and
 ``--process_list`` are read with ``utils/table.read_csv`` and typed as
 pandas types them (empty cells NaN).  The images are written by the
 port's JPEG encoder (``utils/jpeg.py``, OpenCV's defaults) and the slides
-read by ``data/wsi.open_slide`` (uncompressed TIFF and PNG; openslide
-formats are refused and recorded as failed).
+read by ``data/wsi.open_slide`` (multi-page TIFF, stripped or tiled,
+uncompressed or LZW, Deflate, PackBits or JPEG; PNG; baseline JPEG;
+openslide formats are refused and recorded as failed).
 
     python -m multimodalfusion_tpu_torch.cli.create_patches \\
         --source SLIDES --save_dir OUT --patch_size 256 --step_size 256 \\

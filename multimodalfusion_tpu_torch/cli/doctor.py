@@ -92,13 +92,18 @@ class Doctor:
                   "(engine/train.save_resume)"),
         ("scikit-learn", "--split: data/stratified.py"),
         ("pandas", "CSV files: the csv module, utils/table.py"),
-        ("h5py", "feature h5 files: data/hdf5.py"),
+        ("h5py", "feature h5 files: data/hdf5.py (h5py's default format; "
+                 "deflate, shuffle and fletcher32 filters)"),
         ("flax / msgpack", "checkpoints: .pt files, utils/msgpack_io.py"),
         ("PyYAML", "heatmap configs: utils/yaml_subset.py"),
-        ("pydicom", "DICOM: data/dicom.py (JPEG Lossless in csrc/bagio.cpp)"),
+        ("pydicom", "DICOM: data/dicom.py (JPEG Lossless in csrc/bagio.cpp, "
+                    "baseline JPEG in csrc/imgcodec.cpp)"),
         ("OpenCV / matplotlib / PIL", "images: utils/image_ops.py, "
-                                      "utils/contours.py, utils/png.py, "
-                                      "utils/jpeg.py, utils/tiff.py"),
+                                      "utils/contours.py, utils/png.py "
+                                      "(every PNG PIL reads), utils/jpeg.py "
+                                      "(baseline JPEG), utils/tiff.py "
+                                      "(tiled or stripped; LZW, Deflate, "
+                                      "PackBits, JPEG)"),
         ("PIL's bicubic Image.resize", "heatmap resizes: "
                                        "image_ops.resize_bicubic_pil"),
         ("matplotlib's colormaps", "heatmap colours: image_ops.colormap "
@@ -106,8 +111,9 @@ class Doctor:
         ("OpenCV's uint8 GaussianBlur and filled drawContours",
          "heatmap blur and tissue mask: image_ops.gaussian_blur_u8, "
          "image_ops.fill_contours"),
-        ("openslide", "slides: data/wsi.py reads uncompressed TIFF and "
-                      "PNG; openslide formats are refused"),
+        ("openslide", "slides: data/wsi.py reads TIFF (LZW, Deflate, "
+                      "PackBits, JPEG; tiled or stripped), PNG and JPEG; "
+                      "openslide formats are refused"),
         ("lungmask", "lung masks: the classical estimator in "
                      "data/ct_preprocess.py"),
     )

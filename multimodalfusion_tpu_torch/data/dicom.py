@@ -13,12 +13,16 @@ load_scan; datasets/dataset_raw.py:51-89):
     (1.2.840.10008.1.2.5, a PackBits decoder per PS3.5 Annex G) and JPEG
     Lossless (…1.2.4.70 SV1, the most common compressed syntax of
     clinical CT archives, and …1.2.4.57 with any predictor), whose
-    entropy decode runs in C++ (``native.jpeg_lossless_decode``);
+    entropy decode runs in C++ (``native.jpeg_lossless_decode``), and
+    Baseline JPEG (…1.2.4.50, 8-bit), which the JAX package decodes
+    through PIL, here through the port's own decoder (``utils/jpeg.py``,
+    ``csrc/imgcodec.cpp``: PIL's pixels bit for bit), monochrome frames
+    only, as in JAX;
   * defined- and undefined-length sequences are skipped structurally.
 
-Baseline JPEG (…1.2.4.50) and JPEG 2000 (…1.2.4.90/.91), which the JAX
-package decodes through PIL, raise ``NotImplementedError`` naming the
-syntax: the port has no decoder of its own for them.
+JPEG 2000 (…1.2.4.90/.91), which the JAX package decodes through PIL,
+raises ``NotImplementedError`` naming the syntax and ROADMAP.md's queued
+item for it, and so does ``write_ct_slice(compression="jpeg2000")``.
 
 ``read_file`` returns a ``DicomSlice`` whose attributes are those the
 pipeline reads from a pydicom Dataset (``pixel_array``,
@@ -37,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from multimodalfusion_tpu_torch import native
+from multimodalfusion_tpu_torch.utils import jpeg
 
 EXPLICIT_VR_LE = "1.2.840.10008.1.2.1"
 IMPLICIT_VR_LE = "1.2.840.10008.1.2"
@@ -50,13 +55,17 @@ JPEG_LOSSLESS_SV1 = "1.2.840.10008.1.2.4.70"
 JPEG2000_LOSSLESS = "1.2.840.10008.1.2.4.90"
 JPEG2000 = "1.2.840.10008.1.2.4.91"
 
-# encapsulated-PixelData syntaxes this reader recognizes.  RLE and JPEG
-# Lossless decode here; JPEG Extended (.51, 12-bit lossy) and the
-# syntaxes the JAX package hands to PIL raise with a clear error.
+# encapsulated-PixelData syntaxes this reader recognizes.  RLE, JPEG
+# Lossless and Baseline JPEG decode here; JPEG Extended (.51, 12-bit
+# lossy) and JPEG 2000, which the JAX package hands to PIL, raise with a
+# clear error.
 _PIL_SYNTAXES = {JPEG_BASELINE, JPEG2000_LOSSLESS, JPEG2000}
 _SYNTAX_NAMES = {JPEG_BASELINE: "JPEG Baseline",
                  JPEG2000_LOSSLESS: "JPEG 2000 Lossless",
                  JPEG2000: "JPEG 2000"}
+# ROADMAP.md's item for the codec the port still lacks
+JPEG2000_ITEM = ("ROADMAP.md queue 1, 'JPEG 2000': a decoder of its own "
+                 "is queued")
 _ENCAPSULATED = _PIL_SYNTAXES | {RLE_LOSSLESS, JPEG_LOSSLESS_SV1,
                                  JPEG_LOSSLESS_P14, JPEG_EXTENDED}
 
@@ -522,13 +531,32 @@ def _decode_encapsulated(fragments, transfer_syntax: str, rows: int,
         arr = _decode_jpeg_lossless(blob, rows, cols)
         if bits == 8:
             arr = arr.astype(np.uint8)
+    elif transfer_syntax == JPEG_BASELINE:
+        # JAX hands the frame to PIL: any failure to decode is a
+        # NotImplementedError there, and so here
+        try:
+            arr = jpeg.decode_jpeg(blob)
+        except (ValueError, NotImplementedError) as exc:
+            raise NotImplementedError(
+                f"the port's JPEG decoder cannot decode this "
+                f"{transfer_syntax} frame ({exc!r}) — convert the series "
+                f"to RLE/NIfTI (data/nifti.py)") from exc
+        if arr.ndim != 2:
+            raise NotImplementedError(
+                f"decoded frame has shape {arr.shape} (SamplesPerPixel "
+                "> 1 / color) — the CT pipeline consumes monochrome "
+                "slices only")
+        if arr.shape != (rows, cols):
+            raise ValueError(
+                f"decoded frame {arr.shape} does not match "
+                f"Rows/Columns ({rows}, {cols})")
     elif transfer_syntax in _PIL_SYNTAXES:
         name = _SYNTAX_NAMES[transfer_syntax]
         raise NotImplementedError(
             f"transfer syntax {transfer_syntax} ({name}) has no decoder "
-            "in this package (the JAX package decodes it through PIL) — "
-            "convert the series to RLE/JPEG Lossless or NIfTI "
-            "(data/nifti.py)")
+            f"in this package (the JAX package decodes it through PIL; "
+            f"{JPEG2000_ITEM}) — convert the series to RLE/JPEG Lossless/"
+            f"Baseline JPEG or NIfTI (data/nifti.py)")
     else:
         raise NotImplementedError(
             f"transfer syntax {transfer_syntax} has no decoder in this "
@@ -828,7 +856,8 @@ def write_ct_slice(path: str, pixels: np.ndarray, z: float,
     elif compression == "jpeg2000":
         raise NotImplementedError(
             "compression 'jpeg2000' needs a JPEG 2000 encoder (the JAX "
-            "package writes it through PIL); this package has none")
+            f"package writes it through PIL); this package has none "
+            f"({JPEG2000_ITEM})")
     elif compression == "deflated":
         import zlib
         ts = DEFLATED_EXPLICIT_VR_LE

@@ -12,19 +12,26 @@ The reader takes what h5py's default ("earliest") file format holds:
   fixed-point integers), fill value and data layout (message version 3:
   compact, contiguous, and chunked over a version-1 B-tree of type 1 of
   any depth); a chunk that was never written reads as the fill value;
+- a chunked dataset's filter pipeline (message versions 1 and 2) of the
+  filters h5py writes without plugins: deflate (1, ``zlib``, what
+  ``compression="gzip"`` writes), shuffle (2) and fletcher32 (3), undone
+  in reverse order, skipping those a chunk's filter mask names; a
+  fletcher32 checksum that does not hold raises ``OSError``, as h5py
+  does;
 - a dataset's attributes (``File.attrs``): attribute messages of version
   1 or 3 holding scalars or arrays of those numbers, fixed-length strings,
   or variable-length strings kept in a global heap collection (``GCOL``),
   as h5py stores a Python ``str``.
 
 It raises ``NotImplementedError``, naming what is missing, for what it
-does not take: compressed or filtered data (a filter pipeline message),
-superblock versions 2 and 3 and version-2 object headers (h5py's
-``libver="latest"``), the newer chunk indexes and layout versions, other
-datatypes.  A file that is truncated or is not HDF5 raises ``OSError``,
-and a name the file does not hold ``KeyError``: the JAX package's loader
-counts ``(OSError, KeyError)`` as a missing radiology bag, so the port
-reaches the same verdict on the same files.
+does not take: other filters (szip 4, nbit 5, scale-offset 6, lzf 32000
+and the plugins' ids, each named), superblock versions 2 and 3 and
+version-2 object headers (h5py's ``libver="latest"``), the newer chunk
+indexes and layout versions, other datatypes.  ROADMAP.md queues the
+``libver="latest"`` layouts.  A file that is truncated or is not HDF5
+raises ``OSError``, and a name the file does not hold ``KeyError``: the
+JAX package's loader counts ``(OSError, KeyError)`` as a missing
+radiology bag, so the port reaches the same verdict on the same files.
 
 The writer (``write``) makes a superblock-0 file whose root group holds
 contiguous datasets, each with the attributes given for it (int64 and
@@ -41,6 +48,7 @@ attribute, 0x0010 continuation, 0x0011 symbol table).
 from __future__ import annotations
 
 import struct
+import zlib
 from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -60,6 +68,7 @@ class _Dataset(NamedTuple):
     fill: bytes                 # one element, or b"" for zeros
     layout: tuple               # ("compact", raw) | ("contiguous", addr,
                                 # size) | ("chunked", btree, chunk shape)
+    filters: tuple = ()         # the pipeline's filter ids, in order
 
 
 class File:
@@ -362,7 +371,7 @@ class File:
 
     def _dataset(self, addr: int, name: str) -> _Dataset:
         shape = dtype = layout = None
-        fill = b""
+        fill, filters = b"", ()
         for mtype, data in self._messages(addr):
             if mtype == _DATASPACE:
                 shape = self._dataspace(data)
@@ -376,10 +385,7 @@ class File:
             elif mtype == _LAYOUT:
                 layout = data
             elif mtype == _FILTERS:
-                raise NotImplementedError(
-                    f"{self.path}: dataset {name!r} has a filter pipeline "
-                    f"(compressed or filtered data); the port reads "
-                    f"unfiltered datasets only")
+                filters = _filter_pipeline(data, self.path, name)
             elif mtype == _SYMBOL_TABLE:
                 raise KeyError(f"{self.path}: {name!r} is a group, not a "
                                f"dataset")
@@ -388,8 +394,11 @@ class File:
         if fill and len(fill) != dtype.itemsize:
             raise OSError(f"{self.path}: fill value of {len(fill)} bytes "
                           f"for a {dtype} dataset {name!r}")
-        return _Dataset(shape, dtype, fill, self._layout(layout, shape,
-                                                         dtype, name))
+        layout = self._layout(layout, shape, dtype, name)
+        if filters and layout[0] != "chunked":
+            raise OSError(f"{self.path}: filters on the {layout[0]} "
+                          f"dataset {name!r}")
+        return _Dataset(shape, dtype, fill, layout, filters)
 
     def _dataspace(self, data: bytes) -> Tuple[int, ...]:
         version, rank = data[0], data[1]
@@ -454,33 +463,128 @@ class File:
         if self._undefined(btree) or out.size == 0:
             return out
         csize = int(np.prod(chunk, dtype=np.int64)) * ds.dtype.itemsize
-        self._read_chunks(btree, chunk, csize, out)
+        self._read_chunks(btree, chunk, csize, out, ds.filters)
         return out
 
-    def _read_chunks(self, addr: int, chunk, csize: int,
-                     out: np.ndarray) -> None:
+    def _read_chunks(self, addr: int, chunk, csize: int, out: np.ndarray,
+                     filters: tuple = ()) -> None:
         # a chunk's key: its size, filter mask and offset (one more
         # dimension than the dataset's, for the element)
         level, children, keys = self._btree_node(addr, 1,
                                                  8 + 8 * (len(chunk) + 1))
         for child, key in zip(children, keys):
             if level > 0:
-                self._read_chunks(child, chunk, csize, out)
+                self._read_chunks(child, chunk, csize, out, filters)
                 continue
             size, mask = struct.unpack_from("<II", key, 0)
-            if mask:
-                raise NotImplementedError(
-                    f"{self.path}: a chunk with filter mask {mask:#x}")
-            if size != csize:
-                raise OSError(f"{self.path}: chunk of {size} bytes, "
-                              f"expected {csize} (filtered data?)")
+            raw = self._bytes(child, size)
+            # undo the pipeline last filter first; bit i of the mask
+            # says filter i was skipped for this chunk
+            for i in range(len(filters) - 1, -1, -1):
+                if not mask >> i & 1:
+                    raw = _unfilter(filters[i], raw, out.dtype.itemsize,
+                                    self.path)
+            if len(raw) != csize:
+                raise OSError(f"{self.path}: chunk of {len(raw)} bytes, "
+                              f"expected {csize}")
             offset = struct.unpack_from(f"<{len(chunk)}Q", key, 8)
-            data = np.frombuffer(self._bytes(child, size), out.dtype
-                                 ).reshape(chunk)
+            data = np.frombuffer(raw, out.dtype).reshape(chunk)
             dst = tuple(slice(o, min(o + c, s))
                         for o, c, s in zip(offset, chunk, out.shape))
             src = tuple(slice(0, d.stop - d.start) for d in dst)
             out[dst] = data[src]
+
+
+# filter ids of the pipeline message (HDF5 H5Zpublic.h)
+DEFLATE, SHUFFLE, FLETCHER32 = 1, 2, 3
+_FILTER_NAMES = {4: "szip", 5: "nbit", 6: "scale-offset", 32000: "lzf",
+                 32001: "blosc", 32004: "lz4", 32008: "bitshuffle",
+                 32015: "zstd"}
+
+
+def _filter_pipeline(data: bytes, path: str, name: str) -> tuple:
+    """The filter ids of a filter pipeline message (versions 1 and 2);
+    any filter but deflate, shuffle and fletcher32 raises
+    ``NotImplementedError`` naming its id."""
+    version, n = data[0], data[1]
+    if version not in (1, 2):
+        raise NotImplementedError(f"{path}: filter pipeline message "
+                                  f"version {version} on {name!r}")
+    pos = 8 if version == 1 else 2
+    ids = []
+    for _ in range(n):
+        (fid,) = struct.unpack_from("<H", data, pos)
+        pos += 2
+        name_len = 0
+        if version == 1 or fid >= 256:
+            (name_len,) = struct.unpack_from("<H", data, pos)
+            pos += 2
+        _, n_values = struct.unpack_from("<HH", data, pos)
+        pos += 4
+        pos += (name_len + 7) // 8 * 8 if version == 1 else name_len
+        pos += 4 * n_values
+        if version == 1 and n_values % 2:
+            pos += 4
+        if fid not in (DEFLATE, SHUFFLE, FLETCHER32):
+            what = _FILTER_NAMES.get(fid, "a third-party filter")
+            raise NotImplementedError(
+                f"{path}: dataset {name!r} uses HDF5 filter {fid} ({what}); "
+                f"the port reads deflate (1), shuffle (2) and fletcher32 "
+                f"(3)")
+        ids.append(fid)
+    return tuple(ids)
+
+
+def fletcher32(data: bytes) -> int:
+    """HDF5's H5_checksum_fletcher32 of ``data``: big-endian 16-bit words
+    summed in blocks of 360, each sum folded to 17 bits after a block
+    (an odd last byte is a word's high byte), then folded once more."""
+    words = np.frombuffer(data, ">u2", len(data) // 2).astype(np.int64)
+    s1 = s2 = 0
+    for a in range(0, len(words), 360):
+        w = words[a:a + 360]
+        n = len(w)
+        # sum1 grows by each word; sum2 by sum1 after each word
+        s2 += n * s1 + int((w * np.arange(n, 0, -1)).sum())
+        s1 += int(w.sum())
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    if len(data) % 2:
+        s1 += data[-1] << 8
+        s2 += s1
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    s1 = (s1 & 0xFFFF) + (s1 >> 16)
+    s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    return (s2 << 16) | s1
+
+
+def _unfilter(fid: int, raw: bytes, itemsize: int, path: str) -> bytes:
+    """One filter of the pipeline undone on a chunk's bytes."""
+    if fid == DEFLATE:
+        try:
+            return zlib.decompress(raw)
+        except zlib.error as e:
+            raise OSError(f"{path}: a deflated chunk does not inflate "
+                          f"({e})") from e
+    if fid == SHUFFLE:
+        if itemsize == 1:
+            return raw
+        n = len(raw) // itemsize
+        body = np.frombuffer(raw, np.uint8, n * itemsize)
+        return (body.reshape(itemsize, n).T.tobytes()
+                + raw[n * itemsize:])
+    # fletcher32: the chunk's last 4 bytes hold the checksum, little
+    # endian; HDF5 also takes it byte-reversed (files of HDF5 < 1.6.3)
+    if len(raw) < 4:
+        raise OSError(f"{path}: a fletcher32 chunk of {len(raw)} bytes")
+    body, stored = raw[:-4], int.from_bytes(raw[-4:], "little")
+    want = fletcher32(body)
+    if stored not in (want, int.from_bytes(want.to_bytes(4, "little"),
+                                           "big")):
+        raise OSError(f"{path}: fletcher32 checksum of a chunk does not "
+                      f"hold (Data error detected by Fletcher32 checksum)")
+    return body
 
 
 def _datatype(data: bytes, path: str) -> np.dtype:

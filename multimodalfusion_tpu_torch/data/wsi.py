@@ -9,15 +9,17 @@ runs on stand-ins of its own, each held to the library it replaces
 morphological close, the uint8 resize, rectangle, ellipse),
 ``utils/contours.py`` (``findContours`` with ``RETR_CCOMP``,
 ``contourArea``, ``boundingRect``, ``pointPolygonTest``),
-``utils/tiff.py`` and ``utils/png.py`` (the slide files) and
+``utils/tiff.py``, ``utils/png.py`` and ``utils/jpeg.py`` (the slide
+files, with their decoders in ``csrc/imgcodec.cpp``) and
 ``data/hdf5.py`` (the coordinates and their attributes).
 
 Backends:
   * ``ArraySlide`` -- an in-memory numpy pyramid (tests, synthetic slides);
   * ``PILSlide`` -- the JAX name of the page-per-level reader: multi-page
-    uncompressed TIFF through ``utils/tiff.py``, PNG through
-    ``utils/png.py``; every page is decoded into RAM, so the decode is
-    budgeted from the headers first (``MMF_TPU_WSI_MAX_BYTES``);
+    TIFF (stripped or tiled; uncompressed, LZW, Deflate, PackBits or
+    JPEG) through ``utils/tiff.py``, PNG through ``utils/png.py``, JPEG
+    through ``utils/jpeg.py``; every page is decoded into RAM, so the
+    decode is budgeted from the headers first (``MMF_TPU_WSI_MAX_BYTES``);
   * ``OpenSlideBackend`` -- refuses: the port reads no openslide format.
 
 The per-pixel filters of ``segment_tissue`` run as torch ops on the
@@ -37,10 +39,14 @@ import torch
 from multimodalfusion_tpu_torch import resolve_device
 from multimodalfusion_tpu_torch.data.io import save_hdf5
 from multimodalfusion_tpu_torch.utils import contours as cts
-from multimodalfusion_tpu_torch.utils import image_ops, png, tiff
+from multimodalfusion_tpu_torch.utils import image_ops, jpeg, png, tiff
 
 # the formats of openslide (JAX open_slide, data/wsi.py:165)
 OPENSLIDE_EXTS = (".svs", ".ndpi", ".mrxs", ".scn", ".vms", ".vmu", ".bif")
+# what PILSlide reads
+SLIDE_EXTS = (".tif", ".tiff", ".png", ".jpg", ".jpeg")
+READS = ("multi-page TIFF (stripped or tiled; uncompressed, LZW, Deflate, "
+         "PackBits or baseline JPEG), PNG and baseline JPEG")
 # patches resized at once by stitch_coords (256 of 256 px: 50 MB of int32)
 STITCH_BATCH = 256
 
@@ -93,32 +99,44 @@ def _png_header(path: str) -> Tuple[Tuple[int, int], str]:
         raise ValueError(f"{path}: not a PNG file")
     w, h = int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24],
                                                               "big")
-    depth, ctype = head[24], head[25]
-    mode = {(8, 0): "L", (8, 2): "RGB"}.get((depth, ctype))
-    if mode is None:
-        raise NotImplementedError(
-            f"{path}: a PNG of bit depth {depth}, colour type {ctype}; the "
-            f"port reads 8-bit grayscale and RGB")
-    return (w, h), mode
+    return (w, h), png.mode(head[24], head[25])
+
+
+def _jpeg_header(path: str) -> Tuple[Tuple[int, int], str]:
+    """((w, h), PIL's mode) of a JPEG from its markers (its scans are not
+    decoded)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    try:
+        frame = jpeg.parse_jpeg(data)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{path}: {e}") from e
+    return (frame.width, frame.height), "L" if len(frame.h) == 1 else "RGB"
 
 
 class PILSlide(ArraySlide):
     """Page-per-level slide (the JAX name; no PIL): the pages of a multi-
-    page uncompressed TIFF (``utils/tiff.py``), or one PNG
-    (``utils/png.py``), are the pyramid's levels.  Any other file raises,
-    naming its format.
+    page TIFF -- strips or tiles, uncompressed, LZW (predictor 1 or 2),
+    Deflate, PackBits or JPEG (``utils/tiff.py``) -- or one PNG of any
+    colour type, depth and interlace (``utils/png.py``), or one baseline
+    JPEG (``utils/jpeg.py``), are the pyramid's levels, each as PIL's
+    ``convert("RGB")`` gives it.  Any other file raises, naming its
+    format.
 
     Every page is decoded into RAM, so the decoded size is computed from
     the page headers FIRST: past ``max_decode_bytes`` (default 1 GiB,
     overridable via the MMF_TPU_WSI_MAX_BYTES env var) the constructor
     raises with the remedy instead of dying in the allocator.  The budget
     counts what PIL would hold (JAX data/wsi.py:85-122): every level as
-    3 B/px RGB plus the largest page in its native mode (4 B/px for RGB,
-    1 for 8-bit and 2 for 16-bit grayscale), alive while it converts.
+    3 B/px RGB plus the largest page in its native mode (``MODE_BPP``,
+    the JAX table's bytes: 4 B/px for RGB, RGBA and LA, 1 for 8-bit gray,
+    bilevel and palette, 2 for 16-bit grayscale), alive while it
+    converts.
     """
 
     DEFAULT_MAX_BYTES = 1 << 30
-    MODE_BPP = {"L": 1, "I;16": 2, "RGB": 4}
+    MODE_BPP = {"1": 1, "L": 1, "P": 1, "LA": 4, "I;16": 2, "RGB": 4,
+                "RGBA": 4}
 
     def __init__(self, path: str, max_decode_bytes: Optional[int] = None):
         if max_decode_bytes is None:
@@ -130,10 +148,12 @@ class PILSlide(ArraySlide):
             heads = [((p.width, p.height), p.mode) for p in pages]
         elif ext == ".png":
             heads = [_png_header(path)]
+        elif ext in (".jpg", ".jpeg"):
+            heads = [_jpeg_header(path)]
         else:
             raise NotImplementedError(
                 f"{path}: a {ext or 'extensionless'} slide; the port reads "
-                f"uncompressed TIFF and PNG slides")
+                f"{READS} slides ({', '.join(SLIDE_EXTS)})")
         sizes = [s for s, _ in heads]
         native_peak = max(self.MODE_BPP[m] * w * h for (w, h), m in heads)
         total = sum(3 * w * h for (w, h) in sizes) + native_peak
@@ -142,11 +162,13 @@ class PILSlide(ArraySlide):
                 f"{path}: decoding {len(sizes)} page(s) "
                 f"{sizes} needs ~{total / 2**20:.0f} MiB "
                 f"(> {max_decode_bytes / 2**20:.0f} MiB budget). The "
-                "port cannot stream TIFF regions; use a tiled pyramid the "
-                "reader takes, or raise MMF_TPU_WSI_MAX_BYTES / "
-                "max_decode_bytes if the host has the RAM.")
+                "port decodes whole pages, as PIL does; use smaller "
+                "pages, or raise MMF_TPU_WSI_MAX_BYTES / max_decode_bytes "
+                "if the host has the RAM.")
         if ext == ".png":
-            img = png.read_png(path)
+            levels = [png.read_png(path, rgb=True)]
+        elif ext in (".jpg", ".jpeg"):
+            img = jpeg.read_jpeg(path)
             levels = [img if img.ndim == 3 else np.repeat(img[..., None], 3,
                                                           axis=2)]
         else:
@@ -164,8 +186,8 @@ class OpenSlideBackend:
     def __init__(self, path: str):
         raise NotImplementedError(
             f"{path}: an openslide format ({', '.join(OPENSLIDE_EXTS)}) is "
-            f"not supported by the port; convert the slide to a multi-page "
-            f"uncompressed TIFF")
+            f"not supported by the port; convert the slide to what it reads: "
+            f"{READS}")
 
 
 def open_slide(path: str):

@@ -1,12 +1,20 @@
-"""The port's native host library (``csrc/bagio.cpp``): threaded
-collation of ragged bags into a padded batch, the threaded float32 ->
-bfloat16 cast, parallel whole-file reads, and the entropy decode of
-lossless-JPEG DICOM frames (JAX native.py).  No path of the port calls
-``f32_to_bf16`` or ``read_files`` yet; their ``*_plain`` versions are the
-oracles of the tests and of ``chip_smoke.py``.
+"""The port's native host libraries.
 
-The library is built with g++ at its first use into
-``<checkout>/build/native/bagio-<hash>.so``, where the hash covers the
+``csrc/bagio.cpp`` (``lib()``): threaded collation of ragged bags into a
+padded batch, the threaded float32 -> bfloat16 cast, parallel whole-file
+reads, and the entropy decode of lossless-JPEG DICOM frames (JAX
+native.py).  No path of the port calls ``f32_to_bf16`` or ``read_files``
+yet; their ``*_plain`` versions are the oracles of the tests and of
+``chip_smoke.py``.
+
+``csrc/imgcodec.cpp`` (``codec_lib()``): the image decoders that stand in
+for PIL's libtiff, libpng and libjpeg-turbo -- TIFF LZW and PackBits
+chunks, PNG row filters and baseline JPEG frames, threaded over
+independent chunks.  Their wrappers and plain versions live with the
+readers (``utils/tiff.py``, ``utils/png.py``, ``utils/jpeg.py``).
+
+Each library is built with g++ at its first use into
+``<checkout>/build/native/<name>-<hash>.so``, where the hash covers the
 source and the flags, and loaded with ctypes.  A failed build raises with
 the compiler's output: there is no silent numpy fallback.  Nothing here
 runs at import time.
@@ -26,11 +34,13 @@ import torch
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(PKG_DIR, "csrc", "bagio.cpp")
+CODEC_SRC = os.path.join(PKG_DIR, "csrc", "imgcodec.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "native")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_codec_lib: Optional[ctypes.CDLL] = None
 
 
 def build(src: str = SRC, build_dir: str = BUILD_DIR) -> str:
@@ -86,6 +96,30 @@ def lib() -> ctypes.CDLL:
             loaded.mmf_jpeg_lossless_decode.restype = ctypes.c_int
             _lib = loaded
         return _lib
+
+
+def codec_lib() -> ctypes.CDLL:
+    """The loaded image decoder library (``csrc/imgcodec.cpp``), built on
+    first use."""
+    global _codec_lib
+    with _lock:
+        if _codec_lib is None:
+            loaded = ctypes.CDLL(build(CODEC_SRC))
+            loaded.mmf_tiff_chunks_decode.argtypes = [
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int]
+            loaded.mmf_tiff_chunks_decode.restype = ctypes.c_int
+            loaded.mmf_png_unfilter.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, ctypes.c_void_p]
+            loaded.mmf_png_unfilter.restype = ctypes.c_int64
+            loaded.mmf_jpeg_decode.argtypes = [ctypes.c_void_p,
+                                               ctypes.c_int64, ctypes.c_int]
+            loaded.mmf_jpeg_decode.restype = ctypes.c_int
+            loaded.mmf_jpeg_frame_size.restype = ctypes.c_int64
+            _codec_lib = loaded
+        return _codec_lib
 
 
 def pad_bags_into(bags: Sequence[Optional[np.ndarray]], out: np.ndarray,

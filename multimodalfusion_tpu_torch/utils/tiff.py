@@ -1,16 +1,38 @@
-"""A reader and a writer of baseline uncompressed TIFF files, in numpy and
-the standard library: the port's stand-in for PIL under the WSI slide
+"""A reader of baseline, compressed and tiled TIFF files and a writer of
+uncompressed ones, in numpy, the standard library and the port's own
+decoders: the port's stand-in for PIL and libtiff under the WSI slide
 reader (the machine with the card has no PIL).
 
 The reader takes little- and big-endian files, every page of the IFD
-chain, image data in strips, and 8-bit RGB, 8-bit grayscale or 16-bit
-grayscale pages (``PhotometricInterpretation`` 1 or 2, chunky planar
-configuration).  ``read_page`` returns uint8 RGB as PIL's
-``convert("RGB")`` does: grayscale repeated, 16-bit values saturated at
-255.  ``read_pages`` reads only the page headers (sizes and the mode PIL
-would decode each page in), so a caller can budget the decode first.
-Compression other than 1, tiles and any other layout raise
-``NotImplementedError`` naming the file and the tag.
+chain, image data in strips or in tiles (tags 322-325; edge tiles are
+cropped), and 8-bit RGB, 8-bit grayscale or 16-bit grayscale pages
+(``PhotometricInterpretation`` 1 or 2, chunky planar configuration), each
+with one of these compressions (tag 259):
+
+- 1, none;
+- 5, LZW, with ``Predictor`` (tag 317) 1 or 2 (horizontal differencing);
+- 8 and 32946, Deflate (``zlib``), with predictor 1 or 2;
+- 32773, PackBits;
+- 7, JPEG (``utils/jpeg.py``): 8-bit gray, or 3 components with
+  photometric 2 (RGB, no colour transform) or 6 (YCbCr, converted to
+  RGB as libtiff asks libjpeg to for PIL; the subsampling is the
+  stream's, and must match ``YCbCrSubsampling``, tag 530, when that is
+  present), with the tables in each stream or in ``JPEGTables`` (tag
+  347).
+
+``read_page`` returns uint8 RGB as PIL's ``convert("RGB")`` does:
+grayscale repeated, 16-bit values saturated at 255.  LZW and PackBits
+chunks and JPEG streams decode in C++ (``csrc/imgcodec.cpp``), many
+chunks in parallel threads, Deflate in ``zlib`` on a thread pool;
+``read_page(..., plain=True)`` decodes them with the plain versions
+(``lzw_decode_plain``, ``packbits_decode_plain``, the JPEG decoder's),
+one chunk after another, as the tests and ``chip_smoke.py`` do to hold
+the C++ to them.  ``read_pages`` reads only the page headers (sizes and
+the mode PIL would decode each page in), so a caller can budget the
+decode first.  Other compressions (CCITT, old-style JPEG, JPEG 2000,
+ZSTD, ...), ``PlanarConfiguration`` 2, floating-point prediction and
+other layouts raise ``NotImplementedError`` naming the file and the tag;
+ROADMAP.md queues them.
 
 The writer (``write_tiff``) writes uint8 RGB pages [H, W, 3],
 uncompressed, one strip a page, little-endian, as PIL writes a
@@ -18,27 +40,45 @@ multi-page TIFF (``save_all``).
 """
 from __future__ import annotations
 
+import concurrent.futures
+import ctypes
+import os
 import struct
-from typing import List, NamedTuple, Sequence
+import zlib
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+
+from multimodalfusion_tpu_torch.utils import jpeg
 
 # tags
 _WIDTH, _LENGTH, _BITS, _COMPRESSION, _PHOTOMETRIC = 256, 257, 258, 259, 262
 _STRIP_OFFSETS, _SAMPLES, _ROWS_PER_STRIP, _STRIP_BYTES = 273, 277, 278, 279
-_PLANAR, _TILE_WIDTH, _TILE_OFFSETS = 284, 322, 324
+_PLANAR, _PREDICTOR, _TILE_WIDTH, _TILE_LENGTH = 284, 317, 322, 323
+_TILE_OFFSETS, _TILE_BYTES, _JPEG_TABLES, _YCBCR_SUB = 324, 325, 347, 530
 # field type -> (struct code, size)
 _TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1),
           7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 16: ("Q", 8)}
+# compressions read, by tag 259 value
+NONE, LZW, JPEG, DEFLATE, PACKBITS, ADOBE_DEFLATE = 1, 5, 7, 8, 32773, 32946
+COMPRESSIONS = {NONE: "none", LZW: "LZW", JPEG: "JPEG", DEFLATE: "Deflate",
+                ADOBE_DEFLATE: "Deflate", PACKBITS: "PackBits"}
 
 
 class Page(NamedTuple):
     width: int
     height: int
     mode: str                   # the mode PIL decodes the page in
-    dtype: np.dtype             # of one sample
+    dtype: np.dtype             # of one sample, in the file's byte order
     samples: int
-    strips: List[tuple]         # (offset, byte count)
+    chunks: List[tuple]         # (offset, byte count) of each strip / tile
+    compression: int = NONE
+    predictor: int = 1
+    tile: Optional[Tuple[int, int]] = None  # (width, length); None: strips
+    rows_per_strip: int = 0
+    jpeg_tables: Optional[bytes] = None
+    photometric: int = 2
+    ycbcr_sub: Optional[Tuple[int, int]] = None
 
 
 def _read_at(f, pos: int, n: int, path: str) -> bytes:
@@ -67,7 +107,8 @@ def _fields(f, order: str, at: int, path: str):
         else:
             (pos,) = struct.unpack_from(order + "I", block, 12 * i + 8)
             raw = _read_at(f, pos, count * size, path)
-        tags[tag] = struct.unpack(f"{order}{count}{code}", raw)
+        tags[tag] = (raw if typ == 7 else
+                     struct.unpack(f"{order}{count}{code}", raw))
     (nxt,) = struct.unpack_from(order + "I", block, 12 * n)
     return tags, nxt
 
@@ -82,24 +123,31 @@ def _page(tags: dict, path: str) -> Page:
             return default
         return v[0]
 
-    if _TILE_WIDTH in tags or _TILE_OFFSETS in tags:
-        raise NotImplementedError(f"{path}: a tiled TIFF page (tag "
-                                  f"{_TILE_WIDTH}); the port reads strips")
     compression = one(_COMPRESSION, 1)
-    if compression != 1:
-        raise NotImplementedError(f"{path}: TIFF Compression (tag "
-                                  f"{_COMPRESSION}) = {compression}; the "
-                                  f"port reads uncompressed pages only")
+    if compression not in COMPRESSIONS:
+        raise NotImplementedError(
+            f"{path}: TIFF Compression (tag {_COMPRESSION}) = "
+            f"{compression}; the port reads none (1), LZW (5), JPEG (7), "
+            f"Deflate (8, 32946) and PackBits (32773)")
     if one(_PLANAR, 1) != 1:
         raise NotImplementedError(f"{path}: TIFF PlanarConfiguration (tag "
                                   f"{_PLANAR}) = 2; the port reads chunky "
                                   f"pages")
+    predictor = one(_PREDICTOR, 1)
+    if compression not in (LZW, DEFLATE, ADOBE_DEFLATE):
+        predictor = 1  # libtiff applies it with LZW and Deflate only
+    if predictor not in (1, 2):
+        raise NotImplementedError(f"{path}: TIFF Predictor (tag "
+                                  f"{_PREDICTOR}) = {predictor}; the port "
+                                  f"reads 1 and 2")
     samples = one(_SAMPLES, 1)
     bits = tags.get(_BITS) or (1,)
     photometric = one(_PHOTOMETRIC)
-    if photometric == 2 and samples == 3 and set(bits) == {8}:
+    if photometric in (2, 6) and samples == 3 and set(bits) == {8} and (
+            photometric == 2 or compression == JPEG):
         mode, dtype = "RGB", np.dtype("u1")
-    elif photometric == 1 and samples == 1 and bits[0] in (8, 16):
+    elif photometric == 1 and samples == 1 and bits[0] in (8, 16) and (
+            compression != JPEG or bits[0] == 8):
         mode, dtype = ("L", np.dtype("u1")) if bits[0] == 8 else (
             "I;16", np.dtype("u2"))
     else:
@@ -107,16 +155,29 @@ def _page(tags: dict, path: str) -> Page:
             f"{path}: TIFF page with PhotometricInterpretation (tag "
             f"{_PHOTOMETRIC}) {photometric}, SamplesPerPixel (tag "
             f"{_SAMPLES}) {samples}, BitsPerSample (tag {_BITS}) "
-            f"{tuple(bits)}; the port reads 8-bit RGB and 8- or 16-bit "
-            f"grayscale")
-    offsets = tags.get(_STRIP_OFFSETS)
-    counts = tags.get(_STRIP_BYTES)
+            f"{tuple(bits)}, Compression {compression}; the port reads "
+            f"8-bit RGB, 8- or 16-bit grayscale, and YCbCr in JPEG")
+    tile = None
+    if _TILE_WIDTH in tags or _TILE_OFFSETS in tags:
+        tile = (one(_TILE_WIDTH), one(_TILE_LENGTH))
+        offsets, counts = tags.get(_TILE_OFFSETS), tags.get(_TILE_BYTES)
+        what = (f"TileOffsets (tag {_TILE_OFFSETS}) and TileByteCounts "
+                f"(tag {_TILE_BYTES})")
+        if not tile[0] or not tile[1]:
+            raise OSError(f"{path}: TIFF tiles of {tile[0]} x {tile[1]} "
+                          f"(tags {_TILE_WIDTH}, {_TILE_LENGTH})")
+    else:
+        offsets, counts = tags.get(_STRIP_OFFSETS), tags.get(_STRIP_BYTES)
+        what = (f"StripOffsets (tag {_STRIP_OFFSETS}) and StripByteCounts "
+                f"(tag {_STRIP_BYTES})")
     if not offsets or not counts or len(offsets) != len(counts):
-        raise NotImplementedError(f"{path}: TIFF page without StripOffsets "
-                                  f"(tag {_STRIP_OFFSETS}) and "
-                                  f"StripByteCounts (tag {_STRIP_BYTES})")
+        raise NotImplementedError(f"{path}: TIFF page without {what}")
+    sub = tags.get(_YCBCR_SUB)
+    tables = tags.get(_JPEG_TABLES)
     return Page(one(_WIDTH), one(_LENGTH), mode, dtype, samples,
-                list(zip(offsets, counts)))
+                list(zip(offsets, counts)), compression, predictor, tile,
+                one(_ROWS_PER_STRIP, 0xFFFFFFFF), tables and bytes(tables),
+                photometric, tuple(sub[:2]) if sub else None)
 
 
 def _header(path: str):
@@ -146,26 +207,252 @@ def read_pages(path: str) -> List[Page]:
     return pages
 
 
-def read_page(path: str, page: Page) -> np.ndarray:
-    """uint8 RGB [H, W, 3] of ``page`` of the file at ``path``."""
-    n = page.width * page.height * page.samples
-    out = np.empty(n, page.dtype)
-    at = 0
+# ---- the chunk decoders: plain versions, and the C++ batch
+
+def _codes(data: bytes) -> Tuple[List[int], int]:
+    """The 24 bits from each byte on (zeros past the end), and the bit
+    count."""
+    b = np.frombuffer(bytes(data) + b"\0\0\0", np.uint8).astype(np.int64)
+    return ((b[:-2] << 16) | (b[1:-1] << 8) | b[2:]).tolist(), 8 * len(data)
+
+
+def lzw_decode_plain(data: bytes, cap: int) -> bytes:
+    """TIFF LZW (MSB-first codes, Clear 256, EOI 257, the width growing
+    one code early, as libtiff decodes): at most ``cap`` bytes.  The
+    plain version of ``mmf_tiff_chunks_decode``'s LZW; a code that names
+    no entry raises ``ValueError``."""
+    win, total = _codes(data)
+    out = bytearray()
+    table: List[bytes] = [bytes([i]) for i in range(256)] + [b"", b""]
+    bit, width, prev = 0, 9, None
+    while len(out) < cap and bit + width <= total:
+        code = (win[bit >> 3] >> (24 - (bit & 7) - width)) & (
+            (1 << width) - 1)
+        bit += width
+        if code == 257:
+            break
+        if code == 256:
+            del table[258:]
+            width, prev = 9, None
+            continue
+        if prev is None:
+            if code > 255:
+                raise ValueError("corrupt LZW data (a first code past 255)")
+            out += table[code]
+            prev = table[code]
+            continue
+        n = len(table)
+        if code < n:
+            s = table[code]
+        elif code == n and n < 4096:
+            s = prev + prev[:1]
+        else:
+            raise ValueError(f"corrupt LZW data (code {code} of {n})")
+        if n < 4096:
+            table.append(prev + s[:1])
+            if len(table) >= (1 << width) - 1 and width < 12:
+                width += 1
+        out += s
+        prev = s
+    return bytes(out[:cap])
+
+
+def packbits_decode_plain(data: bytes, cap: int) -> bytes:
+    """PackBits (a header byte n: n + 1 literal bytes, or the next byte
+    1 - n times; -128 skipped): at most ``cap`` bytes.  The plain version
+    of ``mmf_tiff_chunks_decode``'s PackBits; a run past the end of the
+    data raises ``ValueError``."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n and len(out) < cap:
+        h = data[i] - 256 if data[i] > 127 else data[i]
+        i += 1
+        if h >= 0:
+            if i + h + 1 > n:
+                raise ValueError("corrupt PackBits data (a literal run "
+                                 "past the end)")
+            out += data[i:i + h + 1]
+            i += h + 1
+        elif h != -128:
+            if i >= n:
+                raise ValueError("corrupt PackBits data (a repeat run "
+                                 "past the end)")
+            out += bytes([data[i]]) * (1 - h)
+            i += 1
+    return bytes(out[:cap])
+
+
+def decode_chunks(codec: int, chunks: Sequence[bytes],
+                  outs: Sequence) -> List[int]:
+    """LZW (5) or PackBits (32773) of each chunk into its ``out`` (a
+    writable C-contiguous uint8 array, filled up to its size) in C++, in
+    parallel threads (one per hardware thread): the bytes written to
+    each.  A malformed chunk raises ``ValueError``."""
+    from multimodalfusion_tpu_torch import native
+    n = len(chunks)
+    if len(outs) != n or any(
+            not isinstance(o, np.ndarray) or o.dtype != np.uint8
+            or not o.flags.c_contiguous or not o.flags.writeable
+            for o in outs):
+        raise ValueError(f"{n} chunks need as many writable C-contiguous "
+                         f"uint8 outputs")
+    srcs = [np.frombuffer(c, np.uint8) for c in chunks]
+    c_srcs = (ctypes.c_void_p * n)(*[s.ctypes.data for s in srcs])
+    c_lens = (ctypes.c_int64 * n)(*[s.size for s in srcs])
+    c_dsts = (ctypes.c_void_p * n)(*[o.ctypes.data for o in outs])
+    c_caps = (ctypes.c_int64 * n)(*[o.size for o in outs])
+    c_outs = (ctypes.c_int64 * n)()
+    if native.codec_lib().mmf_tiff_chunks_decode(
+            codec, c_srcs, c_lens, c_dsts, c_caps, c_outs, n, 0) != 0:
+        raise ValueError(f"no C++ decoder for TIFF compression {codec}")
+    done = list(c_outs)
+    if min(done, default=0) < 0:
+        raise ValueError(f"corrupt {COMPRESSIONS[codec]} data in chunk "
+                         f"{done.index(min(done))}")
+    return done
+
+
+# ---- pages
+
+def _layout(page: Page):
+    """(y, x, rows, cols) of each chunk's pixels on the page, and the
+    decoded shape [rows, cols] of each chunk."""
+    if page.tile:
+        tw, th = page.tile
+        places = [(y, x, min(th, page.height - y), min(tw, page.width - x))
+                  for y in range(0, page.height, th)
+                  for x in range(0, page.width, tw)]
+        shapes = [(th, tw)] * len(places)
+    else:
+        rps = max(1, min(page.rows_per_strip, page.height))
+        places = [(y, 0, min(rps, page.height - y), page.width)
+                  for y in range(0, page.height, rps)]
+        shapes = [(p[2], page.width) for p in places]
+    return places, shapes
+
+
+def _chunk_bytes(path: str, page: Page, n: int) -> List[bytes]:
+    if len(page.chunks) < n:
+        raise OSError(f"{path}: a TIFF page of {n} strips or tiles lists "
+                      f"{len(page.chunks)}")
+    out = []
     with open(path, "rb") as f:
-        for offset, count in page.strips:
-            take = min(count // page.dtype.itemsize, n - at)
-            f.seek(offset)
-            got = f.readinto(memoryview(out[at:at + take]).cast("B"))
-            if got != take * page.dtype.itemsize:
-                raise OSError(f"{path}: truncated TIFF strip at {offset}")
-            at += take
-            if at == n:
-                break
-    if at != n:
-        raise OSError(f"{path}: TIFF strips hold {at} of {n} samples")
+        for offset, count in page.chunks[:n]:
+            out.append(_read_at(f, offset, count, path))
+    return out
+
+
+def _jpeg_page(path: str, page: Page, places, shapes, chunks,
+               plain) -> np.ndarray:
+    nc = page.samples
+    out = np.empty((page.height, page.width, nc), np.uint8)
+    frames, outs = [], []
+    want_sub = page.ycbcr_sub
+    for (y, x, rows, cols), (th, tw), data in zip(places, shapes, chunks):
+        f = jpeg.parse_jpeg(data, page.jpeg_tables,
+                            transform=page.photometric == 6)
+        if (f.width, f.height) != (tw, th) or len(f.h) != nc:
+            raise OSError(f"{path}: a JPEG chunk of {f.width} x {f.height} "
+                          f"x {len(f.h)} where the page holds {tw} x {th} x "
+                          f"{nc}")
+        # libtiff's JPEGPreDecode: the first component sampled as the
+        # page says (photometric 6: YCbCrSubsampling, else the first
+        # stream's), every other 1 x 1
+        sub = (1, 1) if page.photometric != 6 else want_sub
+        if sub is None:
+            sub = want_sub = (f.h[0], f.v[0])
+        if (f.h[0], f.v[0]) != sub or any(
+                (a, b) != (1, 1) for a, b in zip(f.h[1:], f.v[1:])):
+            raise OSError(f"{path}: improper JPEG sampling factors "
+                          f"{list(zip(f.h, f.v))} (libtiff expects {sub} "
+                          f"then 1 x 1)")
+        frames.append(f)
+        outs.append(out[y:y + rows, x:x + cols])
+    jpeg.decode_frames(frames, outs, plain=plain)
+    return out
+
+
+def _pixels(path: str, page: Page, plain: bool):
+    """The page's samples [H, W, samples] in its dtype (file order)."""
+    places, shapes = _layout(page)
+    item = page.dtype.itemsize
+    spp = page.samples
+    if page.compression == NONE and not page.tile:
+        n = page.width * page.height * spp
+        out = np.empty(n, page.dtype)
+        at = 0
+        with open(path, "rb") as f:
+            for offset, count in page.chunks:
+                take = min(count // item, n - at)
+                f.seek(offset)
+                got = f.readinto(memoryview(out[at:at + take]).cast("B"))
+                if got != take * item:
+                    raise OSError(f"{path}: truncated TIFF strip at "
+                                  f"{offset}")
+                at += take
+                if at == n:
+                    break
+        if at != n:
+            raise OSError(f"{path}: TIFF strips hold {at} of {n} samples")
+        return out.reshape(page.height, page.width, spp)
+    chunks = _chunk_bytes(path, page, len(places))
+    if page.compression == JPEG:
+        return _jpeg_page(path, page, places, shapes, chunks, plain)
+    sizes = [r * c * spp * item for r, c in shapes]
+    buf = np.zeros(sum(sizes), np.uint8)
+    starts = np.cumsum([0] + sizes[:-1]).tolist()
+    outs = [buf[a:a + n] for a, n in zip(starts, sizes)]
+    if page.compression == NONE:
+        done = []
+        for o, data in zip(outs, chunks):
+            k = min(len(data), o.size)
+            o[:k] = np.frombuffer(data, np.uint8, k)
+            done.append(k)
+    elif page.compression in (DEFLATE, ADOBE_DEFLATE):
+        def inflate(i):
+            raw = zlib.decompressobj().decompress(chunks[i], sizes[i])
+            outs[i][:len(raw)] = np.frombuffer(raw, np.uint8)
+            return len(raw)
+        if plain:
+            done = [inflate(i) for i in range(len(chunks))]
+        else:
+            with concurrent.futures.ThreadPoolExecutor(
+                    os.cpu_count() or 1) as pool:
+                done = list(pool.map(inflate, range(len(chunks))))
+    elif plain:
+        fn = (lzw_decode_plain if page.compression == LZW
+              else packbits_decode_plain)
+        done = []
+        for o, data in zip(outs, chunks):
+            raw = fn(data, o.size)
+            o[:len(raw)] = np.frombuffer(raw, np.uint8)
+            done.append(len(raw))
+    else:
+        done = decode_chunks(page.compression, chunks, outs)
+    short = [i for i, (d, n) in enumerate(zip(done, sizes)) if d < n]
+    if short:
+        i = short[0]
+        raise OSError(f"{path}: TIFF chunk {i} "
+                      f"({COMPRESSIONS[page.compression]}) decodes to "
+                      f"{done[i]} of {sizes[i]} bytes")
+    out = np.empty((page.height, page.width, spp), page.dtype)
+    for (y, x, rows, cols), (th, tw), o in zip(places, shapes, outs):
+        px = o.view(page.dtype).reshape(th, tw, spp)
+        if page.predictor == 2:
+            px = np.cumsum(px.astype(page.dtype.newbyteorder("=")), axis=1,
+                           dtype=page.dtype.newbyteorder("="))
+        out[y:y + rows, x:x + cols] = px[:rows, :cols]
+    return out
+
+
+def read_page(path: str, page: Page, plain: bool = False) -> np.ndarray:
+    """uint8 RGB [H, W, 3] of ``page`` of the file at ``path``.  LZW,
+    PackBits and JPEG decode in C++ (one thread per hardware thread), or
+    with ``plain=True`` in their plain versions."""
+    px = _pixels(path, page, plain)
     if page.mode == "RGB":
-        return out.reshape(page.height, page.width, 3)
-    gray = out.reshape(page.height, page.width)
+        return px
+    gray = px[..., 0]
     if page.mode == "I;16":
         gray = np.minimum(gray, 255).astype(np.uint8)
     return np.repeat(gray[..., None], 3, axis=2)

@@ -7,6 +7,9 @@ CAM overlay of JAX's cam_overlay with at most 0.1% of pixels off by at
 most 4 levels, gradcam_pp at rtol 1e-5 / atol 1e-6, and the CAM runner
 against JAX's CamRunner and _scan_cams (tests/test_gradcam_cli.py:234):
 CAMs at atol 1e-4, scores at atol 1e-5."""
+import struct
+import zlib
+
 import cv2
 import numpy as np
 import pytest
@@ -109,10 +112,19 @@ def test_png_refusals(tmp_path):
     data[40] ^= 1  # inside IDAT: its CRC no longer holds
     with pytest.raises(ValueError, match="bad PNG chunk"):
         png.decode_png(bytes(data))
-    # OpenCV filters its rows, which the reader does not undo
+    # OpenCV filters its rows, which the reader undoes; a filter type
+    # past 4 raises
     cv2.imwrite(str(tmp_path / "cv.png"), x)
-    with pytest.raises(ValueError, match="filter 0"):
-        png.read_png(str(tmp_path / "cv.png"))
+    np.testing.assert_array_equal(png.read_png(str(tmp_path / "cv.png")),
+                                  x[..., ::-1])  # cv2 writes BGR arrays
+    raw = np.zeros((20, 1 + 90), np.uint8)
+    raw[7, 0] = 5
+    bad = png.SIGNATURE + b"".join(png._chunk(k, v) for k, v in (
+        (b"IHDR", struct.pack(">IIBBBBB", 30, 20, 8, 2, 0, 0, 0)),
+        (b"IDAT", zlib.compress(raw.tobytes())), (b"IEND", b"")))
+    for plain in (False, True):
+        with pytest.raises(ValueError, match="row 7 has filter type 5"):
+            png.decode_png(bad, plain=plain)
     for bad in (x.astype(np.float32), x[..., :2], np.zeros((0, 3),
                                                            np.uint8)):
         with pytest.raises(ValueError):

@@ -286,11 +286,21 @@ def test_pil_slide_size_gate(tmp_path, small_slide, monkeypatch):
 
 
 def test_readers_refuse_what_they_cannot_read(tmp_path, small_slide):
+    """What the port does not read raises, naming the file; what it now
+    reads (a baseline JPEG slide, LZW) reads as PIL reads it."""
     lvl = small_slide.levels[2]
     jpg = str(tmp_path / "s.jpg")
     Image.fromarray(lvl).save(jpg)
-    with pytest.raises(NotImplementedError, match="s.jpg"):
-        tw.open_slide(jpg)
+    np.testing.assert_array_equal(tw.open_slide(jpg).levels[0],
+                                  jw.PILSlide(jpg).levels[0])
+    prog = str(tmp_path / "p.jpg")
+    Image.fromarray(lvl).save(prog, progressive=True)
+    with pytest.raises(NotImplementedError, match="p.jpg.*progressive"):
+        tw.open_slide(prog)
+    gif = str(tmp_path / "s.gif")
+    Image.fromarray(lvl).save(gif)
+    with pytest.raises(NotImplementedError, match="s.gif"):
+        tw.open_slide(gif)
     for ext in (".svs", ".ndpi", ".mrxs"):
         path = str(tmp_path / f"slide{ext}")
         with open(path, "wb") as f:
@@ -300,18 +310,21 @@ def test_readers_refuse_what_they_cannot_read(tmp_path, small_slide):
             tw.open_slide(path)
     lzw = str(tmp_path / "lzw.tiff")
     Image.fromarray(lvl).save(lzw, compression="tiff_lzw")
-    with pytest.raises(NotImplementedError, match="lzw.tiff.*tag 259"):
-        tw.open_slide(lzw)
+    np.testing.assert_array_equal(tw.open_slide(lzw).levels[0],
+                                  jw.PILSlide(lzw).levels[0])
     # the writer's file with its last tag (PlanarConfiguration) renamed
-    # TileWidth, then PlanarConfiguration 2
-    for tag, value, match in ((322, 64, "tiled.*tag 322"),
-                              (284, 2, "tag 284")):
+    # TileWidth (a tiled page without TileLength), then
+    # PlanarConfiguration 2, then its Compression (the fourth tag) set to
+    # ZSTD (50000)
+    for tag, value, match, at in ((322, 64, "tiled.*tag 323", 9),
+                                  (284, 2, "tag 284", 9),
+                                  (259, 50000, "tiled.*tag 259", 3)):
         path = str(tmp_path / "tiled.tiff")
         tiff.write_tiff(path, [lvl])
         with open(path, "r+b") as f:
             f.seek(4)
             (ifd,) = struct.unpack("<I", f.read(4))
-            f.seek(ifd + 2 + 12 * 9)
+            f.seek(ifd + 2 + 12 * at)
             f.write(struct.pack("<HHIHH", tag, 3, 1, value, 0))
         with pytest.raises(NotImplementedError, match=match):
             tw.open_slide(path)
