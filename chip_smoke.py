@@ -115,6 +115,13 @@ Phases, each fatal on failure:
                 launches a kernel.  One wall-seconds line with the card's
                 name and power limit.  Alone (--phases interpret) it runs
                 [radio] first for its experiments.
+  4f. j2k    -- the committed JPEG 2000 fixtures of
+                multimodalfusion_tpu_torch/testdata/j2k (made by PIL's
+                openjpeg and by the port's encoder: 9/7 in layers, RPCL
+                precincts, tiles with offsets, RGB with the ICT, signed
+                12-bit, every code-block style bit, PPT tile-parts and
+                POC) decoded by the C++ and the plain versions, both to
+                the manifest's SHA-256 of PIL's pixels; no launch.
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak) and,
                 for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
@@ -142,12 +149,17 @@ Phases, each fatal on failure:
                 share.  Alone: --phases bf16step.
   6. extract  -- radiology stage 1 on the card: a glioma cohort (8
                 subjects x 4 sequences of 155 x 240 x 240 int16 NIfTI) and
-                a lung cohort (2 DICOM series of 60 x 512 x 512 int16, one
-                JPEG Lossless SV1) written by the port's writers and run
+                a lung cohort (3 DICOM series of 60 x 512 x 512 int16, one
+                JPEG Lossless SV1, one JPEG 2000 Lossless twin of the
+                uncompressed one) written by the port's writers and run
                 through cli.feature_extraction in bf16 with seeded
-                --weights: no pooling launch, the C++ JPEG decoder used,
-                every h5 finite, the JPEG series' host preprocessing
-                timed step by step; the card's slice inputs equal the host
+                --weights: no pooling launch, the C++ JPEG and JPEG 2000
+                decoders used, every h5 finite, the JPEG series' host
+                preprocessing timed step by step; the J2K series reads
+                back to its volume and its features equal its twin's, its
+                decode ms per megapixel (C++, plain) printed, and the two
+                served (one forward launch, equal risks); the card's
+                slice inputs equal the host
                 path bit for bit; f32 on the card against the CPU at rel
                 1e-3, bf16 against f32 at 2e-2; embed_images and trunk
                 images per second (bf16, f32) beside the bound of 6.556
@@ -258,8 +270,12 @@ Phases, each fatal on failure:
                 printed, then patched (Deflate and LZW coordinates equal
                 to their uncompressed twins'), extracted and served (one
                 forward launch, risks against the plain pooling at rel
-                1e-4).  The slides are deleted.  Alone: --phases wsi
-                (runs [train] first).
+                1e-4).  Level 0 of the first is written again as a
+                lossless RCT .jp2 by the port's JPEG 2000 encoder and as a
+                one-page TIFF twin: the .jp2 decodes to the source, both
+                give the same coordinates and features, and their bags are
+                served (one forward launch, equal risks).  The slides are
+                deleted.  Alone: --phases wsi (runs [train] first).
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -272,6 +288,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -365,9 +382,11 @@ def phase_build():
                    for f in os.listdir(cuda_build.CSRC_DIR)
                    if f.endswith(".cu"))
     t0 = time.perf_counter()
-    # one nvcc per source and g++ for the host library, all at once
-    with ThreadPoolExecutor(len(names) + 1) as ex:
+    # one nvcc per source and g++ for each host library, all at once
+    with ThreadPoolExecutor(len(names) + 3) as ex:
         host = ex.submit(native.build)
+        hosts = {src: ex.submit(native.build, src)
+                 for src in (native.CODEC_SRC, native.J2K_SRC)}
         for name, so in zip(names, ex.map(cuda_build.build, names)):
             info = cuda_build.build_info.get(name, {})
             log(f"[build] {name} -> {os.path.relpath(so, REPO)} "
@@ -378,6 +397,9 @@ def phase_build():
                     log(f"[build]   {line.strip()}")
         log(f"[build] host library csrc/bagio.cpp -> "
             f"{os.path.relpath(host.result(), REPO)}")
+        for src, so in hosts.items():
+            log(f"[build] host library csrc/{os.path.basename(src)} -> "
+                f"{os.path.relpath(so.result(), REPO)}")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.1f} s")
 
 
@@ -1500,6 +1522,63 @@ RADIO_FLAGS = {
 }
 
 
+def _run_stage(launch_counters, tag, stage, fn, argv, wall, launches,
+               want=None, capture=False):
+    """``fn(argv)`` (a CLI's main) as stage ``stage`` of phase ``tag``,
+    every launch count set to 0 just before it: its seconds (host clock,
+    after a device sync) go into ``wall``, its launch counts into
+    ``launches``.  Raises on a non-zero rc, or on launch counts other than
+    ``want`` where given.  Returns its standard output with ``capture``
+    (else it prints), '' otherwise."""
+    import torch
+    for c in launch_counters:
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    if capture:
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+    else:
+        rc = fn(argv)
+    torch.cuda.synchronize()
+    wall[stage] = time.perf_counter() - t0
+    launches[stage] = {c.__name__: c.launches for c in launch_counters}
+    if rc != 0 or (want is not None and launches[stage] != want):
+        raise AssertionError(f"[{tag}] {stage}: rc={rc}, launches "
+                             f"{launches[stage]} (expected {want})\n"
+                             f"{buf.getvalue()}")
+    return buf.getvalue()
+
+
+def _serve_and_check(launch_counters, tag, stage, what, exp, csv_path,
+                     data_dir, td, want, wall, launches):
+    """cli.infer of experiment ``exp`` (fold 0, batches of 8, on the card)
+    on ``csv_path``'s subjects with the bags under ``data_dir``, as
+    ``_run_stage`` ``stage`` held to the launch counts ``want``; every
+    subject served, every risk finite and within rel 1e-4 of the plain
+    pooling's on the card (``_plain_outputs``).  Returns ({subject:
+    risk}, max rel err)."""
+    from multimodalfusion_tpu_torch.cli import infer
+    risks = os.path.join(td, f"risks_{stage}.csv")
+    _run_stage(launch_counters, tag, stage, infer.main, [
+        "--model_path", exp, "--which_k", "0", "--csv", csv_path,
+        "--data_root_dir", data_dir, "--out", risks, "--batch_size", "8",
+        "--device", "cuda"], wall, launches, want)
+    served = {r["subject_id"]: float(r["risk"]) for r in _csv_rows(risks)}
+    plain = _plain_outputs(exp, 8, csv_path=csv_path, data_dir=data_dir)
+    subjects = sorted(r["subject_id"] for r in _csv_rows(csv_path))
+    err = max(abs(served[k] - float(v)) / abs(float(v))
+              for k, v in plain.items())
+    log(f"[{tag}] cli.infer {what}: {len(served)} subjects in "
+        f"{wall[stage]:.2f} s, launches {launches[stage]} (expected "
+        f"{want}); risks vs the plain pooling on the card: max rel err "
+        f"{err:.2e} (tol 1e-4)")
+    if sorted(served) != subjects or sorted(plain) != subjects \
+            or not np.isfinite(list(served.values())).all() or err > 1e-4:
+        raise AssertionError(f"[{tag}] {stage}: serving {what} failed")
+    return served, err
+
+
 def _plain_outputs(exp, B, features=False, csv_path=None, data_dir=None):
     """The experiment's model (its minloss checkpoint) on every scoreable
     subject of its cohort (or of ``csv_path``'s, with the bags of
@@ -1634,19 +1713,8 @@ def phase_radio(launch_counters, root=None):
     steps, evals = -(-(n_subjects - n_val) // B), -(-n_val // B)
     wall, launches = {}, {}
 
-    def count():
-        return {c.__name__: c.launches for c in launch_counters}
-
     def run(stage, fn, argv):
-        for c in launch_counters:
-            c.launches = 0
-        t0 = time.perf_counter()
-        rc = fn(argv)
-        torch.cuda.synchronize()
-        wall[stage] = time.perf_counter() - t0
-        launches[stage] = count()
-        if rc != 0:
-            raise AssertionError(f"[radio] {stage}: rc={rc}")
+        _run_stage(launch_counters, "radio", stage, fn, argv, wall, launches)
 
     def fold(name, flags, n_epochs):
         results = os.path.join(td, "results", name)
@@ -1928,31 +1996,122 @@ def _lung_hu(seed, shape=LUNG_SERIES):
     return vol + rng.integers(-20, 21, shape).astype(np.int16)
 
 
-def _write_lung_cohort(root, sids, seed, shape=LUNG_SERIES):
-    """One DICOM series per subject through the port's writer (stored
-    value HU + 1024, intercept -1024): the first uncompressed, the others
-    JPEG Lossless SV1, slices written eight at a time.  Returns
-    (radio_dir, csv_path, the HU volumes)."""
+def _write_lung_cohort(root, series, shape=LUNG_SERIES):
+    """One DICOM series per (subject, seed, compression) of ``series``
+    through the port's writer (stored value HU + 1024, intercept -1024),
+    slices written eight at a time, a JPEG 2000 series' one at a time (its
+    C++ tier 1 already runs on every host thread).  Returns (radio_dir,
+    csv_path, the HU volumes, the seconds each series took to write)."""
     from concurrent.futures import ThreadPoolExecutor
     from multimodalfusion_tpu_torch.data import dicom
     radio_dir = os.path.join(root, "lung_scans")
-    vols = {}
-    jobs = []
-    for i, sid in enumerate(sids):
-        vols[sid] = _lung_hu(seed + i, shape)
+    vols, seconds = {}, {}
+    for sid, seed, compression in series:
+        vols[sid] = _lung_hu(seed, shape)
         d = os.path.join(radio_dir, sid, "ct")
         os.makedirs(d)
-        jobs += [(os.path.join(d, f"{z:03d}.dcm"), vols[sid][z], z,
-                  "jpeg_lossless" if i else None) for z in range(shape[0])]
-    with ThreadPoolExecutor(8) as ex:
-        list(ex.map(lambda j: dicom.write_ct_slice(
-            j[0], j[1] + 1024, z=LUNG_SPACING[0] * j[2],
-            spacing=LUNG_SPACING[1:], thickness=LUNG_SPACING[0],
-            intercept=-1024.0, compression=j[3]), jobs))
+        jobs = [(os.path.join(d, f"{z:03d}.dcm"), vols[sid][z], z)
+                for z in range(shape[0])]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1 if compression == "jpeg2000" else 8) as ex:
+            list(ex.map(lambda j: dicom.write_ct_slice(
+                j[0], j[1] + 1024, z=LUNG_SPACING[0] * j[2],
+                spacing=LUNG_SPACING[1:], thickness=LUNG_SPACING[0],
+                intercept=-1024.0, compression=compression), jobs))
+        seconds[sid] = time.perf_counter() - t0
     csv_path = os.path.join(root, "lung.csv")
     with open(csv_path, "w") as f:
-        f.write("subject_id,CT\n" + "".join(f"{s},ct\n" for s in sids))
-    return radio_dir, csv_path, vols
+        f.write("subject_id,CT\n" + "".join(f"{s},ct\n"
+                                            for s, _, _ in series))
+    return radio_dir, csv_path, vols, seconds
+
+
+def _j2k_decode_parts(data):
+    """``j2k.decode``'s steps on a one-tile file, timed apart on the host
+    clock: the container, markers and packet headers (tier 2, Python),
+    tier 1 (C++, every host thread), and the reconstruction (numpy
+    dequantisation and colour, the inverse DWT in C++, PIL's mapping).
+    Returns (pixels, {part: seconds})."""
+    from multimodalfusion_tpu_torch import native
+    from multimodalfusion_tpu_torch.utils import j2k
+    t0 = time.perf_counter()
+    ct = j2k.parse_container(data)
+    stream = j2k.parse_codestream(ct.codestream)
+    mode = j2k.pil_mode(ct, stream.siz)
+    (tile,) = j2k.prepare_tiles(stream)
+    t1 = time.perf_counter()
+    native.j2k_decode_blocks(tile.jobs, 0)
+    t2 = time.perf_counter()
+    px = j2k.pil_pixels(j2k.reconstruct(
+        tile, stream.siz, lambda plane, tc: native.j2k_idwt(plane, tc, 0)),
+        stream.siz, mode)
+    t3 = time.perf_counter()
+    return px, {"tier 2": t1 - t0, "tier 1": t2 - t1,
+                "reconstruction": t3 - t2}
+
+
+def _check_j2k_twin(l_dir, features, j2k_sid, twin_sid, lung_hu):
+    """[extract]'s JPEG 2000 series: read back (host clock, C++ tier 1 on
+    every host thread) to the HU volume written; its stage-1 features
+    against its uncompressed twin's; one 512 x 512 frame decoded by C++
+    and by the plain version, in ms per megapixel."""
+    from multimodalfusion_tpu_torch import native
+    from multimodalfusion_tpu_torch.data import ct_preprocess
+    from multimodalfusion_tpu_torch.data.io import load_features_h5
+    from multimodalfusion_tpu_torch.utils import j2k
+    native.j2k_decode_blocks.calls = 0
+    t0 = time.perf_counter()
+    hu = ct_preprocess.get_pixels_hu(ct_preprocess.load_scan(
+        os.path.join(l_dir, j2k_sid, "ct")))
+    read_s = time.perf_counter() - t0
+    calls = native.j2k_decode_blocks.calls
+    if not np.array_equal(hu, lung_hu[j2k_sid]) or calls != len(hu):
+        raise AssertionError(f"[extract] the JPEG 2000 series does not read "
+                             f"back to the volume written ({calls} tier-1 "
+                             f"calls for {len(hu)} slices)")
+    (f_j2k, s_j2k), (f_twin, s_twin) = (
+        load_features_h5(os.path.join(features, "lung", "radio_h5_files",
+                                      "CT", f"{sid}.h5"))
+        for sid in (j2k_sid, twin_sid))
+    bitwise = np.array_equal(f_j2k, f_twin) and np.array_equal(s_j2k, s_twin)
+    diff = float(np.abs(f_j2k.astype(np.float64) - f_twin).max())
+    if not np.array_equal(s_j2k, s_twin) or not np.allclose(
+            f_j2k, f_twin, rtol=2e-3, atol=2e-4):
+        raise AssertionError(f"[extract] the J2K series' features differ "
+                             f"from its twin's: max |d| {diff:.3e}")
+    frame = j2k.encode((lung_hu[j2k_sid][0] + 1024).astype(np.int16)
+                       .view(np.uint16))
+    mp = LUNG_SERIES[1] * LUNG_SERIES[2] / 1e6
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fast = j2k.decode(frame)
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plain = j2k.decode(frame, plain=True)
+    plain_s = time.perf_counter() - t0
+    runs = [_j2k_decode_parts(frame) for _ in range(5)]
+    if not all(np.array_equal(px, fast) for px, _ in runs):
+        raise AssertionError("[extract] the JPEG 2000 decode's parts, run "
+                             "apart, give other pixels than j2k.decode")
+    parts = {k: min(p[k] for _, p in runs) for k in runs[0][1]}
+    log(f"[extract] J2K decode of one lung frame by parts (host clock, "
+        f"best of 5, {_card()}): " + ", ".join(
+            f"{k} {v * 1e3:.3f} ms ({v / sum(parts.values()):.1%})"
+            for k, v in parts.items()))
+    if not np.array_equal(fast, plain):
+        raise AssertionError("[extract] the C++ and plain JPEG 2000 "
+                             "decoders differ on a lung frame")
+    log(f"[extract] {j2k_sid}: read back (load_scan, get_pixels_hu) in "
+        f"{read_s:.3f} s to the HU volume written, {calls} tier-1 calls; "
+        f"its features vs its uncompressed twin {twin_sid}'s: bit for bit "
+        f"{bitwise}, max |d| {diff:.3e} (tol rtol 2e-3 / atol 2e-4); J2K "
+        f"decode of one {LUNG_SERIES[1]} x {LUNG_SERIES[2]} frame "
+        f"({len(frame)} bytes) on the host ({_card()}): C++ "
+        f"{min(times) * 1e3 / mp:.3f} ms/MP ({os.cpu_count()} threads, best "
+        f"of 5), plain {plain_s * 1e3 / mp:.1f} ms/MP (one thread), C++ = "
+        f"plain bit for bit")
+    return bitwise
 
 
 def _rel_fro(got, want) -> float:
@@ -1985,12 +2144,19 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
       - a glioma cohort (``n_glioma`` subjects x 4 sequences of 155 x 240
         x 240 int16 NIfTI, FLAIR gzipped) and a lung cohort (``n_lung``
         DICOM series of 60 x 512 x 512 int16, the first uncompressed, the
-        others JPEG Lossless SV1), through the port's writers;
+        others JPEG Lossless SV1, and a JPEG 2000 Lossless twin of the
+        first, ``write_ct_slice(compression="jpeg2000")``), through the
+        port's writers;
       - both extracted on the card in bf16 (the CLI's default) with
         seeded --weights, TF32 left at torch's default (on): no pooling
-        kernel launches, the C++ JPEG decoder decodes every compressed
-        slice, every h5 and .pt is written and finite, the JPEG series
-        reads back to the HU volume written;
+        kernel launches, the C++ JPEG and JPEG 2000 decoders decode every
+        compressed slice (one ``native.j2k_decode_blocks`` call a J2K
+        slice), every h5 and .pt is written and finite, the JPEG and J2K
+        series read back to the HU volumes written, the J2K twin's
+        features equal its uncompressed twin's (bit for bit expected: the
+        same pixels; else rtol 2e-3 / atol 2e-4, the ResNet tolerance),
+        its J2K decode ms per megapixel (C++, all host threads; plain, one
+        512 x 512 frame);
       - the slice inputs made on the card equal the host path bit for bit;
         the first 8 slices of one scan in f32 on the card (the embedder
         turns TF32 off) against the CPU at rel (Frobenius) 1e-3; the
@@ -2004,7 +2170,10 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
       - cli.infer serves the glioma features with [radio]'s RadioAMIL
         experiment (its stage-2 layout reads {root}/brain, a symlink to
         the CLI's {root}/glioma), one forward launch per batch, risks
-        against the plain pooling on the card at rel 1e-4.
+        against the plain pooling on the card at rel 1e-4; then the lung
+        J2K series and its uncompressed twin (their CT bag linked as each
+        of the four sequences): one forward launch, the two risks equal
+        to each other and to the plain pooling's at rel 1e-4.
     Returns the launch counts by run and what [gradcam] reads: the glioma
     and lung scans, their ids, the extracted features and the weights
     (kept under ``root``)."""
@@ -2012,7 +2181,7 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
 
     import torch
     from multimodalfusion_tpu_torch import native
-    from multimodalfusion_tpu_torch.cli import feature_extraction, infer
+    from multimodalfusion_tpu_torch.cli import feature_extraction
     from multimodalfusion_tpu_torch.data import ct_preprocess
     from multimodalfusion_tpu_torch.data.io import load_features_h5, load_pt
     from multimodalfusion_tpu_torch.data.radiology import (
@@ -2030,16 +2199,25 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
         t0 = time.perf_counter()
         glioma_ids = [f"TCGA-GL-{i:04d}" for i in range(n_glioma)]
         lung_ids = [f"LUNG-{i:03d}" for i in range(n_lung)]
+        # the JPEG 2000 series: the first series' volume again
+        j2k_sid, twin_sid = "LUNG-J2K", lung_ids[0]
         g_dir, g_csv = _write_glioma_cohort(td, glioma_ids, seed=31)
-        l_dir, l_csv, lung_hu = _write_lung_cohort(td, lung_ids, seed=41)
+        l_dir, l_csv, lung_hu, lung_s = _write_lung_cohort(td, [
+            (sid, 41 + i, "jpeg_lossless" if i else None)
+            for i, sid in enumerate(lung_ids)] + [(j2k_sid, 41, "jpeg2000")])
+        lung_ids = lung_ids + [j2k_sid]
         state = _seeded_resnet(7)
         weights = os.path.join(td, "resnet50_seeded.pt")
         torch.save(state, weights)
         wall["write_cohorts"] = time.perf_counter() - t0
         log(f"[extract] wrote {n_glioma} glioma subjects x 4 sequences of "
-            f"{GLIOMA_GRID} int16 NIfTI and {n_lung} lung DICOM series of "
-            f"{LUNG_SERIES} int16 ({n_lung - 1} JPEG Lossless SV1) in "
-            f"{wall['write_cohorts']:.2f} s")
+            f"{GLIOMA_GRID} int16 NIfTI and {n_lung + 1} lung DICOM series "
+            f"of {LUNG_SERIES} int16 ({n_lung - 1} JPEG Lossless SV1, "
+            f"{j2k_sid} JPEG 2000 Lossless, the twin of {twin_sid}) in "
+            f"{wall['write_cohorts']:.2f} s; the JPEG 2000 series written "
+            f"in {lung_s[j2k_sid]:.3f} s (one slice at a time, C++ tier 1 "
+            f"on {os.cpu_count()} host threads), its uncompressed twin in "
+            f"{lung_s[twin_sid]:.3f} s (8 slices at a time)")
 
         out = os.path.join(td, "features")
         tf32 = torch.backends.cudnn.allow_tf32
@@ -2051,6 +2229,7 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
                 for c in launch_counters:
                     c.launches = 0
                 native.jpeg_lossless_decode.calls = 0
+                native.j2k_decode_blocks.calls = 0
                 buf = io.StringIO()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(buf):
@@ -2065,17 +2244,22 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
                 summaries[cancer] = [x for x in text.splitlines()
                                      if x.startswith("stage 1 wall s")][0]
                 decodes = native.jpeg_lossless_decode.calls
+                j2k_decodes = native.j2k_decode_blocks.calls
                 log(f"[extract] cli.feature_extraction {cancer} (bf16): "
                     f"{summaries[cancer]}; pooling launches "
-                    f"{launches[cancer]}; C++ JPEG decodes {decodes}")
+                    f"{launches[cancer]}; C++ JPEG decodes {decodes}, C++ "
+                    f"JPEG 2000 tier-1 calls {j2k_decodes}")
                 if rc != 0 or "FAILED" in text or launches[cancer] != none:
                     raise AssertionError(f"[extract] {cancer}: rc={rc}\n"
                                          f"{text}")
                 want_decodes = (n_lung - 1) * LUNG_SERIES[0] \
                     if cancer == "lung" else 0
-                if decodes != want_decodes:
-                    raise AssertionError(f"[extract] {decodes} C++ JPEG "
-                                         f"decodes, expected {want_decodes}")
+                want_j2k = LUNG_SERIES[0] if cancer == "lung" else 0
+                if decodes != want_decodes or j2k_decodes != want_j2k:
+                    raise AssertionError(
+                        f"[extract] {decodes} C++ JPEG decodes and "
+                        f"{j2k_decodes} JPEG 2000 tier-1 calls, expected "
+                        f"{want_decodes} and {want_j2k}")
             # every file written, finite, slice ids increasing
             n_h5 = 0
             for cancer, seqs, ids in (("glioma", GLIOMA_SEQS, glioma_ids),
@@ -2098,7 +2282,7 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
                         n_h5 += 1
             # the JPEG series again, step by step as preprocess_lung_scan
             # runs it (its orientation is the identity), on the host clock
-            jpeg_sid = lung_ids[-1]
+            jpeg_sid = lung_ids[n_lung - 1]
             t = [time.perf_counter()]
             series = ct_preprocess.load_scan(os.path.join(l_dir, jpeg_sid,
                                                           "ct"))
@@ -2123,6 +2307,8 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
                 f"step (s): read and decode {steps[0]:.3f}, cubic resample "
                 f"to {res.shape} {steps[1]:.3f}, lung segmentation "
                 f"{steps[2]:.3f}, boxes {steps[3]:.3f}")
+            twins_bitwise = _check_j2k_twin(l_dir, out, j2k_sid, twin_sid,
+                                            lung_hu)
 
             # card against the host and the CPU, on one glioma scan
             scan = os.path.join(g_dir, glioma_ids[0],
@@ -2215,33 +2401,42 @@ def phase_extract(launch_counters, radio_exp, root=None, n_glioma=8,
 
         # serving: the [radio] experiment on the extracted features
         os.symlink(os.path.join(out, "glioma"), os.path.join(out, "brain"))
-        risks = os.path.join(td, "risks.csv")
-        for c in launch_counters:
-            c.launches = 0
-        t0 = time.perf_counter()
-        rc = infer.main(["--model_path", radio_exp, "--which_k", "0",
-                         "--csv", g_csv, "--data_root_dir",
-                         os.path.join(out, "brain"), "--out", risks,
-                         "--batch_size", "8", "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall["serve"] = time.perf_counter() - t0
-        launches["serve"] = count()
-        served = {r["subject_id"]: float(r["risk"]) for r in _csv_rows(risks)}
-        plain = _plain_outputs(radio_exp, 8, csv_path=g_csv,
-                               data_dir=os.path.join(out, "brain"))
-        err = max(abs(served[k] - float(v)) / abs(float(v))
-                  for k, v in plain.items())
-        want = dict(none, _fused_pool_cuda=-(-n_glioma // 8))
-        log(f"[extract] cli.infer of [radio]'s RadioAMIL on the extracted "
-            f"glioma features: {len(served)} subjects in "
-            f"{wall['serve']:.2f} s, launches {launches['serve']} (expected "
-            f"{want}); risks vs the plain pooling on the card: max rel err "
-            f"{err:.2e} (tol 1e-4)")
-        if rc != 0 or sorted(served) != sorted(glioma_ids) \
-                or sorted(plain) != sorted(glioma_ids) \
-                or launches["serve"] != want or err > 1e-4:
+        served, _ = _serve_and_check(
+            launch_counters, "extract", "serve", "of [radio]'s RadioAMIL on "
+            "the extracted glioma features", radio_exp, g_csv,
+            os.path.join(out, "brain"), td,
+            dict(none, _fused_pool_cuda=-(-n_glioma // 8)), wall, launches)
+        if sorted(served) != sorted(glioma_ids):
             raise AssertionError("[extract] serving the extracted features "
                                  "failed")
+        # serving: the J2K lung series and its twin, their CT bag as each
+        # of the four sequences [radio]'s experiment reads
+        lung_serve = os.path.join(td, "lung_serve")
+        for seq in GLIOMA_SEQS:
+            os.makedirs(os.path.join(lung_serve, "radio_h5_files", seq))
+            for sid in (twin_sid, j2k_sid):
+                os.symlink(os.path.join(out, "lung", "radio_h5_files", "CT",
+                                        f"{sid}.h5"),
+                           os.path.join(lung_serve, "radio_h5_files", seq,
+                                        f"{sid}.h5"))
+        lung_csv = os.path.join(td, "lung_serve.csv")
+        with open(lung_csv, "w") as f:
+            f.write("subject_id," + ",".join(GLIOMA_SEQS) + "\n" + "".join(
+                f"{sid}," + ",".join(["ct"] * len(GLIOMA_SEQS)) + "\n"
+                for sid in (twin_sid, j2k_sid)))
+        served, _ = _serve_and_check(
+            launch_counters, "extract", "serve_lung_j2k", "of [radio]'s "
+            "RadioAMIL on the J2K lung series and its uncompressed twin",
+            radio_exp, lung_csv, lung_serve, td,
+            dict(none, _fused_pool_cuda=1), wall, launches)
+        # bit for bit when the features are; else within the pooling's
+        # f32 tolerance of each other
+        twin_err = abs(served[j2k_sid] - served[twin_sid]) / abs(
+            served[twin_sid])
+        log(f"[extract] the J2K lung series' risk and its twin's: {served}")
+        if twin_err > (0 if twins_bitwise else 1e-4):
+            raise AssertionError("[extract] the J2K lung series' risk "
+                                 "differs from its twin's")
     log(f"[extract] wall s ({_card()}): " + ", ".join(
         f"{k} {v:.3f}" for k, v in wall.items()))
     return launches, {"glioma_dir": g_dir, "glioma_csv": g_csv,
@@ -2304,17 +2499,10 @@ def phase_gradcam(launch_counters, radio_exp, cohort, root=None,
         return {"_fused_pool_cuda": 6 * n, "_fused_pool_bwd_cuda": 6 * n}
 
     def run(stage, fn, argv, want):
-        for c in launch_counters:
-            c.launches = 0
-        t0 = time.perf_counter()
-        rc = fn(argv)
-        torch.cuda.synchronize()
-        wall[stage] = time.perf_counter() - t0
-        launches[stage] = {c.__name__: c.launches for c in launch_counters}
-        log(f"[gradcam] {stage}: rc {rc}, {wall[stage]:.2f} s, launches "
+        _run_stage(launch_counters, "gradcam", stage, fn, argv, wall,
+                   launches, want)
+        log(f"[gradcam] {stage}: {wall[stage]:.2f} s, launches "
             f"{launches[stage]} (expected {want})")
-        if rc != 0 or launches[stage] != want:
-            raise AssertionError(f"[gradcam] {stage} failed")
 
     g_dir, sids = cohort["glioma_dir"], cohort["glioma_ids"][:n_subjects]
     weights = cohort["weights"]
@@ -4532,23 +4720,12 @@ def phase_wsi_compressed(launch_counters, path_exp, td, src_c, src_u,
         rel 1e-4.
     Adds its launch counts to ``launches`` and wall seconds to ``wall``.
     """
-    import io
-
-    import torch
     from multimodalfusion_tpu_torch.cli import (create_patches,
-                                                extract_features_fp, infer)
+                                                extract_features_fp)
     from multimodalfusion_tpu_torch.data import hdf5, wsi
     from multimodalfusion_tpu_torch.data.io import load_pt
     from multimodalfusion_tpu_torch.utils import jpeg, tiff
     none = {c.__name__: 0 for c in launch_counters}
-
-    def count():
-        return {c.__name__: c.launches for c in launch_counters}
-
-    def reset():
-        for c in launch_counters:
-            c.launches = 0
-
     stems_c = list(twins)
     threads = os.cpu_count()
     rates, plain_rates = {}, {}
@@ -4610,21 +4787,16 @@ def phase_wsi_compressed(launch_counters, path_exp, td, src_c, src_u,
 
     # stage 0 on the compressed slides
     out_c = os.path.join(td, "patched_compressed")
-    buf = io.StringIO()
-    reset()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = create_patches.main([
-            "--source", src_c, "--save_dir", out_c, "--patch_size", "256",
-            "--step_size", "256", "--stitch", "--a_t", "0.5", "--a_h",
-            "0.05", "--device", "cuda"])
-    torch.cuda.synchronize()
-    wall["stage0_compressed"] = time.perf_counter() - t0
-    launches["stage0_compressed"] = count()
-    text = buf.getvalue()
+    text = _run_stage(launch_counters, "wsi", "stage0_compressed",
+                      create_patches.main, [
+                          "--source", src_c, "--save_dir", out_c,
+                          "--patch_size", "256", "--step_size", "256",
+                          "--stitch", "--a_t", "0.5", "--a_h", "0.05",
+                          "--device", "cuda"], wall, launches, none,
+                      capture=True)
     line, steps = _stage_line(text, "stage 0 wall s")
-    if rc != 0 or "FAILED" in text or launches["stage0_compressed"] != none:
-        raise AssertionError(f"[wsi] stage 0 (compressed): rc={rc}\n{text}")
+    if "FAILED" in text:
+        raise AssertionError(f"[wsi] stage 0 (compressed): FAILED\n{text}")
     for stem, codec in zip(stems_c, WSI_CODECS):
         if codec not in ("deflate", "lzw"):
             continue
@@ -4651,22 +4823,14 @@ def phase_wsi_compressed(launch_counters, path_exp, td, src_c, src_u,
 
     # stage 1 and serving
     feat = os.path.join(td, "features_compressed")
-    buf = io.StringIO()
-    reset()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = extract_features_fp.main([
-            "--data_h5_dir", out_c, "--data_slide_dir", src_c,
-            "--feat_dir", feat, "--slide_ext", ".tiff",
-            "--target_patch_size", "224", "--batch_size", "128",
-            "--allow_random_weights", "--device", "cuda"])
-    torch.cuda.synchronize()
-    wall["stage1_compressed"] = time.perf_counter() - t0
-    launches["stage1_compressed"] = count()
-    text = buf.getvalue()
+    text = _run_stage(launch_counters, "wsi", "stage1_compressed",
+                      extract_features_fp.main, [
+                          "--data_h5_dir", out_c, "--data_slide_dir", src_c,
+                          "--feat_dir", feat, "--slide_ext", ".tiff",
+                          "--target_patch_size", "224", "--batch_size",
+                          "128", "--allow_random_weights", "--device",
+                          "cuda"], wall, launches, none, capture=True)
     line1, _ = _stage_line(text, "stage 1 wall s")
-    if rc != 0 or launches["stage1_compressed"] != none:
-        raise AssertionError(f"[wsi] stage 1 (compressed): rc={rc}\n{text}")
     for stem in stems_c:
         with hdf5.File(os.path.join(out_c, "patches",
                                     f"{stem}_patches.h5")) as f:
@@ -4682,30 +4846,173 @@ def phase_wsi_compressed(launch_counters, path_exp, td, src_c, src_u,
     with open(cohort, "w") as f:
         f.write("subject_id,slide_id\n" + "".join(
             f"P{s},{s}.tiff\n" for s in stems_c))
-    risks = os.path.join(td, "risks_compressed.csv")
-    reset()
+    _serve_and_check(launch_counters, "wsi", "serve_compressed",
+                     "on the compressed slides' bags", path_exp, cohort, feat,
+                     td, dict(none, _fused_pool_cuda=-(-len(stems_c) // 8)),
+                     wall, launches)
+
+
+J2K_FIXTURES = os.path.join(REPO, "multimodalfusion_tpu_torch", "testdata",
+                            "j2k")
+
+
+def phase_j2k(launch_counters):
+    """[j2k] The committed JPEG 2000 fixtures (``J2K_FIXTURES``, made here
+    by PIL's openjpeg and the port's encoder, tools/make_j2k_fixtures.py:
+    9/7 in two layers, RPCL with precincts, tiles with an image offset, RGB
+    with the ICT, 16-bit RLCP, signed 12-bit, every code-block style bit,
+    PPT in tile-parts with POC): each decoded by the C++ version (every
+    host thread) and by the plain one; both must give pixels whose SHA-256
+    is the manifest's, PIL's.  No kernel launch (counters reset just
+    before, read just after)."""
+    import hashlib
+
+    from multimodalfusion_tpu_torch.utils import j2k
+    with open(os.path.join(J2K_FIXTURES, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    for c in launch_counters:
+        c.launches = 0
+    rows = []
+    for entry in manifest["files"]:
+        with open(os.path.join(J2K_FIXTURES, entry["name"]), "rb") as f:
+            data = f.read()
+        for plain in (False, True):
+            px = j2k.decode(data, plain=plain)
+            digest = hashlib.sha256(np.ascontiguousarray(px).tobytes())
+            if (digest.hexdigest() != entry["sha256"]
+                    or list(px.shape) != entry["shape"]
+                    or str(px.dtype) != entry["dtype"]):
+                raise AssertionError(
+                    f"[j2k] {entry['name']} ({'plain' if plain else 'C++'})"
+                    f": {px.dtype} {px.shape} does not match the manifest")
+        rows.append(f"{entry['name']} {entry['dtype']} {entry['shape']}")
+    counts = {c.__name__: c.launches for c in launch_counters}
+    log(f"[j2k] {len(rows)} fixtures (Pillow {manifest['pillow']}, openjpeg "
+        f"{manifest['openjpeg']}) decode by C++ and plain to the manifest's "
+        f"digests: {'; '.join(rows)}; launches {counts}")
+    if any(counts.values()):
+        raise AssertionError("[j2k] a kernel launched")
+
+
+def phase_wsi_j2k(launch_counters, path_exp, td, level0, stem, wall,
+                  launches):
+    """[wsi]'s JPEG 2000 slide: ``level0`` (level 0 of [wsi]'s slide
+    ``stem``, 8192 x 6144 RGB) written as a lossless 3-component .jp2 with
+    the RCT by the port's encoder (C++ tier 1 on every host thread), and
+    again as a one-page uncompressed TIFF, its twin (a .jp2 holds one
+    page, so the twin holds the same one):
+      - the .jp2 read through ``PILSlide`` (C++, all host threads) equals
+        the source pixels; its decode ms per megapixel beside the twin's
+        read;
+      - cli.create_patches on each (no launch; no stitch, the
+        coordinates are what is compared): the same coordinates;
+      - cli.extract_features_fp on each (no launch): the same features
+        (bit for bit expected, the pixels being equal; else rtol 2e-3 /
+        atol 2e-4, the ResNet tolerance);
+      - cli.infer of [train]'s PathAMIL on the two bags (the counters
+        reset just before): one forward launch, the two risks equal when
+        the features are (else at rel 1e-4) and equal to the plain
+        pooling's at rel 1e-4.
+    Adds its launch counts to ``launches`` and wall seconds to ``wall``."""
+    from multimodalfusion_tpu_torch import native
+    from multimodalfusion_tpu_torch.cli import (create_patches,
+                                                extract_features_fp)
+    from multimodalfusion_tpu_torch.data import hdf5, wsi
+    from multimodalfusion_tpu_torch.data.io import load_pt
+    from multimodalfusion_tpu_torch.utils import j2k, tiff
+    none = {c.__name__: 0 for c in launch_counters}
+    h, w = level0.shape[:2]
+    mp = h * w / 1e6
+    name = f"WSIJ_{w}x{h}"
+    dirs = {k: os.path.join(td, f"slide_{k}") for k in ("j2k", "twin")}
+    for d in dirs.values():
+        os.makedirs(d)
+    jp2 = os.path.join(dirs["j2k"], f"{name}.jp2")
+    native.j2k_encode_blocks.calls = 0
     t0 = time.perf_counter()
-    rc = infer.main(["--model_path", path_exp, "--which_k", "0", "--csv",
-                     cohort, "--data_root_dir", feat, "--out", risks,
-                     "--batch_size", "8", "--device", "cuda"])
-    torch.cuda.synchronize()
-    wall["serve_compressed"] = time.perf_counter() - t0
-    launches["serve_compressed"] = count()
-    served = {r["subject_id"]: float(r["risk"]) for r in _csv_rows(risks)}
-    plain = _plain_outputs(path_exp, 8, csv_path=cohort, data_dir=feat)
-    err = max(abs(served[k] - float(v)) / abs(float(v))
-              for k, v in plain.items())
-    want = dict(none, _fused_pool_cuda=-(-len(stems_c) // 8))
-    log(f"[wsi] cli.infer on the compressed slides' bags: {len(served)} "
-        f"slides in {wall['serve_compressed']:.2f} s, launches "
-        f"{launches['serve_compressed']} (expected {want}); vs the plain "
-        f"pooling on the card: max rel err {err:.2e} (tol 1e-4)")
-    if rc != 0 or sorted(served) != sorted(f"P{s}" for s in stems_c) \
-            or sorted(plain) != sorted(served) \
-            or not np.isfinite(list(served.values())).all() \
-            or launches["serve_compressed"] != want or err > 1e-4:
-        raise AssertionError("[wsi] serving the compressed slides' bags "
-                             "failed")
+    data = j2k.encode(level0)
+    with open(jp2, "wb") as f:
+        f.write(data)
+    wall["write_jp2"] = time.perf_counter() - t0
+    tiff.write_tiff(os.path.join(dirs["twin"], f"{name}.tiff"), [level0])
+    native.j2k_decode_blocks.calls = 0
+    t0 = time.perf_counter()
+    got = wsi.PILSlide(jp2).levels
+    dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wsi.PILSlide(os.path.join(dirs["twin"], f"{name}.tiff"))
+    dt_twin = time.perf_counter() - t0
+    if len(got) != 1 or not np.array_equal(got[0], level0) \
+            or native.j2k_decode_blocks.calls != 1 \
+            or native.j2k_encode_blocks.calls != 1:
+        raise AssertionError(f"[wsi] {name}.jp2 does not decode to its "
+                             f"source pixels")
+    log(f"[wsi] {name}.jp2 (lossless 5/3, RCT, 5 levels, 64 x 64 "
+        f"code-blocks; {len(data) / 2**20:.1f} MiB, "
+        f"{len(data) / level0.nbytes:.3f} of the raw bytes) written in "
+        f"{wall['write_jp2']:.3f} s, read in {dt:.3f} s = "
+        f"{dt * 1e3 / mp:.3f} ms/MP ({os.cpu_count()} host threads, "
+        f"{_card()}), equal to its source ({stem}'s level 0); its "
+        f"uncompressed one-page TIFF twin read in {dt_twin:.3f} s = "
+        f"{dt_twin * 1e3 / mp:.3f} ms/MP")
+
+    def run(stage, fn, argv):
+        text = _run_stage(launch_counters, "wsi", stage, fn, argv, wall,
+                          launches, none, capture=True)
+        if "FAILED" in text:
+            raise AssertionError(f"[wsi] {stage}: FAILED\n{text}")
+
+    coords, bags = {}, {}
+    for k, ext in (("j2k", ".jp2"), ("twin", ".tiff")):
+        out = os.path.join(td, f"patched_{k}")
+        feat = os.path.join(td, f"features_{k}")
+        run(f"stage0_{k}", create_patches.main, [
+            "--source", dirs[k], "--save_dir", out, "--patch_size", "256",
+            "--step_size", "256", "--a_t", "0.5", "--a_h", "0.05",
+            "--device", "cuda"])
+        run(f"stage1_{k}", extract_features_fp.main, [
+            "--data_h5_dir", out, "--data_slide_dir", dirs[k], "--feat_dir",
+            feat, "--slide_ext", ext, "--target_patch_size", "224",
+            "--batch_size", "128", "--allow_random_weights", "--device",
+            "cuda"])
+        with hdf5.File(os.path.join(out, "patches",
+                                    f"{name}_patches.h5")) as f:
+            coords[k] = f["coords"]
+        bags[k] = load_pt(os.path.join(feat, "path_pt_files", f"{name}.pt"))
+    bitwise = np.array_equal(bags["j2k"], bags["twin"])
+    diff = float(np.abs(bags["j2k"].astype(np.float64) - bags["twin"]).max())
+    if not np.array_equal(coords["j2k"], coords["twin"]) \
+            or len(coords["j2k"]) < 1 or not np.allclose(
+                bags["j2k"], bags["twin"], rtol=2e-3, atol=2e-4):
+        raise AssertionError(f"[wsi] {name}: the .jp2 patches or features "
+                             f"differ from its twin's (max |d| {diff:.3e})")
+    log(f"[wsi] {name}.jp2 and its twin: cli.create_patches "
+        f"{wall['stage0_j2k']:.2f} / {wall['stage0_twin']:.2f} s, "
+        f"{len(coords['j2k'])} patches each, equal coordinates; "
+        f"cli.extract_features_fp {wall['stage1_j2k']:.2f} / "
+        f"{wall['stage1_twin']:.2f} s, features bit for bit {bitwise}, max "
+        f"|d| {diff:.3e}; no launch in either")
+    serve = os.path.join(td, "serve_j2k")
+    os.makedirs(os.path.join(serve, "path_pt_files"))
+    for k in bags:
+        os.symlink(os.path.join(td, f"features_{k}", "path_pt_files",
+                                f"{name}.pt"),
+                   os.path.join(serve, "path_pt_files", f"{name}_{k}.pt"))
+    cohort = os.path.join(td, "wsi_j2k_cohort.csv")
+    with open(cohort, "w") as f:
+        f.write("subject_id,slide_id\n" + "".join(
+            f"P_{k},{name}_{k}.tiff\n" for k in bags))
+    served, _ = _serve_and_check(
+        launch_counters, "wsi", "serve_j2k", "on the .jp2 slide's bag and "
+        "its twin's", path_exp, cohort, serve, td,
+        dict(none, _fused_pool_cuda=1), wall, launches)
+    twin_err = abs(served["P_j2k"] - served["P_twin"]) / abs(served["P_twin"])
+    log(f"[wsi] the .jp2 slide's risk and its twin's: {served}")
+    if twin_err > (0 if bitwise else 1e-4):
+        raise AssertionError("[wsi] the .jp2 slide's risk differs from its "
+                             "twin's")
+    for d in dirs.values():
+        shutil.rmtree(d)
 
 
 def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
@@ -4738,24 +5045,15 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
     given ([heatmap]).  The slides are deleted at the end.  Returns (the
     launch counts by run, what ``before_delete`` returned).
     """
-    import io
-
     import torch
     from multimodalfusion_tpu_torch.cli import (create_patches,
-                                                extract_features_fp, infer)
+                                                extract_features_fp)
     from multimodalfusion_tpu_torch.data import hdf5, wsi
     from multimodalfusion_tpu_torch.data.io import load_pt
     from multimodalfusion_tpu_torch.extract.features import Embedder
     from multimodalfusion_tpu_torch.utils import image_ops, tiff
     wall, launches = {}, {}
     none = {c.__name__: 0 for c in launch_counters}
-
-    def count():
-        return {c.__name__: c.launches for c in launch_counters}
-
-    def reset():
-        for c in launch_counters:
-            c.launches = 0
 
     with _workdir(root, "wsi") as td:
         src = os.path.join(td, "slides")
@@ -4795,18 +5093,13 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
         try:
             # stage 0
             out0 = os.path.join(td, "patched")
-            buf = io.StringIO()
-            reset()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = create_patches.main([
-                    "--source", src, "--save_dir", out0, "--patch_size",
-                    "256", "--step_size", "256", "--stitch", "--a_t", "0.5",
-                    "--a_h", "0.05", "--device", "cuda"])
-            torch.cuda.synchronize()
-            wall["stage0"] = time.perf_counter() - t0
-            launches["stage0"] = count()
-            text = buf.getvalue()
+            text = _run_stage(launch_counters, "wsi", "stage0",
+                              create_patches.main, [
+                                  "--source", src, "--save_dir", out0,
+                                  "--patch_size", "256", "--step_size",
+                                  "256", "--stitch", "--a_t", "0.5",
+                                  "--a_h", "0.05", "--device", "cuda"],
+                              wall, launches, none, capture=True)
             line0, steps0 = _stage_line(text, "stage 0 wall s")
             rows = {r["slide_id"]: r for r in _csv_rows(os.path.join(
                 out0, "process_list_autogen.csv"))}
@@ -4816,10 +5109,10 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
             log(f"[wsi] cli.create_patches: {wall['stage0']:.2f} s, "
                 f"launches {launches['stage0']}; patches per slide "
                 f"{n_patches}; {line0}")
-            if rc != 0 or "FAILED" in text or launches["stage0"] != none \
-                    or any(rows[f"{s}.tiff"]["status"] != "processed"
-                           or n_patches[s] < 1 for s in stems):
-                raise AssertionError(f"[wsi] stage 0: rc={rc}\n{text}")
+            if "FAILED" in text or any(
+                    rows[f"{s}.tiff"]["status"] != "processed"
+                    or n_patches[s] < 1 for s in stems):
+                raise AssertionError(f"[wsi] stage 0:\n{text}")
             for s in stems:
                 for d, suffix in (("masks", "_mask.jpg"),
                                   ("stitches", "_stitch.jpg")):
@@ -4831,19 +5124,15 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
 
             # stage 1
             feat = os.path.join(td, "features")
-            buf = io.StringIO()
-            reset()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = extract_features_fp.main([
-                    "--data_h5_dir", out0, "--data_slide_dir", src,
-                    "--feat_dir", feat, "--slide_ext", ".tiff",
-                    "--target_patch_size", "224", "--batch_size", "128",
-                    "--allow_random_weights", "--device", "cuda"])
-            torch.cuda.synchronize()
-            wall["stage1"] = time.perf_counter() - t0
-            launches["stage1"] = count()
-            text = buf.getvalue()
+            text = _run_stage(launch_counters, "wsi", "stage1",
+                              extract_features_fp.main, [
+                                  "--data_h5_dir", out0, "--data_slide_dir",
+                                  src, "--feat_dir", feat, "--slide_ext",
+                                  ".tiff", "--target_patch_size", "224",
+                                  "--batch_size", "128",
+                                  "--allow_random_weights", "--device",
+                                  "cuda"], wall, launches, none,
+                              capture=True)
             line1, steps1 = _stage_line(text, "stage 1 wall s")
             total = sum(n_patches.values())
             log(f"[wsi] cli.extract_features_fp (bf16, batch 128, 256 -> "
@@ -4853,8 +5142,6 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
                 f"reads {total / steps1['read']:.1f} patches/s (prefetch "
                 f"thread), resize + embedding "
                 f"{total / steps1['embed']:.1f} patches/s; {line1}")
-            if rc != 0 or launches["stage1"] != none:
-                raise AssertionError(f"[wsi] stage 1: rc={rc}\n{text}")
         finally:
             if env is None:
                 os.environ.pop("MMF_TPU_WSI_MAX_BYTES", None)
@@ -4924,33 +5211,17 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
         with open(cohort, "w") as f:
             f.write("subject_id,slide_id\n" + "".join(
                 f"P{s},{s}.tiff\n" for s in stems))
-        risks = os.path.join(td, "risks.csv")
-        reset()
-        t0 = time.perf_counter()
-        rc = infer.main(["--model_path", path_exp, "--which_k", "0",
-                         "--csv", cohort, "--data_root_dir", feat, "--out",
-                         risks, "--batch_size", "8", "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall["serve"] = time.perf_counter() - t0
-        launches["serve"] = count()
-        served = {r["subject_id"]: float(r["risk"]) for r in _csv_rows(risks)}
-        plain = _plain_outputs(path_exp, 8, csv_path=cohort, data_dir=feat)
-        err = max(abs(served[k] - float(v)) / abs(float(v))
-                  for k, v in plain.items())
-        want = dict(none, _fused_pool_cuda=-(-len(stems) // 8))
-        log(f"[wsi] cli.infer of [train]'s PathAMIL on the extracted bags: "
-            f"{len(served)} slides in {wall['serve']:.2f} s, launches "
-            f"{launches['serve']} (expected {want}); risks "
-            f"{sorted(served.values())}; vs the plain pooling on the card: "
-            f"max rel err {err:.2e} (tol 1e-4)")
-        if rc != 0 or sorted(served) != sorted(f"P{s}" for s in stems) \
-                or sorted(plain) != sorted(served) \
-                or not np.isfinite(list(served.values())).all() \
-                or launches["serve"] != want or err > 1e-4:
-            raise AssertionError("[wsi] serving the extracted bags failed")
+        served, _ = _serve_and_check(
+            launch_counters, "wsi", "serve", "of [train]'s PathAMIL on the "
+            "extracted bags", path_exp, cohort, feat, td,
+            dict(none, _fused_pool_cuda=-(-len(stems) // 8)), wall, launches)
+        log(f"[wsi] served risks {sorted(served.values())}")
         phase_wsi_compressed(launch_counters, path_exp, td, src_c, src,
                              twins, sources, out0, steps0, seconds0, wall,
                              launches)
+        first = next(iter(twins))
+        phase_wsi_j2k(launch_counters, path_exp, td, sources[first][0],
+                      twins[first], wall, launches)
         del sources
         shutil.rmtree(src_c)
         log(f"[wsi] wall s ({_card()}): " + ", ".join(
@@ -5002,8 +5273,6 @@ def phase_heatmap(launch_counters, path_exp, td, src, feat, stems):
         against its bound and the plain version.
     Each CLI prints one line of stage seconds per slide.  Returns (launch
     counts by run, the kernel's times at the slide bags)."""
-    import io
-
     import torch
     from multimodalfusion_tpu_torch.cli import create_heatmaps, summarize
     from multimodalfusion_tpu_torch.data import hdf5, wsi
@@ -5027,15 +5296,8 @@ def phase_heatmap(launch_counters, path_exp, td, src, feat, stems):
         return {c.__name__: c.launches for c in launch_counters}
 
     def run(stage, fn, argv):
-        reset()
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = fn(argv)
-        torch.cuda.synchronize()
-        wall[stage] = time.perf_counter() - t0
-        launches[stage] = count()
-        text = buf.getvalue()
+        text = _run_stage(launch_counters, "heatmap", stage, fn, argv, wall,
+                          launches, none, capture=True)
         with open(os.path.join(hm, f"{stage}.log"), "w") as f:
             f.write(text)
         for line in text.splitlines():
@@ -5043,9 +5305,6 @@ def phase_heatmap(launch_counters, path_exp, td, src, feat, stems):
                 log(f"[heatmap] {stage}: {line}")
         log(f"[heatmap] {stage}: {wall[stage]:.2f} s, launches "
             f"{launches[stage]}")
-        if rc != 0 or launches[stage] != none:
-            raise AssertionError(f"[heatmap] {stage}: rc={rc}, launches "
-                                 f"{launches[stage]}\n{text}")
         return text
 
     # the largest fine bag of run A, kept for the kernel check below
@@ -5274,7 +5533,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,native,omic,pretrained,radio,extract,"
-                         "gradcam,interpret,timing,bf16step,dist,ops,"
+                         "gradcam,interpret,j2k,timing,bf16step,dist,ops,"
                          "report,wsi,heatmap "
                          "(default: all but digest, which prints the "
                          "result lines)")
@@ -5328,6 +5587,8 @@ def _partial(phases, counters, work, t_all) -> int:
         _, _, radio_exps = phase_radio(counters, work)
     if "interpret" in phases:
         phase_interpret(counters, radio_exps, work)
+    if "j2k" in phases:
+        phase_j2k(counters)
     if "timing" in phases:
         phase_timing()
         phase_timing_radio()
@@ -5385,6 +5646,9 @@ def _full(counters, work, t_all) -> int:
     t = time.perf_counter()
     interpret_launches = phase_interpret(counters, radio_exps, work)
     log(f"[interpret] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_j2k(counters)
+    log(f"[j2k] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     timing = phase_timing()
     timing_radio = phase_timing_radio()

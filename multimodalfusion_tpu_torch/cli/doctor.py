@@ -97,11 +97,13 @@ class Doctor:
         ("flax / msgpack", "checkpoints: .pt files, utils/msgpack_io.py"),
         ("PyYAML", "heatmap configs: utils/yaml_subset.py"),
         ("pydicom", "DICOM: data/dicom.py (JPEG Lossless in csrc/bagio.cpp, "
-                    "baseline JPEG in csrc/imgcodec.cpp)"),
+                    "baseline JPEG in csrc/imgcodec.cpp, JPEG 2000 in "
+                    "csrc/j2k.cpp)"),
         ("OpenCV / matplotlib / PIL", "images: utils/image_ops.py, "
                                       "utils/contours.py, utils/png.py "
                                       "(every PNG PIL reads), utils/jpeg.py "
-                                      "(baseline JPEG), utils/tiff.py "
+                                      "(baseline JPEG), utils/j2k.py (JPEG "
+                                      "2000), utils/tiff.py "
                                       "(tiled or stripped; LZW, Deflate, "
                                       "PackBits, JPEG)"),
         ("PIL's bicubic Image.resize", "heatmap resizes: "
@@ -112,8 +114,8 @@ class Doctor:
          "heatmap blur and tissue mask: image_ops.gaussian_blur_u8, "
          "image_ops.fill_contours"),
         ("openslide", "slides: data/wsi.py reads TIFF (LZW, Deflate, "
-                      "PackBits, JPEG; tiled or stripped), PNG and JPEG; "
-                      "openslide formats are refused"),
+                      "PackBits, JPEG; tiled or stripped), PNG, JPEG and "
+                      "JPEG 2000; openslide formats are refused"),
         ("lungmask", "lung masks: the classical estimator in "
                      "data/ct_preprocess.py"),
     )

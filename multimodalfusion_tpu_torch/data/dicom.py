@@ -14,15 +14,13 @@ load_scan; datasets/dataset_raw.py:51-89):
     Lossless (…1.2.4.70 SV1, the most common compressed syntax of
     clinical CT archives, and …1.2.4.57 with any predictor), whose
     entropy decode runs in C++ (``native.jpeg_lossless_decode``), and
-    Baseline JPEG (…1.2.4.50, 8-bit), which the JAX package decodes
-    through PIL, here through the port's own decoder (``utils/jpeg.py``,
-    ``csrc/imgcodec.cpp``: PIL's pixels bit for bit), monochrome frames
-    only, as in JAX;
+    Baseline JPEG (…1.2.4.50, 8-bit) and JPEG 2000 (…1.2.4.90 lossless,
+    …1.2.4.91), which the JAX package decodes through PIL, here through
+    the port's own decoders (``utils/jpeg.py``, ``csrc/imgcodec.cpp``;
+    ``utils/j2k.py``, ``csrc/j2k.cpp``: PIL's pixels bit for bit, its
+    shift of a 12-bit component to 16 bits and its offset of a signed
+    one included), monochrome frames only, as in JAX;
   * defined- and undefined-length sequences are skipped structurally.
-
-JPEG 2000 (…1.2.4.90/.91), which the JAX package decodes through PIL,
-raises ``NotImplementedError`` naming the syntax and ROADMAP.md's queued
-item for it, and so does ``write_ct_slice(compression="jpeg2000")``.
 
 ``read_file`` returns a ``DicomSlice`` whose attributes are those the
 pipeline reads from a pydicom Dataset (``pixel_array``,
@@ -41,7 +39,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from multimodalfusion_tpu_torch import native
-from multimodalfusion_tpu_torch.utils import jpeg
+from multimodalfusion_tpu_torch.utils import j2k, jpeg
 
 EXPLICIT_VR_LE = "1.2.840.10008.1.2.1"
 IMPLICIT_VR_LE = "1.2.840.10008.1.2"
@@ -56,16 +54,9 @@ JPEG2000_LOSSLESS = "1.2.840.10008.1.2.4.90"
 JPEG2000 = "1.2.840.10008.1.2.4.91"
 
 # encapsulated-PixelData syntaxes this reader recognizes.  RLE, JPEG
-# Lossless and Baseline JPEG decode here; JPEG Extended (.51, 12-bit
-# lossy) and JPEG 2000, which the JAX package hands to PIL, raise with a
-# clear error.
+# Lossless, Baseline JPEG and JPEG 2000 decode here; JPEG Extended (.51,
+# 12-bit lossy), which PIL cannot parse either, raises with a clear error.
 _PIL_SYNTAXES = {JPEG_BASELINE, JPEG2000_LOSSLESS, JPEG2000}
-_SYNTAX_NAMES = {JPEG_BASELINE: "JPEG Baseline",
-                 JPEG2000_LOSSLESS: "JPEG 2000 Lossless",
-                 JPEG2000: "JPEG 2000"}
-# ROADMAP.md's item for the codec the port still lacks
-JPEG2000_ITEM = ("ROADMAP.md queue 1, 'JPEG 2000': a decoder of its own "
-                 "is queued")
 _ENCAPSULATED = _PIL_SYNTAXES | {RLE_LOSSLESS, JPEG_LOSSLESS_SV1,
                                  JPEG_LOSSLESS_P14, JPEG_EXTENDED}
 
@@ -531,14 +522,16 @@ def _decode_encapsulated(fragments, transfer_syntax: str, rows: int,
         arr = _decode_jpeg_lossless(blob, rows, cols)
         if bits == 8:
             arr = arr.astype(np.uint8)
-    elif transfer_syntax == JPEG_BASELINE:
+    elif transfer_syntax in _PIL_SYNTAXES:
         # JAX hands the frame to PIL: any failure to decode is a
         # NotImplementedError there, and so here
+        decoder = (jpeg.decode_jpeg if transfer_syntax == JPEG_BASELINE
+                   else j2k.decode)
         try:
-            arr = jpeg.decode_jpeg(blob)
+            arr = decoder(blob)
         except (ValueError, NotImplementedError) as exc:
             raise NotImplementedError(
-                f"the port's JPEG decoder cannot decode this "
+                f"the port's decoder cannot decode this "
                 f"{transfer_syntax} frame ({exc!r}) — convert the series "
                 f"to RLE/NIfTI (data/nifti.py)") from exc
         if arr.ndim != 2:
@@ -550,18 +543,12 @@ def _decode_encapsulated(fragments, transfer_syntax: str, rows: int,
             raise ValueError(
                 f"decoded frame {arr.shape} does not match "
                 f"Rows/Columns ({rows}, {cols})")
-    elif transfer_syntax in _PIL_SYNTAXES:
-        name = _SYNTAX_NAMES[transfer_syntax]
-        raise NotImplementedError(
-            f"transfer syntax {transfer_syntax} ({name}) has no decoder "
-            f"in this package (the JAX package decodes it through PIL; "
-            f"{JPEG2000_ITEM}) — convert the series to RLE/JPEG Lossless/"
-            f"Baseline JPEG or NIfTI (data/nifti.py)")
     else:
         raise NotImplementedError(
             f"transfer syntax {transfer_syntax} has no decoder in this "
-            "package (JPEG Extended carries 12-bit lossy JPEG) — convert "
-            "the series to RLE/JPEG Lossless or NIfTI (data/nifti.py)")
+            "package (JPEG Extended carries 12-bit lossy JPEG, which PIL "
+            "cannot parse either) — convert the series to RLE/JPEG "
+            "Lossless/JPEG 2000 or NIfTI (data/nifti.py)")
     if bits == 16:
         arr = arr.astype(np.uint32).astype(np.uint16)
         return arr.view(np.int16).copy() if signed else arr
@@ -814,8 +801,10 @@ def write_ct_slice(path: str, pixels: np.ndarray, z: float,
     'jpeg_lossless' (JPEG Lossless, a T.81 process-14 encoder —
     ``jpeg_psv`` picks the predictor: 1 writes the DICOM-ubiquitous SV1
     syntax …1.2.4.70, any other value 2..7 writes the predictor-free
-    syntax …1.2.4.57), 'jpeg2000' (raises: no encoder), or 'deflated'
-    (Deflated Explicit VR LE).
+    syntax …1.2.4.57), 'jpeg2000' (JPEG 2000 Lossless …1.2.4.90, the
+    port's encoder with the settings PIL's openjpeg writes: a JP2 box, 5
+    levels, 64 x 64 code-blocks, one layer), or 'deflated' (Deflated
+    Explicit VR LE).
     """
     pixels = np.ascontiguousarray(pixels, np.int16)
     rows, cols = pixels.shape
@@ -854,10 +843,10 @@ def write_ct_slice(path: str, pixels: np.ndarray, z: float,
         body += _encapsulate(_encode_jpeg_lossless(
             pixels.view(np.uint16), psv=jpeg_psv))
     elif compression == "jpeg2000":
-        raise NotImplementedError(
-            "compression 'jpeg2000' needs a JPEG 2000 encoder (the JAX "
-            f"package writes it through PIL); this package has none "
-            f"({JPEG2000_ITEM})")
+        ts = JPEG2000_LOSSLESS
+        # lossless J2K of the two's-complement uint16 view round-trips
+        # int16 exactly
+        body += _encapsulate(j2k.encode(pixels.view(np.uint16)))
     elif compression == "deflated":
         import zlib
         ts = DEFLATED_EXPLICIT_VR_LE

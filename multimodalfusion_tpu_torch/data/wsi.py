@@ -9,8 +9,9 @@ runs on stand-ins of its own, each held to the library it replaces
 morphological close, the uint8 resize, rectangle, ellipse),
 ``utils/contours.py`` (``findContours`` with ``RETR_CCOMP``,
 ``contourArea``, ``boundingRect``, ``pointPolygonTest``),
-``utils/tiff.py``, ``utils/png.py`` and ``utils/jpeg.py`` (the slide
-files, with their decoders in ``csrc/imgcodec.cpp``) and
+``utils/tiff.py``, ``utils/png.py``, ``utils/jpeg.py`` and
+``utils/j2k.py`` (the slide files, with their decoders in
+``csrc/imgcodec.cpp`` and ``csrc/j2k.cpp``) and
 ``data/hdf5.py`` (the coordinates and their attributes).
 
 Backends:
@@ -18,7 +19,9 @@ Backends:
   * ``PILSlide`` -- the JAX name of the page-per-level reader: multi-page
     TIFF (stripped or tiled; uncompressed, LZW, Deflate, PackBits or
     JPEG) through ``utils/tiff.py``, PNG through ``utils/png.py``, JPEG
-    through ``utils/jpeg.py``; every page is decoded into RAM, so the
+    through ``utils/jpeg.py``, JPEG 2000 (PIL's ``.jp2 .j2k .jpc .jpf
+    .jpx .j2c``) through ``utils/j2k.py``; every page is decoded into RAM,
+    so the
     decode is budgeted from the headers first (``MMF_TPU_WSI_MAX_BYTES``);
   * ``OpenSlideBackend`` -- refuses: the port reads no openslide format.
 
@@ -39,14 +42,15 @@ import torch
 from multimodalfusion_tpu_torch import resolve_device
 from multimodalfusion_tpu_torch.data.io import save_hdf5
 from multimodalfusion_tpu_torch.utils import contours as cts
-from multimodalfusion_tpu_torch.utils import image_ops, jpeg, png, tiff
+from multimodalfusion_tpu_torch.utils import image_ops, j2k, jpeg, png, tiff
 
 # the formats of openslide (JAX open_slide, data/wsi.py:165)
 OPENSLIDE_EXTS = (".svs", ".ndpi", ".mrxs", ".scn", ".vms", ".vmu", ".bif")
-# what PILSlide reads
-SLIDE_EXTS = (".tif", ".tiff", ".png", ".jpg", ".jpeg")
+# what PILSlide reads; JPEG 2000 under the extensions PIL registers
+J2K_EXTS = (".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c")
+SLIDE_EXTS = (".tif", ".tiff", ".png", ".jpg", ".jpeg") + J2K_EXTS
 READS = ("multi-page TIFF (stripped or tiled; uncompressed, LZW, Deflate, "
-         "PackBits or baseline JPEG), PNG and baseline JPEG")
+         "PackBits or baseline JPEG), PNG, baseline JPEG and JPEG 2000")
 # patches resized at once by stitch_coords (256 of 256 px: 50 MB of int32)
 STITCH_BATCH = 256
 
@@ -114,14 +118,23 @@ def _jpeg_header(path: str) -> Tuple[Tuple[int, int], str]:
     return (frame.width, frame.height), "L" if len(frame.h) == 1 else "RGB"
 
 
+def _j2k_header(path: str) -> Tuple[Tuple[int, int], str]:
+    """((w, h), PIL's mode) of a JPEG 2000 file from its JP2 boxes and SIZ
+    (no code-block is read)."""
+    try:
+        return j2k.read_header(path)
+    except (ValueError, NotImplementedError) as e:
+        raise type(e)(f"{path}: {e}") from e
+
+
 class PILSlide(ArraySlide):
     """Page-per-level slide (the JAX name; no PIL): the pages of a multi-
     page TIFF -- strips or tiles, uncompressed, LZW (predictor 1 or 2),
     Deflate, PackBits or JPEG (``utils/tiff.py``) -- or one PNG of any
     colour type, depth and interlace (``utils/png.py``), or one baseline
-    JPEG (``utils/jpeg.py``), are the pyramid's levels, each as PIL's
-    ``convert("RGB")`` gives it.  Any other file raises, naming its
-    format.
+    JPEG (``utils/jpeg.py``), or one JPEG 2000 image (``utils/j2k.py``),
+    are the pyramid's levels, each as PIL's ``convert("RGB")`` gives it.
+    Any other file raises, naming its format.
 
     Every page is decoded into RAM, so the decoded size is computed from
     the page headers FIRST: past ``max_decode_bytes`` (default 1 GiB,
@@ -150,6 +163,8 @@ class PILSlide(ArraySlide):
             heads = [_png_header(path)]
         elif ext in (".jpg", ".jpeg"):
             heads = [_jpeg_header(path)]
+        elif ext in J2K_EXTS:
+            heads = [_j2k_header(path)]
         else:
             raise NotImplementedError(
                 f"{path}: a {ext or 'extensionless'} slide; the port reads "
@@ -171,6 +186,8 @@ class PILSlide(ArraySlide):
             img = jpeg.read_jpeg(path)
             levels = [img if img.ndim == 3 else np.repeat(img[..., None], 3,
                                                           axis=2)]
+        elif ext in J2K_EXTS:
+            levels = [j2k.read_j2k(path, rgb=True)]
         else:
             levels = [tiff.read_page(path, p) for p in pages]
         order = np.argsort([-l.shape[0] for l in levels], kind="stable")

@@ -13,6 +13,13 @@ chunks, PNG row filters and baseline JPEG frames, threaded over
 independent chunks.  Their wrappers and plain versions live with the
 readers (``utils/tiff.py``, ``utils/png.py``, ``utils/jpeg.py``).
 
+``csrc/j2k.cpp`` (``j2k_lib()``): the hot loops of the JPEG 2000 codec
+that stands in for PIL's openjpeg (``utils/j2k.py``, which holds their
+plain versions): ``j2k_decode_blocks`` (tier 1 of many code-blocks, over
+host threads), ``j2k_idwt`` (the inverse 5/3 or 9/7 DWT of a
+tile-component) and ``j2k_encode_blocks`` (tier 1 of the lossless
+encoder).
+
 Each library is built with g++ at its first use into
 ``<checkout>/build/native/<name>-<hash>.so``, where the hash covers the
 source and the flags, and loaded with ctypes.  A failed build raises with
@@ -35,12 +42,14 @@ import torch
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(PKG_DIR, "csrc", "bagio.cpp")
 CODEC_SRC = os.path.join(PKG_DIR, "csrc", "imgcodec.cpp")
+J2K_SRC = os.path.join(PKG_DIR, "csrc", "j2k.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "native")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _codec_lib: Optional[ctypes.CDLL] = None
+_j2k_lib: Optional[ctypes.CDLL] = None
 
 
 def build(src: str = SRC, build_dir: str = BUILD_DIR) -> str:
@@ -120,6 +129,165 @@ def codec_lib() -> ctypes.CDLL:
             loaded.mmf_jpeg_frame_size.restype = ctypes.c_int64
             _codec_lib = loaded
         return _codec_lib
+
+
+class _J2kBlock(ctypes.Structure):
+    """csrc/j2k.cpp's MmfJ2kBlock: one code-block to decode."""
+    _fields_ = [("data", ctypes.c_void_p), ("len", ctypes.c_int64),
+                ("seg_len", ctypes.c_void_p), ("seg_passes", ctypes.c_void_p),
+                ("nsegs", ctypes.c_int32), ("w", ctypes.c_int32),
+                ("h", ctypes.c_int32), ("orient", ctypes.c_int32),
+                ("bpno", ctypes.c_int32), ("numbps", ctypes.c_int32),
+                ("roishift", ctypes.c_int32), ("style", ctypes.c_int32),
+                ("reversible", ctypes.c_int32), ("stepsize", ctypes.c_float),
+                ("out", ctypes.c_void_p), ("out_stride", ctypes.c_int64),
+                ("status", ctypes.c_int32)]
+
+
+class _J2kEnc(ctypes.Structure):
+    """csrc/j2k.cpp's MmfJ2kEnc: one code-block to encode."""
+    _fields_ = [("coef", ctypes.c_void_p), ("w", ctypes.c_int32),
+                ("h", ctypes.c_int32), ("orient", ctypes.c_int32),
+                ("style", ctypes.c_int32), ("out", ctypes.c_void_p),
+                ("len", ctypes.c_int64), ("rates", ctypes.c_int32 * 96),
+                ("npasses", ctypes.c_int32), ("planes", ctypes.c_int32),
+                ("status", ctypes.c_int32)]
+
+
+def j2k_lib() -> ctypes.CDLL:
+    """The loaded JPEG 2000 library (``csrc/j2k.cpp``), built on first
+    use; its structs are checked against ctypes'."""
+    global _j2k_lib
+    with _lock:
+        if _j2k_lib is None:
+            loaded = ctypes.CDLL(build(J2K_SRC))
+            loaded.mmf_j2k_block_size.restype = ctypes.c_int64
+            loaded.mmf_j2k_enc_size.restype = ctypes.c_int64
+            if (loaded.mmf_j2k_block_size() != ctypes.sizeof(_J2kBlock)
+                    or loaded.mmf_j2k_enc_size() != ctypes.sizeof(_J2kEnc)):
+                raise RuntimeError("csrc/j2k.cpp's structs and native.py's "
+                                   "_J2kBlock / _J2kEnc disagree")
+            loaded.mmf_j2k_decode_blocks.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+            loaded.mmf_j2k_decode_blocks.restype = ctypes.c_int
+            loaded.mmf_j2k_idwt.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            loaded.mmf_j2k_idwt.restype = ctypes.c_int
+            loaded.mmf_j2k_encode_blocks.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+            loaded.mmf_j2k_encode_blocks.restype = ctypes.c_int
+            loaded.mmf_j2k_free.argtypes = [ctypes.c_void_p]
+            loaded.mmf_j2k_free.restype = None
+            _j2k_lib = loaded
+        return _j2k_lib
+
+
+def j2k_decode_blocks(jobs: Sequence, n_threads: int = 0) -> None:
+    """Tier 1 of JPEG 2000 code-blocks (``utils/j2k.BlockJob``s): each
+    block's coefficients decoded, ROI-unshifted and halved (5/3) or scaled
+    by its half step (9/7) into its ``out`` view, as
+    ``j2k.decode_blocks_plain`` does; the blocks over ``n_threads`` host
+    threads (<= 0: one per hardware thread).  Counts one call in
+    ``j2k_decode_blocks.calls``."""
+    lib_ = j2k_lib()
+    arr = (_J2kBlock * len(jobs))()
+    keep = []
+    for cb, job in zip(arr, jobs):
+        out = job.out
+        want = np.int32 if job.reversible else np.float32
+        if (out.dtype != want or out.ndim != 2 or out.strides[1]
+                != out.itemsize or out.shape != (job.h, job.w)):
+            raise ValueError(f"a code-block's output must be {want.__name__} "
+                             f"[{job.h}, {job.w}] with contiguous rows; got "
+                             f"{out.dtype} {out.shape} strides {out.strides}")
+        data = np.frombuffer(job.data, np.uint8)
+        lens = np.asarray(job.seg_lens, np.int32)
+        passes = np.asarray(job.seg_passes, np.int32)
+        keep += [data, lens, passes]
+        cb.data = data.ctypes.data if data.size else None
+        cb.len = data.size
+        cb.seg_len, cb.seg_passes = lens.ctypes.data, passes.ctypes.data
+        cb.nsegs = lens.size
+        cb.w, cb.h, cb.orient = job.w, job.h, job.orient
+        cb.bpno, cb.numbps, cb.roishift = job.bpno, job.numbps, job.roishift
+        cb.style, cb.reversible = job.style, int(job.reversible)
+        cb.stepsize = job.stepsize
+        cb.out = out.ctypes.data
+        cb.out_stride = out.strides[0] // out.itemsize
+    rc = lib_.mmf_j2k_decode_blocks(arr, len(jobs), n_threads)
+    j2k_decode_blocks.calls += 1
+    if rc:
+        raise ValueError(f"JPEG 2000 tier-1 decode failed (status {rc})")
+
+
+j2k_decode_blocks.calls = 0
+
+
+def j2k_idwt(plane: np.ndarray, tc, n_threads: int = 0) -> None:
+    """The inverse DWT of one tile-component (``plane``: int32 for 5/3,
+    float32 for 9/7, [h, w] in the subband layout, rows contiguous) in
+    place, as ``j2k.idwt_plain`` does; rows, then columns, of each level
+    split across ``n_threads`` host threads.  Counts one call in
+    ``j2k_idwt.calls``."""
+    rev = tc.coding.reversible
+    if (plane.dtype != (np.int32 if rev else np.float32) or plane.ndim != 2
+            or plane.strides[1] != plane.itemsize):
+        raise ValueError(f"j2k_idwt needs {'int32' if rev else 'float32'} "
+                         f"[h, w] with contiguous rows; got {plane.dtype} "
+                         f"{plane.shape}")
+    res = np.array([[r.x0, r.y0, r.x1, r.y1] for r in tc.resolutions],
+                   np.int32)
+    lib_ = j2k_lib()
+    lib_.mmf_j2k_idwt(plane.ctypes.data, plane.strides[0] // plane.itemsize,
+                      int(rev), res.ctypes.data, len(res), n_threads)
+    j2k_idwt.calls += 1
+
+
+j2k_idwt.calls = 0
+
+
+def j2k_encode_blocks(coefs: Sequence[np.ndarray], orients: Sequence[int],
+                      style: int, n_threads: int = 0) -> list:
+    """Tier 1 of the lossless JPEG 2000 encoder for each code-block
+    (int32 [h, w] C-contiguous coefficients, ROI shift applied) of band
+    orientation ``orients[i]``: ``j2k.EncodedBlock``s equal to
+    ``j2k.t1_encode_plain``'s, over ``n_threads`` host threads.  Counts one
+    call in ``j2k_encode_blocks.calls``."""
+    from multimodalfusion_tpu_torch.utils import j2k
+    lib_ = j2k_lib()
+    arr = (_J2kEnc * len(coefs))()
+    for ce, cf, o in zip(arr, coefs, orients):
+        if cf.dtype != np.int32 or cf.ndim != 2 or not cf.flags.c_contiguous:
+            raise ValueError(f"j2k_encode_blocks takes int32 [h, w] "
+                             f"C-contiguous; got {cf.dtype} {cf.shape}")
+        ce.coef = cf.ctypes.data
+        ce.h, ce.w = cf.shape
+        ce.orient, ce.style = o, style
+    rc = lib_.mmf_j2k_encode_blocks(arr, len(coefs), n_threads)
+    j2k_encode_blocks.calls += 1
+    out = []
+    try:
+        for ce in arr:
+            if ce.status:
+                continue
+            data = ctypes.string_at(ce.out, ce.len) if ce.len else b""
+            rates = list(ce.rates[:ce.npasses])
+            out.append(j2k.EncodedBlock(
+                data, j2k.clip_rates(rates, j2k.segment_ends(ce.npasses,
+                                                             style)),
+                ce.planes))
+    finally:
+        for ce in arr:
+            if ce.out:
+                lib_.mmf_j2k_free(ce.out)
+    if rc:
+        raise ValueError(f"JPEG 2000 tier-1 encode failed (status {rc}: a "
+                         "code-block with 31 or more bit-planes)")
+    return out
+
+
+j2k_encode_blocks.calls = 0
 
 
 def pad_bags_into(bags: Sequence[Optional[np.ndarray]], out: np.ndarray,

@@ -4,9 +4,13 @@ the JAX package's, and its lung bounding boxes against OpenCV: every
 syntax the JAX writer writes without PIL is read by both readers to equal
 pixel arrays and attributes, and written byte for byte alike; the C++
 decoder equals the Python one; malformed, corrupted and mislabelled files
-fail alike; the syntaxes JAX decodes through PIL raise, naming the
-syntax."""
+fail alike; the syntaxes JAX decodes through PIL decode to JAX's pixels
+(Baseline JPEG gray frames, JPEG 2000 lossless and lossy frames, 12-bit
+and signed ones as PIL maps them, in one or several fragments), and the
+port's JPEG 2000 writer writes what the JAX reader reads back."""
+import importlib.util
 import io
+import os
 import struct
 
 import cv2
@@ -19,6 +23,7 @@ from multimodalfusion_tpu.data import dicom as jd
 from multimodalfusion_tpu_torch import native
 from multimodalfusion_tpu_torch.data import ct_preprocess as tct
 from multimodalfusion_tpu_torch.data import dicom as td
+from multimodalfusion_tpu_torch.utils import j2k as tj2k
 
 ATTRS = ("Modality", "SliceThickness", "ImagePositionPatient",
          "ImageOrientationPatient", "Rows", "Columns", "PixelSpacing",
@@ -220,17 +225,21 @@ def test_corrupted_files_fail_alike(tmp_path):
 @pytest.mark.parametrize("case", ["baseline_color", "baseline_gray",
                                   "jpeg2000"])
 def test_pil_syntaxes_raise_naming_the_syntax(tmp_path, case):
-    """Baseline JPEG and JPEG 2000 decode through PIL in JAX.  The port
-    decodes baseline JPEG itself: a gray frame reads equal to JAX's, a
-    colour frame raises NotImplementedError in both.  JPEG 2000 raises
-    NotImplementedError naming the syntax and ROADMAP.md's item, and the
-    port's writer refuses to write it."""
+    """Baseline JPEG and JPEG 2000 decode through PIL in JAX, and through
+    the port's own decoders here: a gray baseline frame reads equal to
+    JAX's, a colour frame raises NotImplementedError in both.  A JAX-written
+    JPEG 2000 file reads equal to JAX's read and to its source, and so does
+    the port-written one, in both readers."""
     px = _volume(n=1)[0]
     if case == "jpeg2000":
         p = _write(jd, tmp_path / "j2k.dcm", px, "jpeg2000", False, 1)
-        ts = jd.JPEG2000_LOSSLESS
-        with pytest.raises(NotImplementedError, match="JPEG 2000"):
-            _write(td, tmp_path / "t.dcm", px, "jpeg2000", False, 1)
+        want = _same_outcome(p)
+        np.testing.assert_array_equal(want[2], px)
+        tp = _write(td, tmp_path / "t.dcm", px, "jpeg2000", False, 1)
+        got = _same_outcome(tp)
+        np.testing.assert_array_equal(got[2], px)
+        assert got[1]["TransferSyntaxUID"] == jd.JPEG2000_LOSSLESS
+        return
     else:
         rle = open(_write(jd, tmp_path / "rle.dcm", px, "rle", False, 1),
                    "rb").read()
@@ -245,15 +254,108 @@ def test_pil_syntaxes_raise_naming_the_syntax(tmp_path, case):
         ts = jd.JPEG_BASELINE
         p = tmp_path / "baseline.dcm"
         p.write_bytes(_with_syntax(rle.replace(old, new), ts))
-    if case != "jpeg2000":
-        want = _same_outcome(p)
-        assert want[0] == ("ok" if case == "baseline_gray" else "raise")
-        return
-    s = td.read_file(str(p))
-    with pytest.raises(NotImplementedError,
-                       match=ts.replace(".", r"\.") + ".*ROADMAP.md"):
-        s.pixel_array
-    jd.read_file(str(p))  # JAX parses it too (and hands it to PIL)
+    want = _same_outcome(p)
+    assert want[0] == ("ok" if case == "baseline_gray" else "raise")
+
+
+def _j2k_dicom(tmp_path, name, frame, ts=jd.JPEG2000_LOSSLESS, parts=1,
+               hw=24):
+    """A JAX-written one-frame RLE file whose PixelData is replaced by the
+    JPEG 2000 ``frame`` in ``parts`` fragments, under syntax ``ts``."""
+    px = _volume(n=1, hw=hw)[0]
+    rle = open(_write(jd, tmp_path / f"{name}_rle.dcm", px, "rle", False,
+                      1), "rb").read()
+    old = jd._rle_encode_frame(px)
+    old = struct.pack("<HHI", 0xFFFE, 0xE000, len(old)) + old
+    cuts = [2 * (len(frame) * k // (2 * parts)) for k in range(parts)]
+    cuts.append(len(frame))   # even cuts: only the last piece is padded
+    new = b""
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        piece = frame[a:b] + b"\x00" * ((b - a) % 2)
+        new += struct.pack("<HHI", 0xFFFE, 0xE000, len(piece)) + piece
+    p = tmp_path / f"{name}.dcm"
+    p.write_bytes(_with_syntax(rle.replace(old, new), ts))
+    return p
+
+
+J2K_FRAMES = {
+    # PIL's lossy 9/7 of a CT slice, as a …1.2.4.91 frame
+    "lossy_97": lambda px: _pil_j2k(px, irreversible=True,
+                                    quality_mode="rates",
+                                    quality_layers=[12, 4]),
+    "lossless_3_fragments": lambda px: _pil_j2k(px, irreversible=False),
+    "port_12bit": lambda px: tj2k.encode(
+        (px.astype(np.int64) - 900) % 4096, prec=12, plain=True),
+    "port_signed": lambda px: tj2k.encode(px.astype(np.int64) - 1100,
+                                          prec=16, signed=True),
+    "port_signed_12bit_j2k": lambda px: _j2k_writer().encode_stream(
+        (px.astype(np.int64) - 900) % 4096 - 2048, prec=12, signed=True,
+        jp2=False),
+}
+
+
+def _j2k_writer():
+    """tools/j2k_writer.py, the test-stream writer (bare codestreams)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "j2k_writer.py")
+    spec = importlib.util.spec_from_file_location("j2k_writer", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pil_j2k(px, **kw):
+    bio = io.BytesIO()
+    Image.fromarray(px.view(np.uint16)).save(bio, format="JPEG2000", **kw)
+    return bio.getvalue()
+
+
+@pytest.mark.parametrize("case", sorted(J2K_FRAMES))
+def test_j2k_frames_read_as_jax(tmp_path, case):
+    """JPEG 2000 frames JAX hands to PIL: lossy …1.2.4.91, fragmented,
+    12-bit (PIL shifts it up by 4) and signed (PIL offsets it by
+    2**(prec - 1)) read to JAX's int16 pixels."""
+    px = _volume(n=1, hw=24)[0]
+    frame = J2K_FRAMES[case](px)
+    ts = jd.JPEG2000 if case == "lossy_97" else jd.JPEG2000_LOSSLESS
+    p = _j2k_dicom(tmp_path, case, frame, ts,
+                   parts=3 if "fragments" in case else 1)
+    want = _same_outcome(p)
+    assert want[0] == "ok"
+    if case == "lossless_3_fragments":
+        np.testing.assert_array_equal(want[2], px)
+
+
+def test_j2k_frame_shape_and_colour_fail_as_jax(tmp_path):
+    """A colour JPEG 2000 frame raises NotImplementedError and a frame of
+    the wrong size ValueError, in both readers."""
+    rgb = np.stack([_volume(n=1)[0].astype(np.uint8)] * 3, -1)
+    bio = io.BytesIO()
+    Image.fromarray(rgb).save(bio, format="JPEG2000", irreversible=False)
+    want = _same_outcome(_j2k_dicom(tmp_path, "rgb", bio.getvalue()))
+    assert want[:3] == ("raise", "pixels", "NotImplementedError")
+    small = _pil_j2k(_volume(n=1, hw=16)[0], irreversible=False)
+    want = _same_outcome(_j2k_dicom(tmp_path, "small", small))
+    assert want[:3] == ("raise", "pixels", "ValueError")
+
+
+def test_j2k_series_written_by_either_package_loads_as_jax(tmp_path):
+    """load_scan and get_pixels_hu on a JPEG 2000 series the port wrote
+    and on one the JAX package wrote: the port equals JAX, and both equal
+    the source volume."""
+    vol = _volume(n=4, hw=20, seed=3)
+    for who, mod in (("port", td), ("jax", jd)):
+        d = tmp_path / who
+        d.mkdir()
+        for i in range(vol.shape[0]):
+            mod.write_ct_slice(str(d / f"s{i}.dcm"), vol[i], z=1.5 * i,
+                               compression="jpeg2000")
+        got, want = tct.load_scan(str(d)), jct.load_scan(str(d))
+        assert [s.path for s in got] == [s.path for s in want]
+        hu = tct.get_pixels_hu(got)
+        np.testing.assert_array_equal(hu, jct.get_pixels_hu(want))
+        np.testing.assert_array_equal(
+            np.stack([s.pixel_array for s in want]), vol)
 
 
 @pytest.mark.parametrize("psv", range(1, 8))

@@ -24,7 +24,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pandas", "h5py", "sklearn",
              "tensorboardX", "tensorboard", "orbax", "multimodalfusion_tpu",
              "yaml", "msgpack", "cv2", "matplotlib", "PIL", "pydicom",
-             "torchvision", "openslide"}
+             "torchvision", "openslide", "openjpeg", "glymur"}
 
 
 def read_rows(path):
@@ -174,6 +174,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "utils/model_export.py", "cli/export_model.py",
                 "cli/doctor.py", "analysis.py", "cli/summarize.py",
                 "utils/contours.py", "utils/tiff.py", "utils/jpeg.py",
+                "utils/j2k.py",
                 "data/wsi.py", "cli/create_patches.py",
                 "cli/extract_features_fp.py", "interpret/heatmaps.py",
                 "interpret/explanations.py"):

@@ -10,12 +10,15 @@ files:
   YCbCr (4:4:4, 4:2:0, with and without JPEGTables and restart
   markers), in RGB (photometric 2) and in gray, libtiff's own JPEG
   strips; PNG slides of each colour type, depth and interlace; .jpg
-  slides.  PIL ignores tile tags when it saves, so the IFDs are written
+  slides; JPEG 2000 slides (.jp2, .j2k, .jpc and .j2c) written by PIL:
+  RGB lossless and lossy, tiled, grey and I;16.  PIL ignores tile tags
+  when it saves, so the IFDs are written
   here around chunks that PIL (libtiff), ``zlib`` or this file's
   encoders compressed.  Every compressed page also decodes equal
   through the plain versions (``read_page(..., plain=True)``);
 - stage 0: ``cli.create_patches --device cpu`` writes the JAX CLI's
-  coordinates on a JPEG-tiled and an LZW-tiled slide;
+  coordinates on a JPEG-tiled and an LZW-tiled slide, and on a .jp2
+  slide;
 - DICOM: a Baseline JPEG (…1.2.4.50) frame built by PIL reads equal to
   JAX's ``read_file``; a colour frame and a frame whose shape is not
   Rows x Columns raise alike;
@@ -43,7 +46,7 @@ from multimodalfusion_tpu.data import wsi as jw
 from multimodalfusion_tpu_torch.cli import create_patches as tcp
 from multimodalfusion_tpu_torch.data import io as tio
 from multimodalfusion_tpu_torch.data import wsi as tw
-from multimodalfusion_tpu_torch.utils import tiff
+from multimodalfusion_tpu_torch.utils import j2k, tiff
 
 LZW, DEFLATE, ADOBE, PACKBITS, JPEG = 5, 8, 32946, 32773, 7
 
@@ -313,6 +316,35 @@ def test_png_and_jpeg_slides_equal_jax(tmp_path):
         _check_slide(path)
 
 
+J2K_SLIDES = {
+    "rgb_lossless.jp2": (lambda: _image(61, 83), dict(irreversible=False)),
+    "rgb_lossy.j2k": (lambda: _image(70, 57), dict(
+        irreversible=True, quality_mode="rates", quality_layers=[20, 5])),
+    "rgb_tiled.jpc": (lambda: _image(90, 76), dict(
+        irreversible=False, tile_size=(32, 48), progression="RPCL",
+        precinct_size=(32, 32))),
+    "gray.j2c": (lambda: _image(44, 39, c=1)[..., 0], dict(
+        irreversible=True, no_jp2=True)),
+    "gray16.jp2": (lambda: (_image(44, 39, c=1)[..., 0].astype(np.uint16)
+                            * 37 + 100), dict(irreversible=False)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(J2K_SLIDES))
+def test_j2k_slides_equal_jax(tmp_path, name):
+    """PIL's JPEG 2000 slides: the port's RGB level equals JAX's
+    (``convert("RGB")`` of PIL's mode: RGB, L repeated, I;16 clipped), and
+    the port reads the size and mode from the headers as PIL does."""
+    make, kw = J2K_SLIDES[name]
+    path = str(tmp_path / name)
+    Image.fromarray(make()).save(path, "JPEG2000", **kw)
+    _check_slide(path)
+    np.testing.assert_array_equal(j2k.read_j2k(path, plain=True, rgb=True),
+                                  tw.PILSlide(path).levels[0])
+    with Image.open(path) as im:
+        assert tw._j2k_header(path) == (im.size, im.mode)
+
+
 def test_budget_counts_the_modes_this_reads(tmp_path):
     """The decode budget from the headers of a palette PNG (1 B/px native)
     and a .jpg (4 B/px), at the JAX table's bytes."""
@@ -346,6 +378,8 @@ def test_create_patches_on_jpeg_and_lzw_tiles_equals_jax(tmp_path):
     _write_tiff(str(src / "LZW.tiff"), [
         _encode_page(lvl, LZW, tile=(128, 128), predictor=2)
         for lvl in slide.levels])
+    Image.fromarray(slide.levels[0]).save(str(src / "J2K.jp2"), "JPEG2000",
+                                          irreversible=False)
     out = {}
     for who, fn, extra in (("jax", jax_cp, []),
                            ("port", tcp.main, ["--device", "cpu"])):
@@ -353,7 +387,7 @@ def test_create_patches_on_jpeg_and_lzw_tiles_equals_jax(tmp_path):
         assert fn(["--source", str(src), "--save_dir", str(out[who]),
                    "--patch_size", "128", "--step_size", "128", "--a_t",
                    "0.5", "--a_h", "0.05"] + extra) == 0
-    for stem in ("JPG", "LZW"):
+    for stem in ("JPG", "LZW", "J2K"):
         with h5py.File(out["jax"] / "patches" / f"{stem}_patches.h5") as j, \
                 h5py.File(out["port"] / "patches" / f"{stem}_patches.h5") \
                 as t:
