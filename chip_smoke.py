@@ -103,8 +103,12 @@ Phases, each fatal on failure:
   4e. interpret -- stage 5 on the [radio] experiments, each check against
                 the CPU in the same call: the attention read-out
                 (attention_only) of the radio model on a served batch and
-                of a PathAMIL on one 32,768 x 1024 bag, raw scores at rel
-                1e-5 with no launch, and masked_softmax_pool of them
+                of a PathAMIL on one 32,768 x 1024 bag, the card's raw
+                scores against a float64 reference (a .double() copy of
+                the CPU model) at rel 1e-5 with no launch, the CPU's own
+                f32 error and card vs CPU beside it, and each stage's (the
+                fused sequences, h, the gates a and b, s) error on both
+                devices; masked_softmax_pool of the scores
                 against the pooled features of mil_pool_fwd (one launch)
                 at rel 1e-5; MMAttentionMIL return_attention's A_raw at
                 rel 1e-5; cli.create_attributions on the stage-4 head
@@ -122,6 +126,16 @@ Phases, each fatal on failure:
                 12-bit, every code-block style bit, PPT tile-parts and
                 POC) decoded by the C++ and the plain versions, both to
                 the manifest's SHA-256 of PIL's pixels; no launch.
+  4g. jpeg   -- the committed JPEG fixtures of
+                multimodalfusion_tpu_torch/testdata/jpeg (made by PIL's
+                libjpeg-turbo and tools/jpeg_writer.py: progressive at
+                4:4:4, 4:2:2, 4:2:0 and gray, successive approximation
+                from Al = 3, EOB runs with restarts in every scan type,
+                three early-stopped scripts that libjpeg-turbo smooths,
+                CMYK with and without an Adobe marker and YCCK, baseline
+                and progressive) decoded by the C++ and the plain
+                versions, both to the manifest's SHA-256 of PIL's pixels;
+                no launch.
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak) and,
                 for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
@@ -274,7 +288,14 @@ Phases, each fatal on failure:
                 lossless RCT .jp2 by the port's JPEG 2000 encoder and as a
                 one-page TIFF twin: the .jp2 decodes to the source, both
                 give the same coordinates and features, and their bags are
-                served (one forward launch, equal risks).  The slides are
+                served (one forward launch, equal risks).  The same level
+                as a baseline .jpg (utils/jpeg.encode_jpeg) and, from its
+                coefficients, a progressive one in libjpeg's default
+                script (tools/jpeg_writer.py): PILSlide reads them equal
+                bit for bit (decode ms per megapixel of each), a 1024 x
+                768 crop decodes equal by plain and C++, both give the
+                same coordinates and features, and their bags are served
+                (one forward launch, equal risks).  The slides are
                 deleted.  Alone: --phases wsi (runs [train] first).
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
@@ -288,6 +309,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import io
 import json
 import os
@@ -3479,6 +3501,26 @@ def _same_table(tag, got, want, key, text, sort_col=None, rtol=1e-4):
     return err
 
 
+def _readout_stages(model, bags):
+    """[interpret]'s read-out, stage by stage, as ``model`` (a gated
+    PathAMIL or RadioAMIL) computes it in its own types: the fused
+    sequences (a radio model with several), the FC output h, the gate
+    products a = tanh(h Wa + ba) and b = sigmoid(h Wb + bb), and the raw
+    scores s = (a b) wc + cc; each on the host."""
+    import torch
+    out = {}
+    if getattr(model, "n_modalities", 1) > 1:
+        out["fused"] = model.fuse_radio(bags, None, model.compute_dtype)
+    h = model.embed(bags)
+    p = model.pool.attn_params()
+    h = h.to(torch.promote_types(h.dtype, p.Wa.dtype))
+    out["h"] = h
+    out["a"] = torch.tanh(h @ p.Wa + p.ba)
+    out["b"] = torch.sigmoid(h @ p.Wb + p.bb)
+    out["s"] = ((out["a"] * out["b"]) @ p.wc + p.cc)[..., 0]
+    return {k: v.cpu() for k, v in out.items()}
+
+
 def phase_interpret(launch_counters, exps, root=None):
     """[interpret] Stage 5 on the card, each check against the CPU in the
     same call, all in f32, on the experiments of [radio] (``exps``), with
@@ -3551,21 +3593,39 @@ def phase_interpret(launch_counters, exps, root=None):
         return out
 
     def readout_vs_kernel(tag, gpu, cpu, kw, kw_cpu):
+        """The card's raw scores against a float64 reference (a copy of
+        the CPU model in ``.double()``), at rel 1e-5; the CPU's own f32
+        error against it and card vs CPU beside it, and each stage's
+        error on both devices, so the op that separates them shows."""
+        ref = copy.deepcopy(cpu).double()
+        ref.compute_dtype = torch.float64
         with torch.no_grad():
             s = timed(f"readout_{tag}", lambda: gpu(**kw,
                                                     attention_only=True))
-            e_s = rel_err(s.cpu(), cpu(**kw_cpu, attention_only=True))
+            s_cpu = cpu(**kw_cpu, attention_only=True)
+            s64 = ref(kw_cpu["bags"].double(), kw_cpu["mask"].double(),
+                      attention_only=True)
+            e_card, e_cpu = rel_err(s.cpu(), s64), rel_err(s_cpu, s64)
+            e_s = rel_err(s.cpu(), s_cpu)
+            st = [_readout_stages(m, b) for m, b in (
+                (gpu, kw["bags"]), (cpu, kw_cpu["bags"]),
+                (ref, kw_cpu["bags"].double()))]
             h = gpu.embed(kw["bags"]).float()
             pooled = mil.masked_softmax_pool(s, h, kw["mask"])[0]
             fused = timed(f"pooled_{tag}", lambda: gpu(
                 **kw, return_features=True), want=one_fwd)
         e_p = rel_err(pooled, fused)
+        stages = ", ".join(f"{k} card {rel_err(st[0][k], v):.2e} CPU "
+                           f"{rel_err(st[1][k], v):.2e}"
+                           for k, v in st[2].items())
         log(f"[interpret] read-out {tag} {tuple(kw['bags'].shape)}: raw "
-            f"scores card vs CPU rel {e_s:.2e}, launches "
-            f"{launches[f'readout_{tag}']}; masked_softmax_pool(scores) vs "
+            f"scores card vs float64 rel {e_card:.2e} (tol 1e-5), CPU vs "
+            f"float64 {e_cpu:.2e}, card vs CPU {e_s:.2e}, launches "
+            f"{launches[f'readout_{tag}']}; each stage vs float64: "
+            f"{stages}; masked_softmax_pool(scores) vs "
             f"mil_pool_fwd's pooled features rel {e_p:.2e}, launches "
             f"{launches[f'pooled_{tag}']} (tol 1e-5)")
-        if max(e_s, e_p) > 1e-5:
+        if max(e_card, e_p) > 1e-5:
             raise AssertionError(f"[interpret] read-out {tag} disagrees")
 
     with _workdir(root, "interpret") as td:
@@ -4894,6 +4954,217 @@ def phase_j2k(launch_counters):
         raise AssertionError("[j2k] a kernel launched")
 
 
+JPEG_FIXTURES = os.path.join(REPO, "multimodalfusion_tpu_torch", "testdata",
+                             "jpeg")
+
+
+def _jpeg_writer():
+    """tools/jpeg_writer.py, the test-stream writer (loaded by path; the
+    package never imports it)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "jpeg_writer", os.path.join(REPO, "tools", "jpeg_writer.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_jpeg(launch_counters):
+    """[jpeg] The committed JPEG fixtures (``JPEG_FIXTURES``, made by PIL's
+    libjpeg-turbo and tools/jpeg_writer.py, tools/make_jpeg_fixtures.py:
+    progressive at 4:4:4, 4:2:2, 4:2:0 and gray, successive approximation
+    from Al = 3, EOB runs with restarts in every scan type, three scripts
+    that stop early and are smoothed, CMYK with and without an Adobe
+    marker and YCCK, baseline and progressive): each decoded by the C++
+    version (every host thread) and by the plain one; both must give
+    pixels whose SHA-256 is the manifest's, PIL's.  No kernel launch
+    (counters reset just before, read just after)."""
+    import hashlib
+
+    from multimodalfusion_tpu_torch.utils import jpeg
+    with open(os.path.join(JPEG_FIXTURES, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    for c in launch_counters:
+        c.launches = 0
+    rows = []
+    for entry in manifest["files"]:
+        with open(os.path.join(JPEG_FIXTURES, entry["name"]), "rb") as f:
+            data = f.read()
+        frame = jpeg.parse_jpeg(data)
+        for plain in (False, True):
+            px = jpeg.decode_jpeg(data, plain=plain)
+            digest = hashlib.sha256(np.ascontiguousarray(px).tobytes())
+            if (digest.hexdigest() != entry["sha256"]
+                    or list(px.shape) != entry["shape"]):
+                raise AssertionError(
+                    f"[jpeg] {entry['name']} ({'plain' if plain else 'C++'})"
+                    f": {px.shape} does not match the manifest")
+        rows.append(f"{entry['name']} {entry['shape']} "
+                    f"{'SOF2' if frame.progressive else 'SOF0/1'} "
+                    f"{len(frame.scans)} scans")
+    counts = {c.__name__: c.launches for c in launch_counters}
+    log(f"[jpeg] {len(rows)} fixtures (Pillow {manifest['pillow']}, "
+        f"libjpeg-turbo {manifest['libjpeg_turbo']}) decode by C++ and "
+        f"plain to the manifest's digests: {'; '.join(rows)}; launches "
+        f"{counts}")
+    if any(counts.values()):
+        raise AssertionError("[jpeg] a kernel launched")
+
+
+def phase_wsi_progressive(launch_counters, path_exp, td, level0, stem, wall,
+                          launches):
+    """[wsi]'s progressive JPEG slide: ``level0`` (level 0 of [wsi]'s
+    slide ``stem``, 8192 x 6144 RGB) encoded by ``jpeg.encode_jpeg``
+    (baseline, YCbCr 4:2:0, quality 95) and, from the same quantised
+    coefficients (``jpeg_writer.encode_jpeg_coefficients``), written by
+    tools/jpeg_writer.py in libjpeg's default progressive script (10
+    scans: DC at Al 1, luma AC 1-5 and 6-63 at Al 2, chroma AC at Al 1,
+    then the refinements), the two written at once, the scans one a
+    thread:
+      - the progressive .jpg read through ``PILSlide`` (C++, all host
+        threads) equals the baseline .jpg's read bit for bit; the decode
+        ms per megapixel of each;
+      - a 1024 x 768 crop (the top-left 64 x 48 MCUs' coefficients in the
+        same script) decoded by the plain version equals the C++ version;
+      - cli.create_patches and cli.extract_features_fp on the two slides
+        in one directory (no launch): the same coordinates and the same
+        features (bit for bit expected, the pixels being equal; else
+        rtol 2e-3 / atol 2e-4, the ResNet tolerance);
+      - cli.infer of [train]'s PathAMIL on the two bags (the counters
+        reset just before): one forward launch, the risks equal when the
+        features are (else at rel 1e-4) and equal to the plain pooling's
+        at rel 1e-4.
+    Adds its launch counts to ``launches`` and wall seconds to ``wall``."""
+    from multimodalfusion_tpu_torch.cli import (create_patches,
+                                                extract_features_fp)
+    from multimodalfusion_tpu_torch.data import hdf5, wsi
+    from multimodalfusion_tpu_torch.data.io import load_pt
+    from multimodalfusion_tpu_torch.utils import jpeg
+    writer = _jpeg_writer()
+    none = {c.__name__: 0 for c in launch_counters}
+    h, w = level0.shape[:2]
+    mp = h * w / 1e6
+    threads = os.cpu_count()
+    names = {k: f"WSIP_{k}_{w}x{h}" for k in ("baseline", "progressive")}
+    src = os.path.join(td, "slides_progressive")
+    os.makedirs(src)
+    paths = {k: os.path.join(src, f"{n}.jpg") for k, n in names.items()}
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        wall[key] = time.perf_counter() - t0
+        return out
+
+    def progressive():
+        co = timed("jpg_coefficients", writer.encode_jpeg_coefficients,
+                   level0)
+        return co, timed("jpg_progressive", lambda: writer.encode(
+            co, threads=threads))
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        base_f = pool.submit(timed, "jpg_baseline", jpeg.encode_jpeg, level0)
+        prog_f = pool.submit(progressive)
+        data = {"baseline": base_f.result()}
+        co, data["progressive"] = prog_f.result()
+    wall["write_jpg"] = time.perf_counter() - t0
+    for k, p in paths.items():
+        with open(p, "wb") as f:
+            f.write(data[k])
+    frame = jpeg.parse_jpeg(data["progressive"])
+    got, dt = {}, {}
+    for k in ("baseline", "progressive"):
+        t0 = time.perf_counter()
+        got[k] = wsi.PILSlide(paths[k]).levels
+        dt[k] = time.perf_counter() - t0
+    if not frame.progressive or len(frame.scans) != 10 or len(
+            got["progressive"]) != 1 or not np.array_equal(
+                got["progressive"][0], got["baseline"][0]):
+        raise AssertionError(f"[wsi] {names['progressive']}.jpg does not "
+                             f"decode to its baseline source's pixels")
+    crop = writer.Coefficients(1024, 768, co.sampling, co.qt, (
+        co.blocks[0][:96, :128], co.blocks[1][:48, :64],
+        co.blocks[2][:48, :64]))
+    crop_data = writer.encode(crop)
+    t0 = time.perf_counter()
+    crop_plain = jpeg.decode_jpeg(crop_data, plain=True)
+    dt_plain = time.perf_counter() - t0
+    if not np.array_equal(crop_plain, jpeg.decode_jpeg(crop_data)):
+        raise AssertionError("[wsi] the progressive crop: plain and C++ "
+                             "differ")
+    log(f"[wsi] {names['progressive']}.jpg (libjpeg's progressive script, "
+        f"10 scans, per-scan optimal Huffman tables; "
+        f"{len(data['progressive']) / 2**20:.2f} MiB against the baseline "
+        f"source's {len(data['baseline']) / 2**20:.2f} MiB) written in "
+        f"{wall['write_jpg']:.3f} s (baseline encode_jpeg "
+        f"{wall['jpg_baseline']:.3f} s, beside it the coefficients "
+        f"{wall['jpg_coefficients']:.3f} s and the 10 scans "
+        f"{wall['jpg_progressive']:.3f} s in {threads} threads); PILSlide "
+        f"read {dt['progressive']:.3f} s = "
+        f"{dt['progressive'] * 1e3 / mp:.3f} ms/MP, the baseline source "
+        f"{dt['baseline']:.3f} s = {dt['baseline'] * 1e3 / mp:.3f} ms/MP "
+        f"(C++, {threads} host threads, {_card()}), equal bit for bit; a "
+        f"1024 x 768 crop in the same script: plain {dt_plain:.3f} s, equal "
+        f"to C++")
+    del got
+
+    def run(stage, fn, argv):
+        text = _run_stage(launch_counters, "wsi", stage, fn, argv, wall,
+                          launches, none, capture=True)
+        if "FAILED" in text:
+            raise AssertionError(f"[wsi] {stage}: FAILED\n{text}")
+
+    out = os.path.join(td, "patched_progressive")
+    feat = os.path.join(td, "features_progressive")
+    run("stage0_jpg", create_patches.main, [
+        "--source", src, "--save_dir", out, "--patch_size", "256",
+        "--step_size", "256", "--a_t", "0.5", "--a_h", "0.05",
+        "--device", "cuda"])
+    run("stage1_jpg", extract_features_fp.main, [
+        "--data_h5_dir", out, "--data_slide_dir", src, "--feat_dir", feat,
+        "--slide_ext", ".jpg", "--target_patch_size", "224",
+        "--batch_size", "128", "--allow_random_weights", "--device",
+        "cuda"])
+    coords, bags = {}, {}
+    for k, n in names.items():
+        with hdf5.File(os.path.join(out, "patches", f"{n}_patches.h5")) as f:
+            coords[k] = f["coords"]
+        bags[k] = load_pt(os.path.join(feat, "path_pt_files", f"{n}.pt"))
+    bitwise = np.array_equal(bags["progressive"], bags["baseline"])
+    diff = float(np.abs(bags["progressive"].astype(np.float64)
+                        - bags["baseline"]).max())
+    if not np.array_equal(coords["progressive"], coords["baseline"]) \
+            or len(coords["baseline"]) < 1 or not np.allclose(
+                bags["progressive"], bags["baseline"], rtol=2e-3,
+                atol=2e-4):
+        raise AssertionError(f"[wsi] {names['progressive']}: its patches "
+                             f"or features differ from the baseline "
+                             f"source's (max |d| {diff:.3e})")
+    log(f"[wsi] the progressive .jpg and its baseline source: "
+        f"cli.create_patches {wall['stage0_jpg']:.2f} s for both, "
+        f"{len(coords['baseline'])} patches each, equal coordinates; "
+        f"cli.extract_features_fp {wall['stage1_jpg']:.2f} s for both, "
+        f"features bit for bit {bitwise}, max |d| {diff:.3e}; no launch in "
+        f"either")
+    cohort = os.path.join(td, "wsi_progressive_cohort.csv")
+    with open(cohort, "w") as f:
+        f.write("subject_id,slide_id\n" + "".join(
+            f"P_{k},{n}.jpg\n" for k, n in names.items()))
+    served, _ = _serve_and_check(
+        launch_counters, "wsi", "serve_jpg", "on the progressive .jpg "
+        "slide's bag and its baseline source's", path_exp, cohort, feat, td,
+        dict(none, _fused_pool_cuda=1), wall, launches)
+    err = abs(served["P_progressive"] - served["P_baseline"]) / abs(
+        served["P_baseline"])
+    log(f"[wsi] the progressive .jpg slide's risk and its baseline "
+        f"source's: {served}")
+    if err > (0 if bitwise else 1e-4):
+        raise AssertionError("[wsi] the progressive slide's risk differs "
+                             "from its baseline source's")
+    shutil.rmtree(src)
+
+
 def phase_wsi_j2k(launch_counters, path_exp, td, level0, stem, wall,
                   launches):
     """[wsi]'s JPEG 2000 slide: ``level0`` (level 0 of [wsi]'s slide
@@ -5222,6 +5493,9 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
         first = next(iter(twins))
         phase_wsi_j2k(launch_counters, path_exp, td, sources[first][0],
                       twins[first], wall, launches)
+        phase_wsi_progressive(launch_counters, path_exp, td,
+                              sources[first][0], twins[first], wall,
+                              launches)
         del sources
         shutil.rmtree(src_c)
         log(f"[wsi] wall s ({_card()}): " + ", ".join(
@@ -5533,8 +5807,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,native,omic,pretrained,radio,extract,"
-                         "gradcam,interpret,j2k,timing,bf16step,dist,ops,"
-                         "report,wsi,heatmap "
+                         "gradcam,interpret,j2k,jpeg,timing,bf16step,dist,"
+                         "ops,report,wsi,heatmap "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -5589,6 +5863,8 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_interpret(counters, radio_exps, work)
     if "j2k" in phases:
         phase_j2k(counters)
+    if "jpeg" in phases:
+        phase_jpeg(counters)
     if "timing" in phases:
         phase_timing()
         phase_timing_radio()
@@ -5649,6 +5925,9 @@ def _full(counters, work, t_all) -> int:
     t = time.perf_counter()
     phase_j2k(counters)
     log(f"[j2k] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_jpeg(counters)
+    log(f"[jpeg] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     timing = phase_timing()
     timing_radio = phase_timing_radio()

@@ -11,15 +11,20 @@
 // mmf_png_unfilter: the PNG row filters 0-4 (None, Sub, Up, Average,
 // Paeth) of one image or one Adam7 pass; serial along a row.
 //
-// mmf_jpeg_decode: baseline sequential Huffman JPEG (SOF0/SOF1, 8-bit, 1
-// or 3 components, sampling factors 1..4 dividing the largest), from
-// the markers that utils/jpeg.py parsed: the entropy decode (restart
-// intervals included), libjpeg's accurate integer IDCT (jidctint.c,
+// mmf_jpeg_decode: sequential and progressive Huffman JPEG (SOF0, SOF1,
+// SOF2; 8-bit, 1, 3 or 4 components, sampling factors 1..4 dividing the
+// largest), from the markers that utils/jpeg.py parsed: the entropy
+// decode (restart intervals included; a progressive frame's scans into
+// one coefficient array per component, jdphuff.c), libjpeg-turbo's block
+// smoothing of coefficients the scans left unrefined (jdcoefct.c's
+// decompress_smooth_data), libjpeg's accurate integer IDCT (jidctint.c,
 // "ISLOW"), libjpeg 6b's triangle ("fancy") upsampling and its
-// fixed-point YCbCr -> RGB tables (jdsample.c, jdcolor.c), as PIL's
-// libjpeg-turbo decodes by default.  Independent frames (TIFF tiles and
-// strips) decode in parallel threads; a single frame runs its
-// upsampling and colour conversion in row bands across the threads.
+// fixed-point YCbCr -> RGB and YCCK -> CMYK tables (jdsample.c,
+// jdcolor.c), as PIL's libjpeg-turbo decodes by default; four components
+// come out inverted, as PIL's "CMYK;I" holds them.  Independent frames
+// (TIFF tiles and strips) decode in parallel threads; a single frame
+// runs its IDCT (a progressive one's smoothing first) in block rows, and
+// its upsampling and colour conversion in row bands, across the threads.
 //
 // Built at first use by multimodalfusion_tpu_torch/native.py:
 //   g++ -O3 -shared -fPIC -pthread -std=c++17 -o imgcodec.so imgcodec.cpp
@@ -424,6 +429,8 @@ struct MmfJpegScan {
     int32_t ncomp;         // components in the scan
     int32_t restart;       // restart interval in MCUs, 0 for none
     int32_t comp[4];       // frame component index of each
+    int32_t ss, se;        // spectral selection (zigzag positions)
+    int32_t ah, al;        // successive approximation bit positions
     uint8_t dc_bits[4][16];
     uint8_t dc_vals[4][256];
     uint8_t ac_bits[4][16];
@@ -431,11 +438,13 @@ struct MmfJpegScan {
 };
 
 struct MmfJpegFrame {
-    int32_t width, height, ncomp, transform;  // transform: YCbCr -> RGB
+    int32_t width, height, ncomp;
+    int32_t transform;   // YCbCr -> RGB (3 components), YCCK -> CMYK (4)
     int32_t h[4], v[4];
     uint16_t qt[4][64];  // each component's table, natural order
     int32_t nscans, status;
-    MmfJpegScan scans[4];
+    int32_t progressive, reserved;
+    const MmfJpegScan* scans;  // nscans of them
     uint8_t* out;        // out_rows x out_cols x ncomp, rows out_stride
     int64_t out_stride;  // bytes apart
     int32_t out_rows, out_cols;
@@ -454,48 +463,133 @@ struct Plane {
     int rh = 1, rv = 1;  // upsampling ratios
 };
 
+// A frame's coefficients of one component (natural order, int16 as
+// libjpeg's JCOEF) over its MCU-padded block grid.
+struct Coefs {
+    std::vector<int16_t> c;
+    int64_t across = 0, down = 0;  // the padded grid
+    int wb = 0, hb = 0;            // the component's own blocks
+    int bits[64];                  // last Al of each coefficient, -1 none
+    int16_t* block(int64_t y, int64_t x) {
+        return c.data() + (y * across + x) * 64;
+    }
+};
+
+// One scan: of a sequential frame (jdhuff.c: every coefficient of its
+// blocks), or of a progressive one (jdphuff.c): DC first (point
+// transform Al) or refinement (one bit a block), AC first over Ss..Se
+// with EOB runs, AC refinement.  0, or -2 a bad Huffman table, -3
+// corrupt data.
 int decode_scan(const MmfJpegFrame& f, const MmfJpegScan& s,
-                std::vector<Plane>& planes, int hmax, int vmax) {
+                std::vector<Coefs>& cs, int hmax, int vmax) {
+    const bool seq = !f.progressive;
+    const bool dc_band = s.ss == 0, first = s.ah == 0;
     Huff dc[4], ac[4];
     for (int k = 0; k < s.ncomp; ++k) {
-        if (!dc[k].build(s.dc_bits[k], s.dc_vals[k]) ||
-            !ac[k].build(s.ac_bits[k], s.ac_vals[k])) {
+        if (dc_band && first &&
+            !dc[k].build(s.dc_bits[k], s.dc_vals[k])) {
+            return -2;
+        }
+        if ((seq || !dc_band) && !ac[k].build(s.ac_bits[k], s.ac_vals[k])) {
             return -2;
         }
     }
     Bits br{s.data, s.len};
-    int pred[4] = {0, 0, 0, 0};
-    int32_t coef[64];
-    auto block = [&](int k, uint8_t* out, int64_t stride) -> bool {
-        std::memset(coef, 0, sizeof(coef));
-        int t = br.decode(dc[k]);
-        if (t < 0 || t > 16) return false;
-        int diff = t ? extend(br.get(t), t) : 0;
-        pred[k] += diff;
-        coef[0] = (int16_t)pred[k];
-        for (int i = 1; i < 64;) {
-            int rs = br.decode(ac[k]);
-            if (rs < 0) return false;
-            int r = rs >> 4, z = rs & 15;
-            if (z) {
-                i += r;
-                if (i > 63) return false;
-                coef[ZZ[i]] = extend(br.get(z), z);
-                ++i;
-            } else if (r == 15) {
-                i += 16;
-            } else {
-                break;
+    int64_t pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+    const int ss = seq ? 1 : s.ss, se = s.se, al = s.al;
+    const int p1 = 1 << al, m1 = -p1;
+    // one block; false on corrupt data
+    auto block = [&](int k, int16_t* b) -> bool {
+        if (dc_band) {
+            if (!first) {
+                if (br.get(1)) b[0] = (int16_t)(b[0] | p1);
+                return true;
+            }
+            int t = br.decode(dc[k]);
+            if (t < 0 || t > 16) return false;
+            pred[k] += t ? extend(br.get(t), t) : 0;
+            b[0] = (int16_t)(pred[k] * p1);
+            if (!seq) return true;
+        }
+        if (first) {
+            if (eobrun) {
+                --eobrun;
+                return true;
+            }
+            for (int i = ss; i <= se; ++i) {
+                int rs = br.decode(ac[k]);
+                if (rs < 0) return false;
+                int r = rs >> 4, z = rs & 15;
+                if (z) {
+                    i += r;
+                    if (i > se) return false;
+                    b[ZZ[i]] = (int16_t)(extend(br.get(z), z) * p1);
+                } else if (r == 15) {
+                    i += 15;
+                } else {
+                    if (!seq) {  // EOBr: 2^r + r more bits blocks
+                        eobrun = 1 << r;
+                        if (r) eobrun += br.get(r);
+                        --eobrun;
+                    }
+                    break;
+                }
+            }
+            return true;
+        }
+        // AC refinement (decode_mcu_AC_refine)
+        int i = ss;
+        if (!eobrun) {
+            for (; i <= se; ++i) {
+                int rs = br.decode(ac[k]);
+                if (rs < 0) return false;
+                int r = rs >> 4, z = rs & 15, v = 0;
+                if (z) {
+                    if (z != 1) return false;  // a new coefficient is +-1
+                    v = br.get(1) ? p1 : m1;
+                } else if (r != 15) {
+                    eobrun = 1 << r;
+                    if (r) eobrun += br.get(r);
+                    break;
+                }
+                // past r coefficients still zero, a correction bit on
+                // each nonzero one on the way
+                bool found = false;
+                for (; i <= se; ++i) {
+                    int16_t& x = b[ZZ[i]];
+                    if (x) {
+                        if (br.get(1) && !(x & p1)) {
+                            x = (int16_t)(x + (x >= 0 ? p1 : m1));
+                        }
+                    } else if (--r < 0) {
+                        found = true;
+                        break;
+                    }
+                }
+                if (!found) {
+                    if (v) return false;  // no zero left for the new one
+                    break;
+                }
+                if (v) b[ZZ[i]] = (int16_t)v;
             }
         }
-        idct_islow(coef, f.qt[s.comp[k]], out, stride);
+        if (eobrun) {
+            for (; i <= se; ++i) {
+                int16_t& x = b[ZZ[i]];
+                if (x && br.get(1) && !(x & p1)) {
+                    x = (int16_t)(x + (x >= 0 ? p1 : m1));
+                }
+            }
+            --eobrun;
+        }
         return true;
     };
     int64_t units, across;
     if (s.ncomp == 1) {
-        const Plane& p = planes[s.comp[0]];
-        across = (p.dw + 7) / 8;
-        units = across * ((p.dh + 7) / 8);
+        const Coefs& c = cs[s.comp[0]];
+        across = c.wb;
+        units = across * c.hb;
     } else {
         across = (f.width + 8 * hmax - 1) / (8 * hmax);
         units = across * ((f.height + 8 * vmax - 1) / (8 * vmax));
@@ -506,33 +600,223 @@ int decode_scan(const MmfJpegFrame& f, const MmfJpegScan& s,
             if (!left) {
                 if (!br.restart()) return -3;
                 std::memset(pred, 0, sizeof(pred));
+                eobrun = 0;
                 left = s.restart;
             }
             --left;
         }
         int64_t my = u / across, mx = u % across;
         if (s.ncomp == 1) {
-            Plane& p = planes[s.comp[0]];
-            if (!block(0, p.px.data() + my * 8 * p.stride + mx * 8,
-                       p.stride)) {
-                return -3;
-            }
+            if (!block(0, cs[s.comp[0]].block(my, mx))) return -3;
             continue;
         }
         for (int k = 0; k < s.ncomp; ++k) {
             int c = s.comp[k];
-            Plane& p = planes[c];
             for (int by = 0; by < f.v[c]; ++by) {
                 for (int bx = 0; bx < f.h[c]; ++bx) {
-                    int64_t y = (my * f.v[c] + by) * 8;
-                    int64_t x = (mx * f.h[c] + bx) * 8;
-                    if (!block(k, p.px.data() + y * p.stride + x, p.stride)) {
+                    if (!block(k, cs[c].block(my * f.v[c] + by,
+                                              mx * f.h[c] + bx))) {
                         return -3;
                     }
                 }
             }
         }
     }
+    return 0;
+}
+
+// zigzag positions 1..9 in natural order: the coefficients block
+// smoothing estimates (AC01, AC10, AC20, AC11, AC02, AC03, AC12, AC21,
+// AC30)
+constexpr int SMOOTH_NAT[9] = {1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+// jdcoefct.c's smoothing_ok after the last scan: a progressive frame
+// whose every component has its DC scan and nonzero DC and first 9 AC
+// quantisers, and a coefficient among zigzag 1..9 of some component is
+// not fully refined.
+bool smoothing_on(const MmfJpegFrame& f, const std::vector<Coefs>& cs) {
+    if (!f.progressive) return false;
+    bool useful = false;
+    for (int c = 0; c < f.ncomp; ++c) {
+        if (!f.qt[c][0] || cs[c].bits[0] < 0) return false;
+        for (int k = 0; k < 9; ++k) {
+            if (!f.qt[c][SMOOTH_NAT[k]]) return false;
+            if (cs[c].bits[k + 1]) useful = true;
+        }
+    }
+    return useful;
+}
+
+// An estimate num / (q << 8), rounded half away from zero, clamped below
+// 2^Al when Al > 0.
+inline int smooth_pred(int64_t num, int64_t q, int al) {
+    int64_t p = ((q << 7) + (num < 0 ? -num : num)) / (q << 8);
+    if (al > 0 && p >= (1 << al)) p = (1 << al) - 1;
+    return (int)(num < 0 ? -p : p);
+}
+
+// Block row `row` of component c, smoothed as decompress_smooth_data
+// (libjpeg-turbo 3.x) smooths it when `smooth`, through the IDCT into
+// its plane.  rows5: the 5 block rows read (two above .. two below);
+// cols5: the 5 block columns of each block's sliding registers.
+void idct_block_row(const MmfJpegFrame& f, int c, Coefs& cf, Plane& p,
+                    int64_t row, bool smooth, const int64_t* rows5,
+                    const std::vector<int64_t>& cols5) {
+    int32_t ws[64];
+    const uint16_t* q = f.qt[c];
+    const int* bits = cf.bits;
+    bool change_dc = true;
+    for (int k = 1; k <= 9; ++k) change_dc = change_dc && bits[k] == -1;
+    const int64_t Q00 = q[0];
+    for (int64_t x = 0; x < cf.across; ++x) {
+        const int16_t* b = cf.block(row, x);
+        for (int i = 0; i < 64; ++i) ws[i] = b[i];
+        if (smooth && row < cf.hb && x < cf.wb) {
+            int64_t D[5][5];
+            for (int i = 0; i < 5; ++i) {
+                for (int j = 0; j < 5; ++j) {
+                    D[i][j] = cf.block(rows5[i], cols5[x * 5 + j])[0];
+                }
+            }
+#define DC(n) D[((n) - 1) / 5][((n) - 1) % 5]
+            int64_t num[9];
+            if (change_dc) {
+                num[0] = -DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) +
+                         13 * DC(7) - 13 * DC(9) + 3 * DC(10) - 3 * DC(11) +
+                         38 * DC(12) - 38 * DC(14) + 3 * DC(15) -
+                         3 * DC(16) + 13 * DC(17) - 13 * DC(19) +
+                         3 * DC(20) - DC(21) - DC(22) + DC(24) + DC(25);
+                num[1] = -DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) -
+                         DC(5) - DC(6) + 13 * DC(7) + 38 * DC(8) +
+                         13 * DC(9) - DC(10) + DC(16) - 13 * DC(17) -
+                         38 * DC(18) - 13 * DC(19) + DC(20) + DC(21) +
+                         3 * DC(22) + 3 * DC(23) + 3 * DC(24) + DC(25);
+                num[2] = DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) -
+                         5 * DC(12) - 14 * DC(13) - 5 * DC(14) +
+                         2 * DC(17) + 7 * DC(18) + 2 * DC(19) + DC(23);
+                num[3] = -DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) -
+                         9 * DC(17) + 9 * DC(19) + DC(21) - DC(25);
+                num[4] = 2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) +
+                         7 * DC(12) - 14 * DC(13) + 7 * DC(14) + DC(15) +
+                         2 * DC(17) - 5 * DC(18) + 2 * DC(19);
+                num[5] = DC(7) - DC(9) + 2 * DC(12) - 2 * DC(14) + DC(17) -
+                         DC(19);
+                num[6] = DC(7) - 3 * DC(8) + DC(9) - DC(17) + 3 * DC(18) -
+                         DC(19);
+                num[7] = DC(7) - DC(9) - 3 * DC(12) + 3 * DC(14) + DC(17) -
+                         DC(19);
+                num[8] = DC(7) + 2 * DC(8) + DC(9) - DC(17) - 2 * DC(18) -
+                         DC(19);
+            } else {
+                num[0] = -7 * DC(11) + 50 * DC(12) - 50 * DC(14) +
+                         7 * DC(15);
+                num[1] = -7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23);
+                num[2] = -DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) -
+                         DC(23);
+                num[3] = DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) -
+                         DC(2) - DC(20) + DC(22) - DC(24) + DC(4) - DC(6) +
+                         10 * DC(7) - 10 * DC(9);
+                num[4] = -DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) -
+                         DC(15);
+            }
+            int n_est = change_dc ? 9 : 5;
+            for (int k = 0; k < n_est; ++k) {
+                int pos = SMOOTH_NAT[k], al = bits[k + 1];
+                if (al != 0 && ws[pos] == 0) {
+                    ws[pos] = (int16_t)smooth_pred(Q00 * num[k], q[pos], al);
+                }
+            }
+            if (change_dc) {
+                int64_t n0 =
+                    -2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) -
+                    2 * DC(5) - 6 * DC(6) + 6 * DC(7) + 42 * DC(8) +
+                    6 * DC(9) - 6 * DC(10) - 8 * DC(11) + 42 * DC(12) +
+                    152 * DC(13) + 42 * DC(14) - 8 * DC(15) - 6 * DC(16) +
+                    6 * DC(17) + 42 * DC(18) + 6 * DC(19) - 6 * DC(20) -
+                    2 * DC(21) - 6 * DC(22) - 8 * DC(23) - 6 * DC(24) -
+                    2 * DC(25);
+                ws[0] = (int16_t)smooth_pred(Q00 * n0, Q00, 0);
+            }
+#undef DC
+        }
+        idct_islow(ws, q, p.px.data() + row * 8 * p.stride + x * 8,
+                   p.stride);
+    }
+}
+
+// Every scan into the coefficient arrays, then (a progressive frame's
+// smoothing and) the IDCT in block rows across the threads.
+int decode_coefficients(const MmfJpegFrame& f, std::vector<Plane>& planes,
+                        int hmax, int vmax, int n_threads) {
+    std::vector<Coefs> cs(f.ncomp);
+    for (int c = 0; c < f.ncomp; ++c) {
+        Coefs& cf = cs[c];
+        cf.across = planes[c].stride / 8;
+        cf.down = (int64_t)(planes[c].px.size() / planes[c].stride) / 8;
+        cf.wb = (planes[c].dw + 7) / 8;
+        cf.hb = (planes[c].dh + 7) / 8;
+        cf.c.assign((size_t)(cf.across * cf.down * 64), 0);
+        for (int k = 0; k < 64; ++k) cf.bits[k] = -1;
+    }
+    for (int si = 0; si < f.nscans; ++si) {
+        const MmfJpegScan& s = f.scans[si];
+        bool dc_band = s.ss == 0;
+        if (f.progressive
+                ? (s.se < s.ss || s.se > 63 || (dc_band && s.se != 0) ||
+                   (!dc_band && s.ncomp != 1) || s.al < 0 || s.al > 13 ||
+                   (s.ah && s.al != s.ah - 1))
+                : (s.ss != 0 || s.se != 63 || s.ah != 0 || s.al != 0)) {
+            return -1;
+        }
+        int rc = decode_scan(f, s, cs, hmax, vmax);
+        if (rc) return rc;
+        for (int k = 0; k < s.ncomp; ++k) {
+            for (int i = s.ss; i <= s.se; ++i) cs[s.comp[k]].bits[i] = s.al;
+        }
+    }
+    const bool smooth = smoothing_on(f, cs);
+    // each component's 5 rows and columns of the smoothing window
+    int64_t total = (f.height + 8 * vmax - 1) / (8 * vmax);
+    std::vector<std::vector<int64_t>> rows(f.ncomp), cols(f.ncomp);
+    std::vector<std::pair<int, int64_t>> tasks;
+    for (int c = 0; c < f.ncomp; ++c) {
+        const Coefs& cf = cs[c];
+        for (int64_t r = 0; r < cf.down; ++r) tasks.emplace_back(c, r);
+        if (!smooth) continue;
+        int v = f.v[c];
+        rows[c].resize((size_t)cf.down * 5);
+        for (int64_t r = 0; r < cf.down; ++r) {
+            int64_t* o = rows[c].data() + r * 5;
+            int64_t i = r / v, br = r % v;
+            int64_t nr = i < total - 1 ? v : (cf.hb % v ? cf.hb % v : v);
+            int64_t ibr = i * nr + br, ibrs = nr * total;
+            o[2] = r;
+            o[1] = ibr > 0 ? r - 1 : r;
+            o[0] = ibr > 1 ? r - 2 : o[1];
+            o[3] = ibr < ibrs - 1 ? r + 1 : r;
+            o[4] = ibr < ibrs - 2 ? r + 2 : o[3];
+        }
+        // the sliding registers of decompress_smooth_data
+        cols[c].resize((size_t)cf.across * 5);
+        int64_t reg[5] = {0, 0, 0, 0, 0}, last = cf.wb - 1;
+        for (int64_t b = 0; b < cf.across; ++b) {
+            if (b < cf.wb) {
+                if (b == 0 && b < last) reg[3] = reg[4] = 1;
+                if (b + 1 < last) reg[4] = b + 2;
+                for (int j = 0; j < 5; ++j) cols[c][b * 5 + j] = reg[j];
+                for (int j = 0; j < 4; ++j) reg[j] = reg[j + 1];
+            } else {
+                for (int j = 0; j < 5; ++j) cols[c][b * 5 + j] = b;
+            }
+        }
+    }
+    parallel_for((int64_t)tasks.size(), n_threads, [&](int64_t t) {
+        int c = tasks[t].first;
+        int64_t r = tasks[t].second;
+        bool sm = smooth && r < cs[c].hb;
+        idct_block_row(f, c, cs[c], planes[c], r, sm,
+                       sm ? rows[c].data() + r * 5 : nullptr, cols[c]);
+    });
     return 0;
 }
 
@@ -594,6 +878,22 @@ void output_rows(const MmfJpegFrame& f, const std::vector<Plane>& planes,
         uint8_t* o = f.out + (int64_t)y * f.out_stride;
         if (nc == 1) {
             std::memcpy(o, rows.data(), cols);
+        } else if (nc == 4) {
+            // CMYK, or YCCK (ycck_cmyk_convert: 255 - R, G, B, K through);
+            // inverted, as PIL's "CMYK;I" holds them
+            const uint8_t* a = rows.data();
+            for (int x = 0; x < cols; ++x) {
+                uint8_t px[4] = {a[x], a[cols + x], a[2 * cols + x],
+                                 a[3 * cols + x]};
+                if (f.transform) {
+                    int yy = px[0], cb = px[1], cr = px[2];
+                    px[0] = clamp255(255 - (yy + ct.cr_r[cr]));
+                    px[1] = clamp255(
+                        255 - (yy + (int)((ct.cb_g[cb] + ct.cr_g[cr]) >> 16)));
+                    px[2] = clamp255(255 - (yy + ct.cb_b[cb]));
+                }
+                for (int c = 0; c < 4; ++c) o[4 * x + c] = (uint8_t)(255 - px[c]);
+            }
         } else if (f.transform) {
             const uint8_t* Y = rows.data();
             const uint8_t* cb = Y + cols;
@@ -618,9 +918,9 @@ void output_rows(const MmfJpegFrame& f, const std::vector<Plane>& planes,
 // 0 ok; -1 a frame this decoder does not take, -2 a bad Huffman table,
 // -3 corrupt entropy-coded data
 int decode_frame(MmfJpegFrame& f, int n_threads) {
-    if (f.ncomp != 1 && f.ncomp != 3) return -1;
+    if (f.ncomp != 1 && f.ncomp != 3 && f.ncomp != 4) return -1;
     if (f.out_rows > f.height || f.out_cols > f.width || f.out_rows < 0 ||
-        f.out_cols < 0 || f.nscans < 1 || f.nscans > 4) {
+        f.out_cols < 0 || f.nscans < 1 || !f.scans) {
         return -1;
     }
     int hmax = 1, vmax = 1;
@@ -648,9 +948,9 @@ int decode_frame(MmfJpegFrame& f, int n_threads) {
         for (int k = 0; k < sc.ncomp; ++k) {
             if (sc.comp[k] < 0 || sc.comp[k] >= f.ncomp) return -1;
         }
-        int rc = decode_scan(f, sc, planes, hmax, vmax);
-        if (rc) return rc;
     }
+    int rc = decode_coefficients(f, planes, hmax, vmax, n_threads);
+    if (rc) return rc;
     int threads = resolve_threads(n_threads, f.out_rows / 64 + 1);
     int band = (f.out_rows + threads - 1) / std::max(threads, 1);
     parallel_for(threads, threads, [&](int64_t t) {

@@ -50,7 +50,8 @@ OPENSLIDE_EXTS = (".svs", ".ndpi", ".mrxs", ".scn", ".vms", ".vmu", ".bif")
 J2K_EXTS = (".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c")
 SLIDE_EXTS = (".tif", ".tiff", ".png", ".jpg", ".jpeg") + J2K_EXTS
 READS = ("multi-page TIFF (stripped or tiled; uncompressed, LZW, Deflate, "
-         "PackBits or baseline JPEG), PNG, baseline JPEG and JPEG 2000")
+         "PackBits or JPEG), PNG, JPEG (baseline or progressive; gray, "
+         "YCbCr, RGB, CMYK or YCCK) and JPEG 2000")
 # patches resized at once by stitch_coords (256 of 256 px: 50 MB of int32)
 STITCH_BATCH = 256
 
@@ -108,14 +109,25 @@ def _png_header(path: str) -> Tuple[Tuple[int, int], str]:
 
 def _jpeg_header(path: str) -> Tuple[Tuple[int, int], str]:
     """((w, h), PIL's mode) of a JPEG from its markers (its scans are not
-    decoded)."""
+    decoded): L, RGB or CMYK for 1, 3 or 4 components."""
     with open(path, "rb") as fh:
         data = fh.read()
     try:
         frame = jpeg.parse_jpeg(data)
     except NotImplementedError as e:
         raise NotImplementedError(f"{path}: {e}") from e
-    return (frame.width, frame.height), "L" if len(frame.h) == 1 else "RGB"
+    return (frame.width, frame.height), {1: "L", 3: "RGB", 4: "CMYK"}[
+        len(frame.h)]
+
+
+def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """uint8 CMYK [..., 4] as PIL's ``convert("RGB")`` maps it
+    (Convert.c's cmyk2rgb): each of R, G, B = (255 - K) - C * (255 - K) /
+    255, the product rounded by MULDIV255."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:]
+    t = c[..., :3] * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
 
 
 def _j2k_header(path: str) -> Tuple[Tuple[int, int], str]:
@@ -131,10 +143,13 @@ class PILSlide(ArraySlide):
     """Page-per-level slide (the JAX name; no PIL): the pages of a multi-
     page TIFF -- strips or tiles, uncompressed, LZW (predictor 1 or 2),
     Deflate, PackBits or JPEG (``utils/tiff.py``) -- or one PNG of any
-    colour type, depth and interlace (``utils/png.py``), or one baseline
-    JPEG (``utils/jpeg.py``), or one JPEG 2000 image (``utils/j2k.py``),
-    are the pyramid's levels, each as PIL's ``convert("RGB")`` gives it.
-    Any other file raises, naming its format.
+    colour type, depth and interlace (``utils/png.py``), or one JPEG --
+    baseline or progressive, gray, YCbCr, RGB, CMYK or YCCK, decoded to
+    PIL's pixels by ``utils/jpeg.py``, a CMYK page mapped to RGB as
+    ``convert("RGB")`` maps it (``_cmyk_to_rgb``) -- or one JPEG 2000 image
+    (``utils/j2k.py``), are the pyramid's levels, each as PIL's
+    ``convert("RGB")`` gives it.  Any other file raises, naming its
+    format.
 
     Every page is decoded into RAM, so the decoded size is computed from
     the page headers FIRST: past ``max_decode_bytes`` (default 1 GiB,
@@ -142,14 +157,14 @@ class PILSlide(ArraySlide):
     raises with the remedy instead of dying in the allocator.  The budget
     counts what PIL would hold (JAX data/wsi.py:85-122): every level as
     3 B/px RGB plus the largest page in its native mode (``MODE_BPP``,
-    the JAX table's bytes: 4 B/px for RGB, RGBA and LA, 1 for 8-bit gray,
-    bilevel and palette, 2 for 16-bit grayscale), alive while it
+    the JAX table's bytes: 4 B/px for RGB, RGBA, LA and CMYK, 1 for 8-bit
+    gray, bilevel and palette, 2 for 16-bit grayscale), alive while it
     converts.
     """
 
     DEFAULT_MAX_BYTES = 1 << 30
     MODE_BPP = {"1": 1, "L": 1, "P": 1, "LA": 4, "I;16": 2, "RGB": 4,
-                "RGBA": 4}
+                "RGBA": 4, "CMYK": 4}
 
     def __init__(self, path: str, max_decode_bytes: Optional[int] = None):
         if max_decode_bytes is None:
@@ -184,8 +199,11 @@ class PILSlide(ArraySlide):
             levels = [png.read_png(path, rgb=True)]
         elif ext in (".jpg", ".jpeg"):
             img = jpeg.read_jpeg(path)
-            levels = [img if img.ndim == 3 else np.repeat(img[..., None], 3,
-                                                          axis=2)]
+            if img.ndim == 2:
+                img = np.repeat(img[..., None], 3, axis=2)
+            elif img.shape[2] == 4:
+                img = _cmyk_to_rgb(img)
+            levels = [img]
         elif ext in J2K_EXTS:
             levels = [j2k.read_j2k(path, rgb=True)]
         else:

@@ -1,6 +1,7 @@
-"""Baseline sequential JPEG, the port's stand-in for OpenCV's and PIL's
-libjpeg (the machine with the card has neither): an encoder in numpy and
-a decoder in C++ with its plain version in numpy.
+"""JPEG, the port's stand-in for OpenCV's and PIL's libjpeg (the machine
+with the card has neither): a baseline encoder in numpy and a decoder of
+sequential and progressive frames in C++ with its plain version in
+numpy.
 
 The encoder (``encode_jpeg``) stands in for ``cv2.imwrite(".jpg")``
 with OpenCV's defaults, for uint8 RGB images.
@@ -11,30 +12,42 @@ with 4:2:0 chroma, the standard Huffman tables of Annex K.3 and one
 interleaved scan.  It cannot equal libjpeg byte for byte: the colour
 conversion, the 2 x 2 chroma means and the DCT are computed in float32
 here (libjpeg: fixed point), then rounded once at quantisation.  The
-entropy coding is vectorised over all blocks; the bits are packed with
-``np.packbits`` and every 0xFF byte of the scan is stuffed with 0x00.
+entropy coding is vectorised over all blocks; the codes are summed into
+32-bit words (``_pack``) and every 0xFF byte of the scan is stuffed with
+0x00.
 
 The decoder (``decode_jpeg``, ``decode_frames``) reads what PIL's
-libjpeg-turbo decodes by default, bit for bit: SOF0 and SOF1 frames of 8
-bits, 1 or 3 components, sampling factors 1..4 that divide the largest
-(4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), one or several scans, restart
-intervals, several DQT / DHT segments, 16-bit quantisation tables, the
+libjpeg-turbo decodes in 8-bit Huffman frames, bit for bit: baseline,
+extended sequential and progressive frames (SOF0, SOF1, SOF2) of 1, 3 or
+4 components, sampling factors 1..4 that divide the largest (4:4:4,
+4:2:2, 4:2:0, 4:4:0, ...), one or several scans, restart intervals in
+every scan type, several DQT / DHT segments (a progressive stream's
+Huffman tables are latched at each SOS), 16-bit quantisation tables, the
 standard Huffman tables when a stream defines none (libjpeg-turbo's
 Motion-JPEG rule), and abbreviated streams whose tables come from
-elsewhere (a TIFF's JPEGTables).  It computes with libjpeg's accurate
-integer IDCT (jidctint.c), libjpeg 6b's triangle ("fancy") upsampling
-(jdsample.c) and its fixed-point YCbCr -> RGB tables (jdcolor.c).  The
-colour transform is applied as libjpeg decides it (a JFIF marker, an
-Adobe APP14 transform flag, the component ids), or as the caller says (a
-TIFF's PhotometricInterpretation).  ``parse_jpeg`` reads the markers in
-Python; the entropy decode, IDCT, upsampling and colour conversion run
-in ``csrc/imgcodec.cpp`` (``mmf_jpeg_decode``, independent frames in
+elsewhere (a TIFF's JPEGTables).  A progressive frame's scans (DC first
+and refinement, AC spectral selection and successive approximation with
+EOB runs, jdphuff.c) build one coefficient array per component; a script
+that leaves coefficients unrefined is smoothed as libjpeg-turbo 3.x
+smooths it (jdcoefct.c's decompress_smooth_data, ``_smooth_plain``); a
+script libjpeg refuses, or one it only warns about (a scan that does not
+follow its predecessors), raises ``ValueError``.  It computes with
+libjpeg's accurate integer IDCT (jidctint.c), libjpeg 6b's triangle
+("fancy") upsampling (jdsample.c) and its fixed-point YCbCr -> RGB and
+YCCK -> CMYK tables (jdcolor.c).  The colour transform is applied as
+libjpeg decides it (a JFIF marker, an Adobe APP14 transform flag, the
+component ids), or as the caller says (a TIFF's
+PhotometricInterpretation).  Four components come out as PIL holds them,
+inverted ("CMYK;I", with or without an Adobe marker); PIL refuses two,
+and so does the port.  ``parse_jpeg`` reads the markers in Python; the
+entropy decode, smoothing, IDCT, upsampling and colour conversion run in
+``csrc/imgcodec.cpp`` (``mmf_jpeg_decode``, independent frames in
 parallel threads), or, with ``plain=True``, in Python and numpy
 (``_decode_plain``), the oracle of the tests and ``chip_smoke.py``.
-Progressive (SOF2), lossless (SOF3: ``data/dicom.py`` decodes DICOM's),
-arithmetic-coded and hierarchical frames, 12-bit samples and 2 or 4
-components raise ``NotImplementedError`` naming the marker; progressive
-JPEG is queued in ROADMAP.md.
+Lossless (SOF3: ``data/dicom.py`` decodes DICOM's), arithmetic-coded and
+hierarchical frames, 12-bit samples and 2 components raise
+``NotImplementedError`` naming the marker or the count; arithmetic
+coding is queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -201,22 +214,49 @@ def _scan_items(blocks: np.ndarray, table: int, dc_prev: int):
 
 
 def _pack(values: np.ndarray, lengths: np.ndarray) -> bytes:
-    """The bit string of the codes, MSB first, padded with ones, each 0xFF
-    byte followed by 0x00."""
+    """The bit string of the codes (each at most 32 bits), MSB first,
+    padded with ones, each 0xFF byte followed by 0x00.  Each code is added
+    into the one or two 32-bit words its bits fall in (the codes do not
+    overlap, so the sums are ORs, exact in float64)."""
+    values = np.asarray(values, np.int64)
+    lengths = np.asarray(lengths, np.int64)
     total = int(lengths.sum())
-    start = np.cumsum(lengths) - lengths
-    owner = np.repeat(np.arange(len(lengths)), lengths)
-    pos = np.arange(total) - start[owner]
-    bits = (values[owner] >> (lengths[owner] - 1 - pos)) & 1
     pad = -total % 8
-    bits = np.concatenate([bits.astype(np.uint8), np.ones(pad, np.uint8)])
-    data = np.packbits(bits)
+    values = np.append(values, (1 << pad) - 1)
+    end = np.cumsum(np.append(lengths, pad))
+    last = np.maximum(end - 1, 0)
+    shifted = values << (31 - (last & 31))
+    word = last >> 5
+    n = (total + pad) // 32 + 2
+    words = (np.bincount(word, shifted & 0xFFFFFFFF, n)
+             + np.bincount(np.maximum(word - 1, 0), shifted >> 32, n))
+    data = words.astype(np.uint64).astype(">u4").view(np.uint8)[
+        :(total + pad) // 8]
     ff = np.flatnonzero(data == 0xFF)
     return np.insert(data, ff + 1, 0).tobytes()
 
 
 def _segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _coefficient_chunks(a: np.ndarray, chunk_rows: int):
+    """The quantised coefficients that ``encode_jpeg`` codes, ``chunk_rows``
+    MCU rows at a time: (Y, Cb, Cr) [block rows, block cols, 64] in
+    zigzag order, the edge repeated out to whole MCUs, as libjpeg pads."""
+    qy, qc = quant_tables()
+    pw = -a.shape[1] % 16
+    for r0 in range(0, a.shape[0], 16 * chunk_rows):
+        band = a[r0:r0 + 16 * chunk_rows]
+        px = np.pad(band, ((0, -band.shape[0] % 16), (0, pw), (0, 0)),
+                    mode="edge")
+        ycc = (px.reshape(-1, 3).astype(np.float32) @ _YCC.T
+               + _YCC_OFFSET).reshape(px.shape)
+        sub = [(c[0::2, 0::2] + c[1::2, 0::2] + c[0::2, 1::2]
+                + c[1::2, 1::2]) * np.float32(0.25)
+               for c in (ycc[..., 1], ycc[..., 2])]
+        yield (_quantised(ycc[..., 0], qy), _quantised(sub[0], qc),
+               _quantised(sub[1], qc))
 
 
 def encode_jpeg(rgb, chunk_rows: int = 64) -> bytes:
@@ -231,23 +271,9 @@ def encode_jpeg(rgb, chunk_rows: int = 64) -> bytes:
         raise ValueError(f"a JPEG holds at most 65535 x 65535 pixels, got "
                          f"{w} x {h}")
     qy, qc = quant_tables()
-    pw = -w % 16
     streams = []
     dc_prev = np.zeros(3, np.int64)
-    for r0 in range(0, h, 16 * chunk_rows):
-        band = a[r0:r0 + 16 * chunk_rows]
-        # the edge repeated out to whole MCUs, as libjpeg pads
-        px = np.pad(band, ((0, -band.shape[0] % 16), (0, pw), (0, 0)),
-                    mode="edge")
-        ycc = (px.reshape(-1, 3).astype(np.float32) @ _YCC.T
-               + _YCC_OFFSET).reshape(px.shape)
-        y = ycc[..., 0]
-        sub = [(c[0::2, 0::2] + c[1::2, 0::2] + c[0::2, 1::2]
-                + c[1::2, 1::2]) * np.float32(0.25)
-               for c in (ycc[..., 1], ycc[..., 2])]
-        qy_b = _quantised(y, qy)
-        qcb = _quantised(sub[0], qc)
-        qcr = _quantised(sub[1], qc)
+    for qy_b, qcb, qcr in _coefficient_chunks(a, chunk_rows):
         my, mx = qcb.shape[:2]
         # MCU order: Y00 Y01 Y10 Y11 Cb Cr
         yb = qy_b.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(
@@ -320,10 +346,16 @@ _PAD = 512
 
 class Scan(NamedTuple):
     comps: Tuple[int, ...]      # frame component index of each
-    dc: Tuple[Tuple[bytes, bytes], ...]  # (16 code counts, symbols) each
-    ac: Tuple[Tuple[bytes, bytes], ...]
+    # (16 code counts, symbols) of each component, as the tables stood at
+    # this scan's SOS; None where the scan uses no table of that class
+    dc: Tuple[Optional[Tuple[bytes, bytes]], ...]
+    ac: Tuple[Optional[Tuple[bytes, bytes]], ...]
     restart: int                # restart interval in MCUs, 0 for none
     data: memoryview            # entropy-coded data, RSTn markers inside
+    ss: int                     # spectral selection, zigzag positions
+    se: int
+    ah: int                     # successive approximation: the bit
+    al: int                     # position before and after this scan
 
 
 class Frame(NamedTuple):
@@ -333,7 +365,8 @@ class Frame(NamedTuple):
     v: Tuple[int, ...]
     qt: Tuple[np.ndarray, ...]  # each component's table, natural order
     scans: Tuple[Scan, ...]
-    transform: bool             # YCbCr -> RGB
+    transform: bool             # YCbCr -> RGB (3), YCCK -> CMYK (4)
+    progressive: bool           # SOF2
 
 
 class _Tables:
@@ -410,12 +443,13 @@ def _segments(data, pos: int):
 
 def parse_jpeg(data, tables=None, transform: Optional[bool] = None
                ) -> Frame:
-    """The frame of the baseline JPEG stream ``data`` (bytes or a
-    memoryview): its size, sampling, tables and scans.  ``tables``, a
-    table-specification stream (a TIFF's JPEGTables), is read first.
-    ``transform`` None: YCbCr -> RGB as libjpeg decides for a file
-    (JFIF, Adobe APP14, component ids); True / False: as the caller
-    says."""
+    """The frame of the JPEG stream ``data`` (bytes or a memoryview): its
+    size, sampling, tables and scans.  ``tables``, a table-specification
+    stream (a TIFF's JPEGTables), is read first.  ``transform`` None:
+    YCbCr -> RGB (3 components) or YCCK -> CMYK (4) as libjpeg decides
+    for a file (JFIF, Adobe APP14, component ids); True / False: as the
+    caller says.  A progressive scan script is checked as libjpeg checks
+    it (``_check_scan``)."""
     data = memoryview(data).cast("B")
     t = _Tables()
     if tables is not None:
@@ -433,7 +467,9 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
         raise ValueError("not a JPEG stream (no SOI)")
     jfif, adobe = False, None
     size = ids = h = v = tq = None
+    progressive = False
     qt: List[Optional[np.ndarray]] = []
+    coef_bits: List[List[int]] = []
     scans = []
     pos = 2
     while True:
@@ -455,7 +491,7 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
             t.dht(body)
         elif marker == 0xDD:
             (t.restart,) = struct.unpack(">H", body[:2])
-        elif marker in (0xC0, 0xC1):
+        elif marker in (0xC0, 0xC1, 0xC2):
             if size is not None:
                 raise ValueError("JPEG stream with two frames")
             precision, height, width, n = struct.unpack(">BHHB", body[:6])
@@ -463,10 +499,11 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
                 raise NotImplementedError(
                     f"a {precision}-bit JPEG ({_SOF_NAMES[marker]}); the "
                     f"port decodes 8-bit samples, as PIL does")
-            if n not in (1, 3):
+            if n not in (1, 3, 4):
                 raise NotImplementedError(
                     f"a JPEG of {n} components ({_SOF_NAMES[marker]}); "
-                    f"the port decodes 1 (gray) or 3 (YCbCr or RGB)")
+                    f"the port decodes 1 (gray), 3 (YCbCr or RGB) or 4 "
+                    f"(CMYK or YCCK), as PIL does")
             if height == 0 or width == 0:
                 raise NotImplementedError(
                     "a JPEG whose height is set by a DNL marker")
@@ -484,12 +521,14 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
                     f"JPEG sampling factors {list(zip(h, v))}; the port "
                     f"decodes factors 1..4 that divide the largest")
             size = (width, height)
+            progressive = marker == 0xC2
             qt = [None] * n
+            coef_bits = [[-1] * 64 for _ in range(n)]
         elif marker in _SOF_NAMES:
             raise NotImplementedError(
                 f"a JPEG frame of marker {_SOF_NAMES[marker]}; the port "
-                f"decodes baseline and extended sequential Huffman frames "
-                f"(SOF0, SOF1)")
+                f"decodes baseline, extended sequential and progressive "
+                f"Huffman frames (SOF0, SOF1, SOF2)")
         elif marker == 0xDA:
             if size is None:
                 raise ValueError("JPEG scan before its frame")
@@ -498,16 +537,20 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
                 raise ValueError(f"bad JPEG SOS segment ({ns} components)")
             sel = [body[1 + 2 * i:3 + 2 * i] for i in range(ns)]
             ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
-            if ss != 0 or se != 63 or ahl != 0:
-                raise NotImplementedError(
-                    "a JPEG scan of spectral selection or successive "
-                    "approximation (progressive)")
+            ah, al = ahl >> 4, ahl & 15
             comps = []
             for cs, _ in sel:
                 if cs not in ids:
                     raise ValueError(f"JPEG scan names component {cs}, "
                                      f"which the frame lacks")
                 comps.append(ids.index(cs))
+            if progressive:
+                _check_scan(comps, ss, se, ah, al, coef_bits)
+            elif (ss, se, ah, al) != (0, 63, 0, 0):
+                raise NotImplementedError(
+                    f"a scan of spectral selection or successive "
+                    f"approximation ({ss}..{se}, {ah}, {al}) in a "
+                    f"sequential JPEG frame")
             for c in comps:
                 if qt[c] is None:  # latched at the component's first scan
                     if tq[c] not in t.q:
@@ -516,11 +559,15 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
                     qt[c] = t.q[tq[c]]
             end = _SCAN_END.search(data, b)
             end = len(data) if end is None else end.start()
+            uses_dc = ss == 0 and ah == 0
+            uses_ac = se > 0
             scans.append(Scan(
                 tuple(comps),
-                tuple(t.huffman("DC", x >> 4) for _, x in sel),
-                tuple(t.huffman("AC", x & 15) for _, x in sel),
-                t.restart, data[b:end]))
+                tuple(t.huffman("DC", x >> 4) if uses_dc else None
+                      for _, x in sel),
+                tuple(t.huffman("AC", x & 15) if uses_ac else None
+                      for _, x in sel),
+                t.restart, data[b:end], ss, se, ah, al))
             pos = end
         elif marker == 0xDC:
             pass  # DNL after the first scan: the height is already set
@@ -529,18 +576,51 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
         raise ValueError("JPEG stream without a frame and a scan")
     if any(q is None for q in qt):
         raise ValueError("a JPEG component that no scan codes")
-    if len(scans) > 4:
-        raise NotImplementedError(f"a JPEG of {len(scans)} scans")
+    if not progressive and len(scans) > 4:
+        raise NotImplementedError(f"a sequential JPEG of {len(scans)} "
+                                  f"scans")
     if transform is None:
-        transform = len(ids) == 3 and _libjpeg_transform(jfif, adobe, ids)
+        transform = _libjpeg_transform(jfif, adobe, ids)
     return Frame(size[0], size[1], h, v, tuple(qt), tuple(scans),
-                 bool(transform and len(ids) == 3))
+                 bool(transform and len(ids) in (3, 4)), progressive)
+
+
+def _check_scan(comps, ss, se, ah, al, coef_bits) -> None:
+    """A progressive scan's parameters as libjpeg checks them
+    (jdphuff.c's start_pass_phuff_decoder): a DC scan (Ss = 0) has Se =
+    0; an AC scan has Ss <= Se <= 63 and one component; a refinement (Ah
+    > 0) has Al = Ah - 1; Al <= 13.  libjpeg refuses those.  It only
+    warns where a scan does not follow its predecessors (an AC scan
+    before the component's DC, or Ah other than the last Al of each
+    coefficient), and decodes on; the port refuses these too, as it
+    refuses corrupt entropy-coded data.  ``coef_bits`` (each component's
+    last Al of each coefficient, -1 before any scan) is brought up to
+    date."""
+    what = f"({ss}..{se}, Ah {ah}, Al {al})"
+    if (se != 0 if ss == 0 else (ss > se or se > 63 or len(comps) != 1)) \
+            or (ah and al != ah - 1) or al > 13:
+        raise ValueError(f"a progressive JPEG scan of bad parameters "
+                         f"{what}")
+    for c in comps:
+        bits = coef_bits[c]
+        if ss and bits[0] < 0:
+            raise ValueError(f"a progressive JPEG AC scan {what} of "
+                             f"component {c} before its DC scan")
+        if any(ah != max(bits[k], 0) for k in range(ss, se + 1)):
+            raise ValueError(f"a progressive JPEG scan {what} that does "
+                             f"not follow the scans before it")
+        bits[ss:se + 1] = [al] * (se + 1 - ss)
 
 
 def _libjpeg_transform(jfif: bool, adobe: Optional[int], ids) -> bool:
-    """libjpeg's default_decompress_parms for 3 components: JFIF implies
+    """libjpeg's default_decompress_parms.  Three components: JFIF implies
     YCbCr; an Adobe marker's transform 0 means RGB; else the component
-    ids 'R', 'G', 'B' mean RGB and anything else YCbCr."""
+    ids 'R', 'G', 'B' mean RGB and anything else YCbCr.  Four: YCCK when
+    an Adobe marker's transform is not 0, else CMYK."""
+    if len(ids) == 4:
+        return adobe is not None and adobe != 0
+    if len(ids) != 3:
+        return False
     if jfif:
         return True
     if adobe is not None:
@@ -582,46 +662,84 @@ def _windows(part: bytes) -> List[int]:
             | b[3:]).tolist()
 
 
-def _entropy_plain(f: Frame, s: Scan) -> List[np.ndarray]:
-    """The quantised coefficients [blocks down, blocks across, 64]
-    (natural order) of each component of scan ``s``."""
+def _scan_units(f: Frame, s: Scan):
+    """(units, units across, blocks) of scan ``s``: its MCUs, or the
+    blocks of its one component over ceil(w_c / 8) x ceil(h_c / 8), in
+    raster order; ``blocks(u)`` lists unit u's (scan component, block
+    row, block column) on the component's MCU-padded grid."""
     hm, vm = max(f.h), max(f.v)
-    dc = [_lut(*x) for x in s.dc]
-    ac = [_lut(*x) for x in s.ac]
     if len(s.comps) == 1:
         c = s.comps[0]
-        dw = -(-f.width * f.h[c] // hm)
-        dh = -(-f.height * f.v[c] // vm)
-        across, down = -(-dw // 8), -(-dh // 8)
-        grids = [(down, across)]
-        layout = [(0, 0, 0)]  # (slot, block row, block column) in a unit
-        per = [(1, 1)]
+        across = -(-(-(-f.width * f.h[c] // hm)) // 8)
+        down = -(-(-(-f.height * f.v[c] // vm)) // 8)
+
+        def blocks(u):
+            return [(0,) + divmod(u, across)]
     else:
         across = -(-f.width // (8 * hm))
         down = -(-f.height // (8 * vm))
-        grids = [(down * f.v[c], across * f.h[c]) for c in s.comps]
-        layout = [(k, by, bx) for k, c in enumerate(s.comps)
+        layout = [(k, f.v[c], f.h[c], by, bx) for k, c in enumerate(s.comps)
                   for by in range(f.v[c]) for bx in range(f.h[c])]
-        per = [(f.v[c], f.h[c]) for c in s.comps]
-    coefs = [[0] * (gy * gx * 64) for gy, gx in grids]
-    # each restart interval's data, up to its first marker (the C++
-    # reader reads zeros past it, as libjpeg does), unstuffed
+
+        def blocks(u):
+            my, mx = divmod(u, across)
+            return [(k, my * vy + by, mx * hx + bx)
+                    for k, vy, hx, by, bx in layout]
+    return across * down, across, blocks
+
+
+def _scan_parts(s: Scan, units: int) -> List[bytes]:
+    """Each restart interval's data, up to its first marker (the C++
+    reader reads zeros past it, as libjpeg does), unstuffed."""
     raw = bytes(s.data)
     parts = []
     for p in (_RST.split(raw) if s.restart else [raw]):
         end = _DATA_END.search(p)
         parts.append((p if end is None else p[:end.start()]).replace(
             b"\xff\x00", b"\xff"))
-    units = across * down
     if s.restart and len(parts) < -(-units // s.restart):
         raise ValueError("JPEG scan with fewer restart intervals than "
                          "its MCUs need")
-    nat = _NAT
+    return parts
+
+
+def _grids(f: Frame) -> List[Tuple[int, int]]:
+    """Each component's MCU-padded block grid (rows, columns)."""
+    hm, vm = max(f.h), max(f.v)
+    mx, my = -(-f.width // (8 * hm)), -(-f.height // (8 * vm))
+    return [(my * f.v[c], mx * f.h[c]) for c in range(len(f.h))]
+
+
+def _i16(x: int) -> int:
+    """``x`` stored in a JCOEF (int16), as C truncates."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _entropy_plain(f: Frame, s: Scan, coefs: List[List[int]]) -> None:
+    """Entropy-decode scan ``s`` into ``coefs``, each component's
+    coefficients (natural order) over its MCU-padded grid as one flat
+    list: a sequential scan (every coefficient of its blocks), or one of
+    the four progressive kinds (jdphuff.c): DC first (point transform
+    Al), DC refinement (one bit), AC first over Ss..Se (EOB runs), AC
+    refinement (correction bits on coefficients already nonzero, zero
+    runs that skip them).  Past the data every bit is 0; a bad code or a
+    run past the band raises ``ValueError``."""
+    units, across, blocks = _scan_units(f, s)
+    parts = _scan_parts(s, units)
+    grids = _grids(f)
+    kind = ("seq" if not f.progressive else
+            ("dc" if not s.ah else "dcr") if s.ss == 0 else
+            ("ac" if not s.ah else "acr"))
+    dc = [_lut(*x) for x in s.dc] if kind in ("seq", "dc") else None
+    ac = [_lut(*x) for x in s.ac] if kind in ("seq", "ac", "acr") else None
+    nat, ss, se, al = _NAT, s.ss, s.se, s.al
+    p1, m1 = 1 << al, -1 << al
     pi = 0
     win = _windows(parts[0])
     end_bits = 8 * len(parts[0])
     pos = 0
     pred = [0] * len(s.comps)
+    eobrun = 0
     left = s.restart
     for u in range(units):
         if s.restart:
@@ -631,41 +749,57 @@ def _entropy_plain(f: Frame, s: Scan) -> List[np.ndarray]:
                 end_bits = 8 * len(parts[pi])
                 pos = 0
                 pred = [0] * len(s.comps)
+                eobrun = 0
                 left = s.restart
             left -= 1
-        my, mx = divmod(u, across)
-        for k, by, bx in layout:
+        for k, by, bx in blocks(u):
             # past the data every bit is 0: decoding there does not
             # depend on the position
             pos = min(pos, end_bits)
-            vy, hx = per[k]
-            gx = grids[k][1]
-            base = ((my * vy + by) * gx + mx * hx + bx) * 64
-            out = coefs[k]
-            e = dc[k][(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
-            if not e or (e & 0xFF) > 16:
-                raise ValueError("corrupt JPEG data (a bad DC code)")
-            pos += e >> 8
-            t = e & 0xFF
-            if t:
-                x = (win[pos >> 3] >> (32 - (pos & 7) - t)) & ((1 << t) - 1)
-                pos += t
-                if x < (1 << (t - 1)):
-                    x -= (1 << t) - 1
-                pred[k] += x
-            out[base] = ((pred[k] + 32768) & 0xFFFF) - 32768
-            i = 1
+            c = s.comps[k]
+            base = (by * grids[c][1] + bx) * 64
+            out = coefs[c]
+            if kind == "dcr":
+                if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
+                    out[base] |= p1
+                pos += 1
+                continue
+            if kind in ("seq", "dc"):
+                e = dc[k][(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                if not e or (e & 0xFF) > 16:
+                    raise ValueError("corrupt JPEG data (a bad DC code)")
+                pos += e >> 8
+                t = e & 0xFF
+                if t:
+                    x = (win[pos >> 3] >> (32 - (pos & 7) - t)) & (
+                        (1 << t) - 1)
+                    pos += t
+                    if x < (1 << (t - 1)):
+                        x -= (1 << t) - 1
+                    pred[k] += x
+                out[base] = _i16(pred[k] << al)
+                if kind == "dc":
+                    continue
             table = ac[k]
-            while i < 64:
+            if kind == "acr":
+                pos, eobrun = _refine_block(out, base, table, win, pos, ss,
+                                            se, p1, m1, eobrun)
+                continue
+            if eobrun:
+                eobrun -= 1
+                continue
+            i = ss or 1
+            while i <= se:
                 e = table[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
                 if not e:
                     raise ValueError("corrupt JPEG data (a bad AC code)")
                 pos += e >> 8
                 rs = e & 0xFF
                 z = rs & 15
+                r = rs >> 4
                 if z:
-                    i += rs >> 4
-                    if i > 63:
+                    i += r
+                    if i > se:
                         raise ValueError("corrupt JPEG data (a run past "
                                          "the block)")
                     x = (win[pos >> 3] >> (32 - (pos & 7) - z)) & (
@@ -673,14 +807,239 @@ def _entropy_plain(f: Frame, s: Scan) -> List[np.ndarray]:
                     pos += z
                     if x < (1 << (z - 1)):
                         x -= (1 << z) - 1
-                    out[base + nat[i]] = x
+                    out[base + nat[i]] = _i16(x << al)
                     i += 1
-                elif rs == 0xF0:
+                elif r == 15:
                     i += 16
                 else:
+                    if kind == "ac":  # EOBr: 2^r + r more bits blocks
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += (win[pos >> 3] >> (
+                                32 - (pos & 7) - r)) & ((1 << r) - 1)
+                            pos += r
+                        eobrun -= 1
                     break
-    return [np.array(c, np.int64).reshape(gy, gx, 64)
-            for c, (gy, gx) in zip(coefs, grids)]
+
+
+def _refine_block(out, base, table, win, pos, ss, se, p1, m1, eobrun):
+    """One block of an AC refinement scan (jdphuff.c's
+    decode_mcu_AC_refine): (bit position, EOB run left) after it; corrupt
+    data raises ``ValueError``."""
+    bad = ValueError("corrupt JPEG data (a bad AC refinement)")
+    nat = _NAT
+    k = ss
+    if not eobrun:
+        while k <= se:
+            e = table[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if not e:
+                raise bad
+            pos += e >> 8
+            r, z = (e & 0xFF) >> 4, e & 15
+            s = 0
+            if z:
+                if z != 1:  # a newly nonzero coefficient has size 1
+                    raise bad
+                s = p1 if (win[pos >> 3] >> (31 - (pos & 7))) & 1 else m1
+                pos += 1
+            elif r != 15:
+                eobrun = 1 << r
+                if r:
+                    eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & (
+                        (1 << r) - 1)
+                    pos += r
+                break
+            # past r coefficients still zero, a correction bit on each
+            # nonzero one on the way
+            while k <= se:
+                x = out[base + nat[k]]
+                if x:
+                    if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and \
+                            not x & p1:
+                        out[base + nat[k]] = _i16(x + (p1 if x >= 0 else
+                                                       m1))
+                    pos += 1
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            else:
+                if s:  # no zero coefficient left for the new one
+                    raise bad
+            if s:
+                out[base + nat[k]] = s
+            k += 1
+    if eobrun:
+        # the rest of the band: a correction bit on each nonzero one
+        while k <= se:
+            x = out[base + nat[k]]
+            if x:
+                if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not x & p1:
+                    out[base + nat[k]] = _i16(x + (p1 if x >= 0 else m1))
+                pos += 1
+            k += 1
+        eobrun -= 1
+    return pos, eobrun
+
+
+# zigzag positions 1..9 in natural order: the coefficients libjpeg's
+# block smoothing estimates (AC01, AC10, AC20, AC11, AC02, AC03, AC12,
+# AC21, AC30)
+_SMOOTH_NAT = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
+def _smoothing_on(f: Frame, coef_bits) -> bool:
+    """jdcoefct.c's smoothing_ok after the last scan: a progressive frame
+    whose DC and first 9 AC quantisers are nonzero and whose every
+    component has a DC scan, with a coefficient among zigzag 1..9 of
+    some component not fully refined (its last Al > 0, or never sent)."""
+    if not f.progressive:
+        return False
+    for c, bits in enumerate(coef_bits):
+        if f.qt[c][0] == 0 or any(f.qt[c][p] == 0 for p in _SMOOTH_NAT) \
+                or bits[0] < 0:
+            return False
+    return any(bits[k] for bits in coef_bits for k in range(1, 10))
+
+
+def _smooth_cols(n: int) -> np.ndarray:
+    """The 5 block columns (two left, the block, two right) that
+    decompress_smooth_data's sliding registers hold at each of ``n``
+    block columns: the row's edge repeated."""
+    reg, out = [0] * 5, []
+    for b in range(n):
+        if b == 0 and b < n - 1:
+            reg[3] = reg[4] = 1
+        if b + 1 < n - 1:
+            reg[4] = b + 2
+        out.append(list(reg))
+        reg = reg[1:] + reg[4:]
+    return np.array(out, np.int64).reshape(n, 5)
+
+
+def _smooth_rows(n: int, v: int, total: int) -> np.ndarray:
+    """The 5 block rows (two above, the block, two below) that
+    decompress_smooth_data reads for each of a component's ``n`` block
+    rows: its image_block_row arithmetic, in which the last iMCU row
+    counts its rows as if every iMCU row had as many (``total`` iMCU rows
+    of ``v`` block rows)."""
+    out = []
+    for r in range(n):
+        i, br = divmod(r, v)
+        rows = v if i < total - 1 else (n % v or v)
+        ibr, ibrs = i * rows + br, rows * total
+        prev = r - 1 if ibr > 0 else r
+        nxt = r + 1 if ibr < ibrs - 1 else r
+        out.append([r - 2 if ibr > 1 else prev, prev, r, nxt,
+                    r + 2 if ibr < ibrs - 2 else nxt])
+    return np.array(out, np.int64).reshape(n, 5)
+
+
+def _smooth_pred(num: np.ndarray, q: int, al: int) -> np.ndarray:
+    """An estimate num / (q << 8), rounded half away from zero, clamped
+    below 2^Al when Al > 0."""
+    pred = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        pred = np.minimum(pred, (1 << al) - 1)
+    return np.where(num >= 0, pred, -pred)
+
+
+def _smooth_plain(f: Frame, c: int, coef: np.ndarray, bits) -> np.ndarray:
+    """jdcoefct.c's decompress_smooth_data (libjpeg-turbo 3.x) on
+    component ``c``'s coefficients [rows, cols, 64] (its MCU-padded
+    grid): each of its ceil(h_c / 8) x ceil(w_c / 8) blocks gets an
+    estimate of each of zigzag 1..9 that is still 0 and not fully
+    refined, from the DC values of the 5 x 5 blocks around it; when none
+    of 1..9 was ever sent, a 5 x 5 estimate of its DC too."""
+    hm, vm = max(f.h), max(f.v)
+    n_rows = -(-(-(-f.height * f.v[c] // vm)) // 8)
+    n_cols = -(-(-(-f.width * f.h[c] // hm)) // 8)
+    total = -(-f.height // (8 * vm))
+    rows = _smooth_rows(n_rows, f.v[c], total)
+    cols = _smooth_cols(n_cols)
+    dc = coef[..., 0].astype(np.int64)
+    # D[i][j]: libjpeg's DC(5 i + j + 1), rows above to below, columns
+    # left to right
+    D = [[dc[rows[:, i]][:, cols[:, j]] for j in range(5)] for i in range(5)]
+    q = [int(x) for x in f.qt[c]]
+    work = coef.copy()
+    blk = work[:n_rows, :n_cols]
+    change_dc = all(bits[k] == -1 for k in range(1, 10))
+
+    def w(*terms):
+        return sum(m * D[i][j] for m, i, j in terms) * q[0]
+
+    if change_dc:
+        nums = [
+            w((-1, 0, 0), (-1, 0, 1), (1, 0, 3), (1, 0, 4), (-3, 1, 0),
+              (13, 1, 1), (-13, 1, 3), (3, 1, 4), (-3, 2, 0), (38, 2, 1),
+              (-38, 2, 3), (3, 2, 4), (-3, 3, 0), (13, 3, 1), (-13, 3, 3),
+              (3, 3, 4), (-1, 4, 0), (-1, 4, 1), (1, 4, 3), (1, 4, 4)),
+            w((-1, 0, 0), (-3, 0, 1), (-3, 0, 2), (-3, 0, 3), (-1, 0, 4),
+              (-1, 1, 0), (13, 1, 1), (38, 1, 2), (13, 1, 3), (-1, 1, 4),
+              (1, 3, 0), (-13, 3, 1), (-38, 3, 2), (-13, 3, 3), (1, 3, 4),
+              (1, 4, 0), (3, 4, 1), (3, 4, 2), (3, 4, 3), (1, 4, 4)),
+            w((1, 0, 2), (2, 1, 1), (7, 1, 2), (2, 1, 3), (-5, 2, 1),
+              (-14, 2, 2), (-5, 2, 3), (2, 3, 1), (7, 3, 2), (2, 3, 3),
+              (1, 4, 2)),
+            w((-1, 0, 0), (1, 0, 4), (9, 1, 1), (-9, 1, 3), (-9, 3, 1),
+              (9, 3, 3), (1, 4, 0), (-1, 4, 4)),
+            w((2, 1, 1), (-5, 1, 2), (2, 1, 3), (1, 2, 0), (7, 2, 1),
+              (-14, 2, 2), (7, 2, 3), (1, 2, 4), (2, 3, 1), (-5, 3, 2),
+              (2, 3, 3)),
+            w((1, 1, 1), (-1, 1, 3), (2, 2, 1), (-2, 2, 3), (1, 3, 1),
+              (-1, 3, 3)),
+            w((1, 1, 1), (-3, 1, 2), (1, 1, 3), (-1, 3, 1), (3, 3, 2),
+              (-1, 3, 3)),
+            w((1, 1, 1), (-1, 1, 3), (-3, 2, 1), (3, 2, 3), (1, 3, 1),
+              (-1, 3, 3)),
+            w((1, 1, 1), (2, 1, 2), (1, 1, 3), (-1, 3, 1), (-2, 3, 2),
+              (-1, 3, 3))]
+    else:
+        nums = [
+            w((-7, 2, 0), (50, 2, 1), (-50, 2, 3), (7, 2, 4)),
+            w((-7, 0, 2), (50, 1, 2), (-50, 3, 2), (7, 4, 2)),
+            w((-1, 0, 2), (13, 1, 2), (-24, 2, 2), (13, 3, 2), (-1, 4, 2)),
+            w((1, 1, 4), (1, 3, 0), (-10, 3, 1), (10, 3, 3), (-1, 0, 1),
+              (-1, 3, 4), (1, 4, 1), (-1, 4, 3), (1, 0, 3), (-1, 1, 0),
+              (10, 1, 1), (-10, 1, 3)),
+            w((-1, 2, 0), (13, 2, 1), (-24, 2, 2), (13, 2, 3), (-1, 2, 4))]
+    for k, num in enumerate(nums, start=1):
+        pos = _SMOOTH_NAT[k - 1]
+        if bits[k] != 0:
+            cur = blk[..., pos]
+            blk[..., pos] = np.where(cur == 0, _smooth_pred(
+                num, q[pos], bits[k]), cur)
+    if change_dc:
+        num = w((-2, 0, 0), (-6, 0, 1), (-8, 0, 2), (-6, 0, 3), (-2, 0, 4),
+                (-6, 1, 0), (6, 1, 1), (42, 1, 2), (6, 1, 3), (-6, 1, 4),
+                (-8, 2, 0), (42, 2, 1), (152, 2, 2), (42, 2, 3), (-8, 2, 4),
+                (-6, 3, 0), (6, 3, 1), (42, 3, 2), (6, 3, 3), (-6, 3, 4),
+                (-2, 4, 0), (-6, 4, 1), (-8, 4, 2), (-6, 4, 3), (-2, 4, 4))
+        blk[..., 0] = _smooth_pred(num, q[0], 0)
+    # the estimates are stored in JCOEFs
+    return ((work + 32768) & 0xFFFF) - 32768
+
+
+def _coefficients_plain(f: Frame) -> List[np.ndarray]:
+    """Each component's quantised coefficients [rows, cols, 64] (natural
+    order) over its MCU-padded grid after every scan; a progressive
+    frame's smoothed as libjpeg smooths them when its scans leave
+    coefficients unrefined."""
+    grids = _grids(f)
+    coefs = [[0] * (gy * gx * 64) for gy, gx in grids]
+    coef_bits = [[-1] * 64 for _ in grids]
+    for s in f.scans:
+        _entropy_plain(f, s, coefs)
+        for c in s.comps:
+            coef_bits[c][s.ss:s.se + 1] = [s.al] * (s.se + 1 - s.ss)
+    out = [np.array(x, np.int64).reshape(gy, gx, 64)
+           for x, (gy, gx) in zip(coefs, grids)]
+    if _smoothing_on(f, coef_bits):
+        out = [_smooth_plain(f, c, x, coef_bits[c])
+               for c, x in enumerate(out)]
+    return out
 
 
 def _butterfly(i0, i1, i2, i3, i4, i5, i6, i7, half, shift):
@@ -780,34 +1139,31 @@ _CB_G = -22554 * _X + 32768
 
 
 def _decode_plain(f: Frame) -> np.ndarray:
-    """The pixels of frame ``f``: uint8 [H, W] or [H, W, 3]."""
+    """The pixels of frame ``f``: uint8 [H, W] or [H, W, 3 or 4]."""
     hm, vm = max(f.h), max(f.v)
     n = len(f.h)
-    mx, my = -(-f.width // (8 * hm)), -(-f.height // (8 * vm))
-    planes = [np.zeros((my * f.v[c] * 8, mx * f.h[c] * 8), np.uint8)
-              for c in range(n)]
-    for s in f.scans:
-        for c, coef in zip(s.comps, _entropy_plain(f, s)):
-            gy, gx = coef.shape[:2]
-            blocks = _idct_plain(coef, f.qt[c])
-            planes[c][:gy * 8, :gx * 8] = blocks.transpose(
-                0, 2, 1, 3).reshape(gy * 8, gx * 8)
     full = []
-    for c in range(n):
+    for c, coef in enumerate(_coefficients_plain(f)):
+        gy, gx = coef.shape[:2]
+        plane = _idct_plain(coef, f.qt[c]).transpose(0, 2, 1, 3).reshape(
+            gy * 8, gx * 8)
         dw = -(-f.width * f.h[c] // hm)
         dh = -(-f.height * f.v[c] // vm)
-        p = planes[c][:dh, :dw].astype(np.int64)
+        p = plane[:dh, :dw].astype(np.int64)
         full.append(_upsample_plain(p, hm // f.h[c], vm // f.v[c])
                     [:f.height, :f.width])
     if n == 1:
         return full[0].astype(np.uint8)
-    y, cb, cr = full
     if f.transform:
+        y, cb, cr = full[:3]
         rgb = [y + _CR_R[cr], y + ((_CB_G[cb] + _CR_G[cr]) >> 16),
                y + _CB_B[cb]]
-    else:
-        rgb = full
-    return np.clip(np.stack(rgb, axis=-1), 0, 255).astype(np.uint8)
+        # YCCK: libjpeg's ycck_cmyk_convert, 255 - (R, G, B)
+        full = (rgb if n == 3 else
+                [255 - np.clip(x, 0, 255) for x in rgb] + full[3:])
+    px = np.clip(np.stack(full, axis=-1), 0, 255).astype(np.uint8)
+    # four components as PIL holds them: "CMYK;I", inverted
+    return 255 - px if n == 4 else px
 
 
 # ---- the C++ version (csrc/imgcodec.cpp)
@@ -816,6 +1172,8 @@ class _CScan(ctypes.Structure):
     _fields_ = [("data", ctypes.c_void_p), ("len", ctypes.c_int64),
                 ("ncomp", ctypes.c_int32), ("restart", ctypes.c_int32),
                 ("comp", ctypes.c_int32 * 4),
+                ("ss", ctypes.c_int32), ("se", ctypes.c_int32),
+                ("ah", ctypes.c_int32), ("al", ctypes.c_int32),
                 ("dc_bits", (ctypes.c_uint8 * 16) * 4),
                 ("dc_vals", (ctypes.c_uint8 * 256) * 4),
                 ("ac_bits", (ctypes.c_uint8 * 16) * 4),
@@ -828,7 +1186,9 @@ class _CFrame(ctypes.Structure):
                 ("h", ctypes.c_int32 * 4), ("v", ctypes.c_int32 * 4),
                 ("qt", (ctypes.c_uint16 * 64) * 4),
                 ("nscans", ctypes.c_int32), ("status", ctypes.c_int32),
-                ("scans", _CScan * 4), ("out", ctypes.c_void_p),
+                ("progressive", ctypes.c_int32),
+                ("reserved", ctypes.c_int32),
+                ("scans", ctypes.POINTER(_CScan)), ("out", ctypes.c_void_p),
                 ("out_stride", ctypes.c_int64),
                 ("out_rows", ctypes.c_int32), ("out_cols", ctypes.c_int32)]
 
@@ -840,23 +1200,28 @@ _STATUS = {-1: "a frame the decoder does not take",
 def _fill(cf: _CFrame, f: Frame, out: np.ndarray, keep: list) -> None:
     cf.width, cf.height, cf.ncomp = f.width, f.height, len(f.h)
     cf.transform = int(f.transform)
+    cf.progressive = int(f.progressive)
     for c in range(len(f.h)):
         cf.h[c], cf.v[c] = f.h[c], f.v[c]
         ctypes.memmove(cf.qt[c], f.qt[c].ctypes.data, 128)
     cf.nscans = len(f.scans)
-    for i, s in enumerate(f.scans):
-        cs = cf.scans[i]
+    scans = (_CScan * len(f.scans))()
+    keep.append(scans)
+    cf.scans = scans
+    for cs, s in zip(scans, f.scans):
         buf = np.frombuffer(s.data, np.uint8)
         keep.append(buf)
         cs.data, cs.len = buf.ctypes.data if buf.size else None, buf.size
         cs.ncomp, cs.restart = len(s.comps), s.restart
+        cs.ss, cs.se, cs.ah, cs.al = s.ss, s.se, s.ah, s.al
         for k, c in enumerate(s.comps):
             cs.comp[k] = c
-            for dst_bits, dst_vals, (bits, vals) in (
+            for dst_bits, dst_vals, table in (
                     (cs.dc_bits, cs.dc_vals, s.dc[k]),
                     (cs.ac_bits, cs.ac_vals, s.ac[k])):
-                ctypes.memmove(dst_bits[k], bits, 16)
-                ctypes.memmove(dst_vals[k], vals, len(vals))
+                if table is not None:
+                    ctypes.memmove(dst_bits[k], table[0], 16)
+                    ctypes.memmove(dst_vals[k], table[1], len(table[1]))
     cf.out = out.ctypes.data
     cf.out_stride = out.strides[0]
     cf.out_rows, cf.out_cols = out.shape[:2]
@@ -910,7 +1275,8 @@ def decode_frames(frames: Sequence[Frame], outs: Sequence[np.ndarray],
 def decode_jpeg(data, tables=None, transform: Optional[bool] = None,
                 plain: bool = False) -> np.ndarray:
     """The pixels of the JPEG stream ``data`` (see ``parse_jpeg``): uint8
-    [H, W] for one component, [H, W, 3] for three."""
+    [H, W] for one component, [H, W, 3] for three, [H, W, 4] CMYK for
+    four, inverted as PIL holds them ("CMYK;I")."""
     f = parse_jpeg(data, tables, transform)
     out = np.empty((f.height, f.width, len(f.h)), np.uint8)
     decode_frames([f], [out], plain=plain)

@@ -13,7 +13,8 @@ with one of these compressions (tag 259):
 - 5, LZW, with ``Predictor`` (tag 317) 1 or 2 (horizontal differencing);
 - 8 and 32946, Deflate (``zlib``), with predictor 1 or 2;
 - 32773, PackBits;
-- 7, JPEG (``utils/jpeg.py``): 8-bit gray, or 3 components with
+- 7, JPEG (``utils/jpeg.py``, baseline or progressive streams, as
+  libtiff decodes both for PIL): 8-bit gray, or 3 components with
   photometric 2 (RGB, no colour transform) or 6 (YCbCr, converted to
   RGB as libtiff asks libjpeg to for PIL; the subsampling is the
   stream's, and must match ``YCbCrSubsampling``, tag 530, when that is

@@ -7,7 +7,9 @@ against their own plain versions, bit for bit (tolerance 0):
   files of this test's own encoder for what PIL does not write (4:4:0,
   4:1:1, chroma sampled above luma, one scan per component, an Adobe
   marker, 'R', 'G', 'B' component ids, streams without Huffman
-  tables); the refusals (progressive, 12-bit, CMYK, arithmetic coding);
+  tables); the refusals (12-bit, arithmetic coding) and corrupt scans,
+  baseline and progressive (progressive and four-component frames:
+  tests/test_torch_jpeg_progressive.py);
 - TIFF LZW and PackBits (``utils/tiff.py``): the C++ batch and the plain
   versions equal the source bytes, on libtiff's chunks and on this
   test's encoders' (clear codes, the KwKwK case, 12-bit codes, no-op
@@ -199,29 +201,29 @@ def test_jpeg_of_other_layouts_equals_pil(case):
 def test_jpeg_refusals():
     a = _image(24, 32)
     buf = io.BytesIO()
-    Image.fromarray(a).save(buf, "JPEG", progressive=True)
-    with pytest.raises(NotImplementedError, match="SOF2 .progressive"):
-        jpeg.decode_jpeg(buf.getvalue())
-    buf = io.BytesIO()
-    Image.fromarray(a).convert("CMYK").save(buf, "JPEG")
-    with pytest.raises(NotImplementedError, match="4 components"):
-        jpeg.decode_jpeg(buf.getvalue())
-    buf = io.BytesIO()
     Image.fromarray(a).save(buf, "JPEG")
     data = buf.getvalue()
     sof = data.index(b"\xff\xc0")
     twelve = data[:sof + 4] + b"\x0c" + data[sof + 5:]
     with pytest.raises(NotImplementedError, match="12-bit"):
         jpeg.decode_jpeg(twelve)
-    arith = data[:sof + 1] + b"\xc9" + data[sof + 2:]
-    with pytest.raises(NotImplementedError, match="arithmetic"):
-        jpeg.decode_jpeg(arith)
-    # a corrupt scan: both routes raise
-    scan = data.index(b"\xff\xda")
-    bad = data[:scan + 20] + b"\xff\xff\xff\xff" * 8 + data[scan + 52:]
-    for plain in (False, True):
-        with pytest.raises(ValueError):
-            jpeg.decode_jpeg(bad, plain=plain)
+    for marker in (b"\xc9", b"\xca"):  # SOF9, SOF10 (progressive)
+        arith = data[:sof + 1] + marker + data[sof + 2:]
+        with pytest.raises(NotImplementedError, match="arithmetic"):
+            jpeg.decode_jpeg(arith)
+    # a corrupt scan, baseline and progressive: both routes raise
+    buf = io.BytesIO()
+    Image.fromarray(_image(48, 64)).save(buf, "JPEG", progressive=True)
+    prog = buf.getvalue()
+    for stream in (data, prog):
+        # the first scan of the baseline stream, the last (luma AC
+        # refinement) of the progressive one
+        scan = (stream.index if stream is data else stream.rindex)(
+            b"\xff\xda")
+        bad = stream[:scan + 20] + b"\xff\xff\xff\xff" * 8 + stream[scan + 52:]
+        for plain in (False, True):
+            with pytest.raises(ValueError):
+                jpeg.decode_jpeg(bad, plain=plain)
 
 
 def test_jpeg_tables_from_elsewhere_and_frame_batch():
