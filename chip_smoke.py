@@ -128,14 +128,15 @@ Phases, each fatal on failure:
                 the manifest's SHA-256 of PIL's pixels; no launch.
   4g. jpeg   -- the committed JPEG fixtures of
                 multimodalfusion_tpu_torch/testdata/jpeg (made by PIL's
-                libjpeg-turbo and tools/jpeg_writer.py: progressive at
-                4:4:4, 4:2:2, 4:2:0 and gray, successive approximation
-                from Al = 3, EOB runs with restarts in every scan type,
-                three early-stopped scripts that libjpeg-turbo smooths,
-                CMYK with and without an Adobe marker and YCCK, baseline
-                and progressive) decoded by the C++ and the plain
-                versions, both to the manifest's SHA-256 of PIL's pixels;
-                no launch.
+                libjpeg-turbo, tools/jpeg_writer.py and
+                tools/jpeg_arith.py: progressive at 4:4:4, 4:2:2, 4:2:0
+                and gray, successive approximation from Al = 3, EOB runs
+                with restarts in every scan type, three early-stopped
+                scripts that libjpeg-turbo smooths, CMYK with and without
+                an Adobe marker and YCCK, baseline and progressive;
+                arithmetic-coded SOF9 and SOF10, lossless SOF3) decoded
+                by the C++ and the plain versions, both to the manifest's
+                SHA-256 of PIL's pixels; no launch.
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak) and,
                 for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
@@ -295,8 +296,17 @@ Phases, each fatal on failure:
                 bit for bit (decode ms per megapixel of each), a 1024 x
                 768 crop decodes equal by plain and C++, both give the
                 same coordinates and features, and their bags are served
-                (one forward launch, equal risks).  The slides are
-                deleted.  Alone: --phases wsi (runs [train] first).
+                (one forward launch, equal risks).  A 2048 x 1536 crop
+                of that level as a baseline .jpg and, from its
+                coefficients, arithmetic-coded SOF9 (restarts) and SOF10
+                .jpg slides (tools/jpeg_arith.py) and a Huffman
+                progressive one, with an uncompressed TIFF twin and a
+                planar LZW RGBA TIFF: PILSlide reads them equal bit for
+                bit (C++ decode ms per megapixel; the plain decode of a
+                512 x 512 crop equal), the same coordinates and
+                features, and their six bags are served (one forward
+                launch, equal risks).  The slides are deleted.  Alone:
+                --phases wsi (runs [train] first).
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -4716,26 +4726,59 @@ def _write_tiled_tiff(path, levels, codec, pool, lzw=None):
                 entries.append((347, 7, list(tables)))
             if compression == 7:
                 entries.append((530, 3, [2, 2]))
-            entries.sort()
-            ifd = f.tell() + f.tell() % 2
-            f.write(b"\0" * (ifd - f.tell()))
-            extra = ifd + 2 + 12 * len(entries) + 4
-            body, blobs = struct.pack("<H", len(entries)), b""
-            for tag, typ, vals in entries:
-                raw = struct.pack(f"<{len(vals)}{'HIB'[(3, 4, 7).index(typ)]}",
-                                  *vals)
-                if len(raw) <= 4:
-                    field = raw.ljust(4, b"\0")
-                else:
-                    field = struct.pack("<I", extra + len(blobs))
-                    blobs += raw + b"\0" * (len(raw) % 2)
-                body += struct.pack("<HHI", tag, typ, len(vals)) + field
-            f.write(body + b"\0\0\0\0" + blobs)
-            end = f.tell()
-            f.seek(link)
-            f.write(struct.pack("<I", ifd))
-            f.seek(end)
-            link = ifd + 2 + 12 * len(entries)
+            link = _write_ifd(f, entries, link)
+
+
+def _write_ifd(f, entries, link):
+    """Append to the little-endian TIFF ``f`` (at an even offset) one IFD
+    of ``entries`` ((tag, field type 3, 4 or 7, values)), point the link
+    at offset ``link`` to it, and return the offset of its own link to a
+    next IFD."""
+    import struct
+    entries = sorted(entries)
+    ifd = f.tell() + f.tell() % 2
+    f.write(b"\0" * (ifd - f.tell()))
+    extra = ifd + 2 + 12 * len(entries) + 4
+    body, blobs = struct.pack("<H", len(entries)), b""
+    for tag, typ, vals in entries:
+        raw = struct.pack(f"<{len(vals)}{'HIB'[(3, 4, 7).index(typ)]}",
+                          *vals)
+        if len(raw) <= 4:
+            field = raw.ljust(4, b"\0")
+        else:
+            field = struct.pack("<I", extra + len(blobs))
+            blobs += raw + b"\0" * (len(raw) % 2)
+        body += struct.pack("<HHI", tag, typ, len(vals)) + field
+    f.write(body + b"\0\0\0\0" + blobs)
+    end = f.tell()
+    f.seek(link)
+    f.write(struct.pack("<I", ifd))
+    f.seek(end)
+    return ifd + 2 + 12 * len(entries)
+
+
+def _write_planar_tiff(path, rgba, lzw, pool):
+    """``rgba`` (uint8 [H, W, 4]) as one 256 x 256 tiled page of a
+    little-endian TIFF in PlanarConfiguration 2 (every tile of R, then of
+    G, B and A), LZW without a predictor (``_lzw_encoder``'s ``lzw``),
+    ExtraSamples 2 (unassociated alpha); tiles encoded on ``pool``."""
+    T = WSI_TILE
+    h, w = rgba.shape[:2]
+    full = np.pad(rgba, ((0, -h % T), (0, -w % T), (0, 0)), mode="edge")
+    chunks = list(pool.map(lambda t: lzw(t.tobytes()), (
+        np.ascontiguousarray(full[y:y + T, x:x + T, s]) for s in range(4)
+        for y in range(0, h, T) for x in range(0, w, T))))
+    with open(path, "wb") as f:
+        f.write(b"II*\0\0\0\0\0")
+        offsets = []
+        for c in chunks:
+            offsets.append(f.tell())
+            f.write(c)
+        _write_ifd(f, [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * 4),
+                       (259, 3, [5]), (262, 3, [2]), (277, 3, [4]),
+                       (284, 3, [2]), (322, 4, [T]), (323, 4, [T]),
+                       (324, 4, offsets), (325, 4, [len(c) for c in chunks]),
+                       (338, 3, [2])], 4)
 
 
 def _psnr(a, b) -> float:
@@ -4971,11 +5014,14 @@ def _jpeg_writer():
 
 def phase_jpeg(launch_counters):
     """[jpeg] The committed JPEG fixtures (``JPEG_FIXTURES``, made by PIL's
-    libjpeg-turbo and tools/jpeg_writer.py, tools/make_jpeg_fixtures.py:
-    progressive at 4:4:4, 4:2:2, 4:2:0 and gray, successive approximation
-    from Al = 3, EOB runs with restarts in every scan type, three scripts
-    that stop early and are smoothed, CMYK with and without an Adobe
-    marker and YCCK, baseline and progressive): each decoded by the C++
+    libjpeg-turbo, tools/jpeg_writer.py and tools/jpeg_arith.py,
+    tools/make_jpeg_fixtures.py: progressive at 4:4:4, 4:2:2, 4:2:0 and
+    gray, successive approximation from Al = 3, EOB runs with restarts in
+    every scan type, three scripts that stop early and are smoothed, CMYK
+    with and without an Adobe marker and YCCK, baseline and progressive;
+    arithmetic-coded SOF9 and SOF10 with restarts, non-default DAC
+    conditioning, SA from Al = 3, an early stop and YCCK; lossless SOF3
+    in gray, RGB with restarts and 4:2:0): each decoded by the C++
     version (every host thread) and by the plain one; both must give
     pixels whose SHA-256 is the manifest's, PIL's.  No kernel launch
     (counters reset just before, read just after)."""
@@ -4999,8 +5045,12 @@ def phase_jpeg(launch_counters):
                 raise AssertionError(
                     f"[jpeg] {entry['name']} ({'plain' if plain else 'C++'})"
                     f": {px.shape} does not match the manifest")
-        rows.append(f"{entry['name']} {entry['shape']} "
-                    f"{'SOF2' if frame.progressive else 'SOF0/1'} "
+        sof = {(jpeg.HUFFMAN, False): "SOF0/1", (jpeg.HUFFMAN, True): "SOF2",
+               (jpeg.ARITHMETIC, False): "SOF9",
+               (jpeg.ARITHMETIC, True): "SOF10",
+               (jpeg.LOSSLESS, False): "SOF3"}[frame.coding,
+                                               frame.progressive]
+        rows.append(f"{entry['name']} {entry['shape']} {sof} "
                     f"{len(frame.scans)} scans")
     counts = {c.__name__: c.launches for c in launch_counters}
     log(f"[jpeg] {len(rows)} fixtures (Pillow {manifest['pillow']}, "
@@ -5163,6 +5213,244 @@ def phase_wsi_progressive(launch_counters, path_exp, td, level0, stem, wall,
         raise AssertionError("[wsi] the progressive slide's risk differs "
                              "from its baseline source's")
     shutil.rmtree(src)
+
+
+# [wsi]'s arithmetic-coded slides: the crop (rows, columns) of level 0,
+# the SOF9 slide's restart interval (MCUs) and the side of the crop the
+# plain decoder is timed on
+WSI_ARITH_CROP = (1536, 2048)
+WSI_ARITH_RESTART = 32
+WSI_ARITH_PLAIN = 512
+
+
+def _jpeg_arith():
+    """tools/jpeg_arith.py, the arithmetic and lossless coder of test
+    streams (loaded by path; the package never imports it)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "jpeg_arith", os.path.join(REPO, "tools", "jpeg_arith.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_wsi_arith(launch_counters, path_exp, td, level0, stem, wall,
+                    launches):
+    """[wsi]'s arithmetic-coded and planar slides: the central
+    ``WSI_ARITH_CROP`` (2048 x 1536, where the tissue is) of ``level0``
+    (level 0 of [wsi]'s slide ``stem``; cut so that the Python test coder
+    codes it in seconds) written as
+      - a baseline .jpg (``jpeg.encode_jpeg``, YCbCr 4:2:0, quality 95)
+        and, from the same quantised coefficients
+        (``jpeg_writer.encode_jpeg_coefficients``), a SOF9 .jpg with a
+        restart interval of ``WSI_ARITH_RESTART`` MCUs and a SOF10 .jpg in
+        libjpeg's default progressive script, each coded by
+        tools/jpeg_arith.py in a subprocess of forked workers (its restart
+        intervals and scans at once), and a Huffman progressive .jpg of
+        the same script (tools/jpeg_writer.py);
+      - an uncompressed chunky RGB .tiff (``tiff.write_tiff``) and a
+        256 x 256 tiled planar (PlanarConfiguration 2) RGBA .tiff, LZW,
+        with a seeded unassociated alpha plane (``_write_planar_tiff``);
+    then: ``PILSlide`` (C++, every host thread) reads the SOF9 slide equal
+    to the baseline bit for bit, the SOF10 slide equal to the Huffman
+    progressive one and to the baseline, the planar slide equal to the
+    chunky one and to the crop; the C++ decode ms per megapixel of each
+    .jpg (best of 3); the plain decode of a ``WSI_ARITH_PLAIN`` square
+    crop's coefficients in SOF9 and SOF10 equal to the C++ one and to
+    the Huffman stream's pixels, its ms per megapixel; cli.create_patches
+    and cli.extract_features_fp on the .jpg and the .tiff slides (no
+    launch): every .jpg slide the baseline's coordinates and features,
+    the planar slide the chunky one's (the lossy and the lossless slides
+    segment apart); cli.infer of [train]'s PathAMIL on the six bags (the
+    counters reset just before): one forward launch, every risk equal to
+    its twin's when the features are (else at rel 1e-4).  Adds its
+    launch counts to ``launches`` and wall seconds to ``wall``."""
+    from multimodalfusion_tpu_torch.cli import (create_patches,
+                                                extract_features_fp)
+    from multimodalfusion_tpu_torch.data import hdf5, wsi
+    from multimodalfusion_tpu_torch.data.io import load_pt
+    from multimodalfusion_tpu_torch.utils import jpeg, tiff
+    coder = _jpeg_arith()
+    writer = coder.writer
+    none = {c.__name__: 0 for c in launch_counters}
+    rows, cols = WSI_ARITH_CROP
+    y0 = (level0.shape[0] - rows) // 32 * 16
+    x0 = (level0.shape[1] - cols) // 32 * 16
+    crop = np.ascontiguousarray(level0[y0:y0 + rows, x0:x0 + cols])
+    mp = rows * cols / 1e6
+    threads = os.cpu_count() or 1
+    dirs = {".jpg": os.path.join(td, "slides_arith"),
+            ".tiff": os.path.join(td, "slides_arith_tiff")}
+    for d in dirs.values():
+        os.makedirs(d)
+    kinds = {"baseline": ".jpg", "sof9": ".jpg", "sof10": ".jpg",
+             "progressive": ".jpg", "chunky": ".tiff", "planar_rgba": ".tiff"}
+    names = {k: f"WSIA_{k}_{cols}x{rows}" for k in kinds}
+    paths = {k: os.path.join(dirs[e], names[k] + e) for k, e in kinds.items()}
+    npy = os.path.join(td, "arith_crop.npy")
+    np.save(npy, crop)
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "tools", "jpeg_arith.py"), npy,
+         paths[k], "--rgb", "--processes", str(max(1, threads // 2))]
+        + (["--restart", str(WSI_ARITH_RESTART)] if k == "sof9"
+           else ["--progressive"]),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in ("sof9", "sof10")}
+    try:
+        # meanwhile, in this process: the Huffman twins and the TIFFs
+        co = writer.encode_jpeg_coefficients(crop)
+        for k, data in (("baseline", jpeg.encode_jpeg(crop)),
+                        ("progressive", writer.encode(co, threads=threads))):
+            with open(paths[k], "wb") as f:
+                f.write(data)
+        tiff.write_tiff(paths["chunky"], [crop])
+        alpha = np.random.default_rng(24).integers(0, 256, crop.shape[:2],
+                                                   np.uint8)
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            _write_planar_tiff(paths["planar_rgba"], np.concatenate(
+                [crop, alpha[..., None]], -1), _lzw_encoder(td), pool)
+        wall["arith_twins"] = time.perf_counter() - t0
+        for k, p in procs.items():
+            out, _ = p.communicate(timeout=600)
+            if p.returncode:
+                raise AssertionError(f"[wsi] tools/jpeg_arith.py for the "
+                                     f"{k} slide failed:\n{out}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall["arith_write"] = time.perf_counter() - t0
+    data = {k: open(paths[k], "rb").read() for k, e in kinds.items()
+            if e == ".jpg"}
+    f9, f10 = jpeg.parse_jpeg(data["sof9"]), jpeg.parse_jpeg(data["sof10"])
+    if (f9.coding, f9.progressive, f9.scans[0].restart) != (
+            jpeg.ARITHMETIC, False, WSI_ARITH_RESTART) or (
+            f10.coding, f10.progressive, len(f10.scans)) != (
+            jpeg.ARITHMETIC, True, 10):
+        raise AssertionError("[wsi] the arithmetic slides are not SOF9 with "
+                             "restarts and SOF10 in 10 scans")
+    got = {k: wsi.PILSlide(p).levels for k, p in paths.items()}
+    if any(len(v) != 1 for v in got.values()):
+        raise AssertionError("[wsi] an arithmetic or planar slide of more "
+                             "than one page")
+    got = {k: v[0] for k, v in got.items()}
+    for k, ref in (("sof9", "baseline"), ("sof10", "progressive"),
+                   ("progressive", "baseline"), ("planar_rgba", "chunky")):
+        if not np.array_equal(got[k], got[ref]):
+            raise AssertionError(f"[wsi] {names[k]} does not decode to "
+                                 f"{names[ref]}'s pixels")
+    if not np.array_equal(got["chunky"], crop):
+        raise AssertionError("[wsi] the chunky TIFF twin is not the crop")
+    rate = {}
+    for k, d in data.items():
+        best = float("inf")
+        for _ in range(3):
+            t1 = time.perf_counter()
+            jpeg.decode_jpeg(d)
+            best = min(best, time.perf_counter() - t1)
+        rate[k] = best * 1e3 / mp
+    n = WSI_ARITH_PLAIN
+    small = writer.Coefficients(n, n, co.sampling, co.qt, (
+        co.blocks[0][:n // 8, :n // 8], co.blocks[1][:n // 16, :n // 16],
+        co.blocks[2][:n // 16, :n // 16]))
+    want = jpeg.decode_jpeg(writer.encode(small, progressive=False))
+    plain = {}
+    for k, kw in (("sof9", dict(progressive=False,
+                                restart=WSI_ARITH_RESTART)),
+                  ("sof10", {})):
+        d = coder.encode(small, **kw)
+        t1 = time.perf_counter()
+        px = jpeg.decode_jpeg(d, plain=True)
+        plain[k] = (time.perf_counter() - t1) * 1e3 / (n * n / 1e6)
+        if not (np.array_equal(px, jpeg.decode_jpeg(d))
+                and np.array_equal(px, want)):
+            raise AssertionError(f"[wsi] the {n} x {n} {k} crop: plain, "
+                                 f"C++ and the Huffman stream differ")
+    del got
+    log(f"[wsi] {cols} x {rows} crop of {stem} level 0 at ({x0}, {y0}): "
+        f"SOF9 (restart {WSI_ARITH_RESTART} MCUs) "
+        f"{len(data['sof9']) / 2**20:.3f} MiB and "
+        f"SOF10 (libjpeg's default script, 10 scans) "
+        f"{len(data['sof10']) / 2**20:.3f} MiB, coded in "
+        f"{wall['arith_write']:.3f} s (two tools/jpeg_arith.py processes of "
+        f"{max(1, threads // 2)} workers; the Huffman twins and the TIFFs "
+        f"{wall['arith_twins']:.3f} s beside them), against the baseline's "
+        f"{len(data['baseline']) / 2**20:.3f} MiB; PILSlide equal bit for "
+        f"bit: SOF9 = baseline, SOF10 = Huffman progressive = baseline, "
+        f"planar LZW RGBA = chunky = crop; C++ decode ms/MP ({threads} host "
+        f"threads, {_card()}): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in rate.items())
+        + f"; plain decode ms/MP of a {n} x {n} crop: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in plain.items()) + " (equal to C++)")
+
+    def run(stage, fn, argv):
+        text = _run_stage(launch_counters, "wsi", stage, fn, argv, wall,
+                          launches, none, capture=True)
+        if "FAILED" in text:
+            raise AssertionError(f"[wsi] {stage}: FAILED\n{text}")
+
+    feat = os.path.join(td, "features_arith")
+    outs = {}
+    for ext, d in dirs.items():
+        tag = ext[1:]
+        outs[ext] = os.path.join(td, f"patched_arith_{tag}")
+        run(f"stage0_arith_{tag}", create_patches.main, [
+            "--source", d, "--save_dir", outs[ext], "--patch_size", "256",
+            "--step_size", "256", "--a_t", "0.5", "--a_h", "0.05",
+            "--device", "cuda"])
+        run(f"stage1_arith_{tag}", extract_features_fp.main, [
+            "--data_h5_dir", outs[ext], "--data_slide_dir", d, "--feat_dir",
+            feat, "--slide_ext", ext, "--target_patch_size", "224",
+            "--batch_size", "128", "--allow_random_weights", "--device",
+            "cuda"])
+    coords, bags = {}, {}
+    for k, n_ in names.items():
+        with hdf5.File(os.path.join(outs[kinds[k]], "patches",
+                                    f"{n_}_patches.h5")) as f:
+            coords[k] = f["coords"]
+        bags[k] = load_pt(os.path.join(feat, "path_pt_files", f"{n_}.pt"))
+    # each slide against its twin: the .jpg ones (lossy) against the
+    # baseline, the planar TIFF against the chunky one (the crop itself)
+    twin = {k: "baseline" if e == ".jpg" else "chunky"
+            for k, e in kinds.items()}
+    bitwise = all(np.array_equal(bags[k], bags[t]) for k, t in twin.items())
+    diff = max(float(np.abs(bags[k].astype(np.float64) - bags[t]).max(
+        initial=0.0)) for k, t in twin.items()
+        if bags[k].shape == bags[t].shape)
+    if min(len(coords[t]) for t in twin.values()) < 1 or any(
+            not np.array_equal(coords[k], coords[t])
+            or not np.allclose(bags[k], bags[t], rtol=2e-3, atol=2e-4)
+            for k, t in twin.items()):
+        raise AssertionError(f"[wsi] an arithmetic or planar slide's "
+                             f"patches or features differ from its "
+                             f"twin's (max |d| {diff:.3e})")
+    log(f"[wsi] the six slides of the crop: cli.create_patches "
+        f"{wall['stage0_arith_jpg']:.2f} s (.jpg) + "
+        f"{wall['stage0_arith_tiff']:.2f} s (.tiff), "
+        f"{len(coords['baseline'])} patches each .jpg, "
+        f"{len(coords['chunky'])} each .tiff, coordinates equal to the "
+        f"twin's; cli.extract_features_fp {wall['stage1_arith_jpg']:.2f} "
+        f"s + {wall['stage1_arith_tiff']:.2f} s, features bit for bit "
+        f"{bitwise}, max |d| {diff:.3e}; no launch")
+    cohort = os.path.join(td, "wsi_arith_cohort.csv")
+    with open(cohort, "w") as f:
+        f.write("subject_id,slide_id\n" + "".join(
+            f"A_{k},{n_}{kinds[k]}\n" for k, n_ in names.items()))
+    served, _ = _serve_and_check(
+        launch_counters, "wsi", "serve_arith", "on the arithmetic, "
+        "progressive, planar and baseline slides' bags", path_exp, cohort,
+        feat, td, dict(none, _fused_pool_cuda=1), wall, launches)
+    err = max(abs(served[f"A_{k}"] - served[f"A_{t}"])
+              / abs(served[f"A_{t}"]) for k, t in twin.items())
+    log(f"[wsi] the six slides' risks: {served}")
+    if err > (0 if bitwise else 1e-4):
+        raise AssertionError("[wsi] an arithmetic or planar slide's risk "
+                             "differs from its twin's")
+    for d in dirs.values():
+        shutil.rmtree(d)
+    os.remove(npy)
 
 
 def phase_wsi_j2k(launch_counters, path_exp, td, level0, stem, wall,
@@ -5496,6 +5784,8 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
         phase_wsi_progressive(launch_counters, path_exp, td,
                               sources[first][0], twins[first], wall,
                               launches)
+        phase_wsi_arith(launch_counters, path_exp, td, sources[first][0],
+                        twins[first], wall, launches)
         del sources
         shutil.rmtree(src_c)
         log(f"[wsi] wall s ({_card()}): " + ", ".join(

@@ -66,7 +66,17 @@ class Doctor:
                       f"({e})")
             return
         self.line("ok", "native: csrc/bagio.cpp built with g++ (threaded "
-                  "bag collation + lossless-JPEG decode)")
+                  "bag collation)")
+        try:
+            native.codec_lib()
+        except RuntimeError as e:
+            self.line("fail", f"native: csrc/imgcodec.cpp could not be "
+                      f"built ({e})")
+            return
+        self.line("ok", "native: csrc/imgcodec.cpp built with g++ (TIFF "
+                  "LZW and PackBits, PNG filters, JPEG in Huffman and "
+                  "arithmetic coding, sequential, progressive and "
+                  "lossless, lossless-JPEG DICOM frames)")
 
     def kernels(self, device: str) -> bool:
         """Whether both kernels were built."""
@@ -96,16 +106,21 @@ class Doctor:
                  "deflate, shuffle and fletcher32 filters)"),
         ("flax / msgpack", "checkpoints: .pt files, utils/msgpack_io.py"),
         ("PyYAML", "heatmap configs: utils/yaml_subset.py"),
-        ("pydicom", "DICOM: data/dicom.py (JPEG Lossless in csrc/bagio.cpp, "
-                    "baseline JPEG in csrc/imgcodec.cpp, JPEG 2000 in "
-                    "csrc/j2k.cpp)"),
+        ("pydicom", "DICOM: data/dicom.py (JPEG Lossless and the JPEG "
+                    "frames of …1.2.4.50 -- baseline, progressive, "
+                    "arithmetic or lossless -- in csrc/imgcodec.cpp, JPEG "
+                    "2000 in csrc/j2k.cpp)"),
         ("OpenCV / matplotlib / PIL", "images: utils/image_ops.py, "
                                       "utils/contours.py, utils/png.py "
                                       "(every PNG PIL reads), utils/jpeg.py "
-                                      "(baseline JPEG), utils/j2k.py (JPEG "
-                                      "2000), utils/tiff.py "
-                                      "(tiled or stripped; LZW, Deflate, "
-                                      "PackBits, JPEG)"),
+                                      "(Huffman or arithmetic JPEG: "
+                                      "sequential, progressive, lossless), "
+                                      "utils/j2k.py (JPEG 2000), "
+                                      "utils/tiff.py (tiled or stripped, "
+                                      "chunky or planar; LZW, Deflate, "
+                                      "PackBits, LZMA, JPEG; bilevel, gray, "
+                                      "LA, RGB(A), 16-bit RGB, palette, "
+                                      "CMYK)"),
         ("PIL's bicubic Image.resize", "heatmap resizes: "
                                        "image_ops.resize_bicubic_pil"),
         ("matplotlib's colormaps", "heatmap colours: image_ops.colormap "
@@ -114,8 +129,10 @@ class Doctor:
          "heatmap blur and tissue mask: image_ops.gaussian_blur_u8, "
          "image_ops.fill_contours"),
         ("openslide", "slides: data/wsi.py reads TIFF (LZW, Deflate, "
-                      "PackBits, JPEG; tiled or stripped), PNG, JPEG and "
-                      "JPEG 2000; openslide formats are refused"),
+                      "PackBits, LZMA, JPEG; tiled or stripped, chunky or "
+                      "planar), PNG, JPEG (Huffman or arithmetic; "
+                      "sequential, progressive or lossless) and JPEG 2000; "
+                      "openslide formats are refused"),
         ("lungmask", "lung masks: the classical estimator in "
                      "data/ct_preprocess.py"),
     )

@@ -15,9 +15,6 @@
 // contiguous range of files a thread.  The port's own copy of
 // mmf_read_files of the JAX package's native/bagio.cpp:102.
 //
-// mmf_jpeg_lossless_decode: the entropy decode of a lossless-JPEG DICOM
-// frame (below).
-//
 // Built at first use by multimodalfusion_tpu_torch/native.py:
 //   g++ -O3 -shared -fPIC -pthread -std=c++17 -o bagio.so bagio.cpp
 
@@ -142,111 +139,6 @@ int64_t mmf_read_files(const char** paths, const int64_t* sizes,
     int64_t total = 0;
     for (auto v : ok) total += v;
     return total;
-}
-
-// JPEG Lossless (ITU T.81 process 14 — DICOM's SV1 syntax and any
-// SV 1..7) entropy decode + predictor reconstruction: the port's own copy
-// of mmf_jpeg_lossless_decode of the JAX package's native/bagio.cpp.  The
-// Python side (data/dicom.py) parses the markers, strips byte stuffing,
-// and hands over the entropy-coded bytes plus the selected DHT's
-// BITS/HUFFVAL lists; this routine runs the per-sample Huffman walk and
-// prediction.
-// counts: 16 bytes (codes per length), symbols: sum(counts) bytes —
-// lengths validated by the caller; canonicity is validated HERE
-// because a non-canonical DHT would otherwise index past the LUT.
-// Returns 0 ok, -1 invalid Huffman table/code, -2 truncated stream,
-// -3 unsupported predictor.
-int mmf_jpeg_lossless_decode(const uint8_t* entropy, int64_t n_bytes,
-                             const uint8_t* counts, const uint8_t* symbols,
-                             int rows, int cols, int psv, int default_pred,
-                             uint16_t* out) {
-    // 16-bit prefix LUT over the canonical code (T.81 Annex C.2): every
-    // window whose leading bits spell a code maps to (length, symbol).
-    struct Ent { uint8_t len; uint8_t sym; };
-    std::vector<Ent> lut(1u << 16, Ent{0, 0});
-    uint32_t code = 0;
-    int k = 0;
-    for (int L = 1; L <= 16; ++L) {
-        for (int i = 0; i < counts[L - 1]; ++i) {
-            if (code >= (1u << L)) return -1;  // non-canonical DHT: the
-            // code space of length L is exhausted; writing would run
-            // past the 2^16-entry LUT (heap corruption)
-            uint32_t lo = code << (16 - L);
-            uint32_t hi = lo + (1u << (16 - L));
-            for (uint32_t w = lo; w < hi; ++w) {
-                lut[w].len = (uint8_t)L;
-                lut[w].sym = symbols[k];
-            }
-            ++k;
-            ++code;
-        }
-        code <<= 1;
-    }
-    // MSB-first bit reader; bytes past the end read as 0xFF pad but any
-    // CONSUMED bit index >= n_bytes*8 is an error (parity with the
-    // Python _BitReader, whose indexing fails there).
-    const int64_t total_bits = n_bytes * 8;
-    uint64_t acc = 0;
-    int acc_bits = 0;
-    int64_t bytepos = 0, bitpos = 0;
-    auto refill = [&]() {
-        while (acc_bits <= 56) {
-            acc = (acc << 8) |
-                  (bytepos < n_bytes ? (uint64_t)entropy[bytepos] : 0xFFu);
-            ++bytepos;
-            acc_bits += 8;
-        }
-    };
-    for (int y = 0; y < rows; ++y) {
-        uint16_t* cur = out + (int64_t)y * cols;
-        const uint16_t* above = y ? cur - cols : nullptr;
-        for (int x = 0; x < cols; ++x) {
-            refill();
-            Ent e = lut[(acc >> (acc_bits - 16)) & 0xFFFFu];
-            if (!e.len) return -1;
-            acc_bits -= e.len;
-            bitpos += e.len;
-            if (bitpos > total_bits) return -2;
-            int ssss = e.sym;
-            if (ssss > 16) return -1;  // SSSS past the 16-bit category
-            // table: 1<<ssss / the magnitude shift would be UB
-            int diff;
-            if (ssss == 0) {
-                diff = 0;
-            } else if (ssss == 16) {
-                diff = 32768;
-            } else {
-                refill();
-                uint32_t v = (uint32_t)(acc >> (acc_bits - ssss)) &
-                             ((1u << ssss) - 1u);
-                acc_bits -= ssss;
-                bitpos += ssss;
-                if (bitpos > total_bits) return -2;
-                diff = (v >= (1u << (ssss - 1))) ? (int)v
-                                                 : (int)v - (1 << ssss) + 1;
-            }
-            int pred;
-            if (y == 0) {                       // T.81 H.1.2 boundaries
-                pred = x ? cur[x - 1] : default_pred;
-            } else if (x == 0) {
-                pred = above[0];
-            } else {
-                int ra = cur[x - 1], rb = above[x], rc = above[x - 1];
-                switch (psv) {
-                    case 1: pred = ra; break;
-                    case 2: pred = rb; break;
-                    case 3: pred = rc; break;
-                    case 4: pred = ra + rb - rc; break;
-                    case 5: pred = ra + ((rb - rc) >> 1); break;
-                    case 6: pred = rb + ((ra - rc) >> 1); break;
-                    case 7: pred = (ra + rb) >> 1; break;
-                    default: return -3;
-                }
-            }
-            cur[x] = (uint16_t)((pred + diff) & 0xFFFF);
-        }
-    }
-    return 0;
 }
 
 }  // extern "C"

@@ -11,11 +11,14 @@
 // mmf_png_unfilter: the PNG row filters 0-4 (None, Sub, Up, Average,
 // Paeth) of one image or one Adam7 pass; serial along a row.
 //
-// mmf_jpeg_decode: sequential and progressive Huffman JPEG (SOF0, SOF1,
-// SOF2; 8-bit, 1, 3 or 4 components, sampling factors 1..4 dividing the
-// largest), from the markers that utils/jpeg.py parsed: the entropy
-// decode (restart intervals included; a progressive frame's scans into
-// one coefficient array per component, jdphuff.c), libjpeg-turbo's block
+// mmf_jpeg_decode: sequential and progressive JPEG in Huffman or
+// arithmetic coding (SOF0, SOF1, SOF2, SOF9, SOF10) and lossless Huffman
+// JPEG (SOF3); 8-bit, 1, 3 or 4 components, sampling factors 1..4
+// dividing the largest; from the markers that utils/jpeg.py parsed: the
+// entropy decode (restart intervals included; a progressive frame's scans
+// into one coefficient array per component, jdphuff.c; T.81 Annex D's
+// arithmetic decoder with jdarith.c's statistics bins and contexts;
+// a lossless frame's predictor loop, lossless_scan), libjpeg-turbo's block
 // smoothing of coefficients the scans left unrefined (jdcoefct.c's
 // decompress_smooth_data), libjpeg's accurate integer IDCT (jidctint.c,
 // "ISLOW"), libjpeg 6b's triangle ("fancy") upsampling and its
@@ -25,6 +28,10 @@
 // (TIFF tiles and strips) decode in parallel threads; a single frame
 // runs its IDCT (a progressive one's smoothing first) in block rows, and
 // its upsampling and colour conversion in row bands, across the threads.
+//
+// mmf_jpeg_lossless_decode: the lossless-JPEG DICOM frames (…1.2.4.57,
+// .70) as the JAX package's native decoder reads them, through the same
+// predictor loop.
 //
 // Built at first use by multimodalfusion_tpu_torch/native.py:
 //   g++ -O3 -shared -fPIC -pthread -std=c++17 -o imgcodec.so imgcodec.cpp
@@ -338,69 +345,31 @@ struct Huff {
     }
 };
 
-// MSB-first reader of one scan: FF 00 is a data byte FF; any other
-// marker stops the data (zeros are read past it), and a restart marker
-// is consumed by restart().
-struct Bits {
+// The bytes of one scan: FF 00 is a data byte FF; any other marker stops
+// the data (zeros are read past it), and a restart marker is consumed by
+// restart().
+struct ScanBytes {
     const uint8_t* p;
     int64_t n, pos = 0;
-    uint64_t acc = 0;
-    int cnt = 0;
     bool marker = false;
-    void fill() {
-        while (cnt <= 56) {
-            uint64_t b = 0;
-            if (!marker && pos < n) {
-                b = p[pos];
-                if (b == 0xFF) {
-                    if (pos + 1 < n && p[pos + 1] == 0x00) {
-                        pos += 2;
-                    } else {
-                        marker = true;
-                        b = 0;
-                    }
-                } else {
-                    ++pos;
-                }
+    uint64_t next() {
+        if (marker || pos >= n) return 0;
+        uint64_t b = p[pos];
+        if (b == 0xFF) {
+            if (pos + 1 < n && p[pos + 1] == 0x00) {
+                pos += 2;
+            } else {
+                marker = true;
+                b = 0;
             }
-            acc |= b << (56 - cnt);
-            cnt += 8;
+        } else {
+            ++pos;
         }
+        return b;
     }
-    int get(int k) {  // k in 1..16
-        if (cnt < k) fill();
-        int v = (int)(acc >> (64 - k));
-        acc <<= k;
-        cnt -= k;
-        return v;
-    }
-    int decode(const Huff& h) {
-        if (cnt < 16) fill();
-        int e = h.look[acc >> 55];
-        if (e) {
-            int L = e >> 8;
-            acc <<= L;
-            cnt -= L;
-            return e & 0xFF;
-        }
-        int L = 10;
-        int32_t code = (int32_t)(acc >> 54);
-        while (L <= 16 && code > h.maxcode[L]) {
-            ++L;
-            code = (int32_t)(acc >> (64 - L));
-        }
-        if (L > 16) return -1;
-        acc <<= L;
-        cnt -= L;
-        int idx = h.valptr[L] + code;
-        return (idx >= 0 && idx < 256) ? h.vals[idx] : -1;
-    }
-    // drop what is left of this interval (bits, and bytes a corrupt
-    // interval did not use; FF 00 is data, FF FF fill), then read the
-    // next RSTn marker
-    bool restart() {
-        acc = 0;
-        cnt = 0;
+    // skip what is left of this interval (bytes a corrupt interval did
+    // not use; FF 00 is data, FF FF fill), then read the next RSTn marker
+    bool skip_to_restart() {
         while (pos + 1 < n) {
             if (p[pos] != 0xFF || p[pos + 1] == 0x00 || p[pos + 1] == 0xFF) {
                 pos += (p[pos] == 0xFF && p[pos + 1] == 0x00) ? 2 : 1;
@@ -412,6 +381,164 @@ struct Bits {
             return true;
         }
         return false;
+    }
+};
+
+// Entropy-coded bytes with the stuffing already removed, 0xFF past the
+// end (the DICOM lossless route, as the JAX package's decoder reads
+// them).
+struct PlainBytes {
+    const uint8_t* p;
+    int64_t n, pos = 0;
+    uint64_t next() { return pos < n ? p[pos++] : (++pos, 0xFFu); }
+    bool skip_to_restart() { return false; }
+};
+
+// MSB-first Huffman bit reader over a byte source; `used` counts the
+// bits consumed.
+template <class Src>
+struct BitReader {
+    Src src;
+    uint64_t acc = 0;
+    int cnt = 0;
+    int64_t used = 0;
+    void fill() {
+        while (cnt <= 56) {
+            acc |= src.next() << (56 - cnt);
+            cnt += 8;
+        }
+    }
+    int get(int k) {  // k in 1..16
+        if (cnt < k) fill();
+        int v = (int)(acc >> (64 - k));
+        acc <<= k;
+        cnt -= k;
+        used += k;
+        return v;
+    }
+    int decode(const Huff& h) {
+        if (cnt < 16) fill();
+        int e = h.look[acc >> 55];
+        if (e) {
+            int L = e >> 8;
+            acc <<= L;
+            cnt -= L;
+            used += L;
+            return e & 0xFF;
+        }
+        int L = 10;
+        int32_t code = (int32_t)(acc >> 54);
+        while (L <= 16 && code > h.maxcode[L]) {
+            ++L;
+            code = (int32_t)(acc >> (64 - L));
+        }
+        if (L > 16) return -1;
+        acc <<= L;
+        cnt -= L;
+        used += L;
+        int idx = h.valptr[L] + code;
+        return (idx >= 0 && idx < 256) ? h.vals[idx] : -1;
+    }
+    // drop the bits left of this interval and read the next RSTn
+    bool restart() {
+        acc = 0;
+        cnt = 0;
+        return src.skip_to_restart();
+    }
+};
+
+using Bits = BitReader<ScanBytes>;
+
+// T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16 | next state
+// after an MPS << 8 | switch << 7 | next state after an LPS.  State 113
+// is the fixed probability 0.5 of the sign and refinement bits.
+#define Q(qe, nl, nm, sw) \
+    (((uint32_t)(qe) << 16) | ((nm) << 8) | ((sw) << 7) | (nl))
+constexpr uint32_t ARITAB[114] = {
+    Q(0x5A1D, 1, 1, 1),     Q(0x2586, 14, 2, 0),    Q(0x1114, 16, 3, 0),
+    Q(0x080B, 18, 4, 0),    Q(0x03D8, 20, 5, 0),    Q(0x01DA, 23, 6, 0),
+    Q(0x00E5, 25, 7, 0),    Q(0x006F, 28, 8, 0),    Q(0x0036, 30, 9, 0),
+    Q(0x001A, 33, 10, 0),   Q(0x000D, 35, 11, 0),   Q(0x0006, 9, 12, 0),
+    Q(0x0003, 10, 13, 0),   Q(0x0001, 12, 13, 0),   Q(0x5A7F, 15, 15, 1),
+    Q(0x3F25, 36, 16, 0),   Q(0x2CF2, 38, 17, 0),   Q(0x207C, 39, 18, 0),
+    Q(0x17B9, 40, 19, 0),   Q(0x1182, 42, 20, 0),   Q(0x0CEF, 43, 21, 0),
+    Q(0x09A1, 45, 22, 0),   Q(0x072F, 46, 23, 0),   Q(0x055C, 48, 24, 0),
+    Q(0x0406, 49, 25, 0),   Q(0x0303, 51, 26, 0),   Q(0x0240, 52, 27, 0),
+    Q(0x01B1, 54, 28, 0),   Q(0x0144, 56, 29, 0),   Q(0x00F5, 57, 30, 0),
+    Q(0x00B7, 59, 31, 0),   Q(0x008A, 60, 32, 0),   Q(0x0068, 62, 33, 0),
+    Q(0x004E, 63, 34, 0),   Q(0x003B, 32, 35, 0),   Q(0x002C, 33, 9, 0),
+    Q(0x5AE1, 37, 37, 1),   Q(0x484C, 64, 38, 0),   Q(0x3A0D, 65, 39, 0),
+    Q(0x2EF1, 67, 40, 0),   Q(0x261F, 68, 41, 0),   Q(0x1F33, 69, 42, 0),
+    Q(0x19A8, 70, 43, 0),   Q(0x1518, 72, 44, 0),   Q(0x1177, 73, 45, 0),
+    Q(0x0E74, 74, 46, 0),   Q(0x0BFB, 75, 47, 0),   Q(0x09F8, 77, 48, 0),
+    Q(0x0861, 78, 49, 0),   Q(0x0706, 79, 50, 0),   Q(0x05CD, 48, 51, 0),
+    Q(0x04DE, 50, 52, 0),   Q(0x040F, 50, 53, 0),   Q(0x0363, 51, 54, 0),
+    Q(0x02D4, 52, 55, 0),   Q(0x025C, 53, 56, 0),   Q(0x01F8, 54, 57, 0),
+    Q(0x01A4, 55, 58, 0),   Q(0x0160, 56, 59, 0),   Q(0x0125, 57, 60, 0),
+    Q(0x00F6, 58, 61, 0),   Q(0x00CB, 59, 62, 0),   Q(0x00AB, 61, 63, 0),
+    Q(0x008F, 61, 32, 0),   Q(0x5B12, 65, 65, 1),   Q(0x4D04, 80, 66, 0),
+    Q(0x412C, 81, 67, 0),   Q(0x37D8, 82, 68, 0),   Q(0x2FE8, 83, 69, 0),
+    Q(0x293C, 84, 70, 0),   Q(0x2379, 86, 71, 0),   Q(0x1EDF, 87, 72, 0),
+    Q(0x1AA9, 87, 73, 0),   Q(0x174E, 72, 74, 0),   Q(0x1424, 72, 75, 0),
+    Q(0x119C, 74, 76, 0),   Q(0x0F6B, 74, 77, 0),   Q(0x0D51, 75, 78, 0),
+    Q(0x0BB6, 77, 79, 0),   Q(0x0A40, 77, 48, 0),   Q(0x5832, 80, 81, 1),
+    Q(0x4D1C, 88, 82, 0),   Q(0x438E, 89, 83, 0),   Q(0x3BDD, 90, 84, 0),
+    Q(0x34EE, 91, 85, 0),   Q(0x2EAE, 92, 86, 0),   Q(0x299A, 93, 87, 0),
+    Q(0x2516, 86, 71, 0),   Q(0x5570, 88, 89, 1),   Q(0x4CA9, 95, 90, 0),
+    Q(0x44D9, 96, 91, 0),   Q(0x3E22, 97, 92, 0),   Q(0x3824, 99, 93, 0),
+    Q(0x32B4, 99, 94, 0),   Q(0x2E17, 93, 86, 0),   Q(0x56A8, 95, 96, 1),
+    Q(0x4F46, 101, 97, 0),  Q(0x47E5, 102, 98, 0),  Q(0x41CF, 103, 99, 0),
+    Q(0x3C3D, 104, 100, 0), Q(0x375E, 99, 93, 0),   Q(0x5231, 105, 102, 0),
+    Q(0x4C0F, 106, 103, 0), Q(0x4639, 107, 104, 0), Q(0x415E, 103, 99, 0),
+    Q(0x5627, 105, 106, 1), Q(0x50E7, 108, 107, 0), Q(0x4B85, 109, 103, 0),
+    Q(0x5597, 110, 109, 0), Q(0x504F, 111, 107, 0), Q(0x5A10, 110, 111, 1),
+    Q(0x5522, 112, 109, 0), Q(0x59EB, 112, 111, 1), Q(0x5A1D, 113, 113, 0)};
+#undef Q
+
+// T.81 Annex D's decoder (jdarith.c's arith_decode) over one scan's
+// bytes: zeros past a marker, as libjpeg supplies them.
+struct Arith {
+    ScanBytes src;
+    int64_t c = 0, a = 0;
+    int ct = -16;
+    int decode(uint8_t* st) {
+        while (a < 0x8000) {
+            if (--ct < 0) {
+                c = (c << 8) | (int64_t)src.next();
+                if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+            }
+            a <<= 1;
+        }
+        int sv = *st;
+        uint32_t e = ARITAB[sv & 0x7F];
+        int64_t qe = e >> 16;
+        int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+        a -= qe;
+        int64_t temp = a << ct;
+        if (c >= temp) {
+            c -= temp;
+            if (a < qe) {
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            } else {
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            }
+            a = qe;
+        } else if (a < 0x8000) {
+            if (a < qe) {
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            } else {
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            }
+        }
+        return sv >> 7;
+    }
+    bool restart() {
+        c = 0;
+        a = 0;
+        ct = -16;
+        return src.skip_to_restart();
     }
 };
 
@@ -435,6 +562,10 @@ struct MmfJpegScan {
     uint8_t dc_vals[4][256];
     uint8_t ac_bits[4][16];
     uint8_t ac_vals[4][256];
+    // arithmetic coding: each component's DC and AC table numbers (0..15)
+    // and conditioning (L, U of its DC table, Kx of its AC table)
+    int32_t dc_tbl[4], ac_tbl[4];
+    int32_t cond_l[4], cond_u[4], cond_k[4];
 };
 
 struct MmfJpegFrame {
@@ -443,7 +574,8 @@ struct MmfJpegFrame {
     int32_t h[4], v[4];
     uint16_t qt[4][64];  // each component's table, natural order
     int32_t nscans, status;
-    int32_t progressive, reserved;
+    int32_t progressive;
+    int32_t coding;      // 0 Huffman, 1 arithmetic, 2 lossless (Huffman)
     const MmfJpegScan* scans;  // nscans of them
     uint8_t* out;        // out_rows x out_cols x ncomp, rows out_stride
     int64_t out_stride;  // bytes apart
@@ -461,6 +593,7 @@ struct Plane {
     int64_t stride = 0;  // = blocks across * 8
     int dw = 0, dh = 0;  // the component's own width and height
     int rh = 1, rv = 1;  // upsampling ratios
+    bool box = false;    // replicate, never fancy (lossless frames)
 };
 
 // A frame's coefficients of one component (natural order, int16 as
@@ -625,6 +758,298 @@ int decode_scan(const MmfJpegFrame& f, const MmfJpegScan& s,
     return 0;
 }
 
+// One arithmetic-coded scan (jdarith.c): the statistics bins of each
+// table number (64 DC, 256 AC) and the fixed bin, reset with the DC
+// predictions and contexts at the start and at each restart; a
+// sequential scan, or DC first, DC refinement, AC first, AC refinement.
+// 0, or -3 corrupt data (a run past the band, a magnitude past 15 bits).
+int decode_scan_arith(const MmfJpegFrame& f, const MmfJpegScan& s,
+                      std::vector<Coefs>& cs, int hmax, int vmax) {
+    const bool seq = !f.progressive;
+    const bool dc_band = s.ss == 0, first = s.ah == 0;
+    for (int k = 0; k < s.ncomp; ++k) {
+        if (s.dc_tbl[k] < 0 || s.dc_tbl[k] > 15 || s.ac_tbl[k] < 0 ||
+            s.ac_tbl[k] > 15) {
+            return -1;
+        }
+    }
+    Arith ar{ScanBytes{s.data, s.len}};
+    static thread_local uint8_t dc_st[16][64], ac_st[16][256];
+    uint8_t fixed = 113;
+    int pred[4], ctx[4];
+    auto reset = [&]() {
+        for (int k = 0; k < s.ncomp; ++k) {
+            std::memset(dc_st[s.dc_tbl[k]], 0, 64);
+            std::memset(ac_st[s.ac_tbl[k]], 0, 256);
+            pred[k] = ctx[k] = 0;
+        }
+    };
+    reset();
+    const int ss = seq ? 1 : s.ss, se = s.se, al = s.al;
+    const int p1 = 1 << al, m1 = -p1;
+    // F.23 / F.24: a nonzero magnitude from bin `at` of st (AC: a second
+    // decision there, then bins ac_base on; DC, ac_base < 0: bins 20 on);
+    // 0 on a magnitude past 15 bits
+    auto value = [&](uint8_t* st, int at, int ac_base) -> int {
+        int m = ar.decode(st + at);
+        if (m) {
+            int more;
+            if (ac_base < 0) {
+                at = 20;
+                more = ar.decode(st + at);
+            } else {
+                more = ar.decode(st + at);
+                if (more) {
+                    m = 2;
+                    at = ac_base;
+                    more = ar.decode(st + at);
+                }
+            }
+            while (more) {
+                if ((m <<= 1) == 0x8000) return 0;
+                more = ar.decode(st + ++at);
+            }
+        }
+        int v = m;
+        at += 14;
+        while (m >>= 1) {
+            if (ar.decode(st + at)) v |= m;
+        }
+        return v + 1;
+    };
+    auto block = [&](int k, int16_t* b) -> bool {
+        if (dc_band && !first) {
+            if (ar.decode(&fixed)) b[0] = (int16_t)(b[0] | p1);
+            return true;
+        }
+        if (dc_band) {
+            uint8_t* st = dc_st[s.dc_tbl[k]];
+            if (!ar.decode(st + ctx[k])) {
+                ctx[k] = 0;
+            } else {
+                int sign = ar.decode(st + ctx[k] + 1);
+                int v = value(st, ctx[k] + 2 + sign, -1);
+                if (!v) return false;
+                int m = v - 1 ? 1 << (31 - __builtin_clz(v - 1)) : 0;
+                ctx[k] = m < (1 << s.cond_l[k]) >> 1   ? 0
+                         : m > (1 << s.cond_u[k]) >> 1 ? 12 + 4 * sign
+                                                       : 4 + 4 * sign;
+                pred[k] = (pred[k] + (sign ? -v : v)) & 0xFFFF;
+            }
+            b[0] = (int16_t)(pred[k] << al);
+            if (!seq) return true;
+        }
+        uint8_t* st = ac_st[s.ac_tbl[k]];
+        if (first) {
+            for (int i = ss; i <= se; ++i) {
+                int at = 3 * (i - 1);
+                if (ar.decode(st + at)) break;  // EOB
+                while (!ar.decode(st + at + 1)) {
+                    at += 3;
+                    if (++i > se) return false;
+                }
+                int sign = ar.decode(&fixed);
+                int v = value(st, at + 2, i <= s.cond_k[k] ? 189 : 217);
+                if (!v) return false;
+                b[ZZ[i]] = (int16_t)((unsigned)(sign ? -v : v) << al);
+            }
+            return true;
+        }
+        // AC refinement (decode_mcu_AC_refine)
+        int kex = se;
+        while (kex > 0 && !b[ZZ[kex]]) --kex;
+        for (int i = ss; i <= se; ++i) {
+            int at = 3 * (i - 1);
+            if (i > kex && ar.decode(st + at)) break;  // EOB
+            for (;;) {
+                int16_t& x = b[ZZ[i]];
+                if (x) {
+                    if (ar.decode(st + at + 2)) {
+                        x = (int16_t)(x + (x < 0 ? m1 : p1));
+                    }
+                    break;
+                }
+                if (ar.decode(st + at + 1)) {
+                    x = (int16_t)(ar.decode(&fixed) ? m1 : p1);
+                    break;
+                }
+                at += 3;
+                if (++i > se) return false;
+            }
+        }
+        return true;
+    };
+    int64_t units, across;
+    if (s.ncomp == 1) {
+        const Coefs& c = cs[s.comp[0]];
+        across = c.wb;
+        units = across * c.hb;
+    } else {
+        across = (f.width + 8 * hmax - 1) / (8 * hmax);
+        units = across * ((f.height + 8 * vmax - 1) / (8 * vmax));
+    }
+    int left = s.restart;
+    for (int64_t u = 0; u < units; ++u) {
+        if (s.restart) {
+            if (!left) {
+                if (!ar.restart()) return -3;
+                reset();
+                left = s.restart;
+            }
+            --left;
+        }
+        int64_t my = u / across, mx = u % across;
+        if (s.ncomp == 1) {
+            if (!block(0, cs[s.comp[0]].block(my, mx))) return -3;
+            continue;
+        }
+        for (int k = 0; k < s.ncomp; ++k) {
+            int c = s.comp[k];
+            for (int by = 0; by < f.v[c]; ++by) {
+                for (int bx = 0; bx < f.h[c]; ++bx) {
+                    if (!block(k, cs[c].block(my * f.v[c] + by,
+                                              mx * f.h[c] + bx))) {
+                        return -3;
+                    }
+                }
+            }
+        }
+    }
+    return 0;
+}
+
+// ---------------------------------------------------------------- lossless
+
+// A component of a lossless scan: its Huffman table, its samples in an
+// MCU (h x v; 1 x 1 in a one-component scan), its own size and its
+// output samples (rows x cols, rows `stride` apart).
+struct LosslessComp {
+    const Huff* huff;
+    int h, v;
+    int64_t rows, cols;
+    uint16_t* out;
+    int64_t stride;
+};
+
+// One lossless scan (T.81 process 14, Huffman coding; libjpeg-turbo 3.x's
+// jdlhuff.c, jddiffct.c and jdlossls.c), the one predictor loop of the
+// port: the JPEG frames of mmf_jpeg_decode and the DICOM frames of
+// mmf_jpeg_lossless_decode.  The differences of each MCU row in MCU
+// order (SSSS 16 is 32768), then each component's rows of that MCU row
+// undifferenced over its own width: the first row of the scan and of each
+// restart interval (`rows_per` MCU rows, 0 for none) from the left, its
+// first sample from `initial`; the first column from above; the rest by
+// predictor psv (T.81 Table H.1); modulo 2^16.  MCU padding is decoded
+// and dropped.  0, or -1 a bad code, -2 more than `limit` bits used, -3 a
+// predictor other than 1..7 met, or a missing restart marker.
+template <class Reader>
+int lossless_scan(Reader& br, const LosslessComp* comps, int ncomp,
+                  int64_t mx, int64_t my, int psv, int initial,
+                  int64_t rows_per, int64_t limit) {
+    std::vector<std::vector<int32_t>> diff(ncomp);
+    for (int k = 0; k < ncomp; ++k) {
+        diff[k].assign((size_t)(comps[k].v * mx * comps[k].h), 0);
+    }
+    for (int64_t r = 0; r < my; ++r) {
+        if (r && rows_per && r % rows_per == 0 && !br.restart()) return -3;
+        for (int64_t x = 0; x < mx; ++x) {
+            for (int k = 0; k < ncomp; ++k) {
+                const LosslessComp& c = comps[k];
+                int32_t* d = diff[k].data() + x * c.h;
+                for (int yy = 0; yy < c.v; ++yy) {
+                    for (int xx = 0; xx < c.h; ++xx) {
+                        int t = br.decode(*c.huff);
+                        if (t < 0 || t > 16) return -1;
+                        int v = t == 16 ? 32768 : t ? extend(br.get(t), t) : 0;
+                        if (br.used > limit) return -2;
+                        d[yy * mx * c.h + xx] = v;
+                    }
+                }
+            }
+        }
+        for (int k = 0; k < ncomp; ++k) {
+            const LosslessComp& c = comps[k];
+            for (int yy = 0; yy < c.v; ++yy) {
+                int64_t y = r * c.v + yy;
+                if (y >= c.rows) break;
+                uint16_t* cur = c.out + y * c.stride;
+                const uint16_t* prev = cur - c.stride;
+                const int32_t* d = diff[k].data() + yy * mx * c.h;
+                bool top = rows_per ? y % (rows_per * c.v) == 0 : y == 0;
+                for (int64_t x = 0; x < c.cols; ++x) {
+                    int pred;
+                    if (top) {
+                        pred = x ? cur[x - 1] : initial;
+                    } else if (x == 0) {
+                        pred = prev[0];
+                    } else {
+                        int ra = cur[x - 1], rb = prev[x], rc = prev[x - 1];
+                        switch (psv) {
+                            case 1: pred = ra; break;
+                            case 2: pred = rb; break;
+                            case 3: pred = rc; break;
+                            case 4: pred = ra + rb - rc; break;
+                            case 5: pred = ra + ((rb - rc) >> 1); break;
+                            case 6: pred = rb + ((ra - rc) >> 1); break;
+                            case 7: pred = (ra + rb) >> 1; break;
+                            default: return -3;
+                        }
+                    }
+                    cur[x] = (uint16_t)((pred + d[x]) & 0xFFFF);
+                }
+            }
+        }
+    }
+    return 0;
+}
+
+// Every scan of a lossless frame into its component's samples: (sample
+// << Pt) kept to 8 bits (jdlossls.c's scaler and JSAMPLE), replicated when
+// upsampled.  0, or -1 a frame this decoder does not take, -2 a bad
+// Huffman table, -3 corrupt data.
+int decode_lossless(const MmfJpegFrame& f, std::vector<Plane>& planes,
+                    int hmax, int vmax) {
+    std::vector<std::vector<uint16_t>> work(f.ncomp);
+    std::vector<int> pt(f.ncomp, 0);
+    for (int c = 0; c < f.ncomp; ++c) {
+        work[c].assign((size_t)planes[c].dw * planes[c].dh, 0);
+    }
+    for (int si = 0; si < f.nscans; ++si) {
+        const MmfJpegScan& s = f.scans[si];
+        if (s.al < 0 || s.al > 7) return -1;
+        const bool one = s.ncomp == 1;
+        Huff huff[4];
+        LosslessComp lc[4];
+        for (int k = 0; k < s.ncomp; ++k) {
+            int c = s.comp[k];
+            if (!huff[k].build(s.dc_bits[k], s.dc_vals[k])) return -2;
+            lc[k] = LosslessComp{&huff[k], one ? 1 : f.h[c],
+                                 one ? 1 : f.v[c], planes[c].dh,
+                                 planes[c].dw, work[c].data(),
+                                 planes[c].dw};
+            pt[c] = s.al;
+        }
+        int64_t mx = one ? planes[s.comp[0]].dw : (f.width + hmax - 1) / hmax;
+        int64_t my =
+            one ? planes[s.comp[0]].dh : (f.height + vmax - 1) / vmax;
+        if (s.restart % mx) return -1;
+        Bits br{ScanBytes{s.data, s.len}};
+        int rc = lossless_scan(br, lc, s.ncomp, mx, my, s.ss, 1 << (7 - s.al),
+                               s.restart / mx, INT64_MAX);
+        if (rc) return -3;
+    }
+    for (int c = 0; c < f.ncomp; ++c) {
+        Plane& p = planes[c];
+        p.stride = p.dw;
+        p.box = true;
+        p.px.resize(work[c].size());
+        for (size_t i = 0; i < work[c].size(); ++i) {
+            p.px[i] = (uint8_t)(work[c][i] << pt[c]);
+        }
+    }
+    return 0;
+}
+
 // zigzag positions 1..9 in natural order: the coefficients block
 // smoothing estimates (AC01, AC10, AC20, AC11, AC02, AC03, AC12, AC21,
 // AC30)
@@ -768,7 +1193,8 @@ int decode_coefficients(const MmfJpegFrame& f, std::vector<Plane>& planes,
                 : (s.ss != 0 || s.se != 63 || s.ah != 0 || s.al != 0)) {
             return -1;
         }
-        int rc = decode_scan(f, s, cs, hmax, vmax);
+        int rc = f.coding == 1 ? decode_scan_arith(f, s, cs, hmax, vmax)
+                               : decode_scan(f, s, cs, hmax, vmax);
         if (rc) return rc;
         for (int k = 0; k < s.ncomp; ++k) {
             for (int i = s.ss; i <= s.se; ++i) cs[s.comp[k]].bits[i] = s.al;
@@ -828,6 +1254,9 @@ void upsample_row(const Plane& p, int y, int cols, uint8_t* row,
     int dw = p.dw, dh = p.dh;
     if (p.rh == 1 && p.rv == 1) {
         std::memcpy(row, px + (int64_t)y * p.stride, cols);
+    } else if (p.box) {
+        const uint8_t* in = px + (int64_t)(y / p.rv) * p.stride;
+        for (int x = 0; x < cols; ++x) row[x] = in[x / p.rh];
     } else if (p.rh == 2 && p.rv == 1 && dw > 2) {
         const uint8_t* in = px + (int64_t)y * p.stride;
         for (int x = 0; x < cols; ++x) {
@@ -919,6 +1348,9 @@ void output_rows(const MmfJpegFrame& f, const std::vector<Plane>& planes,
 // -3 corrupt entropy-coded data
 int decode_frame(MmfJpegFrame& f, int n_threads) {
     if (f.ncomp != 1 && f.ncomp != 3 && f.ncomp != 4) return -1;
+    if (f.coding < 0 || f.coding > 2 || (f.coding == 2 && f.progressive)) {
+        return -1;
+    }
     if (f.out_rows > f.height || f.out_cols > f.width || f.out_rows < 0 ||
         f.out_cols < 0 || f.nscans < 1 || !f.scans) {
         return -1;
@@ -949,7 +1381,9 @@ int decode_frame(MmfJpegFrame& f, int n_threads) {
             if (sc.comp[k] < 0 || sc.comp[k] >= f.ncomp) return -1;
         }
     }
-    int rc = decode_coefficients(f, planes, hmax, vmax, n_threads);
+    int rc = f.coding == 2
+                 ? decode_lossless(f, planes, hmax, vmax)
+                 : decode_coefficients(f, planes, hmax, vmax, n_threads);
     if (rc) return rc;
     int threads = resolve_threads(n_threads, f.out_rows / 64 + 1);
     int band = (f.out_rows + threads - 1) / std::max(threads, 1);
@@ -976,6 +1410,32 @@ int mmf_jpeg_decode(MmfJpegFrame* frames, int64_t n, int n_threads) {
         if (frames[i].status) failed.fetch_add(1);
     });
     return failed.load();
+}
+
+// JPEG Lossless (T.81 process 14: DICOM's …1.2.4.70 SV1 syntax and
+// …1.2.4.57 with any SV 1..7) of one one-component frame without restart
+// intervals, as the JAX package's native/bagio.cpp decodes it: the
+// entropy-coded bytes with the stuffing removed (0xFF past them; more
+// bits than they hold is an error), the DHT's 16 code counts and its
+// symbols (their lengths checked by the caller), the predictor and the
+// first sample's prediction, into out (rows x cols, before the point
+// transform), through lossless_scan.  Returns 0, -1 a bad Huffman table
+// or code, -2 a truncated stream, -3 a predictor other than 1..7.
+int mmf_jpeg_lossless_decode(const uint8_t* entropy, int64_t n_bytes,
+                             const uint8_t* counts, const uint8_t* symbols,
+                             int rows, int cols, int psv, int default_pred,
+                             uint16_t* out) {
+    int n = 0;
+    for (int i = 0; i < 16; ++i) n += counts[i];
+    if (n > 256) return -1;
+    uint8_t vals[256] = {0};
+    std::memcpy(vals, symbols, (size_t)n);
+    Huff h;
+    if (!h.build(counts, vals)) return -1;
+    BitReader<PlainBytes> br{PlainBytes{entropy, n_bytes}};
+    LosslessComp c{&h, 1, 1, rows, cols, out, cols};
+    return lossless_scan(br, &c, 1, cols, rows, psv, default_pred, 0,
+                         n_bytes * 8);
 }
 
 // Decode n TIFF chunks (codec 5: LZW, 32773: PackBits) from srcs[i]

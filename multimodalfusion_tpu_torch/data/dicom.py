@@ -14,8 +14,9 @@ load_scan; datasets/dataset_raw.py:51-89):
     Lossless (…1.2.4.70 SV1, the most common compressed syntax of
     clinical CT archives, and …1.2.4.57 with any predictor), whose
     entropy decode runs in C++ (``native.jpeg_lossless_decode``), and
-    Baseline JPEG (…1.2.4.50, 8-bit; a progressive frame tagged .50
-    too, as PIL decodes it) and JPEG 2000 (…1.2.4.90 lossless,
+    Baseline JPEG (…1.2.4.50, 8-bit; a progressive, arithmetic-coded
+    (SOF9, SOF10) or lossless (SOF3) frame tagged .50 too, as PIL
+    decodes it) and JPEG 2000 (…1.2.4.90 lossless,
     …1.2.4.91), which the JAX package decodes through PIL, here through
     the port's own decoders (``utils/jpeg.py``, ``csrc/imgcodec.cpp``;
     ``utils/j2k.py``, ``csrc/j2k.cpp``: PIL's pixels bit for bit, its

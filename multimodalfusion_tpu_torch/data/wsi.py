@@ -17,12 +17,12 @@ morphological close, the uint8 resize, rectangle, ellipse),
 Backends:
   * ``ArraySlide`` -- an in-memory numpy pyramid (tests, synthetic slides);
   * ``PILSlide`` -- the JAX name of the page-per-level reader: multi-page
-    TIFF (stripped or tiled; uncompressed, LZW, Deflate, PackBits or
-    JPEG) through ``utils/tiff.py``, PNG through ``utils/png.py``, JPEG
-    through ``utils/jpeg.py``, JPEG 2000 (PIL's ``.jp2 .j2k .jpc .jpf
-    .jpx .j2c``) through ``utils/j2k.py``; every page is decoded into RAM,
-    so the
-    decode is budgeted from the headers first (``MMF_TPU_WSI_MAX_BYTES``);
+    TIFF (``READS`` lists the layouts) through ``utils/tiff.py``, PNG
+    through ``utils/png.py``, JPEG (Huffman or arithmetic coding,
+    sequential, progressive or lossless) through ``utils/jpeg.py``, JPEG
+    2000 (PIL's ``.jp2 .j2k .jpc .jpf .jpx .j2c``) through
+    ``utils/j2k.py``; every page is decoded into RAM, so the decode is
+    budgeted from the headers first (``MMF_TPU_WSI_MAX_BYTES``);
   * ``OpenSlideBackend`` -- refuses: the port reads no openslide format.
 
 The per-pixel filters of ``segment_tissue`` run as torch ops on the
@@ -49,9 +49,11 @@ OPENSLIDE_EXTS = (".svs", ".ndpi", ".mrxs", ".scn", ".vms", ".vmu", ".bif")
 # what PILSlide reads; JPEG 2000 under the extensions PIL registers
 J2K_EXTS = (".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c")
 SLIDE_EXTS = (".tif", ".tiff", ".png", ".jpg", ".jpeg") + J2K_EXTS
-READS = ("multi-page TIFF (stripped or tiled; uncompressed, LZW, Deflate, "
-         "PackBits or JPEG), PNG, JPEG (baseline or progressive; gray, "
-         "YCbCr, RGB, CMYK or YCCK) and JPEG 2000")
+READS = ("multi-page TIFF (stripped or tiled, chunky or planar; "
+         "uncompressed, LZW, Deflate, PackBits, LZMA or JPEG; bilevel, gray, "
+         "LA, RGB with or without alpha, 16-bit RGB, palette or CMYK), PNG, "
+         "JPEG (Huffman or arithmetic coding; baseline, progressive or "
+         "lossless; gray, YCbCr, RGB, CMYK or YCCK) and JPEG 2000")
 # patches resized at once by stitch_coords (256 of 256 px: 50 MB of int32)
 STITCH_BATCH = 256
 
@@ -120,14 +122,8 @@ def _jpeg_header(path: str) -> Tuple[Tuple[int, int], str]:
         len(frame.h)]
 
 
-def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
-    """uint8 CMYK [..., 4] as PIL's ``convert("RGB")`` maps it
-    (Convert.c's cmyk2rgb): each of R, G, B = (255 - K) - C * (255 - K) /
-    255, the product rounded by MULDIV255."""
-    c = cmyk.astype(np.int32)
-    nk = 255 - c[..., 3:]
-    t = c[..., :3] * nk + 128
-    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+# CMYK -> RGB as PIL's convert("RGB") (Convert.c's cmyk2rgb)
+_cmyk_to_rgb = tiff.cmyk_to_rgb
 
 
 def _j2k_header(path: str) -> Tuple[Tuple[int, int], str]:
@@ -141,12 +137,15 @@ def _j2k_header(path: str) -> Tuple[Tuple[int, int], str]:
 
 class PILSlide(ArraySlide):
     """Page-per-level slide (the JAX name; no PIL): the pages of a multi-
-    page TIFF -- strips or tiles, uncompressed, LZW (predictor 1 or 2),
-    Deflate, PackBits or JPEG (``utils/tiff.py``) -- or one PNG of any
-    colour type, depth and interlace (``utils/png.py``), or one JPEG --
-    baseline or progressive, gray, YCbCr, RGB, CMYK or YCCK, decoded to
-    PIL's pixels by ``utils/jpeg.py``, a CMYK page mapped to RGB as
-    ``convert("RGB")`` maps it (``_cmyk_to_rgb``) -- or one JPEG 2000 image
+    page TIFF -- strips or tiles, chunky or planar, uncompressed, LZW
+    (predictor 1 or 2), Deflate, PackBits, LZMA or JPEG; bilevel, gray,
+    LA, RGB with or without alpha, 16-bit RGB, palette or CMYK
+    (``utils/tiff.py``) -- or one PNG of any colour type, depth and
+    interlace (``utils/png.py``), or one JPEG -- Huffman or arithmetic
+    coding, baseline, progressive or lossless, gray, YCbCr, RGB, CMYK or
+    YCCK, decoded to PIL's pixels by ``utils/jpeg.py``, a CMYK page mapped
+    to RGB as ``convert("RGB")`` maps it (``_cmyk_to_rgb``) -- or one JPEG
+    2000 image
     (``utils/j2k.py``), are the pyramid's levels, each as PIL's
     ``convert("RGB")`` gives it.  Any other file raises, naming its
     format.

@@ -2,16 +2,18 @@
 
 ``csrc/bagio.cpp`` (``lib()``): threaded collation of ragged bags into a
 padded batch, the threaded float32 -> bfloat16 cast, parallel whole-file
-reads, and the entropy decode of lossless-JPEG DICOM frames (JAX
-native.py).  No path of the port calls ``f32_to_bf16`` or ``read_files``
+reads.  No path of the port calls ``f32_to_bf16`` or ``read_files``
 yet; their ``*_plain`` versions are the oracles of the tests and of
 ``chip_smoke.py``.
 
 ``csrc/imgcodec.cpp`` (``codec_lib()``): the image decoders that stand in
 for PIL's libtiff, libpng and libjpeg-turbo -- TIFF LZW and PackBits
-chunks, PNG row filters and baseline JPEG frames, threaded over
-independent chunks.  Their wrappers and plain versions live with the
-readers (``utils/tiff.py``, ``utils/png.py``, ``utils/jpeg.py``).
+chunks, PNG row filters and JPEG frames (Huffman or arithmetic
+coding, sequential, progressive or lossless), threaded over independent
+chunks, and the lossless-JPEG DICOM frames (JAX native.py's
+``jpeg_lossless_decode``), on the lossless frames' predictor loop.
+Their wrappers and plain versions live with the readers
+(``utils/tiff.py``, ``utils/png.py``, ``utils/jpeg.py``).
 
 ``csrc/j2k.cpp`` (``j2k_lib()``): the hot loops of the JPEG 2000 codec
 that stands in for PIL's openjpeg (``utils/j2k.py``, which holds their
@@ -98,11 +100,6 @@ def lib() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int64, ctypes.c_int]
             loaded.mmf_read_files.restype = ctypes.c_int64
-            loaded.mmf_jpeg_lossless_decode.argtypes = [
-                ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
-                ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
-            loaded.mmf_jpeg_lossless_decode.restype = ctypes.c_int
             _lib = loaded
         return _lib
 
@@ -127,6 +124,11 @@ def codec_lib() -> ctypes.CDLL:
                                                ctypes.c_int64, ctypes.c_int]
             loaded.mmf_jpeg_decode.restype = ctypes.c_int
             loaded.mmf_jpeg_frame_size.restype = ctypes.c_int64
+            loaded.mmf_jpeg_lossless_decode.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
+            loaded.mmf_jpeg_lossless_decode.restype = ctypes.c_int
             _codec_lib = loaded
         return _codec_lib
 
@@ -411,9 +413,11 @@ def jpeg_lossless_decode(entropy: bytes, counts: bytes, symbols: bytes,
     caller), the predictor selection value and the first sample's
     prediction.  Returns uint16 [rows, cols] without the point transform,
     or None when the stream is malformed (the caller then raises the
-    precise error).  Counts one call in ``jpeg_lossless_decode.calls``."""
+    precise error).  Counts one call in ``jpeg_lossless_decode.calls``.
+    It runs ``csrc/imgcodec.cpp``'s predictor loop, which the lossless
+    JPEG frames of ``utils/jpeg.py`` run too."""
     out = np.empty((rows, cols), np.uint16)
-    rc = lib().mmf_jpeg_lossless_decode(
+    rc = codec_lib().mmf_jpeg_lossless_decode(
         bytes(entropy), len(entropy), bytes(counts), bytes(symbols), rows,
         cols, psv, default_pred, out.ctypes.data)
     jpeg_lossless_decode.calls += 1

@@ -1,7 +1,7 @@
 """JPEG, the port's stand-in for OpenCV's and PIL's libjpeg (the machine
 with the card has neither): a baseline encoder in numpy and a decoder of
-sequential and progressive frames in C++ with its plain version in
-numpy.
+sequential, progressive and lossless frames, Huffman- or
+arithmetic-coded, in C++ with its plain version in numpy.
 
 The encoder (``encode_jpeg``) stands in for ``cv2.imwrite(".jpg")``
 with OpenCV's defaults, for uint8 RGB images.
@@ -17,10 +17,11 @@ entropy coding is vectorised over all blocks; the codes are summed into
 0x00.
 
 The decoder (``decode_jpeg``, ``decode_frames``) reads what PIL's
-libjpeg-turbo decodes in 8-bit Huffman frames, bit for bit: baseline,
-extended sequential and progressive frames (SOF0, SOF1, SOF2) of 1, 3 or
-4 components, sampling factors 1..4 that divide the largest (4:4:4,
-4:2:2, 4:2:0, 4:4:0, ...), one or several scans, restart intervals in
+libjpeg-turbo decodes in 8-bit frames, bit for bit: baseline, extended
+sequential and progressive frames in Huffman coding (SOF0, SOF1, SOF2)
+or in arithmetic coding (SOF9, SOF10), and lossless Huffman frames
+(SOF3), of 1, 3 or 4 components, sampling factors 1..4 that divide
+the largest (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), one or several scans, restart intervals in
 every scan type, several DQT / DHT segments (a progressive stream's
 Huffman tables are latched at each SOS), 16-bit quantisation tables, the
 standard Huffman tables when a stream defines none (libjpeg-turbo's
@@ -39,15 +40,30 @@ libjpeg decides it (a JFIF marker, an Adobe APP14 transform flag, the
 component ids), or as the caller says (a TIFF's
 PhotometricInterpretation).  Four components come out as PIL holds them,
 inverted ("CMYK;I", with or without an Adobe marker); PIL refuses two,
-and so does the port.  ``parse_jpeg`` reads the markers in Python; the
-entropy decode, smoothing, IDCT, upsampling and colour conversion run in
-``csrc/imgcodec.cpp`` (``mmf_jpeg_decode``, independent frames in
-parallel threads), or, with ``plain=True``, in Python and numpy
-(``_decode_plain``), the oracle of the tests and ``chip_smoke.py``.
-Lossless (SOF3: ``data/dicom.py`` decodes DICOM's), arithmetic-coded and
-hierarchical frames, 12-bit samples and 2 components raise
-``NotImplementedError`` naming the marker or the count; arithmetic
-coding is queued in ROADMAP.md.
+and so does the port.  An arithmetic-coded frame (T.81 Annex D's QM
+decoder and libjpeg-turbo's jdarith.c context models: statistics bins
+of each table number, shared by the components of one table, the DAC
+segment's conditioning L, U and Kx, T.81's defaults where a stream has
+none; reset at each restart) fills the same coefficient arrays as a
+Huffman one, and its progressive scans are smoothed alike.  A lossless
+frame (jdlhuff.c, jddiffct.c, jdlossls.c) is decoded sample by sample:
+predictors 1..7, the point transform, restart intervals of whole MCU
+rows, subsampled components replicated; libjpeg-turbo converts no colour
+in lossless mode, so a lossless frame it would convert (JFIF, an Adobe
+transform) raises, as PIL raises.  ``parse_jpeg`` reads the markers in
+Python; the entropy decode, smoothing, IDCT, upsampling and colour
+conversion run in ``csrc/imgcodec.cpp`` (``mmf_jpeg_decode``,
+independent frames in parallel threads), or, with ``plain=True``, in
+Python and numpy (``_decode_plain``), the oracle of the tests and
+``chip_smoke.py``.  SOF11 and the hierarchical frames, which
+libjpeg-turbo does not decode, samples of other than 8 bits and 2
+components raise ``NotImplementedError`` naming the marker or the count,
+as PIL raises; so does a lossless or arithmetic-coded stream cut short
+(``ValueError``).  One difference from PIL is deliberate: PIL reads a
+file in 64 KiB blocks and libjpeg's arithmetic decoder cannot wait for
+the next one, so PIL refuses an arithmetic-coded ``.jpg`` larger than
+that block, while libtiff, which hands libjpeg a tile whole, decodes
+any; the port decodes the whole stream, as libjpeg does when given it.
 """
 from __future__ import annotations
 
@@ -344,18 +360,33 @@ _DATA_END = re.compile(rb"\xff(?!\x00)")
 _PAD = 512
 
 
+# a frame's coding, by its SOF marker
+HUFFMAN, ARITHMETIC, LOSSLESS = 0, 1, 2
+_SOF_CODING = {0xC0: (HUFFMAN, False), 0xC1: (HUFFMAN, False),
+               0xC2: (HUFFMAN, True), 0xC9: (ARITHMETIC, False),
+               0xCA: (ARITHMETIC, True), 0xC3: (LOSSLESS, False)}
+
+
 class Scan(NamedTuple):
     comps: Tuple[int, ...]      # frame component index of each
     # (16 code counts, symbols) of each component, as the tables stood at
     # this scan's SOS; None where the scan uses no table of that class
+    # (an arithmetic-coded scan uses none)
     dc: Tuple[Optional[Tuple[bytes, bytes]], ...]
     ac: Tuple[Optional[Tuple[bytes, bytes]], ...]
     restart: int                # restart interval in MCUs, 0 for none
     data: memoryview            # entropy-coded data, RSTn markers inside
     ss: int                     # spectral selection, zigzag positions
-    se: int
+    se: int                     # (lossless: Ss is the predictor)
     ah: int                     # successive approximation: the bit
     al: int                     # position before and after this scan
+    # (lossless: Al is the point transform)
+    # arithmetic coding: each component's (DC, AC) table numbers, whose
+    # statistics bins components of one table share, and the DAC
+    # conditioning as it stood at this SOS: (L, U) of its DC table, Kx of
+    # its AC table
+    tbl: Tuple[Tuple[int, int], ...] = ()
+    cond: Tuple[Tuple[int, int, int], ...] = ()
 
 
 class Frame(NamedTuple):
@@ -366,15 +397,39 @@ class Frame(NamedTuple):
     qt: Tuple[np.ndarray, ...]  # each component's table, natural order
     scans: Tuple[Scan, ...]
     transform: bool             # YCbCr -> RGB (3), YCCK -> CMYK (4)
-    progressive: bool           # SOF2
+    progressive: bool           # SOF2, SOF10
+    coding: int = HUFFMAN       # HUFFMAN, ARITHMETIC or LOSSLESS
 
 
 class _Tables:
-    """Quantisation and Huffman tables and the restart interval as a
-    stream defines them, marker by marker."""
+    """Quantisation and Huffman tables, the arithmetic conditioning and
+    the restart interval as a stream defines them, marker by marker."""
 
     def __init__(self):
         self.q, self.dc, self.ac, self.restart = {}, {}, {}, 0
+        self.dac_dc, self.dac_ac = {}, {}
+
+    def dac(self, body: bytes) -> None:
+        """A DAC segment (jdmarker.c's get_dac): (Tc << 4 | Tb, value)
+        pairs; a DC table's value is U << 4 | L with L <= U, an AC
+        table's is Kx."""
+        if len(body) % 2:
+            raise ValueError("bad JPEG DAC segment (odd length)")
+        for i in range(0, len(body), 2):
+            index, val = body[i], body[i + 1]
+            if index >= 32:
+                raise ValueError(f"bad JPEG DAC table index {index}")
+            if index >= 16:
+                self.dac_ac[index - 16] = val
+            elif (val & 15) > (val >> 4):
+                raise ValueError(f"bad JPEG DAC value {val:#04x} (L > U)")
+            else:
+                self.dac_dc[index] = (val & 15, val >> 4)
+
+    def conditioning(self, dc: int, ac: int) -> Tuple[int, int, int]:
+        """(L, U, Kx) of DC table ``dc`` and AC table ``ac``: T.81's
+        defaults (0, 1, 5) where no DAC defined them."""
+        return self.dac_dc.get(dc, (0, 1)) + (self.dac_ac.get(ac, 5),)
 
     def dqt(self, body: bytes) -> None:
         pos = 0
@@ -463,11 +518,15 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
                 (t.restart,) = struct.unpack_from(">H", tables, a)
             elif marker == 0xD9:
                 break
+        # the stream's own SOI resets the arithmetic conditioning
+        # (jdmarker.c's get_soi), so a DAC in the tables stream counts
+        # for nothing
     if bytes(data[:2]) != b"\xff\xd8":
         raise ValueError("not a JPEG stream (no SOI)")
     jfif, adobe = False, None
-    size = ids = h = v = tq = None
+    size = ids = h = v = tq = marker_sof = None
     progressive = False
+    coding = HUFFMAN
     qt: List[Optional[np.ndarray]] = []
     coef_bits: List[List[int]] = []
     scans = []
@@ -491,7 +550,9 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
             t.dht(body)
         elif marker == 0xDD:
             (t.restart,) = struct.unpack(">H", body[:2])
-        elif marker in (0xC0, 0xC1, 0xC2):
+        elif marker == 0xCC:
+            t.dac(body)
+        elif marker in _SOF_CODING:
             if size is not None:
                 raise ValueError("JPEG stream with two frames")
             precision, height, width, n = struct.unpack(">BHHB", body[:6])
@@ -521,14 +582,18 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
                     f"JPEG sampling factors {list(zip(h, v))}; the port "
                     f"decodes factors 1..4 that divide the largest")
             size = (width, height)
-            progressive = marker == 0xC2
-            qt = [None] * n
+            coding, progressive = _SOF_CODING[marker]
+            marker_sof = marker
+            qt = [None] * n if coding != LOSSLESS else [
+                np.zeros(64, np.uint16)] * n
             coef_bits = [[-1] * 64 for _ in range(n)]
         elif marker in _SOF_NAMES:
             raise NotImplementedError(
-                f"a JPEG frame of marker {_SOF_NAMES[marker]}; the port "
-                f"decodes baseline, extended sequential and progressive "
-                f"Huffman frames (SOF0, SOF1, SOF2)")
+                f"a JPEG frame of marker {_SOF_NAMES[marker]}, which "
+                f"libjpeg-turbo (so PIL) does not decode either; the port "
+                f"decodes sequential and progressive frames in Huffman or "
+                f"arithmetic coding (SOF0, SOF1, SOF2, SOF9, SOF10) and "
+                f"Huffman lossless frames (SOF3)")
         elif marker == 0xDA:
             if size is None:
                 raise ValueError("JPEG scan before its frame")
@@ -544,7 +609,10 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
                     raise ValueError(f"JPEG scan names component {cs}, "
                                      f"which the frame lacks")
                 comps.append(ids.index(cs))
-            if progressive:
+            if coding == LOSSLESS:
+                _check_lossless_scan(comps, ss, se, ah, al, t.restart, h,
+                                     v, size)
+            elif progressive:
                 _check_scan(comps, ss, se, ah, al, coef_bits)
             elif (ss, se, ah, al) != (0, 63, 0, 0):
                 raise NotImplementedError(
@@ -552,22 +620,35 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
                     f"approximation ({ss}..{se}, {ah}, {al}) in a "
                     f"sequential JPEG frame")
             for c in comps:
-                if qt[c] is None:  # latched at the component's first scan
+                if qt[c] is None and coding != LOSSLESS:
+                    # latched at the component's first scan
                     if tq[c] not in t.q:
                         raise ValueError(f"JPEG quantisation table {tq[c]} "
                                          f"is not defined")
                     qt[c] = t.q[tq[c]]
             end = _SCAN_END.search(data, b)
+            if end is None and coding != HUFFMAN:
+                # PIL raises on a stream cut short (libjpeg's arithmetic
+                # decoder cannot wait for more data; PIL's loader wants
+                # the EOI); so does the port for these codings
+                raise ValueError(f"a truncated JPEG stream: the "
+                                 f"{_SOF_NAMES[marker_sof]} scan's data "
+                                 f"runs to its end, with no marker after it")
             end = len(data) if end is None else end.start()
-            uses_dc = ss == 0 and ah == 0
-            uses_ac = se > 0
+            uses_dc = (ss == 0 and ah == 0 and coding == HUFFMAN) or (
+                coding == LOSSLESS)
+            uses_ac = se > 0 and coding == HUFFMAN
+            tbl = tuple((x >> 4, x & 15) for _, x in sel)
             scans.append(Scan(
                 tuple(comps),
                 tuple(t.huffman("DC", x >> 4) if uses_dc else None
                       for _, x in sel),
                 tuple(t.huffman("AC", x & 15) if uses_ac else None
                       for _, x in sel),
-                t.restart, data[b:end], ss, se, ah, al))
+                t.restart, data[b:end], ss, se, ah, al,
+                tbl if coding == ARITHMETIC else (),
+                tuple(t.conditioning(d, a) for d, a in tbl)
+                if coding == ARITHMETIC else ()))
             pos = end
         elif marker == 0xDC:
             pass  # DNL after the first scan: the height is already set
@@ -580,9 +661,16 @@ def parse_jpeg(data, tables=None, transform: Optional[bool] = None
         raise NotImplementedError(f"a sequential JPEG of {len(scans)} "
                                   f"scans")
     if transform is None:
-        transform = _libjpeg_transform(jfif, adobe, ids)
+        transform = _libjpeg_transform(jfif, adobe, ids, coding == LOSSLESS)
+    transform = bool(transform and len(ids) in (3, 4))
+    if transform and coding == LOSSLESS:
+        raise NotImplementedError(
+            f"a lossless JPEG (SOF3) of {len(ids)} components to be "
+            f"converted from {'YCbCr' if len(ids) == 3 else 'YCCK'}: "
+            f"libjpeg-turbo converts no colour in lossless mode (PIL "
+            f"raises), and neither does the port")
     return Frame(size[0], size[1], h, v, tuple(qt), tuple(scans),
-                 bool(transform and len(ids) in (3, 4)), progressive)
+                 transform, progressive, coding)
 
 
 def _check_scan(comps, ss, se, ah, al, coef_bits) -> None:
@@ -612,11 +700,13 @@ def _check_scan(comps, ss, se, ah, al, coef_bits) -> None:
         bits[ss:se + 1] = [al] * (se + 1 - ss)
 
 
-def _libjpeg_transform(jfif: bool, adobe: Optional[int], ids) -> bool:
+def _libjpeg_transform(jfif: bool, adobe: Optional[int], ids,
+                       lossless: bool = False) -> bool:
     """libjpeg's default_decompress_parms.  Three components: JFIF implies
     YCbCr; an Adobe marker's transform 0 means RGB; else the component
-    ids 'R', 'G', 'B' mean RGB and anything else YCbCr.  Four: YCCK when
-    an Adobe marker's transform is not 0, else CMYK."""
+    ids 'R', 'G', 'B' mean RGB and anything else YCbCr, or RGB in a
+    lossless frame (libjpeg-turbo 3.x).  Four: YCCK when an Adobe
+    marker's transform is not 0, else CMYK."""
     if len(ids) == 4:
         return adobe is not None and adobe != 0
     if len(ids) != 3:
@@ -625,7 +715,75 @@ def _libjpeg_transform(jfif: bool, adobe: Optional[int], ids) -> bool:
         return True
     if adobe is not None:
         return adobe != 0
-    return list(ids) != [82, 71, 66]
+    return list(ids) != [82, 71, 66] and not lossless
+
+
+def _check_lossless_scan(comps, ss, se, ah, al, restart, h, v,
+                         size) -> None:
+    """A lossless scan as libjpeg-turbo 3.x checks it (jdlossls.c,
+    start_pass_lossless, 8-bit samples): predictor Ss 1..7, Se 0, Ah 0,
+    point transform Al below the precision, a restart interval of whole
+    MCU rows."""
+    if not 1 <= ss <= 7 or se or ah or al >= 8:
+        raise ValueError(f"a lossless JPEG scan of bad parameters "
+                         f"(predictor {ss}, Se {se}, Ah {ah}, Pt {al})")
+    hm, vm = max(h), max(v)
+    if len(comps) == 1:
+        across = -(-size[0] * h[comps[0]] // hm)
+    else:
+        across = -(-size[0] // hm)
+    if restart % across:
+        raise ValueError(f"a lossless JPEG restart interval of {restart} "
+                         f"MCUs, not a multiple of the {across} MCUs of a "
+                         f"row (libjpeg refuses it)")
+
+
+# T.81 Table D.2 (libjpeg's jaricom.c): for each probability state, its
+# Qe value, the next state after an LPS and after an MPS, and whether an
+# LPS switches the sense of the MPS; packed as libjpeg packs them, Qe << 16
+# | next MPS << 8 | switch << 7 | next LPS.  The last state, 113, is the
+# fixed probability 0.5 of the sign and refinement bits.
+_QE = (
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080B, 18, 4, 0), (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0),
+    (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1),
+    (0x3F25, 36, 16, 0), (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0),
+    (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0CEF, 43, 21, 0),
+    (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01B1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0),
+    (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0),
+    (0x2EF1, 67, 40, 0), (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0),
+    (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0),
+    (0x04DE, 50, 52, 0), (0x040F, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0), (0x01F8, 54, 57, 0),
+    (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0),
+    (0x008F, 61, 32, 0), (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0),
+    (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0), (0x2FE8, 83, 69, 0),
+    (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119C, 74, 76, 0), (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0),
+    (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0),
+    (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0),
+    (0x3C3D, 104, 100, 0), (0x375E, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0), (0x415E, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0))
+_ARITAB = tuple(qe << 16 | nmps << 8 | sw << 7 | nlps
+                for qe, nlps, nmps, sw in _QE)
 
 
 # ---- the plain version: Python entropy decode, numpy IDCT and colour
@@ -723,7 +881,10 @@ def _entropy_plain(f: Frame, s: Scan, coefs: List[List[int]]) -> None:
     Al), DC refinement (one bit), AC first over Ss..Se (EOB runs), AC
     refinement (correction bits on coefficients already nonzero, zero
     runs that skip them).  Past the data every bit is 0; a bad code or a
-    run past the band raises ``ValueError``."""
+    run past the band raises ``ValueError``.  An arithmetic-coded frame's
+    scans go to ``_entropy_arith_plain``."""
+    if f.coding == ARITHMETIC:
+        return _entropy_arith_plain(f, s, coefs)
     units, across, blocks = _scan_units(f, s)
     parts = _scan_parts(s, units)
     grids = _grids(f)
@@ -881,6 +1042,189 @@ def _refine_block(out, base, table, win, pos, ss, se, p1, m1, eobrun):
             k += 1
         eobrun -= 1
     return pos, eobrun
+
+
+class _Arith:
+    """T.81 Annex D's decoder of one restart interval (jdarith.c's
+    arith_decode): the C and A registers over the interval's unstuffed
+    bytes, zeros past them, as libjpeg reads past a marker."""
+
+    __slots__ = ("data", "pos", "c", "a", "ct")
+
+    def __init__(self, data: bytes):
+        self.data, self.pos, self.c, self.a, self.ct = data, 0, 0, 0, -16
+
+    def bit(self, st, i: int) -> int:
+        """The next decision of statistics bin ``st[i]``, which it
+        updates."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                pos = self.pos
+                c = (c << 8) | (self.data[pos] if pos < len(self.data)
+                                else 0)
+                self.pos = pos + 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        e = _ARITAB[sv & 0x7F]
+        qe = e >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ ((e >> 8) & 0xFF)
+            else:
+                st[i] = (sv & 0x80) ^ (e & 0xFF)
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ (e & 0xFF)
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ ((e >> 8) & 0xFF)
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _arith_value(r: _Arith, st, at: int, ac_base: Optional[int]) -> int:
+    """Figures F.23 and F.24: a nonzero value's magnitude, its category
+    from bin ``at`` on (AC: a second decision there, then bins
+    ``ac_base`` on; DC: bins 20 on) and its bits 14 bins further."""
+    m = r.bit(st, at)
+    if m:
+        if ac_base is None:
+            at = 20
+            more = r.bit(st, at)
+        else:
+            more = r.bit(st, at)
+            if more:
+                m = 2
+                at = ac_base
+                more = r.bit(st, at)
+        while more:
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError("corrupt JPEG data (an arithmetic-coded "
+                                 "magnitude past 15 bits)")
+            at += 1
+            more = r.bit(st, at)
+    v = m
+    at += 14
+    m >>= 1
+    while m:
+        if r.bit(st, at):
+            v |= m
+        m >>= 1
+    return v + 1
+
+
+def _entropy_arith_plain(f: Frame, s: Scan, coefs: List[List[int]]) -> None:
+    """Entropy-decode arithmetic-coded scan ``s`` into ``coefs`` (see
+    ``_entropy_plain``), as libjpeg-turbo's jdarith.c: statistics bins of
+    each table number (64 DC, 256 AC) and a fixed bin of probability 0.5
+    (sign and refinement bits), reset with the DC predictions and their
+    conditioning contexts at the scan's start and at each restart; a
+    sequential scan, or DC first, DC refinement, AC first, AC refinement.
+    A run past the band or a magnitude past 15 bits raises
+    ``ValueError``."""
+    units, across, blocks = _scan_units(f, s)
+    parts = _scan_parts(s, units)
+    grids = _grids(f)
+    kind = ("seq" if not f.progressive else
+            ("dc" if not s.ah else "dcr") if s.ss == 0 else
+            ("ac" if not s.ah else "acr"))
+    nat, al = _NAT, s.al
+    ss, se = (1, 63) if kind == "seq" else (s.ss, s.se)
+    p1, m1 = 1 << al, -1 << al
+    n = len(s.comps)
+    overflow = ValueError("corrupt JPEG data (an arithmetic-coded run past "
+                          "the band)")
+    left = s.restart
+    pi = -1
+    for u in range(units):
+        if pi < 0 or (s.restart and not left):
+            pi += 1
+            r = _Arith(parts[pi])
+            dc_st = {d: bytearray(64) for d, _ in s.tbl}
+            ac_st = {a: bytearray(256) for _, a in s.tbl}
+            fixed = bytearray([113])
+            pred, ctx = [0] * n, [0] * n
+            left = s.restart
+        left -= 1
+        for k, by, bx in blocks(u):
+            c = s.comps[k]
+            base = (by * grids[c][1] + bx) * 64
+            out = coefs[c]
+            if kind == "dcr":
+                if r.bit(fixed, 0):
+                    out[base] |= p1
+                continue
+            L, U, K = s.cond[k]
+            if kind in ("seq", "dc"):
+                st = dc_st[s.tbl[k][0]]
+                at = ctx[k]
+                if not r.bit(st, at):
+                    ctx[k] = 0
+                else:
+                    sign = r.bit(st, at + 1)
+                    v = _arith_value(r, st, at + 2 + sign, None)
+                    m = 1 << (v - 1).bit_length() >> 1
+                    ctx[k] = (0 if m < (1 << L) >> 1 else
+                              12 + 4 * sign if m > (1 << U) >> 1 else
+                              4 + 4 * sign)
+                    pred[k] = (pred[k] + (-v if sign else v)) & 0xFFFF
+                out[base] = _i16(pred[k] << al)
+                if kind == "dc":
+                    continue
+            st = ac_st[s.tbl[k][1]]
+            if kind == "acr":
+                kex = se
+                while kex > 0 and not out[base + nat[kex]]:
+                    kex -= 1
+                i = ss
+                while i <= se:
+                    at = 3 * (i - 1)
+                    if i > kex and r.bit(st, at):
+                        break  # EOB
+                    while True:
+                        x = out[base + nat[i]]
+                        if x:
+                            if r.bit(st, at + 2):
+                                out[base + nat[i]] = _i16(
+                                    x + (m1 if x < 0 else p1))
+                            break
+                        if r.bit(st, at + 1):
+                            out[base + nat[i]] = m1 if r.bit(fixed, 0) \
+                                else p1
+                            break
+                        at += 3
+                        i += 1
+                        if i > se:
+                            raise overflow
+                    i += 1
+                continue
+            i = ss
+            while i <= se:
+                at = 3 * (i - 1)
+                if r.bit(st, at):
+                    break  # EOB
+                while not r.bit(st, at + 1):
+                    at += 3
+                    i += 1
+                    if i > se:
+                        raise overflow
+                sign = r.bit(fixed, 0)
+                v = _arith_value(r, st, at + 2, 189 if i <= K else 217)
+                out[base + nat[i]] = _i16((-v if sign else v) << al)
+                i += 1
 
 
 # zigzag positions 1..9 in natural order: the coefficients libjpeg's
@@ -1138,12 +1482,104 @@ _CR_G = -46802 * _X
 _CB_G = -22554 * _X + 32768
 
 
+def _lossless_plain(f: Frame) -> List[np.ndarray]:
+    """Each component's samples [ceil(H v / v_max), ceil(W h / h_max)]
+    (uint8) of a lossless frame, as libjpeg-turbo 3.x decodes them
+    (jdlhuff.c, jddiffct.c, jdlossls.c): each scan's differences in MCU
+    order (one sample an MCU in a one-component scan, h x v of each
+    component in an interleaved one; SSSS 16 is 32768), then each
+    component's rows undifferenced over its own width (T.81 H.1.2.1:
+    the first row of the scan and of each restart interval from the left,
+    its first sample from 2^(7 - Pt); the first column from above; the
+    rest by the scan's predictor), modulo 2^16, shifted left by the
+    point transform and kept to 8 bits.  MCU padding is decoded and
+    dropped.  A bad code raises ``ValueError``."""
+    hm, vm = max(f.h), max(f.v)
+    size = [(-(-f.height * f.v[c] // vm), -(-f.width * f.h[c] // hm))
+            for c in range(len(f.h))]
+    planes = [np.zeros(sz, np.uint8) for sz in size]
+    for s in f.scans:
+        one = len(s.comps) == 1
+        samp = [(1, 1) if one else (f.h[c], f.v[c]) for c in s.comps]
+        if one:
+            my, mx = size[s.comps[0]]
+        else:
+            my, mx = -(-f.height // vm), -(-f.width // hm)
+        parts = _scan_parts(s, mx * my)
+        luts = [_lut(*t) for t in s.dc]
+        diff = [np.zeros((my * v, mx * h), np.int64) for h, v in samp]
+        layout = [(k, y, x) for k, (h, v) in enumerate(samp)
+                  for y in range(v) for x in range(h)]
+        rows_per = s.restart // mx if s.restart else my
+        bad = ValueError("corrupt JPEG data (a bad lossless code)")
+        for r in range(my):
+            if r % rows_per == 0:
+                part = parts[r // rows_per]
+                win, end_bits, pos = _windows(part), 8 * len(part), 0
+            for x in range(mx):
+                for k, yy, xx in layout:
+                    pos = min(pos, end_bits)
+                    e = luts[k][(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                    if not e or (e & 0xFF) > 16:
+                        raise bad
+                    pos += e >> 8
+                    t = e & 0xFF
+                    if t == 16:
+                        d = 32768
+                    elif t:
+                        d = (win[pos >> 3] >> (32 - (pos & 7) - t)) & (
+                            (1 << t) - 1)
+                        pos += t
+                        if d < (1 << (t - 1)):
+                            d -= (1 << t) - 1
+                    else:
+                        d = 0
+                    h, v = samp[k]
+                    diff[k][r * v + yy, x * h + xx] = d
+        initial = 1 << (7 - s.al)
+        for k, c in enumerate(s.comps):
+            rows, cols = size[c]
+            v = samp[k][1]
+            dk = diff[k][:rows, :cols]
+            out = np.zeros((rows, cols), np.int64)
+            for y in range(rows):
+                first = y % (rows_per * v) == 0
+                prev = out[y - 1] if y else None
+                cur = out[y]
+                for x in range(cols):
+                    if first:
+                        p = initial if x == 0 else cur[x - 1]
+                    elif x == 0:
+                        p = prev[0]
+                    else:
+                        p = _predict(s.ss, int(cur[x - 1]), int(prev[x]),
+                                     int(prev[x - 1]))
+                    cur[x] = (p + dk[y, x]) & 0xFFFF
+            planes[c] = ((out << s.al) & 0xFF).astype(np.uint8)
+    return planes
+
+
+def _predict(psv: int, a: int, b: int, c: int) -> int:
+    """T.81 Table H.1's prediction from Ra (left), Rb (above) and Rc
+    (above left)."""
+    return (a, b, c, a + b - c, a + ((b - c) >> 1), b + ((a - c) >> 1),
+            (a + b) >> 1)[psv - 1]
+
+
 def _decode_plain(f: Frame) -> np.ndarray:
-    """The pixels of frame ``f``: uint8 [H, W] or [H, W, 3 or 4]."""
+    """The pixels of frame ``f``: uint8 [H, W] or [H, W, 3 or 4].  A
+    lossless frame's subsampled components are replicated (libjpeg-turbo
+    upsamples no other way in lossless mode)."""
     hm, vm = max(f.h), max(f.v)
     n = len(f.h)
     full = []
-    for c, coef in enumerate(_coefficients_plain(f)):
+    if f.coding == LOSSLESS:
+        for c, p in enumerate(_lossless_plain(f)):
+            full.append(np.repeat(np.repeat(p.astype(np.int64), vm // f.v[c],
+                                            0), hm // f.h[c], 1)
+                        [:f.height, :f.width])
+    for c, coef in enumerate(_coefficients_plain(f)
+                             if f.coding != LOSSLESS else ()):
         gy, gx = coef.shape[:2]
         plane = _idct_plain(coef, f.qt[c]).transpose(0, 2, 1, 3).reshape(
             gy * 8, gx * 8)
@@ -1177,7 +1613,10 @@ class _CScan(ctypes.Structure):
                 ("dc_bits", (ctypes.c_uint8 * 16) * 4),
                 ("dc_vals", (ctypes.c_uint8 * 256) * 4),
                 ("ac_bits", (ctypes.c_uint8 * 16) * 4),
-                ("ac_vals", (ctypes.c_uint8 * 256) * 4)]
+                ("ac_vals", (ctypes.c_uint8 * 256) * 4),
+                ("dc_tbl", ctypes.c_int32 * 4), ("ac_tbl", ctypes.c_int32 * 4),
+                ("cond_l", ctypes.c_int32 * 4), ("cond_u", ctypes.c_int32 * 4),
+                ("cond_k", ctypes.c_int32 * 4)]
 
 
 class _CFrame(ctypes.Structure):
@@ -1187,7 +1626,7 @@ class _CFrame(ctypes.Structure):
                 ("qt", (ctypes.c_uint16 * 64) * 4),
                 ("nscans", ctypes.c_int32), ("status", ctypes.c_int32),
                 ("progressive", ctypes.c_int32),
-                ("reserved", ctypes.c_int32),
+                ("coding", ctypes.c_int32),
                 ("scans", ctypes.POINTER(_CScan)), ("out", ctypes.c_void_p),
                 ("out_stride", ctypes.c_int64),
                 ("out_rows", ctypes.c_int32), ("out_cols", ctypes.c_int32)]
@@ -1201,6 +1640,7 @@ def _fill(cf: _CFrame, f: Frame, out: np.ndarray, keep: list) -> None:
     cf.width, cf.height, cf.ncomp = f.width, f.height, len(f.h)
     cf.transform = int(f.transform)
     cf.progressive = int(f.progressive)
+    cf.coding = f.coding
     for c in range(len(f.h)):
         cf.h[c], cf.v[c] = f.h[c], f.v[c]
         ctypes.memmove(cf.qt[c], f.qt[c].ctypes.data, 128)
@@ -1216,6 +1656,9 @@ def _fill(cf: _CFrame, f: Frame, out: np.ndarray, keep: list) -> None:
         cs.ss, cs.se, cs.ah, cs.al = s.ss, s.se, s.ah, s.al
         for k, c in enumerate(s.comps):
             cs.comp[k] = c
+            if s.tbl:
+                cs.dc_tbl[k], cs.ac_tbl[k] = s.tbl[k]
+                cs.cond_l[k], cs.cond_u[k], cs.cond_k[k] = s.cond[k]
             for dst_bits, dst_vals, table in (
                     (cs.dc_bits, cs.dc_vals, s.dc[k]),
                     (cs.ac_bits, cs.ac_vals, s.ac[k])):

@@ -5,14 +5,21 @@ reader (the machine with the card has no PIL).
 
 The reader takes little- and big-endian files, every page of the IFD
 chain, image data in strips or in tiles (tags 322-325; edge tiles are
-cropped), and 8-bit RGB, 8-bit grayscale or 16-bit grayscale pages
-(``PhotometricInterpretation`` 1 or 2, chunky planar configuration), each
-with one of these compressions (tag 259):
+cropped), chunky or planar (``PlanarConfiguration`` 2: one chunk list a
+sample, plane after plane), and the page layouts PIL opens
+(TiffImagePlugin's OPEN_INFO, fill order 1): bilevel and 8-bit gray,
+min-is-black or min-is-white; 16-bit gray; LA; 8-bit RGB, with or
+without a fourth sample (ExtraSamples, tag 338: unassociated alpha,
+associated alpha, unspecified); 16-bit RGB; palette (1, 2, 4 or 8 bits,
+with its ColorMap, tag 320); CMYK; each with one of these compressions
+(tag 259):
 
 - 1, none;
 - 5, LZW, with ``Predictor`` (tag 317) 1 or 2 (horizontal differencing);
 - 8 and 32946, Deflate (``zlib``), with predictor 1 or 2;
 - 32773, PackBits;
+- 34925, LZMA (the standard library's ``lzma``, the xz container libtiff
+  writes), with predictor 1 or 2;
 - 7, JPEG (``utils/jpeg.py``, baseline or progressive streams, as
   libtiff decodes both for PIL): 8-bit gray, or 3 components with
   photometric 2 (RGB, no colour transform) or 6 (YCbCr, converted to
@@ -21,8 +28,12 @@ with one of these compressions (tag 259):
   present), with the tables in each stream or in ``JPEGTables`` (tag
   347).
 
-``read_page`` returns uint8 RGB as PIL's ``convert("RGB")`` does:
-grayscale repeated, 16-bit values saturated at 255.  LZW and PackBits
+``read_page`` returns uint8 RGB as PIL's ``convert("RGB")`` does after
+its unpacker (``to_rgb``): grayscale repeated, 16-bit gray saturated at
+255, 16-bit RGB by its high byte, alpha dropped (associated alpha
+divided out first, as is a compressed planar page's fourth sample
+without ExtraSamples, which libtiff's RGBA reader counts associated),
+palette through the ColorMap, CMYK as ``cmyk_to_rgb``.  LZW and PackBits
 chunks and JPEG streams decode in C++ (``csrc/imgcodec.cpp``), many
 chunks in parallel threads, Deflate in ``zlib`` on a thread pool;
 ``read_page(..., plain=True)`` decodes them with the plain versions
@@ -30,10 +41,11 @@ chunks in parallel threads, Deflate in ``zlib`` on a thread pool;
 one chunk after another, as the tests and ``chip_smoke.py`` do to hold
 the C++ to them.  ``read_pages`` reads only the page headers (sizes and
 the mode PIL would decode each page in), so a caller can budget the
-decode first.  Other compressions (CCITT, old-style JPEG, JPEG 2000,
-ZSTD, ...), ``PlanarConfiguration`` 2, floating-point prediction and
-other layouts raise ``NotImplementedError`` naming the file and the tag;
-ROADMAP.md queues them.
+decode first.  Other compressions (ZSTD, CCITT, old-style JPEG, JPEG
+2000, ...), fill order 2, floating-point prediction and other layouts
+raise ``NotImplementedError`` naming the file and the tag, as do the
+uncompressed planar pages PIL's raw reader has no mode for; ROADMAP.md
+queues them.
 
 The writer (``write_tiff``) writes uint8 RGB pages [H, W, 3],
 uncompressed, one strip a page, little-endian, as PIL writes a
@@ -57,13 +69,31 @@ _WIDTH, _LENGTH, _BITS, _COMPRESSION, _PHOTOMETRIC = 256, 257, 258, 259, 262
 _STRIP_OFFSETS, _SAMPLES, _ROWS_PER_STRIP, _STRIP_BYTES = 273, 277, 278, 279
 _PLANAR, _PREDICTOR, _TILE_WIDTH, _TILE_LENGTH = 284, 317, 322, 323
 _TILE_OFFSETS, _TILE_BYTES, _JPEG_TABLES, _YCBCR_SUB = 324, 325, 347, 530
+_FILL_ORDER, _COLORMAP, _EXTRA = 266, 320, 338
 # field type -> (struct code, size)
 _TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1),
           7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 16: ("Q", 8)}
 # compressions read, by tag 259 value
 NONE, LZW, JPEG, DEFLATE, PACKBITS, ADOBE_DEFLATE = 1, 5, 7, 8, 32773, 32946
+LZMA = 34925
 COMPRESSIONS = {NONE: "none", LZW: "LZW", JPEG: "JPEG", DEFLATE: "Deflate",
-                ADOBE_DEFLATE: "Deflate", PACKBITS: "PackBits"}
+                ADOBE_DEFLATE: "Deflate", PACKBITS: "PackBits", LZMA: "LZMA"}
+# (PhotometricInterpretation, BitsPerSample, ExtraSamples) -> the mode PIL
+# opens the page in (TiffImagePlugin's OPEN_INFO, fill order 1, unsigned
+# integer samples); "RGBa": associated alpha, which PIL divides out
+_LAYOUTS = {
+    (0, (1,), ()): "1", (1, (1,), ()): "1",
+    (0, (8,), ()): "L", (1, (8,), ()): "L",
+    (0, (16,), ()): "I;16", (1, (16,), ()): "I;16",
+    (1, (8, 8), (2,)): "LA",
+    (2, (8, 8, 8), ()): "RGB", (2, (8, 8, 8, 8), (0,)): "RGB",
+    (2, (8, 8, 8, 8), ()): "RGBA", (2, (8, 8, 8, 8), (2,)): "RGBA",
+    (2, (8, 8, 8, 8), (1,)): "RGBa",
+    (2, (16, 16, 16), ()): "RGB",
+    (3, (1,), ()): "P", (3, (2,), ()): "P", (3, (4,), ()): "P",
+    (3, (8,), ()): "P",
+    (5, (8, 8, 8, 8), ()): "CMYK",
+}
 
 
 class Page(NamedTuple):
@@ -80,6 +110,10 @@ class Page(NamedTuple):
     jpeg_tables: Optional[bytes] = None
     photometric: int = 2
     ycbcr_sub: Optional[Tuple[int, int]] = None
+    planar: int = 1             # 2: one chunk list a sample, plane by plane
+    bits: int = 8               # of each sample (1, 2, 4, 8 or 16)
+    extra: Tuple[int, ...] = ()  # ExtraSamples
+    colormap: Optional[np.ndarray] = None  # palette [2^bits, 3] uint8
 
 
 def _read_at(f, pos: int, n: int, path: str) -> bytes:
@@ -129,35 +163,69 @@ def _page(tags: dict, path: str) -> Page:
         raise NotImplementedError(
             f"{path}: TIFF Compression (tag {_COMPRESSION}) = "
             f"{compression}; the port reads none (1), LZW (5), JPEG (7), "
-            f"Deflate (8, 32946) and PackBits (32773)")
-    if one(_PLANAR, 1) != 1:
+            f"Deflate (8, 32946), PackBits (32773) and LZMA (34925)")
+    planar = one(_PLANAR, 1)
+    if planar not in (1, 2):
         raise NotImplementedError(f"{path}: TIFF PlanarConfiguration (tag "
-                                  f"{_PLANAR}) = 2; the port reads chunky "
-                                  f"pages")
+                                  f"{_PLANAR}) = {planar}; the port reads "
+                                  f"1 (chunky) and 2 (planar)")
+    if one(_FILL_ORDER, 1) != 1:
+        raise NotImplementedError(f"{path}: TIFF FillOrder (tag "
+                                  f"{_FILL_ORDER}) = {one(_FILL_ORDER)}; "
+                                  f"the port reads 1")
     predictor = one(_PREDICTOR, 1)
-    if compression not in (LZW, DEFLATE, ADOBE_DEFLATE):
-        predictor = 1  # libtiff applies it with LZW and Deflate only
+    if compression not in (LZW, DEFLATE, ADOBE_DEFLATE, LZMA):
+        predictor = 1  # libtiff applies it with these only
     if predictor not in (1, 2):
         raise NotImplementedError(f"{path}: TIFF Predictor (tag "
                                   f"{_PREDICTOR}) = {predictor}; the port "
                                   f"reads 1 and 2")
     samples = one(_SAMPLES, 1)
-    bits = tags.get(_BITS) or (1,)
+    bits = tuple(tags.get(_BITS) or (1,))
+    if len(bits) == 1 and samples > 1:
+        bits = bits * samples  # PIL repeats a single value
     photometric = one(_PHOTOMETRIC)
-    if photometric in (2, 6) and samples == 3 and set(bits) == {8} and (
-            photometric == 2 or compression == JPEG):
-        mode, dtype = "RGB", np.dtype("u1")
-    elif photometric == 1 and samples == 1 and bits[0] in (8, 16) and (
-            compression != JPEG or bits[0] == 8):
-        mode, dtype = ("L", np.dtype("u1")) if bits[0] == 8 else (
-            "I;16", np.dtype("u2"))
-    else:
+    extra = tuple(tags.get(_EXTRA) or ())
+    layout = _LAYOUTS.get((photometric, bits, extra))
+    if photometric == 6 and samples == 3 and set(bits) == {8} and (
+            compression == JPEG):
+        layout = "RGB"
+    if compression == JPEG and (layout not in ("RGB", "L") or photometric
+                                == 0 or (planar == 2 and photometric == 6)):
+        layout = None  # as before: JPEG of 8-bit gray, RGB or YCbCr
+    if layout is None or len(bits) != samples:
         raise NotImplementedError(
             f"{path}: TIFF page with PhotometricInterpretation (tag "
             f"{_PHOTOMETRIC}) {photometric}, SamplesPerPixel (tag "
-            f"{_SAMPLES}) {samples}, BitsPerSample (tag {_BITS}) "
-            f"{tuple(bits)}, Compression {compression}; the port reads "
-            f"8-bit RGB, 8- or 16-bit grayscale, and YCbCr in JPEG")
+            f"{_SAMPLES}) {samples}, BitsPerSample (tag {_BITS}) {bits}, "
+            f"ExtraSamples (tag {_EXTRA}) {extra}, Compression "
+            f"{compression}; the port reads the layouts PIL reads of "
+            f"bilevel, 8- and 16-bit gray, LA, 8-bit RGB with or without "
+            f"alpha, 16-bit RGB, palette and CMYK pages, and YCbCr in JPEG")
+    if planar == 2 and compression == NONE and extra in ((0,), (1,)):
+        raise NotImplementedError(
+            f"{path}: an uncompressed planar TIFF page with ExtraSamples "
+            f"(tag {_EXTRA}) {extra}, which PIL's raw reader has no mode "
+            f"for (it raises)")
+    if layout == "RGBA" and not extra and planar == 2 and (
+            compression != NONE):
+        # libtiff's RGBA reader, which PIL takes for compressed planar
+        # pages, counts a fourth sample without ExtraSamples associated
+        layout, extra = "RGBa", (1,)
+    mode = "RGBA" if layout == "RGBa" else layout
+    dtype = np.dtype("u2") if bits[0] == 16 else np.dtype("u1")
+    colormap = None
+    if photometric == 3:
+        cmap = tags.get(_COLORMAP)
+        n = 1 << bits[0]
+        if not cmap or len(cmap) != 3 * n:
+            raise NotImplementedError(f"{path}: a TIFF palette page "
+                                      f"without its ColorMap (tag "
+                                      f"{_COLORMAP}) of {3 * n} entries")
+        # PIL's palette: each 16-bit entry // 256, red then green then
+        # blue
+        colormap = (np.asarray(cmap, np.int64).reshape(3, n).T
+                    // 256).astype(np.uint8)
     tile = None
     if _TILE_WIDTH in tags or _TILE_OFFSETS in tags:
         tile = (one(_TILE_WIDTH), one(_TILE_LENGTH))
@@ -178,7 +246,8 @@ def _page(tags: dict, path: str) -> Page:
     return Page(one(_WIDTH), one(_LENGTH), mode, dtype, samples,
                 list(zip(offsets, counts)), compression, predictor, tile,
                 one(_ROWS_PER_STRIP, 0xFFFFFFFF), tables and bytes(tables),
-                photometric, tuple(sub[:2]) if sub else None)
+                photometric, tuple(sub[:2]) if sub else None, planar,
+                bits[0], extra, colormap)
 
 
 def _header(path: str):
@@ -373,12 +442,29 @@ def _jpeg_page(path: str, page: Page, places, shapes, chunks,
     return out
 
 
+def _unpack_bits(raw: np.ndarray, rows: int, cols: int,
+                 bits: int) -> np.ndarray:
+    """Samples [rows, cols] (uint8) of ``bits`` bits (1, 2 or 4), packed
+    MSB first, each row padded to whole bytes."""
+    rowbytes = -(-cols * bits // 8)
+    b = np.unpackbits(raw[:rows * rowbytes].reshape(rows, rowbytes),
+                      axis=1)[:, :cols * bits]
+    if bits == 1:
+        return b
+    weights = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
+    return (b.reshape(rows, cols, bits) * weights).sum(-1, dtype=np.uint8)
+
+
 def _pixels(path: str, page: Page, plain: bool):
-    """The page's samples [H, W, samples] in its dtype (file order)."""
+    """The page's samples [H, W, samples] in its dtype (file order; 1-,
+    2- and 4-bit samples unpacked to a byte each)."""
     places, shapes = _layout(page)
     item = page.dtype.itemsize
     spp = page.samples
-    if page.compression == NONE and not page.tile:
+    # a planar page's chunks hold one sample each, plane after plane
+    planes, per = (spp, 1) if page.planar == 2 and spp > 1 else (1, spp)
+    if page.compression == NONE and not page.tile and planes == 1 and (
+            page.bits >= 8):
         n = page.width * page.height * spp
         out = np.empty(n, page.dtype)
         at = 0
@@ -396,10 +482,16 @@ def _pixels(path: str, page: Page, plain: bool):
         if at != n:
             raise OSError(f"{path}: TIFF strips hold {at} of {n} samples")
         return out.reshape(page.height, page.width, spp)
-    chunks = _chunk_bytes(path, page, len(places))
+    chunks = _chunk_bytes(path, page, len(places) * planes)
     if page.compression == JPEG:
-        return _jpeg_page(path, page, places, shapes, chunks, plain)
-    sizes = [r * c * spp * item for r, c in shapes]
+        if planes == 1:
+            return _jpeg_page(path, page, places, shapes, chunks, plain)
+        k = len(places)
+        return np.concatenate([_jpeg_page(
+            path, page._replace(samples=1), places, shapes,
+            chunks[p * k:(p + 1) * k], plain) for p in range(planes)],
+            axis=2)
+    sizes = [r * -(-c * per * page.bits // 8) for r, c in shapes] * planes
     buf = np.zeros(sum(sizes), np.uint8)
     starts = np.cumsum([0] + sizes[:-1]).tolist()
     outs = [buf[a:a + n] for a, n in zip(starts, sizes)]
@@ -409,9 +501,14 @@ def _pixels(path: str, page: Page, plain: bool):
             k = min(len(data), o.size)
             o[:k] = np.frombuffer(data, np.uint8, k)
             done.append(k)
-    elif page.compression in (DEFLATE, ADOBE_DEFLATE):
+    elif page.compression in (DEFLATE, ADOBE_DEFLATE, LZMA):
+        if page.compression == LZMA:
+            import lzma  # only LZMA pages need the module
+
         def inflate(i):
-            raw = zlib.decompressobj().decompress(chunks[i], sizes[i])
+            dec = (zlib.decompressobj() if page.compression != LZMA
+                   else lzma.LZMADecompressor())
+            raw = dec.decompress(chunks[i], sizes[i])
             outs[i][:len(raw)] = np.frombuffer(raw, np.uint8)
             return len(raw)
         if plain:
@@ -437,26 +534,71 @@ def _pixels(path: str, page: Page, plain: bool):
                       f"({COMPRESSIONS[page.compression]}) decodes to "
                       f"{done[i]} of {sizes[i]} bytes")
     out = np.empty((page.height, page.width, spp), page.dtype)
-    for (y, x, rows, cols), (th, tw), o in zip(places, shapes, outs):
-        px = o.view(page.dtype).reshape(th, tw, spp)
+    for i, o in enumerate(outs):
+        (y, x, rows, cols), (th, tw) = places[i % len(places)], shapes[
+            i % len(places)]
+        plane = slice(None) if planes == 1 else slice(i // len(places),
+                                                      i // len(places) + 1)
+        if page.bits < 8:
+            px = _unpack_bits(o, th, tw, page.bits)[..., None]
+        else:
+            px = o.view(page.dtype).reshape(th, tw, per)
         if page.predictor == 2:
             px = np.cumsum(px.astype(page.dtype.newbyteorder("=")), axis=1,
                            dtype=page.dtype.newbyteorder("="))
-        out[y:y + rows, x:x + cols] = px[:rows, :cols]
+        out[y:y + rows, x:x + cols, plane] = px[:rows, :cols]
     return out
 
 
-def read_page(path: str, page: Page, plain: bool = False) -> np.ndarray:
-    """uint8 RGB [H, W, 3] of ``page`` of the file at ``path``.  LZW,
-    PackBits and JPEG decode in C++ (one thread per hardware thread), or
-    with ``plain=True`` in their plain versions."""
-    px = _pixels(path, page, plain)
-    if page.mode == "RGB":
-        return px
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """uint8 CMYK [..., 4] as PIL's ``convert("RGB")`` maps it
+    (Convert.c's cmyk2rgb): each of R, G, B = (255 - K) - C * (255 - K) /
+    255, the product rounded by MULDIV255."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:]
+    t = c[..., :3] * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+
+
+def to_rgb(page: Page, px: np.ndarray) -> np.ndarray:
+    """The samples of ``page`` ([H, W, samples], from ``_pixels``) as
+    PIL's ``convert("RGB")`` gives them after its unpacker (TiffImagePlugin
+    's rawmode): 16-bit RGB by its high byte; alpha dropped, associated
+    alpha divided out first (unpackRGBa: 0 where alpha is 0, else each of
+    R, G, B * 255 // alpha, at most 255); CMYK by ``cmyk_to_rgb``; palette
+    through the ColorMap; bilevel 0 or 255, min-is-white inverted, 8-bit
+    min-is-white too; 16-bit gray saturated at 255; gray repeated."""
+    mode = page.mode
+    if mode in ("RGB", "RGBA"):
+        rgb = px[..., :3]
+        if page.bits == 16:
+            return (rgb >> 8).astype(np.uint8)
+        if page.extra == (1,):
+            a = px[..., 3:4].astype(np.int32)
+            div = rgb.astype(np.int32) * 255 // np.maximum(a, 1)
+            rgb = np.where(a == 0, 0, np.where(a == 255, rgb, np.minimum(
+                div, 255))).astype(np.uint8)
+        return np.ascontiguousarray(rgb)
+    if mode == "CMYK":
+        return cmyk_to_rgb(px)
+    if mode == "P":
+        return page.colormap[px[..., 0]]
     gray = px[..., 0]
-    if page.mode == "I;16":
+    if mode == "I;16":
         gray = np.minimum(gray, 255).astype(np.uint8)
+    elif mode == "1":
+        gray = np.where(gray != (page.photometric == 0), 255, 0).astype(
+            np.uint8)
+    elif page.photometric == 0:
+        gray = 255 - gray
     return np.repeat(gray[..., None], 3, axis=2)
+
+
+def read_page(path: str, page: Page, plain: bool = False) -> np.ndarray:
+    """uint8 RGB [H, W, 3] of ``page`` of the file at ``path`` (see
+    ``to_rgb``).  LZW, PackBits and JPEG decode in C++ (one thread per
+    hardware thread), or with ``plain=True`` in their plain versions."""
+    return to_rgb(page, _pixels(path, page, plain))
 
 
 def write_tiff(path: str, pages: Sequence[np.ndarray]) -> str:

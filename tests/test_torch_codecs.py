@@ -207,8 +207,12 @@ def test_jpeg_refusals():
     twelve = data[:sof + 4] + b"\x0c" + data[sof + 5:]
     with pytest.raises(NotImplementedError, match="12-bit"):
         jpeg.decode_jpeg(twelve)
-    for marker in (b"\xc9", b"\xca"):  # SOF9, SOF10 (progressive)
+    # SOF11 (arithmetic lossless), SOF13 (arithmetic hierarchical): PIL
+    # refuses them, and so does the port
+    for marker in (b"\xcb", b"\xcd"):
         arith = data[:sof + 1] + marker + data[sof + 2:]
+        with pytest.raises(OSError):
+            _pil(arith)
         with pytest.raises(NotImplementedError, match="arithmetic"):
             jpeg.decode_jpeg(arith)
     # a corrupt scan, baseline and progressive: both routes raise

@@ -1,5 +1,5 @@
 """The port's DICOM reader and writer (multimodalfusion_tpu_torch.data.
-dicom, with the C++ lossless-JPEG decoder of its csrc/bagio.cpp) against
+dicom, with the C++ lossless-JPEG decoder of its csrc/imgcodec.cpp) against
 the JAX package's, and its lung bounding boxes against OpenCV: every
 syntax the JAX writer writes without PIL is read by both readers to equal
 pixel arrays and attributes, and written byte for byte alike; the C++

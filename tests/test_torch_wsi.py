@@ -298,13 +298,21 @@ def test_readers_refuse_what_they_cannot_read(tmp_path, small_slide):
     Image.fromarray(lvl).save(prog, progressive=True)
     np.testing.assert_array_equal(tw.open_slide(prog).levels[0],
                                   jw.PILSlide(prog).levels[0])
-    # its SOF2 marker made SOF10 (arithmetic coding), which PIL and the
-    # port refuse
+    # its SOF2 marker made SOF11 (arithmetic lossless), which PIL and the
+    # port refuse; made SOF10 (arithmetic progressive), its Huffman data
+    # is corrupt arithmetic-coded data, which the port refuses (PIL
+    # decodes noise, with libjpeg's warnings)
     with open(prog, "rb") as f:
         data = f.read()
     with open(prog, "wb") as f:
-        f.write(data.replace(b"\xff\xc2", b"\xff\xca", 1))
+        f.write(data.replace(b"\xff\xc2", b"\xff\xcb", 1))
+    with pytest.raises(OSError):
+        jw.PILSlide(prog)
     with pytest.raises(NotImplementedError, match="p.jpg.*arithmetic"):
+        tw.open_slide(prog)
+    with open(prog, "wb") as f:
+        f.write(data.replace(b"\xff\xc2", b"\xff\xca", 1))
+    with pytest.raises(ValueError, match="corrupt"):
         tw.open_slide(prog)
     gif = str(tmp_path / "s.gif")
     Image.fromarray(lvl).save(gif)
@@ -323,10 +331,10 @@ def test_readers_refuse_what_they_cannot_read(tmp_path, small_slide):
                                   jw.PILSlide(lzw).levels[0])
     # the writer's file with its last tag (PlanarConfiguration) renamed
     # TileWidth (a tiled page without TileLength), then
-    # PlanarConfiguration 2, then its Compression (the fourth tag) set to
-    # ZSTD (50000)
+    # PlanarConfiguration 3 (neither chunky nor planar), then its
+    # Compression (the fourth tag) set to ZSTD (50000)
     for tag, value, match, at in ((322, 64, "tiled.*tag 323", 9),
-                                  (284, 2, "tag 284", 9),
+                                  (284, 3, "tag 284", 9),
                                   (259, 50000, "tiled.*tag 259", 3)):
         path = str(tmp_path / "tiled.tiff")
         tiff.write_tiff(path, [lvl])

@@ -9,7 +9,10 @@ files:
   8-bit RGB and gray, 16-bit gray, a big-endian file; JPEG tiles in
   YCbCr (4:4:4, 4:2:0, with and without JPEGTables and restart
   markers), in RGB (photometric 2) and in gray, libtiff's own JPEG
-  strips; PNG slides of each colour type, depth and interlace; .jpg
+  strips; arithmetic-coded tiles (SOF9 and SOF10, with and without
+  restart markers, one larger than PIL's 64 KiB read block, which
+  libtiff hands libjpeg whole) and lossless (SOF3) tiles, coded by
+  ``tools/jpeg_arith.py``; PNG slides of each colour type, depth and interlace; .jpg
   slides; JPEG 2000 slides (.jp2, .j2k, .jpc and .j2c) written by PIL:
   RGB lossless and lossy, tiled, grey and I;16.  PIL ignores tile tags
   when it saves, so the IFDs are written
@@ -26,6 +29,7 @@ files:
   through JAX's ``load_features_h5`` and the port's; a corrupted
   fletcher32 checksum raises ``OSError`` in both.
 """
+import importlib.util
 import io
 import os
 import struct
@@ -49,6 +53,11 @@ from multimodalfusion_tpu_torch.data import wsi as tw
 from multimodalfusion_tpu_torch.utils import j2k, tiff
 
 LZW, DEFLATE, ADOBE, PACKBITS, JPEG = 5, 8, 32946, 32773, 7
+_spec = importlib.util.spec_from_file_location(
+    "jpeg_arith", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "jpeg_arith.py"))
+arith = importlib.util.module_from_spec(_spec)  # the test-stream coder
+_spec.loader.exec_module(arith)
 
 
 # ---- writing the files
@@ -262,6 +271,49 @@ def test_jpeg_tiles_equal_jax(tmp_path, case, tables_apart):
         for p in pages:
             p["sub"] = (2, 2)  # YCbCrSubsampling as the stream has it
     _check_slide(_write_tiff(str(tmp_path / "j.tiff"), pages))
+
+
+@pytest.mark.parametrize("case", ["ycc420", "rgb"])
+@pytest.mark.parametrize("progressive", [False, True], ids=["sof9",
+                                                            "sof10"])
+@pytest.mark.parametrize("restart", [0, 2])
+def test_arithmetic_jpeg_tiles_equal_jax(tmp_path, case, progressive,
+                                         restart):
+    """JPEG tiles coded again in arithmetic coding (libtiff hands them to
+    PIL's libjpeg-turbo): the same pixels through the port's C++ and plain
+    routes."""
+    img = _image(72, 100, seed=3)
+    pages = [_encode_page(lvl, JPEG, tile=(32, 32), jpeg_kw=JPEG_CASES[case])
+             for lvl in _pyramid(img)]
+    for p in pages:
+        p["chunks"] = [arith.transcode(c, progressive=progressive, app=None,
+                                       restart=restart) for c in p["chunks"]]
+    _check_slide(_write_tiff(str(tmp_path / "a.tiff"), pages))
+
+
+def test_large_arithmetic_and_lossless_tiles_equal_jax(tmp_path):
+    """A 512 x 512 arithmetic tile past PIL's 64 KiB read block (libtiff
+    reads it whole), and lossless tiles in gray and RGB."""
+    img = (np.random.default_rng(4).integers(0, 256, (512, 512, 3))
+           .astype(np.uint8))
+    page = _encode_page(img, JPEG, tile=(512, 512),
+                        jpeg_kw=dict(quality=95, subsampling=2))
+    page["chunks"] = [arith.transcode(c, progressive=False, app=None)
+                      for c in page["chunks"]]
+    assert len(page["chunks"][0]) > 1 << 16
+    _check_slide(_write_tiff(str(tmp_path / "big.tiff"), [page]),
+                 plain_too=False)
+    img = _image(72, 100, seed=5)
+    for name, im, kw in (("gray", img[..., 0], dict(quality=90)),
+                         ("rgb", img, dict(quality=90, subsampling=0,
+                                           photometric=2))):
+        pages = [_encode_page(lvl, JPEG, tile=(32, 32), jpeg_kw=kw)
+                 for lvl in _pyramid(im)]
+        for p, lvl in zip(pages, _pyramid(im)):
+            p["chunks"] = [arith.encode_lossless(
+                [t] if t.ndim == 2 else [t[..., c] for c in range(3)],
+                psv=4, pt=1) for t in _pieces(lvl, (32, 32), None)]
+        _check_slide(_write_tiff(str(tmp_path / f"ll_{name}.tiff"), pages))
 
 
 def test_gray_jpeg_tiles_and_libtiff_strips_equal_jax(tmp_path):

@@ -5,7 +5,12 @@ baseline and progressive) and by ``tools/jpeg_writer.py`` (successive
 approximation down from Al = 3; long EOB runs with restart intervals in
 every scan type; three scripts that stop early, which libjpeg-turbo
 smooths; CMYK without an Adobe marker and YCCK, baseline and
-progressive).  The manifest records how each file was made and the
+progressive); arithmetic-coded and lossless streams made by
+``tools/jpeg_arith.py`` (SOF9 at 4:2:0 and in gray with restarts and
+non-default DAC conditioning, SOF10 at 4:4:4, from Al = 3, stopped early
+and in YCCK; SOF3 in gray with predictor 7 and a point transform, in RGB
+with restarts, and 4:2:0-sampled).  The manifest records how each file
+was made and the
 SHA-256 of the pixels PIL decodes from it (``np.asarray`` of the image),
 with the Pillow and libjpeg-turbo versions.  ``chip_smoke.py`` holds the
 port's C++ and plain decoders to those digests on a machine without PIL;
@@ -29,6 +34,10 @@ _spec = importlib.util.spec_from_file_location(
     "jpeg_writer", os.path.join(ROOT, "tools", "jpeg_writer.py"))
 writer = importlib.util.module_from_spec(_spec)   # the test-stream writer
 _spec.loader.exec_module(writer)
+_spec = importlib.util.spec_from_file_location(
+    "jpeg_arith", os.path.join(ROOT, "tools", "jpeg_arith.py"))
+arith = importlib.util.module_from_spec(_spec)  # arithmetic and lossless
+_spec.loader.exec_module(arith)
 
 # the scripts of the writer's fixtures, by name: (components, Ss, Se, Ah,
 # Al) each
@@ -101,6 +110,40 @@ SPECS = [
          image=dict(seed=15, h=48, w=64, c=4),
          params=dict(sampling=[[2, 2], [1, 1], [1, 1], [2, 2]], quality=85,
                      app="adobe", adobe_transform=2, progressive=True)),
+    dict(name="arith_seq_420.jpg", writer="arith",
+         image=dict(seed=16, h=56, w=72, c=3),
+         params=dict(source=dict(quality=90, subsampling=2), script=None,
+                     progressive=False)),
+    dict(name="arith_seq_gray_restart_dac.jpg", writer="arith",
+         image=dict(seed=17, h=45, w=61, c=1),
+         params=dict(source=dict(quality=85), script=None,
+                     progressive=False, restart=3,
+                     dac=[["dc", 0, 2, 6], ["ac", 0, 12]])),
+    dict(name="arith_prog_444.jpg", writer="arith",
+         image=dict(seed=18, h=48, w=64, c=3),
+         params=dict(source=dict(quality=90, subsampling=0),
+                     script="default", progressive=True)),
+    dict(name="arith_prog_al3_restart.jpg", writer="arith",
+         image=dict(seed=19, h=64, w=80, c=3, flat=True),
+         params=dict(source=dict(quality=80, subsampling=2), script="al3",
+                     progressive=True, restart=2)),
+    dict(name="arith_smooth_first4.jpg", writer="arith",
+         image=dict(seed=20, h=72, w=64, c=3),
+         params=dict(source=dict(quality=80, subsampling=1),
+                     script="smooth_first4", progressive=True)),
+    dict(name="arith_ycck_prog.jpg", writer="arith_planes",
+         image=dict(seed=21, h=48, w=64, c=4),
+         params=dict(sampling=[[2, 2], [1, 1], [1, 1], [2, 2]], quality=85,
+                     app="adobe", adobe_transform=2, progressive=True)),
+    dict(name="lossless_gray_p7_pt2.jpg", writer="lossless",
+         image=dict(seed=22, h=37, w=53, c=1),
+         params=dict(psv=7, pt=2)),
+    dict(name="lossless_rgb_p4_restart.jpg", writer="lossless",
+         image=dict(seed=23, h=40, w=48, c=3),
+         params=dict(psv=4, restart_rows=3)),
+    dict(name="lossless_420_p6.jpg", writer="lossless",
+         image=dict(seed=24, h=33, w=46, c=3),
+         params=dict(psv=6, sampling=[[2, 2], [1, 1], [1, 1]])),
 ]
 
 
@@ -131,20 +174,47 @@ def script(name: str):
             SCRIPTS[name]]
 
 
+def _dac(entries):
+    """The manifest's DAC entries, [kind, table, value(s)...] each, as
+    ``jpeg_arith.encode`` takes them."""
+    return {(e[0], e[1]): tuple(e[2:]) if e[0] == "dc" else e[2]
+            for e in entries or ()}
+
+
 def write(spec: dict) -> bytes:
-    from PIL import Image
     img = fixture_image(spec["image"])
     p = dict(spec["params"])
+    if spec["writer"] == "lossless":
+        planes = [img] if img.ndim == 2 else [img[..., c] for c in range(
+            img.shape[2])]
+        sampling = [tuple(x) for x in p.pop("sampling", [[1, 1]] * len(
+            planes))]
+        hm = max(h for h, _ in sampling)
+        vm = max(v for _, v in sampling)
+        planes = [pl[::vm // v, ::hm // h] for pl, (h, v) in zip(planes,
+                                                                sampling)]
+        return arith.encode_lossless(planes, sampling, size=(
+            img.shape[1], img.shape[0]), **p)
+    if spec["writer"] == "arith_planes":
+        co = writer.from_planes([img[..., c] for c in range(img.shape[2])],
+                                [tuple(s) for s in p.pop("sampling")],
+                                p.pop("quality"))
+        return arith.encode(co, **p)
+    from PIL import Image
     if spec["writer"] == "pil":
         buf = io.BytesIO()
         Image.fromarray(img, "CMYK" if img.ndim == 3 and img.shape[2] == 4
                         else None).save(buf, "JPEG", **p)
         return buf.getvalue()
-    if spec["writer"] == "transcode":
+    if spec["writer"] in ("transcode", "arith"):
         buf = io.BytesIO()
         Image.fromarray(img).save(buf, "JPEG", **p.pop("source"))
-        return writer.transcode(buf.getvalue(), script(p.pop("script")),
-                                **p)
+        name = p.pop("script")
+        if spec["writer"] == "transcode":
+            return writer.transcode(buf.getvalue(), script(name), **p)
+        p["dac"] = _dac(p.get("dac"))
+        return arith.transcode(buf.getvalue(), script(name) if name
+                               else None, **p)
     co = writer.from_planes([img[..., c] for c in range(img.shape[2])],
                             [tuple(s) for s in p.pop("sampling")],
                             p.pop("quality"))
