@@ -137,6 +137,13 @@ Phases, each fatal on failure:
                 arithmetic-coded SOF9 and SOF10, lossless SOF3) decoded
                 by the C++ and the plain versions, both to the manifest's
                 SHA-256 of PIL's pixels; no launch.
+  4h. zstd   -- the committed Zstandard fixtures of
+                multimodalfusion_tpu_torch/testdata/zstd (written by
+                libzstd at levels 1 to 22: checksums, no content size,
+                far and long-distance matches, skippable and concatenated
+                frames, RLE and raw blocks, every literal and table mode)
+                decoded by the C++ and the plain versions, both to the
+                manifest's SHA-256 of libzstd's output; no launch.
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak) and,
                 for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
@@ -305,8 +312,15 @@ Phases, each fatal on failure:
                 bit (C++ decode ms per megapixel; the plain decode of a
                 512 x 512 crop equal), the same coordinates and
                 features, and their six bags are served (one forward
-                launch, equal risks).  The slides are deleted.  Alone:
-                --phases wsi (runs [train] first).
+                launch, equal risks).  The same crop as ZSTD TIFFs
+                (tools/zstd_writer.py: tiles with Predictor 2, strips
+                with checksums, planar RGBA) beside an uncompressed twin:
+                PILSlide reads them equal to the crop bit for bit (C++
+                decode ms per megapixel; the plain decode of a 512 x 512
+                square equal), the twin's coordinates and features bit
+                for bit, and their four bags are served (one forward
+                launch, the twin's risks).  The slides are deleted.
+                Alone: --phases wsi (runs [train] first).
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -5453,6 +5467,255 @@ def phase_wsi_arith(launch_counters, path_exp, td, level0, stem, wall,
     os.remove(npy)
 
 
+ZSTD_FIXTURES = os.path.join(REPO, "multimodalfusion_tpu_torch", "testdata",
+                             "zstd")
+
+
+def phase_zstd(launch_counters):
+    """[zstd] The committed Zstandard fixtures (``ZSTD_FIXTURES``, written
+    by libzstd through ``zstandard``, tools/make_zstd_fixtures.py:
+    levels 1, 3, 9, 19 and 22, no content size, checksums, a match from
+    more than a block back, long distance matching, skippable and
+    concatenated frames, RLE and raw blocks, direct Huffman weights, one
+    Huffman stream, RLE literals, treeless literals and repeated tables,
+    RLE tables, a predictor-2 tile): each decoded by the C++ decoder
+    (``native.zstd_decode``) and the plain one (``zstd.decompress``);
+    both must give libzstd's output, by the manifest's size and SHA-256.
+    No kernel launch (counters reset just before, read just after)."""
+    import hashlib
+
+    from multimodalfusion_tpu_torch import native
+    from multimodalfusion_tpu_torch.utils import zstd
+    with open(os.path.join(ZSTD_FIXTURES, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    for c in launch_counters:
+        c.launches = 0
+    rows = []
+    for entry in manifest["fixtures"]:
+        with open(os.path.join(ZSTD_FIXTURES, entry["file"]), "rb") as f:
+            data = f.read()
+        for name, fn in (("C++", native.zstd_decode),
+                         ("plain", zstd.decompress)):
+            out = fn(data)
+            if (len(out) != entry["size"] or hashlib.sha256(out).hexdigest()
+                    != entry["sha256"]):
+                raise AssertionError(f"[zstd] {entry['name']} ({name}): "
+                                     f"{len(out)} bytes, not libzstd's")
+        rows.append(f"{entry['name']} {len(data)} -> {entry['size']} B")
+    counts = {c.__name__: c.launches for c in launch_counters}
+    log(f"[zstd] {len(rows)} fixtures (zstandard {manifest['zstandard']}, "
+        f"libzstd {manifest['libzstd']}) decode by C++ and plain to the "
+        f"manifest's digests: {'; '.join(rows)}; launches {counts}")
+    if any(counts.values()):
+        raise AssertionError("[zstd] a kernel launched")
+
+
+# the table modes every ZSTD slide of [wsi] must take between them
+# (tools/zstd_writer.py's stats)
+WSI_ZSTD_MODES = ("block_compressed", "block_raw", "huffman_4_streams",
+                  "huffman_fse_weights", "literals_treeless",
+                  "repeat_offsets")
+WSI_ZSTD_TABLES = ("predefined", "rle", "fse", "repeat")
+
+
+def phase_wsi_zstd(launch_counters, path_exp, td, level0, stem, wall,
+                   launches):
+    """[wsi]'s ZSTD slides: the central ``WSI_ARITH_CROP`` (2048 x 1536,
+    where the tissue is) of ``level0`` (level 0 of [wsi]'s slide
+    ``stem``; cut so that the Python test coder codes it in seconds)
+    written by tools/zstd_writer.py (three subprocesses of forked
+    workers, at once) as
+      - a 256 x 256 tiled ZSTD page with Predictor 2, as vips writes it;
+      - a ZSTD page in strips of 64 rows, predictor 1, checksummed
+        frames in blocks of 8 KiB (so that every table mode comes up);
+      - a 256 x 256 tiled planar ZSTD RGBA page (a seeded unassociated
+        alpha plane);
+    beside an uncompressed chunky twin (``tiff.write_tiff``).  Between
+    them the frames take every sequence-table mode (predefined, RLE,
+    FSE-coded, repeated), treeless literals, FSE-coded Huffman weights,
+    repeat offsets and raw blocks (``WSI_ZSTD_MODES``).  Then:
+    ``PILSlide`` (C++, every host thread) reads each equal to the crop
+    bit for bit; the C++ decode ms per megapixel of each page (its
+    chunks alone, and the whole ``read_page``; best of 3); the plain
+    decode of a ``WSI_ARITH_PLAIN`` square written the same way equal to
+    the C++ one and to the square, its ms per megapixel;
+    cli.create_patches and cli.extract_features_fp on the four slides
+    (no launch): each ZSTD slide the twin's coordinates and features bit
+    for bit; cli.infer of [train]'s PathAMIL on the four bags (the
+    counters reset just before): one forward launch, every risk equal to
+    the twin's.  Adds its launch counts to ``launches`` and wall seconds
+    to ``wall``."""
+    from multimodalfusion_tpu_torch.cli import (create_patches,
+                                                extract_features_fp)
+    from multimodalfusion_tpu_torch.data import hdf5, wsi
+    from multimodalfusion_tpu_torch.data.io import load_pt
+    from multimodalfusion_tpu_torch.utils import tiff
+    none = {c.__name__: 0 for c in launch_counters}
+    rows, cols = WSI_ARITH_CROP
+    y0 = (level0.shape[0] - rows) // 32 * 16
+    x0 = (level0.shape[1] - cols) // 32 * 16
+    crop = np.ascontiguousarray(level0[y0:y0 + rows, x0:x0 + cols])
+    mp = rows * cols / 1e6
+    threads = os.cpu_count() or 1
+    src = os.path.join(td, "slides_zstd")
+    os.makedirs(src)
+    kinds = {"tiled": ["--tile", "256", "--predictor", "2"],
+             "strips": ["--rows", "64", "--checksum", "--block", "8192"],
+             "planar_rgba": ["--tile", "256", "--planar", "--extra", "2"]}
+    names = {k: f"WSIZ_{k}_{cols}x{rows}" for k in list(kinds) + ["twin"]}
+    paths = {k: os.path.join(src, n + ".tiff") for k, n in names.items()}
+    npy = os.path.join(td, "zstd_crop.npy")
+    np.save(npy, crop)
+    npy4 = os.path.join(td, "zstd_crop_rgba.npy")
+    alpha = np.random.default_rng(25).integers(0, 256, crop.shape[:2],
+                                               np.uint8)
+    np.save(npy4, np.concatenate([crop, alpha[..., None]], -1))
+    t0 = time.perf_counter()
+    writer = os.path.join(REPO, "tools", "zstd_writer.py")
+    procs = {k: subprocess.Popen(
+        [sys.executable, writer, npy4 if k == "planar_rgba" else npy,
+         paths[k], "--processes", str(max(1, threads // 3))] + argv,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k, argv in kinds.items()}
+    stats = {}
+    try:
+        tiff.write_tiff(paths["twin"], [crop])
+        for k, p in procs.items():
+            out, _ = p.communicate(timeout=600)
+            if p.returncode:
+                raise AssertionError(f"[wsi] tools/zstd_writer.py for the "
+                                     f"{k} slide failed:\n{out}")
+            stats[k] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall["zstd_write"] = time.perf_counter() - t0
+    total = {}
+    for s in stats.values():
+        for key, v in s.items():
+            total[key] = total.get(key, 0) + v
+    missing = [m for m in WSI_ZSTD_MODES if not total.get(m)] + [
+        m for m in WSI_ZSTD_TABLES
+        if not any(total.get(f"{t}_{m}") for t in ("ll", "of", "ml"))]
+    if missing:
+        raise AssertionError(f"[wsi] the ZSTD slides take no {missing}: "
+                             f"{stats}")
+    got = {k: wsi.PILSlide(p).levels for k, p in paths.items()}
+    if any(len(v) != 1 or not np.array_equal(v[0], crop)
+           for v in got.values()):
+        raise AssertionError("[wsi] a ZSTD slide does not decode to the "
+                             "crop")
+    del got
+    rate, chunk_rate, sizes = {}, {}, {}
+    for k in kinds:
+        page = tiff.read_pages(paths[k])[0]
+        if page.compression != tiff.ZSTD:
+            raise AssertionError(f"[wsi] {names[k]} is not ZSTD")
+        places, shapes = tiff._layout(page)
+        planes = page.samples if page.planar == 2 else 1
+        chunks = tiff._chunk_bytes(paths[k], page, len(places) * planes)
+        per = 1 if planes > 1 else page.samples
+        outs = [np.empty(r * c * per, np.uint8) for _ in range(planes)
+                for r, c in shapes]
+        sizes[k] = sum(len(c) for c in chunks)
+        best_c = best_p = float("inf")
+        for _ in range(3):
+            t1 = time.perf_counter()
+            tiff.decode_chunks(tiff.ZSTD, chunks, outs)
+            best_c = min(best_c, time.perf_counter() - t1)
+            t1 = time.perf_counter()
+            tiff.read_page(paths[k], page)
+            best_p = min(best_p, time.perf_counter() - t1)
+        chunk_rate[k] = best_c * 1e3 / mp
+        rate[k] = best_p * 1e3 / mp
+    n = WSI_ARITH_PLAIN
+    square = os.path.join(td, "zstd_square.tiff")
+    _zstd_writer().write_tiff(square, np.ascontiguousarray(crop[:n, :n]),
+                              tile=256, predictor=2, checksum=True)
+    page = tiff.read_pages(square)[0]
+    t1 = time.perf_counter()
+    px = tiff.read_page(square, page, plain=True)
+    plain = (time.perf_counter() - t1) * 1e3 / (n * n / 1e6)
+    if not (np.array_equal(px, tiff.read_page(square, page))
+            and np.array_equal(px, crop[:n, :n])):
+        raise AssertionError(f"[wsi] the {n} x {n} ZSTD square: plain, C++ "
+                             f"and the crop differ")
+    os.remove(square)
+    log(f"[wsi] {cols} x {rows} crop of {stem} level 0 at ({x0}, {y0}) as "
+        f"ZSTD TIFFs by tools/zstd_writer.py in {wall['zstd_write']:.3f} s "
+        f"(three processes of {max(1, threads // 3)} workers): " + ", ".join(
+            f"{k} {sizes[k] / 2**20:.3f} MiB" for k in kinds)
+        + f" (raw {crop.nbytes / 2**20:.3f} MiB); the frames' modes "
+        + json.dumps(total) + "; PILSlide equal to the crop bit for bit; "
+        f"C++ decode ms/MP ({threads} host threads, {_card()}): chunks "
+        + ", ".join(f"{k} {v:.3f}" for k, v in chunk_rate.items())
+        + "; read_page " + ", ".join(f"{k} {v:.3f}" for k, v in rate.items())
+        + f"; plain read_page ms/MP of a {n} x {n} tiled predictor-2 "
+        f"square: {plain:.1f} (equal to C++ and the crop)")
+
+    def run(stage, fn, argv):
+        text = _run_stage(launch_counters, "wsi", stage, fn, argv, wall,
+                          launches, none, capture=True)
+        if "FAILED" in text:
+            raise AssertionError(f"[wsi] {stage}: FAILED\n{text}")
+
+    patched = os.path.join(td, "patched_zstd")
+    feat = os.path.join(td, "features_zstd")
+    run("stage0_zstd", create_patches.main, [
+        "--source", src, "--save_dir", patched, "--patch_size", "256",
+        "--step_size", "256", "--a_t", "0.5", "--a_h", "0.05", "--device",
+        "cuda"])
+    run("stage1_zstd", extract_features_fp.main, [
+        "--data_h5_dir", patched, "--data_slide_dir", src, "--feat_dir",
+        feat, "--slide_ext", ".tiff", "--target_patch_size", "224",
+        "--batch_size", "128", "--allow_random_weights", "--device",
+        "cuda"])
+    coords, bags = {}, {}
+    for k, n_ in names.items():
+        with hdf5.File(os.path.join(patched, "patches",
+                                    f"{n_}_patches.h5")) as f:
+            coords[k] = f["coords"]
+        bags[k] = load_pt(os.path.join(feat, "path_pt_files", f"{n_}.pt"))
+    if len(coords["twin"]) < 1 or any(
+            not np.array_equal(coords[k], coords["twin"])
+            or not np.array_equal(bags[k], bags["twin"]) for k in kinds):
+        raise AssertionError("[wsi] a ZSTD slide's patches or features "
+                             "differ from its uncompressed twin's")
+    log(f"[wsi] the ZSTD slides and their twin: cli.create_patches "
+        f"{wall['stage0_zstd']:.2f} s, {len(coords['twin'])} patches each, "
+        f"coordinates equal to the twin's; cli.extract_features_fp "
+        f"{wall['stage1_zstd']:.2f} s, features equal to the twin's bit "
+        f"for bit; no launch")
+    cohort = os.path.join(td, "wsi_zstd_cohort.csv")
+    with open(cohort, "w") as f:
+        f.write("subject_id,slide_id\n" + "".join(
+            f"Z_{k},{n_}.tiff\n" for k, n_ in names.items()))
+    served, _ = _serve_and_check(
+        launch_counters, "wsi", "serve_zstd", "on the ZSTD slides' bags and "
+        "their twin's", path_exp, cohort, feat, td,
+        dict(none, _fused_pool_cuda=1), wall, launches)
+    log(f"[wsi] the ZSTD slides' risks: {served}")
+    if any(served[f"Z_{k}"] != served["Z_twin"] for k in kinds):
+        raise AssertionError("[wsi] a ZSTD slide's risk differs from its "
+                             "twin's")
+    shutil.rmtree(src)
+    for p in (npy, npy4):
+        os.remove(p)
+
+
+def _zstd_writer():
+    """tools/zstd_writer.py, the Zstandard coder of test streams (loaded
+    by path; the package never imports it)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "zstd_writer", os.path.join(REPO, "tools", "zstd_writer.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_wsi_j2k(launch_counters, path_exp, td, level0, stem, wall,
                   launches):
     """[wsi]'s JPEG 2000 slide: ``level0`` (level 0 of [wsi]'s slide
@@ -5786,6 +6049,8 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
                               launches)
         phase_wsi_arith(launch_counters, path_exp, td, sources[first][0],
                         twins[first], wall, launches)
+        phase_wsi_zstd(launch_counters, path_exp, td, sources[first][0],
+                       twins[first], wall, launches)
         del sources
         shutil.rmtree(src_c)
         log(f"[wsi] wall s ({_card()}): " + ", ".join(
@@ -6097,7 +6362,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,native,omic,pretrained,radio,extract,"
-                         "gradcam,interpret,j2k,jpeg,timing,bf16step,dist,"
+                         "gradcam,interpret,j2k,jpeg,zstd,timing,bf16step,"
+                         "dist,"
                          "ops,report,wsi,heatmap "
                          "(default: all but digest, which prints the "
                          "result lines)")
@@ -6155,6 +6421,8 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_j2k(counters)
     if "jpeg" in phases:
         phase_jpeg(counters)
+    if "zstd" in phases:
+        phase_zstd(counters)
     if "timing" in phases:
         phase_timing()
         phase_timing_radio()
@@ -6218,6 +6486,9 @@ def _full(counters, work, t_all) -> int:
     t = time.perf_counter()
     phase_jpeg(counters)
     log(f"[jpeg] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_zstd(counters)
+    log(f"[zstd] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     timing = phase_timing()
     timing_radio = phase_timing_radio()

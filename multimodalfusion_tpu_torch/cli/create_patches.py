@@ -17,8 +17,8 @@ contours, the grid and the files are host work.  ``--preset`` and
 pandas types them (empty cells NaN).  The images are written by the
 port's JPEG encoder (``utils/jpeg.py``, OpenCV's defaults) and the slides
 read by ``data/wsi.open_slide`` (multi-page TIFF, stripped or tiled,
-uncompressed or LZW, Deflate, PackBits or JPEG; PNG; baseline JPEG;
-openslide formats are refused and recorded as failed).
+uncompressed or LZW, Deflate, PackBits, LZMA, ZSTD or JPEG; PNG; JPEG;
+JPEG 2000; openslide formats are refused and recorded as failed).
 
     python -m multimodalfusion_tpu_torch.cli.create_patches \\
         --source SLIDES --save_dir OUT --patch_size 256 --step_size 256 \\

@@ -74,7 +74,8 @@ class Doctor:
                       f"built ({e})")
             return
         self.line("ok", "native: csrc/imgcodec.cpp built with g++ (TIFF "
-                  "LZW and PackBits, PNG filters, JPEG in Huffman and "
+                  "LZW, PackBits and ZSTD (the port's own Zstandard "
+                  "decoder), PNG filters, JPEG in Huffman and "
                   "arithmetic coding, sequential, progressive and "
                   "lossless, lossless-JPEG DICOM frames)")
 
@@ -118,7 +119,8 @@ class Doctor:
                                       "utils/j2k.py (JPEG 2000), "
                                       "utils/tiff.py (tiled or stripped, "
                                       "chunky or planar; LZW, Deflate, "
-                                      "PackBits, LZMA, JPEG; bilevel, gray, "
+                                      "PackBits, LZMA, ZSTD, JPEG; bilevel, "
+                                      "gray, "
                                       "LA, RGB(A), 16-bit RGB, palette, "
                                       "CMYK)"),
         ("PIL's bicubic Image.resize", "heatmap resizes: "
@@ -129,7 +131,8 @@ class Doctor:
          "heatmap blur and tissue mask: image_ops.gaussian_blur_u8, "
          "image_ops.fill_contours"),
         ("openslide", "slides: data/wsi.py reads TIFF (LZW, Deflate, "
-                      "PackBits, LZMA, JPEG; tiled or stripped, chunky or "
+                      "PackBits, LZMA, ZSTD, JPEG; tiled or stripped, "
+                      "chunky or "
                       "planar), PNG, JPEG (Huffman or arithmetic; "
                       "sequential, progressive or lossless) and JPEG 2000; "
                       "openslide formats are refused"),

@@ -5,8 +5,18 @@
 // utils/jpeg.py); the tests and chip_smoke.py hold this code to them bit
 // for bit.
 //
-// mmf_tiff_chunks_decode: TIFF LZW (MSB-first codes, early change) or
-// PackBits of many strips or tiles, one chunk at a time per thread.
+// mmf_tiff_chunks_decode: TIFF LZW (MSB-first codes, early change),
+// PackBits or ZSTD of many strips or tiles, one chunk at a time per
+// thread.
+//
+// mmf_zstd_decode: Zstandard (RFC 8878), the port's own decoder, not
+// libzstd: frames with their header (window or single segment, content
+// size), raw, RLE and compressed blocks, Huffman literals in 1 or 4
+// streams (weights direct or FSE-coded, treeless blocks), the FSE
+// sequence tables (predefined, RLE, coded, repeated) and repeat offsets,
+// matches over the whole frame, the XXH64 content checksum, skippable
+// frames; a dictionary ID and a window over libzstd's default 2^27 are
+// refused.  utils/zstd.py holds its plain version.
 //
 // mmf_png_unfilter: the PNG row filters 0-4 (None, Sub, Up, Average,
 // Paeth) of one image or one Adam7 pass; serial along a row.
@@ -33,13 +43,17 @@
 // .70) as the JAX package's native decoder reads them, through the same
 // predictor loop.
 //
-// Built at first use by multimodalfusion_tpu_torch/native.py:
+// Built at first use by multimodalfusion_tpu_torch/native.py (no codec
+// library is linked: not libjpeg, not libzstd):
 //   g++ -O3 -shared -fPIC -pthread -std=c++17 -o imgcodec.so imgcodec.cpp
 
 #include <algorithm>
 #include <atomic>
+#include <climits>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
+#include <new>
 #include <thread>
 #include <vector>
 
@@ -164,6 +178,690 @@ int64_t packbits_decode(const uint8_t* src, int64_t n, uint8_t* dst,
     }
     return out;
 }
+
+// ----------------------------------------------------------- Zstandard
+
+// RFC 8878 frames, as utils/zstd.py's decompress reads them (its
+// docstring says what is read and refused); errors are thrown as ZErr
+// and turned into the entry points' negative codes.
+namespace zstd {
+
+enum : int { kCorrupt = -1, kDictionary = -2, kWindow = -3 };
+constexpr int64_t kBlockMax = 1 << 17;
+constexpr int kWindowLogLimit = 27;
+constexpr int kHufLogMax = 12;
+constexpr int64_t kNcountWindow = 600;  // bytes an FSE description may use
+
+struct ZErr {
+    int code;
+    int64_t detail;
+};
+
+[[noreturn]] inline void corrupt() { throw ZErr{kCorrupt, 0}; }
+
+const uint32_t LL_BASE[36] = {0,    1,    2,     3,     4,     5,    6,
+                              7,    8,    9,     10,    11,    12,   13,
+                              14,   15,   16,    18,    20,    22,   24,
+                              28,   32,   40,    48,    64,    128,  256,
+                              512,  1024, 2048,  4096,  8192,  16384,
+                              32768, 65536};
+const uint8_t LL_BITS[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3,
+                             4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+const uint32_t ML_BASE[53] = {
+    3,   4,   5,   6,   7,    8,    9,    10,   11,    12,    13,
+    14,  15,  16,  17,  18,   19,   20,   21,   22,    23,    24,
+    25,  26,  27,  28,  29,   30,   31,   32,   33,    34,    35,
+    37,  39,  41,  43,  47,   51,   59,   67,   83,    99,    131,
+    259, 515, 1027, 2051, 4099, 8195, 16387, 32771, 65539};
+const uint8_t ML_BITS[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3, 4, 4,
+                             5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+const int16_t LL_DEFAULT[36] = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                                2, 1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2,
+                                2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
+const int16_t ML_DEFAULT[53] = {
+    1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
+const int16_t OF_DEFAULT[29] = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1,
+                                1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                1, 1, 1, 1, -1, -1, -1, -1, -1};
+
+inline int bit_length(uint64_t x) { return x ? 64 - __builtin_clzll(x) : 0; }
+
+inline uint64_t load_le(const uint8_t* p, int64_t n) {
+    uint64_t w = 0;
+    if (n >= 8) {
+        std::memcpy(&w, p, 8);
+    } else {
+        for (int64_t k = 0; k < n; ++k) w |= (uint64_t)p[k] << (8 * k);
+    }
+    return w;
+}
+
+// The nb (<= 56) bits from bit `at` up of the LSB-first stream p[0, n),
+// zeros past either end.
+inline uint64_t bits_at(const uint8_t* p, int64_t n, int64_t at, int nb) {
+    if (nb <= 0) return 0;
+    if (at < 0) {
+        return nb + at > 0 ? bits_at(p, n, 0, (int)(nb + at)) << (-at) : 0;
+    }
+    int64_t byte = at >> 3;
+    if (byte >= n) return 0;
+    return (load_le(p + byte, n - byte) >> (at & 7)) & ((1ull << nb) - 1);
+}
+
+// A backward bit stream over p[0, n) (see utils/zstd.py's _Back): pos is
+// the count of bits left, negative once overread.
+struct Back {
+    const uint8_t* p;
+    int64_t n, pos;
+    Back(const uint8_t* p_, int64_t n_) : p(p_), n(n_) {
+        if (n < 1 || p[n - 1] == 0) corrupt();
+        pos = 8 * (n - 1) + bit_length(p[n - 1]) - 1;
+    }
+    inline uint64_t read(int nb) {
+        pos -= nb;
+        return bits_at(p, n, pos, nb);
+    }
+};
+
+struct Fse {
+    int log = 0;
+    uint8_t sym[512];
+    uint8_t nb[512];
+    uint16_t base[512];
+};
+
+// The FSE table description at p (n bytes left): the counts, the log,
+// and the bytes it takes.
+int64_t read_ncount(const uint8_t* p, int64_t n, int max_symbol, int max_log,
+                    std::vector<int>& counts, int& log) {
+    if (n < 1) corrupt();
+    n = std::min(n, kNcountWindow);
+    log = (int)bits_at(p, n, 0, 4) + 5;
+    if (log > max_log) corrupt();
+    int64_t at = 4;
+    int remaining = (1 << log) + 1, threshold = 1 << log, nb = log + 1;
+    counts.clear();
+    bool prev0 = false;
+    while (remaining > 1 && (int)counts.size() <= max_symbol) {
+        if (prev0) {
+            while (true) {
+                int r = (int)bits_at(p, n, at, 2);
+                at += 2;
+                counts.insert(counts.end(), r, 0);
+                if (r != 3) break;
+            }
+            if ((int)counts.size() > max_symbol) break;
+        }
+        int most = 2 * threshold - 1 - remaining;
+        int low = (int)bits_at(p, n, at, nb - 1);
+        int count;
+        if (low < most) {
+            count = low;
+            at += nb - 1;
+        } else {
+            count = (int)bits_at(p, n, at, nb);
+            if (count >= threshold) count -= most;
+            at += nb;
+        }
+        count -= 1;
+        remaining -= std::abs(count);
+        counts.push_back(count);
+        prev0 = count == 0;
+        if (remaining < threshold) {
+            if (remaining <= 1) break;
+            nb = bit_length((uint64_t)remaining);
+            threshold = 1 << (nb - 1);
+        }
+    }
+    int64_t used = (at + 7) >> 3;
+    if (remaining != 1 || (int)counts.size() > max_symbol + 1 || used > n) {
+        corrupt();
+    }
+    return used;
+}
+
+void build_fse(const int* counts, int n_sym, int log, Fse& t) {
+    int size = 1 << log, high = size - 1;
+    int nxt[256];
+    for (int s = 0; s < n_sym; ++s) {
+        if (counts[s] == -1) {
+            t.sym[high--] = (uint8_t)s;
+            nxt[s] = 1;
+        } else {
+            nxt[s] = counts[s];
+        }
+    }
+    int step = (size >> 1) + (size >> 3) + 3, mask = size - 1, p = 0;
+    for (int s = 0; s < n_sym; ++s) {
+        for (int i = 0; i < counts[s]; ++i) {
+            t.sym[p] = (uint8_t)s;
+            p = (p + step) & mask;
+            while (p > high) p = (p + step) & mask;
+        }
+    }
+    if (p != 0) corrupt();
+    for (int u = 0; u < size; ++u) {
+        int x = nxt[t.sym[u]]++;
+        int nb = log + 1 - bit_length((uint64_t)x);
+        t.nb[u] = (uint8_t)nb;
+        t.base[u] = (uint16_t)((x << nb) - size);
+    }
+    t.log = log;
+}
+
+void rle_fse(int symbol, Fse& t) {
+    t.log = 0;
+    t.sym[0] = (uint8_t)symbol;
+    t.nb[0] = 0;
+    t.base[0] = 0;
+}
+
+struct Predefined {
+    Fse ll, of, ml;
+    Predefined() {
+        int c[53];
+        for (int i = 0; i < 36; ++i) c[i] = LL_DEFAULT[i];
+        build_fse(c, 36, 6, ll);
+        for (int i = 0; i < 29; ++i) c[i] = OF_DEFAULT[i];
+        build_fse(c, 29, 5, of);
+        for (int i = 0; i < 53; ++i) c[i] = ML_DEFAULT[i];
+        build_fse(c, 53, 6, ml);
+    }
+};
+
+const Predefined& predefined() {
+    static const Predefined p;
+    return p;
+}
+
+struct Huffman {
+    int log = 0;
+    uint8_t sym[1 << kHufLogMax];
+    uint8_t nb[1 << kHufLogMax];
+};
+
+// The FSE-coded Huffman weights of p[0, n): two interleaved states until
+// the stream is overread (utils/zstd.py's _fse_weights).
+int fse_weights(const uint8_t* p, int64_t n, uint8_t* w) {
+    std::vector<int> counts;
+    int log;
+    int64_t used = read_ncount(p, n, 255, 6, counts, log);
+    Fse t;
+    build_fse(counts.data(), (int)counts.size(), log, t);
+    Back br(p + used, n - used);
+    int s1 = (int)br.read(log), s2 = (int)br.read(log);
+    int k = 0;
+    while (true) {
+        if (k > 253) corrupt();
+        w[k++] = t.sym[s1];
+        s1 = t.base[s1] + (int)br.read(t.nb[s1]);
+        if (br.pos < 0) {
+            w[k++] = t.sym[s2];
+            return k;
+        }
+        if (k > 253) corrupt();
+        w[k++] = t.sym[s2];
+        s2 = t.base[s2] + (int)br.read(t.nb[s2]);
+        if (br.pos < 0) {
+            w[k++] = t.sym[s1];
+            return k;
+        }
+    }
+}
+
+// The Huffman tree description at p (n bytes left) into h; returns the
+// bytes it takes.
+int64_t read_huffman(const uint8_t* p, int64_t n, Huffman& h) {
+    if (n < 1) corrupt();
+    int head = p[0];
+    uint8_t w[257];
+    int k;
+    int64_t used;
+    if (head >= 128) {
+        k = head - 127;
+        used = 1 + (k + 1) / 2;
+        if (used > n) corrupt();
+        for (int i = 0; i < k; ++i) {
+            w[i] = i % 2 == 0 ? p[1 + i / 2] >> 4 : p[1 + i / 2] & 15;
+        }
+    } else {
+        used = 1 + head;
+        if (used > n) corrupt();
+        k = fse_weights(p + 1, head, w);
+    }
+    int64_t total = 0;
+    for (int i = 0; i < k; ++i) {
+        if (w[i] > kHufLogMax) corrupt();
+        total += (1 << w[i]) >> 1;
+    }
+    if (total == 0) corrupt();
+    int log = bit_length((uint64_t)total);
+    if (log > kHufLogMax) corrupt();
+    int64_t rest = ((int64_t)1 << log) - total;
+    int last = bit_length((uint64_t)rest);
+    if (rest != (int64_t)1 << (last - 1)) corrupt();
+    w[k++] = (uint8_t)last;
+    int ones = 0;
+    for (int i = 0; i < k; ++i) ones += w[i] == 1;
+    if (ones < 2 || ones % 2) corrupt();
+    int at = 0;
+    for (int weight = 1; weight <= kHufLogMax; ++weight) {
+        for (int s = 0; s < k; ++s) {
+            if (w[s] != weight) continue;
+            int cnt = 1 << (weight - 1);
+            std::memset(h.sym + at, s, cnt);
+            std::memset(h.nb + at, log + 1 - weight, cnt);
+            at += cnt;
+        }
+    }
+    h.log = log;
+    return used;
+}
+
+// n literals of the Huffman stream p[0, len), which they use up exactly.
+void huffman_stream(const uint8_t* p, int64_t len, const Huffman& h,
+                    int64_t n, uint8_t* out) {
+    Back br(p, len);
+    const int log = h.log;
+    const uint64_t mask = (1ull << log) - 1;
+    int64_t pos = br.pos;
+    for (int64_t i = 0; i < n; ++i) {
+        int64_t at = pos - log;
+        uint64_t v;
+        if (at >= 0) {
+            int64_t byte = at >> 3;
+            v = (load_le(p + byte, len - byte) >> (at & 7)) & mask;
+        } else {
+            v = bits_at(p, len, at, log);
+        }
+        out[i] = h.sym[v];
+        pos -= h.nb[v];
+    }
+    if (pos != 0) corrupt();
+}
+
+struct Seq {
+    int64_t ll, off, ml;
+};
+
+uint64_t rotl(uint64_t x, int r) { return (x << r) | (x >> (64 - r)); }
+
+constexpr uint64_t P1 = 11400714785074694791ull, P2 = 14029467366897019727ull,
+                   P3 = 1609587929392839161ull, P4 = 9650029242287828579ull,
+                   P5 = 2870177450012600261ull;
+
+inline uint64_t xround(uint64_t acc, uint64_t lane) {
+    return rotl(acc + lane * P2, 31) * P1;
+}
+
+uint64_t xxh64(const uint8_t* p, int64_t n) {
+    int64_t at = 0;
+    uint64_t h;
+    if (n >= 32) {
+        uint64_t v1 = P1 + P2, v2 = P2, v3 = 0, v4 = 0 - P1;
+        for (; at + 32 <= n; at += 32) {
+            v1 = xround(v1, load_le(p + at, 8));
+            v2 = xround(v2, load_le(p + at + 8, 8));
+            v3 = xround(v3, load_le(p + at + 16, 8));
+            v4 = xround(v4, load_le(p + at + 24, 8));
+        }
+        h = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18);
+        for (uint64_t v : {v1, v2, v3, v4}) h = (h ^ xround(0, v)) * P1 + P4;
+    } else {
+        h = P5;
+    }
+    h += (uint64_t)n;
+    for (; at + 8 <= n; at += 8) {
+        h ^= xround(0, load_le(p + at, 8));
+        h = rotl(h, 27) * P1 + P4;
+    }
+    if (at + 4 <= n) {
+        h ^= (uint64_t)(uint32_t)load_le(p + at, 4) * P1;
+        h = rotl(h, 23) * P2 + P3;
+        at += 4;
+    }
+    for (; at < n; ++at) {
+        h ^= p[at] * P5;
+        h = rotl(h, 11) * P1;
+    }
+    h ^= h >> 33;
+    h *= P2;
+    h ^= h >> 29;
+    h *= P3;
+    return h ^ (h >> 32);
+}
+
+// Where the output goes: limit bytes at most (the cap); in growing mode
+// the buffer is realloc'ed to hold what comes, and the limit is none.
+struct Sink {
+    uint8_t* p;
+    int64_t alloc, limit, n = 0;
+    bool grow;
+    void reserve(int64_t need) {
+        if (!grow || need <= alloc) return;
+        int64_t want = std::max<int64_t>({need, 2 * alloc, 1 << 16});
+        auto* q = (uint8_t*)std::realloc(p, (size_t)want);
+        if (!q) throw std::bad_alloc();
+        p = q;
+        alloc = want;
+    }
+    // copy src[0, len) to the position n, what passes the limit dropped
+    inline void put(const uint8_t* src, int64_t len) {
+        int64_t take = std::min(len, limit - n);
+        if (take > 0) std::memcpy(p + n, src, (size_t)take);
+        n += len;
+    }
+    inline void fill(uint8_t b, int64_t len) {
+        int64_t take = std::min(len, limit - n);
+        if (take > 0) std::memset(p + n, b, (size_t)take);
+        n += len;
+    }
+    // the match of ml bytes at offset off (checked), byte by byte where
+    // it overlaps itself
+    inline void match(int64_t off, int64_t ml) {
+        int64_t take = std::min(ml, limit - n);
+        if (take > 0) {
+            uint8_t* d = p + n;
+            const uint8_t* s = d - off;
+            if (off >= take) {
+                std::memcpy(d, s, (size_t)take);
+            } else {
+                for (int64_t i = 0; i < take; ++i) d[i] = s[i];
+            }
+        }
+        n += ml;
+    }
+};
+
+class Decoder {
+  public:
+    // Every frame of src[0, len) into out, or only the first
+    // (one_frame; see utils/zstd.py's decompress); throws ZErr.
+    void run(const uint8_t* src, int64_t len, Sink& out, bool one_frame) {
+        int64_t pos = 0, frames = 0;
+        while (pos < len && out.n < out.limit && !(one_frame && frames)) {
+            ++frames;
+            if (pos + 4 > len) corrupt();
+            uint32_t magic = (uint32_t)load_le(src + pos, 4);
+            if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) {
+                if (pos + 8 > len) corrupt();
+                pos += 8 + (int64_t)(uint32_t)load_le(src + pos + 4, 4);
+                if (pos > len) corrupt();
+                continue;
+            }
+            pos = frame(src, len, pos, out);
+        }
+    }
+
+  private:
+    Huffman huf_;
+    bool have_huf_ = false;
+    Fse tabs_[3];  // ll, of, ml
+    bool have_[3] = {false, false, false};
+    int64_t rep_[3] = {1, 4, 8};
+    std::vector<uint8_t> lits_;
+    std::vector<Seq> seqs_;
+    std::vector<int> counts_;
+
+    int64_t frame(const uint8_t* src, int64_t len, int64_t pos, Sink& out) {
+        if (pos + 5 > len || (uint32_t)load_le(src + pos, 4) != 0xFD2FB528u) {
+            corrupt();
+        }
+        int fhd = src[pos + 4];
+        int fcs_flag = fhd >> 6, single = (fhd >> 5) & 1;
+        if (fhd & 8) corrupt();
+        static const int kDidSize[4] = {0, 1, 2, 4};
+        int did_size = kDidSize[fhd & 3];
+        int fcs_size = fcs_flag ? 1 << fcs_flag : single;
+        int64_t at = pos + 5;
+        if (pos + 5 + !single + did_size + fcs_size > len) corrupt();
+        uint64_t window = 0;
+        if (!single) {
+            int wd = src[at++];
+            uint64_t base = 1ull << (10 + (wd >> 3));
+            window = base + (base >> 3) * (wd & 7);
+        }
+        uint64_t dict_id = load_le(src + at, did_size);
+        at += did_size;
+        bool has_fcs = fcs_size > 0;
+        uint64_t fcs = load_le(src + at, fcs_size) + (fcs_size == 2 ? 256 : 0);
+        at += fcs_size;
+        if (single) window = fcs;
+        if (dict_id) throw ZErr{kDictionary, (int64_t)dict_id};
+        bool fits = has_fcs &&
+                    (out.grow || fcs <= (uint64_t)(out.limit - out.n));
+        if (window > (1ull << kWindowLogLimit) && !fits) {
+            throw ZErr{kWindow,
+                       (int64_t)std::min<uint64_t>(window, INT64_MAX)};
+        }
+        int64_t limit = (int64_t)std::min<uint64_t>(window, kBlockMax);
+        bool checksum = fhd & 4;
+        int64_t start = out.n;
+        have_huf_ = false;
+        have_[0] = have_[1] = have_[2] = false;
+        rep_[0] = 1, rep_[1] = 4, rep_[2] = 8;
+        pos = at;
+        while (true) {
+            if (pos + 3 > len) corrupt();
+            uint32_t bh = (uint32_t)load_le(src + pos, 3);
+            int last = bh & 1, kind = (bh >> 1) & 3;
+            int64_t size = bh >> 3;
+            pos += 3;
+            if (kind == 3 || size > limit) corrupt();
+            if (pos + (kind == 1 ? 1 : size) > len) corrupt();
+            if (kind == 0) {
+                out.reserve(out.n + size);
+                out.put(src + pos, size);
+                pos += size;
+            } else if (kind == 1) {
+                out.reserve(out.n + size);
+                out.fill(src[pos], size);
+                pos += 1;
+            } else {
+                if (size < 2) corrupt();
+                block(src + pos, size, out, start, limit);
+                pos += size;
+            }
+            if (out.n > out.limit) return len;  // stop: past the cap
+            if (last) break;
+        }
+        int64_t got = out.n - start;
+        if (has_fcs && (uint64_t)got != fcs) corrupt();
+        if (checksum) {
+            if (pos + 4 > len) corrupt();
+            uint32_t want = (uint32_t)load_le(src + pos, 4);
+            if ((uint32_t)xxh64(out.p + start, got) != want) corrupt();
+            pos += 4;
+        }
+        return pos;
+    }
+
+    void block(const uint8_t* p, int64_t n, Sink& out, int64_t start,
+               int64_t limit) {
+        int64_t at = literals(p, n);
+        sequences(p + at, n - at);
+        int64_t total = (int64_t)lits_.size();
+        for (const Seq& s : seqs_) total += s.ml;
+        out.reserve(out.n + std::min(total, limit + (int64_t)lits_.size()));
+        int64_t li = 0, nl = (int64_t)lits_.size(), first = out.n;
+        for (const Seq& s : seqs_) {
+            if (li + s.ll > nl) corrupt();
+            out.put(lits_.data() + li, s.ll);
+            li += s.ll;
+            if (s.off < 1 || s.off > out.n - start) corrupt();
+            if (out.n - first + s.ml > limit) corrupt();
+            out.match(s.off, s.ml);
+        }
+        out.put(lits_.data() + li, nl - li);
+        if (out.n - first > limit) corrupt();
+    }
+
+    // The literals section at p (n bytes: the block) into lits_; returns
+    // its size.
+    int64_t literals(const uint8_t* p, int64_t n) {
+        int b0 = p[0], kind = b0 & 3, fmt = (b0 >> 2) & 3;
+        if (kind < 2) {
+            static const int kRawHead[4] = {1, 2, 1, 3};
+            int hl = kRawHead[fmt];
+            if (hl > n) corrupt();
+            uint32_t v = (uint32_t)load_le(p, hl);
+            int64_t size = hl == 1 ? v >> 3 : v >> 4;
+            if (kind == 0) {
+                if (hl + size > n) corrupt();
+                lits_.assign(p + hl, p + hl + size);
+                return hl + size;
+            }
+            if (hl >= n) corrupt();
+            if (size > kBlockMax) corrupt();
+            lits_.assign((size_t)size, p[hl]);
+            return hl + 1;
+        }
+        if (n < 5) corrupt();
+        static const int kHead[4] = {3, 3, 4, 5}, kBits[4] = {10, 10, 14, 18};
+        int hl = kHead[fmt], bits = kBits[fmt];
+        uint64_t v = load_le(p, hl);
+        int64_t regen = (int64_t)((v >> 4) & ((1u << bits) - 1));
+        int64_t comp = (int64_t)(v >> (4 + bits));
+        if (regen > kBlockMax) corrupt();
+        int64_t pos = hl, stop = hl + comp;
+        if (stop > n) corrupt();
+        if (kind == 2) {
+            pos += read_huffman(p + pos, stop - pos, huf_);
+            have_huf_ = true;
+        } else if (!have_huf_) {
+            corrupt();
+        }
+        lits_.resize((size_t)regen);
+        if (fmt == 0) {
+            huffman_stream(p + pos, stop - pos, huf_, regen, lits_.data());
+            return stop;
+        }
+        if (regen < 6 || stop - pos < 10) corrupt();
+        int64_t sizes[4];
+        for (int i = 0; i < 3; ++i) {
+            sizes[i] = (int64_t)load_le(p + pos + 2 * i, 2);
+        }
+        pos += 6;
+        sizes[3] = stop - pos - sizes[0] - sizes[1] - sizes[2];
+        if (sizes[3] < 1) corrupt();
+        int64_t seg = (regen + 3) / 4;
+        for (int i = 0; i < 4; ++i) {
+            huffman_stream(p + pos, sizes[i], huf_,
+                           i < 3 ? seg : regen - 3 * seg,
+                           lits_.data() + i * seg);
+            pos += sizes[i];
+        }
+        return stop;
+    }
+
+    // The sequences section p[0, n) into seqs_, the repeat offsets
+    // resolved.
+    void sequences(const uint8_t* p, int64_t n) {
+        seqs_.clear();
+        if (n < 1) corrupt();
+        int b0 = p[0];
+        int64_t pos = 1, count;
+        if (b0 == 0) {
+            if (pos != n) corrupt();
+            return;
+        }
+        if (b0 == 255) {
+            if (pos + 2 > n) corrupt();
+            count = p[1] + (p[2] << 8) + 0x7F00;
+            pos += 2;
+        } else if (b0 >= 128) {
+            if (pos >= n) corrupt();
+            count = ((b0 - 128) << 8) + p[1];
+            pos += 1;
+        } else {
+            count = b0;
+        }
+        if (pos >= n) corrupt();
+        int modes = p[pos++];
+        if (modes & 3) corrupt();
+        static const int kMaxSym[3] = {35, 31, 52}, kMaxLog[3] = {9, 8, 9};
+        const Predefined& pre = predefined();
+        const Fse* defaults[3] = {&pre.ll, &pre.of, &pre.ml};
+        for (int k = 0; k < 3; ++k) {
+            int mode = (modes >> (6 - 2 * k)) & 3;
+            if (mode == 0) {
+                tabs_[k] = *defaults[k];
+            } else if (mode == 1) {
+                if (pos >= n) corrupt();
+                if (p[pos] > kMaxSym[k]) corrupt();
+                rle_fse(p[pos++], tabs_[k]);
+            } else if (mode == 2) {
+                int log;
+                pos += read_ncount(p + pos, n - pos, kMaxSym[k], kMaxLog[k],
+                                   counts_, log);
+                build_fse(counts_.data(), (int)counts_.size(), log, tabs_[k]);
+            } else if (!have_[k]) {
+                corrupt();
+            }
+            have_[k] = true;
+        }
+        const Fse &llt = tabs_[0], &oft = tabs_[1], &mlt = tabs_[2];
+        Back br(p + pos, n - pos);
+        int ls = (int)br.read(llt.log), os = (int)br.read(oft.log),
+            ms = (int)br.read(mlt.log);
+        seqs_.resize((size_t)count);
+        for (int64_t i = 0; i < count; ++i) {
+            int of_code = oft.sym[os], ll_code = llt.sym[ls],
+                ml_code = mlt.sym[ms];
+            int64_t ov = ((int64_t)1 << of_code) + (int64_t)br.read(of_code);
+            int64_t ml = ML_BASE[ml_code] + (int64_t)br.read(ML_BITS[ml_code]);
+            int64_t ll = LL_BASE[ll_code] + (int64_t)br.read(LL_BITS[ll_code]);
+            int64_t off;
+            if (ov > 3) {
+                off = ov - 3;
+                rep_[2] = rep_[1];
+                rep_[1] = rep_[0];
+                rep_[0] = off;
+            } else {
+                int64_t k = ov - (ll != 0);
+                off = k == 3 ? rep_[0] - 1 : rep_[k];
+                if (k == 1) {
+                    rep_[1] = rep_[0];
+                    rep_[0] = off;
+                } else if (k > 1) {
+                    rep_[2] = rep_[1];
+                    rep_[1] = rep_[0];
+                    rep_[0] = off;
+                }
+            }
+            seqs_[i] = Seq{ll, off, ml};
+            if (i + 1 < count) {
+                ls = llt.base[ls] + (int)br.read(llt.nb[ls]);
+                ms = mlt.base[ms] + (int)br.read(mlt.nb[ms]);
+                os = oft.base[os] + (int)br.read(oft.nb[os]);
+            }
+        }
+        if (br.pos != 0) corrupt();
+    }
+};
+
+// Decode src[0, len) into out; returns 0 or a negative code (detail: the
+// dictionary ID or the window).
+int decode(const uint8_t* src, int64_t len, Sink& out, bool one_frame,
+           int64_t* detail) {
+    try {
+        Decoder d;
+        d.run(src, len, out, one_frame);
+        return 0;
+    } catch (const ZErr& e) {
+        if (detail) *detail = e.detail;
+        return e.code;
+    } catch (const std::bad_alloc&) {
+        return kCorrupt;
+    }
+}
+
+}  // namespace zstd
 
 // ---------------------------------------------------------------- JPEG
 
@@ -1438,22 +2136,53 @@ int mmf_jpeg_lossless_decode(const uint8_t* entropy, int64_t n_bytes,
                          n_bytes * 8);
 }
 
-// Decode n TIFF chunks (codec 5: LZW, 32773: PackBits) from srcs[i]
-// (lens[i] bytes) into dsts[i] (caps[i] bytes), in parallel threads;
-// outs[i] gets the bytes written, or -1 for a malformed chunk.  Returns
-// 0, or -2 for an unknown codec.
+// Decode n TIFF chunks (codec 5: LZW, 32773: PackBits, 50000: ZSTD, the
+// first frame of each, as libtiff reads it) from srcs[i] (lens[i] bytes)
+// into dsts[i] (caps[i] bytes), in parallel threads; outs[i] gets the
+// bytes written, or a negative code for a chunk that fails (-1
+// malformed; ZSTD also -2, a frame that names a dictionary, and -3, a
+// window over 2^27).  Returns 0, or -2 for an unknown codec.
 int mmf_tiff_chunks_decode(int codec, const uint8_t** srcs,
                            const int64_t* lens, uint8_t** dsts,
                            const int64_t* caps, int64_t* outs, int64_t n,
                            int n_threads) {
-    if (codec != 5 && codec != 32773) return -2;
+    if (codec != 5 && codec != 32773 && codec != 50000) return -2;
     parallel_for(n, n_threads, [&](int64_t i) {
-        outs[i] = codec == 5
-                      ? lzw_decode(srcs[i], lens[i], dsts[i], caps[i])
-                      : packbits_decode(srcs[i], lens[i], dsts[i], caps[i]);
+        if (codec == 50000) {
+            zstd::Sink out{dsts[i], caps[i], caps[i], 0, false};
+            int rc = zstd::decode(srcs[i], lens[i], out, true, nullptr);
+            outs[i] = rc ? rc : std::min(out.n, caps[i]);
+        } else {
+            outs[i] = codec == 5 ? lzw_decode(srcs[i], lens[i], dsts[i],
+                                              caps[i])
+                                 : packbits_decode(srcs[i], lens[i], dsts[i],
+                                                   caps[i]);
+        }
     });
     return 0;
 }
+
+// Every Zstandard frame of src[0, len) (utils/zstd.py's decompress,
+// without a cap) into a buffer of its own: *out (free it with
+// mmf_zstd_free) and *out_len.  Returns 0, -1 for a corrupt stream, -2
+// for a frame that names a dictionary or -3 for a window over 2^27
+// (*detail: the ID or the window).
+int mmf_zstd_decode(const uint8_t* src, int64_t len, uint8_t** out,
+                    int64_t* out_len, int64_t* detail) {
+    zstd::Sink sink{nullptr, 0, INT64_MAX, 0, true};
+    int rc = zstd::decode(src, len, sink, false, detail);
+    if (rc) {
+        std::free(sink.p);
+        *out = nullptr;
+        *out_len = 0;
+        return rc;
+    }
+    *out = sink.p;
+    *out_len = sink.n;
+    return 0;
+}
+
+void mmf_zstd_free(void* p) { std::free(p); }
 
 // Undo the PNG row filters of `raw` (h rows of 1 + rowbytes bytes, the
 // first the filter type) into out (h rows of rowbytes); bpp is the bytes

@@ -50,7 +50,8 @@ OPENSLIDE_EXTS = (".svs", ".ndpi", ".mrxs", ".scn", ".vms", ".vmu", ".bif")
 J2K_EXTS = (".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c")
 SLIDE_EXTS = (".tif", ".tiff", ".png", ".jpg", ".jpeg") + J2K_EXTS
 READS = ("multi-page TIFF (stripped or tiled, chunky or planar; "
-         "uncompressed, LZW, Deflate, PackBits, LZMA or JPEG; bilevel, gray, "
+         "uncompressed, LZW, Deflate, PackBits, LZMA, ZSTD or JPEG; bilevel, "
+         "gray, "
          "LA, RGB with or without alpha, 16-bit RGB, palette or CMYK), PNG, "
          "JPEG (Huffman or arithmetic coding; baseline, progressive or "
          "lossless; gray, YCbCr, RGB, CMYK or YCCK) and JPEG 2000")
@@ -138,7 +139,8 @@ def _j2k_header(path: str) -> Tuple[Tuple[int, int], str]:
 class PILSlide(ArraySlide):
     """Page-per-level slide (the JAX name; no PIL): the pages of a multi-
     page TIFF -- strips or tiles, chunky or planar, uncompressed, LZW
-    (predictor 1 or 2), Deflate, PackBits, LZMA or JPEG; bilevel, gray,
+    (predictor 1 or 2), Deflate, PackBits, LZMA, ZSTD (the port's own
+    Zstandard decoder, ``utils/zstd.py``) or JPEG; bilevel, gray,
     LA, RGB with or without alpha, 16-bit RGB, palette or CMYK
     (``utils/tiff.py``) -- or one PNG of any colour type, depth and
     interlace (``utils/png.py``), or one JPEG -- Huffman or arithmetic

@@ -7,13 +7,15 @@ yet; their ``*_plain`` versions are the oracles of the tests and of
 ``chip_smoke.py``.
 
 ``csrc/imgcodec.cpp`` (``codec_lib()``): the image decoders that stand in
-for PIL's libtiff, libpng and libjpeg-turbo -- TIFF LZW and PackBits
-chunks, PNG row filters and JPEG frames (Huffman or arithmetic
-coding, sequential, progressive or lossless), threaded over independent
-chunks, and the lossless-JPEG DICOM frames (JAX native.py's
+for PIL's libtiff, libpng, libjpeg-turbo and libzstd -- TIFF LZW,
+PackBits and ZSTD chunks, PNG row filters and JPEG frames (Huffman or
+arithmetic coding, sequential, progressive or lossless), threaded over
+independent chunks, and the lossless-JPEG DICOM frames (JAX native.py's
 ``jpeg_lossless_decode``), on the lossless frames' predictor loop.
 Their wrappers and plain versions live with the readers
-(``utils/tiff.py``, ``utils/png.py``, ``utils/jpeg.py``).
+(``utils/tiff.py``, ``utils/png.py``, ``utils/jpeg.py``,
+``utils/zstd.py``); ``zstd_decode`` decodes a whole Zstandard byte
+string.
 
 ``csrc/j2k.cpp`` (``j2k_lib()``): the hot loops of the JPEG 2000 codec
 that stands in for PIL's openjpeg (``utils/j2k.py``, which holds their
@@ -129,8 +131,40 @@ def codec_lib() -> ctypes.CDLL:
                 ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p]
             loaded.mmf_jpeg_lossless_decode.restype = ctypes.c_int
+            loaded.mmf_zstd_decode.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64)]
+            loaded.mmf_zstd_decode.restype = ctypes.c_int
+            loaded.mmf_zstd_free.argtypes = [ctypes.c_void_p]
+            loaded.mmf_zstd_free.restype = None
             _codec_lib = loaded
         return _codec_lib
+
+
+def zstd_decode(data: bytes) -> bytes:
+    """Every Zstandard frame of ``data`` decoded by the C++ decoder
+    (``mmf_zstd_decode``), as ``utils/zstd.decompress`` (its plain
+    version) decodes them: a corrupt stream raises ``ValueError``, a
+    frame that names a dictionary ``NotImplementedError``, a window over
+    2^27 bytes ``ValueError``."""
+    from multimodalfusion_tpu_torch.utils import zstd
+    data = bytes(data)
+    out, n, detail = ctypes.c_void_p(), ctypes.c_int64(), ctypes.c_int64()
+    lib_ = codec_lib()
+    rc = lib_.mmf_zstd_decode(data, len(data), ctypes.byref(out),
+                              ctypes.byref(n), ctypes.byref(detail))
+    if rc == -2:
+        raise zstd.dictionary_error(detail.value)
+    if rc == -3:
+        raise zstd.window_error(detail.value)
+    if rc:
+        raise ValueError("corrupt Zstandard data")
+    try:
+        return ctypes.string_at(out, n.value) if n.value else b""
+    finally:
+        lib_.mmf_zstd_free(out)
 
 
 class _J2kBlock(ctypes.Structure):

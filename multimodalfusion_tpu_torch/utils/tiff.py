@@ -20,6 +20,10 @@ with its ColorMap, tag 320); CMYK; each with one of these compressions
 - 32773, PackBits;
 - 34925, LZMA (the standard library's ``lzma``, the xz container libtiff
   writes), with predictor 1 or 2;
+- 50000, ZSTD (``utils/zstd.py``, the port's own Zstandard decoder, as
+  libtiff's libzstd decodes each chunk: its first frame, no
+  dictionary, a window of at most 2^27 bytes unless the frame declares
+  a content size that fits the chunk), with predictor 1 or 2;
 - 7, JPEG (``utils/jpeg.py``, baseline or progressive streams, as
   libtiff decodes both for PIL): 8-bit gray, or 3 components with
   photometric 2 (RGB, no colour transform) or 6 (YCbCr, converted to
@@ -33,19 +37,20 @@ its unpacker (``to_rgb``): grayscale repeated, 16-bit gray saturated at
 255, 16-bit RGB by its high byte, alpha dropped (associated alpha
 divided out first, as is a compressed planar page's fourth sample
 without ExtraSamples, which libtiff's RGBA reader counts associated),
-palette through the ColorMap, CMYK as ``cmyk_to_rgb``.  LZW and PackBits
-chunks and JPEG streams decode in C++ (``csrc/imgcodec.cpp``), many
-chunks in parallel threads, Deflate in ``zlib`` on a thread pool;
+palette through the ColorMap, CMYK as ``cmyk_to_rgb``.  LZW, PackBits
+and ZSTD chunks and JPEG streams decode in C++ (``csrc/imgcodec.cpp``),
+many chunks in parallel threads, Deflate in ``zlib`` on a thread pool;
 ``read_page(..., plain=True)`` decodes them with the plain versions
-(``lzw_decode_plain``, ``packbits_decode_plain``, the JPEG decoder's),
-one chunk after another, as the tests and ``chip_smoke.py`` do to hold
-the C++ to them.  ``read_pages`` reads only the page headers (sizes and
-the mode PIL would decode each page in), so a caller can budget the
-decode first.  Other compressions (ZSTD, CCITT, old-style JPEG, JPEG
-2000, ...), fill order 2, floating-point prediction and other layouts
-raise ``NotImplementedError`` naming the file and the tag, as do the
-uncompressed planar pages PIL's raw reader has no mode for; ROADMAP.md
-queues them.
+(``lzw_decode_plain``, ``packbits_decode_plain``, ``zstd_decode_plain``,
+the JPEG decoder's), one chunk after another, as the tests and
+``chip_smoke.py`` do to hold the C++ to them.  A chunk the C++ cannot
+decode raises; it never gives way to the plain version.  ``read_pages``
+reads only the page headers (sizes and the mode PIL would decode each
+page in), so a caller can budget the decode first.  Other compressions
+(CCITT, old-style JPEG, JPEG 2000, ...), fill order 2, floating-point
+prediction and other layouts raise ``NotImplementedError`` naming the
+file and the tag, as do the uncompressed planar pages PIL's raw reader
+has no mode for; ROADMAP.md queues them.
 
 The writer (``write_tiff``) writes uint8 RGB pages [H, W, 3],
 uncompressed, one strip a page, little-endian, as PIL writes a
@@ -62,7 +67,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from multimodalfusion_tpu_torch.utils import jpeg
+from multimodalfusion_tpu_torch.utils import jpeg, zstd
 
 # tags
 _WIDTH, _LENGTH, _BITS, _COMPRESSION, _PHOTOMETRIC = 256, 257, 258, 259, 262
@@ -75,9 +80,10 @@ _TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1),
           7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 16: ("Q", 8)}
 # compressions read, by tag 259 value
 NONE, LZW, JPEG, DEFLATE, PACKBITS, ADOBE_DEFLATE = 1, 5, 7, 8, 32773, 32946
-LZMA = 34925
+LZMA, ZSTD = 34925, 50000
 COMPRESSIONS = {NONE: "none", LZW: "LZW", JPEG: "JPEG", DEFLATE: "Deflate",
-                ADOBE_DEFLATE: "Deflate", PACKBITS: "PackBits", LZMA: "LZMA"}
+                ADOBE_DEFLATE: "Deflate", PACKBITS: "PackBits", LZMA: "LZMA",
+                ZSTD: "ZSTD"}
 # (PhotometricInterpretation, BitsPerSample, ExtraSamples) -> the mode PIL
 # opens the page in (TiffImagePlugin's OPEN_INFO, fill order 1, unsigned
 # integer samples); "RGBa": associated alpha, which PIL divides out
@@ -163,7 +169,8 @@ def _page(tags: dict, path: str) -> Page:
         raise NotImplementedError(
             f"{path}: TIFF Compression (tag {_COMPRESSION}) = "
             f"{compression}; the port reads none (1), LZW (5), JPEG (7), "
-            f"Deflate (8, 32946), PackBits (32773) and LZMA (34925)")
+            f"Deflate (8, 32946), PackBits (32773), LZMA (34925) and ZSTD "
+            f"(50000)")
     planar = one(_PLANAR, 1)
     if planar not in (1, 2):
         raise NotImplementedError(f"{path}: TIFF PlanarConfiguration (tag "
@@ -174,7 +181,7 @@ def _page(tags: dict, path: str) -> Page:
                                   f"{_FILL_ORDER}) = {one(_FILL_ORDER)}; "
                                   f"the port reads 1")
     predictor = one(_PREDICTOR, 1)
-    if compression not in (LZW, DEFLATE, ADOBE_DEFLATE, LZMA):
+    if compression not in (LZW, DEFLATE, ADOBE_DEFLATE, LZMA, ZSTD):
         predictor = 1  # libtiff applies it with these only
     if predictor not in (1, 2):
         raise NotImplementedError(f"{path}: TIFF Predictor (tag "
@@ -352,12 +359,22 @@ def packbits_decode_plain(data: bytes, cap: int) -> bytes:
     return bytes(out[:cap])
 
 
+def zstd_decode_plain(data: bytes, cap: int) -> bytes:
+    """A ZSTD chunk as libtiff reads it: its first frame, at most ``cap``
+    bytes (``zstd.decompress``).  The plain version of
+    ``mmf_tiff_chunks_decode``'s ZSTD."""
+    return zstd.decompress(data, cap, one_frame=True)
+
+
 def decode_chunks(codec: int, chunks: Sequence[bytes],
                   outs: Sequence) -> List[int]:
-    """LZW (5) or PackBits (32773) of each chunk into its ``out`` (a
-    writable C-contiguous uint8 array, filled up to its size) in C++, in
-    parallel threads (one per hardware thread): the bytes written to
-    each.  A malformed chunk raises ``ValueError``."""
+    """LZW (5), PackBits (32773) or ZSTD (50000) of each chunk into its
+    ``out`` (a writable C-contiguous uint8 array, filled up to its size)
+    in C++, in parallel threads (one per hardware thread): the bytes
+    written to each.  A malformed chunk raises ``ValueError``; a ZSTD
+    frame that names a dictionary ``NotImplementedError``, and one whose
+    window passes 2^27 bytes ``ValueError``, each as
+    ``zstd.decompress`` words it."""
     from multimodalfusion_tpu_torch import native
     n = len(chunks)
     if len(outs) != n or any(
@@ -376,9 +393,16 @@ def decode_chunks(codec: int, chunks: Sequence[bytes],
             codec, c_srcs, c_lens, c_dsts, c_caps, c_outs, n, 0) != 0:
         raise ValueError(f"no C++ decoder for TIFF compression {codec}")
     done = list(c_outs)
-    if min(done, default=0) < 0:
-        raise ValueError(f"corrupt {COMPRESSIONS[codec]} data in chunk "
-                         f"{done.index(min(done))}")
+    bad = [i for i, d in enumerate(done) if d < 0]
+    if bad:
+        i = bad[0]
+        if codec == ZSTD and done[i] in (-2, -3):
+            # a frame header refused: the plain decoder words why
+            try:
+                zstd_decode_plain(chunks[i], outs[i].size)
+            except (ValueError, NotImplementedError) as e:
+                raise type(e)(f"{e} (chunk {i})") from None
+        raise ValueError(f"corrupt {COMPRESSIONS[codec]} data in chunk {i}")
     return done
 
 
@@ -518,8 +542,8 @@ def _pixels(path: str, page: Page, plain: bool):
                     os.cpu_count() or 1) as pool:
                 done = list(pool.map(inflate, range(len(chunks))))
     elif plain:
-        fn = (lzw_decode_plain if page.compression == LZW
-              else packbits_decode_plain)
+        fn = {LZW: lzw_decode_plain, PACKBITS: packbits_decode_plain,
+              ZSTD: zstd_decode_plain}[page.compression]
         done = []
         for o, data in zip(outs, chunks):
             raw = fn(data, o.size)
@@ -596,8 +620,8 @@ def to_rgb(page: Page, px: np.ndarray) -> np.ndarray:
 
 def read_page(path: str, page: Page, plain: bool = False) -> np.ndarray:
     """uint8 RGB [H, W, 3] of ``page`` of the file at ``path`` (see
-    ``to_rgb``).  LZW, PackBits and JPEG decode in C++ (one thread per
-    hardware thread), or with ``plain=True`` in their plain versions."""
+    ``to_rgb``).  LZW, PackBits, ZSTD and JPEG decode in C++ (one thread
+    per hardware thread), or with ``plain=True`` in their plain versions."""
     return to_rgb(page, _pixels(path, page, plain))
 
 

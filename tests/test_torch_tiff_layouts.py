@@ -15,7 +15,7 @@ equal through the plain decoders too (``read_page(..., plain=True)``):
   unspecified extra sample;
 - the decode budget of each new mode at the JAX table's bytes a pixel;
 - layouts PIL refuses or the port still refuses (FillOrder 2, 5-sample
-  RGB) raise ``NotImplementedError`` naming the tag.
+  RGB, CCITT Group 4) raise ``NotImplementedError`` naming the tag.
 """
 import io
 import lzma
@@ -332,7 +332,7 @@ def test_budget_counts_the_new_modes(tmp_path):
 
 def test_layouts_still_refused_name_the_tag(tmp_path):
     """FillOrder 2 and five-sample RGB: the port raises naming the tag;
-    ZSTD (50000) names the compression."""
+    CCITT Group 4 (Compression 4) names the compression."""
     img = _image(16, 16, c=1, seed=8)
     page = _page(img, 1, NONE)
     page["tags"][266] = (3, [2])
@@ -344,6 +344,6 @@ def test_layouts_still_refused_name_the_tag(tmp_path):
     with pytest.raises(NotImplementedError, match="tag 338"):
         tw.PILSlide(_write(str(tmp_path / "five.tiff"), [page]))
     page = _page(_image(16, 16, seed=8), 2, NONE)
-    page["tags"][259] = (3, [50000])
+    page["tags"][259] = (3, [4])
     with pytest.raises(NotImplementedError, match="tag 259"):
-        tw.PILSlide(_write(str(tmp_path / "zstd.tiff"), [page]))
+        tw.PILSlide(_write(str(tmp_path / "g4.tiff"), [page]))

@@ -332,10 +332,10 @@ def test_readers_refuse_what_they_cannot_read(tmp_path, small_slide):
     # the writer's file with its last tag (PlanarConfiguration) renamed
     # TileWidth (a tiled page without TileLength), then
     # PlanarConfiguration 3 (neither chunky nor planar), then its
-    # Compression (the fourth tag) set to ZSTD (50000)
+    # Compression (the fourth tag) set to CCITT Group 4 (4)
     for tag, value, match, at in ((322, 64, "tiled.*tag 323", 9),
                                   (284, 3, "tag 284", 9),
-                                  (259, 50000, "tiled.*tag 259", 3)):
+                                  (259, 4, "tiled.*tag 259", 3)):
         path = str(tmp_path / "tiled.tiff")
         tiff.write_tiff(path, [lvl])
         with open(path, "r+b") as f:
