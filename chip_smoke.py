@@ -319,7 +319,17 @@ Phases, each fatal on failure:
                 decode ms per megapixel; the plain decode of a 512 x 512
                 square equal), the twin's coordinates and features bit
                 for bit, and their four bags are served (one forward
-                launch, the twin's risks).  The slides are deleted.
+                launch, the twin's risks).  The four tiled pyramids
+                again as little-endian BigTIFF (tools/bigtiff.py, every
+                tile's bytes kept; the JPEG one as a .btf whose level-0
+                tiles sit past 4 GiB in a sparse file), and the Deflate
+                one as a big-endian BigTIFF: PILSlide reads each of the
+                four equal to its classic twin bit for bit (read_pages ms,
+                decode ms per megapixel of both) and refuses the
+                big-endian one with BigEndianBigTIFFError; the .btf slide
+                is patched, extracted (--slide_ext .btf) and served (one
+                forward launch) to the classic twin's coordinates,
+                features and risk bit for bit.  The slides are deleted.
                 Alone: --phases wsi (runs [train] first).
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
@@ -4835,7 +4845,9 @@ def phase_wsi_compressed(launch_counters, path_exp, td, src_c, src_u,
         [train]'s PathAMIL, the counters reset just before: one forward
         launch per batch of 8, risks equal to the plain pooling's at
         rel 1e-4.
-    Adds its launch counts to ``launches`` and wall seconds to ``wall``.
+    Adds its launch counts to ``launches`` and wall seconds to ``wall``;
+    returns (the coordinates' folder, the features' folder, {subject P +
+    stem: risk}).
     """
     from multimodalfusion_tpu_torch.cli import (create_patches,
                                                 extract_features_fp)
@@ -4963,10 +4975,11 @@ def phase_wsi_compressed(launch_counters, path_exp, td, src_c, src_u,
     with open(cohort, "w") as f:
         f.write("subject_id,slide_id\n" + "".join(
             f"P{s},{s}.tiff\n" for s in stems_c))
-    _serve_and_check(launch_counters, "wsi", "serve_compressed",
-                     "on the compressed slides' bags", path_exp, cohort, feat,
-                     td, dict(none, _fused_pool_cuda=-(-len(stems_c) // 8)),
-                     wall, launches)
+    served, _ = _serve_and_check(
+        launch_counters, "wsi", "serve_compressed", "on the compressed "
+        "slides' bags", path_exp, cohort, feat, td,
+        dict(none, _fused_pool_cuda=-(-len(stems_c) // 8)), wall, launches)
+    return out_c, feat, served
 
 
 J2K_FIXTURES = os.path.join(REPO, "multimodalfusion_tpu_torch", "testdata",
@@ -5632,7 +5645,7 @@ def phase_wsi_zstd(launch_counters, path_exp, td, level0, stem, wall,
         rate[k] = best_p * 1e3 / mp
     n = WSI_ARITH_PLAIN
     square = os.path.join(td, "zstd_square.tiff")
-    _zstd_writer().write_tiff(square, np.ascontiguousarray(crop[:n, :n]),
+    _tool("zstd_writer").write_tiff(square, np.ascontiguousarray(crop[:n, :n]),
                               tile=256, predictor=2, checksum=True)
     page = tiff.read_pages(square)[0]
     t1 = time.perf_counter()
@@ -5705,15 +5718,173 @@ def phase_wsi_zstd(launch_counters, path_exp, td, level0, stem, wall,
         os.remove(p)
 
 
-def _zstd_writer():
-    """tools/zstd_writer.py, the Zstandard coder of test streams (loaded
-    by path; the package never imports it)."""
+def _tool(name):
+    """tools/{name}.py, a coder of test files (loaded by path; the package
+    never imports it): zstd_writer, the Zstandard coder of test streams;
+    bigtiff, the BigTIFF re-packer."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "zstd_writer", os.path.join(REPO, "tools", "zstd_writer.py"))
+        name, os.path.join(REPO, "tools", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def phase_wsi_bigtiff(launch_counters, path_exp, td, src_c, stems_c, out_c,
+                      feat_c, served_c, wall, launches):
+    """[wsi]'s BigTIFF slides: the four 256 x 256 tiled pyramids of
+    ``phase_wsi_compressed`` (``stems_c`` in ``src_c``, one codec each of
+    ``WSI_CODECS``; their coordinates in ``out_c``, bags in ``feat_c``,
+    risks ``served_c``) re-packed as little-endian BigTIFF by
+    tools/bigtiff.py, every tile's bytes kept: the JPEG one as
+    ``{stem}.btf``, its level-0 tiles past 4 GiB behind a hole (a sparse
+    file: its size and allocated bytes printed), the others beside it;
+    and the Deflate one again as a big-endian BigTIFF (``MM\\0+``).  Then:
+      - ``PILSlide`` reads each of the four equal to its classic twin bit
+        for bit; ``read_pages`` ms (best of 3) and the decode ms per
+        megapixel of every level (C++, all host threads) of each beside
+        its twin's;
+      - the big-endian one is refused with ``BigEndianBigTIFFError`` (an
+        ``OSError``) before any decode;
+      - cli.create_patches and cli.extract_features_fp --slide_ext .btf
+        on the .btf slide (no launch): the twin's coordinates and bag bit
+        for bit;
+      - cli.infer of [train]'s PathAMIL on its bag and the twin's, in one
+        batch (the counters reset just before): exactly one forward
+        launch and no backward, the two risks equal.
+    Adds its launch counts to ``launches`` and wall seconds to ``wall``."""
+    from multimodalfusion_tpu_torch.cli import (create_patches,
+                                                extract_features_fp)
+    from multimodalfusion_tpu_torch.data import hdf5, wsi
+    from multimodalfusion_tpu_torch.data.io import load_pt
+    from multimodalfusion_tpu_torch.utils import tiff
+    bigtiff = _tool("bigtiff")
+    t_phase = time.perf_counter()
+    none = {c.__name__: 0 for c in launch_counters}
+    threads = os.cpu_count() or 1
+    src = os.path.join(td, "slides_bigtiff")  # the served .btf alone
+    others = os.path.join(td, "bigtiff_others")
+    os.makedirs(src)
+    os.makedirs(others)
+    served_stem = stems_c[WSI_CODECS.index("jpeg")]
+    paths = {}
+    t0 = time.perf_counter()
+    for stem, codec in zip(stems_c, WSI_CODECS):
+        classic = os.path.join(src_c, f"{stem}.tiff")
+        if stem == served_stem:
+            paths[stem] = bigtiff.repack(classic, os.path.join(
+                src, f"{stem}.btf"), gap=0)
+        else:
+            paths[stem] = bigtiff.repack(classic, os.path.join(
+                others, f"{stem}.tif"))
+    wall["bigtiff_write"] = time.perf_counter() - t0
+    deflate = stems_c[WSI_CODECS.index("deflate")]
+    be = bigtiff.repack(os.path.join(src_c, f"{deflate}.tiff"),
+                        os.path.join(others, f"{deflate}_be.tif"), order=">")
+    st = os.stat(paths[served_stem])
+    level0 = tiff.read_pages(paths[served_stem])[0]
+    first = min(o for o, _ in level0.chunks)
+    if st.st_size <= 1 << 32 or first <= 1 << 32:
+        raise AssertionError(f"[wsi] {served_stem}.btf: {st.st_size} bytes, "
+                             f"level 0's first tile at {first}")
+    log(f"[wsi] BigTIFF: the four tiled pyramids re-packed by "
+        f"tools/bigtiff.py in {wall['bigtiff_write']:.3f} s; "
+        f"{served_stem}.btf {st.st_size} bytes ({st.st_size / 2**30:.3f} "
+        f"GiB), {st.st_blocks * 512} allocated, level 0's tiles from "
+        f"offset {first}")
+
+    rates, pages_ms = {}, {}
+    for stem, codec in zip(stems_c, WSI_CODECS):
+        classic = os.path.join(src_c, f"{stem}.tiff")
+        best = float("inf")
+        for _ in range(3):
+            t1 = time.perf_counter()
+            pages = tiff.read_pages(paths[stem])
+            best = min(best, time.perf_counter() - t1)
+        pages_ms[codec] = best * 1e3
+        got = {}
+        for who, path in (("big", paths[stem]), ("classic", classic)):
+            t1 = time.perf_counter()
+            got[who] = wsi.PILSlide(path).levels
+            dt = time.perf_counter() - t1
+            mp = sum(l.shape[0] * l.shape[1] for l in got[who]) / 1e6
+            rates[f"{codec} {who}"] = dt * 1e3 / mp
+        if len(got["big"]) != len(pages) or len(got["big"]) != len(
+                got["classic"]) or not all(np.array_equal(a, b) for a, b in
+                                           zip(got["big"], got["classic"])):
+            raise AssertionError(f"[wsi] the BigTIFF {stem} differs from its "
+                                 f"classic twin")
+        del got
+    try:
+        wsi.PILSlide(be)
+    except tiff.BigEndianBigTIFFError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"[wsi] {be} was read")
+    log(f"[wsi] BigTIFF: PILSlide reads the four equal to their classic "
+        f"twins bit for bit; read_pages ms (best of 3) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in pages_ms.items())
+        + f"; decode ms/MP of every level ({threads} host threads, "
+        f"{_card()}): " + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in rates.items())
+        + f"; the big-endian Deflate one refused: {refused}")
+
+    def run(stage, fn, argv):
+        text = _run_stage(launch_counters, "wsi", stage, fn, argv, wall,
+                          launches, none, capture=True)
+        if "FAILED" in text:
+            raise AssertionError(f"[wsi] {stage}: FAILED\n{text}")
+
+    patched = os.path.join(td, "patched_bigtiff")
+    feat = os.path.join(td, "features_bigtiff")
+    run("stage0_bigtiff", create_patches.main, [
+        "--source", src, "--save_dir", patched, "--patch_size", "256",
+        "--step_size", "256", "--a_t", "0.5", "--a_h", "0.05", "--device",
+        "cuda"])
+    run("stage1_bigtiff", extract_features_fp.main, [
+        "--data_h5_dir", patched, "--data_slide_dir", src, "--feat_dir",
+        feat, "--slide_ext", ".btf", "--target_patch_size", "224",
+        "--batch_size", "128", "--allow_random_weights", "--device",
+        "cuda"])
+    coords, bags = {}, {}
+    for who, folder, bag_dir in (("big", patched, feat),
+                                 ("classic", out_c, feat_c)):
+        with hdf5.File(os.path.join(folder, "patches",
+                                    f"{served_stem}_patches.h5")) as f:
+            coords[who] = f["coords"]
+        bags[who] = load_pt(os.path.join(bag_dir, "path_pt_files",
+                                         f"{served_stem}.pt"))
+    if len(coords["big"]) < 1 or not np.array_equal(
+            coords["big"], coords["classic"]) or not np.array_equal(
+            bags["big"], bags["classic"]):
+        raise AssertionError(f"[wsi] {served_stem}.btf: coordinates or "
+                             f"features differ from the classic twin's")
+    log(f"[wsi] BigTIFF {served_stem}.btf: cli.create_patches "
+        f"{wall['stage0_bigtiff']:.2f} s, {len(coords['big'])} patches, the "
+        f"twin's coordinates; cli.extract_features_fp --slide_ext .btf "
+        f"{wall['stage1_bigtiff']:.2f} s, the twin's features bit for bit; "
+        f"no launch")
+    shutil.copy(os.path.join(feat_c, "path_pt_files", f"{served_stem}.pt"),
+                os.path.join(feat, "path_pt_files",
+                             f"{served_stem}_classic.pt"))
+    cohort = os.path.join(td, "wsi_bigtiff_cohort.csv")
+    with open(cohort, "w") as f:
+        f.write(f"subject_id,slide_id\nB_btf,{served_stem}\n"
+                f"B_classic,{served_stem}_classic\n")
+    served, _ = _serve_and_check(
+        launch_counters, "wsi", "serve_bigtiff", "on the .btf slide's bag and "
+        "its classic twin's", path_exp, cohort, feat, td,
+        dict(none, _fused_pool_cuda=1), wall, launches)
+    log(f"[wsi] BigTIFF risks: {served}; the classic twin's in a batch "
+        f"of {len(served_c)} in [wsi]'s compressed run: "
+        f"{served_c[f'P{served_stem}']}")
+    if served["B_btf"] != served["B_classic"]:
+        raise AssertionError("[wsi] the .btf slide's risk differs from its "
+                             "classic twin's")
+    shutil.rmtree(src)
+    shutil.rmtree(others)
+    wall["bigtiff"] = time.perf_counter() - t_phase
+    log(f"[wsi] BigTIFF sub-phase: {wall['bigtiff']:.3f} s ({_card()})")
 
 
 def phase_wsi_j2k(launch_counters, path_exp, td, level0, stem, wall,
@@ -6038,9 +6209,9 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
             "extracted bags", path_exp, cohort, feat, td,
             dict(none, _fused_pool_cuda=-(-len(stems) // 8)), wall, launches)
         log(f"[wsi] served risks {sorted(served.values())}")
-        phase_wsi_compressed(launch_counters, path_exp, td, src_c, src,
-                             twins, sources, out0, steps0, seconds0, wall,
-                             launches)
+        out_c, feat_c, served_c = phase_wsi_compressed(
+            launch_counters, path_exp, td, src_c, src, twins, sources, out0,
+            steps0, seconds0, wall, launches)
         first = next(iter(twins))
         phase_wsi_j2k(launch_counters, path_exp, td, sources[first][0],
                       twins[first], wall, launches)
@@ -6051,6 +6222,8 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
                         twins[first], wall, launches)
         phase_wsi_zstd(launch_counters, path_exp, td, sources[first][0],
                        twins[first], wall, launches)
+        phase_wsi_bigtiff(launch_counters, path_exp, td, src_c, list(twins),
+                          out_c, feat_c, served_c, wall, launches)
         del sources
         shutil.rmtree(src_c)
         log(f"[wsi] wall s ({_card()}): " + ", ".join(

@@ -27,6 +27,8 @@ import tempfile
 import numpy as np
 import torch
 
+from multimodalfusion_tpu_torch.data.wsi import SLIDE_EXTS
+
 
 class Doctor:
     """The checks' lines and whether one failed."""
@@ -117,7 +119,8 @@ class Doctor:
                                       "(Huffman or arithmetic JPEG: "
                                       "sequential, progressive, lossless), "
                                       "utils/j2k.py (JPEG 2000), "
-                                      "utils/tiff.py (tiled or stripped, "
+                                      "utils/tiff.py (TIFF and BigTIFF; "
+                                      "tiled or stripped, "
                                       "chunky or planar; LZW, Deflate, "
                                       "PackBits, LZMA, ZSTD, JPEG; bilevel, "
                                       "gray, "
@@ -130,12 +133,13 @@ class Doctor:
         ("OpenCV's uint8 GaussianBlur and filled drawContours",
          "heatmap blur and tissue mask: image_ops.gaussian_blur_u8, "
          "image_ops.fill_contours"),
-        ("openslide", "slides: data/wsi.py reads TIFF (LZW, Deflate, "
-                      "PackBits, LZMA, ZSTD, JPEG; tiled or stripped, "
-                      "chunky or "
-                      "planar), PNG, JPEG (Huffman or arithmetic; "
-                      "sequential, progressive or lossless) and JPEG 2000; "
-                      "openslide formats are refused"),
+        ("openslide", "slides: data/wsi.py reads TIFF and BigTIFF (LZW, "
+                      "Deflate, PackBits, LZMA, ZSTD, JPEG; tiled or "
+                      "stripped, chunky or planar), PNG, JPEG (Huffman or "
+                      "arithmetic; sequential, progressive or lossless) and "
+                      "JPEG 2000, known by their first bytes (usually "
+                      + " ".join(SLIDE_EXTS) + "); openslide formats are "
+                      "refused"),
         ("lungmask", "lung masks: the classical estimator in "
                      "data/ct_preprocess.py"),
     )

@@ -16,13 +16,15 @@ morphological close, the uint8 resize, rectangle, ellipse),
 
 Backends:
   * ``ArraySlide`` -- an in-memory numpy pyramid (tests, synthetic slides);
-  * ``PILSlide`` -- the JAX name of the page-per-level reader: multi-page
-    TIFF (``READS`` lists the layouts) through ``utils/tiff.py``, PNG
-    through ``utils/png.py``, JPEG (Huffman or arithmetic coding,
-    sequential, progressive or lossless) through ``utils/jpeg.py``, JPEG
-    2000 (PIL's ``.jp2 .j2k .jpc .jpf .jpx .j2c``) through
-    ``utils/j2k.py``; every page is decoded into RAM, so the decode is
-    budgeted from the headers first (``MMF_TPU_WSI_MAX_BYTES``);
+  * ``PILSlide`` -- the JAX name of the page-per-level reader, which
+    picks its reader by the file's first bytes as PIL does
+    (``slide_format``): multi-page TIFF or BigTIFF (``READS`` lists the
+    layouts) through ``utils/tiff.py``, PNG through ``utils/png.py``,
+    JPEG (Huffman or arithmetic coding, sequential, progressive or
+    lossless) through ``utils/jpeg.py``, JPEG 2000 (a codestream or a JP2
+    file) through ``utils/j2k.py``; every page is decoded into RAM, so
+    the decode is budgeted from the headers first
+    (``MMF_TPU_WSI_MAX_BYTES``);
   * ``OpenSlideBackend`` -- refuses: the port reads no openslide format.
 
 The per-pixel filters of ``segment_tissue`` run as torch ops on the
@@ -46,15 +48,25 @@ from multimodalfusion_tpu_torch.utils import image_ops, j2k, jpeg, png, tiff
 
 # the formats of openslide (JAX open_slide, data/wsi.py:165)
 OPENSLIDE_EXTS = (".svs", ".ndpi", ".mrxs", ".scn", ".vms", ".vmu", ".bif")
-# what PILSlide reads; JPEG 2000 under the extensions PIL registers
-J2K_EXTS = (".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c")
-SLIDE_EXTS = (".tif", ".tiff", ".png", ".jpg", ".jpeg") + J2K_EXTS
-READS = ("multi-page TIFF (stripped or tiled, chunky or planar; "
+# the usual extensions of what PILSlide reads (for messages and
+# cli.doctor; PILSlide itself goes by the file's first bytes)
+SLIDE_EXTS = (".tif", ".tiff", ".btf", ".tf8", ".png", ".jpg", ".jpeg",
+              ".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c")
+READS = ("multi-page TIFF or BigTIFF (stripped or tiled, chunky or planar; "
          "uncompressed, LZW, Deflate, PackBits, LZMA, ZSTD or JPEG; bilevel, "
          "gray, "
          "LA, RGB with or without alpha, 16-bit RGB, palette or CMYK), PNG, "
          "JPEG (Huffman or arithmetic coding; baseline, progressive or "
          "lossless; gray, YCbCr, RGB, CMYK or YCCK) and JPEG 2000")
+# what PIL opens that the port does not read, by the first bytes its
+# plugins' _accept functions test
+_PIL_ONLY = (
+    ("GIF", lambda h: h.startswith((b"GIF87a", b"GIF89a"))),
+    ("BMP", lambda h: h.startswith(b"BM")),
+    ("WebP", lambda h: h.startswith(b"RIFF") and h[8:12] == b"WEBP"),
+    ("PBM/PGM/PPM", lambda h: len(h) > 1 and h[0] == ord("P")
+     and h[1] in b"0123456fy"),
+)
 # patches resized at once by stitch_coords (256 of 256 px: 50 MB of int32)
 STITCH_BATCH = 256
 
@@ -136,21 +148,51 @@ def _j2k_header(path: str) -> Tuple[Tuple[int, int], str]:
         raise type(e)(f"{path}: {e}") from e
 
 
+def slide_format(path: str) -> str:
+    """What the file at ``path`` is -- "TIFF", "PNG", "JPEG" or "JPEG2000"
+    -- from its first 16 bytes, as PIL's ``Image.open`` tells (its plugins'
+    ``_accept``: ``tiff.PREFIXES``, the PNG signature, ``\\xff\\xd8\\xff``,
+    a JPEG 2000 codestream's SOC and SIZ or the JP2 signature box).  A
+    format PIL opens and the port does not read raises
+    ``NotImplementedError`` naming it; bytes that neither identifies, an
+    ``OSError`` (PIL's ``UnidentifiedImageError`` is one)."""
+    with open(path, "rb") as f:
+        head = f.read(16)
+    if head[:4] in tiff.PREFIXES:
+        return "TIFF"
+    if head.startswith(png.SIGNATURE):
+        return "PNG"
+    if head.startswith(b"\xff\xd8\xff"):
+        return "JPEG"
+    if head.startswith((b"\xff\x4f\xff\x51", j2k.JP2_SIGNATURE)):
+        return "JPEG2000"
+    for name, accept in _PIL_ONLY:
+        if accept(head):
+            raise NotImplementedError(
+                f"{path}: a {name} slide (by its first bytes); PIL reads "
+                f"it, the port reads {READS}")
+    raise OSError(f"{path}: cannot identify the slide's format from its "
+                  f"first bytes {head[:8]!r}; the port reads {READS} "
+                  f"(usually named {', '.join(SLIDE_EXTS)})")
+
+
 class PILSlide(ArraySlide):
     """Page-per-level slide (the JAX name; no PIL): the pages of a multi-
-    page TIFF -- strips or tiles, chunky or planar, uncompressed, LZW
-    (predictor 1 or 2), Deflate, PackBits, LZMA, ZSTD (the port's own
-    Zstandard decoder, ``utils/zstd.py``) or JPEG; bilevel, gray,
-    LA, RGB with or without alpha, 16-bit RGB, palette or CMYK
-    (``utils/tiff.py``) -- or one PNG of any colour type, depth and
+    page TIFF or little-endian BigTIFF -- strips or tiles, chunky or
+    planar, uncompressed, LZW (predictor 1 or 2), Deflate, PackBits, LZMA,
+    ZSTD (the port's own Zstandard decoder, ``utils/zstd.py``) or JPEG;
+    bilevel, gray, LA, RGB with or without alpha, 16-bit RGB, palette or
+    CMYK (``utils/tiff.py``) -- or one PNG of any colour type, depth and
     interlace (``utils/png.py``), or one JPEG -- Huffman or arithmetic
     coding, baseline, progressive or lossless, gray, YCbCr, RGB, CMYK or
     YCCK, decoded to PIL's pixels by ``utils/jpeg.py``, a CMYK page mapped
     to RGB as ``convert("RGB")`` maps it (``_cmyk_to_rgb``) -- or one JPEG
-    2000 image
-    (``utils/j2k.py``), are the pyramid's levels, each as PIL's
-    ``convert("RGB")`` gives it.  Any other file raises, naming its
-    format.
+    2000 image (``utils/j2k.py``), are the pyramid's levels, each as PIL's
+    ``convert("RGB")`` gives it.  The reader is chosen by the file's first
+    bytes, as PIL chooses its plugin (``slide_format``), whatever the
+    file's name; the levels' name is the file name's stem.  A format PIL
+    reads and the port does not (GIF, BMP, WebP, PPM, ...) raises
+    ``NotImplementedError`` naming it; bytes of no format, ``OSError``.
 
     Every page is decoded into RAM, so the decoded size is computed from
     the page headers FIRST: past ``max_decode_bytes`` (default 1 GiB,
@@ -171,20 +213,13 @@ class PILSlide(ArraySlide):
         if max_decode_bytes is None:
             max_decode_bytes = int(os.environ.get(
                 "MMF_TPU_WSI_MAX_BYTES", self.DEFAULT_MAX_BYTES))
-        ext = os.path.splitext(path)[1].lower()
-        if ext in (".tif", ".tiff"):
+        kind = slide_format(path)
+        if kind == "TIFF":
             pages = tiff.read_pages(path)
             heads = [((p.width, p.height), p.mode) for p in pages]
-        elif ext == ".png":
-            heads = [_png_header(path)]
-        elif ext in (".jpg", ".jpeg"):
-            heads = [_jpeg_header(path)]
-        elif ext in J2K_EXTS:
-            heads = [_j2k_header(path)]
         else:
-            raise NotImplementedError(
-                f"{path}: a {ext or 'extensionless'} slide; the port reads "
-                f"{READS} slides ({', '.join(SLIDE_EXTS)})")
+            heads = [{"PNG": _png_header, "JPEG": _jpeg_header,
+                      "JPEG2000": _j2k_header}[kind](path)]
         sizes = [s for s, _ in heads]
         native_peak = max(self.MODE_BPP[m] * w * h for (w, h), m in heads)
         total = sum(3 * w * h for (w, h) in sizes) + native_peak
@@ -196,16 +231,16 @@ class PILSlide(ArraySlide):
                 "port decodes whole pages, as PIL does; use smaller "
                 "pages, or raise MMF_TPU_WSI_MAX_BYTES / max_decode_bytes "
                 "if the host has the RAM.")
-        if ext == ".png":
+        if kind == "PNG":
             levels = [png.read_png(path, rgb=True)]
-        elif ext in (".jpg", ".jpeg"):
+        elif kind == "JPEG":
             img = jpeg.read_jpeg(path)
             if img.ndim == 2:
                 img = np.repeat(img[..., None], 3, axis=2)
             elif img.shape[2] == 4:
                 img = _cmyk_to_rgb(img)
             levels = [img]
-        elif ext in J2K_EXTS:
+        elif kind == "JPEG2000":
             levels = [j2k.read_j2k(path, rgb=True)]
         else:
             levels = [tiff.read_page(path, p) for p in pages]
@@ -227,8 +262,9 @@ class OpenSlideBackend:
 
 
 def open_slide(path: str):
-    """The slide at ``path``: openslide formats refused, naming the file;
-    anything else through ``PILSlide``."""
+    """The slide at ``path``: openslide formats refused by their
+    extension, naming the file, as JAX routes them; anything else through
+    ``PILSlide``, which reads the file's first bytes."""
     if os.path.splitext(path)[1].lower() in OPENSLIDE_EXTS:
         return OpenSlideBackend(path)
     return PILSlide(path)

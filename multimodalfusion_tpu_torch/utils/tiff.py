@@ -3,8 +3,13 @@ uncompressed ones, in numpy, the standard library and the port's own
 decoders: the port's stand-in for PIL and libtiff under the WSI slide
 reader (the machine with the card has no PIL).
 
-The reader takes little- and big-endian files, every page of the IFD
-chain, image data in strips or in tiles (tags 322-325; edge tiles are
+The reader takes the headers PIL opens (``PREFIXES``): classic TIFF,
+little- and big-endian, and little-endian BigTIFF (8-byte offsets and
+counts, 20-byte IFD entries, field types 16-18, offsets past 4 GiB); a
+big-endian BigTIFF, which PIL 12.1.0 misreads, raises
+``BigEndianBigTIFFError`` (an ``OSError``).  It reads every page of the
+main IFD chain (SubIFDs are not followed, as PIL does not follow them),
+image data in strips or in tiles (tags 322-325; edge tiles are
 cropped), chunky or planar (``PlanarConfiguration`` 2: one chunk list a
 sample, plane after plane), and the page layouts PIL opens
 (TiffImagePlugin's OPEN_INFO, fill order 1): bilevel and 8-bit gray,
@@ -77,7 +82,13 @@ _TILE_OFFSETS, _TILE_BYTES, _JPEG_TABLES, _YCBCR_SUB = 324, 325, 347, 530
 _FILL_ORDER, _COLORMAP, _EXTRA = 266, 320, 338
 # field type -> (struct code, size)
 _TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1),
-          7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 16: ("Q", 8)}
+          7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 13: ("I", 4), 16: ("Q", 8),
+          17: ("q", 8), 18: ("Q", 8)}
+# the headers PIL opens (TiffImagePlugin.PREFIXES): classic TIFF; two
+# malformed ones that it reads as classic TIFF in the byte order of their
+# first two bytes; BigTIFF, little- and big-endian
+PREFIXES = (b"II*\0", b"MM\0*", b"II\0*", b"MM*\0", b"II+\0", b"MM\0+")
+BIG_ENDIAN_BIGTIFF = b"MM\0+"
 # compressions read, by tag 259 value
 NONE, LZW, JPEG, DEFLATE, PACKBITS, ADOBE_DEFLATE = 1, 5, 7, 8, 32773, 32946
 LZMA, ZSTD = 34925, 50000
@@ -120,37 +131,52 @@ class Page(NamedTuple):
     bits: int = 8               # of each sample (1, 2, 4, 8 or 16)
     extra: Tuple[int, ...] = ()  # ExtraSamples
     colormap: Optional[np.ndarray] = None  # palette [2^bits, 3] uint8
+    # False: the file's header is one libtiff refuses (see ``_header``),
+    # so PIL, which hands libtiff every compressed page, decodes none
+    libtiff_header: bool = True
 
 
 def _read_at(f, pos: int, n: int, path: str) -> bytes:
-    f.seek(pos)
-    data = f.read(n)
-    if len(data) != n:
+    # checked against the file's size first: a BigTIFF count can ask for
+    # more bytes than any file holds
+    if pos + n > os.fstat(f.fileno()).st_size:
         raise OSError(f"{path}: truncated TIFF file (wanted {n} bytes at "
                       f"{pos})")
-    return data
+    f.seek(pos)
+    return f.read(n)
 
 
-def _fields(f, order: str, at: int, path: str):
+def _fields(f, order: str, at: int, path: str, big: bool = False):
     """The tags of the IFD at ``at`` (tag -> tuple of values, None for a
-    field type of no use here) and the offset of the next IFD."""
-    (n,) = struct.unpack(order + "H", _read_at(f, at, 2, path))
-    block = _read_at(f, at + 2, 12 * n + 4, path)
+    field type of no use here) and the offset of the next IFD.  A classic
+    IFD has a 2-byte entry count, 12-byte entries (a 4-byte count and a
+    value that fits in 4 bytes, else its offset) and a 4-byte link;
+    ``big``: BigTIFF's 8-byte entry count, 20-byte entries (an 8-byte
+    count, 8 bytes of value or offset) and 8-byte link, as PIL reads
+    them."""
+    word, room = ("Q", 8) if big else ("I", 4)
+    head = 8 if big else 2
+    entry = 4 + 2 * room
+    (n,) = struct.unpack(order + ("Q" if big else "H"),
+                         _read_at(f, at, head, path))
+    block = _read_at(f, at + head, entry * n + room, path)
     tags = {}
     for i in range(n):
-        tag, typ, count = struct.unpack_from(order + "HHI", block, 12 * i)
+        tag, typ, count = struct.unpack_from(order + "HH" + word, block,
+                                             entry * i)
         if typ not in _TYPES:
             tags[tag] = None  # rationals and the like
             continue
         code, size = _TYPES[typ]
-        if count * size <= 4:
-            raw = block[12 * i + 8:12 * i + 8 + count * size]
+        value = entry * (i + 1) - room
+        if count * size <= room:
+            raw = block[value:value + count * size]
         else:
-            (pos,) = struct.unpack_from(order + "I", block, 12 * i + 8)
+            (pos,) = struct.unpack_from(order + word, block, value)
             raw = _read_at(f, pos, count * size, path)
         tags[tag] = (raw if typ == 7 else
                      struct.unpack(f"{order}{count}{code}", raw))
-    (nxt,) = struct.unpack_from(order + "I", block, 12 * n)
+    (nxt,) = struct.unpack_from(order + word, block, entry * n)
     return tags, nxt
 
 
@@ -257,30 +283,55 @@ def _page(tags: dict, path: str) -> Page:
                 bits[0], extra, colormap)
 
 
+class BigEndianBigTIFFError(OSError):
+    """A big-endian BigTIFF (header ``MM\\0+``), which the port refuses:
+    PIL 12.1.0 takes only a third header byte of 43 for BigTIFF, parses
+    this file as classic TIFF (its first IFD at 0x00080000) and fails."""
+
+
 def _header(path: str):
+    """(byte order, offset of the first IFD, BigTIFF?, whether libtiff
+    opens the header) of the TIFF at ``path``.  PIL opens every header
+    of ``PREFIXES`` but ``MM\\0+`` (a third byte of 43 is its BigTIFF
+    test), reads BigTIFF's first offset from bytes 8-16 and checks
+    neither the offset size at bytes 4-6 nor the zeros after it.  libtiff
+    opens only ``II*\\0``, ``MM\\0*`` and a BigTIFF with offset size 8 and
+    those zeros."""
     with open(path, "rb") as f:
-        head = f.read(8)
-    if head[:4] == b"II*\0":
-        order = "<"
-    elif head[:4] == b"MM\0*":
-        order = ">"
-    else:
+        head = f.read(16)
+    if head[:4] == BIG_ENDIAN_BIGTIFF:
+        raise BigEndianBigTIFFError(
+            f"{path}: a big-endian BigTIFF (header MM\\0+), which PIL "
+            f"12.1.0 parses as classic TIFF and cannot read, nor can the "
+            f"port; re-write it little-endian (II+\\0)")
+    if head[:4] not in PREFIXES:
         raise ValueError(f"{path}: not a TIFF file")
-    return order, struct.unpack(order + "I", head[4:8])[0]
+    order = "<" if head[:2] == b"II" else ">"
+    big = head[2] == 43
+    if len(head) < (16 if big else 8):
+        raise OSError(f"{path}: truncated TIFF header")
+    if big:
+        return (order, struct.unpack("<Q", head[8:16])[0], True,
+                head[4:8] == b"\x08\0\0\0")
+    return (order, struct.unpack(order + "I", head[4:8])[0], False,
+            head[:4] in (b"II*\0", b"MM\0*"))
 
 
 def read_pages(path: str) -> List[Page]:
-    """The pages of the TIFF at ``path``, from their headers only."""
-    order, at = _header(path)
+    """The pages of the TIFF at ``path``, from their headers only: the
+    main IFD chain (SubIFDs, tag 330, are not followed: PIL's ``seek``
+    walks only the main chain)."""
+    order, at, big, libtiff_header = _header(path)
     pages, seen = [], set()
     with open(path, "rb") as f:
         while at:
             if at in seen:
                 raise OSError(f"{path}: a loop in the IFD chain at {at}")
             seen.add(at)
-            tags, at = _fields(f, order, at, path)
+            tags, at = _fields(f, order, at, path, big)
             page = _page(tags, path)
-            pages.append(page._replace(dtype=page.dtype.newbyteorder(order)))
+            pages.append(page._replace(dtype=page.dtype.newbyteorder(order),
+                                       libtiff_header=libtiff_header))
     return pages
 
 
@@ -482,6 +533,10 @@ def _unpack_bits(raw: np.ndarray, rows: int, cols: int,
 def _pixels(path: str, page: Page, plain: bool):
     """The page's samples [H, W, samples] in its dtype (file order; 1-,
     2- and 4-bit samples unpacked to a byte each)."""
+    if page.compression != NONE and not page.libtiff_header:
+        raise OSError(f"{path}: a compressed TIFF page in a file whose "
+                      f"header libtiff refuses (PIL decodes compressed "
+                      f"pages through libtiff, and raises)")
     places, shapes = _layout(page)
     item = page.dtype.itemsize
     spp = page.samples

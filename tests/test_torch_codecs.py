@@ -300,12 +300,9 @@ def _lzw_encode(data: bytes) -> bytes:
         if nxt > (1 << width) - 1 and width < 12:
             width += 1
     put(257)
-    acc = 0
-    for code, n in bits:
-        acc = (acc << n) | code
-    total = sum(n for _, n in bits)
-    pad = -total % 8
-    return (acc << pad).to_bytes((total + pad) // 8, "big")
+    text = "".join(format(code, f"0{n}b") for code, n in bits)
+    text += "0" * (-len(text) % 8)
+    return int(text, 2).to_bytes(len(text) // 8, "big")
 
 
 def _packbits_encode(data: bytes) -> bytes:
