@@ -144,6 +144,22 @@ Phases, each fatal on failure:
                 frames, RLE and raw blocks, every literal and table mode)
                 decoded by the C++ and the plain versions, both to the
                 manifest's SHA-256 of libzstd's output; no launch.
+  4i. h5     -- the committed HDF5 fixtures of
+                multimodalfusion_tpu_torch/testdata/h5 (written by h5py
+                with libver v108 and latest, track_order and lzf:
+                superblocks 2 and 3, version-2 object headers, dense links
+                and attributes, single-chunk, implicit, fixed-array
+                (paged), extensible-array (super blocks) and B-tree v2
+                chunk indexes) read by the port's reader with the C++ and
+                the plain lzf decoders, both to the manifest's SHA-256s
+                of h5py's arrays and its attributes; the lzf chunks
+                decoded by both (MB/s), each file's read timed (host ms
+                per MB); cli.infer serves the fixtures' 2-subject glioma
+                cohort with [radio]'s RadioAMIL: one forward launch, no
+                backward, risks against the plain pooling at rel 1e-4 and
+                equal bit for bit to the same cohort rewritten by the
+                port's writer (superblock 0).  Alone: --phases h5 (runs
+                [radio] first).
   5. timing  -- each kernel vs its plain version at B=32 N=4096, beside
                 the bound (bytes or operations over the card's peak) and,
                 for the f32 forward, cuBLAS's f32 product h [Wa | Wb] of
@@ -5523,6 +5539,147 @@ def phase_zstd(launch_counters):
         raise AssertionError("[zstd] a kernel launched")
 
 
+H5_FIXTURES = os.path.join(REPO, "multimodalfusion_tpu_torch", "testdata",
+                           "h5")
+
+
+def phase_h5(launch_counters, radio_exp, root=None):
+    """[h5] The committed HDF5 fixtures (``H5_FIXTURES``, written by h5py
+    outside its default format, tools/make_h5_fixtures.py: superblocks 2
+    and 3, version-2 object headers, dense links and attributes, single
+    chunk, implicit, fixed array (paged), extensible array (super
+    blocks) and version-2 B-tree indexes, gzip, shuffle, lzf and
+    fletcher32), each read by the port's reader with the C++ lzf decoder
+    and with the plain one: both must give the manifest's shapes, dtypes,
+    SHA-256s of h5py's arrays and attributes.  The lzf streams the reader
+    met are decoded again by both decoders, equal, and timed (MB/s of
+    output); each file's read is timed on the host clock (ms per MB of
+    arrays).  Then cli.infer serves the fixtures' 2-subject glioma cohort
+    with [radio]'s RadioAMIL (concat, 4 sequences, gated) on the card:
+    one forward launch for its one batch and no backward (counters reset
+    just before, read just after), risks within rel 1e-4 of the plain
+    pooling on the card and equal bit for bit to those of the same
+    cohort rewritten by the port's own writer (superblock 0, contiguous)
+    and served in the same process.  Returns the launch counts by run."""
+    import hashlib
+
+    from multimodalfusion_tpu_torch import native
+    from multimodalfusion_tpu_torch.data import hdf5
+    from multimodalfusion_tpu_torch.utils import lzf
+    with open(os.path.join(H5_FIXTURES, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    wall, launches = {}, {}
+    # every lzf stream the reader decodes, recorded while the files are
+    # checked against the manifest
+    streams = []
+    unfilter = hdf5.File._unfilter
+
+    def recording(self, fid, raw, itemsize, csize):
+        if fid == hdf5.LZF and not self.plain:
+            streams.append((raw, csize))
+        return unfilter(self, fid, raw, itemsize, csize)
+
+    def same_attr(got, want):
+        if want["dtype"] == "str":
+            return got == want["value"]
+        a = np.asarray(got)
+        return a.dtype.str == want["dtype"] and a.tolist() == want["value"]
+
+    for c in launch_counters:
+        c.launches = 0
+    rows = []
+    for entry in manifest["files"]:
+        path = os.path.join(H5_FIXTURES, entry["file"])
+        nbytes = sum(int(np.prod(w["shape"])) * np.dtype(w["dtype"]).itemsize
+                     for w in entry["datasets"].values())
+        for plain in (False, True):
+            hdf5.File._unfilter = recording
+            try:
+                with hdf5.File(path, plain=plain) as f:
+                    for name, want in entry["datasets"].items():
+                        arr, attrs = f[name], f.attrs(name)
+                        ok = (list(arr.shape) == want["shape"]
+                              and arr.dtype.str == want["dtype"]
+                              and hashlib.sha256(arr.tobytes()).hexdigest()
+                              == want["sha256"]
+                              and sorted(attrs) == sorted(want["attrs"])
+                              and all(same_attr(attrs[k], v) for k, v in
+                                      want["attrs"].items()))
+                        if not ok:
+                            raise AssertionError(
+                                f"[h5] {entry['file']} {name} "
+                                f"({'plain' if plain else 'C++'} lzf): not "
+                                f"the manifest's")
+            finally:
+                hdf5.File._unfilter = unfilter
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with hdf5.File(path) as f:
+                for name in entry["datasets"]:
+                    f[name]
+                    f.attrs(name)
+            times.append(time.perf_counter() - t0)
+        rows.append(f"{entry['file']} ({entry['covers']}): "
+                    f"{min(times) * 1e3 / (nbytes / 1e6):.2f} ms/MB")
+    counts = {c.__name__: c.launches for c in launch_counters}
+    if any(counts.values()):
+        raise AssertionError(f"[h5] reading the fixtures launched {counts}")
+    out_bytes = sum(n for _, n in streams)
+    rates, decoded = {}, {}
+    for name, fn, reps in (("C++", native.lzf_decode, 5),
+                           ("plain", lzf.decompress, 1)):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            decoded[name] = [fn(raw, n) for raw, n in streams]
+        rates[name] = out_bytes * reps / (time.perf_counter() - t0) / 1e6
+    if decoded["C++"] != decoded["plain"]:
+        raise AssertionError("[h5] the C++ and plain lzf decoders disagree")
+    log(f"[h5] {len(manifest['files'])} fixtures (h5py "
+        f"{manifest['h5py']}, HDF5 {manifest['hdf5']}) read by C++ and "
+        f"plain lzf to the manifest; launches {counts}; {len(streams)} lzf "
+        f"chunks ({out_bytes} B out) decode equal: C++ "
+        f"{rates['C++']:.1f} MB/s, plain {rates['plain']:.2f} MB/s; host "
+        f"read ({_card()}): " + "; ".join(rows))
+    if len(streams) < 4:
+        raise AssertionError(f"[h5] only {len(streams)} lzf chunks met")
+
+    data = os.path.join(H5_FIXTURES, "cohort")
+    csv_path = os.path.join(H5_FIXTURES, "cohort.csv")
+    n = len(manifest["subjects"])
+    want = {"_fused_pool_cuda": -(-n // 8), "_fused_pool_bwd_cuda": 0}
+    with _workdir(root, "h5") as td:
+        served, _ = _serve_and_check(
+            launch_counters, "h5", "serve", "of [radio]'s RadioAMIL on the "
+            "committed newer-format cohort", radio_exp, csv_path, data, td,
+            want, wall, launches)
+        # the twin: the same arrays through the port's own writer
+        twin = os.path.join(td, "twin")
+        for seq in manifest["sequences"]:
+            os.makedirs(os.path.join(twin, "radio_h5_files", seq))
+            for sid in manifest["subjects"]:
+                rel = os.path.join("radio_h5_files", seq, f"{sid}.h5")
+                with hdf5.File(os.path.join(data, rel)) as f:
+                    arrays = {k: f[k] for k in ("features", "slice_index")}
+                hdf5.write(os.path.join(twin, rel), arrays)
+                with open(os.path.join(twin, rel), "rb") as f:
+                    if f.read(9)[8] != 0:
+                        raise AssertionError("[h5] the twin is not "
+                                             "superblock 0")
+        twin_served, _ = _serve_and_check(
+            launch_counters, "h5", "serve_twin", "of the same cohort "
+            "rewritten by the port's writer (superblock 0)", radio_exp,
+            csv_path, twin, td, want, wall, launches)
+        log(f"[h5] risks {served}; the superblock-0 twin's "
+            f"{'equal bit for bit' if twin_served == served else 'DIFFER'}")
+        if twin_served != served:
+            raise AssertionError("[h5] the newer-format cohort serves other "
+                                 "risks than its superblock-0 twin")
+    log(f"[h5] wall s ({_card()}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in wall.items()))
+    return launches
+
+
 # the table modes every ZSTD slide of [wsi] must take between them
 # (tools/zstd_writer.py's stats)
 WSI_ZSTD_MODES = ("block_compressed", "block_raw", "huffman_4_streams",
@@ -6535,7 +6692,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of build,kernels,digest,"
                          "slice,train,native,omic,pretrained,radio,extract,"
-                         "gradcam,interpret,j2k,jpeg,zstd,timing,bf16step,"
+                         "gradcam,interpret,j2k,jpeg,zstd,h5,timing,"
+                         "bf16step,"
                          "dist,"
                          "ops,report,wsi,heatmap "
                          "(default: all but digest, which prints the "
@@ -6584,9 +6742,10 @@ def _partial(phases, counters, work, t_all) -> int:
                              omic_args, work)
         else:
             phase_pretrained(counters, root=work)
-    if {"radio", "extract", "interpret", "gradcam", "report"} & set(phases):
-        # [extract], [interpret], [gradcam] and [report] alone first write
-        # and train their own radio cohort
+    if {"radio", "extract", "interpret", "gradcam", "report", "h5"} & set(
+            phases):
+        # [extract], [interpret], [gradcam], [report] and [h5] alone first
+        # write and train their own radio cohort
         _, _, radio_exps = phase_radio(counters, work)
     if "interpret" in phases:
         phase_interpret(counters, radio_exps, work)
@@ -6596,6 +6755,8 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_jpeg(counters)
     if "zstd" in phases:
         phase_zstd(counters)
+    if "h5" in phases:
+        phase_h5(counters, radio_exps["radio"], work)
     if "timing" in phases:
         phase_timing()
         phase_timing_radio()
@@ -6663,6 +6824,9 @@ def _full(counters, work, t_all) -> int:
     phase_zstd(counters)
     log(f"[zstd] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    h5_launches = phase_h5(counters, radio_exps["radio"], work)
+    log(f"[h5] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     timing = phase_timing()
     timing_radio = phase_timing_radio()
     step = phase_step_breakdown(cfg, batches, host_ms)
@@ -6728,6 +6892,8 @@ def _full(counters, work, t_all) -> int:
             entry["bf16step"] = bf16step
         for path, counts in radio_launches.items():
             entry[f"launches_radio_{path}"] = counts[counter_of[name]]
+        for path, counts in h5_launches.items():
+            entry[f"launches_h5_{path}"] = counts[counter_of[name]]
         for path, counts in interpret_launches.items():
             entry[f"launches_interpret_{path}"] = counts[counter_of[name]]
         for path, counts in extract_launches.items():

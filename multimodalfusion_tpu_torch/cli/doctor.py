@@ -105,8 +105,10 @@ class Doctor:
                   "(engine/train.save_resume)"),
         ("scikit-learn", "--split: data/stratified.py"),
         ("pandas", "CSV files: the csv module, utils/table.py"),
-        ("h5py", "feature h5 files: data/hdf5.py (h5py's default format; "
-                 "deflate, shuffle and fletcher32 filters)"),
+        ("h5py", "feature h5 files: data/hdf5.py (h5py's default format "
+                 "and libver v108 to latest, track_order, dense groups "
+                 "and attributes; deflate, shuffle, fletcher32 and lzf "
+                 "filters, lzf in csrc/imgcodec.cpp)"),
         ("flax / msgpack", "checkpoints: .pt files, utils/msgpack_io.py"),
         ("PyYAML", "heatmap configs: utils/yaml_subset.py"),
         ("pydicom", "DICOM: data/dicom.py (JPEG Lossless and the JPEG "

@@ -78,17 +78,22 @@ def build_parser():
     return p
 
 
+def read_coords(coords_h5: str):
+    """(coords [N, 2], patch_level, patch_size) of a patch-coordinates h5,
+    as the JAX CLI reads them with h5py: an attribute that cannot be
+    opened gives its default (0, 256)."""
+    with hdf5.File(coords_h5) as f:
+        return (f["coords"], int(f.attr_get("coords", "patch_level", 0)),
+                int(f.attr_get("coords", "patch_size", 256)))
+
+
 def extract_slide(slide, coords_h5: str, embedder: Embedder,
                   target_patch_size: int, wall=None):
     """(features [N, 1024] float32, coords [N, 2]) of one slide: chunks of
     ``embedder.batch_size`` patches read on a prefetch thread, resized on
     the device and embedded.  ``wall`` collects the host seconds of the
     reads and of the embedding."""
-    with hdf5.File(coords_h5) as f:
-        coords = f["coords"]
-        attrs = f.attrs("coords")
-    patch_level = int(attrs.get("patch_level", 0))
-    patch_size = int(attrs.get("patch_size", 256))
+    coords, patch_level, patch_size = read_coords(coords_h5)
     feats = np.zeros((len(coords), FEATURE_DIM), np.float32)
     B = embedder.batch_size
     wall = {} if wall is None else wall

@@ -18,6 +18,12 @@
 // frames; a dictionary ID and a window over libzstd's default 2^27 are
 // refused.  utils/zstd.py holds its plain version.
 //
+// mmf_lzf_decode: LZF (liblzf's lzf_decompress), the chunks of h5py's lzf
+// filter (HDF5 filter 32000): literal runs and back-references copied
+// byte by byte; a stream cut inside an instruction, a reference before the
+// output's start or output past its size is refused.  utils/lzf.py holds
+// its plain version.
+//
 // mmf_png_unfilter: the PNG row filters 0-4 (None, Sub, Up, Average,
 // Paeth) of one image or one Adam7 pass; serial along a row.
 //
@@ -2183,6 +2189,42 @@ int mmf_zstd_decode(const uint8_t* src, int64_t len, uint8_t** out,
 }
 
 void mmf_zstd_free(void* p) { std::free(p); }
+
+// Decode the LZF stream src[0, len) into out (at most cap bytes), setting
+// *out_len.  Returns 0, -1 when the input ends inside an instruction or a
+// reference reaches before the output's start, -2 when the output would
+// pass cap.
+int mmf_lzf_decode(const uint8_t* src, int64_t len, uint8_t* out,
+                   int64_t cap, int64_t* out_len) {
+    int64_t i = 0, o = 0;
+    *out_len = 0;
+    while (i < len) {
+        unsigned ctrl = src[i++];
+        if (ctrl < 32) {
+            int64_t run = (int64_t)ctrl + 1;
+            if (o + run > cap) return -2;
+            if (i + run > len) return -1;
+            std::memcpy(out + o, src + i, (size_t)run);
+            i += run;
+            o += run;
+            continue;
+        }
+        int64_t n = ctrl >> 5;
+        if (i >= len) return -1;
+        if (n == 7) {
+            n += src[i++];
+            if (i >= len) return -1;
+        }
+        int64_t ref = o - (int64_t)((ctrl & 31) << 8) - 1 - src[i++];
+        n += 2;
+        if (o + n > cap) return -2;
+        if (ref < 0) return -1;
+        for (int64_t k = 0; k < n; ++k) out[o + k] = out[ref + k];
+        o += n;
+    }
+    *out_len = o;
+    return 0;
+}
 
 // Undo the PNG row filters of `raw` (h rows of 1 + rowbytes bytes, the
 // first the filter type) into out (h rows of rowbytes); bpp is the bytes

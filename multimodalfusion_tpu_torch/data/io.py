@@ -4,8 +4,11 @@ feature_extraction.py:149-156); radiology bags are feature h5 files with
 datasets ``features`` [N, D] float32 and ``slice_index`` [N] (ref
 feature_extraction.py:57-61), read and written by the port's own
 ``data/hdf5.py``, as are the WSI patch coordinates with their
-attributes; fold results are pickles (ref utils/file_utils.py:
-22-33)."""
+attributes: it reads what h5py writes, in its default format or with
+``libver`` "v108" to "latest" and ``track_order`` (every chunk index,
+dense groups and attributes, gzip, shuffle, fletcher32 and lzf), and
+writes h5py's default format; fold results are pickles (ref
+utils/file_utils.py:22-33)."""
 from __future__ import annotations
 
 import os
@@ -34,10 +37,13 @@ def save_hdf5(output_path: str, asset_dict: Dict[str, np.ndarray],
 
 
 def load_features_h5(path: str):
-    """(features, slice_index) of a radiology or pathology feature h5;
-    slice_index is None when the file has none.  A missing, truncated or
-    non-HDF5 file raises OSError and a file without ``features``
-    KeyError, as h5py does."""
+    """(features, slice_index) of a radiology or pathology feature h5, in
+    any format ``data/hdf5.py`` reads (h5py's default and its
+    ``libver`` "v108" to "latest" layouts, lzf included); slice_index is
+    None when the file has none.  A missing, truncated or non-HDF5 file
+    raises OSError and a file without ``features`` KeyError, as h5py
+    does; so does a corrupt metadata block, with the class h5py raises
+    there (``data/hdf5.py``)."""
     with hdf5.File(path) as f:
         features = f["features"]
         slice_index = f["slice_index"] if "slice_index" in f else None

@@ -15,7 +15,7 @@ independent chunks, and the lossless-JPEG DICOM frames (JAX native.py's
 Their wrappers and plain versions live with the readers
 (``utils/tiff.py``, ``utils/png.py``, ``utils/jpeg.py``,
 ``utils/zstd.py``); ``zstd_decode`` decodes a whole Zstandard byte
-string.
+string, ``lzf_decode`` an LZF chunk of an h5 file (``utils/lzf.py``).
 
 ``csrc/j2k.cpp`` (``j2k_lib()``): the hot loops of the JPEG 2000 codec
 that stands in for PIL's openjpeg (``utils/j2k.py``, which holds their
@@ -139,6 +139,10 @@ def codec_lib() -> ctypes.CDLL:
             loaded.mmf_zstd_decode.restype = ctypes.c_int
             loaded.mmf_zstd_free.argtypes = [ctypes.c_void_p]
             loaded.mmf_zstd_free.restype = None
+            loaded.mmf_lzf_decode.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+            loaded.mmf_lzf_decode.restype = ctypes.c_int
             _codec_lib = loaded
         return _codec_lib
 
@@ -165,6 +169,23 @@ def zstd_decode(data: bytes) -> bytes:
         return ctypes.string_at(out, n.value) if n.value else b""
     finally:
         lib_.mmf_zstd_free(out)
+
+
+def lzf_decode(data: bytes, size: int) -> bytes:
+    """The LZF stream ``data`` decoded by the C++ decoder
+    (``mmf_lzf_decode``) into at most ``size`` bytes, as
+    ``utils/lzf.decompress`` (its plain version) decodes it: a corrupt
+    stream, or one that decodes past ``size``, raises ``ValueError``."""
+    data = bytes(data)
+    out = ctypes.create_string_buffer(max(int(size), 1))
+    n = ctypes.c_int64()
+    rc = codec_lib().mmf_lzf_decode(data, len(data), out, int(size),
+                                    ctypes.byref(n))
+    if rc == -2:
+        raise ValueError("lzf: output past its size")
+    if rc:
+        raise ValueError("lzf: corrupt stream")
+    return out.raw[:n.value]
 
 
 class _J2kBlock(ctypes.Structure):

@@ -189,28 +189,32 @@ def _raises_like_h5py(path, key, err):
 
 def test_unsupported_and_broken_files_raise(tmp_path):
     x = np.arange(4000, dtype=np.float32).reshape(4, 1000)
-    # gzip reads as JAX reads it; lzf (32000), which h5py writes without
-    # a plugin, raises naming the filter
+    # gzip, lzf (32000, which h5py writes without a plugin) and the
+    # libver='latest' layout read as JAX reads them; scale-offset (6)
+    # raises naming the filter
     gz = str(tmp_path / "gz.h5")
     with h5py.File(gz, "w") as f:
         f.create_dataset("features", data=x, chunks=(1, 1000),
                          compression="gzip")
-    (got, no_index), (want, _) = (tio.load_features_h5(gz),
-                                  jio.load_features_h5(gz))
-    np.testing.assert_array_equal(got, want)
-    assert no_index is None
     lzf = str(tmp_path / "lzf.h5")
     with h5py.File(lzf, "w") as f:
         f.create_dataset("features", data=x, chunks=(1, 1000),
                          compression="lzf")
-    with pytest.raises(NotImplementedError, match="filter 32000 .lzf"):
-        tio.load_features_h5(lzf)
     latest = str(tmp_path / "latest.h5")
     with h5py.File(latest, "w", libver="latest") as f:
         f.create_dataset("features", data=x, chunks=(1, 1000),
                          maxshape=(None, 1000))
-    with pytest.raises(NotImplementedError, match="libver='latest'"):
-        tio.load_features_h5(latest)
+    for path in (gz, lzf, latest):
+        (got, no_index), (want, _) = (tio.load_features_h5(path),
+                                      jio.load_features_h5(path))
+        _same(got, want)
+        assert no_index is None
+    scaled = str(tmp_path / "scaleoffset.h5")
+    with h5py.File(scaled, "w") as f:
+        f.create_dataset("features", data=x.astype(np.int32),
+                         chunks=(1, 1000), scaleoffset=0)
+    with pytest.raises(NotImplementedError, match="filter 6 .scale-offset"):
+        tio.load_features_h5(scaled)
 
     ok = str(tmp_path / "ok.h5")
     jio.save_hdf5(ok, {"features": x}, mode="w")
