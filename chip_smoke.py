@@ -345,8 +345,20 @@ Phases, each fatal on failure:
                 big-endian one with BigEndianBigTIFFError; the .btf slide
                 is patched, extracted (--slide_ext .btf) and served (one
                 forward launch) to the classic twin's coordinates,
-                features and risk bit for bit.  The slides are deleted.
-                Alone: --phases wsi (runs [train] first).
+                features and risk bit for bit.  Last, an Aperio .svs of
+                16,320 x 12,240 (tools/svs_writer.py: 240 x 240 JPEG tiles
+                of utils/jpeg.encode_jpeg, levels at downsample 4 and 16,
+                thumbnail, label, macro) beside a plain tiled TIFF of the
+                same tile bytes: open_slide reads it tile by tile with no
+                decode budget (PILSlide refuses the twin under its
+                default), every level equal to the twin's, plain = C++ on
+                level 2 and 64 level-0 tiles, stages 0 and 1 in a child
+                process (tiles touched and decoded, the tile cache's
+                peak, peak RSS; the twin's coordinates and, inside the
+                level, its bag bit for bit), its bags served (one
+                forward launch).  The slides are deleted.  Alone: --phases
+                wsi (runs [train] first), or --phases svs for the Aperio
+                sub-phase alone (after [train]).
   digest     -- only when asked for (--phases digest): SHA-256 of both
                 kernels' outputs on seeded cases, to compare two
                 checkouts' kernels bit for bit on one card.
@@ -4694,22 +4706,6 @@ def _lzw_encoder(build_dir):
     return encode
 
 
-def _split_jpeg_tables(stream):
-    """(JPEGTables: SOI, the DQT and DHT segments, EOI; the stream
-    without them)."""
-    tables, rest, pos = [b"\xff\xd8"], [b"\xff\xd8"], 2
-    while True:
-        marker = stream[pos + 1]
-        n = int.from_bytes(stream[pos + 2:pos + 4], "big")
-        if marker == 0xDA:
-            rest.append(stream[pos:])
-            break
-        (tables if marker in (0xDB, 0xC4) else rest).append(
-            stream[pos:pos + 2 + n])
-        pos += 2 + n
-    return b"".join(tables) + b"\xff\xd9", b"".join(rest)
-
-
 def _write_tiled_tiff(path, levels, codec, pool, lzw=None):
     """``levels`` (uint8 RGB) as the 256 x 256 tiled pages of a little-
     endian TIFF: ``codec`` jpeg (YCbCr 4:2:0 at quality 95, the tiles of
@@ -4717,10 +4713,10 @@ def _write_tiled_tiff(path, levels, codec, pool, lzw=None):
     its tables moved into JPEGTables), deflate (zlib level 6) or lzw
     (Predictor 2, ``_lzw_encoder``'s ``lzw``); tiles encoded on
     ``pool``."""
-    import struct
     import zlib
 
     from multimodalfusion_tpu_torch.utils import jpeg
+    svs = _tool("svs_writer")
     T = WSI_TILE
 
     def encode(t):
@@ -4745,7 +4741,7 @@ def _write_tiled_tiff(path, levels, codec, pool, lzw=None):
                 for y in range(0, h, T) for x in range(0, w, T))))
             tables = None
             if codec == "jpeg_tables":
-                split = [_split_jpeg_tables(c) for c in chunks]
+                split = [svs.split_tables(c) for c in chunks]
                 tables = split[0][0]
                 if any(t != tables for t, _ in split):
                     raise AssertionError("[wsi] tiles of other tables")
@@ -4766,35 +4762,7 @@ def _write_tiled_tiff(path, levels, codec, pool, lzw=None):
                 entries.append((347, 7, list(tables)))
             if compression == 7:
                 entries.append((530, 3, [2, 2]))
-            link = _write_ifd(f, entries, link)
-
-
-def _write_ifd(f, entries, link):
-    """Append to the little-endian TIFF ``f`` (at an even offset) one IFD
-    of ``entries`` ((tag, field type 3, 4 or 7, values)), point the link
-    at offset ``link`` to it, and return the offset of its own link to a
-    next IFD."""
-    import struct
-    entries = sorted(entries)
-    ifd = f.tell() + f.tell() % 2
-    f.write(b"\0" * (ifd - f.tell()))
-    extra = ifd + 2 + 12 * len(entries) + 4
-    body, blobs = struct.pack("<H", len(entries)), b""
-    for tag, typ, vals in entries:
-        raw = struct.pack(f"<{len(vals)}{'HIB'[(3, 4, 7).index(typ)]}",
-                          *vals)
-        if len(raw) <= 4:
-            field = raw.ljust(4, b"\0")
-        else:
-            field = struct.pack("<I", extra + len(blobs))
-            blobs += raw + b"\0" * (len(raw) % 2)
-        body += struct.pack("<HHI", tag, typ, len(vals)) + field
-    f.write(body + b"\0\0\0\0" + blobs)
-    end = f.tell()
-    f.seek(link)
-    f.write(struct.pack("<I", ifd))
-    f.seek(end)
-    return ifd + 2 + 12 * len(entries)
+            link = svs.write_ifd(f, entries, link)
 
 
 def _write_planar_tiff(path, rgba, lzw, pool):
@@ -4803,6 +4771,7 @@ def _write_planar_tiff(path, rgba, lzw, pool):
     G, B and A), LZW without a predictor (``_lzw_encoder``'s ``lzw``),
     ExtraSamples 2 (unassociated alpha); tiles encoded on ``pool``."""
     T = WSI_TILE
+    svs = _tool("svs_writer")
     h, w = rgba.shape[:2]
     full = np.pad(rgba, ((0, -h % T), (0, -w % T), (0, 0)), mode="edge")
     chunks = list(pool.map(lambda t: lzw(t.tobytes()), (
@@ -4814,7 +4783,7 @@ def _write_planar_tiff(path, rgba, lzw, pool):
         for c in chunks:
             offsets.append(f.tell())
             f.write(c)
-        _write_ifd(f, [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * 4),
+        svs.write_ifd(f, [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * 4),
                        (259, 3, [5]), (262, 3, [2]), (277, 3, [4]),
                        (284, 3, [2]), (322, 4, [T]), (323, 4, [T]),
                        (324, 4, offsets), (325, 4, [len(c) for c in chunks]),
@@ -5878,7 +5847,8 @@ def phase_wsi_zstd(launch_counters, path_exp, td, level0, stem, wall,
 def _tool(name):
     """tools/{name}.py, a coder of test files (loaded by path; the package
     never imports it): zstd_writer, the Zstandard coder of test streams;
-    bigtiff, the BigTIFF re-packer."""
+    bigtiff, the BigTIFF re-packer; svs_writer, the Aperio slide writer
+    (and the IFD and JPEGTables writers of [wsi]'s tiled pyramids)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(REPO, "tools", f"{name}.py"))
@@ -6044,6 +6014,363 @@ def phase_wsi_bigtiff(launch_counters, path_exp, td, src_c, stems_c, out_c,
     log(f"[wsi] BigTIFF sub-phase: {wall['bigtiff']:.3f} s ({_card()})")
 
 
+# [wsi]'s Aperio slide: level 0 (width, height), the downsamples of its
+# other two levels, its pixels' seed, the level-0 tiles decoded again by
+# the plain decoder
+SVS_LEVEL0 = (16320, 12240)
+SVS_DOWNSAMPLES = (4, 16)
+SVS_SEED = 428
+SVS_PLAIN_TILES = 64
+
+
+def _svs_child(runs, result):
+    """The child process of ``phase_wsi_svs`` (``python -c``, in the
+    repo): a warm-up of the card's filters and embedder, then for each
+    (name, slides dir, slide extension, patched dir, features dir,
+    MMF_TPU_WSI_MAX_BYTES or None to unset it) of ``runs``
+    cli.create_patches and cli.extract_features_fp
+    (``--slide_ext`` only where it is not the default .svs) on the card,
+    the launch counters reset just before each, no launch expected.
+    Writes to ``result`` one JSON object: each stage's seconds, launches
+    and stage-1 read and embed seconds, the tiles the Aperio slides it
+    opened touched and decoded in each stage, their caches' peak and
+    bound bytes, and the peak RSS (KiB) after the warm-up and after each
+    run."""
+    import resource
+
+    import torch
+    sys.path.insert(0, REPO)
+    from multimodalfusion_tpu_torch.cli import (create_patches,
+                                                extract_features_fp)
+    from multimodalfusion_tpu_torch.data import wsi
+    from multimodalfusion_tpu_torch.extract.features import Embedder
+    from multimodalfusion_tpu_torch.ops import mil_attention as mil
+    from multimodalfusion_tpu_torch.utils import image_ops
+    counters = [mil._fused_pool_cuda, mil._fused_pool_bwd_cuda]
+    none = {c.__name__: 0 for c in counters}
+    opened, open_slide = [], wsi.open_slide
+
+    def track(path):
+        slide = open_slide(path)
+        opened.append(slide)
+        return slide
+    wsi.open_slide = track
+    x = torch.zeros(128, 256, 256, 3, dtype=torch.uint8)
+    image_ops.median_blur(image_ops.hsv_saturation(x[0].cuda()), 7)
+    Embedder(allow_random=True, batch_size=128, device="cuda").embed_images(
+        x.numpy(), resize=True)
+    out = {"wall": {}, "launches": {}, "tiles": {}, "steps1": {},
+           "rss_kib": {"warm-up": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss}}
+    for name, src, ext, patched, feat, max_bytes in runs:
+        os.environ.pop("MMF_TPU_WSI_MAX_BYTES", None)
+        if max_bytes is not None:
+            os.environ["MMF_TPU_WSI_MAX_BYTES"] = str(max_bytes)
+        for stage, fn, argv in (
+                ("stage0", create_patches.main, [
+                    "--source", src, "--save_dir", patched, "--patch_size",
+                    "256", "--step_size", "256", "--a_t", "0.5", "--a_h",
+                    "0.05", "--device", "cuda"]),
+                ("stage1", extract_features_fp.main, [
+                    "--data_h5_dir", patched, "--data_slide_dir", src,
+                    "--feat_dir", feat, "--target_patch_size", "224",
+                    "--batch_size", "128", "--allow_random_weights",
+                    "--device", "cuda"] + ([] if ext == ".svs" else [
+                        "--slide_ext", ext]))):
+            first = len(opened)
+            key = f"{stage}_{name}"
+            text = _run_stage(counters, "wsi", key, fn, argv, out["wall"],
+                              out["launches"], none, capture=True)
+            if "FAILED" in text:
+                raise AssertionError(f"[wsi] {key}: FAILED\n{text}")
+            aperio = [sl for sl in opened[first:]
+                      if isinstance(sl, wsi.OpenSlideBackend)]
+            out["tiles"][key] = {
+                "touched": sum(sl.tiles_touched for sl in aperio),
+                "decoded": sum(sl.tiles_decoded for sl in aperio),
+                "peak_bytes": max([sl.cache.peak_bytes for sl in aperio],
+                                  default=0),
+                "bound_bytes": max([sl.cache.max_bytes for sl in aperio],
+                                   default=0)}
+            if stage == "stage1":
+                out["steps1"][name] = _stage_line(text, "stage 1 wall s")[1]
+        out["rss_kib"][name] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss
+    with open(result, "w") as f:
+        json.dump(out, f)
+
+
+def phase_wsi_svs(launch_counters, path_exp, td, lzw, wall, launches):
+    """[wsi]'s Aperio slide: ``synthetic_slide`` of ``SVS_LEVEL0`` (seed
+    ``SVS_SEED``), its levels at ``SVS_DOWNSAMPLES`` resized on the card,
+    written by tools/svs_writer.py as an Aperio ``.svs`` (240 x 240 JPEG
+    tiles of ``utils/jpeg.encode_jpeg``, coded in spawned workers, their
+    tables in JPEGTables; a JPEG thumbnail, an LZW label by ``lzw``, a
+    JPEG macro; AppMag 20, MPP 0.4990) and, with the same tile bytes, as a
+    plain tiled TIFF, its twin.  Then:
+      - ``open_slide`` on the .svs (MMF_TPU_WSI_MAX_BYTES unset): 3
+        levels, their dimensions, downsamples 4.0 and 16.0, openslide's
+        mpp and objective power, ``fetch_mag_patching_params`` level 0 at
+        20x and level 1 at 5x; ``PILSlide`` refuses the twin under its
+        default budget and reads it under 4 GiB;
+      - each level of the .svs read whole through ``read_region`` equals
+        the twin's bit for bit (C++ decode ms per megapixel of each);
+        level 2 and ``SVS_PLAIN_TILES`` seeded level-0 tiles decoded again
+        by the plain decoder equal them;
+      - in a child process (``_svs_child``): cli.create_patches and
+        cli.extract_features_fp (the default --slide_ext .svs) on the
+        .svs, then on the twin: no launch; the tiles each stage touched
+        and decoded (decoded <= touched) and the cache's peak (<= its
+        bound); the peak RSS after each; the .svs's coordinates,
+        attributes and bags equal the twin's;
+      - cli.infer of [train]'s PathAMIL on the two bags (the counters
+        reset just before): one forward launch, no backward, the two
+        risks equal and at rel 1e-4 of the plain pooling's.
+    Adds its launch counts to ``launches`` and wall seconds to ``wall``."""
+    import torch
+    from multimodalfusion_tpu_torch.data import hdf5, wsi
+    from multimodalfusion_tpu_torch.data.io import load_pt, save_pt
+    from multimodalfusion_tpu_torch.utils import image_ops, jpeg, tiff
+    svs = _tool("svs_writer")
+    t_phase = time.perf_counter()
+    none = {c.__name__: 0 for c in launch_counters}
+    w0, h0 = SVS_LEVEL0
+    stem = f"SVS_{w0}x{h0}"
+    dirs = {k: os.path.join(td, f"slide_{k}") for k in ("svs", "twin")}
+    for d in dirs.values():
+        os.makedirs(d)
+    path = os.path.join(dirs["svs"], f"{stem}.svs")
+    twin = os.path.join(dirs["twin"], f"{stem}.tiff")
+    t0 = time.perf_counter()
+    level0 = wsi.synthetic_slide(w0, h0, n_blobs=3, seed=SVS_SEED,
+                                 n_levels=1).levels[0]
+    x = torch.from_numpy(level0).cuda()
+    levels = [level0] + [image_ops.resize_u8(x, (h0 // d, w0 // d)).cpu()
+                         .numpy() for d in SVS_DOWNSAMPLES]
+    del x
+    wall["svs_pixels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coded = svs.encode_levels(levels, jpeg.encode_jpeg,
+                              processes=os.cpu_count() or 1)
+    small = levels[-1]
+    svs.write_svs(path, coded, jpeg.encode_jpeg, thumbnail=small,
+                  label=np.ascontiguousarray(level0[:463, :387]),
+                  lzw=lambda a: lzw(a.tobytes()),
+                  macro=np.ascontiguousarray(small[:400]))
+    wall["svs_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svs.write_twin(twin, coded)
+    wall["svs_twin_write"] = time.perf_counter() - t0
+    n_tiles = [len(c.tiles) for c in coded]
+    log(f"[wsi] svs: {stem}.svs ({os.path.getsize(path) / 2**20:.1f} MiB; "
+        f"levels {[(c.width, c.height) for c in coded]}, {n_tiles} tiles "
+        f"of {svs.TILE} x {svs.TILE}) written in {wall['svs_write']:.3f} s "
+        f"(utils/jpeg.encode_jpeg in {os.cpu_count()} spawned workers), "
+        f"its pixels made in {wall['svs_pixels']:.3f} s; the twin "
+        f"({os.path.getsize(twin) / 2**20:.1f} MiB, the same tile bytes) "
+        f"in {wall['svs_twin_write']:.3f} s ({_card()})")
+    del coded
+
+    # stages 0 and 1 in a child process, the .svs then its twin
+    result = os.path.join(td, "svs_child.json")
+    # run names: the keys of their stages in ``wall`` and ``launches``
+    runs = [("svs", dirs["svs"], ".svs", os.path.join(td, "patched_svs"),
+             os.path.join(td, "features_svs"), None),
+            ("svs_twin", dirs["twin"], ".tiff",
+             os.path.join(td, "patched_twin"),
+             os.path.join(td, "features_twin"), WSI_MAX_BYTES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke._svs_child("
+                               f"{runs!r}, {result!r})"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall["svs_child"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[wsi] svs: the child failed "
+                             f"(rc {proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    with open(result) as f:
+        child = json.load(f)
+    for key, counts in child["launches"].items():
+        launches[key] = counts
+        wall[key] = child["wall"][key]
+        if counts != none:
+            raise AssertionError(f"[wsi] svs: {key} launched {counts}")
+    tiles = child["tiles"]
+    for key in ("stage0_svs", "stage1_svs"):
+        t = tiles[key]
+        if not 0 < t["decoded"] <= t["touched"] \
+                or t["peak_bytes"] > t["bound_bytes"]:
+            raise AssertionError(f"[wsi] svs: {key} tiles {t}")
+    coords, attrs, bags = {}, {}, {}
+    for k in ("svs", "twin"):
+        with hdf5.File(os.path.join(td, f"patched_{k}", "patches",
+                                    f"{stem}_patches.h5")) as f:
+            coords[k], attrs[k] = f["coords"], f.attrs("coords")
+        bags[k] = load_pt(os.path.join(td, f"features_{k}", "path_pt_files",
+                                       f"{stem}.pt"))
+    xy = coords["svs"]
+    n = len(xy)
+    if n < 1 or not np.array_equal(xy, coords["twin"]) \
+            or sorted(attrs["svs"]) != sorted(attrs["twin"]) \
+            or any(not np.array_equal(attrs["svs"][a], attrs["twin"][a])
+                   for a in attrs["svs"]) \
+            or bags["svs"].shape != (n, 1024) \
+            or bags["twin"].shape != (n, 1024):
+        raise AssertionError(f"[wsi] svs: stage 0 differs from the twin's "
+                             f"({n} coordinates)")
+    # a patch across the level's edge reads black past it on the .svs, as
+    # openslide's transparent pixels do, white on the twin (ArraySlide)
+    inner = ((xy >= 0) & (xy + 256 <= [w0, h0])).all(axis=1)
+    if not np.array_equal(bags["svs"][inner], bags["twin"][inner]):
+        raise AssertionError("[wsi] svs: a bag row of a patch inside the "
+                             "level differs from the twin's")
+
+    env = os.environ.pop("MMF_TPU_WSI_MAX_BYTES", None)
+    try:
+        t0 = time.perf_counter()
+        slide = wsi.open_slide(path)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        props = slide.wsi.properties
+        want_dims = [(w0 // d, h0 // d) for d in (1,) + SVS_DOWNSAMPLES]
+        mags = [wsi.fetch_mag_patching_params(slide, mag_level=m)
+                for m in (20, 5)]
+        if not isinstance(slide, wsi.OpenSlideBackend) \
+                or slide.level_dimensions != want_dims \
+                or slide.level_downsamples != [(1.0, 1.0), (4.0, 4.0),
+                                               (16.0, 16.0)] \
+                or props["aperio.MPP"] != "0.4990" \
+                or props["openslide.mpp-x"] != "%.17g" % 0.499 \
+                or props["openslide.objective-power"] != "20" \
+                or mags != [(20, 0, 256, 256, None), (20, 1, 256, 256, None)]:
+            raise AssertionError(f"[wsi] svs: {slide.level_dimensions} "
+                                 f"{slide.level_downsamples} {props} {mags}")
+        try:
+            wsi.PILSlide(twin)
+        except ValueError as e:
+            refused = str(e).split(". ")[0].split("needs ")[1]
+        else:
+            raise AssertionError("[wsi] svs: PILSlide read the twin under "
+                                 "its default budget")
+    finally:
+        if env is not None:
+            os.environ["MMF_TPU_WSI_MAX_BYTES"] = env
+    t0 = time.perf_counter()
+    twin_slide = wsi.PILSlide(twin, max_decode_bytes=WSI_MAX_BYTES)
+    want = twin_slide.levels
+    twin_s = time.perf_counter() - t0
+    rates = []
+    for lvl, (w, h) in enumerate(want_dims):
+        t0 = time.perf_counter()
+        got = slide.read_region((0, 0), lvl, (w, h))
+        rates.append((time.perf_counter() - t0) * 1e3 / (w * h / 1e6))
+        if not np.array_equal(got, want[lvl]):
+            raise AssertionError(f"[wsi] svs: level {lvl} differs from the "
+                                 f"twin's")
+        if lvl == 0:
+            level0_read = got
+    pages = tiff.read_pages(path)
+    rng = np.random.default_rng(SVS_SEED)
+    T = svs.TILE
+    for lvl, picks in ((2, None), (0, SVS_PLAIN_TILES)):
+        page = pages[slide.wsi.levels[lvl]]
+        across, down = tiff.tile_grid(page)
+        tiles_ = (range(across * down) if picks is None else
+                  rng.choice(across * down, picks, replace=False).tolist())
+        src = want[lvl] if lvl else level0_read
+        for t in tiles_:
+            y, x = t // across * T, t % across * T
+            out = np.empty_like(src[y:y + T, x:x + T])
+            tiff.read_tiles(path, page, [t], [out], plain=True)
+            if not np.array_equal(out, src[y:y + T, x:x + T]):
+                raise AssertionError(f"[wsi] svs: level {lvl} tile {t}: "
+                                     f"plain and C++ differ")
+    del level0_read
+    # every stage-1 patch, the twin's blacked out past the level's edge
+    got = wsi.read_patches(slide, xy, 0, 256)
+    ref = wsi.read_patches(twin_slide, xy, 0, 256)
+    for i in np.flatnonzero(~inner):
+        x, y = xy[i]
+        ref[i, max(h0 - y, 0):] = 0
+        ref[i, :, max(w0 - x, 0):] = 0
+    if not np.array_equal(got, ref):
+        raise AssertionError("[wsi] svs: the stage-1 patches differ from "
+                             "the twin's")
+    log(f"[wsi] svs: open_slide {open_ms:.3f} ms, MMF_TPU_WSI_MAX_BYTES "
+        f"unset, 3 levels {want_dims}, downsamples "
+        f"{[d for d, _ in slide.level_downsamples]}, aperio.MPP "
+        f"{props['aperio.MPP']!r}, openslide.mpp-x "
+        f"{props['openslide.mpp-x']!r}, objective-power "
+        f"{props['openslide.objective-power']!r}; fetch_mag_patching_params "
+        f"20x {mags[0]}, 5x {mags[1]}; PILSlide refuses the twin under its "
+        f"default budget ({refused}) and reads it under 4 GiB in "
+        f"{twin_s:.3f} s; each level read whole through read_region equals "
+        f"the twin's bit for bit, C++ ms/MP {[round(r, 3) for r in rates]} "
+        f"({os.cpu_count()} host threads, {_card()}); level 2 and "
+        f"{SVS_PLAIN_TILES} seeded level-0 tiles: plain = C++; the {n} "
+        f"stage-1 patches equal the twin's ({int((~inner).sum())} across "
+        f"the level's edge: black past it, as openslide reads); tiles "
+        f"decoded {slide.tiles_decoded} of {slide.tiles_touched} touched, "
+        f"cache peak {slide.cache.peak_bytes} of {slide.cache.max_bytes} "
+        f"bytes")
+    del want, twin_slide, slide, got, ref, level0, levels, small
+
+    steps = child["steps1"]
+    per = {k: {"read_ms_per_patch": steps[k]["read"] * 1e3 / n,
+               "embed_ms_per_patch": steps[k]["embed"] * 1e3 / n}
+           for k in steps}
+    log(f"[wsi] svs: in a child process (cuda, after a warm-up), "
+        f"cli.create_patches {wall['stage0_svs']:.3f} s on the .svs, "
+        f"{wall['stage0_svs_twin']:.3f} s on the twin; "
+        f"cli.extract_features_fp (the default --slide_ext .svs) "
+        f"{wall['stage1_svs']:.3f} / {wall['stage1_svs_twin']:.3f} s; {n} "
+        f"patches each, the twin's coordinates and attributes, its bag's "
+        f"{int(inner.sum())} rows of patches inside the level bit for "
+        f"bit; no launch; read ms per patch (prefetch thread) "
+        f"{per['svs']['read_ms_per_patch']:.4f} (.svs tiles) / "
+        f"{per['svs_twin']['read_ms_per_patch']:.4f} (the twin's crop in "
+        f"RAM), "
+        f"embedding ms per patch {per['svs']['embed_ms_per_patch']:.4f} / "
+        f"{per['svs_twin']['embed_ms_per_patch']:.4f}; tiles touched / "
+        f"decoded "
+        f"/ cache peak bytes (bound): stage 0 {tiles['stage0_svs']}, stage 1 "
+        f"{tiles['stage1_svs']}; the child's peak RSS after its warm-up "
+        f"{child['rss_kib']['warm-up'] / 2**20:.3f} GiB, after the .svs "
+        f"{child['rss_kib']['svs'] / 2**20:.3f} GiB, after the twin too "
+        f"{child['rss_kib']['svs_twin'] / 2**20:.3f} GiB; the child "
+        f"{wall['svs_child']:.3f} s ({_card()})")
+
+    # served: both bags, and both cut to the rows inside the level
+    serve = os.path.join(td, "serve_svs")
+    os.makedirs(os.path.join(serve, "path_pt_files"))
+    for k in bags:
+        for cut, rows in (("", bags[k]), ("_inner", bags[k][inner])):
+            save_pt(os.path.join(serve, "path_pt_files",
+                                 f"{stem}_{k}{cut}.pt"), rows)
+    cohort = os.path.join(td, "wsi_svs_cohort.csv")
+    with open(cohort, "w") as f:
+        f.write("subject_id,slide_id\n" + "".join(
+            f"S_{k}{cut},{stem}_{k}{cut}.svs\n" for k in bags
+            for cut in ("", "_inner")))
+    served, _ = _serve_and_check(
+        launch_counters, "wsi", "serve_svs", "on the .svs slide's bag and "
+        "its twin's, whole and cut to the patches inside the level",
+        path_exp, cohort, serve, td, dict(none, _fused_pool_cuda=1), wall,
+        launches)
+    log(f"[wsi] svs risks: {served}")
+    if served["S_svs_inner"] != served["S_twin_inner"] or (
+            inner.all() and served["S_svs"] != served["S_twin"]):
+        raise AssertionError("[wsi] svs: the .svs slide's risk differs from "
+                             "its twin's")
+    for d in list(dirs.values()) + [serve] + [os.path.join(td, f"{p}_{k}")
+                                              for p in ("patched",
+                                                        "features")
+                                              for k in ("svs", "twin")]:
+        shutil.rmtree(d)
+    wall["svs"] = time.perf_counter() - t_phase
+    log(f"[wsi] svs sub-phase: {wall['svs']:.3f} s ({_card()})")
+
+
 def phase_wsi_j2k(launch_counters, path_exp, td, level0, stem, wall,
                   launches):
     """[wsi]'s JPEG 2000 slide: ``level0`` (level 0 of [wsi]'s slide
@@ -6190,7 +6517,9 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
         counters reset just before: one forward launch per batch of 8,
         risks finite and equal to the plain pooling's at rel 1e-4;
       - the first four slides again as 256 x 256 tiled pyramids, one
-        codec each of ``WSI_CODECS``, through ``phase_wsi_compressed``.
+        codec each of ``WSI_CODECS``, through ``phase_wsi_compressed``,
+        then the sub-phases of the first one's level 0 and of BigTIFF,
+        and last the Aperio slide of ``phase_wsi_svs``.
     Then ``before_delete(td, slides dir, features dir, stems)`` when
     given ([heatmap]).  The slides are deleted at the end.  Returns (the
     launch counts by run, what ``before_delete`` returned).
@@ -6381,6 +6710,7 @@ def phase_wsi(launch_counters, path_exp, root=None, slides=WSI_SLIDES,
                        twins[first], wall, launches)
         phase_wsi_bigtiff(launch_counters, path_exp, td, src_c, list(twins),
                           out_c, feat_c, served_c, wall, launches)
+        phase_wsi_svs(launch_counters, path_exp, td, lzw, wall, launches)
         del sources
         shutil.rmtree(src_c)
         log(f"[wsi] wall s ({_card()}): " + ", ".join(
@@ -6695,7 +7025,7 @@ def main(argv=None) -> int:
                          "gradcam,interpret,j2k,jpeg,zstd,h5,timing,"
                          "bf16step,"
                          "dist,"
-                         "ops,report,wsi,heatmap "
+                         "ops,report,wsi,svs,heatmap "
                          "(default: all but digest, which prints the "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -6728,7 +7058,7 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_digest()
     if "slice" in phases:
         phase_slice(counters[:1])
-    if {"train", "wsi", "heatmap"} & set(phases):
+    if {"train", "wsi", "heatmap", "svs"} & set(phases):
         # [wsi] serves its bags with [train]'s experiment
         _, cfg, batches, host_ms, path_exp = phase_train(counters, work)
     if "native" in phases:
@@ -6775,6 +7105,11 @@ def _partial(phases, counters, work, t_all) -> int:
         phase_ops(counters, work)
     if "report" in phases:
         phase_report(counters, work)
+    if "svs" in phases and "wsi" not in phases:
+        # [wsi]'s Aperio sub-phase alone
+        td = os.path.join(work, "svs")
+        os.makedirs(td)
+        phase_wsi_svs(counters, path_exp, td, _lzw_encoder(td), {}, {})
     if {"wsi", "heatmap"} & set(phases):
         # [heatmap] runs on [wsi]'s slides before they are deleted
         phase_wsi(counters, path_exp, work, before_delete=(

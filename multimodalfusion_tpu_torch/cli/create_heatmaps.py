@@ -22,7 +22,8 @@ create_heatmaps.py; the config's sections as in
   list form (``samples``).  JPEGs come from the port's encoder
   (``utils/jpeg.py``), PNGs from its writer (``utils/png.py``); an
   unsupported ``cmap`` or ``save_ext`` raises before any work, and so do
-  slides in openslide formats.  The embedder (ResNet50 trunk) takes
+  slides the port does not open (openslide formats other than Aperio
+  ``.svs``, which it reads tile by tile).  The embedder (ResNet50 trunk) takes
   ``model_arguments.resnet_weights`` (or ``allow_random_weights``) and
   ``patching_arguments.batch_size`` / ``target_patch_size``.  Each slide
   prints one line of its stage timings;

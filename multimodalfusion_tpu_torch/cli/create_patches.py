@@ -16,9 +16,11 @@ contours, the grid and the files are host work.  ``--preset`` and
 ``--process_list`` are read with ``utils/table.read_csv`` and typed as
 pandas types them (empty cells NaN).  The images are written by the
 port's JPEG encoder (``utils/jpeg.py``, OpenCV's defaults) and the slides
-read by ``data/wsi.open_slide`` (multi-page TIFF, stripped or tiled,
-uncompressed or LZW, Deflate, PackBits, LZMA, ZSTD or JPEG; PNG; JPEG;
-JPEG 2000; openslide formats are refused and recorded as failed).
+read by ``data/wsi.open_slide`` (Aperio ``.svs`` tile by tile, as
+JAX's openslide route reads it, the segmentation on the smallest level
+by default; multi-page TIFF, stripped or tiled, uncompressed or LZW,
+Deflate, PackBits, LZMA, ZSTD or JPEG; PNG; JPEG; JPEG 2000; the other
+openslide formats are refused and recorded as failed).
 
     python -m multimodalfusion_tpu_torch.cli.create_patches \\
         --source SLIDES --save_dir OUT --patch_size 256 --step_size 256 \\

@@ -135,13 +135,15 @@ class Doctor:
         ("OpenCV's uint8 GaussianBlur and filled drawContours",
          "heatmap blur and tissue mask: image_ops.gaussian_blur_u8, "
          "image_ops.fill_contours"),
-        ("openslide", "slides: data/wsi.py reads TIFF and BigTIFF (LZW, "
+        ("openslide", "slides: data/wsi.py reads Aperio .svs tile by tile "
+                      "(utils/aperio.py: openslide's Aperio rules; JPEG "
+                      "tiles, a bounded tile cache), TIFF and BigTIFF (LZW, "
                       "Deflate, PackBits, LZMA, ZSTD, JPEG; tiled or "
                       "stripped, chunky or planar), PNG, JPEG (Huffman or "
                       "arithmetic; sequential, progressive or lossless) and "
                       "JPEG 2000, known by their first bytes (usually "
-                      + " ".join(SLIDE_EXTS) + "); openslide formats are "
-                      "refused"),
+                      + " ".join(SLIDE_EXTS) + "); the other openslide "
+                      "formats are refused"),
         ("lungmask", "lung masks: the classical estimator in "
                      "data/ct_preprocess.py"),
     )

@@ -16,8 +16,10 @@ is given).  ``--no_s2d_stem`` is accepted and changes nothing (the port's
 stem is the plain one, whose outputs the JAX space-to-depth stem equals).
 ``--data_parallel`` under torchrun gives rank r of K every K-th slide:
 each slide's features depend only on that slide, so the files are those
-of one process.  Slides in openslide formats are refused, naming the
-file.
+of one process.  Aperio ``.svs`` slides (the default ``--slide_ext``)
+are read tile by tile, each chunk's touched tiles decoded once
+(``data/wsi.read_patches``); the other openslide formats are refused,
+naming the file.
 
     python -m multimodalfusion_tpu_torch.cli.extract_features_fp \\
         --data_h5_dir PATCHED --data_slide_dir SLIDES --feat_dir OUT \\

@@ -11,8 +11,9 @@ morphological close, the uint8 resize, rectangle, ellipse),
 ``contourArea``, ``boundingRect``, ``pointPolygonTest``),
 ``utils/tiff.py``, ``utils/png.py``, ``utils/jpeg.py`` and
 ``utils/j2k.py`` (the slide files, with their decoders in
-``csrc/imgcodec.cpp`` and ``csrc/j2k.cpp``) and
-``data/hdf5.py`` (the coordinates and their attributes).
+``csrc/imgcodec.cpp`` and ``csrc/j2k.cpp``), ``utils/aperio.py``
+(openslide's rules for Aperio slides) and ``data/hdf5.py`` (the
+coordinates and their attributes).
 
 Backends:
   * ``ArraySlide`` -- an in-memory numpy pyramid (tests, synthetic slides);
@@ -25,7 +26,11 @@ Backends:
     file) through ``utils/j2k.py``; every page is decoded into RAM, so
     the decode is budgeted from the headers first
     (``MMF_TPU_WSI_MAX_BYTES``);
-  * ``OpenSlideBackend`` -- refuses: the port reads no openslide format.
+  * ``OpenSlideBackend`` -- the JAX name of the openslide reader, for
+    Aperio ``.svs`` slides: openslide's Aperio rules
+    (``utils/aperio.py``), the tiles a read touches decoded on demand
+    (``tiff.read_tiles``) into a cache bounded by bytes, no decode
+    budget; the other openslide formats are refused by their extension.
 
 The per-pixel filters of ``segment_tissue`` run as torch ops on the
 device the caller names; contour tracing and the patch grid run on the
@@ -34,6 +39,8 @@ probe offsets are copies of the JAX package's.
 """
 from __future__ import annotations
 
+import collections
+import math
 import os
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -44,9 +51,11 @@ import torch
 from multimodalfusion_tpu_torch import resolve_device
 from multimodalfusion_tpu_torch.data.io import save_hdf5
 from multimodalfusion_tpu_torch.utils import contours as cts
-from multimodalfusion_tpu_torch.utils import image_ops, j2k, jpeg, png, tiff
+from multimodalfusion_tpu_torch.utils import (aperio, image_ops, j2k, jpeg,
+                                             png, tiff)
 
-# the formats of openslide (JAX open_slide, data/wsi.py:165)
+# the formats of openslide (JAX open_slide, data/wsi.py:165); the port
+# reads the first, Aperio's
 OPENSLIDE_EXTS = (".svs", ".ndpi", ".mrxs", ".scn", ".vms", ".vmu", ".bif")
 # the usual extensions of what PILSlide reads (for messages and
 # cli.doctor; PILSlide itself goes by the file's first bytes)
@@ -249,24 +258,172 @@ class PILSlide(ArraySlide):
                          name=os.path.splitext(os.path.basename(path))[0])
 
 
+class TileCache:
+    """Decoded tiles by key, least recently used first out, holding at
+    most ``max_bytes`` of them (openslide's tile cache is bounded by bytes
+    too).  ``peak_bytes``: the most it has held."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = max_bytes
+        self.bytes = self.peak_bytes = 0
+        self._tiles: "collections.OrderedDict" = collections.OrderedDict()
+
+    def get(self, key):
+        tile = self._tiles.get(key)
+        if tile is not None:
+            self._tiles.move_to_end(key)
+        return tile
+
+    def put(self, key, tile: np.ndarray) -> None:
+        if tile.nbytes > self.max_bytes:
+            return
+        self.bytes += tile.nbytes
+        self._tiles[key] = tile
+        while self.bytes > self.max_bytes:
+            self.bytes -= self._tiles.popitem(last=False)[1].nbytes
+        self.peak_bytes = max(self.peak_bytes, self.bytes)
+
+
 class OpenSlideBackend:
-    """The JAX package's openslide reader: the port reads no openslide
-    format (the machine with the card has no openslide), so it refuses,
-    naming the file."""
+    """The JAX package's openslide reader, for Aperio ``.svs`` slides (the
+    machine with the card has no openslide): openslide's Aperio rules
+    (``utils/aperio.py``) on the port's TIFF reader, the JAX class's
+    interface (``name``, ``level_count``, ``level_dimensions``,
+    ``level_downsamples`` as (d, d), ``read_region``, ``thumbnail``, and
+    ``wsi.properties``, which ``fetch_mag_patching_params`` reads).
+
+    ``read_region`` and ``read_regions`` decode only the tiles their
+    regions touch (``tiff.read_tiles``: the C++ JPEG decoder over all host
+    threads), each once a call, and keep them in a ``TileCache`` of
+    ``CACHE_BYTES`` (openslide's default, 32 MiB).  Nothing
+    decodes a whole level but a read of it, and no decode budget applies,
+    as none applies in JAX's openslide route.  Pixels outside the level
+    read (0, 0, 0), as openslide's transparent ones do after JAX's
+    ``convert("RGB")``, and so do the tiles the file lacks (byte count 0).
+    A level-0 location maps to ``floor(location / downsample)`` on the
+    level: where that is not a whole number openslide reads at the
+    fraction, which neither machine can check.  ``tiles_touched`` (each
+    call's distinct tiles, summed over calls) and ``tiles_decoded`` count
+    the work.  A file that is not an Aperio TIFF raises: bytes of no
+    format ``OSError``, any other format or a TIFF without an Aperio
+    description ``NotImplementedError`` (openslide reads those through its
+    generic TIFF or PIL routes, which the port does not port)."""
+
+    CACHE_BYTES = 32 << 20
 
     def __init__(self, path: str):
-        raise NotImplementedError(
-            f"{path}: an openslide format ({', '.join(OPENSLIDE_EXTS)}) is "
-            f"not supported by the port; convert the slide to what it reads: "
-            f"{READS}")
+        kind = slide_format(path)
+        pages = tiff.read_pages(path) if kind == "TIFF" else None
+        if pages is None or not aperio.is_aperio(pages):
+            raise NotImplementedError(
+                f"{path}: {'a TIFF' if pages else f'a {kind} file'} without "
+                f"an Aperio ImageDescription: openslide reads it through its "
+                f"{'generic TIFF' if pages else 'PIL'} route, which is not "
+                f"supported by the port; it reads Aperio .svs slides, and "
+                f"{READS} by other names")
+        self.path = path
+        self.wsi = aperio.read_aperio(path, pages)
+        self.name = os.path.splitext(os.path.basename(path))[0]
+        self._pages = [pages[i] for i in self.wsi.levels]
+        self.cache = TileCache(self.CACHE_BYTES)
+        self.tiles_touched = self.tiles_decoded = 0
+
+    @property
+    def level_count(self) -> int:
+        return len(self.wsi.levels)
+
+    @property
+    def level_dimensions(self) -> List[Tuple[int, int]]:
+        return list(self.wsi.dimensions)
+
+    @property
+    def level_downsamples(self) -> List[Tuple[float, float]]:
+        return [(d, d) for d in self.wsi.downsamples]
+
+    def read_region(self, location_level0, level, size) -> np.ndarray:
+        """(x, y) level-0 location, level, (w, h) size -> RGB uint8."""
+        return self.read_regions([location_level0], level, size)[0]
+
+    def read_regions(self, locations, level, size) -> np.ndarray:
+        """[N, h, w, 3] uint8: ``read_region`` at each level-0 location of
+        ``locations``, every tile they touch decoded at most once."""
+        level, (w, h) = int(level), (int(size[0]), int(size[1]))
+        page = self._pages[level]
+        ds = self.wsi.downsamples[level]
+        tw, th = page.tile
+        across = tiff.tile_grid(page)[0]
+        out = np.zeros((len(locations), h, w, 3), np.uint8)
+
+        def span(a, n, t, end):
+            """The tiles (of side ``t``) under [a, a + n) within [0, end)."""
+            a, b = max(a, 0), min(a + n, end)
+            return range(a // t, -(-b // t)) if b > a else range(0)
+        spans = []
+        for x0, y0 in locations:
+            x = math.floor(int(x0) / ds)
+            y = math.floor(int(y0) / ds)
+            spans.append((x, y, span(x, w, tw, page.width),
+                          span(y, h, th, page.height)))
+        wanted = sorted({ty * across + tx for _, _, txs, tys in spans
+                         for ty in tys for tx in txs})
+        tiles = self._tiles(level, page, wanted)
+        for i, (x, y, txs, tys) in enumerate(spans):
+            for ty in tys:
+                for tx in txs:
+                    t = tiles[ty * across + tx]
+                    # the tile's part inside the region
+                    ax, ay = max(tx * tw, x), max(ty * th, y)
+                    bx = min(tx * tw + t.shape[1], x + w)
+                    by = min(ty * th + t.shape[0], y + h)
+                    out[i, ay - y:by - y, ax - x:bx - x] = t[
+                        ay - ty * th:by - ty * th, ax - tx * tw:bx - tx * tw]
+        return out
+
+    def _tiles(self, level: int, page, wanted) -> dict:
+        """{tile index: RGB tile} of ``wanted``, the uncached ones decoded
+        in one ``tiff.read_tiles`` call and then cached, the rightmost
+        column last (patch batches run down columns, left to right)."""
+        got, todo = {}, []
+        for t in wanted:
+            tile = self.cache.get((level, t))
+            if tile is None:
+                todo.append(t)
+            else:
+                got[t] = tile
+        if todo:
+            tw, th = page.tile
+            across = tiff.tile_grid(page)[0]
+            outs = [np.empty((min(th, page.height - t // across * th),
+                              min(tw, page.width - t % across * tw), 3),
+                             np.uint8) for t in todo]
+            tiff.read_tiles(self.path, page, todo, outs)
+            for t, o in sorted(zip(todo, outs),
+                               key=lambda to: (to[0] % across, to[0])):
+                got[t] = o
+                self.cache.put((level, t), o)
+        self.tiles_touched += len(wanted)
+        self.tiles_decoded += len(todo)
+        return got
+
+    def thumbnail(self, level: int = -1) -> np.ndarray:
+        lvl = self.level_count - 1 if level == -1 else level
+        return self.read_region((0, 0), lvl, self.level_dimensions[lvl])
 
 
 def open_slide(path: str):
-    """The slide at ``path``: openslide formats refused by their
-    extension, naming the file, as JAX routes them; anything else through
-    ``PILSlide``, which reads the file's first bytes."""
-    if os.path.splitext(path)[1].lower() in OPENSLIDE_EXTS:
+    """The slide at ``path``: a ``.svs`` through ``OpenSlideBackend`` (an
+    Aperio TIFF, else it raises), the other openslide formats refused by
+    their extension, naming the file, as JAX routes them to openslide;
+    anything else through ``PILSlide``, which reads the file's first
+    bytes."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".svs":
         return OpenSlideBackend(path)
+    if ext in OPENSLIDE_EXTS:
+        raise NotImplementedError(
+            f"{path}: an openslide format ({', '.join(OPENSLIDE_EXTS[1:])}) "
+            f"is not supported by the port; it reads Aperio .svs slides, "
+            f"and {READS} by other names")
     return PILSlide(path)
 
 
@@ -536,7 +693,11 @@ def save_coords(slide, coords: np.ndarray, save_path: str,
 
 def read_patches(slide, coords: np.ndarray, patch_level: int = 0,
                  patch_size: int = 256) -> np.ndarray:
-    """Fetch patches [N, ps, ps, 3] uint8 for level-0 anchored coords."""
+    """Fetch patches [N, ps, ps, 3] uint8 for level-0 anchored coords
+    (an ``OpenSlideBackend`` decodes each tile they touch once)."""
+    if isinstance(slide, OpenSlideBackend):
+        return slide.read_regions(coords, patch_level,
+                                  (patch_size, patch_size))
     out = np.empty((len(coords), patch_size, patch_size, 3), np.uint8)
     for i, (x, y) in enumerate(coords):
         out[i] = slide.read_region((int(x), int(y)), patch_level,

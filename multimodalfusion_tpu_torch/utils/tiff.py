@@ -52,10 +52,17 @@ the JPEG decoder's), one chunk after another, as the tests and
 decode raises; it never gives way to the plain version.  ``read_pages``
 reads only the page headers (sizes and the mode PIL would decode each
 page in), so a caller can budget the decode first.  Other compressions
-(CCITT, old-style JPEG, JPEG 2000, ...), fill order 2, floating-point
-prediction and other layouts raise ``NotImplementedError`` naming the
-file and the tag, as do the uncompressed planar pages PIL's raw reader
-has no mode for; ROADMAP.md queues them.
+(CCITT, old-style JPEG, JPEG 2000, Aperio's JPEG 2000 tiles 33003 and
+33005, ...), fill order 2, floating-point prediction and other layouts
+raise ``NotImplementedError`` naming the file and the tag, as do the
+uncompressed planar pages PIL's raw reader has no mode for; ROADMAP.md
+queues them.
+
+``read_tiles`` decodes a chosen set of a tiled page's tiles into given
+views, by the same codec routes, without the rest of the page (the
+Aperio reader's route, ``data/wsi.OpenSlideBackend``); a tile of byte
+count 0, which a scanner leaves missing, reads 0 there.  Each ``Page``
+keeps its ``ImageDescription`` and ``NewSubfileType``.
 
 The writer (``write_tiff``) writes uint8 RGB pages [H, W, 3],
 uncompressed, one strip a page, little-endian, as PIL writes a
@@ -80,6 +87,7 @@ _STRIP_OFFSETS, _SAMPLES, _ROWS_PER_STRIP, _STRIP_BYTES = 273, 277, 278, 279
 _PLANAR, _PREDICTOR, _TILE_WIDTH, _TILE_LENGTH = 284, 317, 322, 323
 _TILE_OFFSETS, _TILE_BYTES, _JPEG_TABLES, _YCBCR_SUB = 324, 325, 347, 530
 _FILL_ORDER, _COLORMAP, _EXTRA = 266, 320, 338
+_SUBFILE_TYPE, _DESCRIPTION = 254, 270
 # field type -> (struct code, size)
 _TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1),
           7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 13: ("I", 4), 16: ("Q", 8),
@@ -95,6 +103,8 @@ LZMA, ZSTD = 34925, 50000
 COMPRESSIONS = {NONE: "none", LZW: "LZW", JPEG: "JPEG", DEFLATE: "Deflate",
                 ADOBE_DEFLATE: "Deflate", PACKBITS: "PackBits", LZMA: "LZMA",
                 ZSTD: "ZSTD"}
+# compressions named when refused
+_REFUSED = {33003: "Aperio JPEG 2000, YCbCr", 33005: "Aperio JPEG 2000, RGB"}
 # (PhotometricInterpretation, BitsPerSample, ExtraSamples) -> the mode PIL
 # opens the page in (TiffImagePlugin's OPEN_INFO, fill order 1, unsigned
 # integer samples); "RGBa": associated alpha, which PIL divides out
@@ -134,6 +144,8 @@ class Page(NamedTuple):
     # False: the file's header is one libtiff refuses (see ``_header``),
     # so PIL, which hands libtiff every compressed page, decodes none
     libtiff_header: bool = True
+    description: Optional[str] = None  # ImageDescription, to its first NUL
+    subfile_type: int = 0       # NewSubfileType
 
 
 def _read_at(f, pos: int, n: int, path: str) -> bytes:
@@ -192,11 +204,13 @@ def _page(tags: dict, path: str) -> Page:
 
     compression = one(_COMPRESSION, 1)
     if compression not in COMPRESSIONS:
+        what = (f" ({_REFUSED[compression]})" if compression in _REFUSED
+                else "")
         raise NotImplementedError(
             f"{path}: TIFF Compression (tag {_COMPRESSION}) = "
-            f"{compression}; the port reads none (1), LZW (5), JPEG (7), "
-            f"Deflate (8, 32946), PackBits (32773), LZMA (34925) and ZSTD "
-            f"(50000)")
+            f"{compression}{what}; the port reads none (1), LZW (5), JPEG "
+            f"(7), Deflate (8, 32946), PackBits (32773), LZMA (34925) and "
+            f"ZSTD (50000)")
     planar = one(_PLANAR, 1)
     if planar not in (1, 2):
         raise NotImplementedError(f"{path}: TIFF PlanarConfiguration (tag "
@@ -276,11 +290,15 @@ def _page(tags: dict, path: str) -> Page:
         raise NotImplementedError(f"{path}: TIFF page without {what}")
     sub = tags.get(_YCBCR_SUB)
     tables = tags.get(_JPEG_TABLES)
+    desc = tags.get(_DESCRIPTION)
+    if desc is not None:
+        desc = b"".join(desc).split(b"\0", 1)[0].decode("utf-8", "replace")
     return Page(one(_WIDTH), one(_LENGTH), mode, dtype, samples,
                 list(zip(offsets, counts)), compression, predictor, tile,
                 one(_ROWS_PER_STRIP, 0xFFFFFFFF), tables and bytes(tables),
                 photometric, tuple(sub[:2]) if sub else None, planar,
-                bits[0], extra, colormap)
+                bits[0], extra, colormap, description=desc,
+                subfile_type=one(_SUBFILE_TYPE, 0))
 
 
 class BigEndianBigTIFFError(OSError):
@@ -487,13 +505,13 @@ def _chunk_bytes(path: str, page: Page, n: int) -> List[bytes]:
     return out
 
 
-def _jpeg_page(path: str, page: Page, places, shapes, chunks,
-               plain) -> np.ndarray:
+def _jpeg_frames(path: str, page: Page, shapes, chunks) -> list:
+    """The parsed JPEG frames of ``chunks``, each checked against its
+    chunk's decoded shape [rows, cols] and the sampling libtiff takes."""
     nc = page.samples
-    out = np.empty((page.height, page.width, nc), np.uint8)
-    frames, outs = [], []
+    frames = []
     want_sub = page.ycbcr_sub
-    for (y, x, rows, cols), (th, tw), data in zip(places, shapes, chunks):
+    for (th, tw), data in zip(shapes, chunks):
         f = jpeg.parse_jpeg(data, page.jpeg_tables,
                             transform=page.photometric == 6)
         if (f.width, f.height) != (tw, th) or len(f.h) != nc:
@@ -512,8 +530,15 @@ def _jpeg_page(path: str, page: Page, places, shapes, chunks,
                           f"{list(zip(f.h, f.v))} (libtiff expects {sub} "
                           f"then 1 x 1)")
         frames.append(f)
-        outs.append(out[y:y + rows, x:x + cols])
-    jpeg.decode_frames(frames, outs, plain=plain)
+    return frames
+
+
+def _jpeg_page(path: str, page: Page, places, shapes, chunks,
+               plain) -> np.ndarray:
+    out = np.empty((page.height, page.width, page.samples), np.uint8)
+    jpeg.decode_frames(_jpeg_frames(path, page, shapes, chunks),
+                       [out[y:y + rows, x:x + cols]
+                        for y, x, rows, cols in places], plain=plain)
     return out
 
 
@@ -530,47 +555,19 @@ def _unpack_bits(raw: np.ndarray, rows: int, cols: int,
     return (b.reshape(rows, cols, bits) * weights).sum(-1, dtype=np.uint8)
 
 
-def _pixels(path: str, page: Page, plain: bool):
-    """The page's samples [H, W, samples] in its dtype (file order; 1-,
-    2- and 4-bit samples unpacked to a byte each)."""
+def _check_codec_header(path: str, page: Page) -> None:
     if page.compression != NONE and not page.libtiff_header:
         raise OSError(f"{path}: a compressed TIFF page in a file whose "
                       f"header libtiff refuses (PIL decodes compressed "
                       f"pages through libtiff, and raises)")
-    places, shapes = _layout(page)
-    item = page.dtype.itemsize
-    spp = page.samples
-    # a planar page's chunks hold one sample each, plane after plane
-    planes, per = (spp, 1) if page.planar == 2 and spp > 1 else (1, spp)
-    if page.compression == NONE and not page.tile and planes == 1 and (
-            page.bits >= 8):
-        n = page.width * page.height * spp
-        out = np.empty(n, page.dtype)
-        at = 0
-        with open(path, "rb") as f:
-            for offset, count in page.chunks:
-                take = min(count // item, n - at)
-                f.seek(offset)
-                got = f.readinto(memoryview(out[at:at + take]).cast("B"))
-                if got != take * item:
-                    raise OSError(f"{path}: truncated TIFF strip at "
-                                  f"{offset}")
-                at += take
-                if at == n:
-                    break
-        if at != n:
-            raise OSError(f"{path}: TIFF strips hold {at} of {n} samples")
-        return out.reshape(page.height, page.width, spp)
-    chunks = _chunk_bytes(path, page, len(places) * planes)
-    if page.compression == JPEG:
-        if planes == 1:
-            return _jpeg_page(path, page, places, shapes, chunks, plain)
-        k = len(places)
-        return np.concatenate([_jpeg_page(
-            path, page._replace(samples=1), places, shapes,
-            chunks[p * k:(p + 1) * k], plain) for p in range(planes)],
-            axis=2)
-    sizes = [r * -(-c * per * page.bits // 8) for r, c in shapes] * planes
+
+
+def _chunk_samples(path: str, page: Page, shapes, chunks, per: int,
+                   plain: bool) -> List[np.ndarray]:
+    """The samples [rows, cols, per] of each chunk (not JPEG; 1-, 2- and
+    4-bit samples unpacked to a byte each; the predictor undone), decoded
+    to the chunk's shape [rows, cols]."""
+    sizes = [r * -(-c * per * page.bits // 8) for r, c in shapes]
     buf = np.zeros(sum(sizes), np.uint8)
     starts = np.cumsum([0] + sizes[:-1]).tolist()
     outs = [buf[a:a + n] for a, n in zip(starts, sizes)]
@@ -612,12 +609,8 @@ def _pixels(path: str, page: Page, plain: bool):
         raise OSError(f"{path}: TIFF chunk {i} "
                       f"({COMPRESSIONS[page.compression]}) decodes to "
                       f"{done[i]} of {sizes[i]} bytes")
-    out = np.empty((page.height, page.width, spp), page.dtype)
-    for i, o in enumerate(outs):
-        (y, x, rows, cols), (th, tw) = places[i % len(places)], shapes[
-            i % len(places)]
-        plane = slice(None) if planes == 1 else slice(i // len(places),
-                                                      i // len(places) + 1)
+    arrays = []
+    for o, (th, tw) in zip(outs, shapes):
         if page.bits < 8:
             px = _unpack_bits(o, th, tw, page.bits)[..., None]
         else:
@@ -625,8 +618,126 @@ def _pixels(path: str, page: Page, plain: bool):
         if page.predictor == 2:
             px = np.cumsum(px.astype(page.dtype.newbyteorder("=")), axis=1,
                            dtype=page.dtype.newbyteorder("="))
+        arrays.append(px)
+    return arrays
+
+
+def _pixels(path: str, page: Page, plain: bool):
+    """The page's samples [H, W, samples] in its dtype (file order; 1-,
+    2- and 4-bit samples unpacked to a byte each)."""
+    _check_codec_header(path, page)
+    places, shapes = _layout(page)
+    item = page.dtype.itemsize
+    spp = page.samples
+    # a planar page's chunks hold one sample each, plane after plane
+    planes, per = (spp, 1) if page.planar == 2 and spp > 1 else (1, spp)
+    if page.compression == NONE and not page.tile and planes == 1 and (
+            page.bits >= 8):
+        n = page.width * page.height * spp
+        out = np.empty(n, page.dtype)
+        at = 0
+        with open(path, "rb") as f:
+            for offset, count in page.chunks:
+                take = min(count // item, n - at)
+                f.seek(offset)
+                got = f.readinto(memoryview(out[at:at + take]).cast("B"))
+                if got != take * item:
+                    raise OSError(f"{path}: truncated TIFF strip at "
+                                  f"{offset}")
+                at += take
+                if at == n:
+                    break
+        if at != n:
+            raise OSError(f"{path}: TIFF strips hold {at} of {n} samples")
+        return out.reshape(page.height, page.width, spp)
+    chunks = _chunk_bytes(path, page, len(places) * planes)
+    if page.compression == JPEG:
+        if planes == 1:
+            return _jpeg_page(path, page, places, shapes, chunks, plain)
+        k = len(places)
+        return np.concatenate([_jpeg_page(
+            path, page._replace(samples=1), places, shapes,
+            chunks[p * k:(p + 1) * k], plain) for p in range(planes)],
+            axis=2)
+    arrays = _chunk_samples(path, page, shapes * planes, chunks, per, plain)
+    out = np.empty((page.height, page.width, spp), page.dtype)
+    for i, px in enumerate(arrays):
+        y, x, rows, cols = places[i % len(places)]
+        plane = slice(None) if planes == 1 else slice(i // len(places),
+                                                      i // len(places) + 1)
         out[y:y + rows, x:x + cols, plane] = px[:rows, :cols]
     return out
+
+
+def tile_grid(page: Page) -> Tuple[int, int]:
+    """(tiles across, tiles down) of a tiled page."""
+    tw, th = page.tile
+    return -(-page.width // tw), -(-page.height // th)
+
+
+def read_tiles(path: str, page: Page, tiles: Sequence[int],
+               outs: Sequence[np.ndarray], plain: bool = False) -> None:
+    """Decode the tiles ``tiles`` (indices into the tiled ``page``'s grid,
+    row by row) of the file at ``path`` into ``outs``: each a writable
+    uint8 RGB array [rows, cols, 3] of the tile as the page holds it
+    (cropped at the page's right and bottom edges), the pixels
+    ``read_page`` gives there.  The codecs are ``read_page``'s: the JPEG
+    tiles of all ``tiles`` in one ``jpeg.decode_frames`` call (C++, one
+    thread per hardware thread, straight into ``outs`` for 3-component
+    pages), the others as ``read_page`` decodes them; ``plain=True``: the
+    plain versions, one tile after another.  A tile whose byte count is 0
+    (a missing tile, as a scanner leaves one) reads 0 in every sample."""
+    if not page.tile:
+        raise ValueError(f"{path}: read_tiles takes a tiled page")
+    _check_codec_header(path, page)
+    across, down = tile_grid(page)
+    k = across * down
+    planes, per = ((page.samples, 1) if page.planar == 2
+                   and page.samples > 1 else (1, page.samples))
+    if len(page.chunks) < k * planes:
+        raise OSError(f"{path}: a TIFF page of {k * planes} tiles lists "
+                      f"{len(page.chunks)}")
+    tw, th = page.tile
+    present = []
+    for t, o in zip(tiles, outs):
+        if not 0 <= t < k:
+            raise ValueError(f"{path}: tile {t} of {k}")
+        rows, cols = min(th, page.height - t // across * th), min(
+            tw, page.width - t % across * tw)
+        if o.shape != (rows, cols, 3) or o.dtype != np.uint8:
+            raise ValueError(f"{path}: tile {t} is {rows} x {cols} x 3 "
+                             f"uint8, its output {o.dtype} {o.shape}")
+        if all(page.chunks[t + p * k][1] for p in range(planes)):
+            present.append((t, o))
+        else:
+            o[...] = 0
+    if not present:
+        return
+    chunks = []
+    with open(path, "rb") as f:
+        for p in range(planes):
+            for t, _ in present:
+                offset, count = page.chunks[t + p * k]
+                chunks.append(_read_at(f, offset, count, path))
+    shapes = [(th, tw)] * len(present)
+    views = [o for _, o in present]
+    if page.compression == JPEG and planes == 1 and page.samples == 3:
+        jpeg.decode_frames(_jpeg_frames(path, page, shapes, chunks), views,
+                           plain=plain)
+        return
+    n = len(present)
+    if page.compression == JPEG:  # gray streams: of a gray or planar page
+        arrays = [np.empty(o.shape[:2] + (1,), np.uint8)
+                  for _ in range(planes) for o in views]
+        jpeg.decode_frames(_jpeg_frames(path, page._replace(samples=1),
+                                        shapes * planes, chunks), arrays,
+                           plain=plain)
+    else:
+        arrays = _chunk_samples(path, page, shapes * planes, chunks, per,
+                                plain)
+    samples = [np.concatenate(arrays[i::n], axis=2) for i in range(n)]
+    for o, px in zip(views, samples):
+        o[...] = to_rgb(page, px[:o.shape[0], :o.shape[1]])
 
 
 def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:

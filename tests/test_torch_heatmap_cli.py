@@ -10,10 +10,12 @@ ROI, ``use_ref_scores``, ``blur`` with ``custom_downsample``,
 ``binarize`` and ``blank_canvas``; with ``jpg`` each file within 1 dB of
 the PSNR of cv2's file of the same image; the fine pass's heatmap equal
 to JAX's but for at most 2% of its pixels; the extraction on a miss
-(coords equal, features at the ResNet tolerance); the phase gating and
-the overrides.  Both embedders run in float32 here (the CLIs' default is
+(coords equal, features at the ResNet tolerance), on that slide and on
+its levels written as an Aperio .svs; the phase gating and the
+overrides.  Both embedders run in float32 here (the CLIs' default is
 bfloat16), so that the fine pass can be held at the ResNet tolerance."""
 import os
+import sys
 
 import cv2
 import h5py
@@ -357,5 +359,32 @@ def test_openslide_slide_is_refused(world, tmp_path):
                            "data_dir": world["slides"],
                            "feat_dir": world["feat"]},
         "model_arguments": {"ckpt_path": world["exp"]}}))
-    with pytest.raises(NotImplementedError, match="BAD.svs.*not supported"):
+    with pytest.raises(OSError, match="BAD.svs"):
         port_ch.main(["--config", str(cfg), "--device", "cpu"])
+
+
+def test_svs_slide_equals_jax(world, tmp_path, monkeypatch, f32_embedders):
+    """The slide's levels as an Aperio .svs (tools/svs_writer.py, PIL's
+    JPEG tiles): the port reads it through its OpenSlideBackend, JAX
+    through its own with tests/test_torch_svs.py's stand-in openslide;
+    both extract on a miss and draw the same blockmap and PNGs."""
+    from test_torch_svs import _OpenSlide, _pil_jpeg, svs_writer
+    mod = type(sys)("openslide")
+    mod.open_slide = _OpenSlide
+    monkeypatch.setitem(sys.modules, "openslide", mod)
+    levels = jw.PILSlide(os.path.join(world["slides"], "HEAT1.tiff")).levels
+    svs_dir = tmp_path / "svs"
+    os.makedirs(svs_dir)
+    encode = _pil_jpeg(2)
+    svs_writer.write_svs(str(svs_dir / "HEATSVS.svs"),
+                         svs_writer.encode_levels(levels, encode), encode)
+    plist = tmp_path / "svs.csv"
+    plist.write_text("slide_id\nHEATSVS.svs\n")
+    jax_dir, port_dir = _run_both(
+        world, tmp_path, {"save_ext": "png", "save_orig": True},
+        {"samples": [{"name": "top", "k": 2, "mode": "topk"}]},
+        data={"data_dir": str(svs_dir), "feat_dir": "per run"},
+        plist=str(plist))
+    _same_blockmap(jax_dir, port_dir, stem="HEATSVS")
+    _same_files(jax_dir, port_dir, "*.png")
+    assert len(list((port_dir / "HEATSVS_top").glob("*.png"))) == 2

@@ -110,7 +110,7 @@ def test_autogen_csv_equals_jax(patched):
     assert t["slide_id"].tolist() == ["BAD.svs", "CASE1.tiff"]
     assert t["status"][1] == "processed" and t["n_patches"][1] > 5
     assert t["status"][0].startswith("failed: ") and "BAD.svs" in \
-        t["status"][0] and "not supported" in t["status"][0]
+        t["status"][0] and "cannot identify" in t["status"][0]
     pd.testing.assert_frame_equal(t.drop(columns="status"),
                                   j.drop(columns="status"))
     # the text of the processed row too
@@ -208,14 +208,14 @@ def test_feature_extraction_matches_jax(patched, weights):
             assert t[k].shape == j[k].shape and t[k].dtype == j[k].dtype
         np.testing.assert_array_equal(t["coords"][()], j["coords"][()])
         np.testing.assert_array_equal(t["features"][()], got)
-    # a rerun skips the slide; an openslide slide is refused by name
+    # a rerun skips the slide; a .svs of no format raises, naming it
     assert tfx.main(common + ["--feat_dir", str(root / "ft"),
                               "--device", "cpu"]) == 0
     bad = root / "bad_h5"
     os.makedirs(bad / "patches")
     os.link(out["port"] / "patches" / "CASE1_patches.h5",
             bad / "patches" / "BAD_patches.h5")
-    with pytest.raises(NotImplementedError, match="BAD.svs.*not supported"):
+    with pytest.raises(OSError, match="BAD.svs.*cannot identify"):
         tfx.main(["--data_h5_dir", str(bad), "--data_slide_dir",
                   str(slides), "--feat_dir", str(root / "fb"),
                   "--weights", weights, "--device", "cpu"])

@@ -11,8 +11,9 @@ name's stem):
   with ``NotImplementedError`` naming the format, under their own
   extension and named ``.tiff``;
 - bytes of no image format raise ``OSError`` in both packages;
-- a TIFF named ``.svs`` is still refused by ``open_slide`` for its
-  extension, as JAX sends it to openslide.
+- a TIFF named ``.svs`` without an Aperio description is still refused
+  by ``open_slide`` (JAX sends a ``.svs`` to openslide, whose generic TIFF
+  route the port does not port).
 """
 import importlib.util
 import os
@@ -110,8 +111,8 @@ def test_unidentified_bytes_raise_oserror(tmp_path, data, ext):
 
 def test_openslide_extensions_still_refused(tmp_path):
     """JAX sends ``.svs`` to openslide by its extension; so does the
-    port's ``open_slide``, which refuses it; ``PILSlide`` itself reads
-    the TIFF inside."""
+    port's ``open_slide``, which refuses a TIFF without an Aperio
+    description; ``PILSlide`` itself reads the TIFF inside."""
     path = _save("TIFF", str(tmp_path / "slide.svs"))
     with pytest.raises(NotImplementedError, match="slide.svs.*not supported"):
         tw.open_slide(path)
